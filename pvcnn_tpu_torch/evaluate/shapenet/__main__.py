@@ -1,0 +1,38 @@
+"""python -m pvcnn_tpu_torch.evaluate.shapenet --root <ShapeNet tree> ...
+
+Voting evaluation of ShapeNet PVCNN with the port (see eval.py)."""
+
+from __future__ import annotations
+
+import argparse
+
+from pvcnn_tpu_torch.evaluate.shapenet.eval import evaluate
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m pvcnn_tpu_torch.evaluate.shapenet",
+        description="ShapeNet part-segmentation voting evaluation of PVCNN")
+    p.add_argument("--root", required=True,
+                   help="ShapeNet tree (synsetoffset2category.txt, "
+                        "train_test_split/, one folder per category)")
+    p.add_argument("--checkpoint", default=None,
+                   help="reference .pth.tar; seeded random weights if absent")
+    p.add_argument("--width", type=float, default=1.0,
+                   help="width multiplier of the model")
+    p.add_argument("--num-points", type=int, default=2048)
+    p.add_argument("--num-votes", type=int, default=10)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--stats-path", default=None,
+                   help="save the [16, 2] IoU stats here (.npy)")
+    args = p.parse_args(argv)
+    evaluate(args.root, checkpoint=args.checkpoint,
+             width_multiplier=args.width, num_points=args.num_points,
+             num_votes=args.num_votes, batch_size=args.batch_size,
+             device=args.device, seed=args.seed, stats_path=args.stats_path)
+
+
+if __name__ == "__main__":
+    main()

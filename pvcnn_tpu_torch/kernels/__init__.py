@@ -1,0 +1,140 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in `pvcnn_tpu_torch/csrc/*.cu` export plain C functions. At first
+use they are compiled with nvcc into one shared library under
+`build/pvcnn_tpu_torch/` at the repository root (keyed by a hash of the
+sources and flags, so an edit rebuilds) and loaded with ctypes: pointers and
+the CUDA stream pass as `c_void_p`, sizes as `c_int`. A failed build raises;
+nothing falls back.
+
+Each kernel has a `Kernel` record with a plain-int launch counter. The op
+wrappers (`pvcnn_tpu_torch/ops/`) add one to it where they launch the kernel
+and nowhere else, so a run can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["KERNELS", "Kernel", "build", "launch", "library",
+           "launch_counts", "reset_launch_counts"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "pvcnn_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+# exported C function -> argument types (pointers, sizes, stream last)
+_SIGNATURES = {
+    "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I64, _I64,
+                                   _I64, _P],
+    "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: what it replaces and how often it ran."""
+
+    name: str
+    source: str        # path in the repository
+    replaces: str      # file:line of the TPU kernel it replaces
+    launches: int = 0
+
+
+KERNELS = {k.name: k for k in (
+    Kernel("avg_voxelize", "pvcnn_tpu_torch/csrc/voxelize.cu",
+           "pvcnn_tpu/ops/pallas/scatter.py:144"),
+    Kernel("trilinear_devoxelize", "pvcnn_tpu_torch/csrc/devoxelize.cu",
+           "pvcnn_tpu/ops/pallas/sorted_gather.py:178"),
+    Kernel("conv3d_fwd", "pvcnn_tpu_torch/csrc/conv3d.cu",
+           "pvcnn_tpu/ops/pallas/conv_rows.py:636"),
+)}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
+                           "pvcnn_tpu_torch kernels are built with nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build(extra_flags=()) -> tuple[Path, float, str]:
+    """Compile the kernel library if it is not built yet.
+
+    Returns (library path, build seconds (0.0 when it was already built),
+    nvcc's output). Raises RuntimeError with nvcc's output on failure."""
+    cu, cuh = _sources()
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in cu + cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"pvcnn_kernels_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, cu)]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib_path, _, _ = build()
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pvcnn_error_string.argtypes = [ctypes.c_int]
+    lib.pvcnn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(kernel: str, fn: str, *args) -> None:
+    """Call exported launcher `fn` of `kernel`, count the launch, and raise
+    if CUDA refused it (the launcher returns cudaGetLastError())."""
+    lib = library()
+    code = getattr(lib, fn)(*args)
+    if code != 0:
+        msg = lib.pvcnn_error_string(code).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {code})")
+    KERNELS[kernel].launches += 1

@@ -1,0 +1,95 @@
+"""PVConv: the point-voxel convolution block, with Voxelization and SE3d
+(counterpart of pvcnn_tpu/nn/pvconv.py, eval forward).
+
+The voxel grid stays channel-major and flat, [B, C, R^3], from the
+scatter-mean to the trilinear gather: K1 writes it in that layout, K3 reads
+and writes it, and K2 reads it through strides. Module names follow the
+reference (voxel_layers.0/1/3/4/6, point_features), so `state_dict()` keys
+match released checkpoints.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from pvcnn_tpu_torch import ops
+from pvcnn_tpu_torch.nn.conv3d import Conv3dSame
+from pvcnn_tpu_torch.nn.shared_mlp import BatchNorm, SharedMLP
+
+__all__ = ["PVConv", "SE3d", "Voxelization"]
+
+
+class Voxelization(nn.Module):
+    def __init__(self, resolution: int, normalize: bool = True,
+                 eps: float = 0.0):
+        super().__init__()
+        self.resolution = int(resolution)
+        self.normalize = normalize
+        self.eps = eps
+
+    def forward(self, features, coords):
+        """features [B, N, C], coords [B, N, 3] ->
+        (grid rows [B, C, R^3], norm_coords [B, N, 3])."""
+        vox_coords, norm_coords = ops.normalize_coords(
+            coords, self.resolution, normalize=self.normalize, eps=self.eps)
+        flat = ops.flat_voxel_index(vox_coords, self.resolution)
+        grid = ops.scatter_mean(features, flat, self.resolution ** 3,
+                                channels_first=True)
+        return grid, norm_coords
+
+
+class SE3d(nn.Module):
+    """Squeeze-and-excitation over the voxel grid (reference modules/se.py)."""
+
+    def __init__(self, channels: int, reduction: int = 8):
+        super().__init__()
+        self.fc = nn.Sequential(
+            nn.Linear(channels, channels // reduction, bias=False),
+            nn.ReLU(),
+            nn.Linear(channels // reduction, channels, bias=False),
+            nn.Sigmoid())
+
+    def forward(self, x):
+        """x [B, C, R^3] -> x scaled per (cloud, channel)."""
+        return x * self.fc(x.mean(dim=2))[:, :, None]
+
+
+class PVConv(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, resolution: int = 32,
+                 with_se: bool = False, normalize: bool = True,
+                 eps: float = 0.0):
+        super().__init__()
+        self.resolution = int(resolution)
+        self.voxelization = Voxelization(resolution, normalize, eps)
+        layers = [Conv3dSame(in_channels, out_channels, kernel_size),
+                  BatchNorm(out_channels, eps=1e-4), nn.LeakyReLU(0.1),
+                  Conv3dSame(out_channels, out_channels, kernel_size),
+                  BatchNorm(out_channels, eps=1e-4), nn.LeakyReLU(0.1)]
+        if with_se:
+            layers.append(SE3d(out_channels))
+        self.voxel_layers = nn.Sequential(*layers)
+        self.point_features = SharedMLP(in_channels, out_channels)
+
+    def forward(self, features, coords):
+        """features [B, N, C], coords [B, N, 3] -> (fused [B, N, C'], coords).
+
+        The voxel branch is fused as in the JAX package's eval branch: conv0,
+        then conv1 with BatchNorm 0's folded affine and LeakyReLU as its
+        input prologue, then BatchNorm 1 and LeakyReLU as one elementwise
+        pass, then SE and the trilinear gather."""
+        if self.training:
+            raise RuntimeError("PVConv runs the eval forward only; call "
+                               ".eval() first (training is not ported yet)")
+        r = self.resolution
+        conv0, bn0, _, conv1, bn1, _ = self.voxel_layers[:6]
+        grid, norm_coords = self.voxelization(features, coords)
+        grid = conv0(grid, r)
+        grid = conv1(grid, r, prologue=bn0.fold())
+        grid = ops.leaky_affine(grid, *bn1.fold())
+        for se in self.voxel_layers[6:]:
+            grid = se(grid)
+        voxel_features = ops.devoxelize_rows(grid, norm_coords, r,
+                                             channels_first=True)
+        return voxel_features + self.point_features(features), coords

@@ -1,0 +1,110 @@
+"""Average voxelization: coordinate normalization and the scatter-mean of point
+features into a dense R^3 grid (counterpart of pvcnn_tpu/ops/voxelize.py).
+
+`scatter_mean` is the dispatch point of kernel K1
+(pvcnn_tpu_torch/csrc/voxelize.cu): a CUDA tensor goes to the kernel, a CPU
+tensor to the plain PyTorch version beside it (`_scatter_mean_plain`).
+Both are deterministic: the kernel sums each bin in point order after a
+stable sort, the plain version with `scatter_add_` on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pvcnn_tpu_torch import kernels
+
+__all__ = ["avg_voxelize", "flat_voxel_index", "normalize_coords",
+           "scatter_mean"]
+
+
+def normalize_coords(coords: torch.Tensor, resolution: int,
+                     normalize: bool = True, eps: float = 0.0):
+    """Reference Voxelization coordinate normalization.
+
+    coords [B, N, 3] (detached, like the reference) ->
+    (vox_coords [B, N, 3] int32 in [0, R-1], norm_coords [B, N, 3] float in
+    [0, R-1]). Rounding is half to even, as in jnp.round."""
+    coords = coords.detach()
+    centered = coords - coords.mean(dim=1, keepdim=True)
+    if normalize:
+        max_norm = centered.norm(dim=-1, keepdim=True).amax(dim=1,
+                                                            keepdim=True)
+        norm_coords = centered / (max_norm * 2.0 + eps) + 0.5
+    else:
+        norm_coords = (centered + 1.0) / 2.0
+    r = int(resolution)
+    norm_coords = torch.clamp(norm_coords * r, 0.0, r - 1.0)
+    vox_coords = torch.round(norm_coords).to(torch.int32)
+    return vox_coords, norm_coords
+
+
+def flat_voxel_index(vox_coords: torch.Tensor, resolution: int):
+    """[B, N, 3] integer voxel coords -> [B, N] int32 flat index
+    x * R^2 + y * R + z."""
+    r = int(resolution)
+    v = vox_coords.to(torch.int32)
+    return v[..., 0] * (r * r) + v[..., 1] * r + v[..., 2]
+
+
+def scatter_mean(features: torch.Tensor, flat_idx: torch.Tensor,
+                 num_bins: int, channels_first: bool = False):
+    """Per-cloud mean of the feature rows that share a bin.
+
+    features [B, N, C] float, flat_idx [B, N] int in [0, num_bins) ->
+    [B, num_bins, C], or [B, C, num_bins] with channels_first (the layout the
+    conv consumes). Empty bins are 0."""
+    if features.device.type == "cpu":
+        return _scatter_mean_plain(features, flat_idx, num_bins,
+                                   channels_first)
+    return _scatter_mean_cuda(features, flat_idx, num_bins, channels_first)
+
+
+def _scatter_mean_plain(features, flat_idx, num_bins, channels_first):
+    b, n, c = features.shape
+    idx = flat_idx.long()
+    sums = features.new_zeros((b, num_bins, c)).scatter_add_(
+        1, idx[..., None].expand(-1, -1, c), features)
+    counts = features.new_zeros((b, num_bins)).scatter_add_(
+        1, idx, features.new_ones((b, n)))
+    means = sums / torch.clamp(counts, min=1.0)[..., None]
+    return means.transpose(1, 2).contiguous() if channels_first else means
+
+
+def _scatter_mean_cuda(features, flat_idx, num_bins, channels_first):
+    if features.device.type != "cuda" or flat_idx.device != features.device:
+        raise ValueError("avg_voxelize kernel needs features and flat_idx on "
+                         f"one CUDA device, got {features.device} and "
+                         f"{flat_idx.device}")
+    if features.dtype != torch.float32 or features.dim() != 3:
+        raise ValueError("avg_voxelize kernel takes float32 [B, N, C] "
+                         f"features, got {features.dtype} "
+                         f"{tuple(features.shape)}")
+    b, n, c = features.shape
+    if flat_idx.shape != (b, n) or flat_idx.dtype != torch.int32:
+        raise ValueError(f"flat_idx must be int32 [{b}, {n}], got "
+                         f"{flat_idx.dtype} {tuple(flat_idx.shape)}")
+    features = features.contiguous()
+    # glue: a stable per-cloud sort fixes each bin's summation order
+    sorted_idx, perm = torch.sort(flat_idx, dim=1, stable=True)
+    out = torch.empty((b, c, num_bins) if channels_first else (b, num_bins, c),
+                      dtype=torch.float32, device=features.device)
+    with torch.cuda.device(features.device):
+        kernels.launch(
+            "avg_voxelize", "pvcnn_avg_voxelize", features.data_ptr(),
+            sorted_idx.data_ptr(), perm.data_ptr(), out.data_ptr(), b, n, c,
+            int(num_bins), int(channels_first),
+            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def avg_voxelize(features: torch.Tensor, vox_coords: torch.Tensor,
+                 resolution: int):
+    """Scatter-mean point features onto a dense voxel grid.
+
+    features [B, N, C], vox_coords [B, N, 3] int in [0, R-1] ->
+    [B, R, R, R, C] grid with axes (x, y, z); empty voxels are zero."""
+    b, _, c = features.shape
+    r = int(resolution)
+    grid = scatter_mean(features, flat_voxel_index(vox_coords, r), r ** 3)
+    return grid.reshape(b, r, r, r, c)
