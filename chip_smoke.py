@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pvcnn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each printing its own lines and raising on failure:
 
@@ -9,15 +9,27 @@ Phases, each printing its own lines and raising on failure:
                 `nvidia-smi --query-gpu=name,power.limit`, turns TF32 off;
   2. build      compiles the CUDA kernels from pvcnn_tpu_torch/csrc;
   3. kernels    each kernel against its plain PyTorch version on the card,
-                at the shapes ShapeNet PVCNN 1x gives it (B=32, N=2048):
-                max abs/rel difference and median CUDA-event times;
+                at the shapes ShapeNet PVCNN 1x training gives it (B=32,
+                N=2048): two runs bitwise equal, max abs/rel difference,
+                median CUDA-event times of the kernel, the plain version
+                and (where one PyTorch call computes the same function) that
+                call, and the least time the card could take (bound);
   4. slice      PVCNN 1x eval forward on a 32 x 2048 x 22 batch with seeded
                 weights: kernel path against the plain path on the card, and
-                against the CPU plain path on a 2-cloud batch; every launch
-                counter must move; ms/batch of both paths;
-  5. evaluator  the voting evaluator (10 votes, batch 32) on a synthetic
-                ShapeNet tree, from zeroed launch counters: the port's main
-                path through its user entry point.
+                against the CPU plain path on a 2-cloud batch; ms/batch;
+  5. evaluator  the voting evaluator (5 votes, batch 32) on a synthetic
+                ShapeNet tree, from zeroed launch counters: the eval path
+                through its user entry point;
+  6. train      PVCNN 1x training steps (Adam, dropout from one seeded
+                generator) on the kernel path and on the plain path from the
+                same weights: step-1 loss and gradients, losses of steps 2-3,
+                bitwise-equal step-1 gradients over two kernel-path runs,
+                launches per step, ms/step and peak memory of both paths
+                (with --profile: a torch.profiler breakdown of 3 steps);
+  7. trainer    the training entry point (one epoch of 4 steps at batch 32
+                on a synthetic tree of 64 shapes, then the test split), from
+                zeroed launch counters: the main path; its checkpoints are
+                written and a resumed run loads them.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}.
@@ -26,6 +38,7 @@ The last two lines are a JSON object with the per-kernel record and
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -38,25 +51,47 @@ import numpy as np
 import torch
 
 B, N, SEED = 32, 2048, 0
-# kernel-vs-plain tolerances: K1/K2 sum a few fp32 terms in another order;
-# K3 sums 27 * Ci terms in another order than cuDNN's fp32 (TF32 off) conv
+DEVICE = "cuda"
+# the card's peaks (NVIDIA H100 SXM data sheet): fp32 outside the tensor
+# cores and HBM bandwidth; the bound of a call is the larger of its FLOPs
+# over the first and its bytes (inputs read once, outputs written once)
+# over the second
+PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# kernel-vs-plain tolerances (rtol, atol): K1/K2/K5 sum a few fp32 terms in
+# another order; K3 and its dgrad sum 27 * Ci terms in another order than
+# cuDNN's fp32 (TF32 off) conv; K4 sums B * R^3 products, so its atol is
+# relative to the gradient's largest entry
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
-       "conv3d_fwd": (1e-4, 1e-4)}
-# (kernel, case) -> calls per PVCNN 1x forward; cases: K1 (C, R), K2 (C, R),
-# K3 (Ci, Co, R, prologue). Cases with 0 calls are checked but not timed
-# into the per-forward sums.
+       "conv3d_fwd": (1e-4, 1e-4), "conv3d_dgrad": (1e-4, 1e-4),
+       "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5)}
+# (kernel, case) -> calls per PVCNN 1x training step (the forward's calls
+# are the eval forward's too). Cases: K1/K2/K5 (C, R); K3 and K4
+# (Ci, Co, R, prologue) of the forward conv; dgrad (Co, Ci, R) of the
+# forward conv it differentiates (the dgrad maps Co -> Ci channels). Cases
+# with 0 calls are checked but not timed.
 CALLS = {
     ("avg_voxelize", (6, 32)): 1, ("avg_voxelize", (64, 16)): 1,
     ("avg_voxelize", (128, 16)): 1,
     ("trilinear_devoxelize", (64, 32)): 1,
     ("trilinear_devoxelize", (128, 16)): 2,
-    ("conv3d_fwd", (6, 64, 32, False)): 1, ("conv3d_fwd", (6, 64, 32, True)): 0,
-    ("conv3d_fwd", (64, 64, 32, False)): 0, ("conv3d_fwd", (64, 64, 32, True)): 1,
+    ("conv3d_fwd", (6, 64, 32, False)): 1,
+    ("conv3d_fwd", (6, 64, 32, True)): 0,
+    ("conv3d_fwd", (64, 64, 32, False)): 0,
+    ("conv3d_fwd", (64, 64, 32, True)): 1,
     ("conv3d_fwd", (64, 128, 16, False)): 1,
     ("conv3d_fwd", (64, 128, 16, True)): 0,
-    ("conv3d_fwd", (128, 128, 16, False)): 1,
     ("conv3d_fwd", (128, 128, 16, True)): 2,
+    ("conv3d_fwd", (128, 128, 16, False)): 1,
+    ("conv3d_dgrad", (64, 64, 32)): 1,
+    ("conv3d_dgrad", (128, 64, 16)): 1,
+    ("conv3d_dgrad", (128, 128, 16)): 3,
+    ("devoxelize_bwd", (64, 32)): 1, ("devoxelize_bwd", (128, 16)): 2,
 }
+for (_k, _c), _n in list(CALLS.items()):
+    if _k == "conv3d_fwd":
+        CALLS[("conv3d_wgrad", _c)] = _n
+PER_STEP = {"avg_voxelize": 3, "trilinear_devoxelize": 3, "conv3d_fwd": 6,
+            "conv3d_dgrad": 5, "conv3d_wgrad": 6, "devoxelize_bwd": 3}
 
 
 def log(phase: str, msg: str) -> None:
@@ -94,15 +129,20 @@ def cloud(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
 
 @contextlib.contextmanager
 def plain_on_card():
-    """Route CUDA tensors to the plain PyTorch versions (the comparison
-    path of this script; the package itself never does this)."""
+    """Route CUDA tensors to the plain PyTorch versions, forward and
+    backward (the comparison path of this script; the package itself never
+    does this)."""
     from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
 
     with mock.patch.object(voxelize, "_scatter_mean_cuda",
                            voxelize._scatter_mean_plain), \
             mock.patch.object(devoxelize, "_devoxelize_cuda",
                               devoxelize._devoxelize_plain), \
-            mock.patch.object(conv3d, "_conv3d_cuda", conv3d._conv3d_plain):
+            mock.patch.object(devoxelize, "_devoxelize_bwd_cuda",
+                              devoxelize._devoxelize_bwd_plain), \
+            mock.patch.object(conv3d, "_forward_cuda", conv3d._forward_plain), \
+            mock.patch.object(conv3d, "_dgrad_cuda", conv3d._dgrad_plain), \
+            mock.patch.object(conv3d, "_wgrad_cuda", conv3d._wgrad_plain):
         yield
 
 
@@ -132,8 +172,9 @@ def phase_build() -> None:
         else f"{path.name} already built")
 
 
-def _compare(kernel, case, got, want) -> float:
+def _compare(kernel, case, got, want, atol_scale: float = 1.0) -> float:
     rtol, atol = TOL[kernel]
+    atol *= atol_scale
     err = (got - want).abs()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{kernel} {case}: non-finite output")
@@ -142,31 +183,86 @@ def _compare(kernel, case, got, want) -> float:
     rel = (err[big] / want.abs()[big]).max().item() if big.any() else 0.0
     log("kernels", f"{kernel} {case}: max_abs_err {err.max().item():.3e} "
         f"max_rel_err {rel:.3e} where |plain| > 1e-3 (rtol {rtol}, "
-        f"atol {atol})")
+        f"atol {atol:.3g})")
     if bad.any():
         raise AssertionError(f"{kernel} {case}: {int(bad.sum())} elements "
                              "outside tolerance")
     return err.max().item()
 
 
+def _twice(kernel, case, run):
+    """Run a kernel twice; the outputs must be equal bit for bit."""
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    again_t = again if isinstance(again, tuple) else (again,)
+    if not all(torch.equal(a, b) for a, b in zip(got_t, again_t)):
+        raise AssertionError(f"{kernel} {case}: two runs differ")
+    log("kernels", f"{kernel} {case}: two runs bitwise equal")
+    return got
+
+
+def _bound_ms(flops: float, nbytes: float):
+    ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def _library_agrees(kernel, case, got, want, atol_scale=1.0) -> bool:
+    """Does the library call compute the kernel's function? Held to 1e-4
+    (rtol and atol): grid_sample maps the coordinates to [-1, 1] and back,
+    which moves the interpolation weights by about 1e-6 relative."""
+    rtol, atol = (max(t, 1e-4) for t in TOL[kernel])
+    ok = bool((got - want).abs().le(atol * atol_scale
+                                    + rtol * want.abs()).all())
+    if not ok:
+        log("kernels", f"{kernel} {case}: the library call disagrees with "
+            f"the plain version (max {(got - want).abs().max().item():.3e});"
+            " not timed as its yardstick")
+    return ok
+
+
 def phase_kernels() -> dict:
+    import torch.nn.functional as F
+
     from pvcnn_tpu_torch import ops
     from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     torch.manual_seed(SEED)
     rng = np.random.RandomState(SEED)
     coords = torch.from_numpy(cloud(rng, B, N)[..., :3]).to(dev)
-    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in TOL}
+    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+               "library_ms": 0.0, "library_cases": 0, "cases": 0}
+           for k in TOL}
 
-    def record(kernel, case, err, run_k, run_p):
-        ms, plain_ms = time_ms(run_k), time_ms(run_p)
-        log("kernels", f"{kernel} {case}: {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms ({CALLS[(kernel, case)]} per forward)")
+    def record(kernel, case, err, run_k, run_p, flops, nbytes, run_lib=None):
+        calls = CALLS[(kernel, case)]
         r = rec[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += CALLS[(kernel, case)] * ms
-        r["plain_ms"] += CALLS[(kernel, case)] * plain_ms
+        if calls == 0:
+            return
+        ms, plain_ms = time_ms(run_k), time_ms(run_p)
+        lib_ms = time_ms(run_lib) if run_lib is not None else None
+        bound, ops_ms, bytes_ms = _bound_ms(flops, nbytes)
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        log("kernels", f"{kernel} {case}: {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms{lib}, bound {bound:.4f} ms "
+            f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
+            f"{calls} per step")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound), ("ops_ms", ops_ms),
+                         ("bytes_ms", bytes_ms)):
+            r[key] += calls * val
+        r["cases"] += calls
+        if lib_ms is not None:
+            r["library_ms"] += calls * lib_ms
+            r["library_cases"] += calls
+
+    def grid5(norm, r):
+        """norm_coords [B, N, 3] in [0, R-1] -> grid_sample's [B, 1, 1, N, 3]
+        (x, y, z) = (z, y, x) in [-1, 1] (align_corners=True)."""
+        return (norm.flip(-1) * (2.0 / (r - 1)) - 1.0)[:, None, None]
 
     for c, r in ((6, 32), (64, 16), (128, 16)):
         vox, _ = ops.normalize_coords(coords, r, normalize=False)
@@ -174,21 +270,51 @@ def phase_kernels() -> dict:
         feats = torch.randn(B, N, c, device=dev)
         run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3, True)
         run_p = lambda: voxelize._scatter_mean_plain(feats, flat, r ** 3, True)
-        got, again = run_k(), run_k()
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"avg_voxelize {(c, r)}: two runs differ")
-        log("kernels", f"avg_voxelize {(c, r)}: two runs bitwise equal")
-        err = _compare("avg_voxelize", (c, r), got, run_p())
-        record("avg_voxelize", (c, r), err, run_k, run_p)
+        idx = flat.long()[..., None].expand(-1, -1, c)
+        run_lib = lambda: feats.new_zeros(B, r ** 3, c).scatter_reduce_(
+            1, idx, feats, "mean", include_self=False)
+        got = _twice("avg_voxelize", (c, r), run_k)
+        want = run_p()
+        err = _compare("avg_voxelize", (c, r), got, want)
+        lib_ok = _library_agrees("avg_voxelize", (c, r),
+                                 run_lib().transpose(1, 2), want)
+        record("avg_voxelize", (c, r), err, run_k, run_p, B * N * c,
+               4 * (B * N * c + B * N + B * r ** 3 * c),
+               run_lib if lib_ok else None)
 
     for c, r in ((64, 32), (128, 16)):
         _, norm = ops.normalize_coords(coords, r, normalize=False)
         grid = torch.randn(B, c, r ** 3, device=dev)
         run_k = lambda: devoxelize._devoxelize_cuda(grid, norm, r, True)
         run_p = lambda: devoxelize._devoxelize_plain(grid, norm, r, True)
-        err = _compare("trilinear_devoxelize", (c, r), run_k(), run_p())
-        record("trilinear_devoxelize", (c, r), err, run_k, run_p)
+        g5, gs = grid.reshape(B, c, r, r, r), grid5(norm, r)
+        run_lib = lambda: F.grid_sample(g5, gs, mode="bilinear",
+                                        align_corners=True)
+        got = _twice("trilinear_devoxelize", (c, r), run_k)
+        want = run_p()
+        err = _compare("trilinear_devoxelize", (c, r), got, want)
+        lib_ok = _library_agrees("trilinear_devoxelize", (c, r),
+                                 run_lib().reshape(B, c, N).transpose(1, 2),
+                                 want)
+        record("trilinear_devoxelize", (c, r), err, run_k, run_p,
+               16 * B * N * c, 4 * (B * c * r ** 3 + 3 * B * N + B * N * c),
+               run_lib if lib_ok else None)
+
+        # K5: the grid gradient of the same gather
+        g = torch.randn(B, N, c, device=dev)
+        run_k = lambda: devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
+        run_p = lambda: devoxelize._devoxelize_bwd_plain(g, norm, r, True)
+        gt5 = g.transpose(1, 2).reshape(B, c, 1, 1, N)
+        run_lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gt5, g5, gs, 0, 0, True, [True, False])[0]
+        got = _twice("devoxelize_bwd", (c, r), run_k)
+        want = run_p()
+        err = _compare("devoxelize_bwd", (c, r), got, want)
+        lib_ok = _library_agrees("devoxelize_bwd", (c, r),
+                                 run_lib().reshape(B, c, r ** 3), want)
+        record("devoxelize_bwd", (c, r), err, run_k, run_p, 16 * B * N * c,
+               4 * (B * N * c + 3 * B * N + B * c * r ** 3),
+               run_lib if lib_ok else None)
 
     for ci, co, r in ((6, 64, 32), (64, 64, 32), (64, 128, 16),
                       (128, 128, 16)):
@@ -198,22 +324,86 @@ def phase_kernels() -> dict:
         bias = torch.empty(co, device=dev).uniform_(-bound, bound)
         scale = torch.empty(ci, device=dev).uniform_(0.5, 1.5)
         shift = torch.randn(ci, device=dev) * 0.5
+        gy = torch.randn(B, co, r ** 3, device=dev)
+        flops = 2.0 * B * r ** 3 * 27 * ci * co
         for pro in (False, True):
-            args = (x, w, bias, scale, shift, r, pro)
-            run_k = lambda: conv3d._conv3d_cuda(*args)
-            run_p = lambda: conv3d._conv3d_plain(*args)
             case = (ci, co, r, pro)
-            got, want = run_k(), run_p()
-            err = _compare("conv3d_fwd", case, got, want)
+            args = (x, w, bias, scale, shift, r, pro)
+            xa = conv3d.leaky_affine(x, scale, shift) if pro else x
+            x5 = xa.reshape(B, ci, r, r, r)
+            # K3 forward with its statistics epilogue (the training call)
+            run_k = lambda: conv3d._forward_cuda(*args, True)
+            run_p = lambda: conv3d._forward_plain(*args, True)
+            run_lib = lambda: F.conv3d(x5, w, bias, padding=1)
+            y, s1, s2 = _twice("conv3d_fwd", case, run_k)
+            want, w1, w2 = run_p()
+            err = _compare("conv3d_fwd", case, y, want)
             exact = conv3d._conv3d_plain(*(a.double() for a in args[:5]),
                                          r, pro)
             log("kernels", f"conv3d_fwd {case}: max |. - fp64 conv| kernel "
-                f"{(got - exact).abs().max().item():.3e}, plain "
+                f"{(y - exact).abs().max().item():.3e}, plain "
                 f"{(want - exact).abs().max().item():.3e}")
-            record("conv3d_fwd", case, err, run_k, run_p)
+            # statistics: a sum of B * R^3 terms, held to 1e-4 of the sum
+            # of their magnitudes
+            mag1 = want.abs().sum(dim=(0, 2))
+            e1 = ((s1 - w1).abs() / mag1).max().item()
+            e2 = ((s2 - w2).abs() / w2).max().item()
+            log("kernels", f"conv3d_fwd {case} statistics: max |s1 - plain| "
+                f"/ sum|y| {e1:.3e}, max |s2 - plain| / s2 {e2:.3e} "
+                "(<= 1e-4)")
+            if e1 > 1e-4 or e2 > 1e-4:
+                raise AssertionError(f"conv3d_fwd {case}: statistics "
+                                     "disagree with the plain sums")
+            lib_ok = _library_agrees("conv3d_fwd", case, run_lib().reshape(
+                B, co, r ** 3), want)
+            record("conv3d_fwd", case, err, run_k, run_p, flops,
+                   4 * (B * ci * r ** 3 + 27 * ci * co + B * co * r ** 3),
+                   run_lib if lib_ok else None)
+
+            # K4: the weight gradient, against the plain version and fp64
+            run_k = lambda: conv3d._wgrad_cuda(x, gy, scale, shift, r, pro)
+            run_p = lambda: conv3d._wgrad_plain(x, gy, scale, shift, r, pro)
+            run_lib = lambda: torch.nn.grad.conv3d_weight(x5, w.shape,
+                                                          gy.reshape(
+                                                              B, co, r, r, r),
+                                                          padding=1)
+            dw = _twice("conv3d_wgrad", case, run_k)
+            want = run_p()
+            scale_w = want.abs().max().item()
+            err = _compare("conv3d_wgrad", case, dw, want, scale_w)
+            exact = conv3d._wgrad_plain(x.double(), gy.double(),
+                                        scale.double(), shift.double(), r,
+                                        pro)
+            log("kernels", f"conv3d_wgrad {case}: max |. - fp64| / max|dW| "
+                f"kernel {(dw - exact).abs().max().item() / scale_w:.3e}, "
+                f"plain {(want - exact).abs().max().item() / scale_w:.3e}")
+            lib_ok = _library_agrees("conv3d_wgrad", case, run_lib(), want,
+                                     scale_w)
+            record("conv3d_wgrad", case, err, run_k, run_p, flops,
+                   4 * (B * ci * r ** 3 + B * co * r ** 3 + 27 * ci * co),
+                   run_lib if lib_ok else None)
+
+        # K3 as the dgrad: Co -> Ci channels, flipped io-swapped taps
+        if ("conv3d_dgrad", (co, ci, r)) in CALLS:
+            case = (co, ci, r)
+            run_k = lambda: conv3d._dgrad_cuda(gy, w, r)
+            run_p = lambda: conv3d._dgrad_plain(gy, w, r)
+            g5 = gy.reshape(B, co, r, r, r)
+            run_lib = lambda: torch.nn.grad.conv3d_input(
+                (B, ci, r, r, r), w, g5, padding=1)
+            dx = _twice("conv3d_dgrad", case, run_k)
+            want = run_p()
+            err = _compare("conv3d_dgrad", case, dx, want)
+            lib_ok = _library_agrees("conv3d_dgrad", case,
+                                     run_lib().reshape(B, ci, r ** 3), want)
+            record("conv3d_dgrad", case, err, run_k, run_p, flops,
+                   4 * (B * co * r ** 3 + 27 * ci * co + B * ci * r ** 3),
+                   run_lib if lib_ok else None)
     for k, r in rec.items():
-        log("kernels", f"{k}: {r['ms']:.4f} ms per forward vs plain "
-            f"{r['plain_ms']:.4f} ms")
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if r["library_cases"] == r["cases"] else "")
+        log("kernels", f"{k}: {r['ms']:.4f} ms per training step vs plain "
+            f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms")
     return rec
 
 
@@ -222,7 +412,7 @@ def phase_slice() -> None:
     from pvcnn_tpu_torch.models.shapenet import PVCNN
     from pvcnn_tpu_torch.utils.weights import init_random_
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     model = init_random_(PVCNN(50, 16, 3, width_multiplier=1.0), SEED).eval()
     x_all = cloud(np.random.RandomState(SEED + 1), B, N)
     x_cpu = torch.from_numpy(x_all[:2])
@@ -241,7 +431,8 @@ def phase_slice() -> None:
         if logits.shape != (B, N, 50) or not torch.isfinite(logits).all():
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
         log("slice", f"launches in one forward: {counts}")
-        if min(counts.values()) == 0:
+        fwd = ("avg_voxelize", "trilinear_devoxelize", "conv3d_fwd")
+        if min(counts[k] for k in fwd) == 0:
             raise AssertionError(f"a kernel did not run: {counts}")
         diff = (logits - plain).abs().max().item()
         agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
@@ -262,50 +453,262 @@ def phase_slice() -> None:
         f"ms/batch (medians of {ms_k} / {ms_p})")
 
 
-def phase_evaluator() -> dict:
+def _scratch_dir() -> str:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def phase_evaluator() -> None:
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.data.shapenet import write_synthetic
     from pvcnn_tpu_torch.evaluate.shapenet.eval import evaluate, mean_iou
 
-    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "build")
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as root:
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
         # 2 categories x 2 shapes of 2000-3000 points
         num_items = len(write_synthetic(
             root, [(0, 2417), (0, 2946), (4, 2081), (4, 2590)], seed=SEED))
         kernels.reset_launch_counts()
         start = time.perf_counter()
-        stats = evaluate(root, width_multiplier=1.0, num_votes=10,
-                         batch_size=32, device="cuda", seed=SEED)
+        stats = evaluate(root, width_multiplier=1.0, num_votes=5,
+                         batch_size=32, device=DEVICE, seed=SEED)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         counts = kernels.launch_counts()
     if stats.shape != (16, 2) or not np.isfinite(stats).all() \
             or int(stats[:, 1].sum()) != num_items:
         raise AssertionError(f"bad evaluator stats {stats}")
-    log("evaluator", f"{num_items} synthetic shapes, 10 votes, batch 32: "
+    log("evaluator", f"{num_items} synthetic shapes, 5 votes, batch 32: "
         f"{seconds:.2f} s, mIoU {mean_iou(stats):.4f} (random weights, "
         f"synthetic labels), launches {counts}")
+    if min(counts[k] for k in ("avg_voxelize", "trilinear_devoxelize",
+                               "conv3d_fwd")) == 0:
+        raise AssertionError(f"a kernel did not run: {counts}")
+
+
+def _flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def phase_train(profile: bool) -> None:
+    """Training steps on the kernel path and on the plain path."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.models.shapenet import PVCNN
+    from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
+    from pvcnn_tpu_torch.train.optim import Adam
+    from pvcnn_tpu_torch.train.trainer import Trainer
+    from pvcnn_tpu_torch.utils.weights import init_random_
+
+    dev = torch.device(DEVICE)
+    base = init_random_(PVCNN(50, 16, 3, width_multiplier=1.0), SEED)
+    rng = np.random.RandomState(SEED + 2)
+    batches = [(torch.from_numpy(cloud(rng, B, N)).to(dev),
+                torch.from_numpy(rng.randint(0, 50, (B, N))).to(dev))
+               for _ in range(3)]
+
+    def make():
+        model = copy.deepcopy(base)
+        trainer = Trainer(model, CrossEntropyLoss(),
+                          Adam(model.parameters(), lr=1e-3), dev, SEED)
+        return trainer
+
+    def grads_of(trainer, x, y, seed):
+        """Step-1 loss and gradients, without the update."""
+        trainer.generator.manual_seed(seed)
+        trainer.model.train()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss = trainer.criterion(trainer.model(x), y)
+        loss.backward()
+        return loss.item(), _flat_grads(trainer.model).clone()
+
+    kern, plain = make(), make()
+    # two kernel-path runs from the same state (running statistics move
+    # but do not enter the train-mode output)
+    loss_k, grads_k = grads_of(kern, *batches[0], SEED)
+    loss_k2, grads_k2 = grads_of(kern, *batches[0], SEED)
+    if loss_k != loss_k2 or not torch.equal(grads_k, grads_k2):
+        raise AssertionError("two kernel-path runs of step 1 differ")
+    log("train", "step-1 loss and gradients of two kernel-path runs are "
+        "bitwise equal")
+    with plain_on_card():
+        loss_p, grads_p = grads_of(plain, *batches[0], SEED)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    g, w = grads_k.double(), grads_p.double()
+    flipped = ((g - w).abs() > 5e-3 * w.abs().max()).double().mean().item()
+    rel_l2 = ((g - w).norm() / w.norm()).item()
+    log("train", f"step 1: loss kernel {loss_k:.7f} plain {loss_p:.7f} "
+        f"(rel {rel_loss:.2e} <= 1e-5); gradients flipped fraction "
+        f"{flipped:.2e} (< 2e-3), rel-L2 {rel_l2:.2e} (< 5e-2)")
+    if rel_loss > 1e-5 or flipped >= 2e-3 or rel_l2 >= 5e-2:
+        raise AssertionError("step-1 kernel path disagrees with plain path")
+
+    # steps 1-3 with updates, both paths from the same start; the kernel
+    # path's counters read per step
+    kern, plain = make(), make()
+    kern.generator.manual_seed(SEED)
+    plain.generator.manual_seed(SEED)
+    losses_k, losses_p = [], []
+    for i, (x, y) in enumerate(batches):
+        kernels.reset_launch_counts()
+        losses_k.append(kern.train_step(x, y).item())
+        counts = kernels.launch_counts()
+        if counts != PER_STEP:
+            raise AssertionError(f"step {i + 1} launches {counts}, expected "
+                                 f"{PER_STEP}")
+        with plain_on_card():
+            losses_p.append(plain.train_step(x, y).item())
+    log("train", f"launches per step: {counts}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    log("train", f"losses kernel {losses_k} plain {losses_p}: relative "
+        f"differences {['%.2e' % r for r in rel]} (step 1 <= 1e-5, "
+        "steps 2-3 <= 1e-3)")
+    if not all(np.isfinite(losses_k)) or rel[0] > 1e-5 or max(rel[1:]) > 1e-3:
+        raise AssertionError("training losses disagree")
+
+    x, y = batches[0]
+    ms_k, ms_p, mem = [], [], {}
+    for _ in range(3):                               # in turns
+        for name, trainer in (("kernel", kern), ("plain", plain)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ctx = plain_on_card() if name == "plain" else \
+                contextlib.nullcontext()
+            with ctx:
+                ms = time_ms(lambda: trainer.train_step(x, y), reps=5,
+                             warmup=1)
+            (ms_k if name == "kernel" else ms_p).append(ms)
+            mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train", f"PVCNN 1x training step, {B} x {N}, fp32: kernel path "
+        f"{np.median(ms_k):.3f} ms/step, plain path {np.median(ms_p):.3f} "
+        f"ms/step (medians of {ms_k} / {ms_p}); peak memory kernel "
+        f"{mem['kernel']:.3f} GiB, plain {mem['plain']:.3f} GiB")
+    if profile:
+        _profile_steps(kern, x, y)
+
+
+# torch.profiler kernel names -> the groups of the step's time split
+PROFILE_GROUPS = (
+    ("K3 conv3d forward + dgrad", ("conv3d_fwd_kernel",)),
+    ("K4 conv3d wgrad", ("conv3d_wgrad_kernel",)),
+    ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
+    ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",)),
+    ("K1 avg_voxelize", ("avg_voxelize_kernel",)),
+    ("matmuls (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma")),
+    ("batch norm", ("batch_norm",)),
+    ("sort", ("sort", "radix")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "Functor")),
+)
+
+
+def _profile_steps(trainer, x, y) -> None:
+    """torch.profiler over 3 kernel-path steps: device time by kernel
+    group and the device's idle share of the host-clock window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 3
+    for _ in range(2):
+        trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / steps
+    groups = {name: [0.0, 0.0] for name, _ in PROFILE_GROUPS}
+    groups["other"] = [0.0, 0.0]
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue                              # host-side rows
+        ms = evt.self_device_time_total / 1e3 / steps
+        rows.append((ms, evt.count / steps, evt.key))
+        group = next((name for name, keys in PROFILE_GROUPS
+                      if any(k in evt.key for k in keys)), "other")
+        groups[group][0] += ms
+        groups[group][1] += evt.count / steps
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    for ms, count, key in rows[:20]:
+        log("profile", f"{ms:9.4f} ms/step {count:6.1f}/step {key[:100]}")
+    for name, (ms, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
+        log("profile", f"{name}: {ms:.3f} ms/step, {count:.0f} launches/step")
+    log("profile", f"host-clock {wall_ms:.3f} ms/step, device busy "
+        f"{busy:.3f} ms/step, idle share {1 - busy / wall_ms:.4f}")
+
+
+def phase_trainer() -> dict:
+    """The training entry point, one short epoch, from zeroed counters."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.shapenet import write_synthetic
+    from pvcnn_tpu_torch.models.shapenet import PVCNN
+    from pvcnn_tpu_torch.train.shapenet import train
+    from pvcnn_tpu_torch.train.trainer import load_checkpoint
+
+    rng = np.random.RandomState(SEED + 3)
+    items = [(int(s), int(n)) for s, n in zip(rng.randint(0, 16, 64),
+                                              rng.randint(2000, 3000, 64))]
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        write_synthetic(root, items, seed=SEED)
+        save = os.path.join(root, "run")
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        meters = train(root, width_multiplier=1.0, batch_size=32, epochs=1,
+                       max_steps=4, save_path=save, device=DEVICE, seed=SEED)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = kernels.launch_counts()
+        names = ("latest.pth.tar", "latest/e0.pth.tar", "best.pth.tar")
+        missing = [n for n in names
+                   if not os.path.exists(os.path.join(save, n))]
+        if missing:
+            raise AssertionError(f"trainer wrote no {missing}")
+        epoch, saved = load_checkpoint(os.path.join(save, "latest.pth.tar"),
+                                       PVCNN(50, 16, 3))
+        again = train(root, width_multiplier=1.0, batch_size=32, epochs=1,
+                      save_path=save, device=DEVICE, seed=SEED)
+    iou = meters["acc/iou_test"]
+    log("trainer", f"64 synthetic shapes, 1 epoch of 4 steps at batch 32 + "
+        f"test split: {seconds:.2f} s, acc/iou_test {iou:.4f} (random "
+        f"labels), checkpoints {list(names)}, launches {counts}")
+    log("trainer", f"resumed run loaded epoch {epoch} and re-evaluated "
+        f"acc/iou_test {again['acc/iou_test']:.4f}")
+    if not 0.0 <= iou <= 1.0 or epoch != 0 \
+            or saved["acc/iou_test"] != iou \
+            or abs(again["acc/iou_test"] - iou) > 1e-6:
+        raise AssertionError("trainer checkpoints do not round-trip")
     if min(counts.values()) == 0:
         raise AssertionError(f"a kernel did not run: {counts}")
     return counts
 
 
 def main() -> None:
+    profile = "--profile" in sys.argv[1:]
     name = phase_device()
     phase_build()
     rec = phase_kernels()
     phase_slice()
-    counts = phase_evaluator()
+    phase_evaluator()
+    phase_train(profile)
+    counts = phase_trainer()
     from pvcnn_tpu_torch import kernels
 
-    print(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": counts[k.name],
-         "max_abs_err": rec[k.name]["max_abs_err"], "ms": rec[k.name]["ms"],
-         "plain_ms": rec[k.name]["plain_ms"]}
-        for k in kernels.KERNELS.values()]}), flush=True)
+    lines = []
+    for k in kernels.KERNELS.values():
+        r = rec[k.name]
+        lines.append({
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": counts[k.name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
+                         else "bytes"),
+            "library_ms": (r["library_ms"]
+                           if r["library_cases"] == r["cases"] else None)})
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

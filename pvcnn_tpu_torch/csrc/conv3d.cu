@@ -10,8 +10,19 @@
 // Out-of-grid taps read 0 AFTER the activation (zero padding of the
 // activated tensor, as torch Conv3d(padding=1) on it): leaky(0*s + t) != 0,
 // so the prologue is applied to in-grid taps only (the TPU kernel re-zeroes
-// its pad columns for the same reason, conv_rows.py:_stage_act). The BN-stats
-// epilogue of the TPU kernel is a training feature and is left out here.
+// its pad columns for the same reason, conv_rows.py:_stage_act).
+//
+// BN-statistics epilogue (training): with a `partial` buffer, each block
+// also reduces its tile of the BIASED y to per-channel sum and sum of
+// squares over its in-range voxels (out-of-range columns, vo >= R^3, stay
+// out) and writes them to partial[2][Co][B * voxel_tiles] at its own slot.
+// The caller sums the slots in a fixed order, so the statistics are
+// reproducible bit for bit (no atomics). The reduction is a lane-local sum
+// of the 4 voxels, then a butterfly over the warp's 32 lanes.
+//
+// The same kernel, without prologue and with a zero bias, is the conv's
+// data gradient (pvcnn_tpu/ops/pallas/conv_rows.py:_run_fwd as _act_bwd runs
+// it): dx = conv(dy, W flipped over the three spatial axes, Ci <-> Co).
 //
 // Design. An implicit GEMM in fp32 on the CUDA cores. The output tile of a
 // block is 64 output channels x 128 voxels of one cloud; each of its 4
@@ -76,6 +87,7 @@ conv3d_fwd_kernel(const float* __restrict__ x,       // [B, Ci, R^3]
                   const float* __restrict__ pscale,  // [Ci] (kPrologue)
                   const float* __restrict__ pshift,  // [Ci] (kPrologue)
                   float* __restrict__ y,             // [B, Co, R^3]
+                  float* __restrict__ partial,       // [2, Co, B*tiles] or null
                   int Ci, int Co, int R) {
   __shared__ __align__(16) float As[2][kBK][kBM];
   __shared__ __align__(16) float Bs[2][kBK][kBN];
@@ -223,40 +235,60 @@ conv3d_fwd_kernel(const float* __restrict__ x,       // [B, Ci, R^3]
     __syncthreads();
   }
 
+  // the statistics slot of this block: (cloud, voxel tile)
+  const int slots = gridDim.x * gridDim.z;
+  const int slot = b * gridDim.x + blockIdx.x;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int co = co0 + warp * 16 + i;
+    const int co = co0 + warp * 16 + i;   // uniform over the warp
     if (co >= Co) continue;
     const float bc = __ldg(bias + co);
     float* yrow = y + (static_cast<int64_t>(b) * Co + co) * R3;
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int vo = v0 + lane * 4 + j;
-      if (vo < R3) yrow[vo] = acc[i][j] + bc;
+      if (vo < R3) {
+        const float val = acc[i][j] + bc;
+        yrow[vo] = val;
+        s1 += val;
+        s2 = fmaf(val, val, s2);
+      }
+    }
+    if (partial != nullptr) {
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+      }
+      if (lane == 0) {
+        partial[static_cast<int64_t>(co) * slots + slot] = s1;
+        partial[(static_cast<int64_t>(Co) + co) * slots + slot] = s2;
+      }
     }
   }
 }
 
 template <bool kAligned, bool kPrologue>
 void launch(const float* x, const float* w, const float* bias,
-            const float* pscale, const float* pshift, float* y, int B, int Ci,
-            int Co, int R, cudaStream_t stream) {
+            const float* pscale, const float* pshift, float* y, float* partial,
+            int B, int Ci, int Co, int R, cudaStream_t stream) {
   const int64_t r3 = static_cast<int64_t>(R) * R * R;
   const dim3 grid(static_cast<unsigned>((r3 + kBN - 1) / kBN),
                   static_cast<unsigned>((Co + kBM - 1) / kBM),
                   static_cast<unsigned>(B));
   const size_t pro_bytes = kPrologue ? 2 * sizeof(float) * Ci : 0;
   conv3d_fwd_kernel<kAligned, kPrologue><<<grid, kThreads, pro_bytes, stream>>>(
-      x, w, bias, pscale, pshift, y, Ci, Co, R);
+      x, w, bias, pscale, pshift, y, partial, Ci, Co, R);
 }
 
 }  // namespace
 
 PVCNN_EXPORT int pvcnn_conv3d_fwd(const void* x, const void* w,
                                   const void* bias, const void* pscale,
-                                  const void* pshift, void* y, int B, int Ci,
-                                  int Co, int R, int has_prologue,
-                                  void* stream) {
+                                  const void* pshift, void* y, void* partial,
+                                  int B, int Ci, int Co, int R,
+                                  int has_prologue, void* stream) {
   if (B == 0 || R == 0 || Co == 0) return 0;
   const auto xf = static_cast<const float*>(x);
   const auto wf = static_cast<const float*>(w);
@@ -264,16 +296,17 @@ PVCNN_EXPORT int pvcnn_conv3d_fwd(const void* x, const void* w,
   const auto sf = static_cast<const float*>(pscale);
   const auto tf = static_cast<const float*>(pshift);
   const auto yf = static_cast<float*>(y);
+  const auto pf = static_cast<float*>(partial);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool aligned = Ci % kBK == 0;
   if (aligned && has_prologue) {
-    launch<true, true>(xf, wf, bf, sf, tf, yf, B, Ci, Co, R, st);
+    launch<true, true>(xf, wf, bf, sf, tf, yf, pf, B, Ci, Co, R, st);
   } else if (aligned) {
-    launch<true, false>(xf, wf, bf, sf, tf, yf, B, Ci, Co, R, st);
+    launch<true, false>(xf, wf, bf, sf, tf, yf, pf, B, Ci, Co, R, st);
   } else if (has_prologue) {
-    launch<false, true>(xf, wf, bf, sf, tf, yf, B, Ci, Co, R, st);
+    launch<false, true>(xf, wf, bf, sf, tf, yf, pf, B, Ci, Co, R, st);
   } else {
-    launch<false, false>(xf, wf, bf, sf, tf, yf, B, Ci, Co, R, st);
+    launch<false, false>(xf, wf, bf, sf, tf, yf, pf, B, Ci, Co, R, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""ShapeNet part-segmentation file layout (counterpart of the file-list and
-normalization parts of pvcnn_tpu/data/shapenet.py).
+"""ShapeNet part-segmentation data (counterpart of pvcnn_tpu/data/shapenet.py):
+the file layout, normalization, and the split dataset the trainer samples.
 
 A tree holds `synsetoffset2category.txt` (one `<name> <shape dir>` line per
 shape category, in shape-id order), `train_test_split/
@@ -15,8 +15,9 @@ import os
 
 import numpy as np
 
-__all__ = ["NUM_CLASSES", "NUM_SHAPES", "SHAPE_PART_CLASSES", "file_paths",
-           "normalize_point_cloud", "write_synthetic"]
+__all__ = ["NUM_CLASSES", "NUM_SHAPES", "SHAPE_PART_CLASSES",
+           "ShapeNetDataset", "file_paths", "normalize_point_cloud",
+           "write_synthetic"]
 
 NUM_SHAPES = 16
 NUM_CLASSES = 50
@@ -55,6 +56,49 @@ def normalize_point_cloud(points: np.ndarray) -> np.ndarray:
     """Center on the mean and scale the farthest point to norm 1."""
     points = points - points.mean(axis=0)
     return points / np.max(np.linalg.norm(points, axis=1))
+
+
+class ShapeNetDataset:
+    """One split of a ShapeNet tree as (features [num_points, 22] float32,
+    labels [num_points] int64) samples: normalized xyz, normals and the
+    one-hot shape id per point.
+
+    Each sample resamples num_points of the shape's points with replacement
+    and, in the train split, adds N(0, 0.01) noise clipped to +-0.05 to xyz, drawing both from this dataset's own
+    np.random.RandomState(seed) in the order pvcnn_tpu/data/shapenet.py draws
+    them from numpy's global state. 'train' reads the train and val lists.
+    Parsed shapes stay cached in memory."""
+
+    def __init__(self, root: str, num_points: int, split: str = "train",
+                 seed: int = 0):
+        self.file_paths = file_paths(root, split)
+        self.num_points = int(num_points)
+        self.jitter = split == "train"
+        self.rng = np.random.RandomState(seed)
+        self.cache = {}
+
+    def __len__(self):
+        return len(self.file_paths)
+
+    def __getitem__(self, index):
+        if index not in self.cache:
+            path, shape_id = self.file_paths[index]
+            data = np.loadtxt(path, dtype=np.float32, ndmin=2)
+            packed = np.concatenate(
+                [normalize_point_cloud(data[:, :3]), data[:, 3:6]],
+                axis=1).astype(np.float32)
+            self.cache[index] = (packed, data[:, -1].astype(np.int64),
+                                 shape_id)
+        packed, label, shape_id = self.cache[index]
+        n = self.num_points
+        choice = self.rng.randint(0, label.shape[0], n)
+        features = np.zeros((n, 6 + NUM_SHAPES), dtype=np.float32)
+        features[:, :6] = packed[choice]
+        if self.jitter:
+            features[:, :3] += np.clip(0.01 * self.rng.randn(n, 3), -0.05,
+                                       0.05)
+        features[:, 6 + shape_id] = 1.0
+        return features, label[choice]
 
 
 def write_synthetic(root: str, items, seed: int = 0):

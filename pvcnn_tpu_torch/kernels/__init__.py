@@ -1,11 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in `pvcnn_tpu_torch/csrc/*.cu` export plain C functions. At first
-use they are compiled with nvcc into one shared library under
-`build/pvcnn_tpu_torch/` at the repository root (keyed by a hash of the
-sources and flags, so an edit rebuilds) and loaded with ctypes: pointers and
-the CUDA stream pass as `c_void_p`, sizes as `c_int`. A failed build raises;
-nothing falls back.
+use each is compiled by its own nvcc process, all started together, and the
+objects are linked into one shared library under `build/pvcnn_tpu_torch/` at
+the repository root (keyed by a hash of the sources and flags, so an edit
+rebuilds). It is loaded with ctypes: pointers and the CUDA stream pass as
+`c_void_p`, sizes as `c_int`. A failed build raises; nothing falls back.
 
 Each kernel has a `Kernel` record with a plain-int launch counter. The op
 wrappers (`pvcnn_tpu_torch/ops/`) add one to it where they launch the kernel
@@ -20,6 +20,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pvcnn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,7 +41,11 @@ _SIGNATURES = {
     "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I64, _I64,
                                    _I64, _P],
-    "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
+    "pvcnn_conv3d_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64,
+                             _P],
 }
 
 
@@ -61,6 +66,13 @@ KERNELS = {k.name: k for k in (
            "pvcnn_tpu/ops/pallas/sorted_gather.py:178"),
     Kernel("conv3d_fwd", "pvcnn_tpu_torch/csrc/conv3d.cu",
            "pvcnn_tpu/ops/pallas/conv_rows.py:636"),
+    # the same kernel as the conv's data gradient, counted apart
+    Kernel("conv3d_dgrad", "pvcnn_tpu_torch/csrc/conv3d.cu",
+           "pvcnn_tpu/ops/pallas/conv_rows.py:477"),
+    Kernel("conv3d_wgrad", "pvcnn_tpu_torch/csrc/conv3d_wgrad.cu",
+           "pvcnn_tpu/ops/pallas/conv_rows.py:527"),
+    Kernel("devoxelize_bwd", "pvcnn_tpu_torch/csrc/devoxelize_bwd.cu",
+           "pvcnn_tpu/ops/pallas/sorted_scatter.py:209"),
 )}
 
 
@@ -100,19 +112,30 @@ def build(extra_flags=()) -> tuple[Path, float, str]:
     lib_path = BUILD_DIR / f"pvcnn_kernels_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path, 0.0, ""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, cu)]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)
-    return lib_path, seconds, log
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, src.stem + ".o") for src in cu]
+        cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)]
+                for src, obj in zip(cu, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        tmp = os.path.join(objdir, lib_path.name)
+        cmd = [nvcc, *flags, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{logs[-1]}")
+        os.replace(tmp, lib_path)
+    return lib_path, time.perf_counter() - start, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
 """PVCNN for ShapeNet part segmentation (counterpart of
-pvcnn_tpu/models/shapenet/pvcnn.py, eval forward, without the training
-presort).
+pvcnn_tpu/models/shapenet/pvcnn.py, without the training presort: the
+presort reorders points for the TPU's sorted kernels and computes the same
+function).
 
 Input [B, N, in_channels + num_shapes]: xyz, normals and the one-hot shape
 id per point. Output [B, N, num_classes] logits.

@@ -7,12 +7,36 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 
 from pvcnn_tpu_torch.nn import PVConv, SharedMLP, SplitDense
 
-__all__ = ["apply_layers", "create_mlp_components",
-           "create_pointnet_components"]
+__all__ = ["Dropout", "apply_layers", "create_mlp_components",
+           "create_pointnet_components", "set_dropout_generator"]
+
+
+class Dropout(nn.Dropout):
+    """Dropout whose mask is drawn from `self.generator`, a torch.Generator
+    on the input's device that the trainer owns (the counterpart of the JAX
+    trainer's explicit dropout key); None draws from torch's default
+    generator. Holds no parameters, so state_dict keys do not change."""
+
+    generator: torch.Generator | None = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator):
+    """Make every Dropout of `model` draw from `generator`."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 def apply_layers(layers, x):
@@ -32,7 +56,7 @@ def create_mlp_components(in_channels: int, out_channels: Sequence,
     layers = []
     for oc in out_channels[:-1]:
         if oc < 1:
-            layers.append(nn.Dropout(oc))
+            layers.append(Dropout(oc))
         else:
             oc = int(r * oc)
             layers.append(SharedMLP(in_channels, oc))

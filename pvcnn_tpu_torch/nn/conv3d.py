@@ -25,10 +25,13 @@ class Conv3dSame(nn.Conv3d):
             raise ValueError(f"Conv3dSame requires an odd kernel_size, got {k}")
         super().__init__(in_channels, out_channels, k, padding=k // 2)
 
-    def forward(self, x: torch.Tensor, resolution: int, prologue=None):
-        """x [B, Ci, R^3] rows -> [B, Co, R^3]. prologue: optional
-        (scale, shift) [Ci] pair applied as leaky(x * scale + shift, 0.1)
-        to the input inside the conv (the previous BatchNorm, folded)."""
+    def forward(self, x: torch.Tensor, resolution: int, prologue=None,
+                want_stats: bool = False):
+        """x [B, Ci, R^3] rows -> (y [B, Co, R^3], s1 [Co], s2 [Co]).
+        prologue: optional (scale, shift) [Ci] pair applied as
+        leaky(x * scale + shift, 0.1) to the input inside the conv (the
+        previous BatchNorm, folded). want_stats: s1, s2 are the per-channel
+        sum and sum of squares of y (zeros otherwise)."""
         pscale, pshift = prologue if prologue is not None else (None, None)
         return conv3d_rows_act(x, self.weight, self.bias, pscale, pshift,
-                               resolution, prologue is not None)
+                               resolution, prologue is not None, want_stats)

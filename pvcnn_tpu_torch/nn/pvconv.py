@@ -1,5 +1,5 @@
 """PVConv: the point-voxel convolution block, with Voxelization and SE3d
-(counterpart of pvcnn_tpu/nn/pvconv.py, eval forward).
+(counterpart of pvcnn_tpu/nn/pvconv.py, its fused flat-rows branch).
 
 The voxel grid stays channel-major and flat, [B, C, R^3], from the
 scatter-mean to the trilinear gather: K1 writes it in that layout, K3 reads
@@ -10,7 +10,6 @@ match released checkpoints.
 
 from __future__ import annotations
 
-import torch
 import torch.nn as nn
 
 from pvcnn_tpu_torch import ops
@@ -75,19 +74,26 @@ class PVConv(nn.Module):
     def forward(self, features, coords):
         """features [B, N, C], coords [B, N, 3] -> (fused [B, N, C'], coords).
 
-        The voxel branch is fused as in the JAX package's eval branch: conv0,
-        then conv1 with BatchNorm 0's folded affine and LeakyReLU as its
-        input prologue, then BatchNorm 1 and LeakyReLU as one elementwise
-        pass, then SE and the trilinear gather."""
-        if self.training:
-            raise RuntimeError("PVConv runs the eval forward only; call "
-                               ".eval() first (training is not ported yet)")
+        The voxel branch is fused as in the JAX package: conv0, then conv1
+        with BatchNorm 0's folded affine and LeakyReLU as its input prologue,
+        then BatchNorm 1 and LeakyReLU as one elementwise pass, then SE and
+        the trilinear gather. In eval mode the BatchNorms fold their running
+        statistics; in train mode each conv also returns its output's
+        per-channel sums, and its BatchNorm folds those batch statistics
+        (updating its running ones)."""
         r = self.resolution
         conv0, bn0, _, conv1, bn1, _ = self.voxel_layers[:6]
         grid, norm_coords = self.voxelization(features, coords)
-        grid = conv0(grid, r)
-        grid = conv1(grid, r, prologue=bn0.fold())
-        grid = ops.leaky_affine(grid, *bn1.fold())
+        if self.training:
+            count = grid.shape[0] * r ** 3
+            grid, s1, s2 = conv0(grid, r, want_stats=True)
+            pro = bn0.fold_from_sums(s1, s2, count)
+            grid, s1, s2 = conv1(grid, r, prologue=pro, want_stats=True)
+            grid = ops.leaky_affine(grid, *bn1.fold_from_sums(s1, s2, count))
+        else:
+            grid, _, _ = conv0(grid, r)
+            grid, _, _ = conv1(grid, r, prologue=bn0.fold())
+            grid = ops.leaky_affine(grid, *bn1.fold())
         for se in self.voxel_layers[6:]:
             grid = se(grid)
         voxel_features = ops.devoxelize_rows(grid, norm_coords, r,

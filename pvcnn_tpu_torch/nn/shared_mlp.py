@@ -52,7 +52,9 @@ class BatchNorm(nn.BatchNorm1d):
 
     `fold()` gives the eval-mode affine (scale_eff, shift_eff) with
     bn(y) == y * scale_eff + shift_eff, the prologue the fused conv
-    (ops/conv3d.py) applies in place of a normalize pass over the grid."""
+    (ops/conv3d.py) applies in place of a normalize pass over the grid.
+    `fold_from_sums()` is its training-mode twin, from the batch sums the
+    conv's statistics epilogue returns."""
 
     def forward(self, x):
         c = x.shape[-1]
@@ -67,6 +69,26 @@ class BatchNorm(nn.BatchNorm1d):
                                "statistics; call it in eval mode")
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         return scale, self.bias - self.running_mean * scale
+
+    def fold_from_sums(self, s1, s2, count: int):
+        """Training mode: per-channel sums s1 = sum(y), s2 = sum(y^2) over
+        `count` elements -> the folded (scale_eff, shift_eff) of the batch
+        statistics (mean = s1 / n, biased var = s2 / n - mean^2), updating the
+        running mean and the unbiased running variance (x n / (n - 1)) with
+        the module's momentum, as pvcnn_tpu/nn/shared_mlp.py:
+        BatchNorm._affine does. Differentiable in s1, s2, weight and bias."""
+        if not self.training:
+            raise RuntimeError("BatchNorm.fold_from_sums() folds batch "
+                               "statistics; call it in train mode")
+        n = int(count)
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return scale, self.bias - mean * scale
 
 
 class SharedMLP(nn.Module):

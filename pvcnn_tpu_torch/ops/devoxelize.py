@@ -1,9 +1,13 @@
 """Trilinear devoxelization: per-point trilinear interpolation out of a voxel
-grid (counterpart of pvcnn_tpu/ops/devoxelize.py, forward only).
+grid, and its gradient (counterpart of pvcnn_tpu/ops/devoxelize.py).
 
-`devoxelize_rows` is the dispatch point of kernel K2
-(pvcnn_tpu_torch/csrc/devoxelize.cu): a CUDA tensor goes to the kernel, a
-CPU tensor to the plain 8-corner gather beside it (`_devoxelize_plain`).
+`devoxelize_rows` is a torch.autograd.Function whose forward and backward
+dispatch by device. Forward: a CUDA tensor goes to kernel K2
+(pvcnn_tpu_torch/csrc/devoxelize.cu), a CPU tensor to the plain 8-corner
+gather beside it (`_devoxelize_plain`). Backward, the grid gradient: kernel
+K5 (csrc/devoxelize_bwd.cu), or the plain 8-corner `scatter_add_`
+(`_devoxelize_bwd_plain`). No gradient flows into norm_coords, as in the
+reference.
 
 Edge rule, bit-for-bit with the reference CUDA kernel: coordinates arrive
 clamped to [0, R-1]; the hi corner collapses onto lo where the fractional
@@ -54,11 +58,30 @@ def devoxelize_rows(grid: torch.Tensor, norm_coords: torch.Tensor,
                     resolution: int, channels_first: bool = False):
     """grid [B, R^3, C] (or [B, C, R^3] with channels_first, the PVConv
     voxel branch's layout), norm_coords [B, N, 3] in [0, R-1] ->
-    [B, N, C] trilinear interpolation."""
-    if grid.device.type == "cpu":
-        return _devoxelize_plain(grid, norm_coords, resolution,
-                                 channels_first)
-    return _devoxelize_cuda(grid, norm_coords, resolution, channels_first)
+    [B, N, C] trilinear interpolation. Differentiable in grid."""
+    return _DevoxelizeRows.apply(grid, norm_coords, int(resolution),
+                                 bool(channels_first))
+
+
+class _DevoxelizeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grid, norm_coords, resolution, channels_first):
+        fwd = (_devoxelize_plain if grid.device.type == "cpu"
+               else _devoxelize_cuda)
+        ctx.resolution = resolution
+        ctx.channels_first = channels_first
+        ctx.save_for_backward(norm_coords)
+        return fwd(grid, norm_coords, resolution, channels_first)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (norm_coords,) = ctx.saved_tensors
+        bwd = (_devoxelize_bwd_plain if g.device.type == "cpu"
+               else _devoxelize_bwd_cuda)
+        return (bwd(g, norm_coords, ctx.resolution, ctx.channels_first),
+                None, None, None)
 
 
 def _devoxelize_plain(grid, norm_coords, resolution, channels_first):
@@ -100,6 +123,52 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
             "trilinear_devoxelize", "pvcnn_trilinear_devoxelize",
             grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b, n, c,
             r, bins * c, stride_v, stride_c,
+            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _devoxelize_bwd_plain(g, norm_coords, resolution, channels_first):
+    """g [B, N, C] -> grid gradient in the grid's layout: each point's
+    cotangent times its corner weight, summed into the 8 corner bins."""
+    r = int(resolution)
+    b, n, c = g.shape
+    idx8, w8 = _corners(norm_coords.detach(), r)
+    rows = g.new_zeros((b, r ** 3, c))
+    for k in range(8):
+        rows.scatter_add_(1, idx8[..., k, None].expand(-1, -1, c),
+                          w8[..., k, None] * g)
+    return rows.transpose(1, 2).contiguous() if channels_first else rows
+
+
+def _devoxelize_bwd_cuda(g, norm_coords, resolution, channels_first):
+    r = int(resolution)
+    if g.device.type != "cuda" or norm_coords.device != g.device:
+        raise ValueError("devoxelize_bwd kernel needs g and norm_coords on "
+                         f"one CUDA device, got {g.device} and "
+                         f"{norm_coords.device}")
+    if g.dtype != torch.float32 or norm_coords.dtype != torch.float32:
+        raise ValueError("devoxelize_bwd kernel takes float32, got "
+                         f"{g.dtype} and {norm_coords.dtype}")
+    b, n, c = g.shape
+    if tuple(norm_coords.shape) != (b, n, 3):
+        raise ValueError(f"g {tuple(g.shape)} and norm_coords "
+                         f"{tuple(norm_coords.shape)} do not match")
+    bins = r ** 3
+    g = g.contiguous()
+    # glue: the forward's corners and weights, and a stable per-cloud sort
+    # of the 8N corner bins that fixes each bin's summation order
+    idx8, w8 = _corners(norm_coords.detach(), r)
+    sorted_bin, perm = torch.sort(idx8.reshape(b, 8 * n).to(torch.int32),
+                                  dim=1, stable=True)
+    w8 = w8.reshape(b, 8 * n).contiguous()
+    out = torch.empty((b, c, bins) if channels_first else (b, bins, c),
+                      dtype=torch.float32, device=g.device)
+    stride_v, stride_c = (1, bins) if channels_first else (c, 1)
+    with torch.cuda.device(g.device):
+        kernels.launch(
+            "devoxelize_bwd", "pvcnn_devoxelize_bwd", g.data_ptr(),
+            sorted_bin.data_ptr(), perm.data_ptr(), w8.data_ptr(),
+            out.data_ptr(), b, n, c, bins, stride_v, stride_c,
             torch.cuda.current_stream().cuda_stream)
     return out
 

@@ -1,11 +1,14 @@
 """Average voxelization: coordinate normalization and the scatter-mean of point
 features into a dense R^3 grid (counterpart of pvcnn_tpu/ops/voxelize.py).
 
-`scatter_mean` is the dispatch point of kernel K1
-(pvcnn_tpu_torch/csrc/voxelize.cu): a CUDA tensor goes to the kernel, a CPU
-tensor to the plain PyTorch version beside it (`_scatter_mean_plain`).
+`scatter_mean` is a torch.autograd.Function. Its forward dispatches by
+device: a CUDA tensor goes to kernel K1 (pvcnn_tpu_torch/csrc/voxelize.cu), a
+CPU tensor to the plain PyTorch version beside it (`_scatter_mean_plain`).
 Both are deterministic: the kernel sums each bin in point order after a
-stable sort, the plain version with `scatter_add_` on the CPU.
+stable sort, the plain version with `scatter_add_` on the CPU. Its backward
+gathers each point's bin gradient divided by the bin's count, in plain torch
+on both devices (an XLA gather in the JAX package, take_rows, not a Pallas
+kernel).
 """
 
 from __future__ import annotations
@@ -53,11 +56,44 @@ def scatter_mean(features: torch.Tensor, flat_idx: torch.Tensor,
 
     features [B, N, C] float, flat_idx [B, N] int in [0, num_bins) ->
     [B, num_bins, C], or [B, C, num_bins] with channels_first (the layout the
-    conv consumes). Empty bins are 0."""
-    if features.device.type == "cpu":
-        return _scatter_mean_plain(features, flat_idx, num_bins,
-                                   channels_first)
-    return _scatter_mean_cuda(features, flat_idx, num_bins, channels_first)
+    conv consumes). Empty bins are 0. Differentiable in features."""
+    return _ScatterMean.apply(features, flat_idx, int(num_bins),
+                              bool(channels_first))
+
+
+class _ScatterMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, flat_idx, num_bins, channels_first):
+        fwd = (_scatter_mean_plain if features.device.type == "cpu"
+               else _scatter_mean_cuda)
+        out = fwd(features, flat_idx, num_bins, channels_first)
+        ctx.channels_first = channels_first
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(flat_idx, _counts(flat_idx, num_bins))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        flat_idx, counts = ctx.saved_tensors
+        idx = flat_idx.long()
+        # g[b, bin(n)] / max(count, 1) at each point
+        denom = torch.gather(counts, 1, idx).clamp(min=1).to(g.dtype)
+        if ctx.channels_first:                     # g [B, C, bins]
+            rows = torch.gather(g, 2, idx[:, None, :].expand(-1, g.shape[1],
+                                                             -1))
+            rows = rows.transpose(1, 2)
+        else:                                      # g [B, bins, C]
+            rows = torch.gather(g, 1, idx[..., None].expand(-1, -1,
+                                                            g.shape[2]))
+        return rows / denom[..., None], None, None, None
+
+
+def _counts(flat_idx, num_bins):
+    """[B, N] bin ids -> [B, num_bins] int64 points per bin."""
+    b = flat_idx.shape[0]
+    offset = torch.arange(b, device=flat_idx.device)[:, None] * num_bins
+    return torch.bincount((flat_idx.long() + offset).reshape(-1),
+                          minlength=b * num_bins).reshape(b, num_bins)
 
 
 def _scatter_mean_plain(features, flat_idx, num_bins, channels_first):

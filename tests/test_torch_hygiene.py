@@ -6,6 +6,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -66,10 +67,32 @@ CALLS = {
     "trilinear_devoxelize": (devoxelize, "_devoxelize_plain", lambda:
                              devoxelize.devoxelize_rows(
                                  _meta(2, 512, 16), _meta(2, 64, 3), 8)),
-    "conv3d_fwd": (conv3d, "_conv3d_plain", lambda: conv3d.conv3d_rows_act(
+    "conv3d_fwd": (conv3d, "_forward_plain", lambda: conv3d.conv3d_rows_act(
         _meta(2, 6, 512), _meta(16, 6, 3, 3, 3), _meta(16), None, None, 8,
-        False)),
+        False, True)),
+    # the backward passes dispatch on the saved tensors' device
+    "conv3d_dgrad": (conv3d, "_dgrad_plain", lambda: _conv_backward(
+        (True, False, False, False, False))),
+    "conv3d_wgrad": (conv3d, "_wgrad_plain", lambda: _conv_backward(
+        (False, True, False, False, False))),
+    "devoxelize_bwd": (devoxelize, "_devoxelize_bwd_plain", lambda:
+                       devoxelize._DevoxelizeRows.backward(
+                           types.SimpleNamespace(
+                               saved_tensors=(_meta(2, 64, 3),),
+                               needs_input_grad=(True, False, False, False),
+                               resolution=8, channels_first=True),
+                           _meta(2, 64, 16))),
 }
+
+
+def _conv_backward(needs):
+    ctx = types.SimpleNamespace(
+        saved_tensors=(_meta(2, 6, 512), _meta(16, 6, 3, 3, 3), None, None,
+                       None),
+        needs_input_grad=needs, resolution=8, has_prologue=False,
+        want_stats=False)
+    return conv3d._Conv3dRowsAct.backward(ctx, _meta(2, 16, 512), _meta(16),
+                                          _meta(16))
 
 
 @pytest.mark.parametrize("name", sorted(CALLS))

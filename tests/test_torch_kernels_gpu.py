@@ -64,9 +64,126 @@ def test_conv3d_kernel(dev, ci, co, r, has_prologue):
     scale = torch.rand(ci, device=dev) + 0.5
     shift = torch.randn(ci, device=dev)
     args = (x, w, bias, scale, shift, r, has_prologue)
-    torch.testing.assert_close(ops.conv3d_rows_act(*args),
-                               conv3d._conv3d_plain(*args),
+    y, s1, s2 = ops.conv3d_rows_act(*args, want_stats=True)
+    torch.testing.assert_close(y, conv3d._conv3d_plain(*args),
                                rtol=1e-4, atol=1e-4)
+    want1, want2 = conv3d._stats_plain(y)
+    torch.testing.assert_close(s1, want1, rtol=1e-4,
+                               atol=1e-4 * y.abs().sum().item() / co)
+    torch.testing.assert_close(s2, want2, rtol=1e-4, atol=0)
+    again = ops.conv3d_rows_act(*args, want_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+
+
+def _cpu_twin(tensors):
+    return [t.detach().cpu().requires_grad_(t.requires_grad) for t in tensors]
+
+
+def _grads_close(got, want, rtol=1e-4):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        scale = max(1.0, w.abs().max().item())
+        torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=rtol * scale)
+
+
+@pytest.mark.parametrize("has_prologue,want_stats", [(False, True),
+                                                     (True, True),
+                                                     (True, False)])
+@pytest.mark.parametrize("ci,co,r", [(6, 16, 8), (16, 80, 12),
+                                     (130, 70, 8)])
+def test_conv3d_grads_on_card(dev, ci, co, r, has_prologue, want_stats):
+    """The op's backward on the card (K3 as the dgrad, K4 as the wgrad)
+    against the same op on the CPU (the plain versions), with cotangents
+    on y, s1 and s2; ragged row and column tiles included."""
+    t = [torch.randn(2, ci, r ** 3, device=dev),
+         torch.randn(co, ci, 3, 3, 3, device=dev) * 0.1,
+         torch.randn(co, device=dev),
+         torch.rand(ci, device=dev) + 0.5, torch.randn(ci, device=dev)]
+    for x in t:
+        x.requires_grad_()
+    cot = [torch.randn(2, co, r ** 3, device=dev),
+           torch.randn(co, device=dev) * 0.1,
+           torch.randn(co, device=dev) * 0.01]
+    counts = kernels.launch_counts()
+    out = ops.conv3d_rows_act(*t, r, has_prologue, want_stats)
+    got = torch.autograd.grad(out, t, cot, allow_unused=True)
+    after = kernels.launch_counts()
+    assert after["conv3d_dgrad"] == counts["conv3d_dgrad"] + 1
+    assert after["conv3d_wgrad"] == counts["conv3d_wgrad"] + 1
+    tc = _cpu_twin(t)
+    want = torch.autograd.grad(
+        ops.conv3d_rows_act(*tc, r, has_prologue, want_stats), tc,
+        [c.cpu() for c in cot], allow_unused=True)
+    _grads_close(got, want)
+    again = torch.autograd.grad(
+        ops.conv3d_rows_act(*t, r, has_prologue, want_stats), t, cot,
+        allow_unused=True)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("ci,co,r", [(6, 16, 8), (64, 64, 16)])
+def test_wgrad_kernel(dev, ci, co, r, has_prologue):
+    x = torch.randn(2, ci, r ** 3, device=dev)
+    gy = torch.randn(2, co, r ** 3, device=dev)
+    scale = torch.rand(ci, device=dev) + 0.5
+    shift = torch.randn(ci, device=dev)
+    args = (x, gy, scale, shift, r, has_prologue)
+    before = kernels.KERNELS["conv3d_wgrad"].launches
+    got = conv3d._wgrad_cuda(*args)
+    assert kernels.KERNELS["conv3d_wgrad"].launches == before + 1
+    want = conv3d._wgrad_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    assert torch.equal(got, conv3d._wgrad_cuda(*args))
+
+
+@pytest.mark.parametrize("ci,co,r", [(16, 6, 8), (64, 32, 16)])
+def test_dgrad_kernel(dev, ci, co, r):
+    gy = torch.randn(2, co, r ** 3, device=dev)
+    w = torch.randn(co, ci, 3, 3, 3, device=dev) * 0.1
+    torch.testing.assert_close(conv3d._dgrad_cuda(gy, w, r),
+                               conv3d._dgrad_plain(gy, w, r),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("channels_first", [False, True])
+@pytest.mark.parametrize("c,r", [(16, 8), (32, 16), (13, 8)])
+def test_devoxelize_bwd_kernel(dev, c, r, channels_first):
+    _, norm = ops.normalize_coords(_coords(dev), r, normalize=True)
+    norm[:, :4] = norm[:, :4].floor()          # collapsed corners
+    g = torch.randn(2, 512, c, device=dev)
+    before = kernels.KERNELS["devoxelize_bwd"].launches
+    got = devoxelize._devoxelize_bwd_cuda(g, norm, r, channels_first)
+    assert kernels.KERNELS["devoxelize_bwd"].launches == before + 1
+    want = devoxelize._devoxelize_bwd_plain(g, norm, r, channels_first)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(
+        g, norm, r, channels_first))
+    # through the op's backward
+    grid = torch.randn(2, c, r ** 3, device=dev)
+    if not channels_first:
+        grid = grid.transpose(1, 2).contiguous()
+    grid.requires_grad_()
+    out = ops.devoxelize_rows(grid, norm, r, channels_first)
+    (dgrid,) = torch.autograd.grad(out, grid, g)
+    assert torch.equal(dgrid, got)
+
+
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_scatter_mean_backward_on_card(dev, channels_first):
+    vox, _ = ops.normalize_coords(_coords(dev), 8, normalize=False)
+    flat = ops.flat_voxel_index(vox, 8)
+    feats = torch.randn(2, 512, 16, device=dev, requires_grad=True)
+    out = ops.scatter_mean(feats, flat, 512, channels_first)
+    g = torch.randn_like(out)
+    (got,) = torch.autograd.grad(out, feats, g)
+    fc = feats.detach().cpu().requires_grad_()
+    (want,) = torch.autograd.grad(
+        ops.scatter_mean(fc, flat.cpu(), 512, channels_first), fc, g.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -78,3 +195,25 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ops.scatter_mean(x.double().transpose(1, 2),
                          torch.zeros(1, 512, dtype=torch.int32, device=dev),
                          512)
+    # the new wrappers: wrong dtype, wrong device, too many prologue channels
+    gy = torch.randn(1, 4, 512, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        conv3d._wgrad_cuda(x.double(), gy, None, None, 8, False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        conv3d._wgrad_cuda(x, gy, torch.ones(4), torch.zeros(4), 8, True)
+    with pytest.raises(ValueError, match="float32"):
+        conv3d._dgrad_cuda(gy.double(), torch.randn(4, 4, 3, 3, 3,
+                                                    device=dev), 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        devoxelize._devoxelize_bwd_cuda(torch.randn(1, 64, 4, device=dev),
+                                        torch.rand(1, 64, 3), 8, True)
+    with pytest.raises(ValueError, match="float32"):
+        devoxelize._devoxelize_bwd_cuda(
+            torch.randn(1, 64, 4, device=dev, dtype=torch.float64),
+            torch.rand(1, 64, 3, device=dev), 8, True)
+    wide = torch.randn(1, 2049, 8, device=dev)
+    with pytest.raises(ValueError, match="at most 2048"):
+        ops.conv3d_rows_act(wide, torch.randn(4, 2049, 3, 3, 3, device=dev),
+                            torch.zeros(4, device=dev),
+                            torch.ones(2049, device=dev),
+                            torch.zeros(2049, device=dev), 2, True)

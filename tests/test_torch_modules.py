@@ -1,5 +1,5 @@
 """The port's nn modules (pvcnn_tpu_torch/nn) against their flax counterparts
-in pvcnn_tpu/nn, in eval mode, with the flax variables moved into the port
+in pvcnn_tpu/nn, in eval mode (and PVConv in train mode, gradients included), with the flax variables moved into the port
 by pvcnn_tpu_torch/utils/weights.py through the checkpoint-import mapping
 entries.
 
@@ -12,6 +12,7 @@ another order).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -147,10 +148,68 @@ def test_pvconv(monkeypatch, r, cin, cout, with_se, normalize, interpret):
     assert torch.equal(got_coords, torch.from_numpy(coords))
 
 
-def test_pvconv_is_eval_only():
-    port = tnn.PVConv(6, 8, 3, 8)
-    with pytest.raises(RuntimeError, match="eval"):
-        port(torch.zeros(1, 16, 6), torch.zeros(1, 16, 3))
+def _flat(tree):
+    return np.concatenate([np.ravel(np.asarray(x, np.float64))
+                           for x in jax.tree.leaves(tree)])
+
+
+@pytest.mark.parametrize("r,cin,cout,with_se,normalize,interpret", [
+    (16, 6, 16, True, False, True),       # JAX: fused rows branch, Pallas
+    (8, 16, 16, False, True, False),      # JAX: NDHWC branch, XLA
+])
+def test_pvconv_train(monkeypatch, r, cin, cout, with_se, normalize,
+                      interpret):
+    """Train mode: the output (batch-statistic BatchNorms folded from the
+    convs' sums), the updated running statistics, and every parameter
+    gradient of sum(out * g) against the flax PVConv with train=True."""
+    monkeypatch.setenv("PVCNN_TPU_PALLAS_INTERPRET", str(int(interpret)))
+    rng = np.random.RandomState(3 * r + cin)
+    feats = rng.randn(2, 256, cin).astype(np.float32)
+    coords = (rng.uniform(-1, 1, (2, 256, 3)) * [1.0, 0.6, 0.4]).astype(
+        np.float32)
+    g = rng.randn(2, 256, cout).astype(np.float32)
+    kw = dict(with_se=with_se, normalize=normalize,
+              eps=1e-4 if normalize else 0.0)
+    flax_mod = jnn.PVConv(cout, 3, r, **kw)
+    port = tnn.PVConv(cin, cout, 3, r, **kw)
+    entries = ci.pvconv_entries("m", "m", with_se)
+    v = _move(flax_mod.init(jax.random.PRNGKey(0), feats, coords), port,
+              entries, seed=9)
+
+    def loss(params):
+        (out, _), mutated = flax_mod.apply(
+            {"params": params, "batch_stats": v["batch_stats"]}, feats,
+            coords, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * g), (out, mutated["batch_stats"])
+
+    with jax.default_matmul_precision("float32"):
+        (_, (want, want_stats)), want_grads = jax.value_and_grad(
+            loss, has_aux=True)(v["params"])
+    port.train()
+    got, _ = port(torch.from_numpy(feats), torch.from_numpy(coords))
+    _close(got, want, tol=1e-4)
+    (got * torch.from_numpy(g)).sum().backward()
+
+    holder = torch.nn.ModuleDict({"m": port})
+    named = dict(holder.named_parameters())
+    grads = {k: (named[k].grad if k in named else torch.zeros_like(t))
+             .numpy() for k, t in holder.state_dict().items()}
+    templates = ({"m": v["params"]}, {"m": v["batch_stats"]})
+    got_grads, _ = ci.import_state_dict(grads, *templates, entries)
+    state = {k: t.numpy() for k, t in holder.state_dict().items()}
+    _, got_stats = ci.import_state_dict(state, *templates, entries)
+    np.testing.assert_allclose(_flat(got_stats["m"]), _flat(want_stats),
+                               rtol=1e-4, atol=1e-4)
+    want_flat, got_flat = _flat(want_grads), _flat(got_grads["m"])
+    assert np.abs(want_flat).max() > 0
+    np.testing.assert_allclose(got_flat, want_flat, rtol=1e-4,
+                               atol=1e-4 * np.abs(want_flat).max())
+
+
+def test_batchnorm_fold_from_sums_needs_train_mode():
+    with pytest.raises(RuntimeError, match="train mode"):
+        tnn.BatchNorm(8).eval().fold_from_sums(torch.zeros(8), torch.ones(8),
+                                               4)
 
 
 @pytest.mark.parametrize("spec,classifier", [
