@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py [--profile]
 
-Phases, each printing its own lines and raising on failure:
+Two main paths: ShapeNet PVCNN 1x (B = 32, N = 2048) and S3DIS PVCNN2 1x
+(B = 32, N = 8192, 9 channels, 13 classes). Phases, each printing its own
+lines and raising on failure:
 
   1. device     requires CUDA (exits non-zero without it), prints
                 `nvidia-smi --query-gpu=name,power.limit`, turns TF32 off;
   2. build      compiles the CUDA kernels from pvcnn_tpu_torch/csrc;
   3. kernels    each kernel against its plain PyTorch version on the card,
-                at the shapes ShapeNet PVCNN 1x training gives it (B=32,
-                N=2048): two runs bitwise equal, max abs/rel difference,
-                median CUDA-event times of the kernel, the plain version
-                and (where one PyTorch call computes the same function) that
-                call, and the least time the card could take (bound);
+                at the shapes ShapeNet PVCNN 1x training gives it: two runs
+                bitwise equal, max abs/rel difference, median CUDA-event
+                times of the kernel, the plain version and (where one
+                PyTorch call computes the same function) that call, and the
+                least time the card could take (bound);
   4. slice      PVCNN 1x eval forward on a 32 x 2048 x 22 batch with seeded
                 weights: kernel path against the plain path on the card, and
                 against the CPU plain path on a 2-cloud batch; ms/batch;
@@ -28,11 +30,32 @@ Phases, each printing its own lines and raising on failure:
                 (with --profile: a torch.profiler breakdown of 3 steps);
   7. trainer    the training entry point (one epoch of 4 steps at batch 32
                 on a synthetic tree of 64 shapes, then the test split), from
-                zeroed launch counters: the main path; its checkpoints are
-                written and a resumed run loads them.
+                zeroed launch counters: the ShapeNet main path; its
+                checkpoints are written and a resumed run loads them;
+  8. pvcnn2 kernels
+                the same as phase 3 at the shapes PVCNN2 training gives
+                every kernel (FPS, ball query, three-NN, K1's sum mode for
+                the take_rows backward, K1-K5 at R = 32, 16, 8), on
+                synthetic S3DIS windows; the index kernels must equal their
+                plain versions exactly;
+  9. pvcnn2 slice
+                PVCNN2 eval forward, as phase 4;
+ 10. pvcnn2 train
+                PVCNN2 training steps (Adam, weight decay 1e-5), as phase 6
+                (with --profile: its torch.profiler breakdown too);
+ 11. pvcnn2 trainer
+                from zeroed launch counters, Trainer.train_epoch (4 steps of
+                the c1 recipe: Adam lr 1e-3, weight decay 1e-5, cosine
+                schedule) and Trainer.evaluate with MeterS3DIS iou and
+                overall, through data/loader.py's DataLoader over in-memory
+                windows, and a save_checkpoint/load_checkpoint round trip:
+                the PVCNN2 main path.
 
 The last two lines are a JSON object with the per-kernel record and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
+the two trainer phases (7 and 11); its times, bounds and library time are
+per training step, summed over the two models' steps (each path's own
+numbers under "paths").
 """
 
 from __future__ import annotations
@@ -51,29 +74,34 @@ import numpy as np
 import torch
 
 B, N, SEED = 32, 2048, 0
+N2 = 8192                    # S3DIS PVCNN2 window size
 DEVICE = "cuda"
 # the card's peaks (NVIDIA H100 SXM data sheet): fp32 outside the tensor
 # cores and HBM bandwidth; the bound of a call is the larger of its FLOPs
 # over the first and its bytes (inputs read once, outputs written once)
 # over the second
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-# kernel-vs-plain tolerances (rtol, atol): K1/K2/K5 sum a few fp32 terms in
-# another order; K3 and its dgrad sum 27 * Ci terms in another order than
-# cuDNN's fp32 (TF32 off) conv; K4 sums B * R^3 products, so its atol is
-# relative to the gradient's largest entry
+# kernel-vs-plain tolerances (rtol, atol): K1/K2/K5 and K1's sum mode sum a
+# few fp32 terms in another order; K3 and its dgrad sum 27 * Ci terms in
+# another order than cuDNN's fp32 (TF32 off) conv; K4 sums B * R^3
+# products, so its atol is relative to the gradient's largest entry. The
+# index kernels (fps, ball_query, three_nn) must equal their plain versions
+# exactly; three_nn's d² and weights are held to 1e-5.
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
        "conv3d_fwd": (1e-4, 1e-4), "conv3d_dgrad": (1e-4, 1e-4),
-       "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5)}
-# (kernel, case) -> calls per PVCNN 1x training step (the forward's calls
-# are the eval forward's too). Cases: K1/K2/K5 (C, R); K3 and K4
-# (Ci, Co, R, prologue) of the forward conv; dgrad (Co, Ci, R) of the
-# forward conv it differentiates (the dgrad maps Co -> Ci channels). Cases
-# with 0 calls are checked but not timed.
+       "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5),
+       "scatter_sum": (1e-5, 1e-5), "three_nn": (1e-5, 1e-5),
+       "fps": (0.0, 0.0), "ball_query": (0.0, 0.0)}
+# (kernel, case) -> calls per ShapeNet PVCNN 1x training step (the
+# forward's calls are the eval forward's too). Cases: K1/K2/K5 (C, R, N);
+# K3 and K4 (Ci, Co, R, prologue) of the forward conv; dgrad (Co, Ci, R) of
+# the forward conv it differentiates (the dgrad maps Co -> Ci channels).
+# Cases with 0 calls are checked but not timed.
 CALLS = {
-    ("avg_voxelize", (6, 32)): 1, ("avg_voxelize", (64, 16)): 1,
-    ("avg_voxelize", (128, 16)): 1,
-    ("trilinear_devoxelize", (64, 32)): 1,
-    ("trilinear_devoxelize", (128, 16)): 2,
+    ("avg_voxelize", (6, 32, N)): 1, ("avg_voxelize", (64, 16, N)): 1,
+    ("avg_voxelize", (128, 16, N)): 1,
+    ("trilinear_devoxelize", (64, 32, N)): 1,
+    ("trilinear_devoxelize", (128, 16, N)): 2,
     ("conv3d_fwd", (6, 64, 32, False)): 1,
     ("conv3d_fwd", (6, 64, 32, True)): 0,
     ("conv3d_fwd", (64, 64, 32, False)): 0,
@@ -85,13 +113,69 @@ CALLS = {
     ("conv3d_dgrad", (64, 64, 32)): 1,
     ("conv3d_dgrad", (128, 64, 16)): 1,
     ("conv3d_dgrad", (128, 128, 16)): 3,
-    ("devoxelize_bwd", (64, 32)): 1, ("devoxelize_bwd", (128, 16)): 2,
+    ("devoxelize_bwd", (64, 32, N)): 1, ("devoxelize_bwd", (128, 16, N)): 2,
 }
-for (_k, _c), _n in list(CALLS.items()):
-    if _k == "conv3d_fwd":
-        CALLS[("conv3d_wgrad", _c)] = _n
+# The same per S3DIS PVCNN2 1x training step, from the model's structure:
+# the PVConv blocks (Ci -> Co, R, points) SA1 (9 -> 32, 32, 8192) and
+# (32 -> 32, 32, 8192); SA2 3 x (64 -> 64, 16, 1024); SA3 3 x (128 -> 128,
+# 8, 256); FP1 (256 -> 256, 8, 64); FP2 (256 -> 256, 8, 256); FP3 2 x
+# (128 -> 128, 16, 1024); FP4 (64 -> 64, 32, 8192). The first conv0 runs no
+# dgrad. Then FPS (N, M), ball query (M, N, radius, U) and three-NN (N, M)
+# per level, and K1's sum mode (K rows, bins, C) for the take_rows
+# backwards of the 4 SA groupings and the 4 FP interpolations.
+CALLS2 = {
+    ("avg_voxelize", (9, 32, 8192)): 1, ("avg_voxelize", (32, 32, 8192)): 1,
+    ("avg_voxelize", (64, 16, 1024)): 3, ("avg_voxelize", (128, 8, 256)): 3,
+    ("avg_voxelize", (256, 8, 64)): 1, ("avg_voxelize", (256, 8, 256)): 1,
+    ("avg_voxelize", (128, 16, 1024)): 2,
+    ("avg_voxelize", (64, 32, 8192)): 1,
+    ("conv3d_fwd", (9, 32, 32, False)): 1,
+    ("conv3d_fwd", (32, 32, 32, False)): 1,
+    ("conv3d_fwd", (32, 32, 32, True)): 2,
+    ("conv3d_fwd", (64, 64, 16, False)): 3,
+    ("conv3d_fwd", (64, 64, 16, True)): 3,
+    ("conv3d_fwd", (128, 128, 8, False)): 3,
+    ("conv3d_fwd", (128, 128, 8, True)): 3,
+    ("conv3d_fwd", (256, 256, 8, False)): 2,
+    ("conv3d_fwd", (256, 256, 8, True)): 2,
+    ("conv3d_fwd", (128, 128, 16, False)): 2,
+    ("conv3d_fwd", (128, 128, 16, True)): 2,
+    ("conv3d_fwd", (64, 64, 32, False)): 1,
+    ("conv3d_fwd", (64, 64, 32, True)): 1,
+    ("conv3d_dgrad", (32, 32, 32)): 3, ("conv3d_dgrad", (64, 64, 16)): 6,
+    ("conv3d_dgrad", (128, 128, 8)): 6, ("conv3d_dgrad", (256, 256, 8)): 4,
+    ("conv3d_dgrad", (128, 128, 16)): 4, ("conv3d_dgrad", (64, 64, 32)): 2,
+    ("fps", (8192, 1024)): 1, ("fps", (1024, 256)): 1, ("fps", (256, 64)): 1,
+    ("fps", (64, 16)): 1,
+    ("ball_query", (1024, 8192, 0.1, 32)): 1,
+    ("ball_query", (256, 1024, 0.2, 32)): 1,
+    ("ball_query", (64, 256, 0.4, 32)): 1,
+    ("ball_query", (16, 64, 0.8, 32)): 1,
+    ("three_nn", (64, 16)): 1, ("three_nn", (256, 64)): 1,
+    ("three_nn", (1024, 256)): 1, ("three_nn", (8192, 1024)): 1,
+    ("scatter_sum", (32768, 8192, 32)): 1,
+    ("scatter_sum", (8192, 1024, 64)): 1,
+    ("scatter_sum", (2048, 256, 128)): 1, ("scatter_sum", (512, 64, 256)): 1,
+    ("scatter_sum", (192, 16, 512)): 1, ("scatter_sum", (768, 64, 256)): 1,
+    ("scatter_sum", (3072, 256, 256)): 1,
+    ("scatter_sum", (24576, 1024, 128)): 1,
+}
+# a PVConv's devoxelize and its backward run at (Co, R, points)
+for _case, _n in (((32, 32, 8192), 2), ((64, 16, 1024), 3),
+                  ((128, 8, 256), 3), ((256, 8, 64), 1), ((256, 8, 256), 1),
+                  ((128, 16, 1024), 2), ((64, 32, 8192), 1)):
+    CALLS2[("trilinear_devoxelize", _case)] = _n
+    CALLS2[("devoxelize_bwd", _case)] = _n
+for _calls in (CALLS, CALLS2):
+    for (_k, _c), _n in list(_calls.items()):
+        if _k == "conv3d_fwd":
+            _calls[("conv3d_wgrad", _c)] = _n
 PER_STEP = {"avg_voxelize": 3, "trilinear_devoxelize": 3, "conv3d_fwd": 6,
             "conv3d_dgrad": 5, "conv3d_wgrad": 6, "devoxelize_bwd": 3}
+PER_STEP2 = {"avg_voxelize": 13, "trilinear_devoxelize": 13,
+             "conv3d_fwd": 26, "conv3d_dgrad": 25, "conv3d_wgrad": 26,
+             "devoxelize_bwd": 13, "scatter_sum": 8, "fps": 4,
+             "ball_query": 4, "three_nn": 4}
 
 
 def log(phase: str, msg: str) -> None:
@@ -127,22 +211,40 @@ def cloud(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
     return np.concatenate([xyz, dirs, one_hot], axis=-1).astype(np.float32)
 
 
+def windows(rng: np.random.RandomState, b: int, n: int):
+    """[b, n, 9] S3DIS-like windows and [b, n] labels in 0..12: xyz in the
+    block (x, y uniform in [0, 1], z in [0, 3]), rgb in [0, 1], and xyz
+    normalized by a room of 3-9 m x 3-7 m x 3 m that holds the block."""
+    xyz = rng.rand(b, n, 3) * [1.0, 1.0, 3.0]
+    rgb = rng.rand(b, n, 3)
+    offset = rng.rand(b, 1, 3) * [6.0, 4.0, 0.0]
+    room = offset + rng.rand(b, 1, 3) * [2.0, 2.0, 0.0] + [1.0, 1.0, 3.0]
+    x = np.concatenate([xyz, rgb, (xyz + offset) / room], axis=-1)
+    return x.astype(np.float32), rng.randint(0, 13, (b, n)).astype(np.int64)
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Route CUDA tensors to the plain PyTorch versions, forward and
     backward (the comparison path of this script; the package itself never
     does this)."""
-    from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
+    from pvcnn_tpu_torch.ops import (conv3d, devoxelize, interpolate,
+                                     neighbors, sampling, voxelize)
 
-    with mock.patch.object(voxelize, "_scatter_mean_cuda",
-                           voxelize._scatter_mean_plain), \
-            mock.patch.object(devoxelize, "_devoxelize_cuda",
-                              devoxelize._devoxelize_plain), \
-            mock.patch.object(devoxelize, "_devoxelize_bwd_cuda",
-                              devoxelize._devoxelize_bwd_plain), \
-            mock.patch.object(conv3d, "_forward_cuda", conv3d._forward_plain), \
-            mock.patch.object(conv3d, "_dgrad_cuda", conv3d._dgrad_plain), \
-            mock.patch.object(conv3d, "_wgrad_cuda", conv3d._wgrad_plain):
+    patches = ((voxelize, "_scatter_mean_cuda", voxelize._scatter_mean_plain),
+               (voxelize, "_scatter_sum_cuda", voxelize._scatter_sum_plain),
+               (devoxelize, "_devoxelize_cuda", devoxelize._devoxelize_plain),
+               (devoxelize, "_devoxelize_bwd_cuda",
+                devoxelize._devoxelize_bwd_plain),
+               (conv3d, "_forward_cuda", conv3d._forward_plain),
+               (conv3d, "_dgrad_cuda", conv3d._dgrad_plain),
+               (conv3d, "_wgrad_cuda", conv3d._wgrad_plain),
+               (sampling, "_fps_cuda", sampling._fps_plain),
+               (neighbors, "_ball_query_cuda", neighbors._ball_query_plain),
+               (interpolate, "_three_nn_cuda", interpolate._three_nn_plain))
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in patches:
+            stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
 
@@ -221,28 +323,27 @@ def _library_agrees(kernel, case, got, want, atol_scale=1.0) -> bool:
     return ok
 
 
-def phase_kernels() -> dict:
-    import torch.nn.functional as F
+class Record:
+    """Per-kernel sums over one model's training step: each case's time
+    (kernel, plain version, library call), bound and error, weighted by
+    its calls per step."""
 
-    from pvcnn_tpu_torch import ops
-    from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
+    def __init__(self, calls: dict):
+        self.calls = calls
+        self.rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                        "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                        "library_ms": 0.0, "library_cases": 0, "cases": 0}
+                    for k in TOL}
 
-    dev = torch.device(DEVICE)
-    torch.manual_seed(SEED)
-    rng = np.random.RandomState(SEED)
-    coords = torch.from_numpy(cloud(rng, B, N)[..., :3]).to(dev)
-    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-               "library_ms": 0.0, "library_cases": 0, "cases": 0}
-           for k in TOL}
-
-    def record(kernel, case, err, run_k, run_p, flops, nbytes, run_lib=None):
-        calls = CALLS[(kernel, case)]
-        r = rec[kernel]
+    def add(self, kernel, case, err, run_k, run_p, flops, nbytes,
+            run_lib=None, plain_reps=20):
+        calls = self.calls.get((kernel, case), 0)
+        r = self.rec[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if calls == 0:
             return
-        ms, plain_ms = time_ms(run_k), time_ms(run_p)
+        ms = time_ms(run_k)
+        plain_ms = time_ms(run_p, reps=plain_reps, warmup=1)
         lib_ms = time_ms(run_lib) if run_lib is not None else None
         bound, ops_ms, bytes_ms = _bound_ms(flops, nbytes)
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
@@ -259,65 +360,89 @@ def phase_kernels() -> dict:
             r["library_ms"] += calls * lib_ms
             r["library_cases"] += calls
 
-    def grid5(norm, r):
-        """norm_coords [B, N, 3] in [0, R-1] -> grid_sample's [B, 1, 1, N, 3]
-        (x, y, z) = (z, y, x) in [-1, 1] (align_corners=True)."""
-        return (norm.flip(-1) * (2.0 / (r - 1)) - 1.0)[:, None, None]
+    def summary(self, label: str) -> dict:
+        for k, r in self.rec.items():
+            if not r["cases"]:
+                continue
+            lib = (f", library {r['library_ms']:.4f} ms"
+                   if r["library_cases"] == r["cases"] else "")
+            log("kernels", f"{label} {k}: {r['ms']:.4f} ms per training "
+                f"step vs plain {r['plain_ms']:.4f} ms{lib}, bound "
+                f"{r['bound_ms']:.4f} ms")
+        return self.rec
 
-    for c, r in ((6, 32), (64, 16), (128, 16)):
-        vox, _ = ops.normalize_coords(coords, r, normalize=False)
+
+def _grid5(norm, r):
+    """norm_coords [B, N, 3] in [0, R-1] -> grid_sample's [B, 1, 1, N, 3]
+    (x, y, z) = (z, y, x) in [-1, 1] (align_corners=True)."""
+    return (norm.flip(-1) * (2.0 / (r - 1)) - 1.0)[:, None, None]
+
+
+def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool) -> None:
+    """K1-K5 at the cases of rec.calls: K1/K2/K5 (C, R, N) on the coords
+    coords_of(N), the convs (Ci, Co, R, prologue) on random grids."""
+    import torch.nn.functional as F
+
+    from pvcnn_tpu_torch import ops
+    from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
+
+    dev = torch.device(DEVICE)
+    cases = lambda kernel: sorted(c for k, c in rec.calls if k == kernel)
+    for c, r, n in cases("avg_voxelize"):
+        vox, _ = ops.normalize_coords(coords_of(n), r, normalize=normalize)
         flat = ops.flat_voxel_index(vox, r)
-        feats = torch.randn(B, N, c, device=dev)
+        feats = torch.randn(B, n, c, device=dev)
         run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3, True)
         run_p = lambda: voxelize._scatter_mean_plain(feats, flat, r ** 3, True)
         idx = flat.long()[..., None].expand(-1, -1, c)
         run_lib = lambda: feats.new_zeros(B, r ** 3, c).scatter_reduce_(
             1, idx, feats, "mean", include_self=False)
-        got = _twice("avg_voxelize", (c, r), run_k)
+        case = (c, r, n)
+        got = _twice("avg_voxelize", case, run_k)
         want = run_p()
-        err = _compare("avg_voxelize", (c, r), got, want)
-        lib_ok = _library_agrees("avg_voxelize", (c, r),
+        err = _compare("avg_voxelize", case, got, want)
+        lib_ok = _library_agrees("avg_voxelize", case,
                                  run_lib().transpose(1, 2), want)
-        record("avg_voxelize", (c, r), err, run_k, run_p, B * N * c,
-               4 * (B * N * c + B * N + B * r ** 3 * c),
-               run_lib if lib_ok else None)
+        rec.add("avg_voxelize", case, err, run_k, run_p, B * n * c,
+                4 * (B * n * c + B * n + B * r ** 3 * c),
+                run_lib if lib_ok else None)
 
-    for c, r in ((64, 32), (128, 16)):
-        _, norm = ops.normalize_coords(coords, r, normalize=False)
+    for c, r, n in cases("trilinear_devoxelize"):
+        _, norm = ops.normalize_coords(coords_of(n), r, normalize=normalize)
         grid = torch.randn(B, c, r ** 3, device=dev)
         run_k = lambda: devoxelize._devoxelize_cuda(grid, norm, r, True)
         run_p = lambda: devoxelize._devoxelize_plain(grid, norm, r, True)
-        g5, gs = grid.reshape(B, c, r, r, r), grid5(norm, r)
+        g5, gs = grid.reshape(B, c, r, r, r), _grid5(norm, r)
         run_lib = lambda: F.grid_sample(g5, gs, mode="bilinear",
                                         align_corners=True)
-        got = _twice("trilinear_devoxelize", (c, r), run_k)
+        case = (c, r, n)
+        got = _twice("trilinear_devoxelize", case, run_k)
         want = run_p()
-        err = _compare("trilinear_devoxelize", (c, r), got, want)
-        lib_ok = _library_agrees("trilinear_devoxelize", (c, r),
-                                 run_lib().reshape(B, c, N).transpose(1, 2),
+        err = _compare("trilinear_devoxelize", case, got, want)
+        lib_ok = _library_agrees("trilinear_devoxelize", case,
+                                 run_lib().reshape(B, c, n).transpose(1, 2),
                                  want)
-        record("trilinear_devoxelize", (c, r), err, run_k, run_p,
-               16 * B * N * c, 4 * (B * c * r ** 3 + 3 * B * N + B * N * c),
-               run_lib if lib_ok else None)
+        rec.add("trilinear_devoxelize", case, err, run_k, run_p,
+                16 * B * n * c, 4 * (B * c * r ** 3 + 3 * B * n + B * n * c),
+                run_lib if lib_ok else None)
 
         # K5: the grid gradient of the same gather
-        g = torch.randn(B, N, c, device=dev)
+        g = torch.randn(B, n, c, device=dev)
         run_k = lambda: devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
         run_p = lambda: devoxelize._devoxelize_bwd_plain(g, norm, r, True)
-        gt5 = g.transpose(1, 2).reshape(B, c, 1, 1, N)
+        gt5 = g.transpose(1, 2).reshape(B, c, 1, 1, n)
         run_lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
             gt5, g5, gs, 0, 0, True, [True, False])[0]
-        got = _twice("devoxelize_bwd", (c, r), run_k)
+        got = _twice("devoxelize_bwd", case, run_k)
         want = run_p()
-        err = _compare("devoxelize_bwd", (c, r), got, want)
-        lib_ok = _library_agrees("devoxelize_bwd", (c, r),
+        err = _compare("devoxelize_bwd", case, got, want)
+        lib_ok = _library_agrees("devoxelize_bwd", case,
                                  run_lib().reshape(B, c, r ** 3), want)
-        record("devoxelize_bwd", (c, r), err, run_k, run_p, 16 * B * N * c,
-               4 * (B * N * c + 3 * B * N + B * c * r ** 3),
-               run_lib if lib_ok else None)
+        rec.add("devoxelize_bwd", case, err, run_k, run_p, 16 * B * n * c,
+                4 * (B * n * c + 3 * B * n + B * c * r ** 3),
+                run_lib if lib_ok else None)
 
-    for ci, co, r in ((6, 64, 32), (64, 64, 32), (64, 128, 16),
-                      (128, 128, 16)):
+    for ci, co, r in sorted({c[:3] for c in cases("conv3d_fwd")}):
         bound = 1.0 / (27 * ci) ** 0.5
         x = torch.randn(B, ci, r ** 3, device=dev)
         w = torch.empty(co, ci, 3, 3, 3, device=dev).uniform_(-bound, bound)
@@ -328,6 +453,8 @@ def phase_kernels() -> dict:
         flops = 2.0 * B * r ** 3 * 27 * ci * co
         for pro in (False, True):
             case = (ci, co, r, pro)
+            if ("conv3d_fwd", case) not in rec.calls:
+                continue
             args = (x, w, bias, scale, shift, r, pro)
             xa = conv3d.leaky_affine(x, scale, shift) if pro else x
             x5 = xa.reshape(B, ci, r, r, r)
@@ -356,9 +483,9 @@ def phase_kernels() -> dict:
                                      "disagree with the plain sums")
             lib_ok = _library_agrees("conv3d_fwd", case, run_lib().reshape(
                 B, co, r ** 3), want)
-            record("conv3d_fwd", case, err, run_k, run_p, flops,
-                   4 * (B * ci * r ** 3 + 27 * ci * co + B * co * r ** 3),
-                   run_lib if lib_ok else None)
+            rec.add("conv3d_fwd", case, err, run_k, run_p, flops,
+                    4 * (B * ci * r ** 3 + 27 * ci * co + B * co * r ** 3),
+                    run_lib if lib_ok else None)
 
             # K4: the weight gradient, against the plain version and fp64
             run_k = lambda: conv3d._wgrad_cuda(x, gy, scale, shift, r, pro)
@@ -379,12 +506,12 @@ def phase_kernels() -> dict:
                 f"plain {(want - exact).abs().max().item() / scale_w:.3e}")
             lib_ok = _library_agrees("conv3d_wgrad", case, run_lib(), want,
                                      scale_w)
-            record("conv3d_wgrad", case, err, run_k, run_p, flops,
-                   4 * (B * ci * r ** 3 + B * co * r ** 3 + 27 * ci * co),
-                   run_lib if lib_ok else None)
+            rec.add("conv3d_wgrad", case, err, run_k, run_p, flops,
+                    4 * (B * ci * r ** 3 + B * co * r ** 3 + 27 * ci * co),
+                    run_lib if lib_ok else None)
 
         # K3 as the dgrad: Co -> Ci channels, flipped io-swapped taps
-        if ("conv3d_dgrad", (co, ci, r)) in CALLS:
+        if ("conv3d_dgrad", (co, ci, r)) in rec.calls:
             case = (co, ci, r)
             run_k = lambda: conv3d._dgrad_cuda(gy, w, r)
             run_p = lambda: conv3d._dgrad_plain(gy, w, r)
@@ -396,25 +523,133 @@ def phase_kernels() -> dict:
             err = _compare("conv3d_dgrad", case, dx, want)
             lib_ok = _library_agrees("conv3d_dgrad", case,
                                      run_lib().reshape(B, ci, r ** 3), want)
-            record("conv3d_dgrad", case, err, run_k, run_p, flops,
-                   4 * (B * co * r ** 3 + 27 * ci * co + B * ci * r ** 3),
-                   run_lib if lib_ok else None)
-    for k, r in rec.items():
-        lib = (f", library {r['library_ms']:.4f} ms"
-               if r["library_cases"] == r["cases"] else "")
-        log("kernels", f"{k}: {r['ms']:.4f} ms per training step vs plain "
-            f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms")
-    return rec
+            rec.add("conv3d_dgrad", case, err, run_k, run_p, flops,
+                    4 * (B * co * r ** 3 + 27 * ci * co + B * ci * r ** 3),
+                    run_lib if lib_ok else None)
 
 
-def phase_slice() -> None:
-    from pvcnn_tpu_torch import kernels
-    from pvcnn_tpu_torch.models.shapenet import PVCNN
-    from pvcnn_tpu_torch.utils.weights import init_random_
+def phase_kernels() -> dict:
+    """K1-K5 at the shapes ShapeNet PVCNN 1x training gives them."""
+    torch.manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    coords = torch.from_numpy(cloud(rng, B, N)[..., :3]).to(DEVICE)
+    rec = Record(CALLS)
+    _time_pvconv_kernels(rec, lambda n: coords[:, :n], normalize=False)
+    return rec.summary("ShapeNet PVCNN 1x")
+
+
+def _exact(kernel, case, got, want) -> None:
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{kernel} {case}: {bad} indices differ from "
+                             "the plain version")
+    log("kernels", f"{kernel} {case}: indices equal the plain version's")
+
+
+def phase_pvcnn2_kernels() -> dict:
+    """Every kernel of the PVCNN2 training step at its shapes there, on
+    one batch of synthetic windows: the FPS / ball-query / three-NN
+    hierarchy of the model (8192 -> 1024 -> 256 -> 64 -> 16 points), K1's
+    sum mode on the take_rows backwards it implies, and K1-K5."""
+    from pvcnn_tpu_torch.ops import interpolate, neighbors, sampling, voxelize
 
     dev = torch.device(DEVICE)
-    model = init_random_(PVCNN(50, 16, 3, width_multiplier=1.0), SEED).eval()
-    x_all = cloud(np.random.RandomState(SEED + 1), B, N)
+    torch.manual_seed(SEED)
+    x, _ = windows(np.random.RandomState(SEED + 10), B, N2)
+    levels = [torch.from_numpy(x[..., :3]).to(dev)]
+    rec = Record(CALLS2)
+    for (n, m) in ((8192, 1024), (1024, 256), (256, 64), (64, 16)):
+        pts = levels[-1]
+        case = (n, m)
+        run_k = lambda: sampling._fps_cuda(pts, m)
+        run_p = lambda: sampling._fps_plain(pts, m)
+        idx = _twice("fps", case, run_k)
+        _exact("fps", case, idx, run_p())
+        rec.add("fps", case, 0.0, run_k, run_p, 10.0 * B * n * (m - 1),
+                4 * (B * n * 3 + B * m), plain_reps=3)
+        log("kernels", f"fps {case}: {m - 1} dependent steps")
+        levels.append(torch.gather(pts, 1, idx.long()[..., None].expand(
+            -1, -1, 3)))
+
+    group_idx, interp_idx = {}, {}
+    for level, (radius, u) in enumerate(((0.1, 32), (0.2, 32), (0.4, 32),
+                                         (0.8, 32))):
+        pts, ctr = levels[level], levels[level + 1]
+        n, m = pts.shape[1], ctr.shape[1]
+        r2 = neighbors._fp32(radius ** 2)
+        case = (m, n, radius, u)
+        run_k = lambda: neighbors._ball_query_cuda(ctr, pts, r2, u)
+        run_p = lambda: neighbors._ball_query_plain(ctr, pts, r2, u)
+        got = _twice("ball_query", case, run_k)
+        _exact("ball_query", case, got, run_p())
+        # the points each center scans: to its U-th hit, or all N (a
+        # center with fewer than U hits repeats its first hit in the last
+        # slot)
+        full = got[..., u - 1] != got[..., 0]
+        scanned = torch.where(full, got[..., u - 1].long() + 1, n).sum()
+        hits = (neighbors.sq_dist(ctr, pts) < r2).sum(-1)
+        log("kernels", f"ball_query {case}: mean hits {hits.float().mean():.2f}"
+            f", {float((hits < u).float().mean()):.3f} of the centers take "
+            f"the fill; {float(scanned) / (B * m * n):.3f} of the points "
+            "scanned")
+        rec.add("ball_query", case, 0.0, run_k, run_p, 9.0 * float(scanned),
+                4 * (B * m * 3 + B * n * 3 + B * m * u), plain_reps=5)
+        group_idx[level] = got.reshape(B, m * u)
+
+        case = (n, m)
+        run_k = lambda: interpolate._three_nn_cuda(pts, ctr)
+        run_p = lambda: interpolate._three_nn_plain(pts, ctr)
+        idx, d2 = _twice("three_nn", case, run_k)
+        want_idx, want_d2 = run_p()
+        _exact("three_nn", case, idx, want_idx)
+        err = _compare("three_nn", case, d2, want_d2)
+        err = max(err, _compare("three_nn", case,
+                                interpolate._weights_from_d2(d2),
+                                interpolate._weights_from_d2(want_d2)))
+        rec.add("three_nn", case, err, run_k, run_p, 9.0 * B * n * m,
+                4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3), plain_reps=5)
+        interp_idx[level] = idx.reshape(B, n * 3)
+
+    # the take_rows backwards: SA groupings (B, M*U rows into N bins) and
+    # FP interpolations (B, 3N rows into M bins)
+    sa_c, fp_c = (32, 64, 128, 256), (128, 256, 256, 512)
+    sources = [(group_idx[l], levels[l].shape[1], sa_c[l]) for l in range(4)]
+    sources += [(interp_idx[l], levels[l + 1].shape[1], fp_c[l])
+                for l in range(4)]
+    for idx, bins, c in sources:
+        k = idx.shape[1]
+        case = (k, bins, c)
+        values = torch.randn(B, k, c, device=dev)
+        run_k = lambda: voxelize._scatter_sum_cuda(values, idx, bins)
+        run_p = lambda: voxelize._scatter_sum_plain(values, idx, bins)
+        flat = (idx.long() + torch.arange(B, device=dev)[:, None] * bins
+                ).reshape(-1)
+        rows = values.reshape(-1, c)
+        run_lib = lambda: values.new_zeros(B * bins, c).index_add_(
+            0, flat, rows)
+        got = _twice("scatter_sum", case, run_k)
+        want = run_p()
+        err = _compare("scatter_sum", case, got, want)
+        lib_ok = _library_agrees("scatter_sum", case,
+                                 run_lib().reshape(B, bins, c), want)
+        rec.add("scatter_sum", case, err, run_k, run_p, B * k * c,
+                4 * (B * k * c + B * k + B * bins * c),
+                run_lib if lib_ok else None)
+
+    by_n = {t.shape[1]: t for t in levels}
+    _time_pvconv_kernels(rec, lambda n: by_n[n], normalize=True)
+    return rec.summary("S3DIS PVCNN2 1x")
+
+
+def phase_slice(label: str, model, x_all: np.ndarray,
+                fwd_kernels) -> None:
+    """Eval forward on the kernel path against the plain path on the card
+    (and against the CPU plain path on a 2-cloud batch); ms per batch."""
+    from pvcnn_tpu_torch import kernels
+
+    dev = torch.device(DEVICE)
+    b, n = x_all.shape[:2]
+    model = model.eval()
     x_cpu = torch.from_numpy(x_all[:2])
     with torch.inference_mode():
         want_small = model(x_cpu)                  # CPU: the plain versions
@@ -428,19 +663,20 @@ def phase_slice() -> None:
         with plain_on_card():
             plain = model(x)
         small = model(x_cpu.to(dev)).cpu()
-        if logits.shape != (B, N, 50) or not torch.isfinite(logits).all():
+        if logits.shape[:2] != (b, n) or not torch.isfinite(logits).all():
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
-        log("slice", f"launches in one forward: {counts}")
-        fwd = ("avg_voxelize", "trilinear_devoxelize", "conv3d_fwd")
-        if min(counts[k] for k in fwd) == 0:
+        log("slice", f"{label}: launches in one forward: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if min(counts[k] for k in fwd_kernels) == 0:
             raise AssertionError(f"a kernel did not run: {counts}")
         diff = (logits - plain).abs().max().item()
         agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
         diff_cpu = (small - want_small).abs().max().item()
-        log("slice", f"kernel vs plain path on the card: max |dlogit| "
-            f"{diff:.3e} (atol 1e-3), argmax agreement {agree:.6f} (>= 0.999)")
-        log("slice", f"kernel path on the card vs plain path on the CPU "
-            f"(2 clouds): max |dlogit| {diff_cpu:.3e} (atol 1e-3)")
+        log("slice", f"{label}: kernel vs plain path on the card: max "
+            f"|dlogit| {diff:.3e} (atol 1e-3), argmax agreement {agree:.6f} "
+            "(>= 0.999)")
+        log("slice", f"{label}: kernel path on the card vs plain path on "
+            f"the CPU (2 clouds): max |dlogit| {diff_cpu:.3e} (atol 1e-3)")
         if diff > 1e-3 or agree < 0.999 or diff_cpu > 1e-3:
             raise AssertionError("slice forward disagrees with the plain path")
         ms_k, ms_p = [], []
@@ -448,7 +684,7 @@ def phase_slice() -> None:
             ms_k.append(time_ms(lambda: model(x), reps=5, warmup=1))
             with plain_on_card():
                 ms_p.append(time_ms(lambda: model(x), reps=5, warmup=1))
-    log("slice", f"PVCNN 1x forward, {B} x {N}: kernel path "
+    log("slice", f"{label} forward, {b} x {n}: kernel path "
         f"{np.median(ms_k):.3f} ms/batch, plain path {np.median(ms_p):.3f} "
         f"ms/batch (medians of {ms_k} / {ms_p})")
 
@@ -490,26 +726,22 @@ def _flat_grads(model) -> torch.Tensor:
     return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
 
-def phase_train(profile: bool) -> None:
+def phase_train(label: str, base, batches, per_step: dict, profile: bool,
+                weight_decay: float = 0.0) -> None:
     """Training steps on the kernel path and on the plain path."""
     from pvcnn_tpu_torch import kernels
-    from pvcnn_tpu_torch.models.shapenet import PVCNN
     from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
     from pvcnn_tpu_torch.train.optim import Adam
     from pvcnn_tpu_torch.train.trainer import Trainer
-    from pvcnn_tpu_torch.utils.weights import init_random_
 
     dev = torch.device(DEVICE)
-    base = init_random_(PVCNN(50, 16, 3, width_multiplier=1.0), SEED)
-    rng = np.random.RandomState(SEED + 2)
-    batches = [(torch.from_numpy(cloud(rng, B, N)).to(dev),
-                torch.from_numpy(rng.randint(0, 50, (B, N))).to(dev))
-               for _ in range(3)]
+    b, n = batches[0][0].shape[:2]
 
     def make():
         model = copy.deepcopy(base)
         trainer = Trainer(model, CrossEntropyLoss(),
-                          Adam(model.parameters(), lr=1e-3), dev, SEED)
+                          Adam(model.parameters(), lr=1e-3,
+                               weight_decay=weight_decay), dev, SEED)
         return trainer
 
     def grads_of(trainer, x, y, seed):
@@ -528,17 +760,17 @@ def phase_train(profile: bool) -> None:
     loss_k2, grads_k2 = grads_of(kern, *batches[0], SEED)
     if loss_k != loss_k2 or not torch.equal(grads_k, grads_k2):
         raise AssertionError("two kernel-path runs of step 1 differ")
-    log("train", "step-1 loss and gradients of two kernel-path runs are "
-        "bitwise equal")
+    log("train", f"{label}: step-1 loss and gradients of two kernel-path "
+        "runs are bitwise equal")
     with plain_on_card():
         loss_p, grads_p = grads_of(plain, *batches[0], SEED)
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
     g, w = grads_k.double(), grads_p.double()
     flipped = ((g - w).abs() > 5e-3 * w.abs().max()).double().mean().item()
     rel_l2 = ((g - w).norm() / w.norm()).item()
-    log("train", f"step 1: loss kernel {loss_k:.7f} plain {loss_p:.7f} "
-        f"(rel {rel_loss:.2e} <= 1e-5); gradients flipped fraction "
-        f"{flipped:.2e} (< 2e-3), rel-L2 {rel_l2:.2e} (< 5e-2)")
+    log("train", f"{label} step 1: loss kernel {loss_k:.7f} plain "
+        f"{loss_p:.7f} (rel {rel_loss:.2e} <= 1e-5); gradients flipped "
+        f"fraction {flipped:.2e} (< 2e-3), rel-L2 {rel_l2:.2e} (< 5e-2)")
     if rel_loss > 1e-5 or flipped >= 2e-3 or rel_l2 >= 5e-2:
         raise AssertionError("step-1 kernel path disagrees with plain path")
 
@@ -551,16 +783,16 @@ def phase_train(profile: bool) -> None:
     for i, (x, y) in enumerate(batches):
         kernels.reset_launch_counts()
         losses_k.append(kern.train_step(x, y).item())
-        counts = kernels.launch_counts()
-        if counts != PER_STEP:
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if counts != per_step:
             raise AssertionError(f"step {i + 1} launches {counts}, expected "
-                                 f"{PER_STEP}")
+                                 f"{per_step}")
         with plain_on_card():
             losses_p.append(plain.train_step(x, y).item())
-    log("train", f"launches per step: {counts}")
+    log("train", f"{label}: launches per step: {counts}")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
-    log("train", f"losses kernel {losses_k} plain {losses_p}: relative "
-        f"differences {['%.2e' % r for r in rel]} (step 1 <= 1e-5, "
+    log("train", f"{label}: losses kernel {losses_k} plain {losses_p}: "
+        f"relative differences {['%.2e' % r for r in rel]} (step 1 <= 1e-5, "
         "steps 2-3 <= 1e-3)")
     if not all(np.isfinite(losses_k)) or rel[0] > 1e-5 or max(rel[1:]) > 1e-3:
         raise AssertionError("training losses disagree")
@@ -578,12 +810,12 @@ def phase_train(profile: bool) -> None:
                              warmup=1)
             (ms_k if name == "kernel" else ms_p).append(ms)
             mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
-    log("train", f"PVCNN 1x training step, {B} x {N}, fp32: kernel path "
+    log("train", f"{label} training step, {b} x {n}, fp32: kernel path "
         f"{np.median(ms_k):.3f} ms/step, plain path {np.median(ms_p):.3f} "
         f"ms/step (medians of {ms_k} / {ms_p}); peak memory kernel "
         f"{mem['kernel']:.3f} GiB, plain {mem['plain']:.3f} GiB")
     if profile:
-        _profile_steps(kern, x, y)
+        _profile_steps(label, kern, x, y)
 
 
 # torch.profiler kernel names -> the groups of the step's time split
@@ -592,7 +824,10 @@ PROFILE_GROUPS = (
     ("K4 conv3d wgrad", ("conv3d_wgrad_kernel",)),
     ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
     ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",)),
-    ("K1 avg_voxelize", ("avg_voxelize_kernel",)),
+    ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_kernel",)),
+    ("K6 fps", ("fps_kernel",)),
+    ("K7 ball_query", ("ball_query_kernel",)),
+    ("K8 three_nn", ("three_nn_kernel",)),
     ("matmuls (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma")),
     ("batch norm", ("batch_norm",)),
     ("sort", ("sort", "radix")),
@@ -601,7 +836,7 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile_steps(trainer, x, y) -> None:
+def _profile_steps(label, trainer, x, y) -> None:
     """torch.profiler over 3 kernel-path steps: device time by kernel
     group and the device's idle share of the host-clock window."""
     from torch.autograd import DeviceType
@@ -633,10 +868,12 @@ def _profile_steps(trainer, x, y) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     for ms, count, key in rows[:20]:
-        log("profile", f"{ms:9.4f} ms/step {count:6.1f}/step {key[:100]}")
+        log("profile", f"{label}: {ms:9.4f} ms/step {count:6.1f}/step "
+            f"{key[:100]}")
     for name, (ms, count) in sorted(groups.items(), key=lambda g: -g[1][0]):
-        log("profile", f"{name}: {ms:.3f} ms/step, {count:.0f} launches/step")
-    log("profile", f"host-clock {wall_ms:.3f} ms/step, device busy "
+        log("profile", f"{label}: {name}: {ms:.3f} ms/step, {count:.0f} "
+            "launches/step")
+    log("profile", f"{label}: host-clock {wall_ms:.3f} ms/step, device busy "
         f"{busy:.3f} ms/step, idle share {1 - busy / wall_ms:.4f}")
 
 
@@ -680,34 +917,128 @@ def phase_trainer() -> dict:
             or saved["acc/iou_test"] != iou \
             or abs(again["acc/iou_test"] - iou) > 1e-6:
         raise AssertionError("trainer checkpoints do not round-trip")
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in PER_STEP) == 0:
+        raise AssertionError(f"a kernel did not run: {counts}")
+    return counts
+
+
+def phase_pvcnn2_trainer() -> dict:
+    """The PVCNN2 main path from zeroed counters: Trainer.train_epoch (4
+    steps of the c1 recipe) and Trainer.evaluate with MeterS3DIS through
+    the DataLoader, then a checkpoint round trip."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.loader import DataLoader
+    from pvcnn_tpu_torch.meters.s3dis import MeterS3DIS
+    from pvcnn_tpu_torch.models.s3dis import PVCNN2
+    from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
+    from pvcnn_tpu_torch.train.optim import Adam, CosineAnnealingLR
+    from pvcnn_tpu_torch.train.trainer import (Trainer, load_checkpoint,
+                                               save_checkpoint)
+    from pvcnn_tpu_torch.utils.weights import init_random_
+
+    rng = np.random.RandomState(SEED + 4)
+    train_x, train_y = windows(rng, 4 * B, N2)
+    test_x, test_y = windows(rng, B, N2)
+    train_set = list(zip(train_x, train_y))
+    test_set = list(zip(test_x, test_y))
+    model = init_random_(PVCNN2(13, 6), SEED)
+    optimizer = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
+    scheduler = CosineAnnealingLR(t_max=50).bind(1e-3)
+    trainer = Trainer(model, CrossEntropyLoss(), optimizer, DEVICE, SEED)
+    meters = {"acc/iou_test": MeterS3DIS("iou", 13),
+              "acc/acc_test": MeterS3DIS("overall", 13)}
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    loss = trainer.train_epoch(DataLoader(train_set, B, shuffle=True,
+                                          seed=SEED), 0, scheduler)
+    scores = trainer.evaluate(DataLoader(test_set, B), meters)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        path = os.path.join(root, "latest.pth.tar")
+        save_checkpoint(path, 0, model, optimizer, scores)
+        again = PVCNN2(13, 6)
+        epoch, saved = load_checkpoint(path, again)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        model.state_dict().values(), again.state_dict().values()))
+    log("trainer", f"PVCNN2: {len(train_set)} synthetic windows, 1 epoch of "
+        f"{len(train_set) // B} steps at batch {B} (lr {scheduler(0):g}, "
+        f"weight decay 1e-5) + {len(test_set)} test windows: {seconds:.2f} "
+        f"s, mean loss {loss:.4f}, {scores} (random labels), launches "
+        f"{counts}")
+    log("trainer", f"PVCNN2 checkpoint round trip: epoch {epoch}, meters "
+        f"{saved}, state_dict equal {same}")
+    if not np.isfinite(loss) or not all(0.0 <= v <= 1.0
+                                        for v in scores.values()):
+        raise AssertionError(f"bad PVCNN2 trainer result {loss} {scores}")
+    if not same or epoch != 0 or saved != scores:
+        raise AssertionError("PVCNN2 checkpoint does not round-trip")
+    if min(counts[k] for k in PER_STEP2) == 0:
         raise AssertionError(f"a kernel did not run: {counts}")
     return counts
 
 
 def main() -> None:
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.models.s3dis import PVCNN2
+    from pvcnn_tpu_torch.models.shapenet import PVCNN
+    from pvcnn_tpu_torch.utils.weights import init_random_
+
     profile = "--profile" in sys.argv[1:]
     name = phase_device()
     phase_build()
-    rec = phase_kernels()
-    phase_slice()
+    dev = torch.device(DEVICE)
+
+    rec = {"ShapeNet PVCNN 1x": phase_kernels()}
+    fwd = ("avg_voxelize", "trilinear_devoxelize", "conv3d_fwd")
+    phase_slice("PVCNN 1x", init_random_(PVCNN(50, 16, 3), SEED),
+                cloud(np.random.RandomState(SEED + 1), B, N), fwd)
     phase_evaluator()
-    phase_train(profile)
-    counts = phase_trainer()
-    from pvcnn_tpu_torch import kernels
+    rng = np.random.RandomState(SEED + 2)
+    batches = [(torch.from_numpy(cloud(rng, B, N)).to(dev),
+                torch.from_numpy(rng.randint(0, 50, (B, N))).to(dev))
+               for _ in range(3)]
+    phase_train("PVCNN 1x", init_random_(PVCNN(50, 16, 3), SEED), batches,
+                PER_STEP, profile)
+    counts = {"ShapeNet PVCNN 1x": phase_trainer()}
+
+    rec["S3DIS PVCNN2 1x"] = phase_pvcnn2_kernels()
+    fwd2 = fwd + ("fps", "ball_query", "three_nn")
+    phase_slice("PVCNN2 1x", init_random_(PVCNN2(13, 6), SEED),
+                windows(np.random.RandomState(SEED + 11), B, N2)[0], fwd2)
+    rng = np.random.RandomState(SEED + 12)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in windows(rng, B, N2))
+               for _ in range(3)]
+    phase_train("PVCNN2 1x", init_random_(PVCNN2(13, 6), SEED), batches,
+                PER_STEP2, profile, weight_decay=1e-5)
+    counts["S3DIS PVCNN2 1x"] = phase_pvcnn2_trainer()
 
     lines = []
     for k in kernels.KERNELS.values():
-        r = rec[k.name]
+        paths = {}
+        for path, r in ((p, rec[p][k.name]) for p in rec):
+            if not r["cases"] and not counts[path][k.name]:
+                continue
+            paths[path] = {
+                "launches": counts[path][k.name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "library_ms": (r["library_ms"]
+                               if r["library_cases"] == r["cases"] else None)}
+        total = lambda key: sum(rec[p][k.name][key] for p in paths)
+        lib = [p["library_ms"] for p in paths.values()]
         lines.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": counts[k.name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": ("operations" if r["ops_ms"] >= r["bytes_ms"]
+            "replaces": k.replaces,
+            "launches": sum(p["launches"] for p in paths.values()),
+            "max_abs_err": max(p["max_abs_err"] for p in paths.values()),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                          else "bytes"),
-            "library_ms": (r["library_ms"]
-                           if r["library_cases"] == r["cases"] else None)})
+            "library_ms": None if None in lib else sum(lib),
+            "paths": paths})
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

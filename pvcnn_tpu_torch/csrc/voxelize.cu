@@ -1,4 +1,4 @@
-// K1: avg_voxelize scatter-mean.
+// K1: avg_voxelize scatter-mean, and its sum mode (scatter_sum).
 //
 // Replaces the TPU kernels pvcnn_tpu/ops/pallas/scatter.py:_onehot_scatter_add
 // and :_onehot_scatter_slots, which compute per cloud
@@ -15,6 +15,12 @@
 // channels left too few threads at R = 16, C = 128; one per channel repeated
 // the search C times.) No atomics: the sum order is fixed by the stable sort, so
 // the output is bitwise reproducible run to run. Empty bins write 0.
+//
+// Sum mode (mean = 0) skips the divide: out[v] = the bin's run sum. It is
+// the backward of the row gather take_rows (grouping, FPS gather, three-NN
+// interpolation), which the JAX package routes through the same one-hot
+// kernel (pvcnn_tpu/ops/gather_utils.py -> ops/voxelize.py:_scatter_sum);
+// it is counted apart as the `scatter_sum` kernel.
 //
 // Bound. Memory: every output element is written once (B * R^3 * C floats,
 // 25-67 MB at the ShapeNet shapes) while the N * C input is read once and
@@ -48,7 +54,8 @@ avg_voxelize_kernel(const float* __restrict__ feats,       // [B, N, C]
                     const int* __restrict__ sorted_idx,    // [B, N]
                     const long long* __restrict__ perm,    // [B, N]
                     float* __restrict__ out,               // see channels_first
-                    int B, int N, int C, int R3, int channels_first) {
+                    int B, int N, int C, int R3, int channels_first,
+                    int mean) {
   const int groups = (C + kGroup - 1) / kGroup;
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (t >= static_cast<int64_t>(B) * groups * R3) return;
@@ -62,7 +69,7 @@ avg_voxelize_kernel(const float* __restrict__ feats,       // [B, N, C]
   const long long* p = perm + static_cast<int64_t>(b) * N;
   const float* f = feats + static_cast<int64_t>(b) * N * C;
   const int count = end - start;
-  const float denom = static_cast<float>(count > 1 ? count : 1);
+  const float denom = static_cast<float>(mean && count > 1 ? count : 1);
   // out[b][c][v] (channels_first) or out[b][v][c]
   float* o = channels_first ? out + static_cast<int64_t>(b) * C * R3 + v
                             : out + (static_cast<int64_t>(b) * R3 + v) * C;
@@ -82,7 +89,7 @@ avg_voxelize_kernel(const float* __restrict__ feats,       // [B, N, C]
 PVCNN_EXPORT int pvcnn_avg_voxelize(const void* feats, const void* sorted_idx,
                                     const void* perm, void* out, int B, int N,
                                     int C, int R3, int channels_first,
-                                    void* stream) {
+                                    int mean, void* stream) {
   const int64_t total =
       static_cast<int64_t>(B) * ((C + kGroup - 1) / kGroup) * R3;
   if (total == 0) return 0;
@@ -90,7 +97,7 @@ PVCNN_EXPORT int pvcnn_avg_voxelize(const void* feats, const void* sorted_idx,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(feats), static_cast<const int*>(sorted_idx),
       static_cast<const long long*>(perm), static_cast<float*>(out), B, N, C,
-      R3, channels_first);
+      R3, channels_first, mean);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,9 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # exported C function -> argument types (pointers, sizes, stream last)
 _SIGNATURES = {
-    "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I64, _I64,
                                    _I64, _P],
     "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "pvcnn_conv3d_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64,
                              _P],
+    "pvcnn_fps": [_P, _P, _I, _I, _I, _P],
+    "pvcnn_ball_query": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "pvcnn_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -73,6 +77,15 @@ KERNELS = {k.name: k for k in (
            "pvcnn_tpu/ops/pallas/conv_rows.py:527"),
     Kernel("devoxelize_bwd", "pvcnn_tpu_torch/csrc/devoxelize_bwd.cu",
            "pvcnn_tpu/ops/pallas/sorted_scatter.py:209"),
+    # K1 in its sum mode, the take_rows backward, counted apart
+    Kernel("scatter_sum", "pvcnn_tpu_torch/csrc/voxelize.cu",
+           "pvcnn_tpu/ops/pallas/scatter.py:144"),
+    Kernel("fps", "pvcnn_tpu_torch/csrc/fps.cu",
+           "pvcnn_tpu/ops/pallas/fps.py:83"),
+    Kernel("ball_query", "pvcnn_tpu_torch/csrc/select.cu",
+           "pvcnn_tpu/ops/pallas/select.py:95"),
+    Kernel("three_nn", "pvcnn_tpu_torch/csrc/select.cu",
+           "pvcnn_tpu/ops/pallas/select.py:144"),
 )}
 
 

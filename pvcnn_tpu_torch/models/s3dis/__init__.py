@@ -1,0 +1,3 @@
+from pvcnn_tpu_torch.models.s3dis.pvcnnpp import PVCNN2
+
+__all__ = ["PVCNN2"]

@@ -2,8 +2,9 @@
 [B, N, C] features (counterpart of pvcnn_tpu/nn/shared_mlp.py).
 
 Parameters keep the reference's torch names and shapes (Conv1d weight
-[out, in, 1], BatchNorm1d weight/bias/running stats), so the port's
-`state_dict()` matches released checkpoints key for key.
+[out, in, 1], or Conv2d [out, in, 1, 1] for the `dim=2` stacks of the
+PointNet++ set abstraction; BatchNorm weight/bias/running stats), so the
+port's `state_dict()` matches released checkpoints key for key.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm", "SharedMLP", "SplitDense"]
+__all__ = ["BatchNorm", "Dense2d", "SharedMLP", "SplitDense"]
 
 
 class SplitDense(nn.Conv1d):
@@ -44,6 +45,17 @@ class SplitDense(nn.Conv1d):
             raise ValueError(f"segments hold {off} channels, the layer "
                              f"takes {w.shape[1]}")
         return y + self.bias
+
+
+class Dense2d(nn.Conv2d):
+    """The reference's 1x1 Conv2d, applied over the last axis of
+    channel-last features such as grouped neighborhoods [B, M, U, C]."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 1)
+
+    def forward(self, x):
+        return F.linear(x, self.weight[..., 0, 0], self.bias)
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -92,17 +104,23 @@ class BatchNorm(nn.BatchNorm1d):
 
 
 class SharedMLP(nn.Module):
-    """Stack of SplitDense -> BatchNorm -> ReLU named `layers`
-    (reference modules/shared_mlp.py). The input may be a list of arrays,
-    meaning their channel concat (see SplitDense)."""
+    """Stack of 1x1 conv -> BatchNorm -> ReLU named `layers`
+    (reference modules/shared_mlp.py), over the last axis of channel-last
+    features. dim=1 holds Conv1d weights (SplitDense: the input may be a
+    list of arrays, meaning their channel concat); dim=2 holds Conv2d
+    weights (Dense2d), as the reference's set-abstraction MLPs do."""
 
-    def __init__(self, in_channels: int, out_channels: int | Sequence[int]):
+    def __init__(self, in_channels: int, out_channels: int | Sequence[int],
+                 dim: int = 1):
         super().__init__()
+        if dim not in (1, 2):
+            raise ValueError(f"SharedMLP dim must be 1 or 2, got {dim}")
+        dense = SplitDense if dim == 1 else Dense2d
         if not isinstance(out_channels, (list, tuple)):
             out_channels = [out_channels]
         layers = []
         for oc in out_channels:
-            layers += [SplitDense(in_channels, int(oc)), BatchNorm(int(oc)),
+            layers += [dense(in_channels, int(oc)), BatchNorm(int(oc)),
                        nn.ReLU()]
             in_channels = int(oc)
         self.layers = nn.Sequential(*layers)

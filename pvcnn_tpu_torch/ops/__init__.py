@@ -1,13 +1,24 @@
-"""Point-voxel ops. Each op that holds a kernel dispatches by device: CUDA
-tensors go to the hand-written kernel, CPU tensors to its plain PyTorch
-version in the same module."""
+"""Point-voxel and point-set ops. Each op that holds a kernel dispatches by
+device: CUDA tensors go to the hand-written kernel, CPU tensors to its plain
+PyTorch version in the same module."""
 
 from pvcnn_tpu_torch.ops.conv3d import conv3d_rows_act, leaky_affine
 from pvcnn_tpu_torch.ops.devoxelize import (corner_base_bins, devoxelize_rows,
                                             trilinear_devoxelize)
+from pvcnn_tpu_torch.ops.gather_utils import take_rows
+from pvcnn_tpu_torch.ops.interpolate import (nearest_neighbor_interpolate,
+                                             three_nn)
+from pvcnn_tpu_torch.ops.neighbors import ball_query, grouping
+from pvcnn_tpu_torch.ops.sampling import (furthest_point_sample,
+                                          furthest_point_sample_indices,
+                                          gather)
 from pvcnn_tpu_torch.ops.voxelize import (avg_voxelize, flat_voxel_index,
-                                          normalize_coords, scatter_mean)
+                                          normalize_coords, scatter_mean,
+                                          scatter_sum)
 
-__all__ = ["avg_voxelize", "conv3d_rows_act", "corner_base_bins",
-           "devoxelize_rows", "flat_voxel_index", "leaky_affine",
-           "normalize_coords", "scatter_mean", "trilinear_devoxelize"]
+__all__ = ["avg_voxelize", "ball_query", "conv3d_rows_act",
+           "corner_base_bins", "devoxelize_rows", "flat_voxel_index",
+           "furthest_point_sample", "furthest_point_sample_indices", "gather",
+           "grouping", "leaky_affine", "nearest_neighbor_interpolate",
+           "normalize_coords", "scatter_mean", "scatter_sum", "take_rows",
+           "three_nn", "trilinear_devoxelize"]

@@ -9,6 +9,11 @@ stable sort, the plain version with `scatter_add_` on the CPU. Its backward
 gathers each point's bin gradient divided by the bin's count, in plain torch
 on both devices (an XLA gather in the JAX package, take_rows, not a Pallas
 kernel).
+
+`scatter_sum` is the same per-bin sum without the divide (K1's sum mode,
+counted as the `scatter_sum` kernel; plain: `scatter_add_`): the backward of
+the row gather `take_rows` (ops/gather_utils.py), as pvcnn_tpu/ops/voxelize.py:
+_scatter_sum is in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from pvcnn_tpu_torch import kernels
 
 __all__ = ["avg_voxelize", "flat_voxel_index", "normalize_coords",
-           "scatter_mean"]
+           "scatter_mean", "scatter_sum"]
 
 
 def normalize_coords(coords: torch.Tensor, resolution: int,
@@ -108,17 +113,40 @@ def _scatter_mean_plain(features, flat_idx, num_bins, channels_first):
 
 
 def _scatter_mean_cuda(features, flat_idx, num_bins, channels_first):
+    return _launch_k1("avg_voxelize", features, flat_idx, num_bins,
+                      channels_first, mean=True)
+
+
+def scatter_sum(values: torch.Tensor, idx: torch.Tensor, num_bins: int):
+    """Per-cloud sum of the rows that share a bin: values [B, K, C], idx
+    [B, K] int in [0, num_bins) -> [B, num_bins, C]; empty bins are 0."""
+    fn = _scatter_sum_plain if values.device.type == "cpu" else \
+        _scatter_sum_cuda
+    return fn(values, idx, int(num_bins))
+
+
+def _scatter_sum_plain(values, idx, num_bins):
+    b, _, c = values.shape
+    return values.new_zeros((b, num_bins, c)).scatter_add_(
+        1, idx.long()[..., None].expand(-1, -1, c), values)
+
+
+def _scatter_sum_cuda(values, idx, num_bins):
+    return _launch_k1("scatter_sum", values, idx.to(torch.int32), num_bins,
+                      False, mean=False)
+
+
+def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
     if features.device.type != "cuda" or flat_idx.device != features.device:
-        raise ValueError("avg_voxelize kernel needs features and flat_idx on "
-                         f"one CUDA device, got {features.device} and "
+        raise ValueError(f"{kernel} kernel needs values and indices on one "
+                         f"CUDA device, got {features.device} and "
                          f"{flat_idx.device}")
     if features.dtype != torch.float32 or features.dim() != 3:
-        raise ValueError("avg_voxelize kernel takes float32 [B, N, C] "
-                         f"features, got {features.dtype} "
-                         f"{tuple(features.shape)}")
+        raise ValueError(f"{kernel} kernel takes float32 [B, N, C] values, "
+                         f"got {features.dtype} {tuple(features.shape)}")
     b, n, c = features.shape
     if flat_idx.shape != (b, n) or flat_idx.dtype != torch.int32:
-        raise ValueError(f"flat_idx must be int32 [{b}, {n}], got "
+        raise ValueError(f"{kernel} indices must be int32 [{b}, {n}], got "
                          f"{flat_idx.dtype} {tuple(flat_idx.shape)}")
     features = features.contiguous()
     # glue: a stable per-cloud sort fixes each bin's summation order
@@ -127,9 +155,9 @@ def _scatter_mean_cuda(features, flat_idx, num_bins, channels_first):
                       dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):
         kernels.launch(
-            "avg_voxelize", "pvcnn_avg_voxelize", features.data_ptr(),
+            kernel, "pvcnn_avg_voxelize", features.data_ptr(),
             sorted_idx.data_ptr(), perm.data_ptr(), out.data_ptr(), b, n, c,
-            int(num_bins), int(channels_first),
+            int(num_bins), int(channels_first), int(mean),
             torch.cuda.current_stream().cuda_stream)
     return out
 

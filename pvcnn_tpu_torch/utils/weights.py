@@ -6,7 +6,8 @@ pvcnn_tpu/utils/checkpoint_import.py:import_state_dict. It walks the same
 (torch_prefix, flax_path, kind) mapping (e.g. `pvcnn_shapenet_mapping()`)
 and undoes its transposes:
 
-    Dense kernel [in, out]           -> Conv1d weight [out, in, 1] / Linear [out, in]
+    Dense kernel [in, out]           -> Conv1d weight [out, in, 1] /
+                                        Conv2d [out, in, 1, 1] / Linear [out, in]
     Conv kernel  [k, k, k, in, out]  -> Conv3d weight [out, in, k, k, k]
     BatchNorm scale/bias, batch_stats mean/var
                                      -> weight/bias, running_mean/running_var
@@ -108,7 +109,8 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
                  lambda t: t.normal_(0.0, 0.2, generator=gen))
             draw(mod.running_var,
                  lambda t: t.uniform_(0.6, 1.4, generator=gen))
-        elif isinstance(mod, (nn.Conv1d, nn.Conv3d, nn.Linear)):
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d,
+                              nn.Linear)):
             fan_in = mod.weight[0].numel()
             bound = 1.0 / fan_in ** 0.5
             draw(mod.weight,

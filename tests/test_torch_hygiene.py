@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from pvcnn_tpu_torch import kernels
-from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
+from pvcnn_tpu_torch.ops import (conv3d, devoxelize, gather_utils,
+                                 interpolate, neighbors, sampling, voxelize)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,6 +83,20 @@ CALLS = {
                                needs_input_grad=(True, False, False, False),
                                resolution=8, channels_first=True),
                            _meta(2, 64, 16))),
+    "fps": (sampling, "_fps_plain", lambda:
+            sampling.furthest_point_sample_indices(_meta(2, 64, 3), 16)),
+    "ball_query": (neighbors, "_ball_query_plain", lambda:
+                   neighbors.ball_query(_meta(2, 16, 3), _meta(2, 64, 3),
+                                        0.2, 8)),
+    "three_nn": (interpolate, "_three_nn_plain", lambda:
+                 interpolate.three_nn(_meta(2, 64, 3), _meta(2, 16, 3))),
+    # the take_rows backward dispatches on the cotangent's device
+    "scatter_sum": (voxelize, "_scatter_sum_plain", lambda:
+                    gather_utils._TakeRows.backward(
+                        types.SimpleNamespace(
+                            saved_tensors=(_meta(2, 40, dtype=torch.int32),),
+                            needs_input_grad=(True, False), num_rows=16),
+                        _meta(2, 40, 8))),
 }
 
 
@@ -140,11 +155,17 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", sorted(kernels.KERNELS))
 def test_kernel_records_name_their_sources(name):
     """Each kernel's source exists and `replaces` points at the definition
-    of a TPU kernel function."""
+    of a TPU kernel function: one whose body reaches pl.pallas_call."""
     k = kernels.KERNELS[name]
     assert os.path.exists(os.path.join(ROOT, k.source))
     path, line = k.replaces.split(":")
     with open(os.path.join(ROOT, path)) as f:
-        text = f.read().splitlines()[int(line) - 1]
-    assert text.startswith("def _"), text
+        lines = f.read().splitlines()[int(line) - 1:]
+    assert lines[0].startswith("def "), lines[0]
+    body = []
+    for text in lines[1:]:
+        if text.startswith(("def ", "@", "class ")):
+            break
+        body.append(text)
+    assert "pl.pallas_call" in "\n".join(body), lines[0]
     json.dumps(vars(k))

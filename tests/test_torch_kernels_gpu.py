@@ -217,3 +217,106 @@ def test_kernels_reject_what_they_do_not_take(dev):
                             torch.zeros(4, device=dev),
                             torch.ones(2049, device=dev),
                             torch.zeros(2049, device=dev), 2, True)
+
+
+def _room(dev, b, n, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pts = torch.rand(b, n, 3, generator=g) * torch.tensor([1.0, 1.0, 3.0])
+    if n >= 48:
+        pts[:, 16:32] = pts[:, 32:48]          # duplicated points: ties
+    return pts.to(dev)
+
+
+@pytest.mark.parametrize("n,m", [(8192, 1024), (1000, 300), (64, 16),
+                                 (5, 9)])
+def test_fps_kernel(dev, n, m):
+    """Indices equal the plain version's exactly (ties to the lowest index,
+    M > N included), two runs bitwise equal."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    x = _room(dev, 3, n)
+    before = kernels.KERNELS["fps"].launches
+    got = ops.furthest_point_sample_indices(x, m)
+    assert kernels.KERNELS["fps"].launches == before + 1
+    assert torch.equal(got, sampling._fps_plain(x, m))
+    assert torch.equal(got, ops.furthest_point_sample_indices(x, m))
+
+
+@pytest.mark.parametrize("m,n,radius,u", [(1024, 8192, 0.1, 32),
+                                          (16, 64, 0.8, 32),
+                                          (100, 40, 0.5, 64),
+                                          (33, 3000, 0.05, 8)])
+def test_ball_query_kernel(dev, m, n, radius, u):
+    """Exact against the plain version: early stop at U hits, the first-hit
+    fill, a center with no hit (filled with 0), u > n."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    x = _room(dev, 2, n)
+    c = _room(dev, 2, m, seed=1)
+    c[:, 0] += 10.0                              # no hit
+    c[:, 1] = x[:, 0]                            # on a point
+    before = kernels.KERNELS["ball_query"].launches
+    got = ops.ball_query(c, x, radius, u)
+    assert kernels.KERNELS["ball_query"].launches == before + 1
+    want = neighbors._ball_query_plain(c, x, neighbors._fp32(radius ** 2), u)
+    assert torch.equal(got, want)
+    assert (got[:, 0] == 0).all()
+    assert torch.equal(got, ops.ball_query(c, x, radius, u))
+
+
+@pytest.mark.parametrize("n,m", [(8192, 1024), (64, 16), (300, 2), (50, 1),
+                                 (70, 2000)])
+def test_three_nn_kernel(dev, n, m):
+    """Indices and d² exactly equal the plain version's (ties to the lower
+    index, M < 3 with idx 0 and d² = inf), two runs bitwise equal."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    x = _room(dev, 2, n)
+    c = _room(dev, 2, m, seed=2)
+    if m >= 16:
+        c[:, 8:12] = c[:, 2:6]
+        x[:, :4] = c[:, 2:6]
+    before = kernels.KERNELS["three_nn"].launches
+    idx, d2 = interpolate._three_nn_cuda(x, c)
+    assert kernels.KERNELS["three_nn"].launches == before + 1
+    want_idx, want_d2 = interpolate._three_nn_plain(x, c)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(d2, want_d2)
+    again = interpolate._three_nn_cuda(x, c)
+    assert torch.equal(idx, again[0]) and torch.equal(d2, again[1])
+
+
+@pytest.mark.parametrize("b,k,bins,c", [(2, 32768, 8192, 32),
+                                        (3, 192, 16, 512),
+                                        (2, 100, 300, 5)])
+def test_scatter_sum_kernel(dev, b, k, bins, c):
+    """K1's sum mode against scatter_add_, bitwise equal over two runs; the
+    take_rows backward launches it."""
+    from pvcnn_tpu_torch.ops import voxelize
+
+    values = torch.randn(b, k, c, device=dev)
+    idx = torch.randint(0, bins, (b, k), device=dev, dtype=torch.int32)
+    before = kernels.KERNELS["scatter_sum"].launches
+    got = ops.scatter_sum(values, idx, bins)
+    assert kernels.KERNELS["scatter_sum"].launches == before + 1
+    torch.testing.assert_close(got, voxelize._scatter_sum_plain(
+        values, idx, bins), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.scatter_sum(values, idx, bins))
+    table = torch.randn(b, bins, c, device=dev, requires_grad=True)
+    (grad,) = torch.autograd.grad(ops.take_rows(table, idx), table, values)
+    assert torch.equal(grad, got)
+
+
+def test_point_kernels_reject_what_they_do_not_take(dev):
+    with pytest.raises(ValueError, match="points a cloud"):
+        ops.furthest_point_sample_indices(
+            torch.rand(1, 16385, 3, device=dev), 4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.ball_query(torch.rand(1, 4, 3, device=dev), torch.rand(1, 8, 3),
+                       0.1, 4)
+    with pytest.raises(ValueError, match=r"\[B, N, 3\]"):
+        ops.three_nn(torch.rand(1, 4, 2, device=dev),
+                     torch.rand(1, 8, 3, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        ops.scatter_sum(torch.rand(1, 4, 2, device=dev, dtype=torch.float64),
+                        torch.zeros(1, 4, dtype=torch.int32, device=dev), 3)
