@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py [--profile]
 
-Two main paths: ShapeNet PVCNN 1x (B = 32, N = 2048) and S3DIS PVCNN2 1x
-(B = 32, N = 8192, 9 channels, 13 classes). Phases, each printing its own
-lines and raising on failure:
+Three main paths: ShapeNet PVCNN 1x (B = 32, N = 2048), S3DIS PVCNN2 1x
+(B = 32, N = 8192, 9 channels, 13 classes) and S3DIS PVCNN 1x (B = 32,
+N = 4096, 9 channels, 13 classes) with the three switches that open its
+opt-in path (PVCNN_TPU_DENSE_BN_FUSED=auto, PVCNN_TPU_CONV_ROWS=0,
+PVCNN_TPU_CUSTOM_CONV_WGRAD=1). Phases, each printing its own lines and
+raising on failure:
 
   1. device     requires CUDA (exits non-zero without it), prints
                 `nvidia-smi --query-gpu=name,power.limit`, turns TF32 off;
@@ -49,13 +52,33 @@ lines and raising on failure:
                 schedule) and Trainer.evaluate with MeterS3DIS iou and
                 overall, through data/loader.py's DataLoader over in-memory
                 windows, and a save_checkpoint/load_checkpoint round trip:
-                the PVCNN2 main path.
+                the PVCNN2 main path;
+ 12. pvcnn kernels
+                the same as phase 3 for both paths of S3DIS PVCNN 1x
+                training: on the default path K1-K5 channel-major at its
+                eight convs; on the opt-in path K9 (with and without its
+                prologue), its dgrad and K10 at the six fused SharedMLP
+                layers' shapes (131,072 rows), K11 at the eight convs'
+                shapes, K1/K2/K5 in their channel-last modes;
+ 13. pvcnn slice
+                S3DIS PVCNN 1x eval forward (default path), as phase 4;
+ 14. pvcnn train
+                S3DIS PVCNN 1x training steps, as phase 10, first with the
+                switches off (K1-K5), then on (K9-K11 and K1/K2/K5
+                channel-last); the switched-on step 1 against the
+                switched-off one (the same function in another order);
+                then each of the six mixed settings of the switches: its
+                launches per step, step 1 against the switched-off one,
+                ms/step;
+ 15. pvcnn trainer
+                as phase 11, with the switches off and then on: the two
+                S3DIS PVCNN main paths.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
-the two trainer phases (7 and 11); its times, bounds and library time are
-per training step, summed over the two models' steps (each path's own
-numbers under "paths").
+the trainer phases (7, 11 and both runs of 15); its times, bounds and
+library time are per training step, summed over the paths' steps (each
+path's own numbers under "paths").
 """
 
 from __future__ import annotations
@@ -75,6 +98,7 @@ import torch
 
 B, N, SEED = 32, 2048, 0
 N2 = 8192                    # S3DIS PVCNN2 window size
+N3 = 4096                    # S3DIS PVCNN window size
 DEVICE = "cuda"
 # the card's peaks (NVIDIA H100 SXM data sheet): fp32 outside the tensor
 # cores and HBM bandwidth; the bound of a call is the larger of its FLOPs
@@ -83,15 +107,18 @@ DEVICE = "cuda"
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # kernel-vs-plain tolerances (rtol, atol): K1/K2/K5 and K1's sum mode sum a
 # few fp32 terms in another order; K3 and its dgrad sum 27 * Ci terms in
-# another order than cuDNN's fp32 (TF32 off) conv; K4 sums B * R^3
-# products, so its atol is relative to the gradient's largest entry. The
-# index kernels (fps, ball_query, three_nn) must equal their plain versions
-# exactly; three_nn's d² and weights are held to 1e-5.
+# another order than cuDNN's fp32 (TF32 off) conv; K9 and its dgrad sum
+# Ci (Co) products in another order than cuBLAS; K4, K10 and K11 sum
+# B * R^3 (or B * N) products, so their atol is relative to the gradient's
+# largest entry. The index kernels (fps, ball_query, three_nn) must equal
+# their plain versions exactly; three_nn's d² and weights are held to 1e-5.
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
        "conv3d_fwd": (1e-4, 1e-4), "conv3d_dgrad": (1e-4, 1e-4),
        "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5),
        "scatter_sum": (1e-5, 1e-5), "three_nn": (1e-5, 1e-5),
-       "fps": (0.0, 0.0), "ball_query": (0.0, 0.0)}
+       "fps": (0.0, 0.0), "ball_query": (0.0, 0.0),
+       "dense_rows_fwd": (1e-4, 1e-4), "dense_rows_dgrad": (1e-4, 1e-4),
+       "dense_rows_wgrad": (1e-4, 1e-4), "conv3d_ndhwc_wgrad": (1e-4, 1e-4)}
 # (kernel, case) -> calls per ShapeNet PVCNN 1x training step (the
 # forward's calls are the eval forward's too). Cases: K1/K2/K5 (C, R, N);
 # K3 and K4 (Ci, Co, R, prologue) of the forward conv; dgrad (Co, Ci, R) of
@@ -166,16 +193,101 @@ for _case, _n in (((32, 32, 8192), 2), ((64, 16, 1024), 3),
                   ((128, 16, 1024), 2), ((64, 32, 8192), 1)):
     CALLS2[("trilinear_devoxelize", _case)] = _n
     CALLS2[("devoxelize_bwd", _case)] = _n
-for _calls in (CALLS, CALLS2):
+# The same per S3DIS PVCNN 1x training step, from the model's structure:
+# PVConvs (Ci -> Co, R) 9 -> 64 at 32, 2 x 64 -> 64 at 16, 64 -> 128 at 16,
+# without SE. On the default path (switches off) K1/K2/K5 run channel-major
+# (C, R, N) and K3/K4 at each PVConv's two convs; the first conv0 runs no
+# dgrad.
+CALLS3 = {
+    ("avg_voxelize", (9, 32, N3)): 1, ("avg_voxelize", (64, 16, N3)): 3,
+    ("conv3d_fwd", (9, 64, 32, False)): 1,
+    ("conv3d_fwd", (64, 64, 32, True)): 1,
+    ("conv3d_fwd", (64, 64, 16, False)): 2,
+    ("conv3d_fwd", (64, 64, 16, True)): 2,
+    ("conv3d_fwd", (64, 128, 16, False)): 1,
+    ("conv3d_fwd", (128, 128, 16, True)): 1,
+    ("conv3d_dgrad", (64, 64, 32)): 1, ("conv3d_dgrad", (64, 64, 16)): 4,
+    ("conv3d_dgrad", (128, 64, 16)): 1, ("conv3d_dgrad", (128, 128, 16)): 1,
+}
+# On the opt-in path (switches on) K1/K2/K5 run channel-last (C, R, N) and
+# K11 (Ci, Co, R) serves both convs of each PVConv; the fused SharedMLP
+# layers (Ci, Co) are the four point branches, 128 -> 1024 and the
+# classifier's 512 -> 256 (its first layer takes a list and stays unfused),
+# on B * N rows: K9 and K10 (Ci, Co, prologue), the dgrad (Co, Ci) of the
+# layer it differentiates (the first point branch's input is the cloud: no
+# dgrad).
+CALLS3_ON = {
+    ("avg_voxelize", (9, 32, N3)): 1, ("avg_voxelize", (64, 16, N3)): 3,
+    ("dense_rows_fwd", (9, 64, False)): 1,
+    ("dense_rows_fwd", (64, 64, False)): 2,
+    ("dense_rows_fwd", (64, 64, True)): 0,
+    ("dense_rows_fwd", (64, 128, False)): 1,
+    ("dense_rows_fwd", (128, 1024, False)): 1,
+    ("dense_rows_fwd", (512, 256, False)): 1,
+    ("dense_rows_fwd", (512, 256, True)): 0,
+    ("dense_rows_dgrad", (64, 64)): 2, ("dense_rows_dgrad", (128, 64)): 1,
+    ("dense_rows_dgrad", (1024, 128)): 1, ("dense_rows_dgrad", (256, 512)): 1,
+    ("conv3d_ndhwc_wgrad", (9, 64, 32)): 1,
+    ("conv3d_ndhwc_wgrad", (64, 64, 32)): 1,
+    ("conv3d_ndhwc_wgrad", (64, 64, 16)): 4,
+    ("conv3d_ndhwc_wgrad", (64, 128, 16)): 1,
+    ("conv3d_ndhwc_wgrad", (128, 128, 16)): 1,
+}
+for _calls in (CALLS3, CALLS3_ON):
+    for _case, _n in (((64, 32, N3), 1), ((64, 16, N3), 2),
+                      ((128, 16, N3), 1)):
+        _calls[("trilinear_devoxelize", _case)] = _n
+        _calls[("devoxelize_bwd", _case)] = _n
+for _calls in (CALLS, CALLS2, CALLS3, CALLS3_ON):
     for (_k, _c), _n in list(_calls.items()):
         if _k == "conv3d_fwd":
             _calls[("conv3d_wgrad", _c)] = _n
+        if _k == "dense_rows_fwd":
+            _calls[("dense_rows_wgrad", _c)] = _n
+# the JAX package's switches that open S3DIS PVCNN's opt-in path
+SWITCHES = {"PVCNN_TPU_DENSE_BN_FUSED": "auto", "PVCNN_TPU_CONV_ROWS": "0",
+            "PVCNN_TPU_CUSTOM_CONV_WGRAD": "1"}
+
+
+def per_step3(on: frozenset) -> dict:
+    """Launches per S3DIS PVCNN 1x training step with the switches in `on`
+    set and the others at their defaults. CUSTOM_CONV_WGRAD acts only on
+    the NDHWC branch, which CONV_ROWS=0 opens."""
+    if "PVCNN_TPU_CONV_ROWS" in on:
+        steps = {"avg_voxelize": 4, "trilinear_devoxelize": 4,
+                 "devoxelize_bwd": 4}
+        if "PVCNN_TPU_CUSTOM_CONV_WGRAD" in on:
+            steps["conv3d_ndhwc_wgrad"] = 8
+    else:
+        steps = {"avg_voxelize": 4, "trilinear_devoxelize": 4,
+                 "conv3d_fwd": 8, "conv3d_dgrad": 7, "conv3d_wgrad": 8,
+                 "devoxelize_bwd": 4}
+    if "PVCNN_TPU_DENSE_BN_FUSED" in on:
+        steps.update(dense_rows_fwd=6, dense_rows_dgrad=5, dense_rows_wgrad=6)
+    return steps
+
+
 PER_STEP = {"avg_voxelize": 3, "trilinear_devoxelize": 3, "conv3d_fwd": 6,
             "conv3d_dgrad": 5, "conv3d_wgrad": 6, "devoxelize_bwd": 3}
 PER_STEP2 = {"avg_voxelize": 13, "trilinear_devoxelize": 13,
              "conv3d_fwd": 26, "conv3d_dgrad": 25, "conv3d_wgrad": 26,
              "devoxelize_bwd": 13, "scatter_sum": 8, "fps": 4,
              "ball_query": 4, "three_nn": 4}
+PER_STEP3 = per_step3(frozenset())
+PER_STEP3_ON = per_step3(frozenset(SWITCHES))
+
+
+def check_calls() -> None:
+    """Each record's calls per step sum to the launches per step that the
+    training phases count."""
+    for calls, per_step in ((CALLS, PER_STEP), (CALLS2, PER_STEP2),
+                            (CALLS3, PER_STEP3), (CALLS3_ON, PER_STEP3_ON)):
+        sums = {}
+        for (k, _), n in calls.items():
+            sums[k] = sums.get(k, 0) + n
+        if {k: n for k, n in sums.items() if n} != per_step:
+            raise AssertionError(f"calls per case {sums} do not sum to the "
+                                 f"launches per step {per_step}")
 
 
 def log(phase: str, msg: str) -> None:
@@ -224,12 +336,31 @@ def windows(rng: np.random.RandomState, b: int, n: int):
 
 
 @contextlib.contextmanager
+def switches(on=frozenset(SWITCHES)):
+    """Set the switches named in `on` (by default all three: the opt-in
+    path), unset the others; restore them all after."""
+    saved = {name: os.environ.get(name) for name in SWITCHES}
+    for name in SWITCHES:
+        os.environ.pop(name, None)
+    os.environ.update({name: SWITCHES[name] for name in on})
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+@contextlib.contextmanager
 def plain_on_card():
     """Route CUDA tensors to the plain PyTorch versions, forward and
     backward (the comparison path of this script; the package itself never
     does this)."""
-    from pvcnn_tpu_torch.ops import (conv3d, devoxelize, interpolate,
-                                     neighbors, sampling, voxelize)
+    from pvcnn_tpu_torch.ops import (conv3d, dense_rows, devoxelize,
+                                     interpolate, neighbors, sampling,
+                                     voxelize)
 
     patches = ((voxelize, "_scatter_mean_cuda", voxelize._scatter_mean_plain),
                (voxelize, "_scatter_sum_cuda", voxelize._scatter_sum_plain),
@@ -241,7 +372,11 @@ def plain_on_card():
                (conv3d, "_wgrad_cuda", conv3d._wgrad_plain),
                (sampling, "_fps_cuda", sampling._fps_plain),
                (neighbors, "_ball_query_cuda", neighbors._ball_query_plain),
-               (interpolate, "_three_nn_cuda", interpolate._three_nn_plain))
+               (interpolate, "_three_nn_cuda", interpolate._three_nn_plain),
+               (dense_rows, "_forward_cuda", dense_rows._forward_plain),
+               (dense_rows, "_dgrad_cuda", dense_rows._dgrad_plain),
+               (dense_rows, "_wgrad_cuda", dense_rows._wgrad_plain),
+               (conv3d, "_ndhwc_wgrad_cuda", conv3d._ndhwc_wgrad_plain))
     with contextlib.ExitStack() as stack:
         for module, name, plain in patches:
             stack.enter_context(mock.patch.object(module, name, plain))
@@ -378,9 +513,12 @@ def _grid5(norm, r):
     return (norm.flip(-1) * (2.0 / (r - 1)) - 1.0)[:, None, None]
 
 
-def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool) -> None:
+def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
+                         cf: bool = True) -> None:
     """K1-K5 at the cases of rec.calls: K1/K2/K5 (C, R, N) on the coords
-    coords_of(N), the convs (Ci, Co, R, prologue) on random grids."""
+    coords_of(N), channel-major grids [B, C, R^3] with cf (the rows branch)
+    or channel-last [B, R^3, C] without (the NDHWC branch); the convs (Ci,
+    Co, R, prologue) on random grids."""
     import torch.nn.functional as F
 
     from pvcnn_tpu_torch import ops
@@ -392,8 +530,8 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool) -> None:
         vox, _ = ops.normalize_coords(coords_of(n), r, normalize=normalize)
         flat = ops.flat_voxel_index(vox, r)
         feats = torch.randn(B, n, c, device=dev)
-        run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3, True)
-        run_p = lambda: voxelize._scatter_mean_plain(feats, flat, r ** 3, True)
+        run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3, cf)
+        run_p = lambda: voxelize._scatter_mean_plain(feats, flat, r ** 3, cf)
         idx = flat.long()[..., None].expand(-1, -1, c)
         run_lib = lambda: feats.new_zeros(B, r ** 3, c).scatter_reduce_(
             1, idx, feats, "mean", include_self=False)
@@ -401,8 +539,9 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool) -> None:
         got = _twice("avg_voxelize", case, run_k)
         want = run_p()
         err = _compare("avg_voxelize", case, got, want)
+        lib = run_lib()
         lib_ok = _library_agrees("avg_voxelize", case,
-                                 run_lib().transpose(1, 2), want)
+                                 lib.transpose(1, 2) if cf else lib, want)
         rec.add("avg_voxelize", case, err, run_k, run_p, B * n * c,
                 4 * (B * n * c + B * n + B * r ** 3 * c),
                 run_lib if lib_ok else None)
@@ -410,9 +549,12 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool) -> None:
     for c, r, n in cases("trilinear_devoxelize"):
         _, norm = ops.normalize_coords(coords_of(n), r, normalize=normalize)
         grid = torch.randn(B, c, r ** 3, device=dev)
-        run_k = lambda: devoxelize._devoxelize_cuda(grid, norm, r, True)
-        run_p = lambda: devoxelize._devoxelize_plain(grid, norm, r, True)
-        g5, gs = grid.reshape(B, c, r, r, r), _grid5(norm, r)
+        if not cf:
+            grid = grid.transpose(1, 2).contiguous()
+        run_k = lambda: devoxelize._devoxelize_cuda(grid, norm, r, cf)
+        run_p = lambda: devoxelize._devoxelize_plain(grid, norm, r, cf)
+        g5 = (grid if cf else grid.transpose(1, 2)).reshape(B, c, r, r, r)
+        gs = _grid5(norm, r)
         run_lib = lambda: F.grid_sample(g5, gs, mode="bilinear",
                                         align_corners=True)
         case = (c, r, n)
@@ -428,16 +570,17 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool) -> None:
 
         # K5: the grid gradient of the same gather
         g = torch.randn(B, n, c, device=dev)
-        run_k = lambda: devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
-        run_p = lambda: devoxelize._devoxelize_bwd_plain(g, norm, r, True)
+        run_k = lambda: devoxelize._devoxelize_bwd_cuda(g, norm, r, cf)
+        run_p = lambda: devoxelize._devoxelize_bwd_plain(g, norm, r, cf)
         gt5 = g.transpose(1, 2).reshape(B, c, 1, 1, n)
         run_lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
             gt5, g5, gs, 0, 0, True, [True, False])[0]
         got = _twice("devoxelize_bwd", case, run_k)
         want = run_p()
         err = _compare("devoxelize_bwd", case, got, want)
+        lib = run_lib().reshape(B, c, r ** 3)
         lib_ok = _library_agrees("devoxelize_bwd", case,
-                                 run_lib().reshape(B, c, r ** 3), want)
+                                 lib if cf else lib.transpose(1, 2), want)
         rec.add("devoxelize_bwd", case, err, run_k, run_p, 16 * B * n * c,
                 4 * (B * n * c + 3 * B * n + B * c * r ** 3),
                 run_lib if lib_ok else None)
@@ -641,6 +784,153 @@ def phase_pvcnn2_kernels() -> dict:
     return rec.summary("S3DIS PVCNN2 1x")
 
 
+def _time_dense_kernels(rec: Record, rows: int) -> None:
+    """K9 (forward and dgrad) and K10 at the cases of rec.calls, on random
+    [rows, Ci] inputs and [rows, Co] cotangents."""
+    import torch.nn.functional as F
+
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    dev = torch.device(DEVICE)
+    for ci, co in sorted({c[:2] for k, c in rec.calls
+                          if k == "dense_rows_fwd"}):
+        bound = 1.0 / ci ** 0.5
+        x = torch.randn(rows, ci, device=dev)
+        w = torch.empty(ci, co, device=dev).uniform_(-bound, bound)
+        wt = w.t().contiguous()
+        bias = torch.empty(co, device=dev).uniform_(-bound, bound)
+        scale = torch.empty(ci, device=dev).uniform_(0.5, 1.5)
+        shift = torch.randn(ci, device=dev) * 0.5
+        g = torch.randn(rows, co, device=dev)
+        flops = 2.0 * rows * ci * co
+        for pro in (False, True):
+            case = (ci, co, pro)
+            if ("dense_rows_fwd", case) not in rec.calls:
+                continue
+            args = (x, w, bias, scale, shift, 0.0, pro)
+            xa = dense_rows._act_plain(x, scale, shift, 0.0) if pro else x
+            # K9 with its statistics epilogue (the training call); the
+            # library's is F.linear and the two sums on the activated input
+            run_k = lambda: dense_rows._forward_cuda(*args, True)
+            run_p = lambda: dense_rows._forward_plain(*args, True)
+
+            def run_lib():
+                y = F.linear(xa, wt, bias)
+                return y, y.sum(0), (y * y).sum(0)
+
+            y, s1, s2 = _twice("dense_rows_fwd", case, run_k)
+            want, w1, w2 = run_p()
+            err = _compare("dense_rows_fwd", case, y, want)
+            mag1 = want.abs().sum(dim=0)
+            e1 = ((s1 - w1).abs() / mag1).max().item()
+            e2 = ((s2 - w2).abs() / w2).max().item()
+            log("kernels", f"dense_rows_fwd {case} statistics: max |s1 - "
+                f"plain| / sum|y| {e1:.3e}, max |s2 - plain| / s2 {e2:.3e} "
+                "(<= 1e-4)")
+            if e1 > 1e-4 or e2 > 1e-4:
+                raise AssertionError(f"dense_rows_fwd {case}: statistics "
+                                     "disagree with the plain sums")
+            lib_ok = _library_agrees("dense_rows_fwd", case, run_lib()[0],
+                                     want)
+            rec.add("dense_rows_fwd", case, err, run_k, run_p, flops,
+                    4 * (rows * ci + ci * co + co + rows * co + 2 * co),
+                    run_lib if lib_ok else None)
+
+            # K10: dW and d(bias) in one pass, against fp64 too
+            run_k = lambda: dense_rows._wgrad_cuda(x, g, scale, shift, 0.0,
+                                                   pro)
+            run_p = lambda: dense_rows._wgrad_plain(x, g, scale, shift, 0.0,
+                                                    pro)
+            run_lib = lambda: (torch.matmul(xa.t(), g), g.sum(0))
+            dw, db = _twice("dense_rows_wgrad", case, run_k)
+            want_dw, want_db = run_p()
+            scale_w = want_dw.abs().max().item()
+            err = max(_compare("dense_rows_wgrad", case, dw, want_dw,
+                               scale_w),
+                      _compare("dense_rows_wgrad", case, db, want_db,
+                               want_db.abs().max().item()))
+            exact, _ = dense_rows._wgrad_plain(
+                x.double(), g.double(), scale.double(), shift.double(), 0.0,
+                pro)
+            e_k = (dw - exact).abs().max().item() / scale_w
+            e_p = (want_dw - exact).abs().max().item() / scale_w
+            log("kernels", f"dense_rows_wgrad {case}: max |. - fp64| / "
+                f"max|dW| kernel {e_k:.3e}, plain {e_p:.3e}")
+            lib_ok = _library_agrees("dense_rows_wgrad", case, run_lib()[0],
+                                     want_dw, scale_w)
+            rec.add("dense_rows_wgrad", case, err, run_k, run_p, flops,
+                    4 * (rows * ci + rows * co + ci * co + co),
+                    run_lib if lib_ok else None)
+
+        # K9 as the dgrad: Co -> Ci channels through W^T
+        if ("dense_rows_dgrad", (co, ci)) in rec.calls:
+            case = (co, ci)
+            run_k = lambda: dense_rows._dgrad_cuda(g, w)
+            run_p = lambda: dense_rows._dgrad_plain(g, w)
+            run_lib = lambda: F.linear(g, w)
+            dx = _twice("dense_rows_dgrad", case, run_k)
+            want = run_p()
+            err = _compare("dense_rows_dgrad", case, dx, want)
+            lib_ok = _library_agrees("dense_rows_dgrad", case, run_lib(),
+                                     want)
+            rec.add("dense_rows_dgrad", case, err, run_k, run_p, flops,
+                    4 * (rows * co + ci * co + rows * ci),
+                    run_lib if lib_ok else None)
+
+
+def _time_ndhwc_wgrad(rec: Record) -> None:
+    """K11 at the cases (Ci, Co, R) of rec.calls on random channel-last
+    grids and cotangents, against fp64 too."""
+    from pvcnn_tpu_torch.ops import conv3d
+
+    dev = torch.device(DEVICE)
+    for ci, co, r in sorted(c for k, c in rec.calls
+                            if k == "conv3d_ndhwc_wgrad"):
+        case = (ci, co, r)
+        x = torch.randn(B, r, r, r, ci, device=dev)
+        g = torch.randn(B, r, r, r, co, device=dev)
+        run_k = lambda: conv3d._ndhwc_wgrad_cuda(x, g, 3)
+        run_p = lambda: conv3d._ndhwc_wgrad_plain(x, g, 3)
+        xp, gp = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        run_lib = lambda: torch.nn.grad.conv3d_weight(
+            xp, (co, ci, 3, 3, 3), gp, padding=1)
+        dw = _twice("conv3d_ndhwc_wgrad", case, run_k)
+        want = run_p()
+        scale_w = want.abs().max().item()
+        err = _compare("conv3d_ndhwc_wgrad", case, dw, want, scale_w)
+        exact = conv3d._ndhwc_wgrad_plain(x.double(), g.double(), 3)
+        log("kernels", f"conv3d_ndhwc_wgrad {case}: max |. - fp64| / max|dW|"
+            f" kernel {(dw - exact).abs().max().item() / scale_w:.3e}, "
+            f"plain {(want - exact).abs().max().item() / scale_w:.3e}")
+        del exact
+        lib_ok = _library_agrees("conv3d_ndhwc_wgrad", case, run_lib(), want,
+                                 scale_w)
+        rec.add("conv3d_ndhwc_wgrad", case, err, run_k, run_p,
+                2.0 * 27 * ci * co * B * r ** 3,
+                4 * (B * r ** 3 * (ci + co) + 27 * ci * co),
+                run_lib if lib_ok else None)
+
+
+def phase_pvcnn_s3dis_kernels():
+    """Every kernel of the S3DIS PVCNN 1x training step at its shapes
+    there, on one batch of synthetic windows: on the default path K1-K5
+    channel-major; on the opt-in path K9/K10 and the dgrad on B * N rows,
+    K11 on the eight convs' grids, K1/K2/K5 channel-last. Returns the two
+    records (default, opt-in)."""
+    torch.manual_seed(SEED)
+    x, _ = windows(np.random.RandomState(SEED + 20), B, N3)
+    coords = torch.from_numpy(x[..., :3]).to(DEVICE)
+    off = Record(CALLS3)
+    _time_pvconv_kernels(off, lambda n: coords[:, :n], normalize=True)
+    on = Record(CALLS3_ON)
+    _time_dense_kernels(on, B * N3)
+    _time_ndhwc_wgrad(on)
+    _time_pvconv_kernels(on, lambda n: coords[:, :n], normalize=True,
+                         cf=False)
+    return (off.summary("S3DIS PVCNN 1x"),
+            on.summary("S3DIS PVCNN 1x opt-in"))
+
+
 def phase_slice(label: str, model, x_all: np.ndarray,
                 fwd_kernels) -> None:
     """Eval forward on the kernel path against the plain path on the card
@@ -726,33 +1016,37 @@ def _flat_grads(model) -> torch.Tensor:
     return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
 
-def phase_train(label: str, base, batches, per_step: dict, profile: bool,
-                weight_decay: float = 0.0) -> None:
-    """Training steps on the kernel path and on the plain path."""
-    from pvcnn_tpu_torch import kernels
+def _trainer(base, weight_decay: float):
+    """A Trainer (Adam lr 1e-3, seeded dropout) on a copy of base."""
     from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
     from pvcnn_tpu_torch.train.optim import Adam
     from pvcnn_tpu_torch.train.trainer import Trainer
 
-    dev = torch.device(DEVICE)
+    model = copy.deepcopy(base)
+    return Trainer(model, CrossEntropyLoss(),
+                   Adam(model.parameters(), lr=1e-3,
+                        weight_decay=weight_decay), torch.device(DEVICE), SEED)
+
+
+def grads_of(trainer, x, y, seed):
+    """Step-1 loss and gradients, without the update."""
+    trainer.generator.manual_seed(seed)
+    trainer.model.train()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss = trainer.criterion(trainer.model(x), y)
+    loss.backward()
+    return loss.item(), _flat_grads(trainer.model).clone()
+
+
+def phase_train(label: str, base, batches, per_step: dict, profile: bool,
+                weight_decay: float = 0.0, traj_rtol: float = 1e-3):
+    """Training steps on the kernel path and on the plain path. Returns
+    the kernel path's step-1 (loss, gradients). traj_rtol bounds the
+    relative loss difference of steps 2-3."""
+    from pvcnn_tpu_torch import kernels
+
     b, n = batches[0][0].shape[:2]
-
-    def make():
-        model = copy.deepcopy(base)
-        trainer = Trainer(model, CrossEntropyLoss(),
-                          Adam(model.parameters(), lr=1e-3,
-                               weight_decay=weight_decay), dev, SEED)
-        return trainer
-
-    def grads_of(trainer, x, y, seed):
-        """Step-1 loss and gradients, without the update."""
-        trainer.generator.manual_seed(seed)
-        trainer.model.train()
-        trainer.optimizer.zero_grad(set_to_none=True)
-        loss = trainer.criterion(trainer.model(x), y)
-        loss.backward()
-        return loss.item(), _flat_grads(trainer.model).clone()
-
+    make = lambda: _trainer(base, weight_decay)
     kern, plain = make(), make()
     # two kernel-path runs from the same state (running statistics move
     # but do not enter the train-mode output)
@@ -790,11 +1084,21 @@ def phase_train(label: str, base, batches, per_step: dict, profile: bool,
         with plain_on_card():
             losses_p.append(plain.train_step(x, y).item())
     log("train", f"{label}: launches per step: {counts}")
+    # the plain path's own run-to-run spread: its scatters use float
+    # atomics, so its trajectory moves between runs once a gate flips
+    again = make()
+    again.generator.manual_seed(SEED)
+    with plain_on_card():
+        losses_p2 = [again.train_step(x, y).item() for x, y in batches]
+    del again
     rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    own = [abs(a - b) / abs(b) for a, b in zip(losses_p2, losses_p)]
     log("train", f"{label}: losses kernel {losses_k} plain {losses_p}: "
         f"relative differences {['%.2e' % r for r in rel]} (step 1 <= 1e-5, "
-        "steps 2-3 <= 1e-3)")
-    if not all(np.isfinite(losses_k)) or rel[0] > 1e-5 or max(rel[1:]) > 1e-3:
+        f"steps 2-3 <= {traj_rtol:g}); plain against a second plain run "
+        f"{['%.2e' % r for r in own]}")
+    if not all(np.isfinite(losses_k)) or rel[0] > 1e-5 \
+            or max(rel[1:]) > traj_rtol:
         raise AssertionError("training losses disagree")
 
     x, y = batches[0]
@@ -816,18 +1120,73 @@ def phase_train(label: str, base, batches, per_step: dict, profile: bool,
         f"{mem['kernel']:.3f} GiB, plain {mem['plain']:.3f} GiB")
     if profile:
         _profile_steps(label, kern, x, y)
+    return loss_k, grads_k
+
+
+def phase_same_function(label: str, off, on,
+                        what: str = "switches on") -> None:
+    """Step 1 of the switched-on kernel path against the switched-off one:
+    the same function in another order, held to phase 6's criteria."""
+    (loss_off, g_off), (loss_on, g_on) = off, on
+    rel_loss = abs(loss_on - loss_off) / abs(loss_off)
+    g, w = g_on.double(), g_off.double()
+    flipped = ((g - w).abs() > 5e-3 * w.abs().max()).double().mean().item()
+    rel_l2 = ((g - w).norm() / w.norm()).item()
+    log("train", f"{label} step 1, {what} vs off: loss {loss_on:.7f} "
+        f"vs {loss_off:.7f} (rel {rel_loss:.2e} <= 1e-5); gradients flipped "
+        f"fraction {flipped:.2e} (< 2e-3), rel-L2 {rel_l2:.2e} (< 5e-2)")
+    if rel_loss > 1e-5 or flipped >= 2e-3 or rel_l2 >= 5e-2:
+        raise AssertionError(f"the step with {what} disagrees with the "
+                             "switched-off one")
+
+
+def phase_switch_settings(label: str, base, batch, off) -> None:
+    """Each of the six mixed settings of the three switches (all off and
+    all on run in full in phase 14): from zeroed counters, one training
+    step must launch exactly the kernels per_step3 names, its step 1 must
+    agree with the switched-off one, and its ms/step is timed."""
+    from itertools import combinations
+
+    from pvcnn_tpu_torch import kernels
+
+    x, y = batch
+    for size in (1, 2):
+        for on in map(frozenset, combinations(sorted(SWITCHES), size)):
+            what = " + ".join(f"{n.removeprefix('PVCNN_TPU_')}="
+                              f"{SWITCHES[n]}" for n in sorted(on))
+            with switches(on):
+                trainer = _trainer(base, 1e-5)
+                phase_same_function(label, off, grads_of(trainer, x, y, SEED),
+                                    what)
+                kernels.reset_launch_counts()
+                trainer.train_step(x, y)
+                counts = {k: v for k, v in kernels.launch_counts().items()
+                          if v}
+                if counts != per_step3(on):
+                    raise AssertionError(f"{what}: launches {counts}, "
+                                         f"expected {per_step3(on)}")
+                ms = time_ms(lambda: trainer.train_step(x, y), reps=5,
+                             warmup=1)
+            log("train", f"{label}, {what}: {ms:.3f} ms/step, launches per "
+                f"step {counts}")
+            del trainer
 
 
 # torch.profiler kernel names -> the groups of the step's time split
 PROFILE_GROUPS = (
     ("K3 conv3d forward + dgrad", ("conv3d_fwd_kernel",)),
     ("K4 conv3d wgrad", ("conv3d_wgrad_kernel",)),
+    ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",)),
+    ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
+    ("K10 dense wgrad", ("dense_rows_wgrad_kernel",)),
     ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
     ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",)),
     ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_kernel",)),
     ("K6 fps", ("fps_kernel",)),
     ("K7 ball_query", ("ball_query_kernel",)),
     ("K8 three_nn", ("three_nn_kernel",)),
+    ("cuDNN conv (NDHWC forward, dgrad)", ("fprop", "dgrad", "cudnn",
+                                          "convolve")),
     ("matmuls (cuBLAS/CUTLASS)", ("gemm", "cutlass", "xmma")),
     ("batch norm", ("batch_norm",)),
     ("sort", ("sort", "radix")),
@@ -922,14 +1281,14 @@ def phase_trainer() -> dict:
     return counts
 
 
-def phase_pvcnn2_trainer() -> dict:
-    """The PVCNN2 main path from zeroed counters: Trainer.train_epoch (4
+def phase_s3dis_trainer(label: str, make_model, n: int,
+                        per_step: dict) -> dict:
+    """An S3DIS main path from zeroed counters: Trainer.train_epoch (4
     steps of the c1 recipe) and Trainer.evaluate with MeterS3DIS through
     the DataLoader, then a checkpoint round trip."""
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.data.loader import DataLoader
     from pvcnn_tpu_torch.meters.s3dis import MeterS3DIS
-    from pvcnn_tpu_torch.models.s3dis import PVCNN2
     from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
     from pvcnn_tpu_torch.train.optim import Adam, CosineAnnealingLR
     from pvcnn_tpu_torch.train.trainer import (Trainer, load_checkpoint,
@@ -937,11 +1296,11 @@ def phase_pvcnn2_trainer() -> dict:
     from pvcnn_tpu_torch.utils.weights import init_random_
 
     rng = np.random.RandomState(SEED + 4)
-    train_x, train_y = windows(rng, 4 * B, N2)
-    test_x, test_y = windows(rng, B, N2)
+    train_x, train_y = windows(rng, 4 * B, n)
+    test_x, test_y = windows(rng, B, n)
     train_set = list(zip(train_x, train_y))
     test_set = list(zip(test_x, test_y))
-    model = init_random_(PVCNN2(13, 6), SEED)
+    model = init_random_(make_model(), SEED)
     optimizer = Adam(model.parameters(), lr=1e-3, weight_decay=1e-5)
     scheduler = CosineAnnealingLR(t_max=50).bind(1e-3)
     trainer = Trainer(model, CrossEntropyLoss(), optimizer, DEVICE, SEED)
@@ -958,35 +1317,37 @@ def phase_pvcnn2_trainer() -> dict:
     with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
         path = os.path.join(root, "latest.pth.tar")
         save_checkpoint(path, 0, model, optimizer, scores)
-        again = PVCNN2(13, 6)
+        again = make_model()
         epoch, saved = load_checkpoint(path, again)
     same = all(torch.equal(a.cpu(), b) for a, b in zip(
         model.state_dict().values(), again.state_dict().values()))
-    log("trainer", f"PVCNN2: {len(train_set)} synthetic windows, 1 epoch of "
+    log("trainer", f"{label}: {len(train_set)} synthetic windows, 1 epoch of "
         f"{len(train_set) // B} steps at batch {B} (lr {scheduler(0):g}, "
         f"weight decay 1e-5) + {len(test_set)} test windows: {seconds:.2f} "
         f"s, mean loss {loss:.4f}, {scores} (random labels), launches "
         f"{counts}")
-    log("trainer", f"PVCNN2 checkpoint round trip: epoch {epoch}, meters "
+    log("trainer", f"{label} checkpoint round trip: epoch {epoch}, meters "
         f"{saved}, state_dict equal {same}")
     if not np.isfinite(loss) or not all(0.0 <= v <= 1.0
                                         for v in scores.values()):
-        raise AssertionError(f"bad PVCNN2 trainer result {loss} {scores}")
+        raise AssertionError(f"bad {label} trainer result {loss} {scores}")
     if not same or epoch != 0 or saved != scores:
-        raise AssertionError("PVCNN2 checkpoint does not round-trip")
-    if min(counts[k] for k in PER_STEP2) == 0:
+        raise AssertionError(f"{label} checkpoint does not round-trip")
+    if min(counts[k] for k in per_step) == 0:
         raise AssertionError(f"a kernel did not run: {counts}")
     return counts
 
 
 def main() -> None:
     from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.models.s3dis import PVCNN as S3DISPVCNN
     from pvcnn_tpu_torch.models.s3dis import PVCNN2
     from pvcnn_tpu_torch.models.shapenet import PVCNN
     from pvcnn_tpu_torch.utils.weights import init_random_
 
     profile = "--profile" in sys.argv[1:]
     name = phase_device()
+    check_calls()
     phase_build()
     dev = torch.device(DEVICE)
 
@@ -1010,9 +1371,36 @@ def main() -> None:
     rng = np.random.RandomState(SEED + 12)
     batches = [tuple(torch.from_numpy(a).to(dev) for a in windows(rng, B, N2))
                for _ in range(3)]
+    # PVCNN2's plain path differs from itself by more than 1e-3 at step 3
+    # in some runs (the phase logs that spread; its step-1 gradients sit
+    # 1.3e-2 from the kernel path's, against 5e-3 for ShapeNet): hold its
+    # steps 2-3 to 5e-3
     phase_train("PVCNN2 1x", init_random_(PVCNN2(13, 6), SEED), batches,
-                PER_STEP2, profile, weight_decay=1e-5)
-    counts["S3DIS PVCNN2 1x"] = phase_pvcnn2_trainer()
+                PER_STEP2, profile, weight_decay=1e-5, traj_rtol=5e-3)
+    counts["S3DIS PVCNN2 1x"] = phase_s3dis_trainer(
+        "PVCNN2", lambda: PVCNN2(13, 6), N2, PER_STEP2)
+
+    rec["S3DIS PVCNN 1x"], rec["S3DIS PVCNN 1x opt-in"] = \
+        phase_pvcnn_s3dis_kernels()
+    phase_slice("S3DIS PVCNN 1x", init_random_(S3DISPVCNN(13, 6), SEED),
+                windows(np.random.RandomState(SEED + 21), B, N3)[0], fwd)
+    rng = np.random.RandomState(SEED + 22)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in windows(rng, B, N3))
+               for _ in range(3)]
+    base = init_random_(S3DISPVCNN(13, 6), SEED)
+    off = phase_train("S3DIS PVCNN 1x", base, batches, PER_STEP3, profile,
+                      weight_decay=1e-5)
+    with switches():
+        on = phase_train("S3DIS PVCNN 1x, switches on", base, batches,
+                         PER_STEP3_ON, profile, weight_decay=1e-5)
+    phase_same_function("S3DIS PVCNN 1x", off, on)
+    phase_switch_settings("S3DIS PVCNN 1x", base, batches[0], off)
+    counts["S3DIS PVCNN 1x"] = phase_s3dis_trainer(
+        "S3DIS PVCNN", lambda: S3DISPVCNN(13, 6), N3, PER_STEP3)
+    with switches():
+        counts["S3DIS PVCNN 1x opt-in"] = phase_s3dis_trainer(
+            "S3DIS PVCNN, switches on", lambda: S3DISPVCNN(13, 6), N3,
+            PER_STEP3_ON)
 
     lines = []
     for k in kernels.KERNELS.values():

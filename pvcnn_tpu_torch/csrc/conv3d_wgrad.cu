@@ -33,18 +33,22 @@
 // applied right after the loads, its arithmetic would wait on their
 // latency before the multiply could start. fp32 on the CUDA cores, no TF32.
 //
+// The tile and its multiply are csrc/fp32_tile.cuh's, shared with K9-K11.
+//
 // Bound. Compute: 2 * 27 * Ci * Co * B * R^3 FLOPs (0.23 TFLOP at 64 -> 64,
 // B = 32, R = 32) against 67 TFLOP/s of fp32 FMA; x and g are read once
 // per (row tile, column tile) pair from L2.
-#include "common.cuh"
+#include "fp32_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBM = 128;    // rows (tap, ci) per block
-constexpr int kBN = 64;     // output channels per block
-constexpr int kBK = 16;     // voxels per slice
-constexpr int kPad = 4;     // shared-memory row padding (bank spread)
+using pvcnn::multiply_slice;
+using pvcnn::tile_col;
+constexpr int kThreads = pvcnn::kTileThreads;
+constexpr int kBM = pvcnn::kTileM;   // rows (tap, ci) per block
+constexpr int kBN = pvcnn::kTileN;   // output channels per block
+constexpr int kBK = pvcnn::kTileK;   // voxels per slice
+constexpr int kPad = pvcnn::kTilePad;
 
 template <bool kPrologue>
 __global__ void __launch_bounds__(kThreads)
@@ -145,16 +149,10 @@ conv3d_wgrad_kernel(const float* __restrict__ x,       // [B, Ci, R^3]
     for (int i = 0; i < 8; ++i) Bs[buf][kk][n_b + 8 * i] = b_next[i];
   };
 
-  // compute: thread (tm, tn) owns rows tm*8 .. +7 and columns tn*4 .. +3
-  // and 32 + tn*4 .. +3 (two float4 reads at different banks per lane)
   const int tm = tid / 8;
   const int tn = tid % 8;
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
+  pvcnn::zero_tile(acc);
 
   const int slices = (vend - vbeg + kBK - 1) / kBK;
   if (slices > 0) {
@@ -165,20 +163,7 @@ conv3d_wgrad_kernel(const float* __restrict__ x,       // [B, Ci, R^3]
   for (int s = 0; s < slices; ++s) {
     const int cur = s & 1;
     if (s + 1 < slices) load_slice(vbeg + (s + 1) * kBK);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][tm * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][tm * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tn * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][32 + tn * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
+    multiply_slice(As[cur], Bs[cur], tm, tn, acc);
     // the other buffer was last read in slice s - 1, before the barrier
     // that ended it
     if (s + 1 < slices) store_slice(cur ^ 1);
@@ -192,7 +177,7 @@ conv3d_wgrad_kernel(const float* __restrict__ x,       // [B, Ci, R^3]
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tn * 4 + j : 32 + tn * 4 + j - 4);
+      const int n = n0 + tile_col(tn, j);
       if (n < Co) out[static_cast<int64_t>(m) * Co + n] = acc[i][j];
     }
   }
@@ -208,9 +193,7 @@ PVCNN_EXPORT int pvcnn_conv3d_wgrad(const void* x, const void* g,
   if (B == 0 || R == 0 || Co == 0 || Ci == 0) return 0;
   const int r3 = R * R * R;
   const int chunks = (r3 + chunk - 1) / chunk;
-  const dim3 grid(static_cast<unsigned>((27 * Ci + kBM - 1) / kBM),
-                  static_cast<unsigned>((Co + kBN - 1) / kBN),
-                  static_cast<unsigned>(B * chunks));
+  const dim3 grid = pvcnn::tile_grid(27 * Ci, Co, B * chunks);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto xf = static_cast<const float*>(x);
   const auto gf = static_cast<const float*>(g);

@@ -50,6 +50,11 @@ _SIGNATURES = {
     "pvcnn_fps": [_P, _P, _I, _I, _I, _P],
     "pvcnn_ball_query": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pvcnn_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "pvcnn_dense_rows_fwd": [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
+                             _P],
+    "pvcnn_dense_rows_wgrad": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
+                               _I, _P],
+    "pvcnn_conv3d_ndhwc_wgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -86,6 +91,15 @@ KERNELS = {k.name: k for k in (
            "pvcnn_tpu/ops/pallas/select.py:95"),
     Kernel("three_nn", "pvcnn_tpu_torch/csrc/select.cu",
            "pvcnn_tpu/ops/pallas/select.py:144"),
+    Kernel("dense_rows_fwd", "pvcnn_tpu_torch/csrc/dense_rows.cu",
+           "pvcnn_tpu/ops/pallas/dense_rows.py:119"),
+    # K9 again as the dense layer's data gradient, counted apart
+    Kernel("dense_rows_dgrad", "pvcnn_tpu_torch/csrc/dense_rows.cu",
+           "pvcnn_tpu/ops/pallas/dense_rows.py:119"),
+    Kernel("dense_rows_wgrad", "pvcnn_tpu_torch/csrc/dense_rows.cu",
+           "pvcnn_tpu/ops/pallas/dense_rows.py:158"),
+    Kernel("conv3d_ndhwc_wgrad", "pvcnn_tpu_torch/csrc/conv3d_ndhwc_wgrad.cu",
+           "pvcnn_tpu/ops/pallas/conv_wgrad.py:166"),
 )}
 
 

@@ -10,9 +10,9 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from pvcnn_tpu_torch.nn import (PointNetAModule, PointNetFPModule,
-                                PointNetSAModule, PVConv, SharedMLP,
-                                SplitDense)
+from pvcnn_tpu_torch.nn import (DenseBNReLU, PointNetAModule,
+                                PointNetFPModule, PointNetSAModule, PVConv,
+                                SharedMLP, SplitDense)
 
 __all__ = ["Dropout", "apply_layers", "create_mlp_components",
            "create_pointnet2_fp_modules", "create_pointnet2_sa_components",
@@ -50,10 +50,16 @@ def apply_layers(layers, x):
 
 
 def create_mlp_components(in_channels: int, out_channels: Sequence,
-                          classifier: bool = False,
+                          classifier: bool = False, dim: int = 2,
                           width_multiplier: float = 1):
-    """Per-point MLP -> (layers, out channels). With classifier=True the last
-    entry is a plain 1x1 conv (the reference's Conv1d) of that many outputs."""
+    """MLP -> (layers, out channels). dim=2: per-point SharedMLP layers on
+    [B, N, C]; dim=1: per-cloud DenseBNReLU layers on [B, C]. With
+    classifier=True the last entry is a plain layer of that many outputs
+    (the reference's Conv1d, or Linear with dim=1)."""
+    if dim not in (1, 2):
+        raise ValueError(f"create_mlp_components dim must be 1 or 2, got "
+                         f"{dim}")
+    block = DenseBNReLU if dim == 1 else SharedMLP
     r = width_multiplier
     out_channels = list(out_channels)
     layers = []
@@ -62,13 +68,14 @@ def create_mlp_components(in_channels: int, out_channels: Sequence,
             layers.append(Dropout(oc))
         else:
             oc = int(r * oc)
-            layers.append(SharedMLP(in_channels, oc))
+            layers.append(block(in_channels, oc))
             in_channels = oc
     if classifier:
-        layers.append(SplitDense(in_channels, int(out_channels[-1])))
+        last = nn.Linear if dim == 1 else SplitDense
+        layers.append(last(in_channels, int(out_channels[-1])))
         return layers, int(out_channels[-1])
     oc = int(r * out_channels[-1])
-    layers.append(SharedMLP(in_channels, oc))
+    layers.append(block(in_channels, oc))
     return layers, oc
 
 

@@ -2,10 +2,10 @@ from pvcnn_tpu_torch.nn.conv3d import Conv3dSame
 from pvcnn_tpu_torch.nn.pointnet import (BallQuery, PointNetAModule,
                                          PointNetFPModule, PointNetSAModule)
 from pvcnn_tpu_torch.nn.pvconv import PVConv, SE3d, Voxelization
-from pvcnn_tpu_torch.nn.shared_mlp import (BatchNorm, Dense2d, SharedMLP,
-                                           SplitDense)
+from pvcnn_tpu_torch.nn.shared_mlp import (BatchNorm, Dense2d, DenseBNReLU,
+                                           SharedMLP, SplitDense)
 
-__all__ = ["BallQuery", "BatchNorm", "Conv3dSame", "Dense2d",
+__all__ = ["BallQuery", "BatchNorm", "Conv3dSame", "Dense2d", "DenseBNReLU",
            "PVConv", "PointNetAModule", "PointNetFPModule",
            "PointNetSAModule", "SE3d", "SharedMLP", "SplitDense",
            "Voxelization"]

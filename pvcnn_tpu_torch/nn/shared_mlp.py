@@ -15,7 +15,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm", "Dense2d", "SharedMLP", "SplitDense"]
+from pvcnn_tpu_torch.ops.dense_rows import dense_rows_act
+from pvcnn_tpu_torch.utils import knobs
+
+__all__ = ["BatchNorm", "Dense2d", "DenseBNReLU", "SharedMLP", "SplitDense"]
 
 
 class SplitDense(nn.Conv1d):
@@ -66,7 +69,7 @@ class BatchNorm(nn.BatchNorm1d):
     bn(y) == y * scale_eff + shift_eff, the prologue the fused conv
     (ops/conv3d.py) applies in place of a normalize pass over the grid.
     `fold_from_sums()` is its training-mode twin, from the batch sums the
-    conv's statistics epilogue returns."""
+    conv's statistics epilogue returns; `apply_from_sums()` applies it."""
 
     def forward(self, x):
         c = x.shape[-1]
@@ -102,13 +105,31 @@ class BatchNorm(nn.BatchNorm1d):
         scale = self.weight * torch.rsqrt(var + self.eps)
         return scale, self.bias - mean * scale
 
+    def apply_from_sums(self, y, s1, s2, count: int):
+        """Training mode: y [..., C] normalized by the batch statistics of
+        its per-channel sums s1, s2 over `count` rows (fold_from_sums),
+        i.e. y * scale_eff + shift_eff."""
+        scale, shift = self.fold_from_sums(s1, s2, count)
+        return y * scale + shift
+
 
 class SharedMLP(nn.Module):
     """Stack of 1x1 conv -> BatchNorm -> ReLU named `layers`
     (reference modules/shared_mlp.py), over the last axis of channel-last
     features. dim=1 holds Conv1d weights (SplitDense: the input may be a
     list of arrays, meaning their channel concat); dim=2 holds Conv2d
-    weights (Dense2d), as the reference's set-abstraction MLPs do."""
+    weights (Dense2d), as the reference's set-abstraction MLPs do.
+
+    With PVCNN_TPU_DENSE_BN_FUSED=auto, a train-mode layer whose input is
+    one array of rows >= 1024 with rows % 256 == 0 (the JAX plan's shape
+    conditions, pvcnn_tpu/ops/pallas/dense_rows.py:dense_rows_plan) runs
+    as in the JAX package's fused path: ops.dense_rows_act with its
+    statistics epilogue (kernel K9 on the card), BatchNorm.apply_from_sums,
+    then relu. The TPU plan's VMEM budget is not carried
+    over: at S3DIS PVCNN 1x's shapes (32 x 4096 rows, 9 to 512 input and
+    64 to 1024 output channels) it accepts all six layers, as the shape
+    conditions do, so both packages route the same layers. Eval mode never
+    takes this path."""
 
     def __init__(self, in_channels: int, out_channels: int | Sequence[int],
                  dim: int = 1):
@@ -126,4 +147,36 @@ class SharedMLP(nn.Module):
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.layers(x)
+        if not self.training:
+            return self.layers(x)
+        for i in range(0, len(self.layers), 3):
+            dense, bn, relu = self.layers[i:i + 3]
+            if _fused_rows(x):
+                co, ci = dense.weight.shape[:2]
+                y, s1, s2 = dense_rows_act(
+                    x, dense.weight.reshape(co, ci).t(), dense.bias, None,
+                    None, 0.0, False, True)
+                x = relu(bn.apply_from_sums(y, s1, s2, x.numel() // ci))
+            else:
+                x = relu(bn(dense(x)))
+        return x
+
+
+def _fused_rows(x) -> bool:
+    """Does a train-mode layer on x take the fused Dense + statistics
+    path? (The knob is read only for an array input, as in JAX.)"""
+    if isinstance(x, (list, tuple)):
+        return False
+    rows = x.numel() // x.shape[-1]
+    return (knobs.get("PVCNN_TPU_DENSE_BN_FUSED") == "auto"
+            and rows >= 1024 and rows % 256 == 0)
+
+
+class DenseBNReLU(nn.Sequential):
+    """Linear -> BatchNorm -> ReLU on per-cloud features [B, C] (reference
+    models/utils.py:_linear_bn_relu; its children 0 and 1 give the
+    reference's state_dict keys)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(nn.Linear(in_channels, out_channels),
+                         BatchNorm(out_channels), nn.ReLU())

@@ -22,6 +22,18 @@ plain versions beside them.
 
 Only the gradients autograd asks for are computed: the first PVConv's grid
 comes from the input cloud, so its conv0 runs no dgrad.
+
+`conv3d_same` is the NDHWC conv of the unfused voxel branch
+(PVCNN_TPU_CONV_ROWS=0) with its custom weight gradient
+(PVCNN_TPU_CUSTOM_CONV_WGRAD=1), counterpart of pvcnn_tpu/nn/conv3d.py:
+conv3d_same, on channel-last grids [B, R, R, R, C]:
+
+  forward  F.conv3d on the permuted (channels_last_3d) grid, both devices
+  dgrad    F.conv3d of the cotangent with flipped, io-swapped taps
+           (the JAX package runs these two as XLA convs, outside any
+           Pallas kernel)
+  wgrad    K11 (csrc/conv3d_ndhwc_wgrad.cu); plain: 27 shifted-slice
+           products, the JAX package's own fallback
 """
 
 from __future__ import annotations
@@ -33,15 +45,16 @@ import torch.nn.functional as F
 
 from pvcnn_tpu_torch import kernels
 
-__all__ = ["conv3d_rows_act", "leaky_affine"]
+__all__ = ["conv3d_rows_act", "conv3d_same", "leaky_affine"]
 
 # the forward prologue's scale/shift live in K3's shared memory
 # (8 bytes per input channel beside its 24 KB of static tiles)
 _MAX_PROLOGUE_CI = 2048
-# K3's voxel tile (statistics slots) and K4's tile shape
+# K3's voxel tile (statistics slots); K4's and K11's tile shape
 _FWD_TILE_V = 128
 _WGRAD_TILE_M, _WGRAD_TILE_N, _WGRAD_SLICE = 128, 64, 16
-# K4 splits its reduction until about this many blocks are in flight
+# K4 and K11 split their reductions until about this many blocks are in
+# flight
 _WGRAD_BLOCKS = 2048
 
 
@@ -283,6 +296,88 @@ def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue):
             "conv3d_wgrad", "pvcnn_conv3d_wgrad", x.data_ptr(),
             gy.data_ptr(), *pro, partial.data_ptr(), b, ci, co, r, chunk,
             int(has_prologue), torch.cuda.current_stream().cuda_stream)
+    # the slices summed in a fixed order: reproducible bit for bit
+    w_taps = partial.sum(dim=0)
+    return w_taps.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous()
+
+
+# ---- NDHWC conv with its custom weight gradient ----------------------------
+
+def conv3d_same(x: torch.Tensor, weight: torch.Tensor):
+    """x [B, R, R, R, Ci] channel-last grid, weight [Co, Ci, k, k, k] (torch
+    Conv3d layout, odd k) -> [B, R, R, R, Co]: stride 1, zero padding
+    k // 2, no bias. Differentiable in x and weight."""
+    return _Conv3dSame.apply(x, weight)
+
+
+def _conv_ndhwc(x, weight):
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight,
+                 padding=weight.shape[-1] // 2)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+class _Conv3dSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return _conv_ndhwc(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad
+        dx = dw = None
+        if need_x:
+            dx = _conv_ndhwc(g, _dgrad_weight(weight))
+        if need_w:
+            wgrad = (_ndhwc_wgrad_plain if x.device.type == "cpu"
+                     else _ndhwc_wgrad_cuda)
+            dw = wgrad(x, g, weight.shape[-1])
+        return dx, dw
+
+
+def _ndhwc_wgrad_plain(x, g, k):
+    """dW[co, ci, kx, ky, kz] = sum over clouds and voxels of
+    xpad[b, v + (kx, ky, kz), ci] * g[b, v, co], one product per tap."""
+    b, d, h, w, ci = x.shape
+    co = g.shape[-1]
+    p = k // 2
+    xp = F.pad(x, (0, 0, p, p, p, p, p, p))
+    gf = g.reshape(-1, co)
+    dw = x.new_empty((k, k, k, ci, co))
+    for kx in range(k):
+        for ky in range(k):
+            for kz in range(k):
+                xs = xp[:, kx:kx + d, ky:ky + h, kz:kz + w, :].reshape(-1, ci)
+                dw[kx, ky, kz] = xs.t() @ gf
+    return dw.permute(4, 3, 0, 1, 2).contiguous()
+
+
+def _ndhwc_wgrad_cuda(x, g, k):
+    _check([x, g], "conv3d_ndhwc_wgrad")
+    b, r, r2, r3, ci = x.shape
+    co = g.shape[-1]
+    if k != 3:
+        raise ValueError(f"conv3d_ndhwc_wgrad kernel takes 3x3x3 taps, got "
+                         f"k={k}")
+    if not r == r2 == r3 or tuple(g.shape) != (b, r, r, r, co):
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(g.shape)} are "
+                         "not matching cubic grids")
+    x, g = x.contiguous(), g.contiguous()
+    bins = r ** 3
+    # split-K: voxel chunks per cloud, as K4's
+    tiles = (math.ceil(27 * ci / _WGRAD_TILE_M)
+             * math.ceil(co / _WGRAD_TILE_N))
+    per_cloud = max(1, math.ceil(_WGRAD_BLOCKS / (tiles * b)))
+    chunk = _WGRAD_SLICE * math.ceil(bins / per_cloud / _WGRAD_SLICE)
+    chunks = math.ceil(bins / chunk)
+    partial = torch.empty((b * chunks, 27 * ci, co), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.launch(
+            "conv3d_ndhwc_wgrad", "pvcnn_conv3d_ndhwc_wgrad", x.data_ptr(),
+            g.data_ptr(), partial.data_ptr(), b, ci, co, r, chunk,
+            torch.cuda.current_stream().cuda_stream)
     # the slices summed in a fixed order: reproducible bit for bit
     w_taps = partial.sum(dim=0)
     return w_taps.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous()

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from pvcnn_tpu_torch import kernels
-from pvcnn_tpu_torch.ops import (conv3d, devoxelize, gather_utils,
-                                 interpolate, neighbors, sampling, voxelize)
+from pvcnn_tpu_torch.ops import (conv3d, dense_rows, devoxelize,
+                                 gather_utils, interpolate, neighbors,
+                                 sampling, voxelize)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -97,7 +98,31 @@ CALLS = {
                             saved_tensors=(_meta(2, 40, dtype=torch.int32),),
                             needs_input_grad=(True, False), num_rows=16),
                         _meta(2, 40, 8))),
+    "dense_rows_fwd": (dense_rows, "_forward_plain", lambda:
+                       dense_rows.dense_rows_act(
+                           _meta(2, 512, 9), _meta(9, 16), _meta(16), None,
+                           None, 0.0, False, True)),
+    "dense_rows_dgrad": (dense_rows, "_dgrad_plain", lambda: _dense_backward(
+        (True, False, False, False, False))),
+    "dense_rows_wgrad": (dense_rows, "_wgrad_plain", lambda: _dense_backward(
+        (False, True, True, False, False))),
+    "conv3d_ndhwc_wgrad": (conv3d, "_ndhwc_wgrad_plain", lambda:
+                           conv3d._Conv3dSame.backward(
+                               types.SimpleNamespace(
+                                   saved_tensors=(_meta(2, 8, 8, 8, 6),
+                                                  _meta(16, 6, 3, 3, 3)),
+                                   needs_input_grad=(False, True)),
+                               _meta(2, 8, 8, 8, 16))),
 }
+
+
+def _dense_backward(needs):
+    ctx = types.SimpleNamespace(
+        saved_tensors=(_meta(2, 512, 9), _meta(9, 16), None, None, None),
+        needs_input_grad=needs, slope=0.0, has_prologue=False,
+        want_stats=False)
+    return dense_rows._DenseRowsAct.backward(ctx, _meta(2, 512, 16),
+                                             _meta(16), _meta(16))
 
 
 def _conv_backward(needs):

@@ -320,3 +320,129 @@ def test_point_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="float32"):
         ops.scatter_sum(torch.rand(1, 4, 2, device=dev, dtype=torch.float64),
                         torch.zeros(1, 4, dtype=torch.int32, device=dev), 3)
+
+
+@pytest.mark.parametrize("want_stats", [False, True])
+@pytest.mark.parametrize("has_prologue,slope", [(False, 0.0), (True, 0.0),
+                                                (True, 0.1)])
+@pytest.mark.parametrize("rows,ci,co", [(1024, 9, 64), (1000, 130, 70),
+                                        (2048, 512, 256)])
+def test_dense_rows_kernel(dev, rows, ci, co, has_prologue, slope,
+                           want_stats):
+    """K9 against its plain version (ragged row, channel and column tiles
+    included), statistics within 1e-4 of the sum of magnitudes, two runs
+    bitwise equal."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    args = (torch.randn(rows, ci, device=dev),
+            torch.randn(ci, co, device=dev) / ci ** 0.5,
+            torch.randn(co, device=dev), torch.rand(ci, device=dev) + 0.5,
+            torch.randn(ci, device=dev), slope, has_prologue, want_stats)
+    before = kernels.KERNELS["dense_rows_fwd"].launches
+    y, s1, s2 = dense_rows._forward_cuda(*args)
+    assert kernels.KERNELS["dense_rows_fwd"].launches == before + 1
+    want, w1, w2 = dense_rows._forward_plain(*args)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s1, w1, rtol=1e-4,
+                               atol=1e-4 * want.abs().sum().item() / co)
+    torch.testing.assert_close(s2, w2, rtol=1e-4, atol=0)
+    again = dense_rows._forward_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("rows,ci,co", [(1024, 9, 64), (1000, 130, 70),
+                                        (4096, 128, 1024)])
+def test_dense_rows_wgrad_kernel(dev, rows, ci, co, has_prologue):
+    """K10 (dW and d(bias) in one pass) against its plain version, within
+    1e-4 of the largest entry; two runs bitwise equal."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    args = (torch.randn(rows, ci, device=dev), torch.randn(rows, co, device=dev),
+            torch.rand(ci, device=dev) + 0.5, torch.randn(ci, device=dev),
+            0.1, has_prologue)
+    before = kernels.KERNELS["dense_rows_wgrad"].launches
+    dw, db = dense_rows._wgrad_cuda(*args)
+    assert kernels.KERNELS["dense_rows_wgrad"].launches == before + 1
+    want_dw, want_db = dense_rows._wgrad_plain(*args)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                               atol=1e-4 * want_dw.abs().max().item())
+    torch.testing.assert_close(db, want_db, rtol=1e-4,
+                               atol=1e-4 * want_db.abs().max().item())
+    again = dense_rows._wgrad_cuda(*args)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+@pytest.mark.parametrize("has_prologue,want_stats", [(False, True),
+                                                     (True, False)])
+def test_dense_rows_grads_on_card(dev, has_prologue, want_stats):
+    """The op's backward on the card (K9 as the dgrad, K10) against the same
+    op on the CPU, with cotangents on y, s1 and s2."""
+    t = [torch.randn(4, 256, 33, device=dev),
+         torch.randn(33, 70, device=dev) * 0.2, torch.randn(70, device=dev),
+         torch.rand(33, device=dev) + 0.5, torch.randn(33, device=dev)]
+    for x in t:
+        x.requires_grad_()
+    cot = [torch.randn(4, 256, 70, device=dev),
+           torch.randn(70, device=dev) * 0.1,
+           torch.randn(70, device=dev) * 0.01]
+    counts = kernels.launch_counts()
+    out = ops.dense_rows_act(*t, 0.1, has_prologue, want_stats)
+    got = torch.autograd.grad(out, t, cot, allow_unused=True)
+    after = kernels.launch_counts()
+    for name in ("dense_rows_fwd", "dense_rows_dgrad", "dense_rows_wgrad"):
+        assert after[name] == counts[name] + 1
+    tc = _cpu_twin(t)
+    want = torch.autograd.grad(
+        ops.dense_rows_act(*tc, 0.1, has_prologue, want_stats), tc,
+        [c.cpu() for c in cot], allow_unused=True)
+    _grads_close(got, want)
+
+
+@pytest.mark.parametrize("b,r,ci,co", [(2, 8, 9, 64), (2, 16, 64, 64),
+                                       (1, 12, 130, 70)])
+def test_conv3d_ndhwc_wgrad_kernel(dev, b, r, ci, co):
+    """K11 against its plain version (27 shifted-slice products), within
+    1e-4 of the largest entry, two runs bitwise equal; through
+    conv3d_same's backward with a non-contiguous cotangent, and against
+    cuDNN's weight gradient."""
+    x = torch.randn(b, r, r, r, ci, device=dev)
+    g = torch.randn(b, r, r, r, co, device=dev)
+    before = kernels.KERNELS["conv3d_ndhwc_wgrad"].launches
+    got = conv3d._ndhwc_wgrad_cuda(x, g, 3)
+    assert kernels.KERNELS["conv3d_ndhwc_wgrad"].launches == before + 1
+    want = conv3d._ndhwc_wgrad_plain(x, g, 3)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(got, conv3d._ndhwc_wgrad_cuda(x, g, 3))
+    lib = torch.nn.grad.conv3d_weight(x.permute(0, 4, 1, 2, 3), want.shape,
+                                      g.permute(0, 4, 1, 2, 3), padding=1)
+    torch.testing.assert_close(got, lib, rtol=1e-4, atol=1e-4 * scale)
+    w = torch.randn(co, ci, 3, 3, 3, device=dev, requires_grad=True)
+    gt = g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+    (dw,) = torch.autograd.grad(ops.conv3d_same(x, w), w, gt)
+    torch.testing.assert_close(dw, got, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_new_kernels_reject_what_they_do_not_take(dev):
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    x = torch.randn(1024, 8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        dense_rows._forward_cuda(x.double(), torch.randn(8, 4, device=dev),
+                                 torch.zeros(4, device=dev), None, None, 0.0,
+                                 False, True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dense_rows._wgrad_cuda(x, torch.randn(1024, 4), None, None, 0.0,
+                               False)
+    with pytest.raises(ValueError, match="weight"):
+        dense_rows._forward_cuda(x, torch.randn(4, 8, device=dev),
+                                 torch.zeros(8, device=dev), None, None, 0.0,
+                                 False, True)
+    grid = torch.randn(1, 4, 4, 4, 3, device=dev)
+    with pytest.raises(ValueError, match="3x3x3"):
+        conv3d._ndhwc_wgrad_cuda(grid, torch.randn(1, 4, 4, 4, 5, device=dev),
+                                 5)
+    with pytest.raises(ValueError, match="cubic"):
+        conv3d._ndhwc_wgrad_cuda(grid, torch.randn(1, 4, 4, 2, 5, device=dev),
+                                 3)

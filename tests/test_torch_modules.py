@@ -153,6 +153,27 @@ def _flat(tree):
                            for x in jax.tree.leaves(tree)])
 
 
+def _assert_train_state(port, v, entries, want_grads, want_stats):
+    """The port module's parameter gradients and running statistics, moved
+    into the flax tree through the mapping `entries` (under the name `m`),
+    against flax's: within 1e-4 (statistics) and 1e-4 of the largest
+    gradient."""
+    holder = torch.nn.ModuleDict({"m": port})
+    named = dict(holder.named_parameters())
+    grads = {k: (named[k].grad if k in named else torch.zeros_like(t))
+             .numpy() for k, t in holder.state_dict().items()}
+    templates = ({"m": v["params"]}, {"m": v["batch_stats"]})
+    got_grads, _ = ci.import_state_dict(grads, *templates, entries)
+    state = {k: t.numpy() for k, t in holder.state_dict().items()}
+    _, got_stats = ci.import_state_dict(state, *templates, entries)
+    np.testing.assert_allclose(_flat(got_stats["m"]), _flat(want_stats),
+                               rtol=1e-4, atol=1e-4)
+    want_flat, got_flat = _flat(want_grads), _flat(got_grads["m"])
+    assert np.abs(want_flat).max() > 0
+    np.testing.assert_allclose(got_flat, want_flat, rtol=1e-4,
+                               atol=1e-4 * np.abs(want_flat).max())
+
+
 @pytest.mark.parametrize("r,cin,cout,with_se,normalize,interpret", [
     (16, 6, 16, True, False, True),       # JAX: fused rows branch, Pallas
     (8, 16, 16, False, True, False),      # JAX: NDHWC branch, XLA
@@ -189,27 +210,32 @@ def test_pvconv_train(monkeypatch, r, cin, cout, with_se, normalize,
     got, _ = port(torch.from_numpy(feats), torch.from_numpy(coords))
     _close(got, want, tol=1e-4)
     (got * torch.from_numpy(g)).sum().backward()
-
-    holder = torch.nn.ModuleDict({"m": port})
-    named = dict(holder.named_parameters())
-    grads = {k: (named[k].grad if k in named else torch.zeros_like(t))
-             .numpy() for k, t in holder.state_dict().items()}
-    templates = ({"m": v["params"]}, {"m": v["batch_stats"]})
-    got_grads, _ = ci.import_state_dict(grads, *templates, entries)
-    state = {k: t.numpy() for k, t in holder.state_dict().items()}
-    _, got_stats = ci.import_state_dict(state, *templates, entries)
-    np.testing.assert_allclose(_flat(got_stats["m"]), _flat(want_stats),
-                               rtol=1e-4, atol=1e-4)
-    want_flat, got_flat = _flat(want_grads), _flat(got_grads["m"])
-    assert np.abs(want_flat).max() > 0
-    np.testing.assert_allclose(got_flat, want_flat, rtol=1e-4,
-                               atol=1e-4 * np.abs(want_flat).max())
+    _assert_train_state(port, v, entries, want_grads, want_stats)
 
 
 def test_batchnorm_fold_from_sums_needs_train_mode():
     with pytest.raises(RuntimeError, match="train mode"):
         tnn.BatchNorm(8).eval().fold_from_sums(torch.zeros(8), torch.ones(8),
                                                4)
+
+
+def test_batchnorm_apply_from_sums_matches_batch_norm():
+    """apply_from_sums on a batch's sums is train-mode BatchNorm: the same
+    output and the same running statistics (fp64, atol 1e-10)."""
+    rng = np.random.RandomState(3)
+    y = torch.from_numpy(rng.randn(4, 64, 8) * 2 + 1)
+    a, b = tnn.BatchNorm(8).double(), tnn.BatchNorm(8).double()
+    weight, bias = rng.rand(8) + 0.5, rng.randn(8)
+    with torch.no_grad():
+        for bn in (a, b):
+            bn.weight.copy_(torch.from_numpy(weight))
+            bn.bias.copy_(torch.from_numpy(bias))
+    rows = y.reshape(-1, 8)
+    got = a.apply_from_sums(y, rows.sum(0), (rows * rows).sum(0), 256)
+    want = b(y)
+    for g, w in ((got, want), (a.running_mean, b.running_mean),
+                 (a.running_var, b.running_var)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("spec,classifier", [
