@@ -18,7 +18,9 @@ raising on failure:
                 bitwise equal, max abs/rel difference, median CUDA-event
                 times of the kernel, the plain version and (where one
                 PyTorch call computes the same function) that call, and the
-                least time the card could take (bound);
+                least time the card could take (bound); K1's time also
+                split into its sort glue and the kernel alone, and its
+                longest run;
   4. slice      PVCNN 1x eval forward on a 32 x 2048 x 22 batch with seeded
                 weights: kernel path against the plain path on the card, and
                 against the CPU plain path on a 2-cloud batch; ms/batch;
@@ -78,7 +80,8 @@ The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
 the trainer phases (7, 11 and both runs of 15); its times, bounds and
 library time are per training step, summed over the paths' steps (each
-path's own numbers under "paths").
+path's own numbers under "paths"; K1's records there also carry glue_ms
+and kernel_alone_ms, the two parts of their ms).
 """
 
 from __future__ import annotations
@@ -467,11 +470,15 @@ class Record:
         self.calls = calls
         self.rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                         "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                        "library_ms": 0.0, "library_cases": 0, "cases": 0}
+                        "library_ms": 0.0, "library_cases": 0, "cases": 0,
+                        "glue_ms": 0.0, "kernel_alone_ms": 0.0,
+                        "split_cases": 0}
                     for k in TOL}
 
     def add(self, kernel, case, err, run_k, run_p, flops, nbytes,
-            run_lib=None, plain_reps=20):
+            run_lib=None, plain_reps=20, split=None):
+        """split: (glue, kernel alone) callables that time `run_k`'s two
+        parts apart (K1: the sort, and the kernel on its output)."""
         calls = self.calls.get((kernel, case), 0)
         r = self.rec[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -482,7 +489,14 @@ class Record:
         lib_ms = time_ms(run_lib) if run_lib is not None else None
         bound, ops_ms, bytes_ms = _bound_ms(flops, nbytes)
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
-        log("kernels", f"{kernel} {case}: {ms:.4f} ms vs plain "
+        parts = ""
+        if split is not None:
+            glue_ms, alone_ms = time_ms(split[0]), time_ms(split[1])
+            parts = f" (glue {glue_ms:.4f} ms, kernel alone {alone_ms:.4f})"
+            r["glue_ms"] += calls * glue_ms
+            r["kernel_alone_ms"] += calls * alone_ms
+            r["split_cases"] += calls
+        log("kernels", f"{kernel} {case}: {ms:.4f} ms{parts} vs plain "
             f"{plain_ms:.4f} ms{lib}, bound {bound:.4f} ms "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
             f"{calls} per step")
@@ -501,10 +515,29 @@ class Record:
                 continue
             lib = (f", library {r['library_ms']:.4f} ms"
                    if r["library_cases"] == r["cases"] else "")
-            log("kernels", f"{label} {k}: {r['ms']:.4f} ms per training "
-                f"step vs plain {r['plain_ms']:.4f} ms{lib}, bound "
+            parts = (f" (glue {r['glue_ms']:.4f} ms, kernel alone "
+                     f"{r['kernel_alone_ms']:.4f})"
+                     if r["split_cases"] == r["cases"] else "")
+            log("kernels", f"{label} {k}: {r['ms']:.4f} ms{parts} per "
+                f"training step vs plain {r['plain_ms']:.4f} ms{lib}, bound "
                 f"{r['bound_ms']:.4f} ms")
         return self.rec
+
+
+def _k1_split(kernel, values, idx, bins, cf, mean):
+    """K1's glue (the int32 cast and the stable sort) and the kernel alone on
+    its output, as the two callables of Record.add's split; and the longest
+    run (the most rows of one cloud in one bin), which one lane group (bin-
+    major) or thread (channel-major) walks serially."""
+    from pvcnn_tpu_torch.ops import voxelize
+
+    sorted_idx, perm = voxelize._sort_bins(idx.to(torch.int32))
+    run_glue = lambda: voxelize._sort_bins(idx.to(torch.int32))
+    run_alone = lambda: voxelize._launch_k1_sorted(
+        kernel, values, sorted_idx, perm, bins, cf, mean)
+    offset = torch.arange(idx.shape[0], device=idx.device)[:, None] * bins
+    longest = int(torch.bincount((idx.long() + offset).reshape(-1)).max())
+    return (run_glue, run_alone), longest
 
 
 def _grid5(norm, r):
@@ -542,9 +575,12 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
         lib = run_lib()
         lib_ok = _library_agrees("avg_voxelize", case,
                                  lib.transpose(1, 2) if cf else lib, want)
+        split, longest = _k1_split("avg_voxelize", feats, flat, r ** 3, cf,
+                                   True)
+        log("kernels", f"avg_voxelize {case}: longest run {longest} rows")
         rec.add("avg_voxelize", case, err, run_k, run_p, B * n * c,
                 4 * (B * n * c + B * n + B * r ** 3 * c),
-                run_lib if lib_ok else None)
+                run_lib if lib_ok else None, split=split)
 
     for c, r, n in cases("trilinear_devoxelize"):
         _, norm = ops.normalize_coords(coords_of(n), r, normalize=normalize)
@@ -775,9 +811,12 @@ def phase_pvcnn2_kernels() -> dict:
         err = _compare("scatter_sum", case, got, want)
         lib_ok = _library_agrees("scatter_sum", case,
                                  run_lib().reshape(B, bins, c), want)
+        split, longest = _k1_split("scatter_sum", values, idx, bins, False,
+                                   False)
+        log("kernels", f"scatter_sum {case}: longest run {longest} rows")
         rec.add("scatter_sum", case, err, run_k, run_p, B * k * c,
                 4 * (B * k * c + B * k + B * bins * c),
-                run_lib if lib_ok else None)
+                run_lib if lib_ok else None, split=split)
 
     by_n = {t.shape[1]: t for t in levels}
     _time_pvconv_kernels(rec, lambda n: by_n[n], normalize=True)
@@ -1180,8 +1219,10 @@ PROFILE_GROUPS = (
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
     ("K10 dense wgrad", ("dense_rows_wgrad_kernel",)),
     ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
-    ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",)),
-    ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_kernel",)),
+    ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",
+                                 "trilinear_devoxelize_planes_kernel")),
+    ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_kernel",
+                                       "avg_voxelize_rows_kernel")),
     ("K6 fps", ("fps_kernel",)),
     ("K7 ball_query", ("ball_query_kernel",)),
     ("K8 three_nn", ("three_nn_kernel",)),
@@ -1414,6 +1455,10 @@ def main() -> None:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "library_ms": (r["library_ms"]
                                if r["library_cases"] == r["cases"] else None)}
+            if r["cases"] and r["split_cases"] == r["cases"]:
+                # K1: "ms" split into its sort glue and the kernel alone
+                paths[path].update(glue_ms=r["glue_ms"],
+                                   kernel_alone_ms=r["kernel_alone_ms"])
         total = lambda key: sum(rec[p][k.name][key] for p in paths)
         lib = [p["library_ms"] for p in paths.values()]
         lines.append({

@@ -40,8 +40,7 @@ _F = ctypes.c_float
 # exported C function -> argument types (pointers, sizes, stream last)
 _SIGNATURES = {
     "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I64, _I64,
-                                   _I64, _P],
+    "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],
     "pvcnn_conv3d_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -116,14 +116,13 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
                          f"{tuple(norm_coords.shape)} do not match R={r}")
     grid = grid.contiguous()
     norm_coords = norm_coords.detach().contiguous()
-    stride_v, stride_c = (1, bins) if channels_first else (c, 1)
     out = torch.empty((b, n, c), dtype=torch.float32, device=grid.device)
+    # the kernel maps a channel-major grid and a channel-last one differently
     with torch.cuda.device(grid.device):
         kernels.launch(
             "trilinear_devoxelize", "pvcnn_trilinear_devoxelize",
             grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b, n, c,
-            r, bins * c, stride_v, stride_c,
-            torch.cuda.current_stream().cuda_stream)
+            r, int(channels_first), torch.cuda.current_stream().cuda_stream)
     return out
 
 

@@ -148,9 +148,23 @@ def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
     if flat_idx.shape != (b, n) or flat_idx.dtype != torch.int32:
         raise ValueError(f"{kernel} indices must be int32 [{b}, {n}], got "
                          f"{flat_idx.dtype} {tuple(flat_idx.shape)}")
-    features = features.contiguous()
-    # glue: a stable per-cloud sort fixes each bin's summation order
-    sorted_idx, perm = torch.sort(flat_idx, dim=1, stable=True)
+    sorted_idx, perm = _sort_bins(flat_idx)
+    return _launch_k1_sorted(kernel, features.contiguous(), sorted_idx, perm,
+                             num_bins, channels_first, mean)
+
+
+def _sort_bins(flat_idx):
+    """K1's glue: a stable per-cloud sort fixes each bin's summation order.
+    -> (sorted ids [B, N] int32, permutation [B, N] int64)."""
+    return torch.sort(flat_idx, dim=1, stable=True)
+
+
+def _launch_k1_sorted(kernel, features, sorted_idx, perm, num_bins,
+                      channels_first, mean):
+    """K1 alone on checked, contiguous features and `_sort_bins`' output:
+    channel-major [B, C, bins] with channels_first, else bin-major [B, bins,
+    C] (the kernel maps the two layouts differently)."""
+    b, n, c = features.shape
     out = torch.empty((b, c, num_bins) if channels_first else (b, num_bins, c),
                       dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):

@@ -42,17 +42,45 @@ def test_avg_voxelize_kernel(dev, c, r, channels_first):
                                              channels_first))
 
 
+def _devoxelize_inputs(dev, c, r, n):
+    """norm_coords with collapsed corners (exact grid hits, and points on
+    the last plane of one or all three axes) and a [2, C, R^3] grid."""
+    _, norm = ops.normalize_coords(_coords(dev, n=n), r, normalize=True)
+    norm[:, :4] = norm[:, :4].floor()
+    norm[:, 4:8, 0] = r - 1
+    norm[:, 8:12] = r - 1
+    return norm, torch.randn(2, c, r ** 3, device=dev)
+
+
 @pytest.mark.parametrize("channels_first", [False, True])
-@pytest.mark.parametrize("c,r", [(16, 8), (32, 16)])
-def test_devoxelize_kernel(dev, c, r, channels_first):
-    _, norm = ops.normalize_coords(_coords(dev), r, normalize=True)
-    norm[:, :4] = norm[:, :4].floor()          # collapsed corners
-    grid = torch.randn(2, c, r ** 3, device=dev)
+@pytest.mark.parametrize("c,r,n", [(16, 8, 512), (32, 16, 512),
+                                   (9, 8, 1000), (13, 16, 1000),
+                                   (300, 32, 1000)])
+def test_devoxelize_kernel(dev, c, r, n, channels_first):
+    """K2 against its plain version, two runs bitwise equal; the new cases
+    take channel counts off the channel-major mapping's 16- and 32-channel
+    tiles, point counts off its 32-point warps, and R = 8, 16 and 32."""
+    norm, grid = _devoxelize_inputs(dev, c, r, n)
     if not channels_first:
         grid = grid.transpose(1, 2).contiguous()
+    before = kernels.KERNELS["trilinear_devoxelize"].launches
     got = ops.devoxelize_rows(grid, norm, r, channels_first)
+    assert kernels.KERNELS["trilinear_devoxelize"].launches == before + 1
     want = devoxelize._devoxelize_plain(grid, norm, r, channels_first)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, ops.devoxelize_rows(grid, norm, r,
+                                                channels_first))
+
+
+@pytest.mark.parametrize("c,r,n", [(64, 32, 1000), (300, 16, 77)])
+def test_devoxelize_layouts_agree(dev, c, r, n):
+    """K2's two mappings sum the same terms in the same order: the
+    channel-major grid and its channel-last copy give equal outputs."""
+    norm, grid = _devoxelize_inputs(dev, c, r, n)
+    got = devoxelize._devoxelize_cuda(grid, norm, r, True)
+    last = devoxelize._devoxelize_cuda(grid.transpose(1, 2).contiguous(),
+                                       norm, r, False)
+    assert torch.equal(got, last)
 
 
 @pytest.mark.parametrize("has_prologue", [False, True])
@@ -305,6 +333,52 @@ def test_scatter_sum_kernel(dev, b, k, bins, c):
     table = torch.randn(b, bins, c, device=dev, requires_grad=True)
     (grad,) = torch.autograd.grad(ops.take_rows(table, idx), table, values)
     assert torch.equal(grad, got)
+
+
+def _k1_bin_major(mean, values, idx, bins):
+    if mean:
+        return ops.scatter_mean(values, idx, bins, channels_first=False)
+    return ops.scatter_sum(values, idx, bins)
+
+
+@pytest.mark.parametrize("spread", ["one_bin", "few_bins"])
+@pytest.mark.parametrize("c", [5, 9, 32, 130, 512])
+@pytest.mark.parametrize("mean", [False, True])
+def test_k1_bin_major_kernel(dev, mean, c, spread):
+    """K1's bin-major mapping (scatter_sum; scatter_mean channel-last)
+    against its plain version, two runs bitwise equal: every row in one bin
+    (one lane group walks the whole run), or 6 bins of 512 holding all rows
+    (most bins empty); channel counts on both sides of the float4 path and
+    of the lane group's width."""
+    k, bins = 1500, 512
+    if spread == "one_bin":
+        idx = torch.full((2, k), 300, dtype=torch.int32, device=dev)
+        idx[1] = 0
+    else:
+        idx = torch.randint(0, 6, (2, k), dtype=torch.int32, device=dev) * 97
+    values = torch.randn(2, k, c, device=dev)
+    name = "avg_voxelize" if mean else "scatter_sum"
+    before = kernels.KERNELS[name].launches
+    got = _k1_bin_major(mean, values, idx, bins)
+    assert kernels.KERNELS[name].launches == before + 1
+    if mean:
+        want = voxelize._scatter_mean_plain(values, idx, bins, False)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        want = voxelize._scatter_sum_plain(values, idx, bins)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, _k1_bin_major(mean, values, idx, bins))
+    assert int((got != 0).any(-1).sum()) == int((want != 0).any(-1).sum())
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_k1_bin_major_unaligned_rows(dev, mean):
+    """Rows that start off a 16-byte boundary take the scalar path (C = 32
+    would take float4 loads) and give the same result."""
+    values = torch.randn(2 * 300 * 32 + 1, device=dev)[1:].view(2, 300, 32)
+    idx = torch.randint(0, 64, (2, 300), dtype=torch.int32, device=dev)
+    got = _k1_bin_major(mean, values, idx, 64)
+    assert torch.equal(got, _k1_bin_major(mean, values.clone(), idx, 64))
 
 
 def test_point_kernels_reject_what_they_do_not_take(dev):

@@ -191,13 +191,19 @@ def test_nearest_neighbor_interpolate_vjp(jax_formulation, m):
                    feats, cot)
 
 
-@pytest.mark.parametrize("k,bins,c", [(512, 64, 16), (96, 300, 5)])
-def test_scatter_sum(k, bins, c):
+@pytest.mark.parametrize("k,bins,c,skewed", [
+    pytest.param(512, 64, 16, False, id="512-64-16"),
+    pytest.param(96, 300, 5, False, id="96-300-5"),
+    pytest.param(300, 200, 9, True, id="300-200-9-skewed")])
+def test_scatter_sum(k, bins, c, skewed):
     """The take_rows backward's scatter against the JAX package's
-    _scatter_sum (empty bins are 0, repeated ids sum)."""
+    _scatter_sum (empty bins are 0, repeated ids sum); skewed: one bin holds
+    every row, all others are empty."""
     rng = np.random.RandomState(k + bins)
     values = rng.randn(2, k, c).astype(np.float32)
     idx = rng.randint(0, bins // 2, (2, k)).astype(np.int32)
+    if skewed:
+        idx[:] = [[7], [bins // 2 - 1]]
     with jax.default_matmul_precision("float32"):
         want = np.asarray(j_scatter_sum(jnp.asarray(values), jnp.asarray(idx),
                                         bins))
@@ -205,6 +211,8 @@ def test_scatter_sum(k, bins, c):
     assert got.shape == (2, bins, c)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert (got[:, bins // 2:] == 0).all()
+    if skewed:
+        assert ((got != 0).any(-1).sum(-1) == 1).all()
 
 
 def test_take_rows_backward_is_scatter_sum():
