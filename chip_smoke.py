@@ -18,9 +18,11 @@ raising on failure:
                 bitwise equal, max abs/rel difference, median CUDA-event
                 times of the kernel, the plain version and (where one
                 PyTorch call computes the same function) that call, and the
-                least time the card could take (bound); K1's time also
-                split into its sort glue and the kernel alone, and its
-                longest run;
+                least time the card could take (bound); K1's and K5's
+                times also split into their sort glue and the kernel
+                alone, with their longest runs; K3's tile and split of
+                its reduction per case, and where it splits, its time
+                with and without the split, in turns;
   4. slice      PVCNN 1x eval forward on a 32 x 2048 x 22 batch with seeded
                 weights: kernel path against the plain path on the card, and
                 against the CPU plain path on a 2-cloud batch; ms/batch;
@@ -80,8 +82,8 @@ The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
 the trainer phases (7, 11 and both runs of 15); its times, bounds and
 library time are per training step, summed over the paths' steps (each
-path's own numbers under "paths"; K1's records there also carry glue_ms
-and kernel_alone_ms, the two parts of their ms).
+path's own numbers under "paths"; K1's and K5's records there also carry
+glue_ms and kernel_alone_ms, the two parts of their ms).
 """
 
 from __future__ import annotations
@@ -478,7 +480,7 @@ class Record:
     def add(self, kernel, case, err, run_k, run_p, flops, nbytes,
             run_lib=None, plain_reps=20, split=None):
         """split: (glue, kernel alone) callables that time `run_k`'s two
-        parts apart (K1: the sort, and the kernel on its output)."""
+        parts apart (K1, K5: the sort, and the kernel on its output)."""
         calls = self.calls.get((kernel, case), 0)
         r = self.rec[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -607,6 +609,12 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
         # K5: the grid gradient of the same gather
         g = torch.randn(B, n, c, device=dev)
         run_k = lambda: devoxelize._devoxelize_bwd_cuda(g, norm, r, cf)
+        points, bounds = devoxelize._sort_points(norm, r)
+        split = (lambda: devoxelize._sort_points(norm, r),
+                 lambda: devoxelize._launch_k5_sorted(g, points, bounds, r,
+                                                      cf))
+        log("kernels", f"devoxelize_bwd {case}: longest run "
+            f"{int((bounds[:, 1:] - bounds[:, :-1]).max())} points")
         run_p = lambda: devoxelize._devoxelize_bwd_plain(g, norm, r, cf)
         gt5 = g.transpose(1, 2).reshape(B, c, 1, 1, n)
         run_lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
@@ -619,7 +627,32 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
                                  lib if cf else lib.transpose(1, 2), want)
         rec.add("devoxelize_bwd", case, err, run_k, run_p, 16 * B * n * c,
                 4 * (B * n * c + 3 * B * n + B * c * r ** 3),
-                run_lib if lib_ok else None)
+                run_lib if lib_ok else None, split=split)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def tile(kernel, case, ci, co, r):
+        wm, splits = conv3d._fwd_plan(B, ci, co, r, sms)
+        log("kernels", f"{kernel} {case}: tile {16 * wm} x {512 // wm}, "
+            f"reduction in {splits} split(s)")
+
+    def split_ab(kernel, case, ci, co, r, run_k):
+        """Where K3 splits its reduction: its time with the split and with
+        one block per tile, in turns (what the split itself gains)."""
+        wm, splits = conv3d._fwd_plan(B, ci, co, r, sms)
+        if splits == 1 or (kernel, case) not in rec.calls:
+            return
+        plan, times = conv3d._fwd_plan, {splits: [], 1: []}
+        for n in (splits, 1, 1, splits):
+            conv3d._fwd_plan = lambda *a, n=n: (wm, n)
+            try:
+                times[n].append(time_ms(run_k))
+            finally:
+                conv3d._fwd_plan = plan
+        log("kernels", f"{kernel} {case}: in {splits} splits "
+            + " / ".join(f"{t:.4f}" for t in times[splits])
+            + " ms, in 1 " + " / ".join(f"{t:.4f}" for t in times[1])
+            + " ms (in turns)")
 
     for ci, co, r in sorted({c[:3] for c in cases("conv3d_fwd")}):
         bound = 1.0 / (27 * ci) ** 0.5
@@ -641,6 +674,7 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
             run_k = lambda: conv3d._forward_cuda(*args, True)
             run_p = lambda: conv3d._forward_plain(*args, True)
             run_lib = lambda: F.conv3d(x5, w, bias, padding=1)
+            tile("conv3d_fwd", case, ci, co, r)
             y, s1, s2 = _twice("conv3d_fwd", case, run_k)
             want, w1, w2 = run_p()
             err = _compare("conv3d_fwd", case, y, want)
@@ -665,6 +699,7 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
             rec.add("conv3d_fwd", case, err, run_k, run_p, flops,
                     4 * (B * ci * r ** 3 + 27 * ci * co + B * co * r ** 3),
                     run_lib if lib_ok else None)
+            split_ab("conv3d_fwd", case, ci, co, r, run_k)
 
             # K4: the weight gradient, against the plain version and fp64
             run_k = lambda: conv3d._wgrad_cuda(x, gy, scale, shift, r, pro)
@@ -697,6 +732,7 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
             g5 = gy.reshape(B, co, r, r, r)
             run_lib = lambda: torch.nn.grad.conv3d_input(
                 (B, ci, r, r, r), w, g5, padding=1)
+            tile("conv3d_dgrad", case, co, ci, r)
             dx = _twice("conv3d_dgrad", case, run_k)
             want = run_p()
             err = _compare("conv3d_dgrad", case, dx, want)
@@ -705,6 +741,7 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
             rec.add("conv3d_dgrad", case, err, run_k, run_p, flops,
                     4 * (B * co * r ** 3 + 27 * ci * co + B * ci * r ** 3),
                     run_lib if lib_ok else None)
+            split_ab("conv3d_dgrad", case, co, ci, r, run_k)
 
 
 def phase_kernels() -> dict:
@@ -1213,12 +1250,15 @@ def phase_switch_settings(label: str, base, batch, off) -> None:
 
 # torch.profiler kernel names -> the groups of the step's time split
 PROFILE_GROUPS = (
-    ("K3 conv3d forward + dgrad", ("conv3d_fwd_kernel",)),
+    ("K3 conv3d forward + dgrad", ("conv3d_fwd_kernel",
+                                   "conv3d_split_sum_kernel",
+                                   "conv3d_prologue_kernel")),
     ("K4 conv3d wgrad", ("conv3d_wgrad_kernel",)),
     ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",)),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
     ("K10 dense wgrad", ("dense_rows_wgrad_kernel",)),
     ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
+    ("K5 sort (glue)", ("devoxelize_bwd_sort_kernel",)),
     ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",
                                  "trilinear_devoxelize_planes_kernel")),
     ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_kernel",

@@ -24,7 +24,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "Kernel", "build", "launch", "library",
+__all__ = ["KERNELS", "Kernel", "build", "call", "launch", "library",
            "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -35,17 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_I64 = ctypes.c_int64
 _F = ctypes.c_float
 # exported C function -> argument types (pointers, sizes, stream last)
 _SIGNATURES = {
     "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _P],
+    "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _P],
     "pvcnn_conv3d_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64,
-                             _P],
+    "pvcnn_devoxelize_bwd_sort": [_P, _P, _P, _I, _I, _I, _P],
+    "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_fps": [_P, _P, _I, _I, _I, _P],
     "pvcnn_ball_query": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pvcnn_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -178,12 +177,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, fn: str, *args) -> None:
-    """Call exported launcher `fn` of `kernel`, count the launch, and raise
-    if CUDA refused it (the launcher returns cudaGetLastError())."""
+def call(fn: str, *args) -> None:
+    """Call exported launcher `fn` and raise if CUDA refused it (the
+    launcher returns cudaGetLastError()). Counts nothing: a kernel's glue
+    (K5's sort) launches through here."""
     lib = library()
     code = getattr(lib, fn)(*args)
     if code != 0:
         msg = lib.pvcnn_error_string(code).decode()
         raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {code})")
+
+
+def launch(kernel: str, fn: str, *args) -> None:
+    """`call` the launcher `fn` of `kernel` and count the launch."""
+    call(fn, *args)
     KERNELS[kernel].launches += 1

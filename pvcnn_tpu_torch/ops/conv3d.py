@@ -38,6 +38,7 @@ conv3d_same, on channel-last grids [B, R, R, R, C]:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -47,11 +48,12 @@ from pvcnn_tpu_torch import kernels
 
 __all__ = ["conv3d_rows_act", "conv3d_same", "leaky_affine"]
 
-# the forward prologue's scale/shift live in K3's shared memory
-# (8 bytes per input channel beside its 24 KB of static tiles)
-_MAX_PROLOGUE_CI = 2048
-# K3's voxel tile (statistics slots); K4's and K11's tile shape
+# K3's voxels per warp (statistics slots); K4's and K11's tile shape
 _FWD_TILE_V = 128
+# K3 fills the card with at least this many waves of blocks (3 per SM, its
+# __launch_bounds__) before it splits its reduction, into at most
+# _FWD_SPLITS blocks
+_FWD_WAVES, _FWD_BLOCKS_PER_SM, _FWD_SPLITS = 2, 3, 8
 _WGRAD_TILE_M, _WGRAD_TILE_N, _WGRAD_SLICE = 128, 64, 16
 # K4 and K11 split their reductions until about this many blocks are in
 # flight
@@ -207,14 +209,44 @@ def _check_conv(x, weight, r):
     return b, ci, co, bins
 
 
-def _launch_fwd(kernel, x, w_taps, bias, pro, y, partial, b, ci, co, r,
-                has_prologue):
+def _fwd_plan(b, ci, co, r, sms):
+    """K3's launch on a card of `sms` SMs -> (wm, splits). The block tile is
+    16 * wm output channels x 512 / wm voxels: wm = 2 where Co <= 32 (no
+    half of a 64-channel tile multiplies zero weights), else 4. Where the
+    blocks fill fewer than _FWD_WAVES waves, the 27 * Ci reduction is split
+    over `splits` blocks per tile: the count whose last wave is fullest,
+    the smaller on a tie."""
+    wm = 2 if co <= 32 else 4
+    blocks = (b * math.ceil(co / (16 * wm))
+              * math.ceil(r ** 3 / (_FWD_TILE_V * 4 // wm)))
+    slots = _FWD_BLOCKS_PER_SM * sms
+    if blocks >= _FWD_WAVES * slots:
+        return wm, 1
+    most = min(_FWD_SPLITS, math.ceil(27 * ci / 16))
+    return wm, min(range(1, most + 1),
+                   key=lambda s: (math.ceil(blocks * s / slots) / s, s))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_fwd(kernel, x, w_taps, bias, pro, y, partial, b, ci, co, r):
+    """pro: the prologue's (scale, shift, activated-input buffer) pointers,
+    or three Nones."""
+    wm, splits = _fwd_plan(b, ci, co, r, _sm_count(x.device.index))
+    # the split reduction's partial outputs, summed by the kernel's second
+    # pass in a fixed order
+    ypart = (torch.empty((splits, b, co, r ** 3), dtype=torch.float32,
+                         device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):
         kernels.launch(
             kernel, "pvcnn_conv3d_fwd", x.data_ptr(), w_taps.data_ptr(),
             bias.data_ptr(), *pro, y.data_ptr(),
-            None if partial is None else partial.data_ptr(), b, ci, co, r,
-            int(has_prologue), torch.cuda.current_stream().cuda_stream)
+            None if partial is None else partial.data_ptr(),
+            None if ypart is None else ypart.data_ptr(), b, ci, co, r, wm,
+            splits, torch.cuda.current_stream().cuda_stream)
 
 
 def _forward_cuda(x, weight, bias, pscale, pshift, resolution, has_prologue,
@@ -227,24 +259,23 @@ def _forward_cuda(x, weight, bias, pscale, pshift, resolution, has_prologue,
         raise ValueError(f"bias {tuple(bias.shape)} does not match Co={co}")
     if has_prologue and (pscale.shape != (ci,) or pshift.shape != (ci,)):
         raise ValueError(f"prologue scale/shift must be [{ci}]")
-    if has_prologue and ci > _MAX_PROLOGUE_CI:
-        raise ValueError(f"conv3d kernel's prologue takes at most "
-                         f"{_MAX_PROLOGUE_CI} input channels, got {ci}")
     x, bias = x.contiguous(), bias.contiguous()
     # tap-major [27 * Ci, Co] (the JAX [k, k, k, Ci, Co] layout, flattened)
     w_taps = weight.permute(2, 3, 4, 1, 0).reshape(27 * ci, co).contiguous()
     if has_prologue:
         pscale, pshift = pscale.contiguous(), pshift.contiguous()
-        pro = (pscale.data_ptr(), pshift.data_ptr())
+        # the prologue's pass writes the activated input here
+        xact = torch.empty_like(x)
+        pro = (pscale.data_ptr(), pshift.data_ptr(), xact.data_ptr())
     else:
-        pro = (None, None)
+        pro = (None, None, None)
     y = torch.empty((b, co, bins), dtype=torch.float32, device=x.device)
-    # one statistics slot per (cloud, voxel tile), summed in a fixed order
+    # one statistics slot per (cloud, 128-voxel tile of a warp), summed in
+    # a fixed order
     partial = (torch.empty((2, co, b * math.ceil(bins / _FWD_TILE_V)),
                            dtype=torch.float32, device=x.device)
                if want_stats else None)
-    _launch_fwd("conv3d_fwd", x, w_taps, bias, pro, y, partial, b, ci, co, r,
-                has_prologue)
+    _launch_fwd("conv3d_fwd", x, w_taps, bias, pro, y, partial, b, ci, co, r)
     if want_stats:
         s1, s2 = partial.sum(dim=2)
     else:
@@ -262,8 +293,8 @@ def _dgrad_cuda(gy, weight, resolution):
     w_taps = wt.permute(2, 3, 4, 1, 0).reshape(27 * co, ci).contiguous()
     zero_bias = torch.zeros(ci, dtype=torch.float32, device=gy.device)
     dx = torch.empty((b, ci, bins), dtype=torch.float32, device=gy.device)
-    _launch_fwd("conv3d_dgrad", gy, w_taps, zero_bias, (None, None), dx,
-                None, b, co, ci, r, False)
+    _launch_fwd("conv3d_dgrad", gy, w_taps, zero_bias, (None, None, None),
+                dx, None, b, co, ci, r)
     return dx
 
 

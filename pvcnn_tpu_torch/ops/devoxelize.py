@@ -5,9 +5,10 @@ grid, and its gradient (counterpart of pvcnn_tpu/ops/devoxelize.py).
 dispatch by device. Forward: a CUDA tensor goes to kernel K2
 (pvcnn_tpu_torch/csrc/devoxelize.cu), a CPU tensor to the plain 8-corner
 gather beside it (`_devoxelize_plain`). Backward, the grid gradient: kernel
-K5 (csrc/devoxelize_bwd.cu), or the plain 8-corner `scatter_add_`
-(`_devoxelize_bwd_plain`). No gradient flows into norm_coords, as in the
-reference.
+K5 (csrc/devoxelize_bwd.cu: a counting sort of the N base bins on the card,
+`_sort_points`, then a walk of each bin's 8 corner runs), or the plain
+8-corner `scatter_add_` (`_devoxelize_bwd_plain`). No gradient flows into
+norm_coords, as in the reference.
 
 Edge rule, bit-for-bit with the reference CUDA kernel: coordinates arrive
 clamped to [0, R-1]; the hi corner collapses onto lo where the fractional
@@ -152,23 +153,58 @@ def _devoxelize_bwd_cuda(g, norm_coords, resolution, channels_first):
     if tuple(norm_coords.shape) != (b, n, 3):
         raise ValueError(f"g {tuple(g.shape)} and norm_coords "
                          f"{tuple(norm_coords.shape)} do not match")
+    points, bounds = _sort_points(norm_coords.detach().contiguous(), r)
+    return _launch_k5_sorted(g.contiguous(), points, bounds, r,
+                             channels_first)
+
+
+def _sort_points(norm_coords, r):
+    """K5's glue, on the card: a stable per-cloud counting sort of the points
+    by base bin (the clamped lo corner). -> (points [B, N, 4] float32: x, y,
+    z and the point's index as int32 bits, in bin order; bounds [B, R^3 + 1]
+    int32: base bin u's run is points[bounds[u]:bounds[u + 1]])."""
+    b, n, _ = norm_coords.shape
+    points = torch.empty((b, n, 4), dtype=torch.float32,
+                         device=norm_coords.device)
+    bounds = torch.empty((b, r ** 3 + 1), dtype=torch.int32,
+                         device=norm_coords.device)
+    with torch.cuda.device(norm_coords.device):
+        kernels.call("pvcnn_devoxelize_bwd_sort", norm_coords.data_ptr(),
+                     points.data_ptr(), bounds.data_ptr(), b, n, r,
+                     torch.cuda.current_stream().cuda_stream)
+    return points, bounds
+
+
+def _sort_points_plain(norm_coords, r):
+    """`_sort_points` in plain torch (the kernel's oracle): the same
+    clamped base bins, a stable sort, and the runs' bounds from counts."""
+    b, n, _ = norm_coords.shape
+    lo = torch.floor(norm_coords).to(torch.int32).clamp(0, r - 1)
+    base = (lo[..., 0] * r + lo[..., 1]) * r + lo[..., 2]
+    _, perm = torch.sort(base, dim=1, stable=True)
+    index = torch.arange(n, dtype=torch.int32, device=norm_coords.device)
+    points = torch.cat([norm_coords, index.view(torch.float32).expand(
+        b, n)[..., None]], dim=2)
+    points = torch.gather(points, 1, perm[..., None].expand(-1, -1, 4))
+    counts = torch.zeros((b, r ** 3 + 1), dtype=torch.int32,
+                         device=norm_coords.device)
+    counts.scatter_add_(1, base.long() + 1, torch.ones_like(base))
+    return points, counts.cumsum(dim=1, dtype=torch.int32)
+
+
+def _launch_k5_sorted(g, points, bounds, r, channels_first):
+    """K5 alone on a contiguous float32 g [B, N, C] and `_sort_points`'
+    output: the grid gradient [B, C, R^3] with channels_first, else
+    [B, R^3, C] (the kernel maps the two layouts differently)."""
+    b, n, c = g.shape
     bins = r ** 3
-    g = g.contiguous()
-    # glue: the forward's corners and weights, and a stable per-cloud sort
-    # of the 8N corner bins that fixes each bin's summation order
-    idx8, w8 = _corners(norm_coords.detach(), r)
-    sorted_bin, perm = torch.sort(idx8.reshape(b, 8 * n).to(torch.int32),
-                                  dim=1, stable=True)
-    w8 = w8.reshape(b, 8 * n).contiguous()
     out = torch.empty((b, c, bins) if channels_first else (b, bins, c),
                       dtype=torch.float32, device=g.device)
-    stride_v, stride_c = (1, bins) if channels_first else (c, 1)
     with torch.cuda.device(g.device):
         kernels.launch(
             "devoxelize_bwd", "pvcnn_devoxelize_bwd", g.data_ptr(),
-            sorted_bin.data_ptr(), perm.data_ptr(), w8.data_ptr(),
-            out.data_ptr(), b, n, c, bins, stride_v, stride_c,
-            torch.cuda.current_stream().cuda_stream)
+            points.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, n, c, r,
+            int(channels_first), torch.cuda.current_stream().cuda_stream)
     return out
 
 

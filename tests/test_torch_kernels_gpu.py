@@ -223,7 +223,7 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ops.scatter_mean(x.double().transpose(1, 2),
                          torch.zeros(1, 512, dtype=torch.int32, device=dev),
                          512)
-    # the new wrappers: wrong dtype, wrong device, too many prologue channels
+    # the new wrappers: wrong dtype, wrong device
     gy = torch.randn(1, 4, 512, device=dev)
     with pytest.raises(ValueError, match="float32"):
         conv3d._wgrad_cuda(x.double(), gy, None, None, 8, False)
@@ -239,12 +239,6 @@ def test_kernels_reject_what_they_do_not_take(dev):
         devoxelize._devoxelize_bwd_cuda(
             torch.randn(1, 64, 4, device=dev, dtype=torch.float64),
             torch.rand(1, 64, 3, device=dev), 8, True)
-    wide = torch.randn(1, 2049, 8, device=dev)
-    with pytest.raises(ValueError, match="at most 2048"):
-        ops.conv3d_rows_act(wide, torch.randn(4, 2049, 3, 3, 3, device=dev),
-                            torch.zeros(4, device=dev),
-                            torch.ones(2049, device=dev),
-                            torch.zeros(2049, device=dev), 2, True)
 
 
 def _room(dev, b, n, seed=0):
@@ -520,3 +514,104 @@ def test_new_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="cubic"):
         conv3d._ndhwc_wgrad_cuda(grid, torch.randn(1, 4, 4, 2, 5, device=dev),
                                  3)
+
+
+def _k5_coords(dev, b, n, r, seed):
+    """norm_coords in [0, R-1] with exact-integer points and points on the
+    R-1 plane of each axis and of all three (collapsed corners)."""
+    gen = torch.Generator().manual_seed(seed)
+    norm = torch.rand(b, n, 3, generator=gen) * (r - 1)
+    norm[:, :16] = norm[:, :16].floor()
+    for axis in range(3):
+        norm[:, 16 + 8 * axis:24 + 8 * axis, axis] = r - 1
+    norm[:, 40:48] = r - 1
+    return norm.to(dev)
+
+
+def _k5_check(g, norm, r, atol=1e-5):
+    """K5 in both layouts against its plain version; the sort glue equal to
+    its plain version; two runs and the two layouts bitwise equal."""
+    points, bounds = devoxelize._sort_points(norm, r)
+    want_points, want_bounds = devoxelize._sort_points_plain(norm, r)
+    assert torch.equal(points.view(torch.int32),
+                       want_points.view(torch.int32))
+    assert torch.equal(bounds, want_bounds)
+    before = kernels.KERNELS["devoxelize_bwd"].launches
+    got = devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
+    assert kernels.KERNELS["devoxelize_bwd"].launches == before + 1
+    want = devoxelize._devoxelize_bwd_plain(g, norm, r, True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(g, norm, r, True))
+    last = devoxelize._devoxelize_bwd_cuda(g, norm, r, False)
+    assert torch.equal(last, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("r", [8, 16, 32])
+@pytest.mark.parametrize("c", [1, 5, 13, 32, 130])
+def test_k5_kernel(dev, c, r):
+    """K5 at channel counts on and off its float4 rows and lane groups, R =
+    8, 16 and 32, 777 points (a multiple of no tile), collapsed corners on
+    the R-1 planes and at exact integers."""
+    norm = _k5_coords(dev, 2, 777, r, seed=c + r)
+    _k5_check(torch.randn(2, 777, c, device=dev), norm, r)
+
+
+def test_k5_large_grid(dev):
+    """R = 40: the sort's R^3 + 1 counters outgrow shared memory and live
+    in the bounds buffer."""
+    norm = _k5_coords(dev, 2, 777, 40, seed=40)
+    _k5_check(torch.randn(2, 777, 8, device=dev), norm, 40)
+
+
+@pytest.mark.parametrize("c", [5, 64])
+def test_k5_one_bin(dev, c):
+    """Every point of a cloud in one base bin: one run of all N points,
+    walked by each of the 8 bins around it; one cloud at an exact grid
+    point (7 of the 8 corners collapse). A bin sums up to 2000 terms, in
+    another order than the plain version's atomics: held to 1e-5 of the
+    largest entry."""
+    r, n = 16, 2000
+    norm = 5.0 + torch.rand(2, n, 3, device=dev) * 0.999
+    norm[1] = 9.0
+    g = torch.randn(2, n, c, device=dev)
+    scale = devoxelize._devoxelize_bwd_plain(g, norm, r, True).abs().max()
+    _k5_check(g, norm, r, atol=1e-5 * scale.item())
+
+
+@pytest.mark.parametrize("has_prologue,want_stats", [(False, False),
+                                                     (False, True),
+                                                     (True, True),
+                                                     (True, False)])
+@pytest.mark.parametrize("b,ci,co,r", [(2, 16, 16, 12), (3, 32, 32, 16),
+                                       (2, 9, 32, 16), (2, 64, 33, 8),
+                                       (32, 128, 128, 8), (32, 256, 256, 8),
+                                       (2, 6, 64, 5), (2, 33, 16, 8),
+                                       (1, 2049, 24, 4), (1, 24, 2049, 4)])
+def test_conv3d_tiles(dev, b, ci, co, r, has_prologue, want_stats):
+    """K3's forward at each tile (Co <= 32 and wider) and split of its
+    reduction (R = 8 at B = 32, Ci = Co in {128, 256}; the few blocks of
+    B = 2 and 1), the unaligned table (Ci = 6, 9; Ci = 2049 rebuilds it 54
+    times, from slice offsets that split blocks start at): against the
+    plain version, statistics within 1e-4, two runs bitwise equal; and as
+    the dgrad onto 16, 32, 33 and 2049 channels among others, and from
+    2049."""
+    x = torch.randn(b, ci, r ** 3, device=dev)
+    w = torch.randn(co, ci, 3, 3, 3, device=dev) / (27 * ci) ** 0.5
+    bias = torch.randn(co, device=dev)
+    scale = torch.rand(ci, device=dev) + 0.5
+    shift = torch.randn(ci, device=dev)
+    args = (x, w, bias, scale, shift, r, has_prologue, want_stats)
+    y, s1, s2 = conv3d._forward_cuda(*args)
+    want, w1, w2 = conv3d._forward_plain(*args)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    if want_stats:
+        torch.testing.assert_close(s1, w1, rtol=1e-4,
+                                   atol=1e-4 * want.abs().sum().item() / co)
+        torch.testing.assert_close(s2, w2, rtol=1e-4, atol=0)
+    again = conv3d._forward_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+    gy = torch.randn(b, co, r ** 3, device=dev)
+    dx = conv3d._dgrad_cuda(gy, w, r)
+    torch.testing.assert_close(dx, conv3d._dgrad_plain(gy, w, r), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(dx, conv3d._dgrad_cuda(gy, w, r))

@@ -23,9 +23,11 @@ import pytest
 import torch
 
 from pvcnn_tpu import ops as jops
+from pvcnn_tpu.ops.devoxelize import _corners as j_corners
 from pvcnn_tpu.ops.pallas.conv_rows import conv3d_rows_act as j_conv_act
 from pvcnn_tpu.ops.pallas.conv_rows import conv_rows_supported
 from pvcnn_tpu_torch import ops
+from pvcnn_tpu_torch.ops import devoxelize
 
 
 @pytest.fixture(autouse=True)
@@ -109,6 +111,59 @@ def test_corner_base_bins_is_first_corner():
     np.testing.assert_array_equal(ops.corner_base_bins(norm, 8).numpy(), want)
 
 
+def _edge_coords(rng, b, n, r):
+    """[b, n, 3] float32 in [0, R-1] with exact-integer points and points on
+    the R-1 plane of each axis and of all three."""
+    norm = rng.uniform(0, r - 1, (b, n, 3)).astype(np.float32)
+    norm[:, :16] = np.floor(norm[:, :16])
+    for axis in range(3):
+        norm[:, 16 + 8 * axis:24 + 8 * axis, axis] = r - 1
+    norm[:, 40:48] = r - 1
+    return norm
+
+
+@pytest.mark.parametrize("impl", ["jax", "torch"])
+@pytest.mark.parametrize("r", [8, 16, 32])
+def test_corners_off_the_base_walk_weigh_zero(impl, r):
+    """What K5's base-bin walk (and the TPU's sorted scatter) relies on:
+    corner k of a point lies at base + bx R^2 + by R + bz (k's bits), or its
+    weight is exactly 0 (a collapsed corner: exact integers, the R-1
+    plane)."""
+    norm = _edge_coords(np.random.RandomState(r), 2, 256, r)
+    if impl == "jax":
+        idx8, w8 = (np.asarray(a) for a in j_corners(jnp.asarray(norm), r))
+    else:
+        idx8, w8 = (t.numpy() for t in devoxelize._corners(
+            torch.from_numpy(norm), r))
+    offsets = np.array([bx * r * r + by * r + bz for bx in (0, 1)
+                        for by in (0, 1) for bz in (0, 1)])
+    stray = idx8 != idx8[..., :1] + offsets
+    assert stray[:, :48].any(axis=-1).all()   # every edge point collapses
+    np.testing.assert_array_equal(w8[stray], 0.0)
+    assert ((idx8 >= 0) & (idx8 < r ** 3)).all()
+
+
+@pytest.mark.parametrize("r", [8, 16])
+def test_sort_points_plain(r):
+    """K5's glue in plain torch (the sort kernel's oracle on the card)
+    against numpy: points in stable base-bin order with their indices, and
+    each bin's run bounds."""
+    rng = np.random.RandomState(5 + r)
+    norm = _edge_coords(rng, 2, 300, r)
+    norm[1, 100:200] = norm[1, 100]           # one long run
+    points, bounds = devoxelize._sort_points_plain(torch.from_numpy(norm), r)
+    lo = np.clip(np.floor(norm).astype(np.int64), 0, r - 1)
+    base = (lo[..., 0] * r + lo[..., 1]) * r + lo[..., 2]
+    for b in range(2):
+        order = np.argsort(base[b], kind="stable")
+        np.testing.assert_array_equal(
+            points.view(torch.int32)[b, :, 3].numpy(), order)
+        np.testing.assert_array_equal(points[b, :, :3].numpy(), norm[b, order])
+        want = np.concatenate([[0], np.cumsum(np.bincount(
+            base[b], minlength=r ** 3))])
+        np.testing.assert_array_equal(bounds[b].numpy(), want)
+
+
 @pytest.mark.parametrize("has_prologue", [False, True])
 @pytest.mark.parametrize("ci,co", [(6, 16), (16, 16)])
 def test_conv3d_rows_act(ci, co, has_prologue):
@@ -132,6 +187,23 @@ def test_conv3d_rows_act(ci, co, has_prologue):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
     assert not s1.any() and not s2.any()       # no statistics asked for
+
+
+@pytest.mark.parametrize("b,ci,co,r,want", [
+    (32, 32, 32, 32, (2, 1)),      # Co <= 32: the 32 x 256 tile
+    (32, 9, 32, 32, (2, 1)),
+    (32, 64, 33, 32, (4, 1)),
+    (32, 64, 64, 16, (4, 1)),      # 1024 blocks: 2.6 waves, not split
+    (32, 128, 128, 8, (4, 3)),     # 256 blocks: 3 splits, 2 full waves
+    (32, 256, 256, 8, (4, 3)),     # 512 blocks: 4 waves of 1536
+    (2, 6, 16, 8, (2, 8)),         # 4 blocks: the most splits
+    (1, 6, 64, 2, (4, 8)),         # 11 slices: 8 splits of 2 or fewer
+])
+def test_conv3d_fwd_plan(b, ci, co, r, want):
+    """K3's tile and split of the reduction on a card of 132 SMs."""
+    from pvcnn_tpu_torch.ops import conv3d
+
+    assert conv3d._fwd_plan(b, ci, co, r, 132) == want
 
 
 def _grad_close(got, want, rtol):
