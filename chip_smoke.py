@@ -22,7 +22,9 @@ raising on failure:
                 times also split into their sort glue and the kernel
                 alone, with their longest runs; K3's tile and split of
                 its reduction per case, and where it splits, its time
-                with and without the split, in turns;
+                with and without the split, in turns; K4's plan per case
+                (tile, z-segment, splits, partial-buffer bytes) and its
+                share of its bound;
   4. slice      PVCNN 1x eval forward on a 32 x 2048 x 22 batch with seeded
                 weights: kernel path against the plain path on the card, and
                 against the CPU plain path on a 2-cloud batch; ms/batch;
@@ -480,12 +482,14 @@ class Record:
     def add(self, kernel, case, err, run_k, run_p, flops, nbytes,
             run_lib=None, plain_reps=20, split=None):
         """split: (glue, kernel alone) callables that time `run_k`'s two
-        parts apart (K1, K5: the sort, and the kernel on its output)."""
+        parts apart (K1, K5: the sort, and the kernel on its output).
+        Returns (ms, bound ms) of a timed case, None where it has no
+        calls."""
         calls = self.calls.get((kernel, case), 0)
         r = self.rec[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if calls == 0:
-            return
+            return None
         ms = time_ms(run_k)
         plain_ms = time_ms(run_p, reps=plain_reps, warmup=1)
         lib_ms = time_ms(run_lib) if run_lib is not None else None
@@ -510,6 +514,7 @@ class Record:
         if lib_ms is not None:
             r["library_ms"] += calls * lib_ms
             r["library_cases"] += calls
+        return ms, bound
 
     def summary(self, label: str) -> dict:
         for k, r in self.rec.items():
@@ -720,9 +725,17 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
                 f"plain {(want - exact).abs().max().item() / scale_w:.3e}")
             lib_ok = _library_agrees("conv3d_wgrad", case, run_lib(), want,
                                      scale_w)
-            rec.add("conv3d_wgrad", case, err, run_k, run_p, flops,
-                    4 * (B * ci * r ** 3 + B * co * r ** 3 + 27 * ci * co),
-                    run_lib if lib_ok else None)
+            timed = rec.add("conv3d_wgrad", case, err, run_k, run_p, flops,
+                            4 * (B * ci * r ** 3 + B * co * r ** 3
+                                 + 27 * ci * co),
+                            run_lib if lib_ok else None)
+            plan = conv3d._wgrad_plan(B, ci, co, r, sms)
+            share = (f", {timed[1] / timed[0]:.1%} of its bound"
+                     if timed else "")
+            log("kernels", f"conv3d_wgrad {case}: tile {plan.tile}, "
+                f"z-segments of {plan.seg}, {plan.splits} split(s) of "
+                f"{plan.per_split} slices, partial buffer "
+                f"{plan.partial_bytes} bytes{share}")
 
         # K3 as the dgrad: Co -> Ci channels, flipped io-swapped taps
         if ("conv3d_dgrad", (co, ci, r)) in rec.calls:
@@ -1251,9 +1264,9 @@ def phase_switch_settings(label: str, base, batch, off) -> None:
 # torch.profiler kernel names -> the groups of the step's time split
 PROFILE_GROUPS = (
     ("K3 conv3d forward + dgrad", ("conv3d_fwd_kernel",
-                                   "conv3d_split_sum_kernel",
-                                   "conv3d_prologue_kernel")),
-    ("K4 conv3d wgrad", ("conv3d_wgrad_kernel",)),
+                                   "conv3d_split_sum_kernel")),
+    ("K4 conv3d wgrad", ("conv3d_wgrad_kernel", "conv3d_wgrad_sum_kernel")),
+    ("K3 / K4 prologue pass", ("conv3d_prologue_kernel",)),
     ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",)),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
     ("K10 dense wgrad", ("dense_rows_wgrad_kernel",)),

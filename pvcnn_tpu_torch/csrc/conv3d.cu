@@ -12,7 +12,7 @@
 // so the prologue is applied to in-grid values only (the TPU kernel
 // re-zeroes its pad columns for the same reason, conv_rows.py:_stage_act).
 // The prologue runs once per input element, in a pass that writes the
-// activated input to a buffer like x (conv3d_prologue_kernel), which the
+// activated input to a buffer like x (csrc/prologue.cuh), which the
 // conv then reads: applied while staging, it would run once per element,
 // tap and output-channel tile (27 times or more), which cost the prologue
 // cases 12-21% of their time on the H100, more than the pass's 2|x| bytes.
@@ -66,7 +66,7 @@
 // 64->64 layer at B=32, R=32) against 67 TFLOP/s of fp32 FMA; the input
 // block is re-read from L2 for each of its 27 taps. A later PR can move the
 // product to the tensor cores and the staging to cp.async/TMA.
-#include "common.cuh"
+#include "prologue.cuh"
 
 namespace {
 
@@ -101,36 +101,6 @@ __device__ __forceinline__ unsigned tap_mask(int v, int R) {
     }
   }
   return m;
-}
-
-// leaky(x * s + t, 0.1). No fused multiply-add: the same two roundings as
-// the plain version's x * s + t.
-__device__ __forceinline__ float activate(float x, float s, float t) {
-  const float y = __fadd_rn(__fmul_rn(x, s), t);
-  return y > 0.f ? y : __fmul_rn(0.1f, y);
-}
-
-// the prologue, once per input element: xact = leaky(x * s + t, 0.1)
-template <int V>
-__global__ void __launch_bounds__(pvcnn::kThreads)
-conv3d_prologue_kernel(const float* __restrict__ x,       // [B, Ci, R^3]
-                       const float* __restrict__ pscale,  // [Ci]
-                       const float* __restrict__ pshift,  // [Ci]
-                       float* __restrict__ xact,          // [B, Ci, R^3]
-                       int Ci, int R3, int64_t total) {
-  const int64_t i = (blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                     threadIdx.x) * V;
-  if (i >= total) return;
-  const int ci = static_cast<int>(i / R3 % Ci);   // V divides R^3
-  const float s = __ldg(pscale + ci), t = __ldg(pshift + ci);
-  if (V == 4) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(x + i));
-    v = make_float4(activate(v.x, s, t), activate(v.y, s, t),
-                    activate(v.z, s, t), activate(v.w, s, t));
-    *reinterpret_cast<float4*>(xact + i) = v;
-  } else {
-    xact[i] = activate(__ldg(x + i), s, t);
-  }
 }
 
 template <int WM, bool kAligned>
@@ -446,17 +416,10 @@ PVCNN_EXPORT int pvcnn_conv3d_fwd(const void* x, const void* w,
   const auto* xf = static_cast<const float*>(x);
   if (xact != nullptr) {
     auto* xa = static_cast<float*>(xact);
-    const auto* sf = static_cast<const float*>(pscale);
-    const auto* tf = static_cast<const float*>(pshift);
-    const int64_t total = static_cast<int64_t>(B) * Ci * r3;
-    if (r3 % 4 == 0 && reinterpret_cast<uintptr_t>(xf) % 16 == 0) {
-      conv3d_prologue_kernel<4><<<pvcnn::blocks_for(total / 4),
-                                  pvcnn::kThreads, 0, st>>>(xf, sf, tf, xa, Ci,
-                                                            r3, total);
-    } else {
-      conv3d_prologue_kernel<1><<<pvcnn::blocks_for(total), pvcnn::kThreads,
-                                  0, st>>>(xf, sf, tf, xa, Ci, r3, total);
-    }
+    const int err = pvcnn::launch_conv3d_prologue(
+        xf, static_cast<const float*>(pscale),
+        static_cast<const float*>(pshift), xa, B, Ci, r3, st);
+    if (err != 0) return err;
     xf = xa;
   }
   const Args a{xf, static_cast<const float*>(w),

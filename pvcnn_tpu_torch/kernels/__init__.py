@@ -42,7 +42,8 @@ _SIGNATURES = {
     "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P],
-    "pvcnn_conv3d_wgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pvcnn_conv3d_wgrad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
     "pvcnn_devoxelize_bwd_sort": [_P, _P, _P, _I, _I, _I, _P],
     "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_fps": [_P, _P, _I, _I, _I, _P],

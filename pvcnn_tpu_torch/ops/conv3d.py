@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,16 +49,23 @@ from pvcnn_tpu_torch import kernels
 
 __all__ = ["conv3d_rows_act", "conv3d_same", "leaky_affine"]
 
-# K3's voxels per warp (statistics slots); K4's and K11's tile shape
+# K3's voxels per warp (statistics slots)
 _FWD_TILE_V = 128
 # K3 fills the card with at least this many waves of blocks (3 per SM, its
 # __launch_bounds__) before it splits its reduction, into at most
 # _FWD_SPLITS blocks
 _FWD_WAVES, _FWD_BLOCKS_PER_SM, _FWD_SPLITS = 2, 3, 8
+# K11's tile and split: its reduction is split until about _WGRAD_BLOCKS
+# blocks are in flight
 _WGRAD_TILE_M, _WGRAD_TILE_N, _WGRAD_SLICE = 128, 64, 16
-# K4 and K11 split their reductions until about this many blocks are in
-# flight
 _WGRAD_BLOCKS = 2048
+# K4: voxels per slice of its reduction; at most _K4_THREADS threads per
+# block (3 * cb * columns / 8), about _K4_WARPS_PER_SM warps resident per SM
+# (the registers of __launch_bounds__(192, 2)); it splits the reduction so
+# that its blocks fill at most _K4_WAVES waves, no split under
+# _K4_MIN_SLICES slices
+_K4_SLICE, _K4_THREADS, _K4_WARPS_PER_SM = 32, 192, 12
+_K4_WAVES, _K4_MIN_SLICES = 2, 8
 
 
 def leaky_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor):
@@ -227,6 +235,56 @@ def _fwd_plan(b, ci, co, r, sms):
                    key=lambda s: (math.ceil(blocks * s / slots) / s, s))
 
 
+class WgradPlan(NamedTuple):
+    """K4's launch (csrc/conv3d_wgrad.cu)."""
+
+    seg: int            # z-segment length L: 8, 16 or 32
+    cols: int           # output channels per block: 32 or 64
+    cb: int             # input channels per block (27 * cb rows)
+    tiles: int          # blocks per split: row tiles x column tiles
+    slices: int         # 32-voxel slices of the B * R^3 reduction
+    splits: int         # blocks per tile, each an equal run of slices
+    partial_bytes: int  # the split partials [splits, Co, Ci, 27] (0: none)
+
+    @property
+    def tile(self) -> str:
+        return f"{27 * self.cb}x{self.cols}"
+
+    @property
+    def per_split(self) -> int:
+        return math.ceil(self.slices / self.splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_plan(b, ci, co, r, sms) -> WgradPlan:
+    """K4's launch on a card of `sms` SMs. The reduction runs over
+    z-segments of L = 8, 16 or 32 voxels (the least at least R, 32 above),
+    32 / L per slice, across the clouds; a block takes all 27 taps of cb
+    input channels against 32 output channels where Co <= 32, else 64, with
+    3 * cb * cols / 8 <= 192 threads, cb the same in every row tile. The
+    slices are split over `splits` blocks per tile: the count whose last
+    wave is fullest within _K4_WAVES waves of resident blocks, the smaller
+    on a tie, no split shorter than _K4_MIN_SLICES slices (one block per
+    tile where even that is too long)."""
+    seg = 8 if r <= 8 else 16 if r <= 16 else 32
+    cols = 32 if co <= 32 else 64
+    row_tiles = math.ceil(ci / (_K4_THREADS // (3 * cols // 8)))
+    cb = math.ceil(ci / row_tiles)
+    tiles = row_tiles * math.ceil(co / cols)
+    segs = b * r * r * math.ceil(r / seg)
+    slices = math.ceil(segs * seg / _K4_SLICE)
+    warps = math.ceil(3 * cb * cols // 8 / 32)
+    slots = max(1, _K4_WARPS_PER_SM // warps) * sms
+    most = max(1, min(slices // _K4_MIN_SLICES,
+                      math.ceil(_K4_WAVES * slots / tiles)))
+    splits = min(range(1, most + 1),
+                 key=lambda s: (math.ceil(tiles * s / slots) / s, s))
+    # equal runs of ceil(slices / splits): none of them empty
+    splits = math.ceil(slices / math.ceil(slices / splits))
+    partial = 4 * splits * 27 * ci * co if splits > 1 else 0
+    return WgradPlan(seg, cols, cb, tiles, slices, splits, partial)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -309,27 +367,30 @@ def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue):
                          f"not match R={r}")
     if has_prologue and (pscale.shape != (ci,) or pshift.shape != (ci,)):
         raise ValueError(f"prologue scale/shift must be [{ci}]")
+    dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float32, device=x.device)
+    if b == 0 or r == 0:                 # no voxels: nothing to launch
+        return dw.zero_()
     x, gy = x.contiguous(), gy.contiguous()
     if has_prologue:
-        pro = (pscale.contiguous().data_ptr(), pshift.contiguous().data_ptr())
+        pscale, pshift = pscale.contiguous(), pshift.contiguous()
+        # the prologue's pass writes the activated input here
+        xact = torch.empty_like(x)
+        pro = (pscale.data_ptr(), pshift.data_ptr(), xact.data_ptr())
     else:
-        pro = (None, None)
-    # split-K: voxel chunks per cloud, enough for about _WGRAD_BLOCKS blocks
-    tiles = (math.ceil(27 * ci / _WGRAD_TILE_M)
-             * math.ceil(co / _WGRAD_TILE_N))
-    per_cloud = max(1, math.ceil(_WGRAD_BLOCKS / (tiles * b)))
-    chunk = _WGRAD_SLICE * math.ceil(bins / per_cloud / _WGRAD_SLICE)
-    chunks = math.ceil(bins / chunk)
-    partial = torch.empty((b * chunks, 27 * ci, co), dtype=torch.float32,
-                          device=x.device)
+        pro = (None, None, None)
+    plan = _wgrad_plan(b, ci, co, r, _sm_count(x.device.index))
+    # the split partials, summed by the kernel's second pass in a fixed
+    # order: reproducible bit for bit
+    partial = (torch.empty((plan.splits, co, ci, 27), dtype=torch.float32,
+                           device=x.device) if plan.splits > 1 else None)
     with torch.cuda.device(x.device):
         kernels.launch(
             "conv3d_wgrad", "pvcnn_conv3d_wgrad", x.data_ptr(),
-            gy.data_ptr(), *pro, partial.data_ptr(), b, ci, co, r, chunk,
-            int(has_prologue), torch.cuda.current_stream().cuda_stream)
-    # the slices summed in a fixed order: reproducible bit for bit
-    w_taps = partial.sum(dim=0)
-    return w_taps.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous()
+            gy.data_ptr(), *pro,
+            None if partial is None else partial.data_ptr(), dw.data_ptr(),
+            b, ci, co, r, plan.seg, plan.cols, plan.cb, plan.splits,
+            torch.cuda.current_stream().cuda_stream)
+    return dw
 
 
 # ---- NDHWC conv with its custom weight gradient ----------------------------
@@ -396,7 +457,7 @@ def _ndhwc_wgrad_cuda(x, g, k):
                          "not matching cubic grids")
     x, g = x.contiguous(), g.contiguous()
     bins = r ** 3
-    # split-K: voxel chunks per cloud, as K4's
+    # split-K: voxel chunks per cloud
     tiles = (math.ceil(27 * ci / _WGRAD_TILE_M)
              * math.ceil(co / _WGRAD_TILE_N))
     per_cloud = max(1, math.ceil(_WGRAD_BLOCKS / (tiles * b)))

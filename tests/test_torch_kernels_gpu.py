@@ -151,14 +151,20 @@ def test_conv3d_grads_on_card(dev, ci, co, r, has_prologue, want_stats):
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("has_prologue", [False, True])
-@pytest.mark.parametrize("ci,co,r", [(6, 16, 8), (64, 64, 16)])
-def test_wgrad_kernel(dev, ci, co, r, has_prologue):
-    x = torch.randn(2, ci, r ** 3, device=dev)
-    gy = torch.randn(2, co, r ** 3, device=dev)
+def _wgrad_inputs(dev, b, ci, co, r):
+    """x, dy and a prologue whose shift drives every third channel's rows
+    negative (the LeakyReLU's 0.1 slope), the others partly."""
+    x = torch.randn(b, ci, r ** 3, device=dev)
+    gy = torch.randn(b, co, r ** 3, device=dev)
     scale = torch.rand(ci, device=dev) + 0.5
     shift = torch.randn(ci, device=dev)
-    args = (x, gy, scale, shift, r, has_prologue)
+    shift[::3] = -10.0
+    return x, gy, scale, shift
+
+
+def _wgrad_check(args):
+    """K4 against its plain version at its tolerance (rtol 1e-4, atol 1e-4
+    of the largest entry), one launch counted, two runs bitwise equal."""
     before = kernels.KERNELS["conv3d_wgrad"].launches
     got = conv3d._wgrad_cuda(*args)
     assert kernels.KERNELS["conv3d_wgrad"].launches == before + 1
@@ -166,6 +172,57 @@ def test_wgrad_kernel(dev, ci, co, r, has_prologue):
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
     assert torch.equal(got, conv3d._wgrad_cuda(*args))
+
+
+@pytest.mark.parametrize("r", [1, 8, 16, 32])
+@pytest.mark.parametrize("co", [1, 16, 32, 33, 64, 130])
+@pytest.mark.parametrize("ci", [1, 6, 9, 32, 128, 257])
+def test_wgrad_kernel(dev, ci, co, r):
+    """K4 at every tile (Co <= 32 and wider, ragged row and column tiles),
+    z-segment length (8 at R = 1 and 8, 16 at R = 16, 32 at R = 32) and
+    the plan's splits, at B = 3 with the prologue."""
+    x, gy, scale, shift = _wgrad_inputs(dev, 3, ci, co, r)
+    _wgrad_check((x, gy, scale, shift, r, True))
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("r", [1, 5, 8, 16, 32])
+def test_wgrad_kernel_clouds(dev, b, r, has_prologue):
+    """One cloud and three, with and without the prologue; R = 5 stages its
+    rows 4 bytes at a time and zero-fills z = 5 .. 7 of each segment."""
+    x, gy, scale, shift = _wgrad_inputs(dev, b, 9, 33, r)
+    _wgrad_check((x, gy, scale, shift, r, has_prologue))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 7, 40])
+@pytest.mark.parametrize("r", [8, 16, 32])
+def test_wgrad_split_boundaries(dev, monkeypatch, r, splits):
+    """K4 with its reduction split in runs that end inside a cloud and at
+    and across cloud boundaries (B = 3: 16, 128 or 1024 slices per cloud at
+    R = 8, 16, 32), with and without runs longer than the 16 slices after
+    which a block folds its accumulators into its running sums."""
+    plan = conv3d._wgrad_plan
+
+    def forced(*a):
+        p = plan(*a)
+        per = -(-p.slices // splits)
+        return p._replace(splits=-(-p.slices // per))
+
+    monkeypatch.setattr(conv3d, "_wgrad_plan", forced)
+    x, gy, scale, shift = _wgrad_inputs(dev, 3, 32, 64, r)
+    for pro in (False, True):
+        _wgrad_check((x, gy, scale, shift, r, pro))
+
+
+def test_wgrad_kernel_views(dev):
+    """Inputs that are views: a non-contiguous x and a dy at an offset
+    that is not 16-byte aligned (its rows staged 4 bytes at a time)."""
+    r = 8
+    x = torch.randn(3, r ** 3, 6, device=dev).transpose(1, 2)
+    flat = torch.randn(3 * 40 * r ** 3 + 1, device=dev)
+    gy = flat[1:].reshape(3, 40, r ** 3)
+    _wgrad_check((x, gy, None, None, r, False))
 
 
 @pytest.mark.parametrize("ci,co,r", [(16, 6, 8), (64, 32, 16)])

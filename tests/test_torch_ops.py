@@ -206,6 +206,79 @@ def test_conv3d_fwd_plan(b, ci, co, r, want):
     assert conv3d._fwd_plan(b, ci, co, r, 132) == want
 
 
+def _k4_cases():
+    """K4's (B, Ci, Co, R) on the three default training paths
+    (chip_smoke.py's CALLS, CALLS2, CALLS3, B = 32) and a few edges: one
+    voxel, R = 5 (zero-filled segment ends), R = 40 (two segments per
+    z-row), one input channel, Co = 33 and 130."""
+    import chip_smoke
+
+    cases = {(chip_smoke.B,) + c[:3]
+             for calls in (chip_smoke.CALLS, chip_smoke.CALLS2,
+                           chip_smoke.CALLS3)
+             for (k, c), n in calls.items() if k == "conv3d_wgrad" and n}
+    return sorted(cases) + [(1, 1, 1, 1), (3, 9, 33, 5), (2, 257, 130, 40),
+                            (3, 6, 16, 8), (1, 1, 64, 16)]
+
+
+@pytest.mark.parametrize("b,ci,co,r", _k4_cases())
+def test_wgrad_plan_covers_voxels_once(b, ci, co, r):
+    """K4's plan on a card of 132 SMs: the splits' runs of slices, walked
+    segment by segment as the kernel's cursors walk them (a segment's
+    cloud, x, y and z from its flat index), cover each of the B * R^3
+    voxels exactly once, and no run is empty."""
+    from pvcnn_tpu_torch.ops import conv3d
+
+    plan = conv3d._wgrad_plan(b, ci, co, r, 132)
+    seg, per = plan.seg, plan.per_split
+    zsegs = -(-r // seg)
+    total = b * r * r * zsegs
+    counts = np.zeros(b * r ** 3, dtype=np.int64)
+    for split in range(plan.splits):
+        lo, hi = split * per, min(plan.slices, (split + 1) * per)
+        assert hi > lo
+        gs = np.arange(lo * 32 // seg, hi * 32 // seg)
+        gs = gs[gs < total]
+        zs, rest = gs % zsegs, gs // zsegs
+        y, rest = rest % r, rest // r
+        x, cloud = rest % r, rest // r
+        z = zs[:, None] * seg + np.arange(seg)[None]
+        flat = ((cloud[:, None] * r + x[:, None]) * r + y[:, None]) * r + z
+        np.add.at(counts, flat[z < r], 1)
+    assert (counts == 1).all()
+    assert plan.slices == -(-total * seg // 32)
+
+
+@pytest.mark.parametrize("b,ci,co,r", _k4_cases())
+def test_wgrad_plan_bounds(b, ci, co, r):
+    """K4's plan keeps its promises: the 32-column tile exactly where
+    Co <= 32; at most 192 threads; row tiles of cb channels that cover Ci
+    without an empty tile; splits within two waves of resident blocks and
+    runs of at least 8 slices (or one split); the partial buffer
+    [splits, Co, Ci, 27] only where it splits, and under 28 MiB at the
+    three default paths' cases."""
+    from pvcnn_tpu_torch.ops import conv3d
+
+    plan = conv3d._wgrad_plan(b, ci, co, r, 132)
+    assert plan.cols == (32 if co <= 32 else 64)
+    assert plan.tile == f"{27 * plan.cb}x{plan.cols}"
+    assert 3 * plan.cb * plan.cols // 8 <= 192
+    row_tiles = -(-ci // plan.cb)
+    assert (row_tiles - 1) * plan.cb < ci <= row_tiles * plan.cb
+    assert plan.tiles == row_tiles * -(-co // plan.cols)
+    assert plan.seg == (8 if r <= 8 else 16 if r <= 16 else 32)
+    warps = -(-3 * plan.cb * plan.cols // 8 // 32)
+    slots = max(1, 12 // warps) * 132
+    if plan.splits > 1:
+        assert plan.tiles * plan.splits <= 2 * slots
+        assert plan.per_split >= 8
+        assert plan.partial_bytes == 4 * plan.splits * 27 * ci * co
+    else:
+        assert plan.partial_bytes == 0
+    if b == 32:
+        assert plan.partial_bytes < 28 * 2 ** 20
+
+
 def _grad_close(got, want, rtol):
     want = np.asarray(want)
     got = np.zeros_like(want) if got is None else got.detach().numpy()
