@@ -46,7 +46,10 @@ raising on failure:
                 every kernel (FPS, ball query, three-NN, K1's sum mode for
                 the take_rows backward, K1-K5 at R = 32, 16, 8), on
                 synthetic S3DIS windows; the index kernels must equal their
-                plain versions exactly;
+                plain versions exactly; each FPS case logs its launch plan
+                (cluster, threads, points per thread), its chain floor (the
+                kernel's argmax and exchange alone) and the share of its
+                bound (the larger of chain floor and FLOP bound);
   9. pvcnn2 slice
                 PVCNN2 eval forward, as phase 4;
  10. pvcnn2 train
@@ -369,7 +372,12 @@ def plain_on_card():
                                      interpolate, neighbors, sampling,
                                      voxelize)
 
-    patches = ((voxelize, "_scatter_mean_cuda", voxelize._scatter_mean_plain),
+    def scatter_mean_plain(features, flat_idx, num_bins, channels_first):
+        return (voxelize._scatter_mean_plain(features, flat_idx, num_bins,
+                                             channels_first),
+                voxelize._sort_bins_plain(flat_idx, num_bins)[1])
+
+    patches = ((voxelize, "_scatter_mean_cuda", scatter_mean_plain),
                (voxelize, "_scatter_sum_cuda", voxelize._scatter_sum_plain),
                (devoxelize, "_devoxelize_cuda", devoxelize._devoxelize_plain),
                (devoxelize, "_devoxelize_bwd_cuda",
@@ -532,18 +540,17 @@ class Record:
 
 
 def _k1_split(kernel, values, idx, bins, cf, mean):
-    """K1's glue (the int32 cast and the stable sort) and the kernel alone on
-    its output, as the two callables of Record.add's split; and the longest
-    run (the most rows of one cloud in one bin), which one lane group (bin-
-    major) or thread (channel-major) walks serially."""
+    """K1's glue (the int32 cast and the counting-sort kernel) and the
+    kernel alone on its output, as the two callables of Record.add's split;
+    and the longest run (the most rows of one cloud in one bin), which one
+    lane group walks serially."""
     from pvcnn_tpu_torch.ops import voxelize
 
-    sorted_idx, perm = voxelize._sort_bins(idx.to(torch.int32))
-    run_glue = lambda: voxelize._sort_bins(idx.to(torch.int32))
+    perm, bounds = voxelize._sort_bins(idx.to(torch.int32), bins)
+    run_glue = lambda: voxelize._sort_bins(idx.to(torch.int32), bins)
     run_alone = lambda: voxelize._launch_k1_sorted(
-        kernel, values, sorted_idx, perm, bins, cf, mean)
-    offset = torch.arange(idx.shape[0], device=idx.device)[:, None] * bins
-    longest = int(torch.bincount((idx.long() + offset).reshape(-1)).max())
+        kernel, values, perm, bounds, bins, cf, mean)
+    longest = int((bounds[:, 1:] - bounds[:, :-1]).max())
     return (run_glue, run_alone), longest
 
 
@@ -570,7 +577,8 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
         vox, _ = ops.normalize_coords(coords_of(n), r, normalize=normalize)
         flat = ops.flat_voxel_index(vox, r)
         feats = torch.randn(B, n, c, device=dev)
-        run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3, cf)
+        run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3,
+                                                    cf)[0]
         run_p = lambda: voxelize._scatter_mean_plain(feats, flat, r ** 3, cf)
         idx = flat.long()[..., None].expand(-1, -1, c)
         run_lib = lambda: feats.new_zeros(B, r ** 3, c).scatter_reduce_(
@@ -794,9 +802,16 @@ def phase_pvcnn2_kernels() -> dict:
         run_p = lambda: sampling._fps_plain(pts, m)
         idx = _twice("fps", case, run_k)
         _exact("fps", case, idx, run_p())
-        rec.add("fps", case, 0.0, run_k, run_p, 10.0 * B * n * (m - 1),
-                4 * (B * n * 3 + B * m), plain_reps=3)
-        log("kernels", f"fps {case}: {m - 1} dependent steps")
+        ms, bound = rec.add("fps", case, 0.0, run_k, run_p,
+                            10.0 * B * n * (m - 1), 4 * (B * n * 3 + B * m),
+                            plain_reps=3)
+        # the chain floor: the same steps' argmax and exchange alone
+        chain = time_ms(lambda: sampling._fps_cuda(pts, m, chain_only=True))
+        holds = "chain floor" if chain >= bound else "FLOP bound"
+        log("kernels", f"fps {case}: {m - 1} dependent steps; (cluster, "
+            f"threads, points per thread) {sampling._fps_plan(n)}; chain "
+            f"floor {chain:.4f} ms, FLOP bound {bound:.4f} ms: the {holds} "
+            f"holds, {max(chain, bound) / ms:.1%} of the kernel's time")
         levels.append(torch.gather(pts, 1, idx.long()[..., None].expand(
             -1, -1, 3)))
 
@@ -1274,8 +1289,8 @@ PROFILE_GROUPS = (
     ("K5 sort (glue)", ("devoxelize_bwd_sort_kernel",)),
     ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",
                                  "trilinear_devoxelize_planes_kernel")),
-    ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_kernel",
-                                       "avg_voxelize_rows_kernel")),
+    ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_bins_kernel",)),
+    ("K1 sort (glue)", ("avg_voxelize_sort_kernel",)),
     ("K6 fps", ("fps_kernel",)),
     ("K7 ball_query", ("ball_query_kernel",)),
     ("K8 three_nn", ("three_nn_kernel",)),

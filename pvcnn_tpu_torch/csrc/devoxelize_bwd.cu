@@ -12,14 +12,13 @@
 // its 8N corner bins, and walk the 8 corner offsets from them. Two kernels,
 // both launched by the wrapper's glue and the kernel proper:
 //
-// Glue, devoxelize_bwd_sort_kernel: one block per cloud counts its points
-// per base bin (the clamped lo corner, as K2's corners() computes it),
-// scans the counts into run starts, and places each point at its bin's
-// cursor, warp by warp in point order (__match_any_sync ranks the lanes
-// that share a bin), so the order is the stable sort's and the same every
-// run. It writes the sorted points (x, y, z and the point's index as int
-// bits: one 16-byte load per run entry) and the bounds of every bin's run.
-// The counters live in shared memory up to R = 37, else in the bounds
+// Glue, devoxelize_bwd_sort_kernel: one block per cloud sorts its points
+// stably by base bin (the clamped lo corner, as K2's corners() computes it)
+// with the counting sort K1 shares (counting_sort.cuh: a histogram, a scan,
+// and a placement in point order by warp turns), so the order is the same
+// every run. It writes the sorted points (x, y, z and the point's index as
+// int bits: one 16-byte load per run entry) and the bounds of every bin's
+// run. The counters live in shared memory up to R = 37, else in the bounds
 // buffer itself.
 //
 // Kernel, devoxelize_bwd_kernel: a lane group per output bin v, lanes over
@@ -43,14 +42,11 @@
 // coordinates. A g row is read once by each of its (up to 8) corner bins,
 // mostly from L1/L2: the bins of one block share their runs.
 #include "common.cuh"
+#include "counting_sort.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSortThreads = 1024;
-constexpr int kSortWarps = kSortThreads / 32;   // 32: one warp scans them
-// counters in shared memory up to this many bytes (R^3 + 1 ints, R <= 37)
-constexpr size_t kMaxSharedCounts = 200 * 1024;
 constexpr int kBinsPerBlock = 32;
 
 __device__ __forceinline__ int clamp_index(int i, int r) {
@@ -65,99 +61,30 @@ __device__ __forceinline__ int base_bin(float x, float y, float z, int R) {
   return (x0 * R + y0) * R + z0;
 }
 
-__global__ void __launch_bounds__(kSortThreads)
+struct SortItem {
+  float4 point;                      // x, y, z and the index as int bits
+  int key;                           // the base bin
+};
+
+__global__ void __launch_bounds__(pvcnn::kSortThreads)
 devoxelize_bwd_sort_kernel(const float* __restrict__ coords,  // [B, N, 3]
                            float4* __restrict__ sorted,       // [B, N]
                            int* __restrict__ bounds,          // [B, R^3 + 1]
                            int N, int R, int shared_counts) {
   extern __shared__ int s_counts[];
-  __shared__ int s_warp[kSortWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R3 = R * R * R;
   const int64_t b = blockIdx.x;
-  int* bnd = bounds + b * (R3 + 1);
-  int* cnt = shared_counts ? s_counts : bnd;
-  // in the bounds buffer, the counters are read from L2, where the
-  // histogram's atomics land
-  auto count_at = [&](int i) {
-    return shared_counts ? cnt[i] : __ldcg(cnt + i);
-  };
   const float* pts = coords + b * N * 3;
   float4* out = sorted + b * N;
-
-  // counts: cnt[u + 2] = the points of base bin u (the last bin's count is
-  // not needed), cnt[0] = cnt[1] = 0
-  for (int i = tid; i <= R3; i += kSortThreads) cnt[i] = 0;
-  __syncthreads();
-  for (int i = tid; i < N; i += kSortThreads) {
-    const int u = base_bin(__ldg(pts + 3 * i), __ldg(pts + 3 * i + 1),
-                           __ldg(pts + 3 * i + 2), R);
-    if (u + 2 <= R3) atomicAdd(cnt + u + 2, 1);
-  }
-  __syncthreads();
-
-  // inclusive scan of cnt[0 .. R^3], 1024 entries at a time: then
-  // cnt[u + 1] = the first slot of bin u's run
-  int carry = 0;
-  for (int t0 = 0; t0 <= R3; t0 += kSortThreads) {
-    const int i = t0 + tid;
-    int x = i <= R3 ? count_at(i) : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) s_warp[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int w = s_warp[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(kFull, w, d);
-        if (lane >= d) w += y;
-      }
-      s_warp[lane] = w;
-    }
-    __syncthreads();
-    if (warp > 0) x += s_warp[warp - 1];
-    if (i <= R3) cnt[i] = x + carry;
-    carry += s_warp[kSortWarps - 1];
-    __syncthreads();                    // s_warp is rewritten next tile
-  }
-
-  // stable placement: 1024 points at a time, warp by warp in point order;
-  // the leader of the lanes that share a bin moves its cursor cnt[u + 1]
-  for (int i0 = 0; i0 < N; i0 += kSortThreads) {
-    const int i = i0 + tid;
-    const bool has = i < N;
-    float x = 0.f, y = 0.f, z = 0.f;
-    int u = -1;
-    if (has) {
-      x = __ldg(pts + 3 * i);
-      y = __ldg(pts + 3 * i + 1);
-      z = __ldg(pts + 3 * i + 2);
-      u = base_bin(x, y, z, R);
-    }
-    const unsigned peers = __match_any_sync(kFull, u);
-    const int leader = __ffs(peers) - 1;
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    int slot = 0;
-    for (int w = 0; w < kSortWarps && i0 + 32 * w < N; ++w) {
-      if (warp == w && has && lane == leader) {
-        slot = count_at(u + 1);
-        cnt[u + 1] = slot + __popc(peers);
-      }
-      __syncthreads();
-    }
-    slot = __shfl_sync(kFull, slot, leader);
-    if (has) out[slot + rank] = make_float4(x, y, z, __int_as_float(i));
-  }
-
-  // each cursor cnt[u + 1] now ends bin u's run: cnt is the bounds
-  if (shared_counts) {
-    __syncthreads();
-    for (int i = tid; i <= R3; i += kSortThreads) bnd[i] = cnt[i];
-  }
+  pvcnn::counting_sort<4>(
+      N, R3, shared_counts, s_counts, bounds + b * (R3 + 1),
+      [&](int i) {
+        const float x = __ldg(pts + 3 * i), y = __ldg(pts + 3 * i + 1),
+                    z = __ldg(pts + 3 * i + 2);
+        return SortItem{make_float4(x, y, z, __int_as_float(i)),
+                        base_bin(x, y, z, R)};
+      },
+      [&](const SortItem& item, int, int slot) { out[slot] = item.point; });
 }
 
 // corner k's weight of the point p, in _corners' roundings; false where
@@ -331,15 +258,17 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd_sort(const void* coords, void* sorted,
                                            void* bounds, int B, int N, int R,
                                            void* stream) {
   if (B == 0) return 0;
-  const size_t bytes = (static_cast<size_t>(R) * R * R + 1) * sizeof(int);
-  const bool shared = bytes <= kMaxSharedCounts;
-  if (shared && bytes > 48 * 1024) {
+  const int r3 = R * R * R;
+  const bool shared = pvcnn::counts_fit_shared(r3);
+  const size_t bytes = shared ? (static_cast<size_t>(r3) + 1) * sizeof(int)
+                              : 0;
+  if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         devoxelize_bwd_sort_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  devoxelize_bwd_sort_kernel<<<B, kSortThreads, shared ? bytes : 0,
+  devoxelize_bwd_sort_kernel<<<B, pvcnn::kSortThreads, bytes,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coords), static_cast<float4*>(sorted),
       static_cast<int*>(bounds), N, R, shared);

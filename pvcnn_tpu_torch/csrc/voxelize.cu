@@ -5,12 +5,11 @@
 // out[v] = sum_{n: idx[n] == v} values[n] as one-hot MXU matmuls (the counts
 // ride as an appended ones column, pvcnn_tpu/ops/voxelize.py:122-129). A
 // one-hot matmul is the TPU's way around a serialized scatter; on the H100 it
-// would spend N * bins * C multiply-adds on zeros. Here the caller stably
-// sorts each cloud's flat bin ids (glue outside the kernel, as the JAX package
-// sorts outside its sorted kernels), and the kernel sums each bin's run of
-// the sorted order in point order, then divides by max(count, 1) in the mean
-// mode. No atomics: the sum order is fixed by the stable sort, so the output
-// is bitwise reproducible run to run. Empty bins write 0 in the same pass.
+// would spend N * bins * C multiply-adds on zeros. Here each cloud's points
+// are sorted stably by bin, and each bin's run of the sorted order is summed
+// in point order, then divided by max(count, 1) in the mean mode. No
+// atomics: the sum order is fixed by the stable sort, so the output is
+// bitwise reproducible run to run. Empty bins write 0 in the same pass.
 //
 // Sum mode (mean = 0) skips the divide: out[v] = the bin's run sum. It is the
 // backward of the row gather take_rows (grouping, FPS gather, three-NN
@@ -18,89 +17,58 @@
 // kernel (pvcnn_tpu/ops/gather_utils.py -> ops/voxelize.py:_scatter_sum); it
 // is counted apart as the `scatter_sum` kernel.
 //
+// Two kernels in one call of the exported launcher:
+//
+// Glue, avg_voxelize_sort_kernel: one block per cloud sorts the int32 bin
+// ids with the counting sort K5 shares (counting_sort.cuh: a histogram, a
+// scan, and a stable placement by warp turns). It writes the int32
+// permutation and every bin's run bounds [B, bins + 1]; the differences of
+// the bounds are the bins' counts (the mean's backward saves them). Its
+// counters live in shared memory up to 51,199 bins (the channel-major mode
+// reaches 32,768, the sum mode 8,192), else in the bounds buffer. Ids
+// outside [0, bins) are dropped.
+//
+// Kernel, avg_voxelize_bins_kernel<V, G, M, channels_first>: a group of G
+// lanes takes one bin and reads its run's two bounds (no search; an empty
+// bin costs that read and its share of the zero store). Its lanes hold
+// consecutive vectors of a row, float4 (V = 4) where C % 4 == 0 and the rows
+// are 16-byte aligned, else single floats, so each run row is read as C
+// contiguous floats; the run is walked once per pass of G * M * V channels.
+// The channel-major output [B, C, bins] (avg_voxelize for the rows branch)
+// goes through a shared 32-bin x channels tile stored bins-fastest, so a
+// warp stores 32 bins of one channel (128 bytes), as K5's does; the
+// bin-major output [B, bins, C] (scatter_sum; avg_voxelize for the NDHWC
+// branch) is stored row by row. Both layouts run the same sums, so they
+// agree bit for bit.
+//
 // Bound. Bytes: the N * C input read once, every output element written once
-// (B * bins * C floats), the sorted ids and the permutation read once. Two
-// mappings, one per output layout, each with coalesced stores:
-//
-// Channel-major output [B, C, bins] (avg_voxelize for the rows branch): one
-// thread per (cloud, group of 8 channels, bin), bins fastest, so each
-// channel's store is coalesced. The thread binary-searches its bin's run and
-// sums it for each of its channels (one thread per bin for all C channels
-// left too few threads at R = 16, C = 128). It still takes the layout as a
-// runtime flag, as first written for both layouts: compiled for the
-// channel-major layout alone it ran slower at C = 64.
-//
-// Bin-major output [B, bins, C] (scatter_sum; avg_voxelize for the NDHWC
-// branch). With the bins fastest, neighbouring lanes stored C floats apart,
-// every row read was another point's, and each thread searched and walked
-// its run once per group of 8 channels (that mapping took 3.4x index_add_'s
-// time at the PVCNN2 shapes). Here the channels are fastest. A group of G
-// lanes takes one bin; its lanes hold consecutive vectors of the row, float4
-// (V = 4) when C % 4 == 0 and the rows are 16-byte aligned, else single
-// floats, so each run row is read as C contiguous floats and each output row
-// is one contiguous store. A warp's 32 / G bins are consecutive, so their
-// runs are too: the warp finds the first run's start with a 32-way search (3
-// dependent loads for 32,768 ids, against 15 for one lane's binary search),
-// and the other bounds in the 32 sorted ids that follow (a bin with a longer
-// run falls back to one lane's search). The run is walked once, in the
-// stable sort's point order, for all of a lane's channels (rows wider than
-// 32 * M vectors take more walks). A bin that holds many rows is walked
-// serially by its group.
+// (B * bins * C floats), the ids and the permutation read once. At R = 32
+// the grid dominates: 268 MB at B = 32, C = 64, 37.7 MB at C = 9.
 #include "common.cuh"
-
-#include <climits>
+#include "counting_sort.cuh"
 
 namespace {
 
-constexpr int kGroup = 8;   // channels per thread, channel-major mapping
+struct BinId {
+  int key;
+};
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(pvcnn::kThreads)
-avg_voxelize_kernel(const float* __restrict__ feats,       // [B, N, C]
-                    const int* __restrict__ sorted_idx,    // [B, N]
-                    const long long* __restrict__ perm,    // [B, N]
-                    float* __restrict__ out,               // see channels_first
-                    int B, int N, int C, int R3, int channels_first,
-                    int mean) {
-  const int groups = (C + kGroup - 1) / kGroup;
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= static_cast<int64_t>(B) * groups * R3) return;
-  const int v = static_cast<int>(t % R3);          // bins fastest
-  const int64_t bg = t / R3;
-  const int c0 = static_cast<int>(bg % groups) * kGroup;
-  const int b = static_cast<int>(bg / groups);
-  const int* idx = sorted_idx + static_cast<int64_t>(b) * N;
-  const int start = lower_bound(idx, N, v);
-  const int end = start + lower_bound(idx + start, N - start, v + 1);
-  const long long* p = perm + static_cast<int64_t>(b) * N;
-  const float* f = feats + static_cast<int64_t>(b) * N * C;
-  const int count = end - start;
-  const float denom = static_cast<float>(mean && count > 1 ? count : 1);
-  // out[b][c][v] (channels_first) or out[b][v][c]
-  float* o = channels_first ? out + static_cast<int64_t>(b) * C * R3 + v
-                            : out + (static_cast<int64_t>(b) * R3 + v) * C;
-  const int64_t stride_c = channels_first ? R3 : 1;
-  const int c1 = min(C, c0 + kGroup);
-  for (int c = c0; c < c1; ++c) {
-    float sum = 0.f;
-    for (int j = start; j < end; ++j) {
-      sum += __ldg(f + __ldg(p + j) * C + c);
-    }
-    o[c * stride_c] = sum / denom;
-  }
+__global__ void __launch_bounds__(pvcnn::kSortThreads)
+avg_voxelize_sort_kernel(const int* __restrict__ ids,  // [B, N]
+                         int* __restrict__ perm,       // [B, N]
+                         int* __restrict__ bounds,     // [B, bins + 1]
+                         int N, int bins, int shared_counts) {
+  extern __shared__ int s_counts[];
+  const int64_t b = blockIdx.x;
+  const int* id = ids + b * N;
+  int* p = perm + b * N;
+  pvcnn::counting_sort<8>(
+      N, bins, shared_counts, s_counts, bounds + b * (bins + 1),
+      [&](int i) {
+        const int u = __ldg(id + i);
+        return BinId{u >= 0 && u < bins ? u : -1};
+      },
+      [&](const BinId&, int i, int slot) { p[slot] = i; });
 }
 
 template <int V>
@@ -110,6 +78,7 @@ struct Vec<1> {
   using T = float;
   static __device__ __forceinline__ void add(T& a, T b) { a += b; }
   static __device__ __forceinline__ T div(T a, float d) { return a / d; }
+  static __device__ __forceinline__ float at(const T& a, int) { return a; }
 };
 template <>
 struct Vec<4> {
@@ -120,164 +89,191 @@ struct Vec<4> {
   static __device__ __forceinline__ T div(T a, float d) {
     return make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
   }
+  static __device__ __forceinline__ float at(const T& a, int j) {
+    return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
+  }
 };
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// lower_bound by a whole warp: each round the 32 lanes test 32 evenly spaced
-// pivots and a ballot narrows the range 32-fold (3 dependent loads for
-// 32,768 ids where a one-lane search takes 15). All lanes get the result.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
-                                                int n, int key, int lane) {
-  int lo = 0, hi = n;                    // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) >> 5;
-    const int pos = lo + lane * step;
-    const bool less = pos < hi && __ldg(a + pos) < key;
-    const int k = __popc(__ballot_sync(kFull, less));
-    if (k == 0) {
-      hi = lo;
-    } else {
-      hi = min(hi, lo + k * step);
-      lo += (k - 1) * step + 1;
-    }
-  }
-  return lo;
-}
-
-template <int V, int G, int M>
+// G lanes per bin, M vectors of V floats per lane and pass over the
+// channels; out [B, C, bins] with kChannelsFirst, else [B, bins, C]
+template <int V, int G, int M, bool kChannelsFirst>
 __global__ void __launch_bounds__(pvcnn::kThreads)
-avg_voxelize_rows_kernel(const float* __restrict__ feats,     // [B, N, C]
-                         const int* __restrict__ sorted_idx,  // [B, N]
-                         const long long* __restrict__ perm,  // [B, N]
-                         float* __restrict__ out,             // [B, bins, C]
-                         int B, int N, int C, int bins, int mean) {
+avg_voxelize_bins_kernel(const float* __restrict__ feats,   // [B, N, C]
+                         const int* __restrict__ perm,      // [B, N]
+                         const int* __restrict__ bounds,    // [B, bins + 1]
+                         float* __restrict__ out,  // see kChannelsFirst
+                         int N, int C, int bins, int mean) {
   using T = typename Vec<V>::T;
-  constexpr int kBinsPerWarp = 32 / G;
-  const int warps_per_cloud = (bins + kBinsPerWarp - 1) / kBinsPerWarp;
-  const int64_t warp_id =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
-  if (warp_id >= static_cast<int64_t>(B) * warps_per_cloud) return;
-  const int b = static_cast<int>(warp_id / warps_per_cloud);
-  const int v0 = static_cast<int>(warp_id % warps_per_cloud) * kBinsPerWarp;
-  const int lane = threadIdx.x & 31;
-  const int* idx = sorted_idx + static_cast<int64_t>(b) * N;
+  constexpr int kCT = G * M * V;                  // channels per pass
+  constexpr int kGroups = pvcnn::kThreads / G;    // lane groups per block
+  constexpr int kBins = kChannelsFirst ? 32 : kGroups;   // bins per block
+  constexpr int kStride = kCT + 1;                // odd: no bank conflicts
+  __shared__ float tile[kChannelsFirst ? kBins * kStride : 1];
+  const int64_t b = blockIdx.y;
+  const int v0 = blockIdx.x * kBins;
+  const int grp = threadIdx.x / G, li = threadIdx.x % G;
+  const int* bnd = bounds + b * (bins + 1);
+  const int* p = perm + b * N;
+  const int nv = C / V;                           // vectors per row
+  const T* f = reinterpret_cast<const T*>(feats + b * N * C);
 
-  // The starts of bins v0 .. v0 + kBinsPerWarp (each the end of the bin
-  // before): v0's by the warp's search, the others from the 32 ids after it
-  // where they lie there, else (a long run) by lane i's own search.
-  const int s0 = warp_lower_bound(idx, N, v0, lane);
-  const int seen = s0 + lane < N ? __ldg(idx + s0 + lane) : INT_MAX;
-  int bound = s0;
+  for (int c0 = 0; c0 < nv; c0 += G * M) {        // passes, in vectors
+    for (int t = grp; t < kBins; t += kGroups) {
+      const int v = v0 + t;
+      int start = 0, end = 0;
+      if (v < bins) {
+        start = __ldg(bnd + v);
+        end = __ldg(bnd + v + 1);
+      }
+      const int count = end - start;
+      const float denom = static_cast<float>(mean && count > 1 ? count : 1);
+      T acc[M];
 #pragma unroll
-  for (int i = 1; i <= kBinsPerWarp; ++i) {
-    const int k = __popc(__ballot_sync(kFull, seen < v0 + i));
-    if (lane == i) bound = s0 + k;
-  }
-  if (lane >= 1 && lane <= kBinsPerWarp && bound == s0 + 32) {
-    bound = s0 + 32 + lower_bound(idx + s0 + 32, N - s0 - 32,
-                                  min(v0 + lane, bins));
-  }
-  const int g = lane / G, li = lane % G;
-  const int start = __shfl_sync(kFull, bound, g);
-  const int end = __shfl_sync(kFull, bound, g + 1);
-  const int v = v0 + g;
-  if (v >= bins) return;
-
-  // group g sums bin v's run; lane li holds vectors li, li + G, ... of a row
-  const int nv = C / V;                            // vectors per row
-  const long long* p = perm + static_cast<int64_t>(b) * N;
-  const T* f =
-      reinterpret_cast<const T*>(feats + static_cast<int64_t>(b) * N * C);
-  T* o = reinterpret_cast<T*>(out + (static_cast<int64_t>(b) * bins + v) * C);
-  const int count = end - start;
-  const float denom = static_cast<float>(mean && count > 1 ? count : 1);
-  for (int c0 = 0; c0 < nv; c0 += G * M) {
-    T acc[M];
-#pragma unroll
-    for (int k = 0; k < M; ++k) acc[k] = T{};
+      for (int m = 0; m < M; ++m) acc[m] = T{};
 #pragma unroll 4
-    for (int j = start; j < end; ++j) {
-      const T* row = f + __ldg(p + j) * nv;
+      for (int j = start; j < end; ++j) {
+        const T* row = f + static_cast<int64_t>(__ldg(p + j)) * nv;
 #pragma unroll
-      for (int k = 0; k < M; ++k) {
-        const int c = c0 + k * G + li;
-        if (c < nv) Vec<V>::add(acc[k], __ldg(row + c));
+        for (int m = 0; m < M; ++m) {
+          const int c = c0 + m * G + li;
+          if (c < nv) Vec<V>::add(acc[m], __ldg(row + c));
+        }
+      }
+      if constexpr (kChannelsFirst) {
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const T mean_m = Vec<V>::div(acc[m], denom);
+#pragma unroll
+          for (int q = 0; q < V; ++q) {
+            tile[t * kStride + (m * G + li) * V + q] = Vec<V>::at(mean_m, q);
+          }
+        }
+      } else if (v < bins) {
+        T* o = reinterpret_cast<T*>(out + (b * bins + v) * C);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const int c = c0 + m * G + li;
+          if (c < nv) o[c] = Vec<V>::div(acc[m], denom);
+        }
       }
     }
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      const int c = c0 + k * G + li;
-      if (c < nv) o[c] = Vec<V>::div(acc[k], denom);
+    if constexpr (kChannelsFirst) {
+      // the tile, bins fastest: a warp stores 32 bins of one channel
+      __syncthreads();
+      const int cs = min(kCT, (nv - c0) * V);     // channels in this pass
+      for (int e = threadIdx.x; e < cs * kBins; e += blockDim.x) {
+        const int cl = e / kBins, t = e % kBins;
+        if (v0 + t < bins) {
+          out[(b * C + c0 * V + cl) * bins + v0 + t] = tile[t * kStride + cl];
+        }
+      }
+      __syncthreads();
     }
   }
 }
 
-struct RowsArgs {
+struct Args {
   const float* feats;
-  const int* sorted_idx;
-  const long long* perm;
+  const int* perm;
+  const int* bounds;
   float* out;
   int B, N, C, bins, mean;
   cudaStream_t stream;
 };
 
-template <int V, int G, int M>
-void launch_rows(const RowsArgs& a) {
-  constexpr int kBinsPerWarp = 32 / G;
-  const int64_t warps =
-      static_cast<int64_t>(a.B) * ((a.bins + kBinsPerWarp - 1) / kBinsPerWarp);
-  avg_voxelize_rows_kernel<V, G, M><<<pvcnn::blocks_for(warps * 32),
-                                      pvcnn::kThreads, 0, a.stream>>>(
-      a.feats, a.sorted_idx, a.perm, a.out, a.B, a.N, a.C, a.bins, a.mean);
+template <int V, int G, int M, bool kChannelsFirst>
+void launch(const Args& a) {
+  constexpr int kBins = kChannelsFirst ? 32 : pvcnn::kThreads / G;
+  const dim3 grid((a.bins + kBins - 1) / kBins, a.B);
+  avg_voxelize_bins_kernel<V, G, M, kChannelsFirst>
+      <<<grid, pvcnn::kThreads, 0, a.stream>>>(a.feats, a.perm, a.bounds,
+                                               a.out, a.N, a.C, a.bins,
+                                               a.mean);
 }
 
-// G lanes per bin, M vectors per lane and walk of the run: rows of up to 16
-// vectors take 4 lanes per bin (8 bins per warp: fewer searches where most
-// bins are empty, as at R = 32), wider rows a whole warp (rows wider than
-// 32 * M vectors take more walks)
+// Channel-major: rows of up to 32 vectors take 8 lanes per bin (the 32 bins
+// of the tile, one per group), wider rows a whole warp, 256 channels per
+// pass. Bin-major: rows of up to 16 vectors take 4 lanes per bin (64 bins a
+// block), wider rows a whole warp (rows wider than 32 * M vectors take more
+// walks).
 template <int V>
-void launch_rows_for(const RowsArgs& a) {
+void launch_channels_first(const Args& a) {
+  const int nv = a.C / V;
+  if (nv <= 8) {
+    launch<V, 8, 1, true>(a);
+  } else if (nv <= 16) {
+    launch<V, 8, 2, true>(a);
+  } else if (nv <= 32) {
+    launch<V, 8, 4, true>(a);
+  } else {
+    launch<V, 32, 8 / V, true>(a);
+  }
+}
+
+template <int V>
+void launch_bin_major(const Args& a) {
   const int nv = a.C / V;
   if (nv <= 4) {
-    launch_rows<V, 4, 1>(a);
+    launch<V, 4, 1, false>(a);
   } else if (nv <= 8) {
-    launch_rows<V, 4, 2>(a);
+    launch<V, 4, 2, false>(a);
   } else if (nv <= 16) {
-    launch_rows<V, 4, 4>(a);
+    launch<V, 4, 4, false>(a);
   } else if (nv <= 32) {
-    launch_rows<V, 32, 1>(a);
+    launch<V, 32, 1, false>(a);
   } else if (nv <= 64) {
-    launch_rows<V, 32, 2>(a);
+    launch<V, 32, 2, false>(a);
   } else {
-    launch_rows<V, 32, 4>(a);
+    launch<V, 32, 4, false>(a);
   }
 }
 
 }  // namespace
 
-PVCNN_EXPORT int pvcnn_avg_voxelize(const void* feats, const void* sorted_idx,
-                                    const void* perm, void* out, int B, int N,
-                                    int C, int R3, int channels_first,
-                                    int mean, void* stream) {
-  if (static_cast<int64_t>(B) * C * R3 == 0) return 0;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const float*>(feats);
-  const auto* si = static_cast<const int*>(sorted_idx);
-  const auto* pm = static_cast<const long long*>(perm);
-  auto* o = static_cast<float*>(out);
+PVCNN_EXPORT int pvcnn_avg_voxelize_sort(const void* ids, void* perm,
+                                         void* bounds, int B, int N, int bins,
+                                         void* stream) {
+  if (B == 0) return 0;
+  const bool shared = pvcnn::counts_fit_shared(bins);
+  const size_t bytes =
+      shared ? (static_cast<size_t>(bins) + 1) * sizeof(int) : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        avg_voxelize_sort_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  avg_voxelize_sort_kernel<<<B, pvcnn::kSortThreads, bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), static_cast<int*>(perm),
+      static_cast<int*>(bounds), N, bins, shared);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ids: where not null, the int32 bin ids [B, N], sorted first into perm
+// and bounds (the glue and the kernel in one call); else perm and bounds
+// hold pvcnn_avg_voxelize_sort's output.
+PVCNN_EXPORT int pvcnn_avg_voxelize(const void* feats, const void* ids,
+                                    void* perm, void* bounds, void* out,
+                                    int B, int N, int C, int bins,
+                                    int channels_first, int mean,
+                                    void* stream) {
+  if (ids != nullptr) {
+    const int err =
+        pvcnn_avg_voxelize_sort(ids, perm, bounds, B, N, bins, stream);
+    if (err != 0) return err;
+  }
+  if (static_cast<int64_t>(B) * C * bins == 0) return 0;
+  const Args a{static_cast<const float*>(feats), static_cast<const int*>(perm),
+               static_cast<const int*>(bounds), static_cast<float*>(out),
+               B, N, C, bins, mean, static_cast<cudaStream_t>(stream)};
+  const bool vec4 = C % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(feats) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (channels_first) {
-    const int64_t total =
-        static_cast<int64_t>(B) * ((C + kGroup - 1) / kGroup) * R3;
-    avg_voxelize_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads, 0, s>>>(
-        f, si, pm, o, B, N, C, R3, 1, mean);
+    vec4 ? launch_channels_first<4>(a) : launch_channels_first<1>(a);
   } else {
-    const RowsArgs a{f, si, pm, o, B, N, C, R3, mean, s};
-    if (C % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0) {
-      launch_rows_for<4>(a);
-    } else {
-      launch_rows_for<1>(a);
-    }
+    vec4 ? launch_bin_major<4>(a) : launch_bin_major<1>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

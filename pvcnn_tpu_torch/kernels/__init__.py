@@ -38,7 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # exported C function -> argument types (pointers, sizes, stream last)
 _SIGNATURES = {
-    "pvcnn_avg_voxelize": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize_sort": [_P, _P, _P, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P],
@@ -46,7 +47,7 @@ _SIGNATURES = {
                            _I, _I, _I, _P],
     "pvcnn_devoxelize_bwd_sort": [_P, _P, _P, _I, _I, _I, _P],
     "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pvcnn_fps": [_P, _P, _I, _I, _I, _P],
+    "pvcnn_fps": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_ball_query": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pvcnn_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pvcnn_dense_rows_fwd": [_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
@@ -181,7 +182,7 @@ def library() -> ctypes.CDLL:
 def call(fn: str, *args) -> None:
     """Call exported launcher `fn` and raise if CUDA refused it (the
     launcher returns cudaGetLastError()). Counts nothing: a kernel's glue
-    (K5's sort) launches through here."""
+    (K1's and K5's sorts) launches through here."""
     lib = library()
     code = getattr(lib, fn)(*args)
     if code != 0:

@@ -69,12 +69,19 @@ def scatter_mean(features: torch.Tensor, flat_idx: torch.Tensor,
 class _ScatterMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, flat_idx, num_bins, channels_first):
-        fwd = (_scatter_mean_plain if features.device.type == "cpu"
-               else _scatter_mean_cuda)
-        out = fwd(features, flat_idx, num_bins, channels_first)
+        if features.device.type == "cpu":
+            out = _scatter_mean_plain(features, flat_idx, num_bins,
+                                      channels_first)
+            bounds = None
+        else:
+            out, bounds = _scatter_mean_cuda(features, flat_idx, num_bins,
+                                             channels_first)
         ctx.channels_first = channels_first
         if ctx.needs_input_grad[0]:
-            ctx.save_for_backward(flat_idx, _counts(flat_idx, num_bins))
+            # on the card, the differences of the sort's run bounds
+            counts = (_counts(flat_idx, num_bins) if bounds is None
+                      else bounds[:, 1:] - bounds[:, :-1])
+            ctx.save_for_backward(flat_idx, counts)
         return out
 
     @staticmethod
@@ -113,6 +120,7 @@ def _scatter_mean_plain(features, flat_idx, num_bins, channels_first):
 
 
 def _scatter_mean_cuda(features, flat_idx, num_bins, channels_first):
+    """K1 on the card -> (the means, the sort's run bounds [B, bins + 1])."""
     return _launch_k1("avg_voxelize", features, flat_idx, num_bins,
                       channels_first, mean=True)
 
@@ -133,7 +141,7 @@ def _scatter_sum_plain(values, idx, num_bins):
 
 def _scatter_sum_cuda(values, idx, num_bins):
     return _launch_k1("scatter_sum", values, idx.to(torch.int32), num_bins,
-                      False, mean=False)
+                      False, mean=False)[0]
 
 
 def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
@@ -148,30 +156,61 @@ def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
     if flat_idx.shape != (b, n) or flat_idx.dtype != torch.int32:
         raise ValueError(f"{kernel} indices must be int32 [{b}, {n}], got "
                          f"{flat_idx.dtype} {tuple(flat_idx.shape)}")
-    sorted_idx, perm = _sort_bins(flat_idx)
-    return _launch_k1_sorted(kernel, features.contiguous(), sorted_idx, perm,
-                             num_bins, channels_first, mean)
+    ids = flat_idx.contiguous()
+    perm, bounds = _sort_buffers(ids, num_bins)
+    out = _launch_k1_sorted(kernel, features.contiguous(), perm, bounds,
+                            num_bins, channels_first, mean, ids=ids)
+    return out, bounds
 
 
-def _sort_bins(flat_idx):
-    """K1's glue: a stable per-cloud sort fixes each bin's summation order.
-    -> (sorted ids [B, N] int32, permutation [B, N] int64)."""
-    return torch.sort(flat_idx, dim=1, stable=True)
+def _sort_buffers(ids, num_bins):
+    """The sort's outputs for ids [B, N]: perm [B, N], bounds [B, bins + 1]."""
+    b, n = ids.shape
+    return (torch.empty((b, n), dtype=torch.int32, device=ids.device),
+            torch.empty((b, int(num_bins) + 1), dtype=torch.int32,
+                        device=ids.device))
 
 
-def _launch_k1_sorted(kernel, features, sorted_idx, perm, num_bins,
-                      channels_first, mean):
-    """K1 alone on checked, contiguous features and `_sort_bins`' output:
-    channel-major [B, C, bins] with channels_first, else bin-major [B, bins,
-    C] (the kernel maps the two layouts differently)."""
+def _sort_bins(flat_idx, num_bins):
+    """K1's glue alone, on the card: a stable per-cloud counting sort of
+    the int32 bin ids [B, N]. -> (perm [B, N] int32: the points in bin
+    order, each bin in point order; bounds [B, bins + 1] int32: bin v's run
+    is perm[bounds[v]:bounds[v + 1]])."""
+    ids = flat_idx.contiguous()
+    perm, bounds = _sort_buffers(ids, num_bins)
+    with torch.cuda.device(ids.device):
+        kernels.call("pvcnn_avg_voxelize_sort", ids.data_ptr(),
+                     perm.data_ptr(), bounds.data_ptr(), *ids.shape,
+                     int(num_bins), torch.cuda.current_stream().cuda_stream)
+    return perm, bounds
+
+
+def _sort_bins_plain(flat_idx, num_bins):
+    """`_sort_bins` in plain torch (the sort kernel's oracle): a stable
+    sort, and the runs' bounds from the counts."""
+    _, perm = torch.sort(flat_idx, dim=1, stable=True)
+    counts = _counts(flat_idx, num_bins)
+    bounds = torch.cat([counts.new_zeros((counts.shape[0], 1)), counts], 1)
+    return (perm.to(torch.int32),
+            bounds.cumsum(dim=1).to(torch.int32))
+
+
+def _launch_k1_sorted(kernel, features, perm, bounds, num_bins,
+                      channels_first, mean, ids=None):
+    """K1 on checked, contiguous features: alone on `_sort_bins`' output,
+    or with ids (contiguous int32 [B, N]) the sort into perm and bounds
+    first, in the same call. -> channel-major [B, C, bins] with
+    channels_first, else bin-major [B, bins, C] (the kernel maps the two
+    layouts differently)."""
     b, n, c = features.shape
     out = torch.empty((b, c, num_bins) if channels_first else (b, num_bins, c),
                       dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):
         kernels.launch(
             kernel, "pvcnn_avg_voxelize", features.data_ptr(),
-            sorted_idx.data_ptr(), perm.data_ptr(), out.data_ptr(), b, n, c,
-            int(num_bins), int(channels_first), int(mean),
+            None if ids is None else ids.data_ptr(), perm.data_ptr(),
+            bounds.data_ptr(), out.data_ptr(), b, n, c, int(num_bins),
+            int(channels_first), int(mean),
             torch.cuda.current_stream().cuda_stream)
     return out
 

@@ -27,19 +27,85 @@ def _coords(dev, b=2, n=512):
     return pts / pts.norm(dim=-1).amax()
 
 
-@pytest.mark.parametrize("channels_first", [False, True])
-@pytest.mark.parametrize("c,r", [(6, 8), (16, 16)])
-def test_avg_voxelize_kernel(dev, c, r, channels_first):
-    vox, _ = ops.normalize_coords(_coords(dev), r, normalize=False)
-    flat = ops.flat_voxel_index(vox, r)
-    feats = torch.randn(2, 512, c, device=dev)
+def _k1_check(feats, flat, bins, channels_first):
+    """K1's mean against its plain version, one launch per op call, two
+    runs bitwise equal; -> the output."""
     before = kernels.KERNELS["avg_voxelize"].launches
-    got = ops.scatter_mean(feats, flat, r ** 3, channels_first)
+    got = ops.scatter_mean(feats, flat, bins, channels_first)
     assert kernels.KERNELS["avg_voxelize"].launches == before + 1
-    want = voxelize._scatter_mean_plain(feats, flat, r ** 3, channels_first)
+    want = voxelize._scatter_mean_plain(feats, flat, bins, channels_first)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    assert torch.equal(got, ops.scatter_mean(feats, flat, r ** 3,
+    assert torch.equal(got, ops.scatter_mean(feats, flat, bins,
                                              channels_first))
+    assert kernels.KERNELS["avg_voxelize"].launches == before + 2
+    return got
+
+
+@pytest.mark.parametrize("channels_first", [False, True])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("r", [1, 8, 16, 32])
+@pytest.mark.parametrize("c", [1, 3, 9, 64, 130, 256])
+def test_avg_voxelize_kernel(dev, c, r, b, channels_first):
+    """Channel counts on and off the float4 rows, the lane groups' widths
+    and the channel-major tile's 256-channel passes; R = 1 (one bin) to 32
+    (most bins empty)."""
+    vox, _ = ops.normalize_coords(_coords(dev, b=b), r, normalize=False)
+    flat = ops.flat_voxel_index(vox, r)
+    _k1_check(torch.randn(b, 512, c, device=dev), flat, r ** 3,
+              channels_first)
+
+
+@pytest.mark.parametrize("channels_first", [False, True])
+@pytest.mark.parametrize("case", ["one_point", "one_bin", "unaligned"])
+@pytest.mark.parametrize("c", [4, 64])
+def test_avg_voxelize_kernel_edges(dev, c, case, channels_first):
+    """N = 1; every point of a cloud in one bin (one run of all N rows);
+    rows off a 16-byte boundary (the scalar path where C % 4 == 0)."""
+    b, n, r = 2, 700, 16
+    flat = torch.randint(0, r ** 3, (b, n), dtype=torch.int32, device=dev)
+    feats = torch.randn(b, n, c, device=dev)
+    if case == "one_point":
+        flat, feats = flat[:, :1], feats[:, :1]
+    elif case == "one_bin":
+        flat[0] = 1234
+        flat[1] = r ** 3 - 1
+    else:
+        feats = torch.randn(b * n * c + 1, device=dev)[1:].view(b, n, c)
+    _k1_check(feats, flat, r ** 3, channels_first)
+
+
+@pytest.mark.parametrize("c", [3, 64, 256])
+def test_k1_layouts_agree(dev, c):
+    """K1's two layouts sum the same runs in the same order: the
+    channel-major grid is the channel-last one transposed, bit for bit."""
+    flat = torch.randint(0, 4096, (2, 3000), dtype=torch.int32, device=dev)
+    feats = torch.randn(2, 3000, c, device=dev)
+    first = ops.scatter_mean(feats, flat, 4096, channels_first=True)
+    last = ops.scatter_mean(feats, flat, 4096, channels_first=False)
+    assert torch.equal(first, last.transpose(1, 2))
+
+
+@pytest.mark.parametrize("b,n,bins", [(3, 777, 512), (2, 8192, 32768),
+                                      (2, 32768, 8192), (2, 5000, 70000),
+                                      (1, 1, 1), (2, 4100, 1)])
+def test_k1_sort_kernel(dev, b, n, bins):
+    """K1's counting sort: its permutation is torch.sort(stable=True)'s,
+    its bounds the running sum of the bins' counts (and both its plain
+    oracle's), two runs equal; 70,000 bins outgrow the shared-memory
+    counters, 4,100 points in one bin make one run of several rounds."""
+    ids = torch.randint(0, bins, (b, n), dtype=torch.int32, device=dev)
+    ids[0, : n // 4] = ids[0, n // 2]                  # one long run
+    perm, bounds = voxelize._sort_bins(ids, bins)
+    want = torch.sort(ids, dim=1, stable=True)[1].to(torch.int32)
+    assert torch.equal(perm, want)
+    counts = torch.stack([torch.bincount(ids[i].long(), minlength=bins)
+                          for i in range(b)])
+    want_bounds = torch.cat([counts.new_zeros(b, 1), counts.cumsum(1)], 1)
+    assert torch.equal(bounds.long(), want_bounds)
+    plain = voxelize._sort_bins_plain(ids, bins)
+    assert torch.equal(perm, plain[0]) and torch.equal(bounds, plain[1])
+    again = voxelize._sort_bins(ids, bins)
+    assert torch.equal(perm, again[0]) and torch.equal(bounds, again[1])
 
 
 def _devoxelize_inputs(dev, c, r, n):
@@ -306,19 +372,53 @@ def _room(dev, b, n, seed=0):
     return pts.to(dev)
 
 
-@pytest.mark.parametrize("n,m", [(8192, 1024), (1000, 300), (64, 16),
-                                 (5, 9)])
-def test_fps_kernel(dev, n, m):
-    """Indices equal the plain version's exactly (ties to the lowest index,
-    M > N included), two runs bitwise equal."""
+@pytest.mark.parametrize("b", [1, 3, 32])
+@pytest.mark.parametrize("m", [1, 2, 300, "n + 3"])
+@pytest.mark.parametrize("n", [1, 31, 1023, 1025, 8192, 16384, 16385,
+                               40000])
+def test_fps_kernel(dev, n, m, b):
+    """Indices equal the plain version's exactly (ties to the lowest index:
+    duplicated points, and at B = 3 a cloud of identical points, where
+    every distance ties; M > N), two runs bitwise equal, one launch; every
+    cloud size takes the kernel (16,385 points and more on clusters of
+    blocks)."""
     from pvcnn_tpu_torch.ops import sampling
 
-    x = _room(dev, 3, n)
+    m = n + 3 if m == "n + 3" else m
+    x = _room(dev, b, n)
+    if b == 3:
+        x[1] = x[1, :1]
     before = kernels.KERNELS["fps"].launches
     got = ops.furthest_point_sample_indices(x, m)
     assert kernels.KERNELS["fps"].launches == before + 1
     assert torch.equal(got, sampling._fps_plain(x, m))
     assert torch.equal(got, ops.furthest_point_sample_indices(x, m))
+
+
+@pytest.mark.parametrize("plan", [(1, 32, 0), (2, 64, 0), (8, 1024, 0),
+                                  (2, 128, 4), (8, 64, 16), (4, 256, 2),
+                                  (8, 32, 4)])
+@pytest.mark.parametrize("n", [100, 1000])
+def test_fps_kernel_plans(dev, plan, n):
+    """Every launch K6 takes gives the plain version's indices: clusters of
+    1 to 8 blocks, points in registers or streamed (ppt = 0) from global
+    memory with the distances in a global buffer."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    x = _room(dev, 3, n)
+    got = sampling._fps_cuda(x, 200, plan)
+    assert torch.equal(got, sampling._fps_plain(x, 200))
+
+
+def test_fps_kernel_streams_large_clouds(dev):
+    """Above 16,384 points the plan streams the points from global memory
+    on a cluster of 8 blocks; the indices stay the plain version's."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    x = _room(dev, 2, 70000)
+    assert sampling._fps_plan(70000)[2] == 0
+    got = ops.furthest_point_sample_indices(x, 64)
+    assert torch.equal(got, sampling._fps_plain(x, 64))
 
 
 @pytest.mark.parametrize("m,n,radius,u", [(1024, 8192, 0.1, 32),
@@ -433,9 +533,13 @@ def test_k1_bin_major_unaligned_rows(dev, mean):
 
 
 def test_point_kernels_reject_what_they_do_not_take(dev):
-    with pytest.raises(ValueError, match="points a cloud"):
-        ops.furthest_point_sample_indices(
-            torch.rand(1, 16385, 3, device=dev), 4)
+    from pvcnn_tpu_torch.ops import sampling
+
+    with pytest.raises(ValueError, match="N > 0"):
+        ops.furthest_point_sample_indices(torch.rand(1, 0, 3, device=dev), 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        # 32 threads of one point each cannot hold 100 points
+        sampling._fps_cuda(torch.rand(1, 100, 3, device=dev), 4, (1, 32, 1))
     with pytest.raises(ValueError, match="CUDA device"):
         ops.ball_query(torch.rand(1, 4, 3, device=dev), torch.rand(1, 8, 3),
                        0.1, 4)

@@ -164,6 +164,31 @@ def test_sort_points_plain(r):
         np.testing.assert_array_equal(bounds[b].numpy(), want)
 
 
+@pytest.mark.parametrize("b,n,bins", [(2, 300, 64), (3, 1000, 4096),
+                                      (1, 1, 1), (2, 500, 70000)])
+def test_sort_bins_plain(b, n, bins):
+    """K1's glue in plain torch (the sort kernel's oracle on the card)
+    against numpy's stable argsort and the running sum of the bins'
+    counts, and against torch.sort(stable=True) and `_counts`."""
+    from pvcnn_tpu_torch.ops import voxelize
+
+    rng = np.random.RandomState(n + bins)
+    ids = rng.randint(0, bins, (b, n)).astype(np.int32)
+    ids[0, : n // 3] = ids[0, -1]                 # one long run
+    perm, bounds = voxelize._sort_bins_plain(torch.from_numpy(ids), bins)
+    assert perm.dtype == bounds.dtype == torch.int32
+    assert bounds.shape == (b, bins + 1)
+    for i in range(b):
+        np.testing.assert_array_equal(perm[i].numpy(),
+                                      np.argsort(ids[i], kind="stable"))
+        np.testing.assert_array_equal(bounds[i].numpy(), np.concatenate(
+            [[0], np.cumsum(np.bincount(ids[i], minlength=bins))]))
+    t = torch.from_numpy(ids)
+    assert torch.equal(perm.long(), torch.sort(t, dim=1, stable=True)[1])
+    assert torch.equal((bounds[:, 1:] - bounds[:, :-1]).long(),
+                       voxelize._counts(t, bins))
+
+
 @pytest.mark.parametrize("has_prologue", [False, True])
 @pytest.mark.parametrize("ci,co", [(6, 16), (16, 16)])
 def test_conv3d_rows_act(ci, co, has_prologue):

@@ -69,6 +69,43 @@ def test_fps_selects_in_fp32():
     assert (got[:, 64:] == 0).all()
 
 
+def test_fps_indices_large_cloud(monkeypatch):
+    """20,000 points (above the 16,384 that K6 once refused): the port's
+    indices equal the JAX package's XLA FPS, its path for such clouds."""
+    monkeypatch.setenv("PVCNN_TPU_PALLAS_INTERPRET", "0")
+    x = _room(20000, 2, 20000)
+    want = np.asarray(jops.furthest_point_sample_indices(jnp.asarray(x), 8))
+    got = ops.furthest_point_sample_indices(_t(x), 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _fps_sizes():
+    """chip_smoke.py's FPS cases (PVCNN2's four levels) and cloud sizes up
+    to 100,000 points, on both sides of the plans' capacities."""
+    import chip_smoke
+
+    sizes = {c[0] for k, c in chip_smoke.CALLS2 if k == "fps"}
+    return sorted(sizes | {1, 31, 33, 65, 257, 1023, 1025, 8193, 16384,
+                           16385, 40000, 65537, 100000})
+
+
+@pytest.mark.parametrize("n", _fps_sizes())
+def test_fps_plan(n):
+    """K6's plan for n points is a launch the kernel takes (pvcnn_fps'
+    checks): a cluster of 1-8 blocks, whole warps, and registers that hold
+    the cloud, or streaming (ppt = 0)."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    cluster, threads, ppt = sampling._fps_plan(n)
+    assert cluster in (1, 2, 4, 8)
+    assert threads % 32 == 0 and threads <= (512 if ppt == 16 else 1024)
+    assert ppt in (0, 1, 2, 4, 8, 16)
+    if ppt:
+        assert cluster * threads * ppt >= n
+    else:
+        assert n > 16384
+
+
 @pytest.mark.parametrize("radius,u", [(0.1, 32), (0.25, 8), (0.6, 32)])
 @pytest.mark.parametrize("m,n", [(64, 256), (32, 16)])
 def test_ball_query(jax_formulation, m, n, radius, u):
