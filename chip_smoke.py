@@ -896,12 +896,15 @@ def _time_dense_kernels(rec: Record, rows: int) -> None:
     from pvcnn_tpu_torch.ops import dense_rows
 
     dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for ci, co in sorted({c[:2] for k, c in rec.calls
                           if k == "dense_rows_fwd"}):
         bound = 1.0 / ci ** 0.5
         x = torch.randn(rows, ci, device=dev)
-        w = torch.empty(ci, co, device=dev).uniform_(-bound, bound)
-        wt = w.t().contiguous()
+        # the fused SharedMLP's layout: its Conv1d weight [Co, Ci] seen as
+        # [Ci, Co], which the kernels read in place
+        wt = torch.empty(co, ci, device=dev).uniform_(-bound, bound)
+        w = wt.t()
         bias = torch.empty(co, device=dev).uniform_(-bound, bound)
         scale = torch.empty(ci, device=dev).uniform_(0.5, 1.5)
         shift = torch.randn(ci, device=dev) * 0.5
@@ -941,6 +944,8 @@ def _time_dense_kernels(rec: Record, rows: int) -> None:
                     run_lib if lib_ok else None)
 
             # K10: dW and d(bias) in one pass, against fp64 too
+            log("kernels", f"dense_rows_wgrad {case}: plan "
+                f"{dense_rows._plan(ci, co, rows, True, sms)}")
             run_k = lambda: dense_rows._wgrad_cuda(x, g, scale, shift, 0.0,
                                                    pro)
             run_p = lambda: dense_rows._wgrad_plain(x, g, scale, shift, 0.0,
@@ -1284,7 +1289,8 @@ PROFILE_GROUPS = (
     ("K3 / K4 prologue pass", ("conv3d_prologue_kernel",)),
     ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",)),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
-    ("K10 dense wgrad", ("dense_rows_wgrad_kernel",)),
+    ("K10 dense wgrad + fold", ("dense_rows_wgrad_kernel",
+                                "dense_rows_fold_kernel")),
     ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
     ("K5 sort (glue)", ("devoxelize_bwd_sort_kernel",)),
     ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",

@@ -1,5 +1,5 @@
 // K9 and K10: the dense layer on channel-last point rows, forward (with the
-// BatchNorm-statistics epilogue) and weight gradient.
+// BatchNorm-statistics epilogue) and data gradient, and weight gradient.
 //
 // K9 replaces the TPU kernel pvcnn_tpu/ops/pallas/dense_rows.py:_run_fwd
 // (kernel body _fwd_kernel), which the fused train-mode SharedMLP runs for
@@ -10,52 +10,52 @@
 //          with the prologue, else x
 //
 // and, with a `partial` buffer, the per-channel sum and sum of squares of
-// the BIASED y over the rows (the BatchNorm batch statistics of training).
-// Each block reduces its tile's columns over its in-range rows and writes
-// them to partial[row_tile][2][Co]; the caller sums the row tiles in a fixed
-// order, so the statistics are reproducible bit for bit (no atomics). The
-// same kernel with w^T, no prologue, a zero bias and no statistics is the
-// layer's data gradient (_drs_bwd runs _run_fwd so), counted apart.
+// the BIASED y over the rows (the BatchNorm batch statistics of training):
+// each block sums its tile's columns over its in-range rows in a fixed order
+// into partial[row_tile][2][Co], and the caller sums the row tiles in a
+// fixed order, so the statistics are reproducible bit for bit (no atomics).
+// The same kernel without prologue, bias or statistics, reading w in place
+// as w^T, is the layer's data gradient (_drs_bwd runs _run_fwd so), counted
+// apart.
 //
 // K10 replaces pvcnn_tpu/ops/pallas/dense_rows.py:_run_wgrad (kernel body
 // _wgrad_kernel): dw[ci, co] = sum_r a(x[r, ci]) * g[r, co], and
 // d(bias)[co] = sum_r g[r, co] from the same pass, the prologue re-derived
 // from the raw x as the TPU kernel does.
 //
-// Design. Both are fp32 GEMMs on the CUDA cores (no TF32) with one block
-// shape (csrc/fp32_tile.cuh): a 128 x 64 output tile, 128 threads with an
-// 8 x 8 accumulator each, and the reduction in slices of 16 through two
-// shared-memory buffers (the next slice is loaded into registers while the
-// current one is multiplied; one barrier per slice). Partial tiles are handled on every axis by bounds
-// checks: Ci runs from 9 to 512 and Co from 64 to 1024 in the models, and
-// nothing is padded in device memory. Loads coalesce along each operand's
-// contiguous axis: K9 reads x along its channels (16 lanes per row) and w
-// along Co; K10 reads x and g along their channels, one row per slice step.
-// The prologue is applied when the prefetched registers are stored to
-// shared memory, without fused multiply-adds (the two roundings of the plain
-// x * s + t).
+// Design: one fp32 GEMM core (csrc/dense_gemm.cuh) for the three calls,
+// which reads every operand in place in its layout: the forward's x and the
+// dgrad's g k-contiguous, K10's x m-contiguous, the weight either way (the
+// fused SharedMLP passes the Conv1d weight's [Ci, Co] view, k-contiguous in
+// the forward and n-contiguous in the dgrad), K10's g n-contiguous. Staging
+// is a cp.async ring; the prologue is applied to each staged A slice in
+// shared memory once its copy has landed (two roundings, no FMA), and only
+// to in-range entries: rows past the end stay 0, since a(0) may not be 0.
 //
 // K10 reduces over all rows (131,072 at B = 32 x 4096) into few outputs, so
-// it splits the rows (split-K without atomics): block z sums one chunk of
-// rows into its own [Ci, Co] slice of partial[chunks][Ci][Co], and the
-// blocks of the first row of output tiles also write that chunk's d(bias)
-// to dbias[chunks][Co]; the caller sums both in a fixed order. K4's design
-// (csrc/conv3d_wgrad.cu) at k = 1.
+// it splits the rows into `splits` chunks (split-K without atomics): one
+// block per output tile and chunk, enough for about two waves of resident
+// blocks (ops/dense_rows.py:_plan, from the SM count), each writing its
+// [Ci, Co] partial and, in the first row of output tiles, its chunk's
+// d(bias). dense_rows_fold_kernel then adds the chunks in order.
 //
-// Bound. 2 * rows * Ci * Co FLOPs each against 67 TFLOP/s of fp32 FMA; the
-// operands are read once per output tile from L2.
-#include "fp32_tile.cuh"
+// Bound. 2 * rows * Ci * Co FLOPs against 67 TFLOP/s of fp32 FMA, or the
+// operands' bytes (x and y or g once) against 3.35 TB/s where Ci or Co is
+// 64 or less. A tile re-reads the weight from L2; blocks sharing an A tile
+// run next to each other (the column tile is the fastest grid index), so A
+// is read from device memory about once.
+#include "dense_gemm.cuh"
 
 namespace {
 
-using pvcnn::multiply_slice;
-using pvcnn::tile_col;
-using pvcnn::tile_grid;
-constexpr int kThreads = pvcnn::kTileThreads;
-constexpr int kBM = pvcnn::kTileM;
-constexpr int kBN = pvcnn::kTileN;
-constexpr int kBK = pvcnn::kTileK;
-constexpr int kPad = pvcnn::kTilePad;
+using pvcnn::gemm::kBK;
+using pvcnn::gemm::kBM;
+using pvcnn::gemm::kSA;
+using pvcnn::gemm::kStages;
+using pvcnn::gemm::kKMajor;
+using pvcnn::gemm::kRows16;
+using pvcnn::gemm::kRows4;
+using pvcnn::gemm::Tile;
 
 // t > 0 ? t : slope * t with t = x * s + h, as two roundings
 __device__ __forceinline__ float activate(float x, float s, float h,
@@ -64,302 +64,362 @@ __device__ __forceinline__ float activate(float x, float s, float h,
   return t > 0.f ? t : __fmul_rn(slope, t);
 }
 
-template <bool kPrologue, bool kStats>
-__global__ void __launch_bounds__(kThreads)
-dense_rows_fwd_kernel(const float* __restrict__ x,       // [rows, Ci]
-                      const float* __restrict__ w,       // [Ci, Co]
-                      const float* __restrict__ bias,    // [Co]
-                      const float* __restrict__ pscale,  // [Ci] (kPrologue)
-                      const float* __restrict__ pshift,  // [Ci] (kPrologue)
-                      float slope,
-                      float* __restrict__ y,             // [rows, Co]
-                      float* __restrict__ partial,       // [tiles, 2, Co]
-                      int rows, int Ci, int Co) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[2][kBK][kBN + kPad];
-  __shared__ float red[kStats ? 4 : 1][2][kBN];
+// The prologue's channel: none, the reduction index k (K9: A = x is
+// [rows, Ci]) or the row index m (K10: A = x^T is [Ci, rows]).
+enum Prologue { kNone = 0, kByK = 1, kByM = 2 };
+
+struct Args {
+  const float* a;        // A(m, k): a[m * lda + k] (kKMajor) or a[k * lda + m]
+  const float* b;        // B(k, n): b[n * ldb + k] (kKMajor) or b[k * ldb + n]
+  int lda, ldb;
+  const float* bias;     // [N] or null
+  const float* pscale;   // [Ci] (with the prologue)
+  const float* pshift;
+  float slope;
+  float* out;            // [splits][M][N]
+  float* stats;          // [row tiles][2][N] or null
+  float* dbias;          // [splits][N] or null (K10)
+  int M, N, K, chunk;
+};
+
+// C = A B (+ bias) over k in one chunk; grid (row tiles x column tiles,
+// chunks), the column tile fastest. kA and kB: each operand's Copy mode.
+// K10 (kWgrad) also sums d(bias) and takes no statistics.
+template <int BN, int kPro, int kA, int kB, bool kWgrad>
+__device__ __forceinline__ void gemm(const Args& p, float* smem) {
+  using T = Tile<BN>;
+  constexpr int kThreads = T::kThreads;
+  constexpr int kSB = T::kSB;
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  const int col_tiles = (p.N + BN - 1) / BN;
+  const int tile_m = blockIdx.x / col_tiles;
+  const int m0 = tile_m * kBM;
+  const int n0 = (blockIdx.x % col_tiles) * BN;
+  const int kbeg = blockIdx.y * p.chunk;
+  const int kend = min(p.K, kbeg + p.chunk);
+  const int slices = (kend - kbeg + kBK - 1) / kBK;
+  const bool with_db = kWgrad && tile_m == 0;
 
-  // staging: x along its channels (column ka of the slice, rows ra + 8i),
-  // w along Co (column nb, slice rows kb + 2i)
-  const int ka = tid % kBK, ra = tid / kBK;
-  const int nb = tid % kBN, kb = tid / kBN;
-  float a_next[16], b_next[8];
-  bool k_in = false;                  // the staged channel is < Ci
-  float s = 1.f, h = 0.f;             // its prologue scale and shift
-
-  auto load_slice = [&](int k0) {
-    const int ci = k0 + ka;
-    k_in = ci < Ci;
-    if (kPrologue && k_in) {
-      s = __ldg(pscale + ci);
-      h = __ldg(pshift + ci);
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int r = m0 + ra + 8 * i;
-      a_next[i] = (k_in && r < rows)
-                      ? __ldg(x + static_cast<int64_t>(r) * Ci + ci) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = k0 + kb + 2 * i;
-      const int n = n0 + nb;
-      b_next[i] = (k < Ci && n < Co)
-                      ? __ldg(w + static_cast<int64_t>(k) * Co + n) : 0.f;
-    }
+  auto load = [&](int slice) {
+    float* As = smem + (slice % kStages) * T::kStageFloats;
+    const int k0 = kbeg + slice * kBK;
+    pvcnn::gemm::stage<kA, kBM, kThreads>(As, p.a, p.lda, m0, p.M, k0, kend,
+                                          tid);
+    pvcnn::gemm::stage<kB, BN, kThreads>(As + kBK * kSA, p.b, p.ldb, n0, p.N,
+                                         k0, kend, tid);
   };
 
-  auto store_slice = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      // rows past the end hold a(0), which may not be 0: they are never
-      // written, nor counted in the statistics
-      As[buf][ka][ra + 8 * i] =
-          (kPrologue && k_in) ? activate(a_next[i], s, h, slope) : a_next[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Bs[buf][kb + 2 * i][nb] = b_next[i];
-  };
-
-  const int tm = tid / 8;
-  const int tn = tid % 8;
+  const int tm = tid / T::kTN;
+  const int tn = tid % T::kTN;
   float acc[8][8];
-  pvcnn::zero_tile(acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  // K10's d(bias): column tid % BN over half of each slice's rows
+  const int db_col = tid % BN, db_half = tid / BN;
+  float db = 0.f;
 
-  const int slices = (Ci + kBK - 1) / kBK;
-  load_slice(0);
-  store_slice(0);
-  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slices) load(s);
+    pvcnn::gemm::copy_commit();
+  }
   for (int sl = 0; sl < slices; ++sl) {
-    const int cur = sl & 1;
-    if (sl + 1 < slices) load_slice((sl + 1) * kBK);
-    multiply_slice(As[cur], Bs[cur], tm, tn, acc);
-    // the other buffer was last read in slice sl - 1, before the barrier
-    // that ended it
-    if (sl + 1 < slices) store_slice(cur ^ 1);
+    // every group but the newest kStages - 2 has landed: slice sl's
+    pvcnn::gemm::copy_wait<kStages - 2>();
     __syncthreads();
+    float* As = smem + (sl % kStages) * T::kStageFloats;
+    const float* Bs = As + kBK * kSA;
+    if (kPro != kNone) {
+      const int k0 = kbeg + sl * kBK;
+      for (int e = tid; e < kBK * kBM; e += kThreads) {
+        const int k = e / kBM, m = e % kBM;
+        if (m0 + m < p.M && k0 + k < kend) {
+          const int ch = kPro == kByK ? k0 + k : m0 + m;
+          float* v = As + k * kSA + m;
+          *v = activate(*v, __ldg(p.pscale + ch), __ldg(p.pshift + ch),
+                        p.slope);
+        }
+      }
+      __syncthreads();
+    }
+    if (with_db) {
+#pragma unroll
+      for (int k = 0; k < kBK / 2; ++k) {
+        db += Bs[(db_half * (kBK / 2) + k) * kSB + db_col];
+      }
+    }
+    // the ring slot of slice sl - 1: every thread finished it before the
+    // barrier above
+    if (sl + kStages - 1 < slices) load(sl + kStages - 1);
+    pvcnn::gemm::copy_commit();
+    pvcnn::gemm::multiply<BN>(As, Bs, tm, tn, acc);
   }
 
-  float bj[8], s1[8], s2[8];
+  // the tile plus bias, stored from registers: a quarter warp writes 128
+  // contiguous bytes of a row (float4 where N % 4 == 0)
+  float bj[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int n = n0 + tile_col(tn, j);
-    bj[j] = n < Co ? __ldg(bias + n) : 0.f;
-    s1[j] = 0.f;
-    s2[j] = 0.f;
+    const int n = n0 + pvcnn::gemm::col<BN>(tn, j);
+    bj[j] = (!kWgrad && p.bias != nullptr && n < p.N) ? __ldg(p.bias + n)
+                                                      : 0.f;
   }
+  float* out = p.out + static_cast<int64_t>(blockIdx.y) * p.M * p.N;
+  const bool vec = p.N % 4 == 0 && pvcnn::gemm::aligned16(out);
+  float s1[8], s2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + tm * 8 + i;
-    if (m >= rows) continue;
-    float* yrow = y + static_cast<int64_t>(m) * Co;
+    if (m >= p.M) break;
+    float v[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tile_col(tn, j);
-      if (n < Co) {
-        const float val = acc[i][j] + bj[j];
-        yrow[n] = val;
-        s1[j] += val;
-        s2[j] = fmaf(val, val, s2[j]);
+      v[j] = acc[i][j] + bj[j];
+      s1[j] += v[j];
+      s2[j] = fmaf(v[j], v[j], s2[j]);
+    }
+    float* row = out + static_cast<int64_t>(m) * p.N + n0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = pvcnn::gemm::col<BN>(tn, 4 * h);
+      if (vec) {
+        if (n0 + c < p.N) {
+          *reinterpret_cast<float4*>(row + c) =
+              make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (n0 + c + q < p.N) row[c + q] = v[4 * h + q];
+        }
       }
     }
   }
-  if (kStats) {
-    // the 4 row groups of a warp (lane bits 3 and 4), then the 4 warps in
-    // order: a fixed summation order
-    const int lane = tid & 31, warp = tid >> 5;
+  if (kWgrad ? !with_db : p.stats == nullptr) return;
+
+  // the statistics (K9) or d(bias) (K10) of the tile's columns, in a fixed
+  // order: a thread's rows, the warp's row groups (lanes tn + k * kTN), the
+  // warps in order
+  constexpr int kWarps = kThreads / 32;
+  float* red = smem;                      // [kWarps][2][BN] or [2][BN]
+  pvcnn::gemm::copy_wait<0>();
+  __syncthreads();
+  if (kWgrad) {
+    red[db_half * BN + db_col] = db;
+  } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int off = 8; off < 32; off <<= 1) {
+      for (int off = T::kTN; off < 32; off <<= 1) {
         s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], off);
         s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], off);
       }
     }
-    if (lane < 8) {
+    const int lane = tid & 31, warp = tid >> 5;
+    if (lane < T::kTN) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        red[warp][0][tile_col(tn, j)] = s1[j];
-        red[warp][1][tile_col(tn, j)] = s2[j];
+        const int c = pvcnn::gemm::col<BN>(tn, j);
+        red[(warp * 2) * BN + c] = s1[j];
+        red[(warp * 2 + 1) * BN + c] = s2[j];
       }
     }
-    __syncthreads();
-    if (tid < kBN && n0 + tid < Co) {
-      float* out = partial + static_cast<int64_t>(blockIdx.x) * 2 * Co + n0 + tid;
+  }
+  __syncthreads();
+  if (tid < BN && n0 + tid < p.N) {
+    if (kWgrad) {
+      p.dbias[static_cast<int64_t>(blockIdx.y) * p.N + n0 + tid] =
+          red[tid] + red[BN + tid];
+    } else {
+      float* o = p.stats + static_cast<int64_t>(tile_m) * 2 * p.N + n0 + tid;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        out[q * Co] = ((red[0][q][tid] + red[1][q][tid]) + red[2][q][tid]) +
-                      red[3][q][tid];
+        float sum = red[q * BN + tid];
+        for (int w = 1; w < kWarps; ++w) sum += red[(w * 2 + q) * BN + tid];
+        o[q * p.N] = sum;
       }
     }
   }
 }
 
-template <bool kPrologue>
-__global__ void __launch_bounds__(kThreads)
-dense_rows_wgrad_kernel(const float* __restrict__ x,       // [rows, Ci]
-                        const float* __restrict__ g,       // [rows, Co]
-                        const float* __restrict__ pscale,  // [Ci] (kPrologue)
-                        const float* __restrict__ pshift,  // [Ci] (kPrologue)
-                        float slope,
-                        float* __restrict__ partial,       // [chunks, Ci, Co]
-                        float* __restrict__ dbias,         // [chunks, Co]
-                        int rows, int Ci, int Co, int chunk) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[2][kBK][kBN + kPad];
-  __shared__ float red[2][kBN];
+template <int BN, int kPro, int kA, int kB>
+__global__ void __launch_bounds__(Tile<BN>::kThreads, BN == 128 ? 2 : 3)
+dense_rows_fwd_kernel(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  gemm<BN, kPro, kA, kB, false>(p, smem);
+}
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM;      // input channels
-  const int n0 = blockIdx.y * kBN;      // output channels
-  const int rbeg = blockIdx.z * chunk;
-  const int rend = min(rows, rbeg + chunk);
-  const bool with_db = blockIdx.x == 0;
+template <int BN, int kPro, int kA, int kB>
+__global__ void __launch_bounds__(Tile<BN>::kThreads, BN == 128 ? 2 : 3)
+dense_rows_wgrad_kernel(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  gemm<BN, kPro, kA, kB, true>(p, smem);
+}
 
-  // staging: x row k0 + k along its channels (channel m0 + tid), g along
-  // its channels (column nb, slice rows kb + 2i)
-  const int ci = m0 + tid;
-  const bool ci_in = ci < Ci;
-  const float s = (kPrologue && ci_in) ? __ldg(pscale + ci) : 1.f;
-  const float h = (kPrologue && ci_in) ? __ldg(pshift + ci) : 0.f;
-  const int nb = tid % kBN, kb = tid / kBN;
-  const bool n_in = n0 + nb < Co;
-  float a_next[16], b_next[8];
-  int a_in = 0;                         // bit k: a_next[k] is a real row
-  float db = 0.f;
-
-  auto load_slice = [&](int r0) {
-    a_in = 0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const bool in = ci_in && r0 + k < rend;
-      a_next[k] = in ? __ldg(x + static_cast<int64_t>(r0 + k) * Ci + ci) : 0.f;
-      a_in |= static_cast<int>(in) << k;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + kb + 2 * i;
-      b_next[i] = (n_in && r < rend)
-                      ? __ldg(g + static_cast<int64_t>(r) * Co + n0 + nb) : 0.f;
-    }
-  };
-
-  auto store_slice = [&](int buf) {
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      // rows past the chunk stay 0 (the prologue would not map 0 to 0)
-      As[buf][k][tid] = (kPrologue && ((a_in >> k) & 1))
-                            ? activate(a_next[k], s, h, slope) : a_next[k];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      Bs[buf][kb + 2 * i][nb] = b_next[i];
-      if (with_db) db += b_next[i];
-    }
-  };
-
-  const int tm = tid / 8;
-  const int tn = tid % 8;
-  float acc[8][8];
-  pvcnn::zero_tile(acc);
-
-  const int slices = (rend - rbeg + kBK - 1) / kBK;
-  if (slices > 0) {
-    load_slice(rbeg);
-    store_slice(0);
+// dw = sum over the chunks of partial [splits][total] in order, and
+// db = the same of dbp [splits][N]
+__global__ void __launch_bounds__(pvcnn::kThreads)
+dense_rows_fold_kernel(const float* __restrict__ partial,
+                       const float* __restrict__ dbp,
+                       float* __restrict__ dw, float* __restrict__ db,
+                       int64_t total, int N, int splits) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i < total) {
+    float s = __ldg(partial + i);
+    for (int z = 1; z < splits; ++z) s += __ldg(partial + z * total + i);
+    dw[i] = s;
+  } else if (i < total + N) {
+    const int n = static_cast<int>(i - total);
+    float s = __ldg(dbp + n);
+    for (int z = 1; z < splits; ++z) s += __ldg(dbp + z * N + n);
+    db[n] = s;
   }
-  __syncthreads();
-  for (int sl = 0; sl < slices; ++sl) {
-    const int cur = sl & 1;
-    if (sl + 1 < slices) load_slice(rbeg + (sl + 1) * kBK);
-    multiply_slice(As[cur], Bs[cur], tm, tn, acc);
-    if (sl + 1 < slices) store_slice(cur ^ 1);
-    __syncthreads();
-  }
+}
 
-  float* out = partial + static_cast<int64_t>(blockIdx.z) * Ci * Co;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + tm * 8 + i;
-    if (m >= Ci) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tile_col(tn, j);
-      if (n < Co) out[static_cast<int64_t>(m) * Co + n] = acc[i][j];
-    }
+template <int BN, int kPro, int kA, int kB, bool kWgrad>
+int launch_tile(const Args& a, int splits, cudaStream_t st) {
+  void (*kernel)(const Args);
+  if constexpr (kWgrad) {
+    kernel = dense_rows_wgrad_kernel<BN, kPro, kA, kB>;
+  } else {
+    kernel = dense_rows_fwd_kernel<BN, kPro, kA, kB>;
   }
-  if (with_db) {
-    // even and odd slice rows of each column, summed in that order
-    red[kb][nb] = db;
-    __syncthreads();
-    if (tid < kBN && n0 + tid < Co) {
-      dbias[static_cast<int64_t>(blockIdx.z) * Co + n0 + tid] =
-          red[0][tid] + red[1][tid];
-    }
+  constexpr int smem = Tile<BN>::kSmemBytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int64_t tiles = static_cast<int64_t>((a.M + kBM - 1) / kBM) *
+                        ((a.N + BN - 1) / BN);
+  if (tiles > 0x7fffffff || splits > 65535) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(splits)),
+           Tile<BN>::kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kPro, int kA, int kB, bool kWgrad>
+int launch(const Args& a, int bn, int splits, cudaStream_t st) {
+  switch (bn) {
+    case 64: return launch_tile<64, kPro, kA, kB, kWgrad>(a, splits, st);
+    case 128: return launch_tile<128, kPro, kA, kB, kWgrad>(a, splits, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The copy of an operand of `ld` floats per row or column, contiguous along
+// k or along the tile's rows: 16 bytes at a time where that is aligned.
+int copy_mode(const void* p, int ld, int kmajor) {
+  return kmajor ? kKMajor
+                : ld % 4 == 0 && pvcnn::gemm::aligned16(p) ? kRows16 : kRows4;
+}
+
+// K9: A = x (k-contiguous), B = the weight in its copy mode
+template <int kPro>
+int launch_fwd(const Args& a, int b_mode, int bn, cudaStream_t st) {
+  switch (b_mode) {
+    case kKMajor: return launch<kPro, kKMajor, kKMajor, false>(a, bn, 1, st);
+    case kRows16: return launch<kPro, kKMajor, kRows16, false>(a, bn, 1, st);
+    default: return launch<kPro, kKMajor, kRows4, false>(a, bn, 1, st);
+  }
+}
+
+// K10: A = x^T and B = g, each by rows, 16 or 4 bytes at a time
+template <int kPro>
+int launch_wgrad(const Args& a, int a_mode, int b_mode, int bn, int splits,
+                 cudaStream_t st) {
+  if (a_mode == kRows16) {
+    return b_mode == kRows16
+               ? launch<kPro, kRows16, kRows16, true>(a, bn, splits, st)
+               : launch<kPro, kRows16, kRows4, true>(a, bn, splits, st);
+  }
+  return b_mode == kRows16
+             ? launch<kPro, kRows4, kRows16, true>(a, bn, splits, st)
+             : launch<kPro, kRows4, kRows4, true>(a, bn, splits, st);
 }
 
 }  // namespace
 
-PVCNN_EXPORT int pvcnn_dense_rows_fwd(const void* x, const void* w,
-                                      const void* bias, const void* pscale,
+// K9: y [rows, N] = a(x) w (+ bias), x [rows, K] contiguous, w read as
+// w[k, n] = w[n * ldw + k] (w_kmajor) or w[k * ldw + n]; bias may be null
+// (the dgrad). partial [ceil(rows / 128)][2][N] or null. bn (64 or 128) is
+// ops/dense_rows.py:_plan's column tile.
+PVCNN_EXPORT int pvcnn_dense_rows_fwd(const void* x, const void* w, int ldw,
+                                      int w_kmajor, const void* bias,
+                                      const void* pscale,
                                       const void* pshift, float slope,
                                       void* y, void* partial, int rows,
-                                      int Ci, int Co, int has_prologue,
+                                      int K, int N, int has_prologue, int bn,
                                       void* stream) {
-  if (rows == 0 || Co == 0) return 0;
-  const auto xf = static_cast<const float*>(x);
-  const auto wf = static_cast<const float*>(w);
-  const auto bf = static_cast<const float*>(bias);
-  const auto sf = static_cast<const float*>(pscale);
-  const auto tf = static_cast<const float*>(pshift);
-  const auto yf = static_cast<float*>(y);
-  const auto pf = static_cast<float*>(partial);
+  if (rows == 0 || N == 0) return 0;
+  const Args a{static_cast<const float*>(x),
+               static_cast<const float*>(w),
+               K, ldw,
+               static_cast<const float*>(bias),
+               static_cast<const float*>(pscale),
+               static_cast<const float*>(pshift),
+               slope,
+               static_cast<float*>(y),
+               static_cast<float*>(partial),
+               nullptr,
+               rows, N, K, K > 0 ? K : 1};
   const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = tile_grid(rows, Co, 1);
-  const bool stats = partial != nullptr;
-  if (has_prologue && stats) {
-    dense_rows_fwd_kernel<true, true><<<grid, kThreads, 0, st>>>(
-        xf, wf, bf, sf, tf, slope, yf, pf, rows, Ci, Co);
-  } else if (has_prologue) {
-    dense_rows_fwd_kernel<true, false><<<grid, kThreads, 0, st>>>(
-        xf, wf, bf, sf, tf, slope, yf, pf, rows, Ci, Co);
-  } else if (stats) {
-    dense_rows_fwd_kernel<false, true><<<grid, kThreads, 0, st>>>(
-        xf, wf, bf, sf, tf, slope, yf, pf, rows, Ci, Co);
-  } else {
-    dense_rows_fwd_kernel<false, false><<<grid, kThreads, 0, st>>>(
-        xf, wf, bf, sf, tf, slope, yf, pf, rows, Ci, Co);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int b_mode = copy_mode(w, ldw, w_kmajor);
+  return has_prologue ? launch_fwd<kByK>(a, b_mode, bn, st)
+                      : launch_fwd<kNone>(a, b_mode, bn, st);
 }
 
+// K10: dw [Ci, Co] = a(x)^T g and db [Co] = sum_r g, x [rows, Ci] and
+// g [rows, Co] contiguous, the rows in chunks of `chunk` (a multiple of the
+// slice): with more than one chunk, partial holds [chunks][Ci][Co] and then
+// [chunks][Co], which the fold adds in order.
 PVCNN_EXPORT int pvcnn_dense_rows_wgrad(const void* x, const void* g,
                                         const void* pscale,
                                         const void* pshift, float slope,
-                                        void* partial, void* dbias, int rows,
-                                        int Ci, int Co, int chunk,
-                                        int has_prologue, void* stream) {
-  if (rows == 0 || Ci == 0 || Co == 0) return 0;
-  const int chunks = (rows + chunk - 1) / chunk;
-  const dim3 grid = tile_grid(Ci, Co, chunks);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto xf = static_cast<const float*>(x);
-  const auto gf = static_cast<const float*>(g);
-  const auto sf = static_cast<const float*>(pscale);
-  const auto tf = static_cast<const float*>(pshift);
-  const auto pf = static_cast<float*>(partial);
-  const auto df = static_cast<float*>(dbias);
-  if (has_prologue) {
-    dense_rows_wgrad_kernel<true><<<grid, kThreads, 0, st>>>(
-        xf, gf, sf, tf, slope, pf, df, rows, Ci, Co, chunk);
-  } else {
-    dense_rows_wgrad_kernel<false><<<grid, kThreads, 0, st>>>(
-        xf, gf, sf, tf, slope, pf, df, rows, Ci, Co, chunk);
+                                        void* partial, void* dw, void* db,
+                                        int rows, int Ci, int Co, int bn,
+                                        int chunk, int has_prologue,
+                                        void* stream) {
+  if (Ci == 0 || Co == 0) return 0;
+  if (rows < 1 || chunk < 1 || chunk % kBK != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int splits = (rows + chunk - 1) / chunk;
+  if (splits > 1 && partial == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = static_cast<int64_t>(Ci) * Co;
+  auto* pf = static_cast<float*>(partial);
+  float* out = splits > 1 ? pf : static_cast<float*>(dw);
+  float* dbp = splits > 1 ? pf + splits * total : static_cast<float*>(db);
+  const Args a{static_cast<const float*>(x),
+               static_cast<const float*>(g),
+               Ci, Co,
+               nullptr,
+               static_cast<const float*>(pscale),
+               static_cast<const float*>(pshift),
+               slope,
+               out,
+               nullptr,
+               dbp,
+               Ci, Co, rows, chunk};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int a_mode = copy_mode(x, Ci, 0), b_mode = copy_mode(g, Co, 0);
+  const int err =
+      has_prologue ? launch_wgrad<kByM>(a, a_mode, b_mode, bn, splits, st)
+                   : launch_wgrad<kNone>(a, a_mode, b_mode, bn, splits, st);
+  if (err != 0 || splits == 1) return err;
+  dense_rows_fold_kernel<<<pvcnn::blocks_for(total + Co), pvcnn::kThreads, 0,
+                           st>>>(pf, dbp, static_cast<float*>(dw),
+                                 static_cast<float*>(db), total, Co, splits);
   return static_cast<int>(cudaGetLastError());
 }

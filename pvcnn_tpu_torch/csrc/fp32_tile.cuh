@@ -1,10 +1,10 @@
-// The 128 x 64 fp32 output tile that K9-K11 multiply on the CUDA cores (no
+// The 128 x 64 fp32 output tile that K11 multiplies on the CUDA cores (no
 // TF32): 128 threads, an 8 x 8 accumulator each, the reduction in slices of
 // 16 staged in shared memory as A[k][m] and B[k][n]. Thread (tm, tn) =
 // (tid / 8, tid % 8) owns rows tm*8 .. +7 and columns tile_col(tn, 0..7) =
 // tn*4 .. +3 and 32 + tn*4 .. +3 (two float4 reads at different banks per
-// lane). K9/K10 (csrc/dense_rows.cu) and K11 (csrc/conv3d_ndhwc_wgrad.cu)
-// use it; K4 (csrc/conv3d_wgrad.cu) has its own tile.
+// lane). K11 (csrc/conv3d_ndhwc_wgrad.cu) uses it; K4 (csrc/conv3d_wgrad.cu)
+// and K9/K10 (csrc/dense_gemm.cuh) have their own tiles.
 #pragma once
 
 #include "common.cuh"

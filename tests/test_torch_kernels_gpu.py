@@ -776,3 +776,141 @@ def test_conv3d_tiles(dev, b, ci, co, r, has_prologue, want_stats):
     torch.testing.assert_close(dx, conv3d._dgrad_plain(gy, w, r), rtol=1e-4,
                                atol=1e-4)
     assert torch.equal(dx, conv3d._dgrad_cuda(gy, w, r))
+
+
+def _dense_inputs(dev, rows, ci, co, layout="columns"):
+    """x [rows, Ci], the weight [Ci, Co] in `layout` ("columns": the fused
+    SharedMLP's transposed view of a [Co, Ci] weight; "rows": contiguous),
+    bias, prologue scale and shift, a cotangent g [rows, Co]."""
+    w = torch.randn(co, ci, device=dev) / ci ** 0.5
+    w = w.t() if layout == "columns" else w.t().contiguous()
+    return (torch.randn(rows, ci, device=dev), w, torch.randn(co, device=dev),
+            torch.rand(ci, device=dev) + 0.5, torch.randn(ci, device=dev),
+            torch.randn(rows, co, device=dev))
+
+
+def _dense_check(dev, rows, ci, co, has_prologue, layout="columns"):
+    """K9 (with statistics), the dgrad and K10 against their plain versions
+    (K9 and the statistics at test_dense_rows_kernel's tolerances; the
+    dgrad against g @ w.t() too; K10 within 1e-4 of the largest entry),
+    two runs bitwise equal, one launch a call. Returns the outputs. Below
+    1,000 rows a channel's s2 is a sum of a few squares, each carrying y's
+    own error (its atol 1e-4): there s2 is held to 2e-4 of sum |y| too."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    x, w, bias, scale, shift, g = _dense_inputs(dev, rows, ci, co, layout)
+    args = (x, w, bias, scale, shift, 0.1, has_prologue, True)
+    counts = kernels.launch_counts()
+    y, s1, s2 = dense_rows._forward_cuda(*args)
+    dx = dense_rows._dgrad_cuda(g, w)
+    dw, db = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, has_prologue)
+    after = kernels.launch_counts()
+    for name in ("dense_rows_fwd", "dense_rows_dgrad", "dense_rows_wgrad"):
+        assert after[name] == counts[name] + 1
+    want, w1, w2 = dense_rows._forward_plain(*args)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s1, w1, rtol=1e-4,
+                               atol=1e-4 * want.abs().sum().item() / co)
+    if rows >= 1000:
+        torch.testing.assert_close(s2, w2, rtol=1e-4, atol=0)
+    else:
+        assert ((s2 - w2).abs() <= 1e-4 * w2.abs()
+                + 2e-4 * want.abs().sum(0)).all()
+    torch.testing.assert_close(dx, dense_rows._dgrad_plain(g, w), rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(dx, g @ w.t(), rtol=1e-4, atol=1e-4)
+    want_dw, want_db = dense_rows._wgrad_plain(x, g, scale, shift, 0.1,
+                                               has_prologue)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                               atol=1e-4 * want_dw.abs().max().item())
+    torch.testing.assert_close(db, want_db, rtol=1e-4,
+                               atol=1e-4 * want_db.abs().max().item())
+    again = (*dense_rows._forward_cuda(*args), dense_rows._dgrad_cuda(g, w),
+             *dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, has_prologue))
+    assert all(torch.equal(a, b)
+               for a, b in zip((y, s1, s2, dx, dw, db), again))
+    return y, s1, s2, dx, dw, db
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("rows", [1, 37, 127, 128, 129, 1000])
+@pytest.mark.parametrize("ci,co", [(9, 64), (9, 70), (130, 70), (130, 64),
+                                   (64, 130), (4, 4)])
+def test_dense_rows_ragged(dev, ci, co, rows, has_prologue):
+    """K9, its dgrad and K10 on rows that fill no tile or one tile and a
+    row, on unaligned rows (Ci = 9 and 130: 36 and 520 bytes) and columns
+    (Co = 70, 130), the weight in the SharedMLP's layout."""
+    _dense_check(dev, rows, ci, co, has_prologue)
+
+
+@pytest.mark.parametrize("ci,co", [(9, 64), (64, 64), (64, 128), (128, 1024),
+                                   (512, 256), (130, 70)])
+def test_dense_rows_weight_layouts(dev, ci, co):
+    """The weight read by rows (contiguous [Ci, Co]) and by columns (the
+    SharedMLP's view) in place: the same products in the same order, so
+    K9, the dgrad and K10 are bitwise equal across the two layouts."""
+    torch.manual_seed(1)
+    by_columns = _dense_check(dev, 1000, ci, co, False, "columns")
+    torch.manual_seed(1)
+    by_rows = _dense_check(dev, 1000, ci, co, False, "rows")
+    assert all(torch.equal(a, b) for a, b in zip(by_columns, by_rows))
+
+
+def _calls3_on_dense():
+    import chip_smoke
+
+    return sorted({c[:2] for (k, c), _ in chip_smoke.CALLS3_ON.items()
+                   if k == "dense_rows_fwd"})
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("ci,co", _calls3_on_dense())
+def test_dense_rows_opt_in_shapes(dev, ci, co, has_prologue):
+    """Every K9 / dgrad / K10 shape of the S3DIS PVCNN opt-in step
+    (chip_smoke.CALLS3_ON) at 4,133 rows (32 row tiles and a ragged one;
+    K10 then splits its rows in 16 chunks, or one where Ci <= 64)."""
+    _dense_check(dev, 4133, ci, co, has_prologue)
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("chunk", [32, 96, 4096, 8192])
+@pytest.mark.parametrize("ci,co", [(9, 64), (130, 70), (128, 256)])
+def test_dense_rows_wgrad_fold(dev, monkeypatch, ci, co, chunk,
+                               has_prologue):
+    """K10's chunks and their fold kernel: forced chunks of 1, 3 and 128
+    slices (4,100 rows: 129, 43 and 2 chunks, the last ones ragged) and one
+    chunk of all rows against the plain version; any chunking within the
+    same tolerance of the one-chunk result."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    plan = dense_rows._plan
+    monkeypatch.setattr(dense_rows, "_plan", lambda *a: plan(*a)._replace(
+        chunk=chunk, splits=-(-4100 // chunk),
+        partial_bytes=4 * -(-4100 // chunk) * (ci * co + co)))
+    x, _, _, scale, shift, g = _dense_inputs(dev, 4100, ci, co)
+    dw, db = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, has_prologue)
+    want_dw, want_db = dense_rows._wgrad_plain(x, g, scale, shift, 0.1,
+                                               has_prologue)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                               atol=1e-4 * want_dw.abs().max().item())
+    torch.testing.assert_close(db, want_db, rtol=1e-4,
+                               atol=1e-4 * want_db.abs().max().item())
+    again = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, has_prologue)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_dense_rows_reject_what_they_do_not_take(dev):
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    x, w, bias, _, _, g = _dense_inputs(dev, 300, 8, 4)
+    with pytest.raises(ValueError, match="float32"):
+        dense_rows._dgrad_cuda(g.double(), w)
+    with pytest.raises(ValueError, match="CUDA device"):
+        dense_rows._dgrad_cuda(g, w.cpu())
+    with pytest.raises(ValueError, match="does not match"):
+        dense_rows._dgrad_cuda(g, w.t())
+    with pytest.raises(ValueError, match="differ in rows"):
+        dense_rows._wgrad_cuda(x, g[:-1], None, None, 0.0, False)
+    with pytest.raises(ValueError, match="prologue"):
+        dense_rows._forward_cuda(x, w, bias, torch.ones(3, device=dev),
+                                 torch.zeros(3, device=dev), 0.0, True, True)
