@@ -1,0 +1,115 @@
+"""What the per-case scripts (k1_k6_cases.py, k4_cases.py, k7_k11_cases.py,
+k9_k10_cases.py) share: the card's name and power limit, ptxas's log of
+chosen kernels, host-clock and profiler timings of one call, and output
+digests that compare two trees bit for bit.
+
+Each script imports this module after its `--tree` has put another
+checkout first on sys.path; this module imports nothing of the package.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas(kernels, *keys) -> None:
+    """Build the kernels with `-Xptxas -v` and print the registers, shared
+    memory and spills of each kernel whose name holds one of keys."""
+    _, _, log = kernels.build(("-Xptxas", "-v"))
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(k in line
+                                                      for k in keys):
+            print("[ptxas]", line.strip())
+            for nxt in lines[i + 1:i + 5]:
+                if "Compiling entry" in nxt:
+                    break
+                print("[ptxas]   ", nxt.strip())
+
+
+def host_ms(fn, reps=20) -> float:
+    """Median host-clock ms of one call ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def device_ms(fn, *groups, reps=10) -> list:
+    """ms of device time per call by kernel name (torch.profiler over reps
+    calls): one sum for each group of name parts (a kernel counts under the
+    first group one of whose parts its lower-cased name holds), then the
+    rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    sums = [0.0] * (len(groups) + 1)
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        key = evt.key.lower()
+        at = next((i for i, parts in enumerate(groups)
+                   if any(p in key for p in parts)), len(groups))
+        sums[at] += evt.self_device_time_total / 1e3 / reps
+    return sums
+
+
+class Digests:
+    """SHA-256 of each output; --save writes them to a JSON file, --against
+    compares this tree's with such a file."""
+
+    def __init__(self, save=None, against=None, label="cases"):
+        self.save, self.label, self.saved = save, label, {}
+        self.theirs = None
+        if against:
+            with open(against) as f:
+                self.theirs = json.load(f)
+
+    def add(self, key, *tensors) -> str:
+        """Record the outputs' digest under key; -> how it compares with
+        the saved tree's ("" without one)."""
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        self.saved[key] = h.hexdigest()
+        if self.theirs is None:
+            return ""
+        same = self.theirs.get(key) == self.saved[key]
+        return ("; bitwise equal against the saved tree" if same
+                else "; DIFFERS against the saved tree")
+
+    def finish(self) -> None:
+        if self.save:
+            with open(self.save, "w") as f:
+                json.dump(self.saved, f, indent=1)
+            print(f"[{self.label}] {len(self.saved)} output digests written "
+                  f"to {self.save}")
+        if self.theirs is not None:
+            same = sum(self.theirs.get(k) == v for k, v in self.saved.items())
+            print(f"[{self.label}] {same} of {len(self.saved)} outputs "
+                  "bitwise equal against the saved tree")

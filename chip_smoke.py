@@ -815,6 +815,7 @@ def phase_pvcnn2_kernels() -> dict:
         levels.append(torch.gather(pts, 1, idx.long()[..., None].expand(
             -1, -1, 3)))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     group_idx, interp_idx = {}, {}
     for level, (radius, u) in enumerate(((0.1, 32), (0.2, 32), (0.4, 32),
                                          (0.8, 32))):
@@ -835,7 +836,7 @@ def phase_pvcnn2_kernels() -> dict:
         log("kernels", f"ball_query {case}: mean hits {hits.float().mean():.2f}"
             f", {float((hits < u).float().mean()):.3f} of the centers take "
             f"the fill; {float(scanned) / (B * m * n):.3f} of the points "
-            "scanned")
+            f"scanned; plan {neighbors._ball_query_plan(B, m, n, u, sms)}")
         rec.add("ball_query", case, 0.0, run_k, run_p, 9.0 * float(scanned),
                 4 * (B * m * 3 + B * n * 3 + B * m * u), plain_reps=5)
         group_idx[level] = got.reshape(B, m * u)
@@ -853,6 +854,8 @@ def phase_pvcnn2_kernels() -> dict:
         rec.add("three_nn", case, err, run_k, run_p, 9.0 * B * n * m,
                 4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3), plain_reps=5)
         interp_idx[level] = idx.reshape(B, n * 3)
+
+    _ball_query_dense(dev)
 
     # the take_rows backwards: SA groupings (B, M*U rows into N bins) and
     # FP interpolations (B, 3N rows into M bins)
@@ -886,6 +889,25 @@ def phase_pvcnn2_kernels() -> dict:
     by_n = {t.shape[1]: t for t in levels}
     _time_pvconv_kernels(rec, lambda n: by_n[n], normalize=True)
     return rec.summary("S3DIS PVCNN2 1x")
+
+
+def _ball_query_dense(dev) -> None:
+    """K7 on a dense cloud, where every center has all N points in its
+    radius and stops at its U-th hit: indices equal to the plain
+    version's, timed, not counted per step."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    pts = 0.5 + 0.01 * np.random.RandomState(SEED).rand(B, N2, 3)
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    ctr = pts[:, :1024].contiguous()
+    r2, u = neighbors._fp32(0.1 ** 2), 32
+    case = (1024, N2, 0.1, u, "dense")
+    run_k = lambda: neighbors._ball_query_cuda(ctr, pts, r2, u)
+    got = _twice("ball_query", case, run_k)
+    _exact("ball_query", case, got, neighbors._ball_query_plain(ctr, pts, r2,
+                                                                 u))
+    log("kernels", f"ball_query {case}: {time_ms(run_k):.4f} ms, every "
+        f"center stops after {u} of {N2} points; not counted per step")
 
 
 def _time_dense_kernels(rec: Record, rows: int) -> None:
@@ -993,6 +1015,7 @@ def _time_ndhwc_wgrad(rec: Record) -> None:
     from pvcnn_tpu_torch.ops import conv3d
 
     dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for ci, co, r in sorted(c for k, c in rec.calls
                             if k == "conv3d_ndhwc_wgrad"):
         case = (ci, co, r)
@@ -1014,10 +1037,18 @@ def _time_ndhwc_wgrad(rec: Record) -> None:
         del exact
         lib_ok = _library_agrees("conv3d_ndhwc_wgrad", case, run_lib(), want,
                                  scale_w)
-        rec.add("conv3d_ndhwc_wgrad", case, err, run_k, run_p,
-                2.0 * 27 * ci * co * B * r ** 3,
-                4 * (B * r ** 3 * (ci + co) + 27 * ci * co),
-                run_lib if lib_ok else None)
+        timed = rec.add("conv3d_ndhwc_wgrad", case, err, run_k, run_p,
+                        2.0 * 27 * ci * co * B * r ** 3,
+                        4 * (B * r ** 3 * (ci + co) + 27 * ci * co),
+                        run_lib if lib_ok else None)
+        plan = conv3d._wgrad_plan(B, ci, co, r, sms)
+        share = (f", {timed[1] / timed[0]:.1%} of its bound"
+                 if timed else "")
+        log("kernels", f"conv3d_ndhwc_wgrad {case}: tile {plan.tile}, "
+            f"z-segments of {plan.seg}, x staged in "
+            f"{conv3d._ndhwc_layout(ci, plan)}, {plan.splits} split(s) of "
+            f"{plan.per_split} slices, partial buffer {plan.partial_bytes} "
+            f"bytes{share}")
 
 
 def phase_pvcnn_s3dis_kernels():
@@ -1287,7 +1318,8 @@ PROFILE_GROUPS = (
                                    "conv3d_split_sum_kernel")),
     ("K4 conv3d wgrad", ("conv3d_wgrad_kernel", "conv3d_wgrad_sum_kernel")),
     ("K3 / K4 prologue pass", ("conv3d_prologue_kernel",)),
-    ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",)),
+    ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",
+                                "conv3d_ndhwc_wgrad_sum_kernel")),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
     ("K10 dense wgrad + fold", ("dense_rows_wgrad_kernel",
                                 "dense_rows_fold_kernel")),
@@ -1298,7 +1330,7 @@ PROFILE_GROUPS = (
     ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_bins_kernel",)),
     ("K1 sort (glue)", ("avg_voxelize_sort_kernel",)),
     ("K6 fps", ("fps_kernel",)),
-    ("K7 ball_query", ("ball_query_kernel",)),
+    ("K7 ball_query", ("ball_query_kernel", "ball_query_merge_kernel")),
     ("K8 three_nn", ("three_nn_kernel",)),
     ("cuDNN conv (NDHWC forward, dgrad)", ("fprop", "dgrad", "cudnn",
                                           "convolve")),

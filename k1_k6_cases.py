@@ -32,10 +32,7 @@ indices held to the plain version's.
 from __future__ import annotations
 
 import argparse
-import hashlib
-import json
 import os
-import subprocess
 import sys
 
 
@@ -56,6 +53,7 @@ if ARGS.tree is not None:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import cases_util  # noqa: E402
 import chip_smoke  # noqa: E402  (the case tables, inputs and the timer)
 
 B, SEED = chip_smoke.B, chip_smoke.SEED
@@ -67,44 +65,11 @@ SWEEP = [(cs, t, p) for cs in (1, 2, 4, 8)
          if t <= (512 if p == 16 else 1024)]
 
 
-def _ptxas(kernels) -> None:
-    _, _, log = kernels.build(("-Xptxas", "-v"))
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and (
-                "voxelize" in line or "fps" in line):
-            print("[ptxas]", line.strip())
-            for nxt in lines[i + 1:i + 5]:
-                if "Compiling entry" in nxt:
-                    break
-                print("[ptxas]   ", nxt.strip())
-
-
-def _device(fn, reps=10):
+def _device(fn):
     """(sort glue, kernel, rest) in ms of device time per call: glue is any
     kernel with "sort" or "radix" in its name, kernel K1's or K6's own."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    glue = own = rest = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        ms = evt.self_device_time_total / 1e3 / reps
-        key = evt.key.lower()
-        if "sort" in key or "radix" in key:
-            glue += ms
-        elif "avg_voxelize" in key or "fps_kernel" in key:
-            own += ms
-        else:
-            rest += ms
-    return glue, own, rest
+    return cases_util.device_ms(fn, ("sort", "radix"),
+                                ("avg_voxelize", "fps_kernel"))
 
 
 def _levels(dev):
@@ -177,15 +142,6 @@ def _k1_cases(dev, levels, sources):
     return out
 
 
-def _digest(saved, against, key, out) -> str:
-    """Record out's SHA-256 under key; -> how it compares with `against`."""
-    saved[key] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
-    if against is None:
-        return ""
-    same = against.get(key) == saved[key]
-    return f"; {'bitwise equal to' if same else 'DIFFERS from'} {ARGS.against}"
-
-
 def _sweep(sampling, pts, m) -> None:
     """K6 under each plan that holds the cloud (registers at most twice
     what it needs, or streaming above 8,192 points): ms, device time,
@@ -225,23 +181,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("k1_k6_cases: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(cases_util.smi(), flush=True)
     print(f"[cases] pvcnn_tpu_torch from {os.path.dirname(kernels.__file__)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if ARGS.ptxas:
-        _ptxas(kernels)
+        cases_util.ptxas(kernels, "voxelize", "fps")
     kernels.library()
     dev = torch.device("cuda")
     levels, sources = _levels(dev)
-    saved = {}
-    against = None
-    if ARGS.against:
-        with open(ARGS.against) as f:
-            against = json.load(f)
+    digests = cases_util.Digests(ARGS.save, ARGS.against, "cases")
     per_step = {}
 
     for label, case, path, idx, bins, c, n, run in _k1_cases(dev, levels,
@@ -250,7 +199,7 @@ def main() -> None:
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"{label} {case}: two runs differ")
-        same = _digest(saved, against, f"{path} {label} {case}", got)
+        same = digests.add(f"{path} {label} {case}", got)
         ms = chip_smoke.time_ms(run)
         glue, own, rest = _device(run)
         bound, _, _ = chip_smoke._bound_ms(B * n * c, 4 * (
@@ -268,7 +217,7 @@ def main() -> None:
     for n, m in ((8192, 1024), (1024, 256), (256, 64), (64, 16)):
         pts = next(t for t in levels if t.shape[1] == n)
         run = lambda: sampling.furthest_point_sample_indices(pts, m)
-        same = _digest(saved, against, f"fps {(n, m)}", run())
+        same = digests.add(f"fps {(n, m)}", run())
         ms = chip_smoke.time_ms(run)
         _, own, rest = _device(run)
         bound, _, _ = chip_smoke._bound_ms(10.0 * B * n * (m - 1),
@@ -290,9 +239,7 @@ def main() -> None:
         print(f"[step] {name}: {ms:.4f} ms per step (device: glue "
               f"{glue:.4f}, kernel {own:.4f}, rest {rest:.4f}), bound "
               f"{bound:.4f}", flush=True)
-    if ARGS.save:
-        with open(ARGS.save, "w") as f:
-            json.dump(saved, f, indent=0)
+    digests.finish()
 
 
 if __name__ == "__main__":

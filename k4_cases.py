@@ -3,6 +3,7 @@
 by case on one NVIDIA GPU.
 
     python3 k4_cases.py [--tree DIR] [--ptxas] [--sass] [--clocks]
+                        [--save FILE] [--against FILE]
 
 The cases are K4's in chip_smoke.py's CALLS, CALLS2 and CALLS3 (ShapeNet
 PVCNN, S3DIS PVCNN2 and S3DIS PVCNN default training steps at B = 32), each
@@ -20,7 +21,9 @@ of each path.
 
 --tree DIR imports pvcnn_tpu_torch from DIR (another checkout, such as a
 parent commit unpacked with `git archive`) instead of this one; its kernels
-are built under DIR/build/. --ptxas builds the kernels with `-Xptxas -v`
+are built under DIR/build/. --save FILE writes the SHA-256 of K4's output
+at every case to FILE (JSON); --against FILE compares this tree's outputs
+with such a file bit for bit. --ptxas builds the kernels with `-Xptxas -v`
 and prints the registers, shared memory and spills of K4's kernels. --sass
 prints the instruction mix of each K4 kernel (cuobjdump -sass of the built
 library). --clocks samples the card's SM clock and power draw (nvidia-smi,
@@ -44,6 +47,8 @@ def _args():
     p.add_argument("--ptxas", action="store_true")
     p.add_argument("--sass", action="store_true")
     p.add_argument("--clocks", action="store_true")
+    p.add_argument("--save", default=None)
+    p.add_argument("--against", default=None)
     return p.parse_args()
 
 
@@ -53,19 +58,8 @@ if ARGS.tree is not None:
 
 import torch  # noqa: E402
 
+import cases_util  # noqa: E402
 import chip_smoke  # noqa: E402  (the case tables and the timer)
-
-
-def _ptxas(kernels) -> None:
-    _, _, log = kernels.build(("-Xptxas", "-v"))
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "conv3d_wgrad" in line:
-            print("[ptxas]", line.strip())
-            for nxt in lines[i + 1:i + 5]:
-                if "Compiling entry" in nxt:
-                    break
-                print("[ptxas]   ", nxt.strip())
 
 
 def _sass(kernels) -> None:
@@ -162,30 +156,6 @@ def _plan(conv3d, b, ci, co, r, sms):
     return plan.tile, plan.splits, plan.partial_bytes
 
 
-def _device_split(fn, reps=10):
-    """(K4's kernels and prologue pass, the rest) in ms of device time per
-    call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    own = rest = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        ms = evt.self_device_time_total / 1e3 / reps
-        if "conv3d_wgrad" in evt.key or "conv3d_prologue" in evt.key:
-            own += ms
-        else:
-            rest += ms
-    return own, rest
-
-
 def main() -> None:
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.ops import conv3d
@@ -193,15 +163,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("k4_cases: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(cases_util.smi(), flush=True)
     print(f"[k4] pvcnn_tpu_torch from {os.path.dirname(kernels.__file__)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if ARGS.ptxas:
-        _ptxas(kernels)
+        cases_util.ptxas(kernels, "conv3d_wgrad")
     kernels.library()
     if ARGS.sass:
         _sass(kernels)
@@ -216,6 +183,7 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b = chip_smoke.B
     per_step = {name: [0.0, 0.0, 0.0] for name, _ in paths}
+    digests = cases_util.Digests(ARGS.save, ARGS.against, "k4")
     torch.manual_seed(chip_smoke.SEED)
     for ci, co, r, pro in cases:
         x = torch.randn(b, ci, r ** 3, device=dev)
@@ -228,13 +196,16 @@ def main() -> None:
         lib = lambda: torch.nn.grad.conv3d_weight(x5, (co, ci, 3, 3, 3), g5,
                                                   padding=1)
         dw, want = run(), conv3d._wgrad_plain(x, gy, scale, shift, r, pro)
+        tag = digests.add(f"conv3d_wgrad {(ci, co, r, pro)}", dw)
         exact = conv3d._wgrad_plain(x.double(), gy.double(), scale.double(),
                                     shift.double(), r, pro)
         top = exact.abs().max().item()
         errs = ((dw - exact).abs().max().item() / top,
                 (want - exact).abs().max().item() / top)
         ms, lib_ms = chip_smoke.time_ms(run), chip_smoke.time_ms(lib)
-        own, rest = _device_split(run)
+        # K4's kernels with its prologue pass, and the rest
+        own, rest = cases_util.device_ms(
+            run, ("conv3d_wgrad", "conv3d_prologue"))
         bound, _, _ = chip_smoke._bound_ms(
             2.0 * b * r ** 3 * 27 * ci * co,
             4 * (b * ci * r ** 3 + b * co * r ** 3 + 27 * ci * co))
@@ -246,7 +217,7 @@ def main() -> None:
               f"conv3d_weight {lib_ms:.4f}, bound {bound:.4f} "
               f"({bound / ms:.1%}); tile {tile}, splits {splits}, partial "
               f"{nbytes / 2 ** 20:.1f} MiB; max |. - fp64| / max|dW| K4 "
-              f"{errs[0]:.3e}, plain {errs[1]:.3e}", flush=True)
+              f"{errs[0]:.3e}, plain {errs[1]:.3e}{tag}", flush=True)
         if ARGS.clocks and (ci, co, r, pro) == (64, 64, 32, False):
             _clocks(f"K4 {(ci, co, r, pro)}", run)
         for (name, _), n in zip(paths, calls):
@@ -255,6 +226,7 @@ def main() -> None:
     for name, (ms, bound, lib_ms) in per_step.items():
         print(f"[k4] {name}: {ms:.3f} ms per step, bound {bound:.3f} "
               f"({bound / ms:.1%}), conv3d_weight {lib_ms:.3f}")
+    digests.finish()
 
 
 if __name__ == "__main__":

@@ -27,9 +27,9 @@ largest entry of the exact output. Then the ms per training step.
 parent commit unpacked with `git archive`) instead of this one; its kernels
 are built under DIR/build/. --ptxas builds the kernels with `-Xptxas -v`
 and prints the registers, shared memory and spills of K9's and K10's
-kernels. --save FILE writes the SHA-256 of every output (K9, the dgrad,
-K10, and K11 at its CALLS3_ON cases) to FILE (JSON); --against FILE says
-for each whether this tree's output equals it bit for bit. --define
+kernels. --save FILE writes the SHA-256 of every output (K9, the dgrad
+and K10) to FILE (JSON); --against FILE says for each whether this tree's
+output equals it bit for bit (K11's are k7_k11_cases.py's). --define
 NAME=VALUE adds -DNAME=VALUE to the kernels' build (a separate build
 directory entry: the flags are part of its hash), for sweeps of the
 compile-time tile constants. --steps then times the S3DIS PVCNN 1x
@@ -44,12 +44,9 @@ events), with the median and spread of the rounds.
 from __future__ import annotations
 
 import argparse
-import hashlib
-import json
 import os
 import statistics
 import sys
-import time
 
 
 def _args():
@@ -70,66 +67,11 @@ if ARGS.tree is not None:
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+import cases_util  # noqa: E402
 import chip_smoke  # noqa: E402  (the case tables, bounds and the timer)
 
 ROWS = chip_smoke.B * chip_smoke.N3
 OWN = ("dense_rows",)                  # K9's and K10's kernel names
-
-
-def _ptxas(kernels) -> None:
-    _, _, log = kernels.build(("-Xptxas", "-v"))
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "dense_rows" in line:
-            print("[ptxas]", line.strip())
-            for nxt in lines[i + 1:i + 5]:
-                if "Compiling entry" in nxt:
-                    break
-                print("[ptxas]   ", nxt.strip())
-
-
-def _host_ms(fn, reps=20) -> float:
-    """Median host-clock ms of one call ended by a synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - start) * 1e3)
-    return statistics.median(times)
-
-
-def _device_split(fn, reps=10):
-    """(the kernel's own launches, the rest) in ms of device time per
-    call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    own = rest = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        ms = evt.self_device_time_total / 1e3 / reps
-        if any(k in evt.key for k in OWN):
-            own += ms
-        else:
-            rest += ms
-    return own, rest
-
-
-def _digest(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
 
 
 def _err(got, exact) -> float:
@@ -147,12 +89,12 @@ def _plan(dense_rows, kind, rows, ci, co, sms) -> str:
 
 def main() -> None:
     from pvcnn_tpu_torch import kernels
-    from pvcnn_tpu_torch.ops import conv3d, dense_rows
+    from pvcnn_tpu_torch.ops import dense_rows
 
     if not torch.cuda.is_available():
         print("k9_k10_cases: needs a CUDA device", file=sys.stderr)
         sys.exit(1)
-    print(_smi(), flush=True)
+    print(cases_util.smi(), flush=True)
     print(f"[k9] pvcnn_tpu_torch from {os.path.dirname(kernels.__file__)}")
     if ARGS.define:
         kernels.NVCC_FLAGS = kernels.NVCC_FLAGS + tuple(
@@ -169,12 +111,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if ARGS.ptxas:
-        _ptxas(kernels)
+        cases_util.ptxas(kernels, "dense_rows")
     kernels.library()
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     calls = chip_smoke.CALLS3_ON
-    digests = {}
+    digests = cases_util.Digests(ARGS.save, ARGS.against, "k9")
     per_step = {}
     torch.manual_seed(chip_smoke.SEED)
     for ci, co in sorted({c[:2] for k, c in calls
@@ -231,11 +173,11 @@ def main() -> None:
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(out, again))
             errs = [_err(o, e) for o, e in zip(out, exact)]
-            digests[f"{name} {case}"] = _digest(*out)
+            tag = digests.add(f"{name} {case}", *out)
             del out, again
-            ms, host = chip_smoke.time_ms(run), _host_ms(run)
+            ms, host = chip_smoke.time_ms(run), cases_util.host_ms(run)
             lib_ms = chip_smoke.time_ms(lib)
-            own, rest = _device_split(run)
+            own, rest = cases_util.device_ms(run, OWN)
             bnd, ops_ms, bytes_ms = chip_smoke._bound_ms(flops, nbytes)
             by = "ops" if ops_ms >= bytes_ms else "bytes"
             print(f"[k9] {name} {case} calls {n}: {ms:.4f} ms device "
@@ -244,7 +186,7 @@ def main() -> None:
                   f"{bnd / ms:.1%}); plan "
                   f"{_plan(dense_rows, kind, ROWS, ci, co, sms)}; max |. - "
                   f"fp64| / max|exact| {', '.join(f'{e:.3e}' for e in errs)}"
-                  f"; two runs {'bitwise equal' if same else 'DIFFER'}",
+                  f"; two runs {'bitwise equal' if same else 'DIFFER'}{tag}",
                   flush=True)
             acc = per_step.setdefault(name, [0.0, 0.0, 0.0, 0.0, 0.0])
             for i, v in enumerate((ms, host, own, bnd, lib_ms)):
@@ -254,24 +196,7 @@ def main() -> None:
         print(f"[k9] {name}: {ms:.3f} ms per step ({host:.3f} host, kernel "
               f"{own:.3f}), bound {bnd:.3f} ({bnd / ms:.1%}), library "
               f"{lib_ms:.3f}")
-    # K11 shares no source with K9/K10 any more: its outputs, for the
-    # bitwise comparison of two trees
-    for ci, co, r in sorted(c for k, c in calls if k == "conv3d_ndhwc_wgrad"):
-        xg = torch.randn(chip_smoke.B, r, r, r, ci, device=dev)
-        gg = torch.randn(chip_smoke.B, r, r, r, co, device=dev)
-        digests[f"conv3d_ndhwc_wgrad {(ci, co, r)}"] = _digest(
-            conv3d._ndhwc_wgrad_cuda(xg, gg, 3))
-    if ARGS.save:
-        with open(ARGS.save, "w") as f:
-            json.dump(digests, f, indent=1)
-        print(f"[k9] {len(digests)} output digests written to {ARGS.save}")
-    if ARGS.against:
-        with open(ARGS.against) as f:
-            theirs = json.load(f)
-        for key, val in digests.items():
-            print(f"[k9] {key}: "
-                  f"{'bitwise equal' if theirs.get(key) == val else 'differs'}"
-                  " against the saved tree")
+    digests.finish()
     if ARGS.steps:
         _switch_steps()
 
@@ -303,15 +228,6 @@ def _switch_steps() -> None:
               f"{statistics.median(rounds):.3f} ms, spread "
               f"{max(rounds) - min(rounds):.3f} (rounds "
               f"{', '.join(f'{v:.3f}' for v in rounds)})", flush=True)
-
-
-def _smi() -> str:
-    import subprocess
-
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 if __name__ == "__main__":

@@ -32,8 +32,9 @@ conv3d_same, on channel-last grids [B, R, R, R, C]:
   dgrad    F.conv3d of the cotangent with flipped, io-swapped taps
            (the JAX package runs these two as XLA convs, outside any
            Pallas kernel)
-  wgrad    K11 (csrc/conv3d_ndhwc_wgrad.cu); plain: 27 shifted-slice
-           products, the JAX package's own fallback
+  wgrad    K11 (csrc/conv3d_ndhwc_wgrad.cu, K4's design on channel-last
+           operands, K4's plan); plain: 27 shifted-slice products, the JAX
+           package's own fallback
 """
 
 from __future__ import annotations
@@ -55,15 +56,11 @@ _FWD_TILE_V = 128
 # __launch_bounds__) before it splits its reduction, into at most
 # _FWD_SPLITS blocks
 _FWD_WAVES, _FWD_BLOCKS_PER_SM, _FWD_SPLITS = 2, 3, 8
-# K11's tile and split: its reduction is split until about _WGRAD_BLOCKS
-# blocks are in flight
-_WGRAD_TILE_M, _WGRAD_TILE_N, _WGRAD_SLICE = 128, 64, 16
-_WGRAD_BLOCKS = 2048
-# K4: voxels per slice of its reduction; at most _K4_THREADS threads per
-# block (3 * cb * columns / 8), about _K4_WARPS_PER_SM warps resident per SM
-# (the registers of __launch_bounds__(192, 2)); it splits the reduction so
-# that its blocks fill at most _K4_WAVES waves, no split under
-# _K4_MIN_SLICES slices
+# K4 (and K11, its channel-last twin): voxels per slice of its reduction;
+# at most _K4_THREADS threads per block (3 * cb * columns / 8), about
+# _K4_WARPS_PER_SM warps resident per SM (the registers of
+# __launch_bounds__(192, 2)); it splits the reduction so that its blocks
+# fill at most _K4_WAVES waves, no split under _K4_MIN_SLICES slices
 _K4_SLICE, _K4_THREADS, _K4_WARPS_PER_SM = 32, 192, 12
 _K4_WAVES, _K4_MIN_SLICES = 2, 8
 
@@ -236,7 +233,7 @@ def _fwd_plan(b, ci, co, r, sms):
 
 
 class WgradPlan(NamedTuple):
-    """K4's launch (csrc/conv3d_wgrad.cu)."""
+    """K4's launch (csrc/conv3d_wgrad.cu), and K11's."""
 
     seg: int            # z-segment length L: 8, 16 or 32
     cols: int           # output channels per block: 32 or 64
@@ -283,6 +280,19 @@ def _wgrad_plan(b, ci, co, r, sms) -> WgradPlan:
     splits = math.ceil(slices / math.ceil(slices / splits))
     partial = 4 * splits * 27 * ci * co if splits > 1 else 0
     return WgradPlan(seg, cols, cb, tiles, slices, splits, partial)
+
+
+# K11's staging of x (csrc/conv3d_ndhwc_wgrad.cu: Layout)
+_NDHWC_LAYOUTS = {"last_rows": 1, "last_slots": 2}
+
+
+def _ndhwc_layout(ci, plan) -> str:
+    """How K11 stages x: z-slots of channel quads by 16-byte copies where
+    Ci and cb are multiples of 4 (and x is aligned), else K4's rows, of x
+    transposed to channel-major by the wrapper
+    (csrc/conv3d_ndhwc_wgrad.cu)."""
+    return ("last_slots" if ci % 4 == 0 and plan.cb % 4 == 0
+            else "last_rows")
 
 
 @functools.lru_cache(maxsize=None)
@@ -455,21 +465,27 @@ def _ndhwc_wgrad_cuda(x, g, k):
     if not r == r2 == r3 or tuple(g.shape) != (b, r, r, r, co):
         raise ValueError(f"x {tuple(x.shape)} and dy {tuple(g.shape)} are "
                          "not matching cubic grids")
-    x, g = x.contiguous(), g.contiguous()
-    bins = r ** 3
-    # split-K: voxel chunks per cloud
-    tiles = (math.ceil(27 * ci / _WGRAD_TILE_M)
-             * math.ceil(co / _WGRAD_TILE_N))
-    per_cloud = max(1, math.ceil(_WGRAD_BLOCKS / (tiles * b)))
-    chunk = _WGRAD_SLICE * math.ceil(bins / per_cloud / _WGRAD_SLICE)
-    chunks = math.ceil(bins / chunk)
-    partial = torch.empty((b * chunks, 27 * ci, co), dtype=torch.float32,
-                          device=x.device)
+    dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float32, device=x.device)
+    if b == 0 or r == 0:                 # no voxels: nothing to launch
+        return dw.zero_()
+    g = g.contiguous()
+    plan = _wgrad_plan(b, ci, co, r, _sm_count(x.device.index))
+    layout = _ndhwc_layout(ci, plan)
+    if layout == "last_slots":
+        x = x.contiguous()
+    if layout == "last_rows" or x.data_ptr() % 16:
+        # x's rows as K4 stages them: channel-major [B, Ci, R^3]
+        layout = "last_rows"
+        x = x.permute(0, 4, 1, 2, 3).contiguous()
+    # the split partials, summed by the kernel's second pass in a fixed
+    # order: reproducible bit for bit
+    partial = (torch.empty((plan.splits, co, ci, 27), dtype=torch.float32,
+                           device=x.device) if plan.splits > 1 else None)
     with torch.cuda.device(x.device):
         kernels.launch(
             "conv3d_ndhwc_wgrad", "pvcnn_conv3d_ndhwc_wgrad", x.data_ptr(),
-            g.data_ptr(), partial.data_ptr(), b, ci, co, r, chunk,
+            g.data_ptr(), None if partial is None else partial.data_ptr(),
+            dw.data_ptr(), b, ci, co, r, plan.seg, plan.cols, plan.cb,
+            plan.splits, _NDHWC_LAYOUTS[layout],
             torch.cuda.current_stream().cuda_stream)
-    # the slices summed in a fixed order: reproducible bit for bit
-    w_taps = partial.sum(dim=0)
-    return w_taps.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous()
+    return dw

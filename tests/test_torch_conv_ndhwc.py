@@ -186,3 +186,72 @@ def test_ndhwc_and_rows_branches_agree(monkeypatch):
     torch.testing.assert_close(t1, t0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(g1, g0, rtol=1e-4,
                                atol=1e-4 * g0.abs().max().item())
+
+
+def _k11_cases():
+    """K11's (B, Ci, Co, R) on the S3DIS PVCNN opt-in step (chip_smoke.py's
+    CALLS3_ON, B = 32) and five edge shapes: Ci = 1 and 257, Co = 1 and
+    130, R = 1 and 5 (zero-filled segment ends), one cloud."""
+    import chip_smoke
+
+    cases = sorted((chip_smoke.B,) + c for (k, c) in chip_smoke.CALLS3_ON
+                   if k == "conv3d_ndhwc_wgrad")
+    return cases + [(1, 1, 130, 5), (3, 257, 1, 1), (1, 257, 130, 16),
+                    (3, 1, 1, 32), (1, 64, 64, 5)]
+
+
+@pytest.mark.parametrize("b,ci,co,r", _k11_cases())
+def test_ndhwc_wgrad_plan(b, ci, co, r):
+    """K11's launch (K4's plan on a card of 132 SMs, channel-last copies):
+    the splits' runs of slices, walked segment by segment as the kernel's
+    cursors walk them, cover each of the B * R^3 voxels once, no run empty;
+    in z-slots (Ci and cb multiples of 4), each thread's copies of x
+    (channel quad w % lanes at the z-slots w / lanes + i * step of the 9
+    rows) cover a segment's slots once, else x goes to K4's rows; the
+    partial buffer [splits, Co, Ci, 27] only where it splits, under 28 MiB
+    at the opt-in step's cases; a split grid within two waves of the
+    blocks the card holds at once (12 warps an SM), give or take one
+    round of row and column tiles."""
+    plan = conv3d._wgrad_plan(b, ci, co, r, 132)
+    seg, per = plan.seg, plan.per_split
+    zsegs = -(-r // seg)
+    total = b * r * r * zsegs
+    counts = np.zeros(b * r ** 3, dtype=np.int64)
+    for split in range(plan.splits):
+        lo, hi = split * per, min(plan.slices, (split + 1) * per)
+        assert hi > lo
+        gs = np.arange(lo * 32 // seg, hi * 32 // seg)
+        gs = gs[gs < total]
+        zs, rest = gs % zsegs, gs // zsegs
+        y, rest = rest % r, rest // r
+        x, cloud = rest % r, rest // r
+        z = zs[:, None] * seg + np.arange(seg)[None]
+        flat = ((cloud[:, None] * r + x[:, None]) * r + y[:, None]) * r + z
+        np.add.at(counts, flat[z < r], 1)
+    assert (counts == 1).all()
+
+    tn, segs = plan.cols // 8, 32 // seg
+    threads = 3 * plan.cb * tn
+    assert threads <= 192 and threads % segs == 0
+    per_seg = threads // segs
+    quads = conv3d._ndhwc_layout(ci, plan) == "last_slots"
+    assert quads == (ci % 4 == 0 and plan.cb % 4 == 0)
+    assert plan.cb <= 192 // (3 * tn)             # a z-slot holds cb floats
+    if quads:
+        lanes, step = plan.cb // 4, 12 * tn // segs
+        assert step * lanes == per_seg
+        slots = np.zeros((9 * (seg + 2), lanes), dtype=np.int64)
+        for w in range(per_seg):
+            np.add.at(slots, (np.arange(w // lanes, 9 * (seg + 2), step),
+                              w % lanes), 1)
+        assert (slots == 1).all()
+
+    if plan.splits > 1:
+        assert plan.partial_bytes == 4 * plan.splits * 27 * ci * co
+    else:
+        assert plan.partial_bytes == 0
+    resident = max(1, 12 // -(-threads // 32)) * 132
+    assert plan.splits == 1 or (plan.tiles * plan.splits
+                                < 2 * resident + plan.tiles)
+    if b == 32:
+        assert plan.partial_bytes < 28 * 2 ** 20

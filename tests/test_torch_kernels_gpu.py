@@ -3,6 +3,8 @@ at small shapes. Marked `gpu`: they skip without a CUDA device; run them on
 one with `python -m pytest tests/test_torch_kernels_gpu.py -m gpu`.
 chip_smoke.py checks the same at the model's full shapes."""
 
+import itertools
+
 import pytest
 import torch
 
@@ -240,13 +242,14 @@ def _wgrad_check(args):
     assert torch.equal(got, conv3d._wgrad_cuda(*args))
 
 
-@pytest.mark.parametrize("r", [1, 8, 16, 32])
+@pytest.mark.parametrize("r", [1, 8, 12, 16, 32])
 @pytest.mark.parametrize("co", [1, 16, 32, 33, 64, 130])
 @pytest.mark.parametrize("ci", [1, 6, 9, 32, 128, 257])
 def test_wgrad_kernel(dev, ci, co, r):
     """K4 at every tile (Co <= 32 and wider, ragged row and column tiles),
-    z-segment length (8 at R = 1 and 8, 16 at R = 16, 32 at R = 32) and
-    the plan's splits, at B = 3 with the prologue."""
+    z-segment length (8 at R = 1 and 8, 16 at R = 12 and 16, 32 at R = 32)
+    and the plan's splits, at B = 3 with the prologue; R = 12 stages its
+    rows 16 bytes at a time with a zero-filled segment end."""
     x, gy, scale, shift = _wgrad_inputs(dev, 3, ci, co, r)
     _wgrad_check((x, gy, scale, shift, r, True))
 
@@ -421,26 +424,69 @@ def test_fps_kernel_streams_large_clouds(dev):
     assert torch.equal(got, sampling._fps_plain(x, 64))
 
 
+def _ball_query_check(c, x, radius, u):
+    """K7's indices equal the plain version's exactly, one launch counted,
+    two runs bitwise equal; -> the indices."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    r2 = neighbors._fp32(radius ** 2)
+    before = kernels.KERNELS["ball_query"].launches
+    got = neighbors._ball_query_cuda(c, x, r2, u)
+    assert kernels.KERNELS["ball_query"].launches == before + 1
+    assert torch.equal(got, neighbors._ball_query_plain(c, x, r2, u))
+    assert torch.equal(got, neighbors._ball_query_cuda(c, x, r2, u))
+    return got
+
+
 @pytest.mark.parametrize("m,n,radius,u", [(1024, 8192, 0.1, 32),
                                           (16, 64, 0.8, 32),
                                           (100, 40, 0.5, 64),
-                                          (33, 3000, 0.05, 8)])
+                                          (33, 3000, 0.05, 8),
+                                          (1000, 5000, 0.2, 1),
+                                          (70, 2049, 0.3, 64),
+                                          (300, 2000, 0.3, 256)])
 def test_ball_query_kernel(dev, m, n, radius, u):
     """Exact against the plain version: early stop at U hits, the first-hit
-    fill, a center with no hit (filled with 0), u > n."""
-    from pvcnn_tpu_torch.ops import neighbors
-
+    fill, a center with no hit (filled with 0), u > n, M and N off the
+    warps and tiles, U = 256 (fewer centers a block, so that their hits fit
+    its shared memory); then the same centers in a dense cluster, where
+    every center stops at its U-th hit, through the public op."""
     x = _room(dev, 2, n)
     c = _room(dev, 2, m, seed=1)
     c[:, 0] += 10.0                              # no hit
     c[:, 1] = x[:, 0]                            # on a point
-    before = kernels.KERNELS["ball_query"].launches
-    got = ops.ball_query(c, x, radius, u)
-    assert kernels.KERNELS["ball_query"].launches == before + 1
-    want = neighbors._ball_query_plain(c, x, neighbors._fp32(radius ** 2), u)
-    assert torch.equal(got, want)
+    got = _ball_query_check(c, x, radius, u)
     assert (got[:, 0] == 0).all()
-    assert torch.equal(got, ops.ball_query(c, x, radius, u))
+    xd = 0.5 + torch.rand(2, n, 3, device=dev) * (radius / 8)
+    cd = 0.5 + torch.rand(2, m, 3, device=dev) * (radius / 8)
+    got = _ball_query_check(cd, xd, radius, u)
+    k = min(u, n)
+    assert torch.equal(got[..., :k].cpu(), torch.arange(k, dtype=torch.int32)
+                       .expand(2, m, k))
+    assert torch.equal(got, ops.ball_query(cd, xd, radius, u))
+
+
+@pytest.mark.parametrize("plan", [(32, 1, 8192), (64, 2, 4096),
+                                  (128, 3, 2816), (256, 5, 1792),
+                                  (32, 32, 256), (128, 7, 1280)])
+@pytest.mark.parametrize("cloud", ["room", "cluster"])
+@pytest.mark.parametrize("u", [1, 8, 32, 64])
+def test_ball_query_kernel_splits(dev, monkeypatch, plan, cloud, u):
+    """Every launch K7 takes gives the plain version's indices: 32 to 256
+    centers a block, 1 to 32 splits of whole tiles (the last one short) over
+    N = 8,100 points, random clouds (the fill) and dense clusters (early
+    stop in every split)."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    n = 8100
+    if cloud == "room":
+        x, c, radius = _room(dev, 3, n), _room(dev, 3, 300, seed=2), 0.05
+    else:
+        x = 0.5 + torch.rand(3, n, 3, device=dev) * 0.01
+        c, radius = x[:, 7:307].contiguous(), 0.1
+    monkeypatch.setattr(neighbors, "_ball_query_plan",
+                        lambda *a: neighbors.BallQueryPlan(*plan))
+    _ball_query_check(c, x, radius, u)
 
 
 @pytest.mark.parametrize("n,m", [(8192, 1024), (64, 16), (300, 2), (50, 1),
@@ -628,29 +674,70 @@ def test_dense_rows_grads_on_card(dev, has_prologue, want_stats):
     _grads_close(got, want)
 
 
-@pytest.mark.parametrize("b,r,ci,co", [(2, 8, 9, 64), (2, 16, 64, 64),
-                                       (1, 12, 130, 70)])
-def test_conv3d_ndhwc_wgrad_kernel(dev, b, r, ci, co):
-    """K11 against its plain version (27 shifted-slice products), within
-    1e-4 of the largest entry, two runs bitwise equal; through
-    conv3d_same's backward with a non-contiguous cotangent, and against
-    cuDNN's weight gradient."""
-    x = torch.randn(b, r, r, r, ci, device=dev)
-    g = torch.randn(b, r, r, r, co, device=dev)
+def _ndhwc_check(x, g):
+    """K11 against its plain version (27 shifted-slice products) and
+    cuDNN's weight gradient, within 1e-4 of the largest entry; one launch
+    counted, two runs bitwise equal; -> (K11's dW, its tolerance scale)."""
     before = kernels.KERNELS["conv3d_ndhwc_wgrad"].launches
     got = conv3d._ndhwc_wgrad_cuda(x, g, 3)
     assert kernels.KERNELS["conv3d_ndhwc_wgrad"].launches == before + 1
     want = conv3d._ndhwc_wgrad_plain(x, g, 3)
-    scale = want.abs().max().item()
+    scale = max(want.abs().max().item(), 1e-30)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
     assert torch.equal(got, conv3d._ndhwc_wgrad_cuda(x, g, 3))
     lib = torch.nn.grad.conv3d_weight(x.permute(0, 4, 1, 2, 3), want.shape,
                                       g.permute(0, 4, 1, 2, 3), padding=1)
     torch.testing.assert_close(got, lib, rtol=1e-4, atol=1e-4 * scale)
+    return got, scale
+
+
+@pytest.mark.parametrize("b,r,ci,co", list(itertools.product(
+    [1, 3], [1, 5, 8, 12, 16, 32], [1, 6, 9, 32, 64, 128, 257],
+    [1, 16, 32, 33, 64, 130])) + [(1, 12, 130, 70)])
+def test_conv3d_ndhwc_wgrad_kernel(dev, b, r, ci, co):
+    """K11 at K4's grid: every tile (Co <= 32 and wider, ragged row and
+    column tiles), z-segment length (8 at R <= 8 with zero-filled ends at
+    R = 1 and 5, 16 at R = 12 and 16, 32) and the plan's splits, one cloud
+    and three; R = 12 with Ci not a multiple of 4 stages x's rows 16 bytes
+    at a time with a zero-filled segment end; through conv3d_same's
+    backward with a non-contiguous cotangent."""
+    x = torch.randn(b, r, r, r, ci, device=dev)
+    g = torch.randn(b, r, r, r, co, device=dev)
+    got, scale = _ndhwc_check(x, g)
     w = torch.randn(co, ci, 3, 3, 3, device=dev, requires_grad=True)
     gt = g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
     (dw,) = torch.autograd.grad(ops.conv3d_same(x, w), w, gt)
     torch.testing.assert_close(dw, got, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 7, 40])
+@pytest.mark.parametrize("r", [8, 16, 32])
+def test_ndhwc_wgrad_split_boundaries(dev, monkeypatch, r, splits):
+    """K11 with its reduction split in runs that end inside a cloud and at
+    and across cloud boundaries (B = 3), with and without runs longer than
+    the 16 slices after which a block folds its accumulators."""
+    plan = conv3d._wgrad_plan
+
+    def forced(*a):
+        p = plan(*a)
+        per = -(-p.slices // splits)
+        return p._replace(splits=-(-p.slices // per))
+
+    monkeypatch.setattr(conv3d, "_wgrad_plan", forced)
+    x = torch.randn(3, r, r, r, 32, device=dev)
+    g = torch.randn(3, r, r, r, 64, device=dev)
+    _ndhwc_check(x, g)
+
+
+def test_ndhwc_wgrad_views(dev):
+    """Inputs that are views: a channel-last x permuted from a channel-major
+    grid, and a cotangent at an offset that is not 16-byte aligned with
+    odd channel counts (every copy of K11 moves 4 bytes)."""
+    r = 8
+    x = torch.randn(3, 7, r, r, r, device=dev).permute(0, 2, 3, 4, 1)
+    flat = torch.randn(3 * r ** 3 * 33 + 1, device=dev)
+    g = flat[1:].reshape(3, r, r, r, 33)
+    _ndhwc_check(x, g)
 
 
 def test_new_kernels_reject_what_they_do_not_take(dev):

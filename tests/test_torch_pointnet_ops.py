@@ -124,6 +124,129 @@ def test_ball_query(jax_formulation, m, n, radius, u):
     counts = (ops.neighbors.sq_dist(_t(c), _t(x))
               < np.float32(radius ** 2)).sum(-1)
     assert ((counts > 0) & (counts < u)).any()    # the fill path ran
+    # a dense cluster: every center has every point within the radius, so
+    # the scan stops at the U-th hit (all n where u > n)
+    xd, cd = _cluster(m + n, 2, n, m, radius)
+    want = np.asarray(jops.ball_query(jnp.asarray(cd), jnp.asarray(xd),
+                                      radius, u))
+    got = ops.ball_query(_t(cd), _t(xd), radius, u)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[..., :min(u, n)].numpy() == np.arange(min(u, n))).all()
+
+
+def _cluster(seed, b, n, m, radius):
+    """[b, n, 3] points and [b, m, 3] centers within radius / 4 of one
+    point: every center has every point within the radius."""
+    rng = np.random.RandomState(seed)
+    pts = 0.5 + rng.rand(b, n, 3) * (radius / 8)
+    ctr = 0.5 + rng.rand(b, m, 3) * (radius / 8)
+    return pts.astype(np.float32), ctr.astype(np.float32)
+
+
+def _bq_sizes():
+    """chip_smoke.py's ball-query cases (PVCNN2's four levels) and cloud
+    sizes up to 100,000 points, about the tiles and the splits."""
+    import chip_smoke
+
+    cases = {(c[0], c[1], c[3]) for (k, c) in chip_smoke.CALLS2
+             if k == "ball_query"}
+    more = {(m, n, u) for m in (1, 100, 1024) for u in (1, 64, 256, 512)
+            for n in (1, 255, 256, 257, 1023, 1025, 2049, 8193, 20000,
+                      65537, 100000)}
+    return sorted(cases | more)
+
+
+@pytest.mark.parametrize("m,n,u", _bq_sizes())
+def test_ball_query_plan(m, n, u):
+    """K7's plan for 32 clouds on a card of 132 SMs is a launch the kernel
+    takes (pvcnn_ball_query's checks): whole warps of centers, at most 256
+    a block and as many as a block's shared memory holds within the card's
+    227 KB (2 tiles of 256 float4 points, then U + 2 ints a center),
+    splits of whole 256-point tiles that cover the N points once with none
+    empty; it splits only where the centers fill under 12 warps an SM,
+    into runs of at least one tile."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    plan = neighbors._ball_query_plan(32, m, n, u, 132)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    smem = lambda threads: 2 * 256 * 16 + 4 * threads * (u + 2)
+    assert smem(plan.threads) <= 227 * 1024
+    assert plan.threads >= min(256, m) or smem(plan.threads + 32) > 227 * 1024
+    assert plan.per_split % 256 == 0 and plan.splits >= 1
+    starts = np.arange(plan.splits) * plan.per_split
+    ends = np.minimum(starts + plan.per_split, n)
+    assert starts[0] == 0 and ends[-1] == n
+    assert (ends > starts).all() or n == 0
+    assert (starts[1:] == ends[:-1]).all()
+    warps = 32 * -(-m // plan.threads) * plan.threads // 32
+    if plan.splits > 1:
+        assert warps < 12 * 132 and plan.per_split >= 256
+        assert plan.scratch_ints(32, m, u) == plan.splits * 32 * m * (u + 1)
+    else:
+        assert plan.scratch_ints(32, m, u) == 0
+
+
+def test_ball_query_plan_most_neighbors():
+    """U = 1,750 hits a center still fit a block of 32 centers; U = 1,751
+    do not, and the plan says so instead of handing the kernel a launch it
+    refuses."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    assert neighbors._ball_query_plan(1, 5, 100, 1750, 132).threads == 32
+    with pytest.raises(ValueError, match="1750"):
+        neighbors._ball_query_plan(1, 5, 100, 1751, 132)
+
+
+def _ball_query_splits(ctr, pts, r2, u, per_split):
+    """K7's split and merge in numpy: each run of per_split points keeps its
+    count and its first U hits; slot s takes the hit of the split whose
+    counts, in split order, cover it, else the first hit, else 0."""
+    b, m, _ = ctr.shape
+    n = pts.shape[1]
+    d = pts[:, None, :, :] - ctr[:, :, None, :]
+    hit = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+           + d[..., 2] * d[..., 2]) < r2
+    parts = []
+    for lo in range(0, max(n, 1), per_split):
+        part = hit[..., lo:lo + per_split]
+        ids = [[lo + np.flatnonzero(part[i, j])[:u] for j in range(m)]
+               for i in range(b)]
+        parts.append((part.sum(-1), ids))
+    out = np.zeros((b, m, u), np.int32)
+    for i in range(b):
+        for j in range(m):
+            taken = [h for _, ids in parts for h in ids[i][j]][:u]
+            first = taken[0] if taken else 0
+            out[i, j] = taken + [first] * (u - len(taken))
+    return out
+
+
+@pytest.mark.parametrize("per_split", [256, 512])
+@pytest.mark.parametrize("cloud", ["random", "cluster"])
+@pytest.mark.parametrize("u", [1, 8, 32, 64])
+def test_ball_query_split_merge(cloud, u, per_split):
+    """K7's split-and-merge (in numpy) equals `_ball_query_plain` on random
+    clouds (centers with and without hits) and on a dense cluster where
+    every center has at least U hits, with N = 1,000 not a multiple of the
+    split."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    n, m, radius = 1000, 24, 0.15
+    if cloud == "random":
+        x = _room(u + per_split, 2, n)
+        c = _room(u + per_split + 1, 2, m, dup=False)
+        c[:, 4] += 10.0                            # no hit
+    else:
+        x, c = _cluster(u + per_split, 2, n, m, radius)
+    r2 = neighbors._fp32(radius ** 2)
+    want = neighbors._ball_query_plain(_t(c), _t(x), r2, u).numpy()
+    got = _ball_query_splits(c, x, np.float32(r2), u, per_split)
+    np.testing.assert_array_equal(got, want)
+    hits = (neighbors.sq_dist(_t(c), _t(x)) < r2).sum(-1)
+    if cloud == "cluster":
+        assert (hits >= u).all()
+    else:
+        assert (hits < u).any() and (hits >= 1).any()
 
 
 def test_ball_query_radius_edge():
