@@ -1,6 +1,6 @@
 """What the per-case scripts (k1_k6_cases.py, k4_cases.py, k7_k11_cases.py,
-k9_k10_cases.py) share: the card's name and power limit, ptxas's log of
-chosen kernels, host-clock and profiler timings of one call, and output
+k9_k10_cases.py) share: the card's name and power limit, ptxas's log and
+the SASS instruction mix of chosen kernels, host-clock and profiler timings of one call, and output
 digests that compare two trees bit for bit.
 
 Each script imports this module after its `--tree` has put another
@@ -9,7 +9,9 @@ checkout first on sys.path; this module imports nothing of the package.
 
 from __future__ import annotations
 
+import collections
 import hashlib
+import os
 import json
 import statistics
 import subprocess
@@ -39,6 +41,54 @@ def ptxas(kernels, *keys) -> None:
                 if "Compiling entry" in nxt:
                     break
                 print("[ptxas]   ", nxt.strip())
+
+
+def sass(kernels, *keys, path=None) -> None:
+    """Print the instruction mix (cuobjdump -sass of the built library) of
+    each kernel whose name holds one of keys: its count, its most common
+    opcodes, its local loads and stores (spills) and, where it has FFMAs,
+    the mix from its first FFMA to its last. path, if given, receives
+    those kernels' SASS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    lib_path, _, _ = kernels.build()
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    keep, name, ops = [], None, []
+
+    def mix(seq):
+        return ", ".join(f"{op} {n}" for op, n in
+                         collections.Counter(seq).most_common(10))
+
+    def report():
+        if name is None or not any(k in name for k in keys):
+            return
+        print(f"[sass] {name[:90]}: {len(ops)} instructions: {mix(ops)}; "
+              f"LDL {ops.count('LDL')}, STL {ops.count('STL')}", flush=True)
+        if "FFMA" in ops:
+            first = ops.index("FFMA")
+            last = len(ops) - 1 - ops[::-1].index("FFMA")
+            span = ops[first:last + 1]
+            print(f"[sass]   first to last FFMA: {len(span)} instructions: "
+                  f"{mix(span)}", flush=True)
+
+    for line in out.splitlines():
+        if "Function :" in line:
+            report()
+            name, ops = line.split("Function :")[1].strip(), []
+        if name is None or not any(k in name for k in keys):
+            continue
+        keep.append(line)
+        if "/*" in line and ";" in line and "*/" in line:
+            body = line.split("*/", 1)[1].strip()
+            if body.startswith("@"):
+                body = body.split(None, 1)[1]
+            ops.append(body.split()[0].split(".")[0].rstrip(";"))
+    report()
+    if path is not None:
+        with open(path, "w") as f:
+            f.write("\n".join(keep))
 
 
 def host_ms(fn, reps=20) -> float:

@@ -49,7 +49,12 @@ raising on failure:
                 plain versions exactly; each FPS case logs its launch plan
                 (cluster, threads, points per thread), its chain floor (the
                 kernel's argmax and exchange alone) and the share of its
-                bound (the larger of chain floor and FLOP bound);
+                bound (the larger of chain floor and FLOP bound); each
+                three-NN case its plan, device time and share of its
+                bound; then, not counted per step, ball query on a dense
+                cloud at U = 32 and U = 2,048 and three-NN at the coming
+                PointNet++ paths' shapes (NN_MORE), held exactly to the
+                plain versions;
   9. pvcnn2 slice
                 PVCNN2 eval forward, as phase 4;
  10. pvcnn2 train
@@ -197,6 +202,13 @@ CALLS2 = {
     ("scatter_sum", (3072, 256, 256)): 1,
     ("scatter_sum", (24576, 1024, 128)): 1,
 }
+# three-NN (N, M) on the PointNet++ paths still to be ported, timed and held
+# to the plain version, not counted per step: ShapeNet PointNet2's feature
+# propagation (pvcnn_tpu/models/shapenet/pointnetpp.py:108-121; (128, 1)
+# against the group-all level's single center) and Frustum PointNet2's
+# (pvcnn_tpu/models/kitti/frustum/segmentation.py:110-117)
+NN_MORE = ((2048, 512), (512, 128), (128, 1), (1024, 128), (128, 32),
+           (32, 1))
 # a PVConv's devoxelize and its backward run at (Co, R, points)
 for _case, _n in (((32, 32, 8192), 2), ((64, 16, 1024), 3),
                   ((128, 8, 256), 3), ((256, 8, 64), 1), ((256, 8, 256), 1),
@@ -851,11 +863,16 @@ def phase_pvcnn2_kernels() -> dict:
         err = max(err, _compare("three_nn", case,
                                 interpolate._weights_from_d2(d2),
                                 interpolate._weights_from_d2(want_d2)))
-        rec.add("three_nn", case, err, run_k, run_p, 9.0 * B * n * m,
-                4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3), plain_reps=5)
+        ms, bound = rec.add("three_nn", case, err, run_k, run_p,
+                            9.0 * B * n * m,
+                            4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3),
+                            plain_reps=5)
+        _three_nn_log(case, run_k, ms, bound, sms)
         interp_idx[level] = idx.reshape(B, n * 3)
 
     _ball_query_dense(dev)
+    _ball_query_many(dev)
+    _three_nn_more(dev, sms)
 
     # the take_rows backwards: SA groupings (B, M*U rows into N bins) and
     # FP interpolations (B, 3N rows into M bins)
@@ -908,6 +925,73 @@ def _ball_query_dense(dev) -> None:
                                                                  u))
     log("kernels", f"ball_query {case}: {time_ms(run_k):.4f} ms, every "
         f"center stops after {u} of {N2} points; not counted per step")
+
+
+def _ball_query_many(dev) -> None:
+    """K7 at U = 2,048 neighbors a center, its device-memory path, on a
+    dense cloud (every center stops at its U-th hit of N = 8,192 points):
+    indices equal to the plain version's, not counted per step."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    pts = 0.5 + 0.01 * np.random.RandomState(SEED + 1).rand(B, N2, 3)
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    ctr = pts[:, :1024].contiguous()
+    r2, u = neighbors._fp32(0.1 ** 2), 2048
+    case = (1024, N2, 0.1, u, "dense")
+    run_k = lambda: neighbors._ball_query_cuda(ctr, pts, r2, u)
+    got = _twice("ball_query", case, run_k)
+    _exact("ball_query", case, got, neighbors._ball_query_plain(ctr, pts, r2,
+                                                                 u))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log("kernels", f"ball_query {case}: {time_ms(run_k):.4f} ms, plan "
+        f"{neighbors._ball_query_plan(B, 1024, N2, u, sms)}; not counted "
+        "per step")
+
+
+def _three_nn_log(case, run_k, ms, bound, sms) -> None:
+    """A K8 case's plan, device time (torch.profiler over 10 calls) and
+    share of its bound."""
+    import cases_util
+    from pvcnn_tpu_torch.ops import interpolate
+
+    own, _ = cases_util.device_ms(run_k, ("three_nn",))
+    n, m = case
+    log("kernels", f"three_nn {case}: plan "
+        f"{interpolate._three_nn_plan(B, n, m, sms)}; device {own:.4f} ms "
+        f"({bound / own:.1%} of the bound), {ms:.4f} ms by events "
+        f"({bound / ms:.1%})")
+
+
+def nn_more_inputs(dev):
+    """(N, M), queries [B, N, 3], centers [B, M, 3] for each NN_MORE case:
+    ShapeNet-like clouds, the centers their first M points, or the origin
+    where M = 1 (a group-all level's center)."""
+    rng = np.random.RandomState(SEED + 30)
+    for n, m in NN_MORE:
+        pts = torch.from_numpy(cloud(rng, B, n)[..., :3]).to(dev)
+        ctr = (pts[:, :m].contiguous() if m > 1
+               else torch.zeros(B, 1, 3, device=dev))
+        yield (n, m), pts, ctr
+
+
+def _three_nn_more(dev, sms) -> None:
+    """K8 at the coming PointNet++ paths' shapes (NN_MORE), 32 clouds each:
+    indices and d² equal to the plain version's, timed, not counted per
+    step."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    for case, pts, ctr in nn_more_inputs(dev):
+        n, m = case
+        run_k = lambda: interpolate._three_nn_cuda(pts, ctr)
+        idx, d2 = _twice("three_nn", case, run_k)
+        want_idx, want_d2 = interpolate._three_nn_plain(pts, ctr)
+        _exact("three_nn", case, idx, want_idx)
+        if not torch.equal(d2, want_d2):
+            raise AssertionError(f"three_nn {case}: d² differs from the "
+                                 "plain version's")
+        bound, _, _ = _bound_ms(9.0 * B * n * m,
+                                4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3))
+        _three_nn_log(case, run_k, time_ms(run_k), bound, sms)
 
 
 def _time_dense_kernels(rec: Record, rows: int) -> None:

@@ -62,45 +62,6 @@ import cases_util  # noqa: E402
 import chip_smoke  # noqa: E402  (the case tables and the timer)
 
 
-def _sass(kernels) -> None:
-    import collections
-
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    lib_path, _, _ = kernels.build()
-    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
-                          "-sass", str(lib_path)], capture_output=True,
-                         text=True, check=True).stdout
-    name, ops = None, []
-
-    def report():
-        if name is None or "conv3d_wgrad" not in name:
-            return
-        mix = lambda seq: ", ".join(
-            f"{op} {n}" for op, n in collections.Counter(seq).most_common(8))
-        print(f"[sass] {name[:90]}: {len(ops)} instructions: {mix(ops)}; "
-              f"LDL {ops.count('LDL')}, STL {ops.count('STL')}")
-        if "FFMA" in ops:
-            # the multiply: from the first FFMA to the last
-            first = ops.index("FFMA")
-            last = len(ops) - 1 - ops[::-1].index("FFMA")
-            span = ops[first:last + 1]
-            print(f"[sass]   first to last FFMA: {len(span)} instructions: "
-                  f"{mix(span)}; LDL {span.count('LDL')}, STL "
-                  f"{span.count('STL')}")
-
-    for line in out.splitlines():
-        if "Function :" in line:
-            report()
-            name, ops = line.split("Function :")[1].strip(), []
-        elif name is not None and "/*" in line and ";" in line:
-            body = line.split("*/", 1)[1].strip()
-            if body.startswith("@"):
-                body = body.split(None, 1)[1]
-            ops.append(body.split()[0].split(".")[0])
-    report()
-
-
 def _clocks(label, fn, seconds=2.0) -> None:
     """nvidia-smi's SM clock and power draw while fn runs back to back."""
     import time
@@ -171,7 +132,7 @@ def main() -> None:
         cases_util.ptxas(kernels, "conv3d_wgrad")
     kernels.library()
     if ARGS.sass:
-        _sass(kernels)
+        cases_util.sass(kernels, "conv3d_wgrad")
     if ARGS.clocks:
         print(f"[clocks] torch.mm fp32 8192^3: {_sgemm():.2f} TFLOP/s",
               flush=True)

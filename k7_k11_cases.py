@@ -1,37 +1,47 @@
 #!/usr/bin/env python3
 """K11 (the NDHWC conv3d weight gradient, pvcnn_tpu_torch/csrc/
-conv3d_ndhwc_wgrad.cu) and K7 (ball query, pvcnn_tpu_torch/csrc/select.cu)
-case by case on one NVIDIA GPU.
+conv3d_ndhwc_wgrad.cu), K7 (ball query) and K8 (three nearest neighbours,
+both pvcnn_tpu_torch/csrc/select.cu) case by case on one NVIDIA GPU.
 
     python3 k7_k11_cases.py [--tree DIR] [--ptxas] [--save FILE]
-                            [--against FILE] [--sweep]
+                            [--against FILE] [--sweep] [--sass FILE]
+                            [--only k7|k8|k11]
 
 The cases are chip_smoke.py's: K11 (Ci, Co, R) in CALLS3_ON (the S3DIS
 PVCNN opt-in step, B = 32) and K7 (M, N, radius, U) in CALLS2 (the S3DIS
 PVCNN2 step, on PVCNN2's FPS levels of synthetic windows, as chip_smoke.py
 makes them), plus a dense cloud where every center stops at its U-th hit
-(not counted per step). Per case it prints the ms per call (median of CUDA
+(not counted per step), and K8 (N, M) in CALLS2 on the same levels and in
+NN_MORE (the coming PointNet++ paths' shapes, on chip_smoke.py's clouds,
+not counted per step). Per case it prints the ms per call (median of CUDA
 events, as chip_smoke.py times it, and the host clock of a call ended by a
 synchronize), the device time split into the kernel's own launches and
 the rest (torch.profiler over 10 calls), the bound, the plan, and for K11
 `conv3d_weight`'s ms, K4's ms at the same (Ci, Co, R) on channel-major
 rows, and the largest difference of K11 and of the plain version from an
-fp64 plain version, relative to the largest entry of dW; for K7 whether
-the indices equal the plain version's. Then the ms per training step.
+fp64 plain version, relative to the largest entry of dW; for K7 and K8
+whether the indices (and K8's d²) equal the plain version's. Then the ms
+per training step.
 
 --tree DIR imports pvcnn_tpu_torch from DIR (another checkout, such as a
 parent commit unpacked with `git archive`) instead of this one; its kernels
 are built under DIR/build/. --save FILE writes the SHA-256 of the outputs
-of K11, K7 and K8 (at PVCNN2's cases) to FILE (JSON); --against FILE
+of K11, K7 and K8 (at every case) to FILE (JSON); --against FILE
 compares this tree's outputs with such a file bit for bit (K4's are
 k4_cases.py's). --ptxas builds the kernels with `-Xptxas -v` and prints
-the registers, shared memory and spills of K11's and K7's kernels. --sweep times K7's large case under other
-plans (centers per block, splits), each held to the plain version.
+the registers, shared memory and spills of K11's, K7's and K8's kernels.
+--sweep times K7's large case under other plans (centers per block,
+splits), and every K8 case under other plans (runs of centers, threads a
+block, both scans) by device time, each held to the plain version.
+--sass FILE writes the SASS of K8's kernels to FILE and prints each one's
+instruction mix; --only runs the named kernels' cases (repeatable; all
+three by default).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 
@@ -43,18 +53,22 @@ def _args():
     p.add_argument("--save", default=None)
     p.add_argument("--against", default=None)
     p.add_argument("--sweep", action="store_true")
+    p.add_argument("--sass", default=None)
+    p.add_argument("--only", action="append", default=[],
+                   choices=("k7", "k8", "k11"))
     return p.parse_args()
 
 
 ARGS = _args()
+# this checkout's case tables, inputs and timer, whichever tree --tree names
+import cases_util  # noqa: E402
+import chip_smoke  # noqa: E402
+
 if ARGS.tree is not None:
     sys.path.insert(0, os.path.abspath(ARGS.tree))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-
-import cases_util  # noqa: E402
-import chip_smoke  # noqa: E402  (the case tables, inputs and the timer)
 
 B = chip_smoke.B
 
@@ -142,8 +156,7 @@ def _k7_plan(neighbors, b, m, n, u, sms) -> str:
     return str(neighbors._ball_query_plan(b, m, n, u, sms))
 
 
-def _k7(neighbors, interpolate, dev, sms, digests) -> None:
-    levels = _levels(dev)
+def _k7(neighbors, levels, dev, sms, digests) -> None:
     calls = chip_smoke.CALLS2
     step = [0.0] * 4
     cases = []
@@ -182,9 +195,6 @@ def _k7(neighbors, interpolate, dev, sms, digests) -> None:
               flush=True)
         for i, v in enumerate((ms, host, own, bound)):
             step[i] += calls_n * v
-        if not dense:
-            idx, d2 = interpolate._three_nn_cuda(pts, ctr)
-            digests.add(f"three_nn {(n, m)}", idx, d2)
     ms, host, own, bound = step
     print(f"[k7] per S3DIS PVCNN2 step: {ms:.3f} ms ({host:.3f} host, device"
           f" {own:.3f}), bound {bound:.3f}", flush=True)
@@ -207,6 +217,76 @@ def _k7(neighbors, interpolate, dev, sms, digests) -> None:
         neighbors._ball_query_plan = chosen
 
 
+def _k8_cases(levels, dev):
+    """(N, M, queries, centers, calls per PVCNN2 step): PVCNN2's four
+    levels, then chip_smoke.py's NN_MORE inputs."""
+    cases = [(levels[i].shape[1], levels[i + 1].shape[1], levels[i],
+              levels[i + 1], 1) for i in range(4)]
+    cases += [(n, m, pts, ctr, 0)
+              for (n, m), pts, ctr in chip_smoke.nn_more_inputs(dev)]
+    return cases
+
+
+def _k8_plan(interpolate, n, m, sms) -> str:
+    if not hasattr(interpolate, "_three_nn_plan"):
+        return "parent: a thread per query, 256 a block"
+    return str(interpolate._three_nn_plan(B, n, m, sms))
+
+
+def _k8(interpolate, levels, dev, sms, digests) -> None:
+    step = [0.0] * 4
+    for n, m, pts, ctr, calls_n in _k8_cases(levels, dev):
+        run = lambda: interpolate._three_nn_cuda(pts, ctr)
+        idx, d2 = run()
+        want_idx, want_d2 = interpolate._three_nn_plain(pts, ctr)
+        exact = torch.equal(idx, want_idx) and torch.equal(d2, want_d2)
+        again = run()
+        same = torch.equal(idx, again[0]) and torch.equal(d2, again[1])
+        name = f"three_nn {(n, m)}" + ("" if calls_n else " more")
+        tag = digests.add(name, idx, d2)
+        bound, _, _ = chip_smoke._bound_ms(
+            9.0 * B * n * m, 4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3))
+        ms, host = chip_smoke.time_ms(run), cases_util.host_ms(run)
+        own, rest = cases_util.device_ms(run, ("three_nn",))
+        print(f"[k8] {name} calls {calls_n}: {ms:.4f} ms ({host:.4f} host; "
+              f"device K8 {own:.4f}, rest {rest:.4f}), bound {bound:.4f} "
+              f"({bound / own:.1%} by device, {bound / ms:.1%} by events); "
+              f"plan {_k8_plan(interpolate, n, m, sms)}; indices and d² "
+              f"{'equal' if exact else 'DIFFER FROM'} the plain version's; "
+              f"two runs {'bitwise equal' if same else 'DIFFER'}{tag}",
+              flush=True)
+        for i, v in enumerate((ms, host, own, bound)):
+            step[i] += calls_n * v
+        if ARGS.sweep and hasattr(interpolate, "_three_nn_plan"):
+            _k8_sweep(interpolate, n, m, run, want_idx, want_d2)
+    ms, host, own, bound = step
+    print(f"[k8] per S3DIS PVCNN2 step: {ms:.3f} ms ({host:.3f} host, device"
+          f" {own:.3f}), bound {bound:.3f} ({bound / own:.1%} by device)",
+          flush=True)
+
+
+def _k8_sweep(interpolate, n, m, run, want_idx, want_d2) -> None:
+    """K8 at (N, M) under every plan the kernel takes with 1-8 runs, 64-256
+    threads a block and both scans (a branch a pair, hit masks), by device
+    time."""
+    chosen = interpolate._three_nn_plan
+    for runs, masks in itertools.product((1, 2, 4, 8), (False, True)):
+        per_run = max(1, -(-m // runs))
+        if (runs - 1) * per_run >= max(m, 1):
+            continue
+        for threads in sorted({64, 128, 256, 32 * runs}):
+            if threads < 32 * runs:
+                continue
+            plan = interpolate.ThreeNNPlan(runs, per_run, threads, masks)
+            interpolate._three_nn_plan = lambda *a: plan
+            idx, d2 = run()
+            ok = torch.equal(idx, want_idx) and torch.equal(d2, want_d2)
+            own, _ = cases_util.device_ms(run, ("three_nn",))
+            print(f"[k8 sweep] {(n, m)} {plan}: device {own:.4f} ms; "
+                  f"{'equal' if ok else 'DIFFER'}", flush=True)
+    interpolate._three_nn_plan = chosen
+
+
 def main() -> None:
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.ops import conv3d, interpolate, neighbors
@@ -220,13 +300,21 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if ARGS.ptxas:
         cases_util.ptxas(kernels, "conv3d_wgrad", "conv3d_ndhwc_wgrad",
-                         "ball_query")
+                         "ball_query", "three_nn")
+    if ARGS.sass:
+        cases_util.sass(kernels, "three_nn", path=ARGS.sass)
     kernels.library()
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     digests = cases_util.Digests(ARGS.save, ARGS.against, "k7k11")
-    _k7(neighbors, interpolate, dev, sms, digests)
-    _k11(conv3d, dev, sms, digests)
+    only = set(ARGS.only) or {"k7", "k8", "k11"}
+    levels = _levels(dev)
+    if "k7" in only:
+        _k7(neighbors, levels, dev, sms, digests)
+    if "k8" in only:
+        _k8(interpolate, levels, dev, sms, digests)
+    if "k11" in only:
+        _k11(conv3d, dev, sms, digests)
     digests.finish()
 
 

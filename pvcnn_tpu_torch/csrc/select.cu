@@ -30,16 +30,33 @@
 // first U hits, and ball_query_merge_kernel takes, per output slot, the
 // hit of the split whose counts (read in split order) cover it, else the
 // fill: deterministic, and equal to the unsplit scan. The block's rows
-// leave shared memory a warp per center row, coalesced. Bound: operations,
+// leave shared memory a warp per center row, coalesced. Where U + 2 ints a
+// center do not fit 32 centers in a block's shared memory (U above 1,750),
+// the plan takes the device-memory path (kDeviceHits): a thread appends its
+// hits straight to its center's row of out (one split) or of part_idx
+// (several), and only the counts stay in shared memory. Bound: operations,
 // 9 per (center, point scanned), and the points scanned depend on the data
 // (all N for a center with fewer than U hits).
 //
-// K8: one thread per query point, 256 queries of one cloud per block; the
-// cloud's centers pass through shared memory in tiles of 1024 (every thread
-// reads the same center: a broadcast). Each thread keeps its best three
-// (d², idx) in registers and inserts on a strict `<` while scanning in
-// index order, which keeps the lower index on a tie. Bound: operations, 9
-// per (query, center).
+// K8: a query point a thread, its best three (d², idx) in registers; a
+// center is one 16-byte broadcast from shared memory. The centers are
+// staged by cp.async as float4 through a ring of 2 stages (kNnStage
+// centers, fewer for a short run), K7's staging. Where the queries fill
+// too few warps, the block splits the centers into `runs` contiguous runs,
+// each scanned by its own warps for the same queries (the plan:
+// pvcnn_tpu_torch/ops/interpolate.py:_three_nn_plan). Each run keeps its
+// own best three; the first run's threads then insert the others' in run
+// order through shared memory, with the scan's strict `<`, which equals
+// one scan in index order bit for bit. A pair costs its share of the
+// broadcast, 8 rounded operations and a compare. On a short run it then
+// branches around its insertion (about 12 instructions); on a long run
+// (kChunk = 32) it only sets a bit of a hit mask, and the chunk's hits are
+// inserted after, in index order, each d² computed again: a branch a pair,
+// its reconvergence and the insertions that some lane of a warp takes cost
+// more there than the candidates of a chunk cost twice. Several queries a
+// thread, sharing each broadcast, measured no faster: the arithmetic and
+// the branches, not the shared loads, bound the kernel.
+// Bound: operations, 9 per (query, center).
 //
 // Both compute d² as (dx² + dy²) + dz² with every operation rounded on its
 // own (no FMA contraction), the order of select.py:70, so a point at the
@@ -51,8 +68,9 @@ namespace {
 
 constexpr int kBqTile = 256;      // points per shared-memory tile
 constexpr int kBqMaxThreads = 256;
-constexpr int kNnThreads = 256;
-constexpr int kNnTile = 1024;
+constexpr int kNnStage = 512;     // centers a ring stage holds, all runs
+constexpr int kNnMaxThreads = 256;
+constexpr int kNnMaxRuns = 8;
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                                          float bx, float by, float bz) {
@@ -63,33 +81,40 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                    __fmul_rn(dz, dz));
 }
 
-__device__ __forceinline__ unsigned bq_smem_addr(const void* p) {
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Points [len of tile] of a cloud into tile (float4 x, y, z, -) by 4-byte
-// cp.async; slots len .. kBqTile - 1 (a partial tile) hold infinity.
-__device__ __forceinline__ void bq_stage(float4* tile, const float* p,
-                                         int len) {
+// Points [len] of a cloud into tile (float4 x, y, z, -) by 4-byte
+// cp.async; slots len .. cap - 1 hold points at infinity, which never hit
+// a radius nor beat a third best. Commits no group.
+__device__ __forceinline__ void stage_points(float4* tile, const float* p,
+                                             int len, int cap) {
   float* t = reinterpret_cast<float*>(tile);
   for (int e = threadIdx.x; e < 3 * len; e += blockDim.x) {
     const int i = e / 3;
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     bq_smem_addr(t + 4 * i + (e - 3 * i))),
+                     smem_addr(t + 4 * i + (e - 3 * i))),
                  "l"(p + e));
   }
   const float inf = __int_as_float(0x7f800000);
-  for (int i = len + threadIdx.x; i < kBqTile; i += blockDim.x) {
+  for (int i = len + threadIdx.x; i < cap; i += blockDim.x) {
     tile[i] = make_float4(inf, inf, inf, 0.f);
   }
+}
+
+__device__ __forceinline__ void bq_stage(float4* tile, const float* p,
+                                         int len) {
+  stage_points(tile, p, len, kBqTile);
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
 // Grid (center tiles, B, splits), T = blockDim.x threads. Dynamic shared
 // memory: the ring [2][kBqTile] float4, then each thread's hits [T][U + 1]
-// and counts [T]. With one split the block writes out [B, M, U] with the
-// fill; with more, its count to part_cnt [splits, B, M] and its first
-// min(count, U) hits to part_idx [splits, B, M, U].
+// (not with kDeviceHits) and counts [T]. With one split the block writes
+// out [B, M, U] with the fill; with more, its count to part_cnt [splits, B,
+// M] and its first min(count, U) hits to part_idx [splits, B, M, U].
+template <bool kDeviceHits>
 __global__ void __launch_bounds__(kBqMaxThreads, 4)
 ball_query_kernel(const float* __restrict__ centers,   // [B, M, 3]
                   const float* __restrict__ points,    // [B, N, 3]
@@ -100,7 +125,7 @@ ball_query_kernel(const float* __restrict__ centers,   // [B, M, 3]
   float4* ring = bq_smem;
   int* hits = reinterpret_cast<int*>(ring + 2 * kBqTile);
   const int T = blockDim.x;
-  int* counts = hits + T * (U + 1);
+  int* counts = kDeviceHits ? hits : hits + T * (U + 1);
   const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int m0 = blockIdx.x * T;
@@ -117,7 +142,12 @@ ball_query_kernel(const float* __restrict__ centers,   // [B, M, 3]
   const int p_end = min(N, p_begin + per_split);
   const float* p = points + (static_cast<int64_t>(b) * N + p_begin) * 3;
   const int tiles = max(0, (p_end - p_begin + kBqTile - 1) / kBqTile);
-  int* mine = hits + threadIdx.x * (U + 1);
+  const int64_t row0 = static_cast<int64_t>(b) * M + m0;
+  // this split's row of the center in device memory (kDeviceHits)
+  const int64_t own_row = gridDim.z == 1 ? row0 + threadIdx.x
+      : static_cast<int64_t>(split) * gridDim.y * M + row0 + threadIdx.x;
+  int* mine = kDeviceHits ? (gridDim.z == 1 ? out : part_idx) + own_row * U
+                          : hits + threadIdx.x * (U + 1);
   int count = 0;
   bool done = !active;
 
@@ -155,26 +185,36 @@ ball_query_kernel(const float* __restrict__ centers,   // [B, M, 3]
     }
   }
   counts[threadIdx.x] = count;
+  // with kDeviceHits, a row's hits in device memory are visible to the
+  // block's other warps after the barrier too
   __syncthreads();
 
   // the block's rows, a warp per center row: slot s holds hit s, else the
   // fill (one split), or hit s of this split while s < count (several)
   const int lane = threadIdx.x & 31;
   const int rows = min(T, M - m0);
-  const int64_t row0 = static_cast<int64_t>(b) * M + m0;
   for (int row = threadIdx.x >> 5; row < rows; row += T >> 5) {
     const int cnt = counts[row];
-    const int* h = hits + row * (U + 1);
     if (gridDim.z == 1) {
-      const int fill = cnt > 0 ? h[0] : 0;
       int* o = out + (row0 + row) * U;
-      for (int s = lane; s < U; s += 32) o[s] = s < cnt ? h[s] : fill;
+      if (kDeviceHits) {
+        // hits 0 .. cnt - 1 are in place; the rest get the fill
+        const int fill = cnt > 0 ? o[0] : 0;
+        for (int s = cnt + lane; s < U; s += 32) o[s] = fill;
+      } else {
+        const int* h = hits + row * (U + 1);
+        const int fill = cnt > 0 ? h[0] : 0;
+        for (int s = lane; s < U; s += 32) o[s] = s < cnt ? h[s] : fill;
+      }
     } else {
       const int64_t pr = static_cast<int64_t>(split) * gridDim.y * M + row0 +
                          row;
       if (lane == 0) part_cnt[pr] = cnt;
-      int* o = part_idx + pr * U;
-      for (int s = lane; s < min(cnt, U); s += 32) o[s] = h[s];
+      if (!kDeviceHits) {
+        const int* h = hits + row * (U + 1);
+        int* o = part_idx + pr * U;
+        for (int s = lane; s < min(cnt, U); s += 32) o[s] = h[s];
+      }
     }
   }
 }
@@ -202,97 +242,214 @@ ball_query_merge_kernel(const int* __restrict__ part_idx,
   out[i] = val >= 0 ? val : first >= 0 ? first : 0;
 }
 
-__global__ void __launch_bounds__(kNnThreads)
+// Insert (d, i) into a best three (d0 <= d1 <= d2) that it beats (d < d2),
+// after every entry of equal d²: index order where entries arrive in it.
+__device__ __forceinline__ void nn_insert(float& d0, float& d1, float& d2,
+                                          int& i0, int& i1, int& i2, float d,
+                                          int i) {
+  if (d < d1) {
+    d2 = d1;
+    i2 = i1;
+    if (d < d0) {
+      d1 = d0;
+      i1 = i0;
+      d0 = d;
+      i0 = i;
+    } else {
+      d1 = d;
+      i1 = i;
+    }
+  } else {
+    d2 = d;
+    i2 = i;
+  }
+}
+
+// Grid (query blocks, B), T = blockDim.x threads (a power of two) in
+// runs = 2^runs_shift groups of G = T / runs (whole warps); shifts, not
+// divisions, keep the prologue of the small calls short. Thread k of group
+// g takes query blockIdx.x * G + k against the centers of run g,
+// [g * per_run, min((g + 1) * per_run, M)), stage t holding its centers
+// [t * S, min((t + 1) * S, per_run)). Dynamic shared memory: the ring
+// [2][runs][S] float4 (S = kNnStage / runs centers, or the run in whole
+// chunks where it is shorter), reused after the scan for the best threes
+// of groups 1 .. runs - 1, [runs - 1][3][G] floats then as many ints. A
+// chunk is kChunk centers: with kChunk = 4 each pair branches around its
+// insertion; with kChunk = 32 a chunk's pairs only set the bits of a hit
+// mask (d² below the third best at the chunk's start), and its set bits
+// are then inserted in index order, each d² computed again.
+template <int kChunk>
+__global__ void __launch_bounds__(kNnMaxThreads)
 three_nn_kernel(const float* __restrict__ points,    // [B, N, 3] queries
                 const float* __restrict__ centers,   // [B, M, 3]
                 int* __restrict__ idx,               // [B, N, 3]
                 float* __restrict__ d2,              // [B, N, 3]
-                int N, int M) {
-  __shared__ float cx[kNnTile], cy[kNnTile], cz[kNnTile];
+                int N, int M, int runs_shift, int per_run) {
+  extern __shared__ __align__(16) float4 nn_smem[];
+  const int runs = 1 << runs_shift;
+  const int g_shift = 31 - __clz(blockDim.x) - runs_shift;
+  const int G = 1 << g_shift;
+  const int run = threadIdx.x >> g_shift;
+  const int k = threadIdx.x & (G - 1);
   const int b = blockIdx.y;
-  const int n = blockIdx.x * kNnThreads + threadIdx.x;
-  const bool active = n < N;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
+  const int n = blockIdx.x * G + k;
+  // centers a run a stage: a share of kNnStage, no more than the run
+  const int S = min(kNnStage >> runs_shift,
+                    (per_run + kChunk - 1) & ~(kChunk - 1));
+  const float inf = __int_as_float(0x7f800000);
+  // a query past N and the centers that pad a stage sit at infinity: no
+  // d² they give beats a third best
+  float qx = inf, qy = inf, qz = inf;
+  if (n < N) {
     const float* q = points + (static_cast<int64_t>(b) * N + n) * 3;
     qx = q[0];
     qy = q[1];
     qz = q[2];
   }
+  float e0 = inf, e1 = inf, e2 = inf;
+  int j0 = 0, j1 = 0, j2 = 0;
   const float* c = centers + static_cast<int64_t>(b) * M * 3;
-  const float inf = __int_as_float(0x7f800000);
-  float d0 = inf, d1 = inf, e2 = inf;
-  int i0 = 0, i1 = 0, i2 = 0;
-  for (int base = 0; base < M; base += kNnTile) {
-    const int len = min(kNnTile, M - base);
-    __syncthreads();
-    for (int t = threadIdx.x; t < len; t += kNnThreads) {
-      const int64_t q = static_cast<int64_t>(base + t) * 3;
-      cx[t] = c[q];
-      cy[t] = c[q + 1];
-      cz[t] = c[q + 2];
+  const int tiles = (per_run + S - 1) / S;
+  // the centers a run scans in stage t, in whole chunks (at most S)
+  auto span = [&](int t) {
+    return (min(S, per_run - t * S) + kChunk - 1) & ~(kChunk - 1);
+  };
+  // stage t: those centers of every run, padded with infinity where the
+  // run ends, committed as one group
+  auto stage = [&](int t) {
+    float4* dst = nn_smem + (t & 1) * runs * S;
+    for (int g = 0; g < runs; ++g) {
+      const int begin = g * per_run + t * S;
+      const int len = max(0, min(S, min(per_run - t * S, M - begin)));
+      stage_points(dst + g * S, c + 3 * static_cast<int64_t>(begin), len,
+                   span(t));
     }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  stage(0);
+  for (int t = 0; t < tiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // stage t has landed for every thread, and every thread has left
+    // stage t - 1, whose buffer the next copies fill
     __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < len; ++t) {
-      const float d = sq_dist(qx, qy, qz, cx[t], cy[t], cz[t]);
-      if (d < e2) {
-        const int i = base + t;
-        if (d < d1) {
-          e2 = d1;
-          i2 = i1;
-          if (d < d0) {
-            d1 = d0;
-            i1 = i0;
-            d0 = d;
-            i0 = i;
-          } else {
-            d1 = d;
-            i1 = i;
-          }
-        } else {
-          e2 = d;
-          i2 = i;
+    if (t + 1 < tiles) stage(t + 1);
+    const float4* tile = nn_smem + ((t & 1) * runs + run) * S;
+    const int base = run * per_run + t * S;
+    // whole chunks: the slots past the run's centers hold infinity
+    const int len = span(t);
+    for (int s = 0; s < len; s += kChunk) {
+      if constexpr (kChunk == 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 p = tile[s + u];
+          const float d = sq_dist(qx, qy, qz, p.x, p.y, p.z);
+          if (d < e2) nn_insert(e0, e1, e2, j0, j1, j2, d, base + s + u);
+        }
+      } else {
+        unsigned hit = 0u;
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          const float4 p = tile[s + u];
+          const float d = sq_dist(qx, qy, qz, p.x, p.y, p.z);
+          hit |= static_cast<unsigned>(d < e2) << u;
+        }
+        while (hit != 0u) {
+          const int u = __ffs(hit) - 1;
+          hit &= hit - 1u;
+          const float4 p = tile[s + u];
+          const float d = sq_dist(qx, qy, qz, p.x, p.y, p.z);
+          if (d < e2) nn_insert(e0, e1, e2, j0, j1, j2, d, base + s + u);
         }
       }
     }
   }
-  if (active) {
+
+  if (runs > 1) {
+    // every thread has left the ring; groups 1 .. runs - 1 hand their best
+    // threes to group 0, which inserts them in run order
+    __syncthreads();
+    float* md = reinterpret_cast<float*>(nn_smem);
+    int* mi = reinterpret_cast<int*>(md + (runs - 1) * 3 * G);
+    if (run > 0) {
+      const int at = (run - 1) * 3 * G + k;
+      md[at] = e0;
+      md[at + G] = e1;
+      md[at + 2 * G] = e2;
+      mi[at] = j0;
+      mi[at + G] = j1;
+      mi[at + 2 * G] = j2;
+    }
+    __syncthreads();
+    if (run > 0) return;
+    for (int g = 1; g < runs; ++g) {
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int at = ((g - 1) * 3 + s) * G + k;
+        const float d = md[at];
+        if (d < e2) nn_insert(e0, e1, e2, j0, j1, j2, d, mi[at]);
+      }
+    }
+  }
+  if (n < N) {
     const int64_t off = (static_cast<int64_t>(b) * N + n) * 3;
-    idx[off] = i0;
-    idx[off + 1] = i1;
-    idx[off + 2] = i2;
-    d2[off] = d0;
-    d2[off + 1] = d1;
+    idx[off] = j0;
+    idx[off + 1] = j1;
+    idx[off + 2] = j2;
+    d2[off] = e0;
+    d2[off + 1] = e1;
     d2[off + 2] = e2;
   }
+}
+
+template <int kChunk>
+cudaError_t launch_three_nn(const float* points, const float* centers,
+                            int* idx, float* d2, int B, int N, int M,
+                            int runs, int per_run, int threads,
+                            cudaStream_t st) {
+  const int G = threads / runs;
+  // the kernel's S; the merge needs at most (8 - 1) * 3 * 32 * 8 bytes
+  const int S = min(kNnStage / runs, (per_run + kChunk - 1) & ~(kChunk - 1));
+  const size_t ring = 2 * static_cast<size_t>(runs) * S * sizeof(float4);
+  const size_t merge = static_cast<size_t>(runs - 1) * 3 * G *
+                       (sizeof(float) + sizeof(int));
+  const size_t smem = ring > merge ? ring : merge;
+  const dim3 grid((N + G - 1) / G, B);
+  three_nn_kernel<kChunk><<<grid, threads, smem, st>>>(
+      points, centers, idx, d2, N, M, __builtin_ctz(runs), per_run);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // out [B, M, U]. The plan (pvcnn_tpu_torch/ops/neighbors.py:
 // _ball_query_plan): threads (centers per block, a multiple of 32 up to
-// 256) and splits of per_split points (a multiple of kBqTile); scratch
-// holds part_idx [splits, B, M, U] then part_cnt [splits, B, M] where
-// splits > 1.
+// 256), splits of per_split points (a multiple of kBqTile) and
+// device_hits (each center's hits in device memory, not shared memory);
+// scratch holds part_idx [splits, B, M, U] then part_cnt [splits, B, M]
+// where splits > 1.
 PVCNN_EXPORT int pvcnn_ball_query(const void* centers, const void* points,
                                   void* out, void* scratch, int B, int M,
                                   int N, int U, float r2, int threads,
-                                  int splits, int per_split, void* stream) {
+                                  int splits, int per_split, int device_hits,
+                                  void* stream) {
   if (B == 0 || M == 0 || U == 0) return 0;
   if (threads < 32 || threads > kBqMaxThreads || threads % 32 != 0 ||
       splits < 1 || per_split < 1 || per_split % kBqTile != 0 ||
       static_cast<int64_t>(splits) * per_split < N ||
       static_cast<int64_t>(splits - 1) * per_split >= max(N, 1) ||
-      (splits > 1 && scratch == nullptr)) {
+      (splits > 1 && scratch == nullptr) ||
+      (device_hits != 0 && device_hits != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
   const size_t smem = 2 * kBqTile * sizeof(float4) +
-                      sizeof(int) * threads * (U + 2);
+                      sizeof(int) * threads * (device_hits ? 1 : U + 2);
+  const auto kernel = device_hits ? ball_query_kernel<true>
+                                  : ball_query_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ball_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -300,7 +457,7 @@ PVCNN_EXPORT int pvcnn_ball_query(const void* centers, const void* points,
   int* part_idx = static_cast<int*>(scratch);
   int* part_cnt = splits > 1 ? part_idx + splits * n_centers * U : nullptr;
   const dim3 grid((M + threads - 1) / threads, B, splits);
-  ball_query_kernel<<<grid, threads, smem, st>>>(
+  kernel<<<grid, threads, smem, st>>>(
       static_cast<const float*>(centers), static_cast<const float*>(points),
       static_cast<int*>(out), part_idx, part_cnt, M, N, U, r2, per_split);
   int err = static_cast<int>(cudaGetLastError());
@@ -311,13 +468,34 @@ PVCNN_EXPORT int pvcnn_ball_query(const void* centers, const void* points,
   return static_cast<int>(cudaGetLastError());
 }
 
+// idx, d2 [B, N, 3]. The plan (pvcnn_tpu_torch/ops/interpolate.py:
+// _three_nn_plan): runs of per_run centers (a power of two, at most
+// kNnMaxRuns, together covering the M centers, none empty), threads a block
+// (a power of two, runs groups of whole warps, at most kNnMaxThreads) and
+// hit_masks (chunks of 32 centers scanned into hit masks, else quads with a
+// branch a pair).
 PVCNN_EXPORT int pvcnn_three_nn(const void* points, const void* centers,
                                 void* idx, void* d2, int B, int N, int M,
-                                void* stream) {
+                                int runs, int per_run, int threads,
+                                int hit_masks, void* stream) {
   if (B == 0 || N == 0) return 0;
-  const dim3 grid((N + kNnThreads - 1) / kNnThreads, B);
-  three_nn_kernel<<<grid, kNnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(points), static_cast<const float*>(centers),
-      static_cast<int*>(idx), static_cast<float*>(d2), N, M);
-  return static_cast<int>(cudaGetLastError());
+  if (runs < 1 || runs > kNnMaxRuns || (runs & (runs - 1)) != 0 ||
+      threads < 32 * runs || threads > kNnMaxThreads ||
+      (threads & (threads - 1)) != 0 || per_run < 1 ||
+      static_cast<int64_t>(runs) * per_run < M ||
+      static_cast<int64_t>(runs - 1) * per_run >= max(M, 1) ||
+      (hit_masks != 0 && hit_masks != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto p = static_cast<const float*>(points);
+  const auto c = static_cast<const float*>(centers);
+  const auto i = static_cast<int*>(idx);
+  const auto d = static_cast<float*>(d2);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      hit_masks
+          ? launch_three_nn<32>(p, c, i, d, B, N, M, runs, per_run, threads,
+                                st)
+          : launch_three_nn<4>(p, c, i, d, B, N, M, runs, per_run, threads,
+                               st));
 }

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "pvcnn_devoxelize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_fps": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_ball_query": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
-                         _P],
-    "pvcnn_three_nn": [_P, _P, _P, _P, _I, _I, _I, _P],
+                         _I, _P],
+    "pvcnn_three_nn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "pvcnn_dense_rows_fwd": [_P, _P, _I, _I, _P, _P, _P, _F, _P, _P, _I, _I,
                              _I, _I, _I, _P],
     "pvcnn_dense_rows_wgrad": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I,

@@ -2,8 +2,9 @@
 pvcnn_tpu/ops/interpolate.py).
 
 `three_nn` dispatches by device: a CUDA tensor goes to kernel K8
-(pvcnn_tpu_torch/csrc/select.cu), a CPU tensor to the plain version beside
-it (`_three_nn_plain`, a stable sort, so ties keep the lower index). Both
+(pvcnn_tpu_torch/csrc/select.cu, launched as `_three_nn_plan` says), a CPU
+tensor to the plain version beside it (`_three_nn_plain`, a stable sort,
+so ties keep the lower index). Both
 select in fp32 whatever the input dtype, as the TPU kernel does
 (pvcnn_tpu/ops/pallas/select.py:169), and return the three smallest d²;
 with fewer than 3 centers the unfilled slots hold index 0 and d² = inf
@@ -14,13 +15,27 @@ center features, through `take_rows`.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from pvcnn_tpu_torch import kernels
+from pvcnn_tpu_torch.ops.conv3d import _sm_count
 from pvcnn_tpu_torch.ops.gather_utils import take_rows
 from pvcnn_tpu_torch.ops.neighbors import sq_dist
 
 __all__ = ["nearest_neighbor_interpolate", "three_nn"]
+
+# K8 (csrc/select.cu): at most _NN_THREADS threads a block and _NN_MAX_RUNS
+# runs of centers (kNnMaxThreads, kNnMaxRuns), a query a thread. Where the
+# queries keep fewer than about _NN_WARPS_PER_SM warps an SM in flight, the
+# plan splits the centers into runs of at least _NN_MIN_RUN. Runs of _NN_MASK_RUN centers or more scan
+# into hit masks: a branch a pair costs more there than what a chunk's
+# first mask (every center a candidate) costs again.
+_NN_THREADS, _NN_MAX_RUNS = 256, 8
+_NN_WARPS_PER_SM, _NN_MIN_RUN, _NN_MASK_RUN = 12, 16, 256
 
 
 def three_nn(points_coords: torch.Tensor, centers_coords: torch.Tensor):
@@ -52,6 +67,35 @@ def _three_nn_plain(points, centers):
     return idx.to(torch.int32), vals
 
 
+class ThreeNNPlan(NamedTuple):
+    """K8's launch (csrc/select.cu)."""
+
+    runs: int           # runs of centers, each scanned by its own warps
+    per_run: int        # centers a run
+    threads: int        # a block: `runs` groups of whole warps
+    hit_masks: bool = False     # 32-center chunks into hit masks
+
+
+@functools.lru_cache(maxsize=None)
+def _three_nn_plan(b, n, m, sms) -> ThreeNNPlan:
+    """K8's launch on a card of `sms` SMs for B clouds of N queries and M
+    centers: a query a thread; where those keep fewer than
+    _NN_WARPS_PER_SM warps an SM busy, the centers split into 2, 4 or 8
+    runs, none shorter than _NN_MIN_RUN centers nor empty; _NN_THREADS
+    threads a block, fewer where the blocks would not cover the SMs; hit
+    masks for runs of _NN_MASK_RUN centers or more."""
+    want = _NN_WARPS_PER_SM * 32 * sms
+    runs = 1
+    while (runs < _NN_MAX_RUNS and b * n * runs < want
+           and m >= 2 * runs * _NN_MIN_RUN):
+        runs *= 2
+    per_run = max(1, math.ceil(m / runs))
+    threads = _NN_THREADS
+    while threads > 32 * runs and b * math.ceil(n * runs / threads) < sms:
+        threads //= 2
+    return ThreeNNPlan(runs, per_run, threads, per_run >= _NN_MASK_RUN)
+
+
 def _three_nn_cuda(points, centers):
     if points.device.type != "cuda" or centers.device != points.device:
         raise ValueError("three_nn kernel needs points and centers on one "
@@ -68,10 +112,11 @@ def _three_nn_cuda(points, centers):
     centers = centers.float().contiguous()
     idx = torch.empty((b, n, 3), dtype=torch.int32, device=points.device)
     d2 = torch.empty((b, n, 3), dtype=torch.float32, device=points.device)
+    plan = _three_nn_plan(b, n, m, _sm_count(points.device.index))
     with torch.cuda.device(points.device):
         kernels.launch("three_nn", "pvcnn_three_nn", points.data_ptr(),
                        centers.data_ptr(), idx.data_ptr(), d2.data_ptr(), b,
-                       n, m, torch.cuda.current_stream().cuda_stream)
+                       n, m, *plan, torch.cuda.current_stream().cuda_stream)
     return idx, d2
 
 

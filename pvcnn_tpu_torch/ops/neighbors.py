@@ -35,7 +35,8 @@ __all__ = ["ball_query", "grouping", "sq_dist"]
 # its split serially, so small clouds split down to one tile). A block's
 # shared memory (2 tiles of float4 points, then U + 2 ints a center,
 # csrc/select.cu:pvcnn_ball_query) stays within the _BQ_SMEM bytes an H100
-# gives a block.
+# gives a block; where that holds fewer than 32 centers (U above 1,750),
+# the hits go to device memory and only the counts stay in shared memory.
 _BQ_TILE, _BQ_CENTERS, _BQ_WARPS_PER_SM, _BQ_MIN_POINTS = 256, 256, 12, 256
 _BQ_SMEM = 227 * 1024
 
@@ -86,6 +87,7 @@ class BallQueryPlan(NamedTuple):
     threads: int        # centers per block, a multiple of 32
     splits: int         # blocks per center tile, each a run of points
     per_split: int      # points per split, a multiple of _BQ_TILE
+    device_hits: bool = False   # hits in device memory, not shared memory
 
     def scratch_ints(self, b: int, m: int, u: int) -> int:
         """The splits' hits [splits, B, M, U] and counts [splits, B, M]."""
@@ -97,21 +99,22 @@ def _ball_query_plan(b, m, n, u, sms) -> BallQueryPlan:
     """K7's launch on a card of `sms` SMs for B clouds of M centers and N
     points: a thread per center, up to _BQ_CENTERS centers of one cloud per
     block (whole warps, fewer where U hits a center would overrun the
-    block's shared memory; U above 1,750 does not fit 32); where those
-    warps fall short of _BQ_WARPS_PER_SM per SM, each cloud's points are
-    split over blocks in runs of whole tiles, none shorter than
-    _BQ_MIN_POINTS points nor empty."""
+    block's shared memory; where not even 32 fit, above U = 1,750, the
+    hits go to device memory); where those warps fall short of
+    _BQ_WARPS_PER_SM per SM, each cloud's points are split over blocks in
+    runs of whole tiles, none shorter than _BQ_MIN_POINTS points nor
+    empty."""
     fit = (_BQ_SMEM - 2 * _BQ_TILE * 16) // (4 * (u + 2)) // 32 * 32
-    if fit < 32:
-        raise ValueError(f"ball_query kernel takes at most 1750 neighbors "
-                         f"a center, got {u}")
-    threads = min(_BQ_CENTERS, fit, 32 * math.ceil(m / 32))
+    device_hits = fit < 32
+    threads = min(_BQ_CENTERS, 32 * math.ceil(m / 32))
+    if not device_hits:
+        threads = min(threads, fit)
     warps = b * math.ceil(m / threads) * threads // 32
     want = math.ceil(_BQ_WARPS_PER_SM * sms / max(1, warps))
     splits = max(1, min(want, n // _BQ_MIN_POINTS))
     per_split = _BQ_TILE * max(1, math.ceil(n / splits / _BQ_TILE))
     return BallQueryPlan(threads, max(1, math.ceil(n / per_split)),
-                         per_split)
+                         per_split, device_hits)
 
 
 def _ball_query_cuda(centers, points, r2, u):

@@ -466,6 +466,50 @@ def test_ball_query_kernel(dev, m, n, radius, u):
     assert torch.equal(got, ops.ball_query(cd, xd, radius, u))
 
 
+@pytest.mark.parametrize("u", [2048, 4096])
+@pytest.mark.parametrize("m,n", [(40, 1500), (300, 3000), (70, 9000)])
+@pytest.mark.parametrize("cloud", ["room", "cluster"])
+def test_ball_query_kernel_many_neighbors(dev, cloud, m, n, u):
+    """Above U = 1,750 the hits live in device memory (the plan's
+    device_hits), with N below and above U: exact against the plain
+    version on random clouds (the fill, a center without hits) and dense
+    clusters (every center stops at its U-th hit, or takes every point),
+    with one split and with several."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    assert neighbors._ball_query_plan(2, m, n, u, 132).device_hits
+    if cloud == "room":
+        x, c, radius = _room(dev, 2, n), _room(dev, 2, m, seed=3), 0.6
+        c[:, 0] += 10.0                          # no hit
+    else:
+        x = 0.5 + torch.rand(2, n, 3, device=dev) * 0.01
+        c, radius = x[:, 5:5 + m].contiguous(), 0.1
+    got = _ball_query_check(c, x, radius, u)
+    if cloud == "cluster":
+        k = min(u, n)
+        assert torch.equal(got[..., :k].cpu(),
+                           torch.arange(k, dtype=torch.int32).expand(2, m, k))
+    else:
+        assert (got[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("plan", [(32, 1, 8192, True), (256, 4, 2304, True),
+                                  (64, 2, 4096, True)])
+@pytest.mark.parametrize("u", [1, 32, 2048])
+def test_ball_query_kernel_device_hits_plans(dev, monkeypatch, plan, u):
+    """The device-memory path under forced plans (one split and several,
+    32 to 256 centers a block) gives the plain version's indices, also at U
+    that would fit shared memory."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    n = 8100
+    x = 0.5 + torch.rand(2, n, 3, device=dev) * 0.01
+    c = torch.cat([x[:, 7:207], _room(dev, 2, 100, seed=4)], dim=1)
+    monkeypatch.setattr(neighbors, "_ball_query_plan",
+                        lambda *a: neighbors.BallQueryPlan(*plan))
+    _ball_query_check(c.contiguous(), x, 0.1, u)
+
+
 @pytest.mark.parametrize("plan", [(32, 1, 8192), (64, 2, 4096),
                                   (128, 3, 2816), (256, 5, 1792),
                                   (32, 32, 256), (128, 7, 1280)])
@@ -489,18 +533,29 @@ def test_ball_query_kernel_splits(dev, monkeypatch, plan, cloud, u):
     _ball_query_check(c, x, radius, u)
 
 
-@pytest.mark.parametrize("n,m", [(8192, 1024), (64, 16), (300, 2), (50, 1),
-                                 (70, 2000)])
-def test_three_nn_kernel(dev, n, m):
-    """Indices and d² exactly equal the plain version's (ties to the lower
-    index, M < 3 with idx 0 and d² = inf), two runs bitwise equal."""
-    from pvcnn_tpu_torch.ops import interpolate
-
-    x = _room(dev, 2, n)
-    c = _room(dev, 2, m, seed=2)
+def _nn_cloud(dev, b, n, m, seed=0):
+    """Queries and centers with many ties: duplicated queries (_room),
+    centers 8-11 copies of 2-5 and, where M allows, copies of centers on
+    either side of M / 2, 16 and 64 (run boundaries of many plans), with
+    queries on them."""
+    x = _room(dev, b, n, seed=seed)
+    c = _room(dev, b, m, seed=seed + 2)
     if m >= 16:
         c[:, 8:12] = c[:, 2:6]
-        x[:, :4] = c[:, 2:6]
+    for at in {m // 2, 16, 64}:
+        if 2 <= at < m - 1:
+            c[:, at] = c[:, at - 1]
+            c[:, at + 1] = c[:, 0]
+    k = min(n, m, 12)
+    x[:, :k] = c[:, :k]
+    return x, c
+
+
+def _three_nn_check(x, c):
+    """K8's indices and d² exactly equal the plain version's, one launch
+    counted, two runs bitwise equal."""
+    from pvcnn_tpu_torch.ops import interpolate
+
     before = kernels.KERNELS["three_nn"].launches
     idx, d2 = interpolate._three_nn_cuda(x, c)
     assert kernels.KERNELS["three_nn"].launches == before + 1
@@ -509,6 +564,64 @@ def test_three_nn_kernel(dev, n, m):
     assert torch.equal(d2, want_d2)
     again = interpolate._three_nn_cuda(x, c)
     assert torch.equal(idx, again[0]) and torch.equal(d2, again[1])
+
+
+_NN_EDGES = (1, 2, 3, 31, 32, 33, 255, 257, 1025, 8193, 20000)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("m", _NN_EDGES)
+@pytest.mark.parametrize("n", _NN_EDGES)
+def test_three_nn_kernel(dev, n, m, b):
+    """Indices and d² exactly equal the plain version's under the plan's
+    launch (ties to the lower index, also across run boundaries; M < 3 with
+    idx 0 and d² = inf), two runs bitwise equal, at N and M off the warps,
+    quads and stages."""
+    if b * n * m > 2e8:
+        b = 1                                   # the plain version's memory
+    x, c = _nn_cloud(dev, b, n, m)
+    _three_nn_check(x, c)
+
+
+def _nn_plans():
+    """(N, M, runs, threads a block, hit masks) for every launch K8 takes
+    with 1-8 runs, 64-256 threads and both scans."""
+    return [(n, m, runs, threads, masks)
+            for n, m in ((8192, 1024), (1000, 257), (300, 33), (77, 8),
+                         (40, 3000))
+            for runs in (1, 2, 4, 8)
+            for threads in (64, 128, 256) for masks in (False, True)
+            if threads >= 32 * runs and (runs - 1) * -(-m // runs) < m]
+
+
+@pytest.mark.parametrize("n,m,runs,threads,masks", _nn_plans())
+def test_three_nn_kernel_plans(dev, monkeypatch, n, m, runs, threads, masks):
+    """Every launch K8 takes gives the plain version's indices and d²: 1-8
+    runs of centers (the last one short, ties across their boundaries),
+    64-256 threads a block, a branch a pair or hit masks over 32-center
+    chunks (a chunk past the run's end padded), 3 clouds."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    per_run = -(-m // runs)
+    monkeypatch.setattr(interpolate, "_three_nn_plan",
+                        lambda *a: interpolate.ThreeNNPlan(
+                            runs, per_run, threads, masks))
+    x, c = _nn_cloud(dev, 3, n, m, seed=n + m)
+    _three_nn_check(x, c)
+
+
+def test_three_nn_kernel_refuses_bad_plans(dev, monkeypatch):
+    """A plan the launcher does not take raises; nothing falls back."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    x, c = _nn_cloud(dev, 2, 100, 40)
+    for plan in ((1, 39, 128), (16, 3, 512), (2, 19, 64), (4, 10, 64),
+                 (2, 40, 128), (1, 40, 288), (1, 40, 96), (3, 14, 192),
+                 (1, 40, 128, 2)):
+        monkeypatch.setattr(interpolate, "_three_nn_plan",
+                            lambda *a, p=plan: interpolate.ThreeNNPlan(*p))
+        with pytest.raises(RuntimeError, match="launch failed"):
+            interpolate._three_nn_cuda(x, c)
 
 
 @pytest.mark.parametrize("b,k,bins,c", [(2, 32768, 8192, 32),

@@ -150,7 +150,8 @@ def _bq_sizes():
 
     cases = {(c[0], c[1], c[3]) for (k, c) in chip_smoke.CALLS2
              if k == "ball_query"}
-    more = {(m, n, u) for m in (1, 100, 1024) for u in (1, 64, 256, 512)
+    more = {(m, n, u) for m in (1, 100, 1024)
+            for u in (1, 64, 256, 512, 1751, 4096)
             for n in (1, 255, 256, 257, 1023, 1025, 2049, 8193, 20000,
                       65537, 100000)}
     return sorted(cases | more)
@@ -161,17 +162,24 @@ def test_ball_query_plan(m, n, u):
     """K7's plan for 32 clouds on a card of 132 SMs is a launch the kernel
     takes (pvcnn_ball_query's checks): whole warps of centers, at most 256
     a block and as many as a block's shared memory holds within the card's
-    227 KB (2 tiles of 256 float4 points, then U + 2 ints a center),
-    splits of whole 256-point tiles that cover the N points once with none
-    empty; it splits only where the centers fill under 12 warps an SM,
-    into runs of at least one tile."""
+    227 KB (2 tiles of 256 float4 points, then U + 2 ints a center; where
+    not even 32 centers fit, above U = 1,750, the hits go to device memory
+    and a block holds 256 centers' counts), splits of whole 256-point tiles
+    that cover the N points once with none empty; it splits only where the
+    centers fill under 12 warps an SM, into runs of at least one tile."""
     from pvcnn_tpu_torch.ops import neighbors
 
     plan = neighbors._ball_query_plan(32, m, n, u, 132)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
     smem = lambda threads: 2 * 256 * 16 + 4 * threads * (u + 2)
-    assert smem(plan.threads) <= 227 * 1024
-    assert plan.threads >= min(256, m) or smem(plan.threads + 32) > 227 * 1024
+    assert plan.device_hits == (smem(32) > 227 * 1024) == (u > 1750)
+    if plan.device_hits:
+        assert 2 * 256 * 16 + 4 * plan.threads <= 227 * 1024
+        assert plan.threads == min(256, 32 * -(-m // 32))
+    else:
+        assert smem(plan.threads) <= 227 * 1024
+        assert (plan.threads >= min(256, m)
+                or smem(plan.threads + 32) > 227 * 1024)
     assert plan.per_split % 256 == 0 and plan.splits >= 1
     starts = np.arange(plan.splits) * plan.per_split
     ends = np.minimum(starts + plan.per_split, n)
@@ -187,14 +195,26 @@ def test_ball_query_plan(m, n, u):
 
 
 def test_ball_query_plan_most_neighbors():
-    """U = 1,750 hits a center still fit a block of 32 centers; U = 1,751
-    do not, and the plan says so instead of handing the kernel a launch it
-    refuses."""
+    """U = 1,750 hits a center still fit a block of 32 centers in shared
+    memory, and keep that plan; from U = 1,751 they do not, and the plan
+    takes the device-memory path (the hits in the output rows or the
+    splits' rows, 256 centers a block) instead of refusing."""
     from pvcnn_tpu_torch.ops import neighbors
 
-    assert neighbors._ball_query_plan(1, 5, 100, 1750, 132).threads == 32
-    with pytest.raises(ValueError, match="1750"):
-        neighbors._ball_query_plan(1, 5, 100, 1751, 132)
+    plan = neighbors._ball_query_plan(1, 5, 100, 1750, 132)
+    assert plan == neighbors.BallQueryPlan(32, 1, 256, False)
+    assert neighbors._ball_query_plan(32, 1024, 8192, 1750, 132) == \
+        neighbors.BallQueryPlan(32, 2, 4096, False)
+    for u in (1751, 2048, 4096):
+        assert neighbors._ball_query_plan(1, 5, 100, u, 132) == \
+            neighbors.BallQueryPlan(32, 1, 256, True)
+        plan = neighbors._ball_query_plan(32, 1024, 8192, u, 132)
+        assert plan.device_hits and plan.threads == 256
+        assert plan.scratch_ints(32, 1024, u) == \
+            plan.splits * 32 * 1024 * (u + 1)
+    # PVCNN2's four calls keep their shared-memory plans
+    for (m, n) in ((1024, 8192), (256, 1024), (64, 256), (16, 64)):
+        assert not neighbors._ball_query_plan(32, m, n, 32, 132).device_hits
 
 
 def _ball_query_splits(ctr, pts, r2, u, per_split):
@@ -249,6 +269,35 @@ def test_ball_query_split_merge(cloud, u, per_split):
         assert (hits < u).any() and (hits >= 1).any()
 
 
+@pytest.mark.parametrize("per_split", [1024, 2560])
+@pytest.mark.parametrize("cloud", ["random", "cluster"])
+def test_ball_query_split_merge_many_neighbors(cloud, per_split):
+    """K7's split-and-merge (in numpy) at U = 2,048, the device-memory
+    path's, equals `_ball_query_plain`: N = 5,000 points, so that a dense
+    cluster's centers reach their U-th hit in the second or third split
+    and random clouds take the fill."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    n, m, u = 5000, 6, 2048
+    if cloud == "random":
+        x = _room(per_split, 2, n)
+        c = _room(per_split + 1, 2, m, dup=False)
+        c[:, 4] += 10.0                            # no hit
+        radius = 0.5
+    else:
+        radius = 0.15
+        x, c = _cluster(per_split, 2, n, m, radius)
+    r2 = neighbors._fp32(radius ** 2)
+    want = neighbors._ball_query_plain(_t(c), _t(x), r2, u).numpy()
+    got = _ball_query_splits(c, x, np.float32(r2), u, per_split)
+    np.testing.assert_array_equal(got, want)
+    hits = (neighbors.sq_dist(_t(c), _t(x)) < r2).sum(-1)
+    if cloud == "cluster":
+        assert (hits >= u).all()
+    else:
+        assert (hits < u).all() and (hits >= 1).any() and (hits == 0).any()
+
+
 def test_ball_query_radius_edge():
     """A point at exactly the fp32 radius is out (strict <), one ulp inside
     is in: r² is the fp32 rounding of float(radius) ** 2."""
@@ -295,6 +344,126 @@ def test_three_nn_plain_returns_inf_for_missing_centers():
     x = _room(3, 1, 8)
     idx, d2 = ops.interpolate._three_nn_plain(_t(x), _t(x[:, :1]))
     assert torch.isinf(d2[..., 1:]).all() and (idx[..., 1:] == 0).all()
+
+
+_NN_EDGES = (1, 2, 3, 31, 32, 33, 255, 257, 1025, 8193, 20000)
+
+
+def _nn_sizes():
+    """chip_smoke.py's three-NN cases (PVCNN2's four levels, then the
+    PointNet++ paths' feature propagation: ShapeNet PointNet2 and Frustum
+    PointNet2), and every pair of the edge sizes."""
+    import chip_smoke
+
+    cases = {c for (k, c) in chip_smoke.CALLS2 if k == "three_nn"}
+    cases |= set(chip_smoke.NN_MORE)
+    return sorted(cases | {(n, m) for n in _NN_EDGES for m in _NN_EDGES})
+
+
+@pytest.mark.parametrize("n,m", _nn_sizes())
+def test_three_nn_plan(n, m):
+    """K8's plan for 32 clouds on a card of 132 SMs is a launch the kernel
+    takes (pvcnn_three_nn's checks): 1 to 8 runs of centers that cover the
+    M centers once, in order, none empty, threads a block in `runs` groups
+    of whole warps, at most 256, and the shared memory (the ring, 2 x 512
+    float4 centers, reused for the runs' best threes) within 48 KB; it
+    splits the centers only where one query a thread fills under 12 warps
+    an SM, into runs of at least 16. Runs and threads are powers of two
+    (the kernel divides by shifts); runs of 256 centers or more scan into
+    hit masks."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    plan = interpolate._three_nn_plan(32, n, m, 132)
+    assert plan.runs in (1, 2, 4, 8)
+    assert plan.threads in (32, 64, 128, 256)
+    assert plan.threads >= 32 * plan.runs
+    starts = np.arange(plan.runs) * plan.per_run
+    ends = np.minimum(starts + plan.per_run, m)
+    assert plan.per_run >= 1 and starts[0] == 0 and ends[-1] == m
+    assert (ends > starts).all() or m == 0
+    assert (starts[1:] == ends[:-1]).all()
+    group = plan.threads // plan.runs
+    merge = (plan.runs - 1) * 3 * group * 8
+    assert max(2 * 512 * 16, merge) <= 48 * 1024
+    want = 12 * 32 * 132
+    if plan.runs > 1:
+        assert 32 * n * plan.runs // 2 < want
+        assert plan.per_run >= 16
+    assert plan.hit_masks == (plan.per_run >= 256)
+
+
+def _three_nn_runs(x, c, per_run):
+    """K8's runs and merge in numpy: each run of per_run centers keeps the
+    best three of an in-order scan with a strict `<` (so a tie keeps the
+    lower index); the runs' best threes are then inserted, run by run, in
+    the same way into the first run's. -> (idx [B, N, 3] int32, d² [B, N,
+    3] float32)."""
+    b, n, _ = x.shape
+    m = c.shape[1]
+    d = x[:, :, None, :] - c[:, None, :, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+    def insert(best, dist, i):
+        for slot in range(3):
+            if dist < best[slot][0]:
+                best.insert(slot, (dist, i))
+                del best[3]
+                return
+
+    idx = np.zeros((b, n, 3), np.int32)
+    val = np.full((b, n, 3), np.inf, np.float32)
+    for i in range(b):
+        for q in range(n):
+            runs = []
+            for lo in range(0, max(m, 1), per_run):
+                best = [(np.float32(np.inf), 0)] * 3
+                for j in range(lo, min(lo + per_run, m)):
+                    insert(best, d2[i, q, j], j)
+                runs.append(best)
+            merged = list(runs[0])
+            for best in runs[1:]:
+                for dist, j in best:
+                    insert(merged, dist, j)
+            idx[i, q] = [j for _, j in merged]
+            val[i, q] = [dist for dist, _ in merged]
+    return idx, val
+
+
+@pytest.mark.parametrize("m,per_run", [(1, 1), (2, 1), (2, 2), (3, 2),
+                                       (40, 16), (64, 16), (100, 13),
+                                       (128, 32), (37, 37)])
+@pytest.mark.parametrize("cloud", ["random", "ties"])
+def test_three_nn_split_merge(jax_formulation, cloud, m, per_run):
+    """K8's runs and merge (in numpy) equal `_three_nn_plain` (indices and
+    d² exactly) and the JAX `three_nn` (indices exactly, weights within
+    1e-6 relative): random clouds, M < 3, M not a multiple of the run, and
+    duplicated centers whose ties straddle a run boundary, with queries on
+    them."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    n = 48
+    x = _room(m * 7 + per_run, 2, n, dup=False)
+    c = _room(m * 7 + per_run + 1, 2, m, dup=False)
+    if cloud == "ties" and m >= 4:
+        at = min(per_run, m - 2)                  # a run boundary, or inside
+        c[:, at + 1] = c[:, at - 1]               # equal d² for every query
+        c[:, at] = c[:, 0]
+        x[:, :3] = c[:, [0, at - 1, at]]          # queries on tied centers
+        x[:, 3:6] = (c[:, [0, at - 1, 1]] + c[:, [at, at + 1, 2]]) / 2
+    idx, d2 = _three_nn_runs(x, c, per_run)
+    want_idx, want_d2 = interpolate._three_nn_plain(_t(x), _t(c))
+    np.testing.assert_array_equal(idx, want_idx.numpy())
+    np.testing.assert_array_equal(d2, want_d2.numpy())
+    jidx, jw = jops.three_nn(jnp.asarray(x), jnp.asarray(c))
+    np.testing.assert_array_equal(idx, np.asarray(jidx))
+    w = interpolate._weights_from_d2(_t(d2)).numpy()
+    np.testing.assert_allclose(w, np.asarray(jw), rtol=1e-6,
+                               atol=1e-6 * np.abs(np.asarray(jw)).max())
+    if m < 3:
+        assert (idx[..., m:] == 0).all() and np.isinf(d2[..., m:]).all()
+    if cloud == "ties" and m >= 4:
+        # a query on center 0 ties with its copy `at`: the lower index first
+        assert (idx[:, 0, :2] == [0, at]).all()
 
 
 def _vjp_close(jfn, tfn, primal, cot, tol=1e-5):
