@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py [--profile]
 
-Three main paths: ShapeNet PVCNN 1x (B = 32, N = 2048), S3DIS PVCNN2 1x
-(B = 32, N = 8192, 9 channels, 13 classes) and S3DIS PVCNN 1x (B = 32,
+Main paths: ShapeNet PVCNN 1x (B = 32, N = 2048), S3DIS PVCNN2 1x
+(B = 32, N = 8192, 9 channels, 13 classes), S3DIS PVCNN 1x (B = 32,
 N = 4096, 9 channels, 13 classes) with the three switches that open its
 opt-in path (PVCNN_TPU_DENSE_BN_FUSED=auto, PVCNN_TPU_CONV_ROWS=0,
-PVCNN_TPU_CUSTOM_CONV_WGRAD=1). Phases, each printing its own lines and
-raising on failure:
+PVCNN_TPU_CUSTOM_CONV_WGRAD=1), ShapeNet PointNet++ MSG 1x (B = 32,
+N = 2048, 22 channels, 50 classes; with DENSE_BN_FUSED=auto its opt-in
+path) and SSG 1x (6 channels), and the PointNets, whose default paths
+launch no kernel. Phases, each printing its own lines and its seconds,
+and raising on failure:
 
   1. device     requires CUDA (exits non-zero without it), prints
                 `nvidia-smi --query-gpu=name,power.limit`, turns TF32 off;
@@ -52,7 +55,7 @@ raising on failure:
                 bound (the larger of chain floor and FLOP bound); each
                 three-NN case its plan, device time and share of its
                 bound; then, not counted per step, ball query on a dense
-                cloud at U = 32 and U = 2,048 and three-NN at the coming
+                cloud at U = 32 and U = 2,048 and three-NN at the
                 PointNet++ paths' shapes (NN_MORE), held exactly to the
                 plain versions;
   9. pvcnn2 slice
@@ -86,11 +89,37 @@ raising on failure:
                 ms/step;
  15. pvcnn trainer
                 as phase 11, with the switches off and then on: the two
-                S3DIS PVCNN main paths.
+                S3DIS PVCNN main paths;
+ 16. pointnet2 kernels
+                as phase 8 at the shapes ShapeNet PointNet++ SSG and MSG
+                training give FPS, ball query (U up to 128, radii up to
+                0.8), three-NN (against the group-all level's one center)
+                and K1's sum mode (384 rows into one bin among them); and
+                K9 (its dgrad) and K10 at the MSG step's 26 fused
+                SharedMLP layers (DENSE_BN_FUSED=auto);
+ 17. pointnet2 slice
+                MSG and SSG eval forward, as phase 4;
+ 18. pointnet2 train
+                MSG training steps, as phase 6; one step with
+                DENSE_BN_FUSED=auto (K9/K10) against its step 1 (launches
+                asserted, ms/step; with --profile its breakdown too); SSG
+                training steps, as phase 6;
+ 19. pointnet2 trainer
+                the training entry point with model pointnet2msg and then
+                pointnet2ssg, as phase 7: the two PointNet++ main paths;
+                the voting evaluator with pointnet2ssg (six input columns);
+ 20. pointnet
+                ShapeNet PointNet with its T-Nets (32 x 2048 x 19) and
+                S3DIS PointNet (32 x 4096): eval forward and training step
+                (ms, peak memory) without a launch, then one step with
+                DENSE_BN_FUSED=auto (K9/K10, launches asserted) against
+                it; the training entry point with model pointnet and
+                phase 11's trainer for S3DIS PointNet, without a launch.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
-the trainer phases (7, 11 and both runs of 15); its times, bounds and
+the trainer phases (7, 11, both runs of 15, and 19's two) and, for K9/K10
+on the MSG opt-in path, the switched step of 18; its times, bounds and
 library time are per training step, summed over the paths' steps (each
 path's own numbers under "paths"; K1's and K5's records there also carry
 glue_ms and kernel_alone_ms, the two parts of their ms).
@@ -125,8 +154,13 @@ PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # another order than cuDNN's fp32 (TF32 off) conv; K9 and its dgrad sum
 # Ci (Co) products in another order than cuBLAS; K4, K10 and K11 sum
 # B * R^3 (or B * N) products, so their atol is relative to the gradient's
-# largest entry. The index kernels (fps, ball_query, three_nn) must equal
-# their plain versions exactly; three_nn's d² and weights are held to 1e-5.
+# largest entry; K1's sum mode is held to an fp64 sum at 1e-6 of each
+# output's sum of |terms|, and where a bin sums more than 128 rows (none of
+# PVCNN2's does; PointNet++'s FP1 sums 384 into one) its atol against the
+# plain version is that bound too, at least 1e-5: the order alone moves
+# such a sum by a few ulps of its sum of |terms|. The index kernels (fps,
+# ball_query, three_nn) must equal their plain versions exactly; three_nn's
+# d² and weights are held to 1e-5.
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
        "conv3d_fwd": (1e-4, 1e-4), "conv3d_dgrad": (1e-4, 1e-4),
        "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5),
@@ -202,11 +236,12 @@ CALLS2 = {
     ("scatter_sum", (3072, 256, 256)): 1,
     ("scatter_sum", (24576, 1024, 128)): 1,
 }
-# three-NN (N, M) on the PointNet++ paths still to be ported, timed and held
-# to the plain version, not counted per step: ShapeNet PointNet2's feature
-# propagation (pvcnn_tpu/models/shapenet/pointnetpp.py:108-121; (128, 1)
-# against the group-all level's single center) and Frustum PointNet2's
-# (pvcnn_tpu/models/kitti/frustum/segmentation.py:110-117)
+# three-NN (N, M) at the PointNet++ paths' shapes on ShapeNet-like clouds,
+# timed and held to the plain version, not counted per step: ShapeNet
+# PointNet2's feature propagation (counted per step in phase 16; (128, 1)
+# against the group-all level's single center) and Frustum PointNet2's,
+# still to be ported (pvcnn_tpu/models/kitti/frustum/segmentation.py:
+# 110-117)
 NN_MORE = ((2048, 512), (512, 128), (128, 1), (1024, 128), (128, 32),
            (32, 1))
 # a PVConv's devoxelize and its backward run at (Co, R, points)
@@ -266,6 +301,62 @@ for _calls in (CALLS, CALLS2, CALLS3, CALLS3_ON):
             _calls[("conv3d_wgrad", _c)] = _n
         if _k == "dense_rows_fwd":
             _calls[("dense_rows_wgrad", _c)] = _n
+# The same per ShapeNet PointNet++ 1x training step (B = 32, N = 2048;
+# models/shapenet/pointnetpp.py), from the models' structure: FPS (N, M)
+# 2048 -> 512 -> 128 points; ball query (M, N, radius, U) per branch of
+# SA1 and SA2 (SA3 groups all); three-NN (N, M) per FP, (128, 1) against
+# the group-all level's single center; K1's sum mode (K rows, bins, C) for
+# the take_rows backwards of SA2's groupings of SA1's features (SA1 groups
+# the input normals, which take no gradient) and of the three FP
+# interpolations, (384, 1, 1024) with every row in one bin.
+_PN2_SHARED = {
+    ("fps", (2048, 512)): 1, ("fps", (512, 128)): 1,
+    ("three_nn", (128, 1)): 1, ("three_nn", (512, 128)): 1,
+    ("three_nn", (2048, 512)): 1,
+    ("scatter_sum", (384, 1, 1024)): 1, ("scatter_sum", (1536, 128, 256)): 1,
+    ("scatter_sum", (6144, 512, 128)): 1,
+}
+CALLS_SSG = {
+    **_PN2_SHARED,
+    ("ball_query", (512, 2048, 0.2, 64)): 1,
+    ("ball_query", (128, 512, 0.4, 64)): 1,
+    ("scatter_sum", (8192, 512, 128)): 1,
+}
+CALLS_MSG = {
+    **_PN2_SHARED,
+    ("ball_query", (512, 2048, 0.1, 32)): 1,
+    ("ball_query", (512, 2048, 0.2, 64)): 1,
+    ("ball_query", (512, 2048, 0.4, 128)): 1,
+    ("ball_query", (128, 512, 0.4, 64)): 1,
+    ("ball_query", (128, 512, 0.8, 128)): 1,
+    ("scatter_sum", (8192, 512, 320)): 1,
+    ("scatter_sum", (16384, 512, 320)): 1,
+}
+# MSG with PVCNN_TPU_DENSE_BN_FUSED=auto: every SharedMLP layer given one
+# array of rows >= 1024, rows % 256 == 0, runs K9/K10 (rows, Ci, Co,
+# prologue): SA1's three branches on B * 512 * U grouped rows of the 3
+# normals and 3 offsets, SA2's two on B * 128 * U rows of 320 + 3, the
+# group-all SA3 on B * 128 rows of 512 + 3, the FPs on B * 128, B * 512
+# and B * 2048 rows (their inputs the interpolated features and the skip),
+# and the classifier's first layer; the dgrad (rows, Co, Ci) of each but
+# SA1's first layers, whose input is the cloud.
+CALLS_MSG_ON = {}
+for _rows, _widths in (
+        (B * 512 * 32, (6, 32, 32, 64)), (B * 512 * 64, (6, 64, 64, 128)),
+        (B * 512 * 128, (6, 64, 96, 128)),
+        (B * 128 * 64, (323, 128, 128, 256)),
+        (B * 128 * 128, (323, 128, 196, 256)),
+        (B * 128, (515, 256, 512, 1024)), (B * 128, (1536, 256, 256)),
+        (B * 512, (576, 256, 128)), (B * N, (150, 128, 128, 128)),
+        (B * N, (128, 128))):
+    for _ci, _co in zip(_widths, _widths[1:]):
+        for _k, _c in (("dense_rows_fwd", (_rows, _ci, _co, False)),
+                       ("dense_rows_dgrad", (_rows, _co, _ci))):
+            if _k == "dense_rows_dgrad" and _ci == 6:
+                continue
+            CALLS_MSG_ON[(_k, _c)] = CALLS_MSG_ON.get((_k, _c), 0) + 1
+        CALLS_MSG_ON[("dense_rows_wgrad", (_rows, _ci, _co, False))] = \
+            CALLS_MSG_ON[("dense_rows_fwd", (_rows, _ci, _co, False))]
 # the JAX package's switches that open S3DIS PVCNN's opt-in path
 SWITCHES = {"PVCNN_TPU_DENSE_BN_FUSED": "auto", "PVCNN_TPU_CONV_ROWS": "0",
             "PVCNN_TPU_CUSTOM_CONV_WGRAD": "1"}
@@ -297,13 +388,31 @@ PER_STEP2 = {"avg_voxelize": 13, "trilinear_devoxelize": 13,
              "ball_query": 4, "three_nn": 4}
 PER_STEP3 = per_step3(frozenset())
 PER_STEP3_ON = per_step3(frozenset(SWITCHES))
+PER_STEP_SSG = {"fps": 2, "ball_query": 2, "three_nn": 3, "scatter_sum": 4}
+PER_STEP_MSG = {"fps": 2, "ball_query": 5, "three_nn": 3, "scatter_sum": 5}
+_FUSED_MSG = {"dense_rows_fwd": 26, "dense_rows_dgrad": 23,
+              "dense_rows_wgrad": 26}
+PER_STEP_MSG_ON = {**PER_STEP_MSG, **_FUSED_MSG}
+# K9/K10 per training step with PVCNN_TPU_DENSE_BN_FUSED=auto, where the
+# default path launches no kernel: ShapeNet PointNet with its T-Nets (the
+# T-Nets' three SharedMLPs each, the five point blocks, the classifier's
+# second and third layers; its first takes a list and stays unfused; no
+# dgrad into the cloud) and S3DIS PointNet (five point blocks and the
+# classifier's second layer)
+PER_STEP_POINTNET_ON = {"dense_rows_fwd": 13, "dense_rows_dgrad": 12,
+                        "dense_rows_wgrad": 13}
+PER_STEP_S3DIS_POINTNET_ON = {"dense_rows_fwd": 6, "dense_rows_dgrad": 5,
+                              "dense_rows_wgrad": 6}
 
 
 def check_calls() -> None:
     """Each record's calls per step sum to the launches per step that the
     training phases count."""
     for calls, per_step in ((CALLS, PER_STEP), (CALLS2, PER_STEP2),
-                            (CALLS3, PER_STEP3), (CALLS3_ON, PER_STEP3_ON)):
+                            (CALLS3, PER_STEP3), (CALLS3_ON, PER_STEP3_ON),
+                            (CALLS_SSG, PER_STEP_SSG),
+                            (CALLS_MSG, PER_STEP_MSG),
+                            (CALLS_MSG_ON, _FUSED_MSG)):
         sums = {}
         for (k, _), n in calls.items():
             sums[k] = sums.get(k, 0) + n
@@ -343,6 +452,11 @@ def cloud(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
     one_hot = np.zeros((b, n, 16))
     one_hot[np.arange(b), :, rng.randint(0, 16, b)] = 1.0
     return np.concatenate([xyz, dirs, one_hot], axis=-1).astype(np.float32)
+
+
+# the columns of cloud() that ShapeNet PointNet takes: xyz and the one-hot
+# shape id (its config gives no normals)
+XYZ_ONE_HOT = [0, 1, 2] + list(range(6, 22))
 
 
 def windows(rng: np.random.RandomState, b: int, n: int):
@@ -436,9 +550,11 @@ def phase_build() -> None:
         else f"{path.name} already built")
 
 
-def _compare(kernel, case, got, want, atol_scale: float = 1.0) -> float:
+def _compare(kernel, case, got, want, atol_scale=1.0) -> float:
+    """got against want at TOL[kernel], its atol times atol_scale (a
+    number, or a tensor of one scale an element)."""
     rtol, atol = TOL[kernel]
-    atol *= atol_scale
+    atol = atol * atol_scale
     err = (got - want).abs()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{kernel} {case}: non-finite output")
@@ -447,7 +563,7 @@ def _compare(kernel, case, got, want, atol_scale: float = 1.0) -> float:
     rel = (err[big] / want.abs()[big]).max().item() if big.any() else 0.0
     log("kernels", f"{kernel} {case}: max_abs_err {err.max().item():.3e} "
         f"max_rel_err {rel:.3e} where |plain| > 1e-3 (rtol {rtol}, "
-        f"atol {atol:.3g})")
+        f"atol {float(torch.as_tensor(atol).max()):.3g})")
     if bad.any():
         raise AssertionError(f"{kernel} {case}: {int(bad.sum())} elements "
                              "outside tolerance")
@@ -795,35 +911,139 @@ def _exact(kernel, case, got, want) -> None:
     log("kernels", f"{kernel} {case}: indices equal the plain version's")
 
 
-def phase_pvcnn2_kernels() -> dict:
-    """Every kernel of the PVCNN2 training step at its shapes there, on
-    one batch of synthetic windows: the FPS / ball-query / three-NN
-    hierarchy of the model (8192 -> 1024 -> 256 -> 64 -> 16 points), K1's
-    sum mode on the take_rows backwards it implies, and K1-K5."""
-    from pvcnn_tpu_torch.ops import interpolate, neighbors, sampling, voxelize
+def _fps_case(rec: Record, pts, m):
+    """K6 at (N, M) on the points pts [B, N, 3] -> the M centers' indices,
+    equal to the plain version's; logs its launch plan, its chain floor
+    (the kernel's argmax and exchange alone) and the share of its bound."""
+    from pvcnn_tpu_torch.ops import sampling
 
-    dev = torch.device(DEVICE)
-    torch.manual_seed(SEED)
-    x, _ = windows(np.random.RandomState(SEED + 10), B, N2)
-    levels = [torch.from_numpy(x[..., :3]).to(dev)]
-    rec = Record(CALLS2)
-    for (n, m) in ((8192, 1024), (1024, 256), (256, 64), (64, 16)):
-        pts = levels[-1]
-        case = (n, m)
-        run_k = lambda: sampling._fps_cuda(pts, m)
-        run_p = lambda: sampling._fps_plain(pts, m)
-        idx = _twice("fps", case, run_k)
-        _exact("fps", case, idx, run_p())
-        ms, bound = rec.add("fps", case, 0.0, run_k, run_p,
-                            10.0 * B * n * (m - 1), 4 * (B * n * 3 + B * m),
-                            plain_reps=3)
-        # the chain floor: the same steps' argmax and exchange alone
+    n = pts.shape[1]
+    case = (n, m)
+    run_k = lambda: sampling._fps_cuda(pts, m)
+    run_p = lambda: sampling._fps_plain(pts, m)
+    idx = _twice("fps", case, run_k)
+    _exact("fps", case, idx, run_p())
+    timed = rec.add("fps", case, 0.0, run_k, run_p, 10.0 * B * n * (m - 1),
+                    4 * (B * n * 3 + B * m), plain_reps=3)
+    if timed:
+        ms, bound = timed
         chain = time_ms(lambda: sampling._fps_cuda(pts, m, chain_only=True))
         holds = "chain floor" if chain >= bound else "FLOP bound"
         log("kernels", f"fps {case}: {m - 1} dependent steps; (cluster, "
             f"threads, points per thread) {sampling._fps_plan(n)}; chain "
             f"floor {chain:.4f} ms, FLOP bound {bound:.4f} ms: the {holds} "
             f"holds, {max(chain, bound) / ms:.1%} of the kernel's time")
+    return idx
+
+
+def _ball_query_case(rec: Record, pts, ctr, radius, u, sms):
+    """K7 at (M, N, radius, U) -> the [B, M, U] indices, equal to the plain
+    version's; logs the hits, the points scanned and the launch plan."""
+    from pvcnn_tpu_torch.ops import neighbors
+
+    n, m = pts.shape[1], ctr.shape[1]
+    r2 = neighbors._fp32(radius ** 2)
+    case = (m, n, radius, u)
+    run_k = lambda: neighbors._ball_query_cuda(ctr, pts, r2, u)
+    run_p = lambda: neighbors._ball_query_plain(ctr, pts, r2, u)
+    got = _twice("ball_query", case, run_k)
+    _exact("ball_query", case, got, run_p())
+    # the points each center scans: to its U-th hit, or all N (a center
+    # with fewer than U hits repeats its first hit in the last slot)
+    full = got[..., u - 1] != got[..., 0]
+    scanned = torch.where(full, got[..., u - 1].long() + 1, n).sum()
+    hits = (neighbors.sq_dist(ctr, pts) < r2).sum(-1)
+    log("kernels", f"ball_query {case}: mean hits {hits.float().mean():.2f}"
+        f", {float((hits < u).float().mean()):.3f} of the centers take "
+        f"the fill; {float(scanned) / (B * m * n):.3f} of the points "
+        f"scanned; plan {neighbors._ball_query_plan(B, m, n, u, sms)}")
+    rec.add("ball_query", case, 0.0, run_k, run_p, 9.0 * float(scanned),
+            4 * (B * m * 3 + B * n * 3 + B * m * u), plain_reps=5)
+    return got
+
+
+def _three_nn_case(rec: Record, pts, ctr, sms):
+    """K8 at (N, M) -> the [B, N, 3] indices, equal to the plain version's,
+    d² and the weights from them held to TOL; logs the plan and the share
+    of the bound."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    case = (pts.shape[1], ctr.shape[1])
+    n, m = case
+    run_k = lambda: interpolate._three_nn_cuda(pts, ctr)
+    run_p = lambda: interpolate._three_nn_plain(pts, ctr)
+    idx, d2 = _twice("three_nn", case, run_k)
+    want_idx, want_d2 = run_p()
+    _exact("three_nn", case, idx, want_idx)
+    err = _compare("three_nn", case, interpolate._weights_from_d2(d2),
+                   interpolate._weights_from_d2(want_d2))
+    # with M < 3 centers the unfilled slots hold d² = inf on both sides
+    if not torch.equal(d2[..., m:], want_d2[..., m:]):
+        raise AssertionError(f"three_nn {case}: unfilled slots differ")
+    err = max(err, _compare("three_nn", case, d2[..., :m], want_d2[..., :m]))
+    timed = rec.add("three_nn", case, err, run_k, run_p, 9.0 * B * n * m,
+                    4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3),
+                    plain_reps=5)
+    if timed:
+        _three_nn_log(case, run_k, *timed, sms)
+    return idx
+
+
+def _scatter_sum_case(rec: Record, idx, bins, c) -> None:
+    """K1's sum mode, the take_rows backward, on idx [B, K] into `bins`
+    rows of C channels, against the plain version and index_add_; logs
+    the longest run (the most rows of one cloud in one bin, which one lane
+    group walks serially)."""
+    from pvcnn_tpu_torch.ops import voxelize
+
+    dev = idx.device
+    k = idx.shape[1]
+    case = (k, bins, c)
+    values = torch.randn(B, k, c, device=dev)
+    run_k = lambda: voxelize._scatter_sum_cuda(values, idx, bins)
+    run_p = lambda: voxelize._scatter_sum_plain(values, idx, bins)
+    flat = (idx.long() + torch.arange(B, device=dev)[:, None] * bins
+            ).reshape(-1)
+    rows = values.reshape(-1, c)
+    run_lib = lambda: values.new_zeros(B * bins, c).index_add_(0, flat, rows)
+    got = _twice("scatter_sum", case, run_k)
+    want = run_p()
+    # each output's sum of |terms| and its bin's rows, and the exact sum
+    mag = voxelize._scatter_sum_plain(values.abs(), idx, bins)
+    rows_in = voxelize._scatter_sum_plain(torch.ones_like(values[..., :1]),
+                                          idx, bins)
+    err = _compare("scatter_sum", case, got, want,
+                   torch.where(rows_in > 128, (mag / 10).clamp(min=1.0), 1.0))
+    exact = voxelize._scatter_sum_plain(values.double(), idx, bins)
+    e_k = ((got - exact).abs() / mag.clamp(min=1e-30)).max().item()
+    e_p = ((want - exact).abs() / mag.clamp(min=1e-30)).max().item()
+    log("kernels", f"scatter_sum {case}: max |. - fp64 sum| / sum|terms| "
+        f"kernel {e_k:.3e}, plain {e_p:.3e} (<= 1e-6)")
+    if e_k > 1e-6:
+        raise AssertionError(f"scatter_sum {case}: kernel off the fp64 sum")
+    lib_ok = _library_agrees("scatter_sum", case,
+                             run_lib().reshape(B, bins, c), want)
+    split, longest = _k1_split("scatter_sum", values, idx, bins, False,
+                               False)
+    log("kernels", f"scatter_sum {case}: longest run {longest} rows")
+    rec.add("scatter_sum", case, err, run_k, run_p, B * k * c,
+            4 * (B * k * c + B * k + B * bins * c),
+            run_lib if lib_ok else None, split=split)
+
+
+def phase_pvcnn2_kernels() -> dict:
+    """Every kernel of the PVCNN2 training step at its shapes there, on
+    one batch of synthetic windows: the FPS / ball-query / three-NN
+    hierarchy of the model (8192 -> 1024 -> 256 -> 64 -> 16 points), K1's
+    sum mode on the take_rows backwards it implies, and K1-K5."""
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    x, _ = windows(np.random.RandomState(SEED + 10), B, N2)
+    levels = [torch.from_numpy(x[..., :3]).to(dev)]
+    rec = Record(CALLS2)
+    for m in (1024, 256, 64, 16):
+        pts = levels[-1]
+        idx = _fps_case(rec, pts, m)
         levels.append(torch.gather(pts, 1, idx.long()[..., None].expand(
             -1, -1, 3)))
 
@@ -832,43 +1052,10 @@ def phase_pvcnn2_kernels() -> dict:
     for level, (radius, u) in enumerate(((0.1, 32), (0.2, 32), (0.4, 32),
                                          (0.8, 32))):
         pts, ctr = levels[level], levels[level + 1]
-        n, m = pts.shape[1], ctr.shape[1]
-        r2 = neighbors._fp32(radius ** 2)
-        case = (m, n, radius, u)
-        run_k = lambda: neighbors._ball_query_cuda(ctr, pts, r2, u)
-        run_p = lambda: neighbors._ball_query_plain(ctr, pts, r2, u)
-        got = _twice("ball_query", case, run_k)
-        _exact("ball_query", case, got, run_p())
-        # the points each center scans: to its U-th hit, or all N (a
-        # center with fewer than U hits repeats its first hit in the last
-        # slot)
-        full = got[..., u - 1] != got[..., 0]
-        scanned = torch.where(full, got[..., u - 1].long() + 1, n).sum()
-        hits = (neighbors.sq_dist(ctr, pts) < r2).sum(-1)
-        log("kernels", f"ball_query {case}: mean hits {hits.float().mean():.2f}"
-            f", {float((hits < u).float().mean()):.3f} of the centers take "
-            f"the fill; {float(scanned) / (B * m * n):.3f} of the points "
-            f"scanned; plan {neighbors._ball_query_plan(B, m, n, u, sms)}")
-        rec.add("ball_query", case, 0.0, run_k, run_p, 9.0 * float(scanned),
-                4 * (B * m * 3 + B * n * 3 + B * m * u), plain_reps=5)
-        group_idx[level] = got.reshape(B, m * u)
-
-        case = (n, m)
-        run_k = lambda: interpolate._three_nn_cuda(pts, ctr)
-        run_p = lambda: interpolate._three_nn_plain(pts, ctr)
-        idx, d2 = _twice("three_nn", case, run_k)
-        want_idx, want_d2 = run_p()
-        _exact("three_nn", case, idx, want_idx)
-        err = _compare("three_nn", case, d2, want_d2)
-        err = max(err, _compare("three_nn", case,
-                                interpolate._weights_from_d2(d2),
-                                interpolate._weights_from_d2(want_d2)))
-        ms, bound = rec.add("three_nn", case, err, run_k, run_p,
-                            9.0 * B * n * m,
-                            4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3),
-                            plain_reps=5)
-        _three_nn_log(case, run_k, ms, bound, sms)
-        interp_idx[level] = idx.reshape(B, n * 3)
+        got = _ball_query_case(rec, pts, ctr, radius, u, sms)
+        group_idx[level] = got.reshape(B, -1)
+        idx = _three_nn_case(rec, pts, ctr, sms)
+        interp_idx[level] = idx.reshape(B, -1)
 
     _ball_query_dense(dev)
     _ball_query_many(dev)
@@ -877,35 +1064,57 @@ def phase_pvcnn2_kernels() -> dict:
     # the take_rows backwards: SA groupings (B, M*U rows into N bins) and
     # FP interpolations (B, 3N rows into M bins)
     sa_c, fp_c = (32, 64, 128, 256), (128, 256, 256, 512)
-    sources = [(group_idx[l], levels[l].shape[1], sa_c[l]) for l in range(4)]
-    sources += [(interp_idx[l], levels[l + 1].shape[1], fp_c[l])
-                for l in range(4)]
-    for idx, bins, c in sources:
-        k = idx.shape[1]
-        case = (k, bins, c)
-        values = torch.randn(B, k, c, device=dev)
-        run_k = lambda: voxelize._scatter_sum_cuda(values, idx, bins)
-        run_p = lambda: voxelize._scatter_sum_plain(values, idx, bins)
-        flat = (idx.long() + torch.arange(B, device=dev)[:, None] * bins
-                ).reshape(-1)
-        rows = values.reshape(-1, c)
-        run_lib = lambda: values.new_zeros(B * bins, c).index_add_(
-            0, flat, rows)
-        got = _twice("scatter_sum", case, run_k)
-        want = run_p()
-        err = _compare("scatter_sum", case, got, want)
-        lib_ok = _library_agrees("scatter_sum", case,
-                                 run_lib().reshape(B, bins, c), want)
-        split, longest = _k1_split("scatter_sum", values, idx, bins, False,
-                                   False)
-        log("kernels", f"scatter_sum {case}: longest run {longest} rows")
-        rec.add("scatter_sum", case, err, run_k, run_p, B * k * c,
-                4 * (B * k * c + B * k + B * bins * c),
-                run_lib if lib_ok else None, split=split)
+    for l in range(4):
+        _scatter_sum_case(rec, group_idx[l], levels[l].shape[1], sa_c[l])
+    for l in range(4):
+        _scatter_sum_case(rec, interp_idx[l], levels[l + 1].shape[1],
+                          fp_c[l])
 
     by_n = {t.shape[1]: t for t in levels}
     _time_pvconv_kernels(rec, lambda n: by_n[n], normalize=True)
     return rec.summary("S3DIS PVCNN2 1x")
+
+
+def phase_pointnet2_kernels():
+    """Every kernel of the ShapeNet PointNet++ SSG and MSG training steps
+    at its shapes there, on one batch of ShapeNet-like clouds: FPS 2048 ->
+    512 -> 128 points, the ball query of each SA branch, the three-NN of
+    each FP (128 points against the group-all level's zero center, 512
+    against 128, 2048 against 512), and K1's sum mode on the take_rows
+    backwards they imply; then K9, its dgrad and K10 at the MSG step's
+    fused SharedMLP layers (PVCNN_TPU_DENSE_BN_FUSED=auto). Returns the
+    records (SSG, MSG, MSG opt-in)."""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    torch.manual_seed(SEED)
+    pts = torch.from_numpy(cloud(np.random.RandomState(SEED + 40), B,
+                                 N)[..., :3]).to(dev)
+    out = []
+    for label, calls in (("ShapeNet PointNet2 SSG 1x", CALLS_SSG),
+                         ("ShapeNet PointNet2 MSG 1x", CALLS_MSG)):
+        rec = Record(calls)
+        cases = lambda kernel: sorted((c for k, c in calls if k == kernel),
+                                      reverse=True)
+        by_n = {N: pts, 1: torch.zeros(B, 1, 3, device=dev)}
+        for n, m in cases("fps"):
+            idx = _fps_case(rec, by_n[n], m)
+            by_n[m] = torch.gather(by_n[n], 1, idx.long()[..., None].expand(
+                -1, -1, 3))
+        # the take_rows indices [B, K] into `bins` rows, by (K, bins)
+        rows = {}
+        for m, n, radius, u in cases("ball_query"):
+            got = _ball_query_case(rec, by_n[n], by_n[m], radius, u, sms)
+            rows[(m * u, n)] = got.reshape(B, -1)
+        for n, m in cases("three_nn"):
+            rows[(3 * n, m)] = _three_nn_case(rec, by_n[n], by_n[m],
+                                              sms).reshape(B, -1)
+        for k, bins, c in cases("scatter_sum"):
+            _scatter_sum_case(rec, rows[(k, bins)], bins, c)
+        out.append(rec.summary(label))
+    on = Record(CALLS_MSG_ON)
+    _time_dense_kernels(on)
+    out.append(on.summary("ShapeNet PointNet2 MSG 1x opt-in"))
+    return tuple(out)
 
 
 def _ball_query_dense(dev) -> None:
@@ -950,16 +1159,19 @@ def _ball_query_many(dev) -> None:
 
 def _three_nn_log(case, run_k, ms, bound, sms) -> None:
     """A K8 case's plan, device time (torch.profiler over 10 calls) and
-    share of its bound."""
+    share of its bound. Late in a --profile run the profiler has recorded
+    part or none of these calls (after four step profiles); with none the
+    device time reads "not measured"."""
     import cases_util
     from pvcnn_tpu_torch.ops import interpolate
 
     own, _ = cases_util.device_ms(run_k, ("three_nn",))
     n, m = case
+    device = (f"device {own:.4f} ms ({bound / own:.1%} of the bound)" if own
+              else "device time not measured (no kernel in the profile)")
     log("kernels", f"three_nn {case}: plan "
-        f"{interpolate._three_nn_plan(B, n, m, sms)}; device {own:.4f} ms "
-        f"({bound / own:.1%} of the bound), {ms:.4f} ms by events "
-        f"({bound / ms:.1%})")
+        f"{interpolate._three_nn_plan(B, n, m, sms)}; {device}, {ms:.4f} ms "
+        f"by events ({bound / ms:.1%})")
 
 
 def nn_more_inputs(dev):
@@ -975,7 +1187,7 @@ def nn_more_inputs(dev):
 
 
 def _three_nn_more(dev, sms) -> None:
-    """K8 at the coming PointNet++ paths' shapes (NN_MORE), 32 clouds each:
+    """K8 at the PointNet++ paths' shapes (NN_MORE), 32 clouds each:
     indices and d² equal to the plain version's, timed, not counted per
     step."""
     from pvcnn_tpu_torch.ops import interpolate
@@ -994,19 +1206,22 @@ def _three_nn_more(dev, sms) -> None:
         _three_nn_log(case, run_k, time_ms(run_k), bound, sms)
 
 
-def _time_dense_kernels(rec: Record, rows: int) -> None:
+def _time_dense_kernels(rec: Record, rows: int | None = None) -> None:
     """K9 (forward and dgrad) and K10 at the cases of rec.calls, on random
-    [rows, Ci] inputs and [rows, Co] cotangents."""
+    [rows, Ci] inputs and [rows, Co] cotangents. Without `rows` each case
+    leads with its own: (rows, Ci, Co, prologue) and (rows, Co, Ci)."""
     import torch.nn.functional as F
 
     from pvcnn_tpu_torch.ops import dense_rows
 
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for ci, co in sorted({c[:2] for k, c in rec.calls
-                          if k == "dense_rows_fwd"}):
+    shapes = sorted({(rows,) + c[:2] if rows else c[:3]
+                     for k, c in rec.calls if k == "dense_rows_fwd"})
+    for n_rows, ci, co in shapes:
+        key = (lambda *c: c) if rows else (lambda *c: (n_rows,) + c)
         bound = 1.0 / ci ** 0.5
-        x = torch.randn(rows, ci, device=dev)
+        x = torch.randn(n_rows, ci, device=dev)
         # the fused SharedMLP's layout: its Conv1d weight [Co, Ci] seen as
         # [Ci, Co], which the kernels read in place
         wt = torch.empty(co, ci, device=dev).uniform_(-bound, bound)
@@ -1014,10 +1229,10 @@ def _time_dense_kernels(rec: Record, rows: int) -> None:
         bias = torch.empty(co, device=dev).uniform_(-bound, bound)
         scale = torch.empty(ci, device=dev).uniform_(0.5, 1.5)
         shift = torch.randn(ci, device=dev) * 0.5
-        g = torch.randn(rows, co, device=dev)
-        flops = 2.0 * rows * ci * co
+        g = torch.randn(n_rows, co, device=dev)
+        flops = 2.0 * n_rows * ci * co
         for pro in (False, True):
-            case = (ci, co, pro)
+            case = key(ci, co, pro)
             if ("dense_rows_fwd", case) not in rec.calls:
                 continue
             args = (x, w, bias, scale, shift, 0.0, pro)
@@ -1046,12 +1261,12 @@ def _time_dense_kernels(rec: Record, rows: int) -> None:
             lib_ok = _library_agrees("dense_rows_fwd", case, run_lib()[0],
                                      want)
             rec.add("dense_rows_fwd", case, err, run_k, run_p, flops,
-                    4 * (rows * ci + ci * co + co + rows * co + 2 * co),
+                    4 * (n_rows * ci + ci * co + co + n_rows * co + 2 * co),
                     run_lib if lib_ok else None)
 
             # K10: dW and d(bias) in one pass, against fp64 too
             log("kernels", f"dense_rows_wgrad {case}: plan "
-                f"{dense_rows._plan(ci, co, rows, True, sms)}")
+                f"{dense_rows._plan(ci, co, n_rows, True, sms)}")
             run_k = lambda: dense_rows._wgrad_cuda(x, g, scale, shift, 0.0,
                                                    pro)
             run_p = lambda: dense_rows._wgrad_plain(x, g, scale, shift, 0.0,
@@ -1074,12 +1289,12 @@ def _time_dense_kernels(rec: Record, rows: int) -> None:
             lib_ok = _library_agrees("dense_rows_wgrad", case, run_lib()[0],
                                      want_dw, scale_w)
             rec.add("dense_rows_wgrad", case, err, run_k, run_p, flops,
-                    4 * (rows * ci + rows * co + ci * co + co),
+                    4 * (n_rows * ci + n_rows * co + ci * co + co),
                     run_lib if lib_ok else None)
 
         # K9 as the dgrad: Co -> Ci channels through W^T
-        if ("dense_rows_dgrad", (co, ci)) in rec.calls:
-            case = (co, ci)
+        if ("dense_rows_dgrad", key(co, ci)) in rec.calls:
+            case = key(co, ci)
             run_k = lambda: dense_rows._dgrad_cuda(g, w)
             run_p = lambda: dense_rows._dgrad_plain(g, w)
             run_lib = lambda: F.linear(g, w)
@@ -1089,7 +1304,7 @@ def _time_dense_kernels(rec: Record, rows: int) -> None:
             lib_ok = _library_agrees("dense_rows_dgrad", case, run_lib(),
                                      want)
             rec.add("dense_rows_dgrad", case, err, run_k, run_p, flops,
-                    4 * (rows * co + ci * co + rows * ci),
+                    4 * (n_rows * co + ci * co + n_rows * ci),
                     run_lib if lib_ok else None)
 
 
@@ -1209,7 +1424,11 @@ def _scratch_dir() -> str:
     return path
 
 
-def phase_evaluator() -> None:
+def phase_evaluator(model_name: str = "pvcnn",
+                    fwd_kernels=("avg_voxelize", "trilinear_devoxelize",
+                                 "conv3d_fwd")) -> None:
+    """The voting evaluator's entry point for one ShapeNet model, from
+    zeroed counters: each of fwd_kernels must launch."""
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.data.shapenet import write_synthetic
     from pvcnn_tpu_torch.evaluate.shapenet.eval import evaluate, mean_iou
@@ -1220,19 +1439,19 @@ def phase_evaluator() -> None:
             root, [(0, 2417), (0, 2946), (4, 2081), (4, 2590)], seed=SEED))
         kernels.reset_launch_counts()
         start = time.perf_counter()
-        stats = evaluate(root, width_multiplier=1.0, num_votes=5,
-                         batch_size=32, device=DEVICE, seed=SEED)
+        stats = evaluate(root, model_name=model_name, width_multiplier=1.0,
+                         num_votes=5, batch_size=32, device=DEVICE,
+                         seed=SEED)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         counts = kernels.launch_counts()
     if stats.shape != (16, 2) or not np.isfinite(stats).all() \
             or int(stats[:, 1].sum()) != num_items:
         raise AssertionError(f"bad evaluator stats {stats}")
-    log("evaluator", f"{num_items} synthetic shapes, 5 votes, batch 32: "
-        f"{seconds:.2f} s, mIoU {mean_iou(stats):.4f} (random weights, "
-        f"synthetic labels), launches {counts}")
-    if min(counts[k] for k in ("avg_voxelize", "trilinear_devoxelize",
-                               "conv3d_fwd")) == 0:
+    log("evaluator", f"{model_name}: {num_items} synthetic shapes, 5 votes, "
+        f"batch 32: {seconds:.2f} s, mIoU {mean_iou(stats):.4f} (random "
+        f"weights, synthetic labels), launches {counts}")
+    if min(counts[k] for k in fwd_kernels) == 0:
         raise AssertionError(f"a kernel did not run: {counts}")
 
 
@@ -1364,36 +1583,84 @@ def phase_same_function(label: str, off, on,
                              "switched-off one")
 
 
-def phase_switch_settings(label: str, base, batch, off) -> None:
-    """Each of the six mixed settings of the three switches (all off and
-    all on run in full in phase 14): from zeroed counters, one training
-    step must launch exactly the kernels per_step3 names, its step 1 must
-    agree with the switched-off one, and its ms/step is timed."""
-    from itertools import combinations
-
+def phase_switched_step(label: str, base, batch, off, on: frozenset,
+                        per_step: dict, weight_decay: float = 0.0,
+                        profile: bool = False) -> dict:
+    """One training step with the switches in `on` set (the others unset):
+    its step 1 must agree with the switched-off one (`off`, (loss,
+    gradients)), and from zeroed counters it must launch exactly the
+    kernels of per_step; ms/step and peak memory (with profile, its
+    torch.profiler breakdown too). Returns its launches."""
     from pvcnn_tpu_torch import kernels
 
     x, y = batch
+    what = " + ".join(f"{n.removeprefix('PVCNN_TPU_')}={SWITCHES[n]}"
+                      for n in sorted(on))
+    with switches(on):
+        trainer = _trainer(base, weight_decay)
+        phase_same_function(label, off, grads_of(trainer, x, y, SEED), what)
+        kernels.reset_launch_counts()
+        trainer.train_step(x, y)
+        counts = kernels.launch_counts()
+        ran = {k: v for k, v in counts.items() if v}
+        if ran != per_step:
+            raise AssertionError(f"{what}: launches {ran}, expected "
+                                 f"{per_step}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: trainer.train_step(x, y), reps=5, warmup=1)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("train", f"{label}, {what}: {ms:.3f} ms/step, peak memory "
+            f"{mem:.3f} GiB, launches per step {ran}")
+        if profile:
+            _profile_steps(f"{label}, {what}", trainer, x, y)
+    return counts
+
+
+def phase_switch_settings(label: str, base, batch, off) -> None:
+    """Each of the six mixed settings of the three switches (all off and
+    all on run in full in phase 14), as phase_switched_step with the
+    launches per_step3 names."""
+    from itertools import combinations
+
     for size in (1, 2):
         for on in map(frozenset, combinations(sorted(SWITCHES), size)):
-            what = " + ".join(f"{n.removeprefix('PVCNN_TPU_')}="
-                              f"{SWITCHES[n]}" for n in sorted(on))
-            with switches(on):
-                trainer = _trainer(base, 1e-5)
-                phase_same_function(label, off, grads_of(trainer, x, y, SEED),
-                                    what)
-                kernels.reset_launch_counts()
-                trainer.train_step(x, y)
-                counts = {k: v for k, v in kernels.launch_counts().items()
-                          if v}
-                if counts != per_step3(on):
-                    raise AssertionError(f"{what}: launches {counts}, "
-                                         f"expected {per_step3(on)}")
-                ms = time_ms(lambda: trainer.train_step(x, y), reps=5,
-                             warmup=1)
-            log("train", f"{label}, {what}: {ms:.3f} ms/step, launches per "
-                f"step {counts}")
-            del trainer
+            phase_switched_step(label, base, batch, off, on, per_step3(on),
+                                1e-5)
+
+
+def phase_pointnet(label: str, base, batch, per_step_on: dict,
+                   weight_decay: float = 0.0) -> None:
+    """A model whose default path launches no kernel: its eval forward and
+    its training step (ms, peak memory) launch none, from zeroed counters;
+    then one step with DENSE_BN_FUSED=auto, which runs K9/K10
+    (phase_switched_step with per_step_on), against the default one."""
+    from pvcnn_tpu_torch import kernels
+
+    x, y = batch
+    model = copy.deepcopy(base).to(torch.device(DEVICE)).eval()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(x)
+        if logits.shape[:2] != y.shape or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+        ms_fwd = time_ms(lambda: model(x), reps=5, warmup=1)
+    del model, logits
+    trainer = _trainer(base, weight_decay)
+    off = grads_of(trainer, x, y, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: trainer.train_step(x, y), reps=5, warmup=1)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = kernels.launch_counts()
+    del trainer
+    log("train", f"{label}, {tuple(x.shape)}: eval forward {ms_fwd:.3f} "
+        f"ms/batch, training step {ms:.3f} ms/step, peak memory {mem:.3f} "
+        f"GiB; launches {sum(counts.values())}")
+    _check_ran(counts, {})
+    phase_switched_step(label, base, batch, off,
+                        frozenset({"PVCNN_TPU_DENSE_BN_FUSED"}), per_step_on,
+                        weight_decay)
 
 
 # torch.profiler kernel names -> the groups of the step's time split
@@ -1467,11 +1734,13 @@ def _profile_steps(label, trainer, x, y) -> None:
         f"{busy:.3f} ms/step, idle share {1 - busy / wall_ms:.4f}")
 
 
-def phase_trainer() -> dict:
-    """The training entry point, one short epoch, from zeroed counters."""
+def phase_trainer(model: str = "pvcnn", per_step: dict = PER_STEP) -> dict:
+    """The training entry point of one ShapeNet model, one short epoch,
+    from zeroed counters: each kernel of per_step must launch (none where
+    it is empty)."""
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.data.shapenet import write_synthetic
-    from pvcnn_tpu_torch.models.shapenet import PVCNN
+    from pvcnn_tpu_torch.models.shapenet import MODELS
     from pvcnn_tpu_torch.train.shapenet import train
     from pvcnn_tpu_torch.train.trainer import load_checkpoint
 
@@ -1483,8 +1752,9 @@ def phase_trainer() -> dict:
         save = os.path.join(root, "run")
         kernels.reset_launch_counts()
         start = time.perf_counter()
-        meters = train(root, width_multiplier=1.0, batch_size=32, epochs=1,
-                       max_steps=4, save_path=save, device=DEVICE, seed=SEED)
+        meters = train(root, model=model, width_multiplier=1.0,
+                       batch_size=32, epochs=1, max_steps=4, save_path=save,
+                       device=DEVICE, seed=SEED)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         counts = kernels.launch_counts()
@@ -1494,22 +1764,31 @@ def phase_trainer() -> dict:
         if missing:
             raise AssertionError(f"trainer wrote no {missing}")
         epoch, saved = load_checkpoint(os.path.join(save, "latest.pth.tar"),
-                                       PVCNN(50, 16, 3))
-        again = train(root, width_multiplier=1.0, batch_size=32, epochs=1,
-                      save_path=save, device=DEVICE, seed=SEED)
+                                       MODELS[model].build(50, 16, 1.0))
+        again = train(root, model=model, width_multiplier=1.0,
+                      batch_size=32, epochs=1, save_path=save, device=DEVICE,
+                      seed=SEED)
     iou = meters["acc/iou_test"]
-    log("trainer", f"64 synthetic shapes, 1 epoch of 4 steps at batch 32 + "
-        f"test split: {seconds:.2f} s, acc/iou_test {iou:.4f} (random "
-        f"labels), checkpoints {list(names)}, launches {counts}")
-    log("trainer", f"resumed run loaded epoch {epoch} and re-evaluated "
-        f"acc/iou_test {again['acc/iou_test']:.4f}")
+    log("trainer", f"{model}: 64 synthetic shapes, 1 epoch of 4 steps at "
+        f"batch 32 + test split: {seconds:.2f} s, acc/iou_test {iou:.4f} "
+        f"(random labels), checkpoints {list(names)}, launches {counts}")
+    log("trainer", f"{model}: resumed run loaded epoch {epoch} and "
+        f"re-evaluated acc/iou_test {again['acc/iou_test']:.4f}")
     if not 0.0 <= iou <= 1.0 or epoch != 0 \
             or saved["acc/iou_test"] != iou \
             or abs(again["acc/iou_test"] - iou) > 1e-6:
         raise AssertionError("trainer checkpoints do not round-trip")
-    if min(counts[k] for k in PER_STEP) == 0:
-        raise AssertionError(f"a kernel did not run: {counts}")
+    _check_ran(counts, per_step)
     return counts
+
+
+def _check_ran(counts: dict, per_step: dict) -> None:
+    """Each kernel of per_step launched in the run; with an empty per_step,
+    none did."""
+    if not per_step and any(counts.values()):
+        raise AssertionError(f"a kernel ran on a path without one: {counts}")
+    if per_step and min(counts[k] for k in per_step) == 0:
+        raise AssertionError(f"a kernel did not run: {counts}")
 
 
 def phase_s3dis_trainer(label: str, make_model, n: int,
@@ -1564,41 +1843,62 @@ def phase_s3dis_trainer(label: str, make_model, n: int,
         raise AssertionError(f"bad {label} trainer result {loss} {scores}")
     if not same or epoch != 0 or saved != scores:
         raise AssertionError(f"{label} checkpoint does not round-trip")
-    if min(counts[k] for k in per_step) == 0:
-        raise AssertionError(f"a kernel did not run: {counts}")
+    _check_ran(counts, per_step)
     return counts
+
+
+def _stopwatch():
+    """lap(phase) logs the seconds since the previous lap (or the start)."""
+    last = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        log(phase, f"took {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
 
 
 def main() -> None:
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.models.s3dis import PVCNN as S3DISPVCNN
     from pvcnn_tpu_torch.models.s3dis import PVCNN2
-    from pvcnn_tpu_torch.models.shapenet import PVCNN
+    from pvcnn_tpu_torch.models.s3dis import PointNet as S3DISPointNet
+    from pvcnn_tpu_torch.models.shapenet import (PVCNN, PointNet,
+                                                 pointnet2_msg, pointnet2_ssg)
     from pvcnn_tpu_torch.utils.weights import init_random_
 
     profile = "--profile" in sys.argv[1:]
+    lap = _stopwatch()
     name = phase_device()
     check_calls()
     phase_build()
+    lap("build")
     dev = torch.device(DEVICE)
 
     rec = {"ShapeNet PVCNN 1x": phase_kernels()}
+    lap("kernels")
     fwd = ("avg_voxelize", "trilinear_devoxelize", "conv3d_fwd")
     phase_slice("PVCNN 1x", init_random_(PVCNN(50, 16, 3), SEED),
                 cloud(np.random.RandomState(SEED + 1), B, N), fwd)
+    lap("slice")
     phase_evaluator()
+    lap("evaluator")
     rng = np.random.RandomState(SEED + 2)
     batches = [(torch.from_numpy(cloud(rng, B, N)).to(dev),
                 torch.from_numpy(rng.randint(0, 50, (B, N))).to(dev))
                for _ in range(3)]
     phase_train("PVCNN 1x", init_random_(PVCNN(50, 16, 3), SEED), batches,
                 PER_STEP, profile)
+    lap("train")
     counts = {"ShapeNet PVCNN 1x": phase_trainer()}
+    lap("trainer")
 
     rec["S3DIS PVCNN2 1x"] = phase_pvcnn2_kernels()
+    lap("pvcnn2 kernels")
     fwd2 = fwd + ("fps", "ball_query", "three_nn")
     phase_slice("PVCNN2 1x", init_random_(PVCNN2(13, 6), SEED),
                 windows(np.random.RandomState(SEED + 11), B, N2)[0], fwd2)
+    lap("pvcnn2 slice")
     rng = np.random.RandomState(SEED + 12)
     batches = [tuple(torch.from_numpy(a).to(dev) for a in windows(rng, B, N2))
                for _ in range(3)]
@@ -1608,13 +1908,17 @@ def main() -> None:
     # steps 2-3 to 5e-3
     phase_train("PVCNN2 1x", init_random_(PVCNN2(13, 6), SEED), batches,
                 PER_STEP2, profile, weight_decay=1e-5, traj_rtol=5e-3)
+    lap("pvcnn2 train")
     counts["S3DIS PVCNN2 1x"] = phase_s3dis_trainer(
         "PVCNN2", lambda: PVCNN2(13, 6), N2, PER_STEP2)
+    lap("pvcnn2 trainer")
 
     rec["S3DIS PVCNN 1x"], rec["S3DIS PVCNN 1x opt-in"] = \
         phase_pvcnn_s3dis_kernels()
+    lap("pvcnn kernels")
     phase_slice("S3DIS PVCNN 1x", init_random_(S3DISPVCNN(13, 6), SEED),
                 windows(np.random.RandomState(SEED + 21), B, N3)[0], fwd)
+    lap("pvcnn slice")
     rng = np.random.RandomState(SEED + 22)
     batches = [tuple(torch.from_numpy(a).to(dev) for a in windows(rng, B, N3))
                for _ in range(3)]
@@ -1626,12 +1930,63 @@ def main() -> None:
                          PER_STEP3_ON, profile, weight_decay=1e-5)
     phase_same_function("S3DIS PVCNN 1x", off, on)
     phase_switch_settings("S3DIS PVCNN 1x", base, batches[0], off)
+    lap("pvcnn train")
     counts["S3DIS PVCNN 1x"] = phase_s3dis_trainer(
         "S3DIS PVCNN", lambda: S3DISPVCNN(13, 6), N3, PER_STEP3)
     with switches():
         counts["S3DIS PVCNN 1x opt-in"] = phase_s3dis_trainer(
             "S3DIS PVCNN, switches on", lambda: S3DISPVCNN(13, 6), N3,
             PER_STEP3_ON)
+    lap("pvcnn trainer")
+
+    ssg, msg = "ShapeNet PointNet2 SSG 1x", "ShapeNet PointNet2 MSG 1x"
+    rec[ssg], rec[msg], rec[msg + " opt-in"] = phase_pointnet2_kernels()
+    lap("pointnet2 kernels")
+    fwd_pn2 = ("fps", "ball_query", "three_nn")
+    x = cloud(np.random.RandomState(SEED + 41), B, N)
+    phase_slice("PointNet2 MSG 1x", init_random_(pointnet2_msg(50, 16),
+                                                 SEED), x, fwd_pn2)
+    phase_slice("PointNet2 SSG 1x", init_random_(pointnet2_ssg(50, 16),
+                                                 SEED), x[..., :6], fwd_pn2)
+    lap("pointnet2 slice")
+    rng = np.random.RandomState(SEED + 42)
+    batches = [(torch.from_numpy(cloud(rng, B, N)).to(dev),
+                torch.from_numpy(rng.randint(0, 50, (B, N))).to(dev))
+               for _ in range(3)]
+    base = init_random_(pointnet2_msg(50, 16), SEED)
+    off = phase_train("PointNet2 MSG 1x", base, batches, PER_STEP_MSG,
+                      profile)
+    fused = phase_switched_step(
+        "PointNet2 MSG 1x", base, batches[0], off,
+        frozenset({"PVCNN_TPU_DENSE_BN_FUSED"}), PER_STEP_MSG_ON,
+        profile=profile)
+    counts[msg + " opt-in"] = {k: (v if k in _FUSED_MSG else 0)
+                               for k, v in fused.items()}
+    del base
+    phase_train("PointNet2 SSG 1x", init_random_(pointnet2_ssg(50, 16), SEED),
+                [(x[..., :6].contiguous(), y) for x, y in batches],
+                PER_STEP_SSG, profile)
+    lap("pointnet2 train")
+    counts[msg] = phase_trainer("pointnet2msg", PER_STEP_MSG)
+    counts[ssg] = phase_trainer("pointnet2ssg", PER_STEP_SSG)
+    phase_evaluator("pointnet2ssg", fwd_pn2)
+    lap("pointnet2 trainer")
+
+    x = cloud(np.random.RandomState(SEED + 50), B, N)
+    y = np.random.RandomState(SEED + 51).randint(0, 50, (B, N))
+    phase_pointnet("ShapeNet PointNet 1x with T-Nets", init_random_(
+        PointNet(50, 16, with_transformer=True), SEED),
+        (torch.from_numpy(np.ascontiguousarray(x[..., XYZ_ONE_HOT])).to(dev),
+         torch.from_numpy(y).to(dev)), PER_STEP_POINTNET_ON)
+    phase_trainer("pointnet", {})
+    phase_pointnet("S3DIS PointNet 1x", init_random_(S3DISPointNet(13, 6),
+                                                     SEED),
+                   tuple(torch.from_numpy(a).to(dev) for a in windows(
+                       np.random.RandomState(SEED + 52), B, N3)),
+                   PER_STEP_S3DIS_POINTNET_ON, weight_decay=1e-5)
+    phase_s3dis_trainer("S3DIS PointNet", lambda: S3DISPointNet(13, 6), N3,
+                        {})
+    lap("pointnet")
 
     lines = []
     for k in kernels.KERNELS.values():

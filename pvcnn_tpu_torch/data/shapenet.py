@@ -59,9 +59,10 @@ def normalize_point_cloud(points: np.ndarray) -> np.ndarray:
 
 
 class ShapeNetDataset:
-    """One split of a ShapeNet tree as (features [num_points, 22] float32,
-    labels [num_points] int64) samples: normalized xyz, normals and the
-    one-hot shape id per point.
+    """One split of a ShapeNet tree as (features [num_points, C] float32,
+    labels [num_points] int64) samples: normalized xyz, then the normals
+    (with_normal) and the one-hot shape id per point
+    (with_one_hot_shape_id), so C is 3, 6, 19 or 22.
 
     Each sample resamples num_points of the shape's points with replacement
     and, in the train split, adds N(0, 0.01) noise clipped to +-0.05 to xyz, drawing both from this dataset's own
@@ -70,12 +71,20 @@ class ShapeNetDataset:
     Parsed shapes stay cached in memory."""
 
     def __init__(self, root: str, num_points: int, split: str = "train",
-                 seed: int = 0):
+                 seed: int = 0, with_normal: bool = True,
+                 with_one_hot_shape_id: bool = True):
         self.file_paths = file_paths(root, split)
         self.num_points = int(num_points)
         self.jitter = split == "train"
+        self.with_normal = with_normal
+        self.with_one_hot_shape_id = with_one_hot_shape_id
         self.rng = np.random.RandomState(seed)
         self.cache = {}
+
+    @property
+    def in_channels(self) -> int:
+        return (3 + 3 * self.with_normal
+                + NUM_SHAPES * self.with_one_hot_shape_id)
 
     def __len__(self):
         return len(self.file_paths)
@@ -84,20 +93,22 @@ class ShapeNetDataset:
         if index not in self.cache:
             path, shape_id = self.file_paths[index]
             data = np.loadtxt(path, dtype=np.float32, ndmin=2)
-            packed = np.concatenate(
-                [normalize_point_cloud(data[:, :3]), data[:, 3:6]],
-                axis=1).astype(np.float32)
+            columns = [normalize_point_cloud(data[:, :3])]
+            if self.with_normal:
+                columns.append(data[:, 3:6])
+            packed = np.concatenate(columns, axis=1).astype(np.float32)
             self.cache[index] = (packed, data[:, -1].astype(np.int64),
                                  shape_id)
         packed, label, shape_id = self.cache[index]
-        n = self.num_points
+        n, width = self.num_points, packed.shape[1]
         choice = self.rng.randint(0, label.shape[0], n)
-        features = np.zeros((n, 6 + NUM_SHAPES), dtype=np.float32)
-        features[:, :6] = packed[choice]
+        features = np.zeros((n, self.in_channels), dtype=np.float32)
+        features[:, :width] = packed[choice]
         if self.jitter:
             features[:, :3] += np.clip(0.01 * self.rng.randn(n, 3), -0.05,
                                        0.05)
-        features[:, 6 + shape_id] = 1.0
+        if self.with_one_hot_shape_id:
+            features[:, width + shape_id] = 1.0
         return features, label[choice]
 
 

@@ -65,11 +65,15 @@ def update_stats(stats, ground_truth, predictions, shape_id, start_class,
 
 
 def evaluate_with(predict_fn, root: str, num_points: int = 2048,
-                  num_votes: int = 10, batch_size: int = 32, seed: int = 0):
+                  num_votes: int = 10, batch_size: int = 32, seed: int = 0,
+                  with_normal: bool = True,
+                  with_one_hot_shape_id: bool = True):
     """Run the voting protocol over the test split of the ShapeNet tree at
-    `root`. predict_fn maps a [batch_size, num_points, 22] float32 numpy
-    batch to [batch_size, num_points, 50] probabilities. -> stats
-    [num_shapes, 2]: per shape category the IoU sum and the shape count."""
+    `root`. predict_fn maps a [batch_size, num_points, C] float32 numpy
+    batch to [batch_size, num_points, 50] probabilities, where the C
+    columns are xyz, then the normals (with_normal) and the one-hot shape
+    id (with_one_hot_shape_id). -> stats [num_shapes, 2]: per shape
+    category the IoU sum and the shape count."""
     rng = np.random.RandomState(seed)
     ranges = part_class_ranges()
     stats = np.zeros((shapenet_data.NUM_SHAPES, 2))
@@ -80,11 +84,15 @@ def evaluate_with(predict_fn, root: str, num_points: int = 2048,
         predictions = np.full(total_points, -1, dtype=np.int64)
         coords = shapenet_data.normalize_point_cloud(data[:, :3])
         ground_truth = data[:, -1].astype(np.int64)
-        one_hot = np.zeros((total_points, shapenet_data.NUM_SHAPES),
-                           np.float32)
-        one_hot[:, shape_id] = 1.0
-        point_set = np.concatenate([coords, data[:, 3:6], one_hot],
-                                   axis=-1).astype(np.float32)
+        columns = [coords]
+        if with_normal:
+            columns.append(data[:, 3:6])
+        if with_one_hot_shape_id:
+            one_hot = np.zeros((total_points, shapenet_data.NUM_SHAPES),
+                               np.float32)
+            one_hot[:, shape_id] = 1.0
+            columns.append(one_hot)
+        point_set = np.concatenate(columns, axis=-1).astype(np.float32)
 
         extra_batch = num_votes * math.ceil(total_points / num_points)
         total_voted = extra_batch * num_points
@@ -116,18 +124,21 @@ def evaluate_with(predict_fn, root: str, num_points: int = 2048,
 
 
 def evaluate(root: str, model: torch.nn.Module | None = None, *,
-             checkpoint: str | None = None, width_multiplier: float = 1.0,
-             num_points: int = 2048, num_votes: int = 10,
-             batch_size: int = 32, device: str = "cuda", seed: int = 0,
+             model_name: str = "pvcnn", checkpoint: str | None = None,
+             width_multiplier: float = 1.0, num_points: int = 2048,
+             num_votes: int = 10, batch_size: int = 32,
+             device: str = "cuda", seed: int = 0,
              stats_path: str | None = None):
-    """Voting evaluation of ShapeNet PVCNN on the test split at `root`.
+    """Voting evaluation of a ShapeNet model on the test split at `root`.
 
-    Without `model`, builds PVCNN at `width_multiplier` with weights from a
-    reference `.pth.tar` `checkpoint` (a trusted file: it is unpickled) or,
-    without one, from a torch.Generator seeded with `seed`. Returns the
-    stats array and prints the IoUs; saves the stats to `stats_path` if
-    given."""
-    from pvcnn_tpu_torch.models.shapenet import PVCNN
+    `model_name` names the model in models.shapenet.MODELS (pvcnn,
+    pointnet, pointnet2ssg, pointnet2msg): its input columns are the ones
+    its JAX config's dataset gives it. Without `model`, builds that model
+    at `width_multiplier` with weights from a reference `.pth.tar`
+    `checkpoint` (a trusted file: it is unpickled) or, without one, from a
+    torch.Generator seeded with `seed`. Returns the stats array and prints
+    the IoUs; saves the stats to `stats_path` if given."""
+    from pvcnn_tpu_torch.models.shapenet import MODELS
     from pvcnn_tpu_torch.train.predict import predict
     from pvcnn_tpu_torch.utils.weights import (init_random_,
                                                load_reference_checkpoint)
@@ -135,11 +146,10 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but CUDA is not available")
+    spec = MODELS[model_name]
     if model is None:
-        model = PVCNN(num_classes=shapenet_data.NUM_CLASSES,
-                      num_shapes=shapenet_data.NUM_SHAPES,
-                      extra_feature_channels=3,
-                      width_multiplier=width_multiplier)
+        model = spec.build(shapenet_data.NUM_CLASSES,
+                           shapenet_data.NUM_SHAPES, width_multiplier)
         if checkpoint is not None:
             load_reference_checkpoint(model, checkpoint)
         else:
@@ -152,7 +162,8 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
 
     stats = evaluate_with(predict_fn, root, num_points=num_points,
                           num_votes=num_votes, batch_size=batch_size,
-                          seed=seed)
+                          seed=seed, with_normal=spec.with_normal,
+                          with_one_hot_shape_id=spec.with_one_hot_shape_id)
     if stats_path:
         os.makedirs(os.path.dirname(stats_path) or ".", exist_ok=True)
         np.save(stats_path, stats)

@@ -131,7 +131,13 @@ def create_pointnet2_sa_components(sa_blocks, extra_feature_channels: int,
     (num_centers, radius, num_neighbors, out_channels) -> (sa_layers,
     sa_in_channels, out channels, num_centers). Each entry of sa_layers is
     a group: optional PVConv/SharedMLP blocks, then one PointNetSAModule (or
-    PointNetAModule when num_centers is None)."""
+    PointNetAModule when num_centers is None).
+
+    A set-abstraction module takes the group's features without the
+    coordinates (it appends the 3 relative ones itself): the extra feature
+    channels, or the conv blocks' output width where the group has conv
+    blocks. `sa_in_channels` holds each group's input width with the
+    coordinates, for the feature-propagation skips."""
     r, vr = width_multiplier, voxel_resolution_multiplier
     in_channels = extra_feature_channels + 3
     sa_layers, sa_in_channels = [], []
@@ -142,17 +148,18 @@ def create_pointnet2_sa_components(sa_blocks, extra_feature_channels: int,
         if conv_configs is not None:
             group, in_channels = _conv_blocks(conv_configs, in_channels,
                                               with_se, normalize, eps, r, vr)
+            extra_feature_channels = in_channels
         num_centers, radius, num_neighbors, out_channels = sa_configs
         out_channels = [[int(r * c) for c in oc]
                         if isinstance(oc, (list, tuple)) else int(r * oc)
                         for oc in out_channels]
         if num_centers is None:
-            sa = PointNetAModule(in_channels, out_channels)
+            sa = PointNetAModule(extra_feature_channels, out_channels)
         else:
             sa = PointNetSAModule(num_centers, radius, num_neighbors,
-                                  in_channels, out_channels)
+                                  extra_feature_channels, out_channels)
         group.append(sa)
-        in_channels = sa.out_channels
+        in_channels = extra_feature_channels = sa.out_channels
         sa_layers.append(_group(group))
     return sa_layers, sa_in_channels, in_channels, (
         1 if num_centers is None else num_centers)

@@ -192,38 +192,63 @@ def test_init_random_draws_conv2d_weights():
     assert not torch.equal(sa[conv2d[0]], c[conv2d[0]])
 
 
-def test_pointnet2_components_match_jax():
+def _pointnet2_blocks():
+    from pvcnn_tpu.models.s3dis import PVCNN2 as JPVCNN2
+    from pvcnn_tpu.models.shapenet import pointnetpp as jpp
+
+    return {"pvcnn2": (JPVCNN2.sa_blocks, JPVCNN2.fp_blocks, 6, True),
+            "ssg": (jpp.SSG_SA_BLOCKS, jpp.SSG_FP_BLOCKS, 3, False),
+            "msg": (jpp.MSG_SA_BLOCKS, jpp.MSG_FP_BLOCKS, 3, False)}
+
+
+@pytest.mark.parametrize("blocks", ["pvcnn2", "ssg", "msg"])
+def test_pointnet2_components_match_jax(blocks):
     """create_pointnet2_{sa,fp} build the groups the JAX functions build:
     the same module kinds, centers, radii and widths, and the same channel
-    bookkeeping."""
+    bookkeeping; and each layer's weight has the shape the reference
+    gives it (torch_twins' twin_sa_components / twin_fp_modules),
+    input widths included: a set abstraction without conv blocks before it
+    reads the extra features and the 3 relative coordinates (SSG's and
+    MSG's SA1: 3 normals + 3)."""
+    import torch_twins as tw
     from pvcnn_tpu.models import utils as jutils
-    from pvcnn_tpu.models.s3dis import PVCNN2 as JPVCNN2
     from pvcnn_tpu_torch.models import utils as tutils
 
-    sa, fp = JPVCNN2.sa_blocks, JPVCNN2.fp_blocks
+    sa, fp, extra, with_se = _pointnet2_blocks()[blocks]
     jsa, jin, jch, jm = jutils.create_pointnet2_sa_components(
-        sa, 6, with_se=True, width_multiplier=0.5)
+        sa, extra, with_se=with_se, width_multiplier=0.5)
     tsa, tin, tch, tm = tutils.create_pointnet2_sa_components(
-        sa, 6, with_se=True, width_multiplier=0.5)
-    assert (tin, tch, tm) == (jin, jch, jm)
+        sa, extra, with_se=with_se, width_multiplier=0.5)
+    wsa, win, wch, wm = tw.twin_sa_components(
+        sa, extra, with_se=with_se, width_multiplier=0.5)
+    assert (tin, tch, tm) == (jin, jch, jm) == (win, wch, wm)
     for jg, tg in zip(jsa, tsa):
         members = list(tg) if isinstance(tg, torch.nn.Sequential) else [tg]
         assert [type(m).__name__ for m in members] == \
             [type(m).__name__ for m in jg]
         jsam, tsam = jg[-1], members[-1]
-        assert tsam.num_centers == jsam.num_centers
-        assert [g.radius for g in tsam.groupers] == list(jsam.radius)
+        assert getattr(tsam, "num_centers", None) == \
+            getattr(jsam, "num_centers", None)
+        assert [g.radius for g in getattr(tsam, "groupers", [])] == \
+            list(getattr(jsam, "radius", None) or [])
         assert [[l.out_channels for l in m.layers[0::3]]
                 for m in tsam.mlps] == [list(b) for b in jsam.mlps]
-    jin[0] = tin[0] = 6
+    shapes = lambda layers: {k: tuple(v.shape) for k, v in
+                             torch.nn.ModuleList(layers).state_dict().items()}
+    assert shapes(tsa) == shapes(wsa)
+    if blocks == "pvcnn2":          # only the raw extra features skip
+        jin[0] = tin[0] = win[0] = extra
     jfp, jout = jutils.create_pointnet2_fp_modules(
-        fp, jch, jin, with_se=True, width_multiplier=0.5)
+        fp, jch, jin, with_se=with_se, width_multiplier=0.5)
     tfp, tout = tutils.create_pointnet2_fp_modules(
-        fp, tch, tin, with_se=True, width_multiplier=0.5)
-    assert tout == jout
+        fp, tch, tin, with_se=with_se, width_multiplier=0.5)
+    wfp, wout = tw.twin_fp_modules(fp, wch, win, with_se=with_se,
+                                   width_multiplier=0.5)
+    assert tout == jout == wout
     for jg, tg in zip(jfp, tfp):
         members = list(tg) if isinstance(tg, torch.nn.Sequential) else [tg]
         assert [type(m).__name__ for m in members] == \
             [type(m).__name__ for m in jg]
         assert [l.out_channels for l in members[0].mlp.layers[0::3]] == \
             list(jg[0].mlp)
+    assert shapes(tfp) == shapes(wfp)
