@@ -9,9 +9,12 @@ N = 4096, 9 channels, 13 classes) with the three switches that open its
 opt-in path (PVCNN_TPU_DENSE_BN_FUSED=auto, PVCNN_TPU_CONV_ROWS=0,
 PVCNN_TPU_CUSTOM_CONV_WGRAD=1), ShapeNet PointNet++ MSG 1x (B = 32,
 N = 2048, 22 channels, 50 classes; with DENSE_BN_FUSED=auto its opt-in
-path) and SSG 1x (6 channels), and the PointNets, whose default paths
-launch no kernel. Phases, each printing its own lines and its seconds,
-and raising on failure:
+path) and SSG 1x (6 channels), the PointNets, whose default paths
+launch no kernel, and the KITTI Frustum family at its configs' full width
+(FrustumPVCNNE and FrustumPointNet at B = 32, FrustumPointNet2 at B = 24,
+frustums of 1,024 points x 4 channels, 512 points an object; synthetic
+frustum batches, data/kitti/frustum.py). Phases, each printing its own
+lines and its seconds, and raising on failure:
 
   1. device     requires CUDA (exits non-zero without it), prints
                 `nvidia-smi --query-gpu=name,power.limit`, turns TF32 off;
@@ -114,12 +117,40 @@ and raising on failure:
                 (ms, peak memory) without a launch, then one step with
                 DENSE_BN_FUSED=auto (K9/K10, launches asserted) against
                 it; the training entry point with model pointnet and
-                phase 11's trainer for S3DIS PointNet, without a launch.
+                phase 11's trainer for S3DIS PointNet, without a launch;
+ 21. frustum kernels
+                as phase 8 at the shapes the Frustum training steps give
+                every kernel: K1-K5 at FrustumPVCNNE's PVConvs (R = 16 and
+                12, Ci = 4), and on its opt-in path K9 (its dgrad) and K10
+                at its fused SharedMLP layers, K11 at its convs, K1/K2/K5
+                channel-last; FPS, ball query (sparse frustum clouds),
+                three-NN (against the group-all level's one center) and
+                K1's sum mode at FrustumPointNet2's;
+ 22. frustum slice
+                each Frustum model's eval forward, as phase 4; the plain
+                paths replay the kernel path's foreground draws (a flipped
+                mask entry changes the whole draw) and the flips are
+                logged;
+ 23. frustum train
+                FrustumPVCNNE, FrustumPointNet2 and FrustumPointNet
+                training steps, as phase 6, the plain path replaying each
+                kernel-path step's foreground draws (flips logged a step);
+                one FrustumPVCNNE step with PVCNN_TPU_CONV_BN_FUSED=0 (the
+                unfused rows branch) and one with the three switches on,
+                each against the default step 1 (launches asserted,
+                ms/step, peak memory);
+ 24. frustum trainer
+                for each Frustum model from zeroed counters, with its
+                recipe: Trainer.train_epoch (4 steps) over synthetic
+                frustums through the DataLoader, Trainer.evaluate (the
+                sampler draws in eval mode too) and a checkpoint round
+                trip: the three Frustum main paths.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
-the trainer phases (7, 11, both runs of 15, and 19's two) and, for K9/K10
-on the MSG opt-in path, the switched step of 18; its times, bounds and
+the trainer phases (7, 11, both runs of 15, 19's two and 24's) and, for
+K9/K10 on the MSG opt-in path, the switched step of 18, for FrustumPVCNNE's
+opt-in path the switched step of 23; its times, bounds and
 library time are per training step, summed over the paths' steps (each
 path's own numbers under "paths"; K1's and K5's records there also carry
 glue_ms and kernel_alone_ms, the two parts of their ms).
@@ -150,15 +181,17 @@ DEVICE = "cuda"
 # over the second
 PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # kernel-vs-plain tolerances (rtol, atol): K1/K2/K5 and K1's sum mode sum a
-# few fp32 terms in another order; K3 and its dgrad sum 27 * Ci terms in
+# few fp32 terms in another order (K5 and K1's sum mode: many where a bin
+# holds many points, see below); K3 and its dgrad sum 27 * Ci terms in
 # another order than cuDNN's fp32 (TF32 off) conv; K9 and its dgrad sum
 # Ci (Co) products in another order than cuBLAS; K4, K10 and K11 sum
 # B * R^3 (or B * N) products, so their atol is relative to the gradient's
-# largest entry; K1's sum mode is held to an fp64 sum at 1e-6 of each
-# output's sum of |terms|, and where a bin sums more than 128 rows (none of
-# PVCNN2's does; PointNet++'s FP1 sums 384 into one) its atol against the
-# plain version is that bound too, at least 1e-5: the order alone moves
-# such a sum by a few ulps of its sum of |terms|. The index kernels (fps,
+# largest entry; K1's sum mode and K5 are held to an fp64 sum at 1e-6 of
+# each output's sum of |terms|, and their atol against the plain version
+# is that bound too, at least 1e-5: the order alone moves such a sum by a
+# few ulps of its sum of |terms| (PointNet++'s FP1 sums 384 rows into one
+# bin; a Frustum object puts hundreds of points into one bin, and a sum of
+# under 128 rows of cancelling terms moved by 3.8e-5 there). The index kernels (fps,
 # ball_query, three_nn) must equal their plain versions exactly; three_nn's
 # d² and weights are held to 1e-5.
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
@@ -403,6 +436,108 @@ PER_STEP_POINTNET_ON = {"dense_rows_fwd": 13, "dense_rows_dgrad": 12,
                         "dense_rows_wgrad": 13}
 PER_STEP_S3DIS_POINTNET_ON = {"dense_rows_fwd": 6, "dense_rows_dgrad": 5,
                               "dense_rows_wgrad": 6}
+# KITTI Frustum (models/kitti/frustum): frustums of NF points with one
+# extra channel, MF points an object; FrustumPointNet2 trains at batch BF2
+NF, MF, BF2 = 1024, 512, 24
+# The same per FrustumPVCNNE 1x training step (B = 32), from the model's
+# structure: the instance segmentation's PVConvs (Ci -> Co, R) 4 -> 64 and
+# 64 -> 64 at 16, 64 -> 64 and 64 -> 128 at 12, on NF points; the first
+# conv0 runs no dgrad (its input is the cloud). The foreground sampler's
+# gather carries no gradient (the coordinates are inputs): no K1 sum mode.
+# (128, 128, 12) without the prologue is the unfused branch's case
+# (PVCNN_TPU_CONV_BN_FUSED=0), checked, not timed.
+CALLS_PVCNNE = {
+    ("avg_voxelize", (4, 16, NF)): 1, ("avg_voxelize", (64, 16, NF)): 1,
+    ("avg_voxelize", (64, 12, NF)): 2,
+    ("conv3d_fwd", (4, 64, 16, False)): 1,
+    ("conv3d_fwd", (64, 64, 16, False)): 1,
+    ("conv3d_fwd", (64, 64, 16, True)): 2,
+    ("conv3d_fwd", (64, 64, 12, False)): 1,
+    ("conv3d_fwd", (64, 64, 12, True)): 1,
+    ("conv3d_fwd", (64, 128, 12, False)): 1,
+    ("conv3d_fwd", (128, 128, 12, True)): 1,
+    ("conv3d_fwd", (128, 128, 12, False)): 0,
+    ("conv3d_dgrad", (64, 64, 16)): 3, ("conv3d_dgrad", (64, 64, 12)): 2,
+    ("conv3d_dgrad", (128, 64, 12)): 1, ("conv3d_dgrad", (128, 128, 12)): 1,
+}
+# FrustumPVCNNE with the three switches on: K1/K2/K5 channel-last, K11 at
+# the eight convs, and K9/K10 (rows, Ci, Co, prologue) at every SharedMLP
+# layer given one array of >= 1024 rows: the four PVConv point branches,
+# 128 -> 1024 and the classifier's second to fourth layers on B * NF rows
+# (its first takes a list), the center regression's three and the box
+# head's four on B * MF rows; the dgrad (rows, Co, Ci) of each but the
+# layers whose input is data (the first point branch's cloud, the center
+# regression's sampled coordinates; the box head's coordinates carry the
+# center correction's gradient).
+CALLS_PVCNNE_ON = {
+    ("avg_voxelize", (4, 16, NF)): 1, ("avg_voxelize", (64, 16, NF)): 1,
+    ("avg_voxelize", (64, 12, NF)): 2,
+    ("conv3d_ndhwc_wgrad", (4, 64, 16)): 1,
+    ("conv3d_ndhwc_wgrad", (64, 64, 16)): 3,
+    ("conv3d_ndhwc_wgrad", (64, 64, 12)): 2,
+    ("conv3d_ndhwc_wgrad", (64, 128, 12)): 1,
+    ("conv3d_ndhwc_wgrad", (128, 128, 12)): 1,
+}
+for _rows, _layers, _data in (
+        (B * NF, ((4, 64), (64, 64), (64, 64), (64, 128), (128, 1024),
+                  (512, 256), (256, 128), (128, 128)), (4, 64)),
+        (B * MF, ((3, 128), (128, 128), (128, 256)), (3, 128)),
+        (B * MF, ((3, 128), (128, 128), (128, 256), (256, 512)), None)):
+    for _ci, _co in _layers:
+        for _k, _c in (("dense_rows_fwd", (_rows, _ci, _co, False)),
+                       ("dense_rows_wgrad", (_rows, _ci, _co, False)),
+                       ("dense_rows_dgrad", (_rows, _co, _ci))):
+            if _k == "dense_rows_dgrad" and (_ci, _co) == _data:
+                continue
+            CALLS_PVCNNE_ON[(_k, _c)] = CALLS_PVCNNE_ON.get((_k, _c), 0) + 1
+for _calls in (CALLS_PVCNNE, CALLS_PVCNNE_ON):
+    for _case, _n in (((64, 16, NF), 2), ((64, 12, NF), 1),
+                      ((128, 12, NF), 1)):
+        _calls[("trilinear_devoxelize", _case)] = _n
+        _calls[("devoxelize_bwd", _case)] = _n
+for (_k, _c), _n in list(CALLS_PVCNNE.items()):
+    if _k == "conv3d_fwd":
+        CALLS_PVCNNE[("conv3d_wgrad", _c)] = _n
+# The same per FrustumPointNet2 1x training step (B = BF2), from the
+# model's structure: the instance segmentation's MSG set abstraction (FPS
+# NF -> 128 -> 32; ball query (M, N, radius, U) per branch), its three
+# feature propagations (three-NN (N, M), 32 points against the group-all
+# level's one center), the box head's set abstraction on MF sampled
+# points (FPS 512 -> 128 -> 32); K1's sum mode (K rows, bins, C) for the
+# take_rows backwards that carry a gradient: SA2's groupings of SA1's
+# features and the three FP interpolations (the first of 1,024 + 3
+# channels: the group-all feature and the one-hot vector), and in the box
+# head, whose coordinates carry the center correction's gradient, both
+# FPS gathers and the groupings of coordinates (and SA2's of SA1's
+# features).
+CALLS_FPN2 = {
+    ("fps", (NF, 128)): 1, ("fps", (128, 32)): 2, ("fps", (MF, 128)): 1,
+    ("ball_query", (128, NF, 0.2, 32)): 1,
+    ("ball_query", (128, NF, 0.4, 64)): 1,
+    ("ball_query", (128, NF, 0.8, 128)): 1,
+    ("ball_query", (32, 128, 0.4, 64)): 2,
+    ("ball_query", (32, 128, 0.8, 64)): 1,
+    ("ball_query", (32, 128, 1.6, 128)): 1,
+    ("ball_query", (128, MF, 0.2, 64)): 1,
+    ("three_nn", (32, 1)): 1, ("three_nn", (128, 32)): 1,
+    ("three_nn", (NF, 128)): 1,
+    ("scatter_sum", (2048, 128, 320)): 2,
+    ("scatter_sum", (4096, 128, 320)): 1,
+    ("scatter_sum", (96, 1, 1027)): 1, ("scatter_sum", (384, 32, 128)): 1,
+    ("scatter_sum", (3072, 128, 128)): 1,
+    ("scatter_sum", (128, MF, 3)): 1, ("scatter_sum", (8192, MF, 3)): 1,
+    ("scatter_sum", (32, 128, 3)): 1, ("scatter_sum", (2048, 128, 3)): 1,
+    ("scatter_sum", (2048, 128, 128)): 1,
+}
+PER_STEP_PVCNNE = {"avg_voxelize": 4, "trilinear_devoxelize": 4,
+                   "conv3d_fwd": 8, "conv3d_dgrad": 7, "conv3d_wgrad": 8,
+                   "devoxelize_bwd": 4}
+PER_STEP_PVCNNE_ON = {"avg_voxelize": 4, "trilinear_devoxelize": 4,
+                      "devoxelize_bwd": 4, "conv3d_ndhwc_wgrad": 8,
+                      "dense_rows_fwd": 15, "dense_rows_dgrad": 13,
+                      "dense_rows_wgrad": 15}
+PER_STEP_FPN2 = {"fps": 4, "ball_query": 8, "three_nn": 3,
+                 "scatter_sum": 11}
 
 
 def check_calls() -> None:
@@ -412,7 +547,10 @@ def check_calls() -> None:
                             (CALLS3, PER_STEP3), (CALLS3_ON, PER_STEP3_ON),
                             (CALLS_SSG, PER_STEP_SSG),
                             (CALLS_MSG, PER_STEP_MSG),
-                            (CALLS_MSG_ON, _FUSED_MSG)):
+                            (CALLS_MSG_ON, _FUSED_MSG),
+                            (CALLS_PVCNNE, PER_STEP_PVCNNE),
+                            (CALLS_PVCNNE_ON, PER_STEP_PVCNNE_ON),
+                            (CALLS_FPN2, PER_STEP_FPN2)):
         sums = {}
         for (k, _), n in calls.items():
             sums[k] = sums.get(k, 0) + n
@@ -762,7 +900,21 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
             gt5, g5, gs, 0, 0, True, [True, False])[0]
         got = _twice("devoxelize_bwd", case, run_k)
         want = run_p()
-        err = _compare("devoxelize_bwd", case, got, want)
+        # each bin's sum of |terms| (a Frustum object crowds hundreds of
+        # points into one base bin); held to an fp64 sum at 1e-6 of it,
+        # to the plain version at 1e-6 of it where that exceeds 1e-5
+        mag = devoxelize._devoxelize_bwd_plain(g.abs(), norm, r, cf)
+        exact = devoxelize._devoxelize_bwd_plain(g.double(), norm.double(),
+                                                 r, cf)
+        e_k = ((got - exact).abs() / mag.clamp(min=1e-30)).max().item()
+        e_p = ((want - exact).abs() / mag.clamp(min=1e-30)).max().item()
+        log("kernels", f"devoxelize_bwd {case}: max |. - fp64 sum| / "
+            f"sum|terms| kernel {e_k:.3e}, plain {e_p:.3e} (<= 1e-6)")
+        if e_k > 1e-6:
+            raise AssertionError(f"devoxelize_bwd {case}: kernel off the "
+                                 "fp64 sum")
+        err = _compare("devoxelize_bwd", case, got, want,
+                       (mag / 10).clamp(min=1.0))
         lib = run_lib().reshape(B, c, r ** 3)
         lib_ok = _library_agrees("devoxelize_bwd", case,
                                  lib if cf else lib.transpose(1, 2), want)
@@ -917,14 +1069,14 @@ def _fps_case(rec: Record, pts, m):
     (the kernel's argmax and exchange alone) and the share of its bound."""
     from pvcnn_tpu_torch.ops import sampling
 
-    n = pts.shape[1]
+    b, n = pts.shape[:2]
     case = (n, m)
     run_k = lambda: sampling._fps_cuda(pts, m)
     run_p = lambda: sampling._fps_plain(pts, m)
     idx = _twice("fps", case, run_k)
     _exact("fps", case, idx, run_p())
-    timed = rec.add("fps", case, 0.0, run_k, run_p, 10.0 * B * n * (m - 1),
-                    4 * (B * n * 3 + B * m), plain_reps=3)
+    timed = rec.add("fps", case, 0.0, run_k, run_p, 10.0 * b * n * (m - 1),
+                    4 * (b * n * 3 + b * m), plain_reps=3)
     if timed:
         ms, bound = timed
         chain = time_ms(lambda: sampling._fps_cuda(pts, m, chain_only=True))
@@ -941,7 +1093,7 @@ def _ball_query_case(rec: Record, pts, ctr, radius, u, sms):
     version's; logs the hits, the points scanned and the launch plan."""
     from pvcnn_tpu_torch.ops import neighbors
 
-    n, m = pts.shape[1], ctr.shape[1]
+    b, n, m = pts.shape[0], pts.shape[1], ctr.shape[1]
     r2 = neighbors._fp32(radius ** 2)
     case = (m, n, radius, u)
     run_k = lambda: neighbors._ball_query_cuda(ctr, pts, r2, u)
@@ -955,10 +1107,10 @@ def _ball_query_case(rec: Record, pts, ctr, radius, u, sms):
     hits = (neighbors.sq_dist(ctr, pts) < r2).sum(-1)
     log("kernels", f"ball_query {case}: mean hits {hits.float().mean():.2f}"
         f", {float((hits < u).float().mean()):.3f} of the centers take "
-        f"the fill; {float(scanned) / (B * m * n):.3f} of the points "
-        f"scanned; plan {neighbors._ball_query_plan(B, m, n, u, sms)}")
+        f"the fill; {float(scanned) / (b * m * n):.3f} of the points "
+        f"scanned; plan {neighbors._ball_query_plan(b, m, n, u, sms)}")
     rec.add("ball_query", case, 0.0, run_k, run_p, 9.0 * float(scanned),
-            4 * (B * m * 3 + B * n * 3 + B * m * u), plain_reps=5)
+            4 * (b * m * 3 + b * n * 3 + b * m * u), plain_reps=5)
     return got
 
 
@@ -969,7 +1121,7 @@ def _three_nn_case(rec: Record, pts, ctr, sms):
     from pvcnn_tpu_torch.ops import interpolate
 
     case = (pts.shape[1], ctr.shape[1])
-    n, m = case
+    b, (n, m) = pts.shape[0], case
     run_k = lambda: interpolate._three_nn_cuda(pts, ctr)
     run_p = lambda: interpolate._three_nn_plain(pts, ctr)
     idx, d2 = _twice("three_nn", case, run_k)
@@ -981,11 +1133,11 @@ def _three_nn_case(rec: Record, pts, ctr, sms):
     if not torch.equal(d2[..., m:], want_d2[..., m:]):
         raise AssertionError(f"three_nn {case}: unfilled slots differ")
     err = max(err, _compare("three_nn", case, d2[..., :m], want_d2[..., :m]))
-    timed = rec.add("three_nn", case, err, run_k, run_p, 9.0 * B * n * m,
-                    4 * (B * n * 3 + B * m * 3 + 2 * B * n * 3),
+    timed = rec.add("three_nn", case, err, run_k, run_p, 9.0 * b * n * m,
+                    4 * (b * n * 3 + b * m * 3 + 2 * b * n * 3),
                     plain_reps=5)
     if timed:
-        _three_nn_log(case, run_k, *timed, sms)
+        _three_nn_log(case, run_k, *timed, sms, b)
     return idx
 
 
@@ -997,23 +1149,20 @@ def _scatter_sum_case(rec: Record, idx, bins, c) -> None:
     from pvcnn_tpu_torch.ops import voxelize
 
     dev = idx.device
-    k = idx.shape[1]
+    b, k = idx.shape
     case = (k, bins, c)
-    values = torch.randn(B, k, c, device=dev)
+    values = torch.randn(b, k, c, device=dev)
     run_k = lambda: voxelize._scatter_sum_cuda(values, idx, bins)
     run_p = lambda: voxelize._scatter_sum_plain(values, idx, bins)
-    flat = (idx.long() + torch.arange(B, device=dev)[:, None] * bins
+    flat = (idx.long() + torch.arange(b, device=dev)[:, None] * bins
             ).reshape(-1)
     rows = values.reshape(-1, c)
-    run_lib = lambda: values.new_zeros(B * bins, c).index_add_(0, flat, rows)
+    run_lib = lambda: values.new_zeros(b * bins, c).index_add_(0, flat, rows)
     got = _twice("scatter_sum", case, run_k)
     want = run_p()
-    # each output's sum of |terms| and its bin's rows, and the exact sum
+    # each output's sum of |terms|, and the exact sum
     mag = voxelize._scatter_sum_plain(values.abs(), idx, bins)
-    rows_in = voxelize._scatter_sum_plain(torch.ones_like(values[..., :1]),
-                                          idx, bins)
-    err = _compare("scatter_sum", case, got, want,
-                   torch.where(rows_in > 128, (mag / 10).clamp(min=1.0), 1.0))
+    err = _compare("scatter_sum", case, got, want, (mag / 10).clamp(min=1.0))
     exact = voxelize._scatter_sum_plain(values.double(), idx, bins)
     e_k = ((got - exact).abs() / mag.clamp(min=1e-30)).max().item()
     e_p = ((want - exact).abs() / mag.clamp(min=1e-30)).max().item()
@@ -1022,12 +1171,12 @@ def _scatter_sum_case(rec: Record, idx, bins, c) -> None:
     if e_k > 1e-6:
         raise AssertionError(f"scatter_sum {case}: kernel off the fp64 sum")
     lib_ok = _library_agrees("scatter_sum", case,
-                             run_lib().reshape(B, bins, c), want)
+                             run_lib().reshape(b, bins, c), want)
     split, longest = _k1_split("scatter_sum", values, idx, bins, False,
                                False)
     log("kernels", f"scatter_sum {case}: longest run {longest} rows")
-    rec.add("scatter_sum", case, err, run_k, run_p, B * k * c,
-            4 * (B * k * c + B * k + B * bins * c),
+    rec.add("scatter_sum", case, err, run_k, run_p, b * k * c,
+            4 * (b * k * c + b * k + b * bins * c),
             run_lib if lib_ok else None, split=split)
 
 
@@ -1157,7 +1306,7 @@ def _ball_query_many(dev) -> None:
         "per step")
 
 
-def _three_nn_log(case, run_k, ms, bound, sms) -> None:
+def _three_nn_log(case, run_k, ms, bound, sms, b=B) -> None:
     """A K8 case's plan, device time (torch.profiler over 10 calls) and
     share of its bound. Late in a --profile run the profiler has recorded
     part or none of these calls (after four step profiles); with none the
@@ -1170,7 +1319,7 @@ def _three_nn_log(case, run_k, ms, bound, sms) -> None:
     device = (f"device {own:.4f} ms ({bound / own:.1%} of the bound)" if own
               else "device time not measured (no kernel in the profile)")
     log("kernels", f"three_nn {case}: plan "
-        f"{interpolate._three_nn_plan(B, n, m, sms)}; {device}, {ms:.4f} ms "
+        f"{interpolate._three_nn_plan(b, n, m, sms)}; {device}, {ms:.4f} ms "
         f"by events ({bound / ms:.1%})")
 
 
@@ -1459,21 +1608,25 @@ def _flat_grads(model) -> torch.Tensor:
     return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
 
 
-def _trainer(base, weight_decay: float):
-    """A Trainer (Adam lr 1e-3, seeded dropout) on a copy of base."""
+def _trainer(base, weight_decay: float, criterion=None):
+    """A Trainer (Adam lr 1e-3, seeded dropout and sampler) on a copy of
+    base, with CrossEntropyLoss unless a criterion is given."""
     from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
     from pvcnn_tpu_torch.train.optim import Adam
     from pvcnn_tpu_torch.train.trainer import Trainer
 
     model = copy.deepcopy(base)
-    return Trainer(model, CrossEntropyLoss(),
+    return Trainer(model, criterion or CrossEntropyLoss(),
                    Adam(model.parameters(), lr=1e-3,
                         weight_decay=weight_decay), torch.device(DEVICE), SEED)
 
 
 def grads_of(trainer, x, y, seed):
     """Step-1 loss and gradients, without the update."""
+    from pvcnn_tpu_torch.train.trainer import SAMPLE_SEED_OFFSET
+
     trainer.generator.manual_seed(seed)
+    trainer.sample_generator.manual_seed(seed + SAMPLE_SEED_OFFSET)
     trainer.model.train()
     trainer.optimizer.zero_grad(set_to_none=True)
     loss = trainer.criterion(trainer.model(x), y)
@@ -1544,7 +1697,15 @@ def phase_train(label: str, base, batches, per_step: dict, profile: bool,
             or max(rel[1:]) > traj_rtol:
         raise AssertionError("training losses disagree")
 
-    x, y = batches[0]
+    _time_steps(label, kern, plain, *batches[0], b, n)
+    if profile:
+        _profile_steps(label, kern, *batches[0])
+    return loss_k, grads_k
+
+
+def _time_steps(label, kern, plain, x, y, b, n) -> None:
+    """ms/step of the kernel and plain paths' training steps on one batch
+    (medians of 3 rounds of 5, in turns) and their peak memory."""
     ms_k, ms_p, mem = [], [], {}
     for _ in range(3):                               # in turns
         for name, trainer in (("kernel", kern), ("plain", plain)):
@@ -1561,13 +1722,10 @@ def phase_train(label: str, base, batches, per_step: dict, profile: bool,
         f"{np.median(ms_k):.3f} ms/step, plain path {np.median(ms_p):.3f} "
         f"ms/step (medians of {ms_k} / {ms_p}); peak memory kernel "
         f"{mem['kernel']:.3f} GiB, plain {mem['plain']:.3f} GiB")
-    if profile:
-        _profile_steps(label, kern, x, y)
-    return loss_k, grads_k
 
 
-def phase_same_function(label: str, off, on,
-                        what: str = "switches on") -> None:
+def phase_same_function(label: str, off, on, what: str = "switches on",
+                        against: str = "off") -> None:
     """Step 1 of the switched-on kernel path against the switched-off one:
     the same function in another order, held to phase 6's criteria."""
     (loss_off, g_off), (loss_on, g_on) = off, on
@@ -1575,12 +1733,12 @@ def phase_same_function(label: str, off, on,
     g, w = g_on.double(), g_off.double()
     flipped = ((g - w).abs() > 5e-3 * w.abs().max()).double().mean().item()
     rel_l2 = ((g - w).norm() / w.norm()).item()
-    log("train", f"{label} step 1, {what} vs off: loss {loss_on:.7f} "
+    log("train", f"{label} step 1, {what} vs {against}: loss {loss_on:.7f} "
         f"vs {loss_off:.7f} (rel {rel_loss:.2e} <= 1e-5); gradients flipped "
         f"fraction {flipped:.2e} (< 2e-3), rel-L2 {rel_l2:.2e} (< 5e-2)")
     if rel_loss > 1e-5 or flipped >= 2e-3 or rel_l2 >= 5e-2:
         raise AssertionError(f"the step with {what} disagrees with the "
-                             "switched-off one")
+                             f"{against} one")
 
 
 def phase_switched_step(label: str, base, batch, off, on: frozenset,
@@ -1847,6 +2005,399 @@ def phase_s3dis_trainer(label: str, make_model, n: int,
     return counts
 
 
+def frustum_batches(seed: int, b: int, count: int):
+    """`count` synthetic frustum batches (data/kitti/frustum.py) of b x NF
+    points: (inputs, targets) dicts of tensors on the card."""
+    from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(count):
+        out.append(tuple({k: torch.from_numpy(v).to(DEVICE)
+                          for k, v in part.items()}
+                         for part in synthetic_batch(rng, b, NF)))
+    return out
+
+
+@contextlib.contextmanager
+def sampler_record(store: list):
+    """Record each foreground draw of the Frustum models (ops.logits_mask):
+    the mask and the indices it selected, in call order."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    draw = sampling.logits_mask_indices
+
+    def indices(mask, m, generator=None):
+        idx = draw(mask, m, generator)
+        store.append((mask.clone(), idx.clone()))
+        return idx
+
+    with mock.patch.object(sampling, "logits_mask_indices", indices):
+        yield
+
+
+@contextlib.contextmanager
+def sampler_replay(store: list, flips: list):
+    """Replay recorded foreground draws in call order: each ops.logits_mask
+    takes the recorded mask and indices instead of its own. A comparison
+    path's logits differ in the last bits, and one flipped mask entry
+    changes the candidate count and with it the whole draw. `flips` gets,
+    a call each, the mask entries its own logits would have flipped."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    select = sampling.logits_mask
+    calls = iter(store)
+
+    def logits_mask(coords, logits, m, generator=None):
+        mask, idx = (t.to(logits.device) for t in next(calls))
+        flips.append(int((mask != (logits[..., 0] < logits[..., 1])).sum()))
+        as_logits = torch.stack([~mask, mask], -1).to(logits.dtype)
+        with mock.patch.object(sampling, "logits_mask_indices",
+                               lambda *a: idx):
+            return select(coords, as_logits, m, generator)
+
+    with mock.patch.object(sampling, "logits_mask", logits_mask):
+        yield
+
+
+@contextlib.contextmanager
+def environ(values: dict):
+    """Set the environment variables of `values`; restore them after."""
+    saved = {name: os.environ.get(name) for name in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def phase_frustum_kernels():
+    """Every kernel of the Frustum training steps at its shapes there, on
+    synthetic frustum batches: K1-K5 at FrustumPVCNNE's PVConvs (R = 16,
+    12) on 32 x NF points; on its opt-in path K9 (and its dgrad) and K10 at
+    its fused SharedMLP layers, K11 at its convs, K1/K2/K5 channel-last;
+    for FrustumPointNet2 (B = BF2) FPS, ball query (sparse frustum clouds:
+    most centers take the first-hit fill), three-NN (32 points against the
+    group-all level's one center) and K1's sum mode on the take_rows
+    backwards, the box head's on MF points drawn by the foreground sampler
+    from the object's points. Returns the records (PVCNNE, PVCNNE opt-in,
+    PointNet2)."""
+    from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
+    from pvcnn_tpu_torch.ops import sampling
+
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    torch.manual_seed(SEED)
+    x, _ = synthetic_batch(np.random.RandomState(SEED + 60), B, NF)
+    coords = torch.from_numpy(x["features"][..., :3]).to(dev)
+    pv = Record(CALLS_PVCNNE)
+    _time_pvconv_kernels(pv, lambda n: coords[:, :n], normalize=True)
+    on = Record(CALLS_PVCNNE_ON)
+    _time_dense_kernels(on)
+    _time_ndhwc_wgrad(on)
+    _time_pvconv_kernels(on, lambda n: coords[:, :n], normalize=True,
+                         cf=False)
+
+    x, y = synthetic_batch(np.random.RandomState(SEED + 61), BF2, NF)
+    pts = torch.from_numpy(x["features"][..., :3]).to(dev)
+    mask = torch.from_numpy(y["mask_logits"]).to(dev).bool()
+    fg, _, _ = sampling.logits_mask(
+        pts, torch.stack([~mask, mask], -1).float(), MF,
+        torch.Generator(device=dev).manual_seed(SEED))
+    rec = Record(CALLS_FPN2)
+    again = Record({})               # a case's second call: checked only
+    done, rows = set(), {}
+
+    def record(case):
+        timed = rec if case not in done else again
+        done.add(case)
+        return timed
+
+    def set_abstraction(points, m, levels):
+        n = points.shape[1]
+        idx = _fps_case(record((n, m)), points, m)
+        rows[(m, n)] = idx
+        centers = torch.gather(points, 1,
+                               idx.long()[..., None].expand(-1, -1, 3))
+        for radius, u in levels:
+            got = _ball_query_case(record((m, n, radius, u)), points,
+                                   centers, radius, u, sms)
+            rows[(m * u, n)] = got.reshape(BF2, -1)
+        return centers
+
+    c1 = set_abstraction(pts, 128, ((0.2, 32), (0.4, 64), (0.8, 128)))
+    c2 = set_abstraction(c1, 32, ((0.4, 64), (0.8, 64), (1.6, 128)))
+    b1 = set_abstraction(fg.contiguous(), 128, ((0.2, 64),))
+    set_abstraction(b1, 32, ((0.4, 64),))
+    for queries, centers in ((c2, torch.zeros(BF2, 1, 3, device=dev)),
+                             (c1, c2), (pts, c1)):
+        idx = _three_nn_case(rec, queries, centers, sms)
+        rows[(3 * queries.shape[1], centers.shape[1])] = idx.reshape(BF2, -1)
+    for k, bins, c in sorted(c for k, c in CALLS_FPN2 if k == "scatter_sum"):
+        _scatter_sum_case(rec, rows[(k, bins)], bins, c)
+    return (pv.summary("KITTI FrustumPVCNNE 1x"),
+            on.summary("KITTI FrustumPVCNNE 1x opt-in"),
+            rec.summary("KITTI FrustumPointNet2 1x"))
+
+
+def _outputs_agree(label, what, got: dict, want: dict) -> None:
+    """Every output of a Frustum model within 1e-3 of the larger of 1 and
+    its largest entry, the foreground masks' argmax agreeing on >= 0.999
+    of the points."""
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {key}: bad output "
+                                 f"{tuple(g.shape)}")
+        worst = max(worst, ((g - w).abs().max() / w.abs().max().clamp(
+            min=1.0)).item())
+    agree = (got["mask_logits"].argmax(-1) == want["mask_logits"].argmax(-1)
+             ).float().mean().item()
+    log("slice", f"{label}: {what}: max |d| / max(1, max |output|) "
+        f"{worst:.3e} over the outputs (<= 1e-3), mask argmax agreement "
+        f"{agree:.6f} (>= 0.999)")
+    if worst > 1e-3 or agree < 0.999:
+        raise AssertionError(f"{label}: {what} disagree")
+
+
+def phase_frustum_slice(label: str, model, inputs: dict,
+                        fwd_kernels) -> None:
+    """A Frustum model's eval forward on the kernel path against the plain
+    path on the card and the plain path on the CPU (2 clouds), each
+    replaying the kernel path's foreground draws (sampler_replay, with its
+    flips logged); ms per batch, kernel and plain paths in turns."""
+    from pvcnn_tpu_torch import kernels
+
+    dev = torch.device(DEVICE)
+    b, n = inputs["features"].shape[:2]
+    model = model.eval().to(dev)
+    x = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+    small = {k: torch.from_numpy(v[:2]) for k, v in inputs.items()}
+    rec, rec_small, flips, flips_small = [], [], [], []
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        with sampler_record(rec):
+            out = model(x)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        with plain_on_card(), sampler_replay(rec, flips):
+            plain = model(x)
+        with sampler_record(rec_small):
+            got_small = {k: v.cpu() for k, v in model(
+                {k: v.to(dev) for k, v in small.items()}).items()}
+        with sampler_replay(rec_small, flips_small):
+            want_small = model.cpu()(small)
+        model.to(dev)
+    log("slice", f"{label}: launches in one forward: "
+        f"{ {k: v for k, v in counts.items() if v} }; foreground masks "
+        f"flipped on the plain path {flips}, on the CPU {flips_small}")
+    _check_ran(counts, {k: 1 for k in fwd_kernels})
+    _outputs_agree(label, "kernel vs plain path on the card", out, plain)
+    _outputs_agree(label, "kernel path on the card vs plain path on the "
+                   "CPU (2 clouds)", got_small, want_small)
+    ms_k, ms_p = [], []
+    with torch.inference_mode():
+        for _ in range(3):                          # in turns: kernel, plain
+            ms_k.append(time_ms(lambda: model(x), reps=5, warmup=1))
+            with plain_on_card():
+                ms_p.append(time_ms(lambda: model(x), reps=5, warmup=1))
+    log("slice", f"{label} forward, {b} x {n}: kernel path "
+        f"{np.median(ms_k):.3f} ms/batch, plain path {np.median(ms_p):.3f} "
+        f"ms/batch (medians of {ms_k} / {ms_p})")
+
+
+def phase_frustum_train(label: str, base, batches, per_step: dict,
+                        profile: bool, traj_rtol: float = 1e-3):
+    """phase_train for a Frustum model (FrustumPointNetLoss, dict batches):
+    the plain path replays the kernel path's foreground draws of each step
+    (sampler_replay), and the mask entries its own logits would have
+    flipped are logged a step. Returns the kernel path's step 1 (loss,
+    gradients, recorded draws)."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.models.kitti import frustum as kitti
+
+    b, n = batches[0][0]["features"].shape[:2]
+    make = lambda: _trainer(base, 0.0, kitti.criterion())
+    kern, plain = make(), make()
+    rec, rec2, flips = [], [], []
+    with sampler_record(rec):
+        loss_k, grads_k = grads_of(kern, *batches[0], SEED)
+    with sampler_record(rec2):
+        loss_k2, grads_k2 = grads_of(kern, *batches[0], SEED)
+    if loss_k != loss_k2 or not torch.equal(grads_k, grads_k2) or not all(
+            torch.equal(a[1], b_[1]) for a, b_ in zip(rec, rec2)):
+        raise AssertionError("two kernel-path runs of step 1 differ")
+    log("train", f"{label}: step-1 loss, gradients and foreground draws of "
+        "two kernel-path runs are bitwise equal")
+    with plain_on_card(), sampler_replay(rec, flips):
+        loss_p, grads_p = grads_of(plain, *batches[0], SEED)
+    log("train", f"{label} step 1: foreground masks the plain path would "
+        f"have flipped: {flips}")
+    phase_same_function(label, (loss_p, grads_p), (loss_k, grads_k),
+                        "the kernel path", "the plain path")
+
+    kern, plain, again = make(), make(), make()
+    losses_k, losses_p, losses_p2, step_flips = [], [], [], []
+    for i, (x, y) in enumerate(batches):
+        rec, flips = [], []
+        kernels.reset_launch_counts()
+        with sampler_record(rec):
+            losses_k.append(kern.train_step(x, y).item())
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if counts != per_step:
+            raise AssertionError(f"step {i + 1} launches {counts}, expected "
+                                 f"{per_step}")
+        with plain_on_card():
+            with sampler_replay(rec, flips):
+                losses_p.append(plain.train_step(x, y).item())
+            # the plain path's own run-to-run spread (float atomics)
+            with sampler_replay(rec, []):
+                losses_p2.append(again.train_step(x, y).item())
+        step_flips.append(flips)
+    del again
+    log("train", f"{label}: launches per step: {counts}; foreground masks "
+        f"the plain path would have flipped a step: {step_flips}")
+    rel = [abs(a - b_) / abs(b_) for a, b_ in zip(losses_k, losses_p)]
+    own = [abs(a - b_) / abs(b_) for a, b_ in zip(losses_p2, losses_p)]
+    log("train", f"{label}: losses kernel {losses_k} plain {losses_p}: "
+        f"relative differences {['%.2e' % r for r in rel]} (step 1 <= 1e-5, "
+        f"steps 2-3 <= {traj_rtol:g}); plain against a second plain run "
+        f"{['%.2e' % r for r in own]}")
+    if not all(np.isfinite(losses_k)) or rel[0] > 1e-5 \
+            or max(rel[1:]) > traj_rtol:
+        raise AssertionError("training losses disagree")
+
+    _time_steps(label, kern, plain, *batches[0], b, n)
+    if profile:
+        _profile_steps(label, kern, *batches[0])
+    return loss_k, grads_k, rec2
+
+
+def phase_frustum_switched(label: str, base, batch, ref, env: dict,
+                           per_step: dict, what: str) -> dict:
+    """One Frustum training step with the environment variables of `env`
+    set: its step 1, replaying the default kernel path's draws, against
+    that path's (`ref`: loss, gradients, draws; phase_same_function), its
+    launches from zeroed counters exactly per_step's, its ms/step against
+    the default step's (medians of 3 rounds of 5, in turns) and peak
+    memory. Returns its launches."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.models.kitti import frustum as kitti
+
+    x, y = batch
+    loss_ref, grads_ref, rec = ref
+    flips = []
+    with environ(env):
+        trainer = _trainer(base, 0.0, kitti.criterion())
+        with sampler_replay(rec, flips):
+            got = grads_of(trainer, x, y, SEED)
+        log("train", f"{label}, {what}: foreground masks flipped against "
+            f"the default step: {flips}")
+        phase_same_function(label, (loss_ref, grads_ref), got, what,
+                            "the default")
+        kernels.reset_launch_counts()
+        trainer.train_step(x, y)
+        counts = kernels.launch_counts()
+        ran = {k: v for k, v in counts.items() if v}
+        if ran != per_step:
+            raise AssertionError(f"{what}: launches {ran}, expected "
+                                 f"{per_step}")
+    default = _trainer(base, 0.0, kitti.criterion())
+    ms, ms_default = [], []
+    for _ in range(3):                               # in turns
+        ms_default.append(time_ms(lambda: default.train_step(x, y), reps=5,
+                                  warmup=1))
+        with environ(env):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms.append(time_ms(lambda: trainer.train_step(x, y), reps=5,
+                              warmup=1))
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train", f"{label}, {what}: {np.median(ms):.3f} ms/step against "
+        f"the default step's {np.median(ms_default):.3f} (medians of {ms} "
+        f"/ {ms_default}, in turns), peak memory {mem:.3f} GiB, launches "
+        f"per step {ran}")
+    return counts
+
+
+class _MaskAccuracy:
+    """A stand-in meter for the Frustum evaluation path (the Frustum meters
+    are not ported yet): the fraction of points whose foreground argmax
+    equals its target, over the finite outputs of every batch."""
+
+    def __init__(self):
+        self.hits = self.total = 0
+
+    def update(self, outputs: dict, targets: dict) -> None:
+        if not all(np.isfinite(v).all() for v in outputs.values()):
+            raise AssertionError("non-finite Frustum outputs")
+        pred = outputs["mask_logits"].argmax(-1)
+        self.hits += int((pred == targets["mask_logits"]).sum())
+        self.total += pred.size
+
+    def compute(self) -> float:
+        return self.hits / max(self.total, 1)
+
+
+def phase_frustum_trainer(name: str, per_step: dict) -> dict:
+    """A Frustum main path from zeroed counters, with the model's recipe
+    (models/kitti/frustum MODELS: its batch size, Adam lr 1e-3, its
+    schedule): Trainer.train_epoch over 4 batches of synthetic frustum
+    items through the DataLoader, Trainer.evaluate over one more (the
+    sampler draws there too), then a checkpoint round trip."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
+    from pvcnn_tpu_torch.data.loader import DataLoader
+    from pvcnn_tpu_torch.models.kitti import frustum as kitti
+    from pvcnn_tpu_torch.train.optim import Adam
+    from pvcnn_tpu_torch.train.trainer import (Trainer, load_checkpoint,
+                                               save_checkpoint)
+    from pvcnn_tpu_torch.utils.weights import init_random_
+
+    spec = kitti.MODELS[name]
+    b = spec.batch_size
+    x, y = synthetic_batch(np.random.RandomState(SEED + 62), 5 * b, NF)
+    items = [({k: v[i] for k, v in x.items()},
+              {k: v[i] for k, v in y.items()}) for i in range(5 * b)]
+    model = init_random_(spec.build(1.0), SEED)
+    optimizer = Adam(model.parameters(), lr=kitti.LR)
+    scheduler = spec.scheduler(kitti.EPOCHS).bind(kitti.LR)
+    trainer = Trainer(model, kitti.criterion(), optimizer, DEVICE, SEED)
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    loss = trainer.train_epoch(DataLoader(items[:4 * b], b, shuffle=True,
+                                          seed=SEED), 0, scheduler)
+    scores = trainer.evaluate(DataLoader(items[4 * b:], b),
+                              {"acc/mask_val": _MaskAccuracy()})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        path = os.path.join(root, "latest.pth.tar")
+        save_checkpoint(path, 0, model, optimizer, scores)
+        again = spec.build(1.0)
+        epoch, saved = load_checkpoint(path, again)
+    same = all(torch.equal(a.cpu(), b_) for a, b_ in zip(
+        model.state_dict().values(), again.state_dict().values()))
+    log("trainer", f"Frustum {name}: {4 * b} synthetic frustums, 1 epoch "
+        f"of 4 steps at batch {b} (lr {scheduler(0):g}) + {b} evaluated: "
+        f"{seconds:.2f} s, mean loss {loss:.4f}, {scores} (random "
+        f"weights), launches {counts}; checkpoint round trip: epoch {epoch},"
+        f" meters {saved}, state_dict equal {same}")
+    if not np.isfinite(loss) or not 0.0 <= scores["acc/mask_val"] <= 1.0:
+        raise AssertionError(f"bad Frustum {name} trainer result")
+    if not same or epoch != 0 or saved != scores:
+        raise AssertionError(f"Frustum {name} checkpoint does not "
+                             "round-trip")
+    _check_ran(counts, per_step)
+    return counts
+
+
 def _stopwatch():
     """lap(phase) logs the seconds since the previous lap (or the start)."""
     last = [time.perf_counter()]
@@ -1860,6 +2411,8 @@ def _stopwatch():
 
 def main() -> None:
     from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
+    from pvcnn_tpu_torch.models.kitti import frustum as kitti
     from pvcnn_tpu_torch.models.s3dis import PVCNN as S3DISPVCNN
     from pvcnn_tpu_torch.models.s3dis import PVCNN2
     from pvcnn_tpu_torch.models.s3dis import PointNet as S3DISPointNet
@@ -1869,7 +2422,7 @@ def main() -> None:
 
     profile = "--profile" in sys.argv[1:]
     lap = _stopwatch()
-    name = phase_device()
+    device_name = phase_device()
     check_calls()
     phase_build()
     lap("build")
@@ -1988,6 +2541,45 @@ def main() -> None:
                         {})
     lap("pointnet")
 
+    pvcnne, pvcnne_on, fpn2 = ("KITTI FrustumPVCNNE 1x",
+                               "KITTI FrustumPVCNNE 1x opt-in",
+                               "KITTI FrustumPointNet2 1x")
+    rec[pvcnne], rec[pvcnne_on], rec[fpn2] = phase_frustum_kernels()
+    lap("frustum kernels")
+    models = {m: init_random_(kitti.MODELS[m].build(1.0), SEED)
+              for m in kitti.MODELS}
+    for m, b, fwd_kernels in (("pvcnne", B, fwd), ("pointnet2", BF2,
+                                                   fwd_pn2),
+                              ("pointnet", B, ())):
+        inputs, _ = synthetic_batch(np.random.RandomState(SEED + 63), b, NF)
+        phase_frustum_slice(f"Frustum {m} 1x", copy.deepcopy(models[m]),
+                            inputs, fwd_kernels)
+    lap("frustum slice")
+    batches = frustum_batches(SEED + 64, B, 3)
+    ref = phase_frustum_train("FrustumPVCNNE 1x", models["pvcnne"], batches,
+                              PER_STEP_PVCNNE, profile)
+    phase_frustum_switched("FrustumPVCNNE 1x", models["pvcnne"], batches[0],
+                           ref, {"PVCNN_TPU_CONV_BN_FUSED": "0"},
+                           PER_STEP_PVCNNE, "CONV_BN_FUSED=0")
+    counts[pvcnne_on] = phase_frustum_switched(
+        "FrustumPVCNNE 1x", models["pvcnne"], batches[0], ref, SWITCHES,
+        PER_STEP_PVCNNE_ON, "switches on")
+    # FrustumPointNet2's plain path moves by 5.5e-4 against itself at step
+    # 3 (scatter_add_ atomics in its groupings' and interpolations'
+    # gradients; PVCNNE's by 7.1e-5): its steps 2-3 are held to 5e-3, as
+    # PVCNN2's are
+    phase_frustum_train("FrustumPointNet2 1x", models["pointnet2"],
+                        frustum_batches(SEED + 65, BF2, 3), PER_STEP_FPN2,
+                        profile, traj_rtol=5e-3)
+    phase_frustum_train("FrustumPointNet 1x", models["pointnet"], batches,
+                        {}, profile)
+    del models
+    lap("frustum train")
+    counts[pvcnne] = phase_frustum_trainer("pvcnne", PER_STEP_PVCNNE)
+    counts[fpn2] = phase_frustum_trainer("pointnet2", PER_STEP_FPN2)
+    phase_frustum_trainer("pointnet", {})
+    lap("frustum trainer")
+
     lines = []
     for k in kernels.KERNELS.values():
         paths = {}
@@ -2019,7 +2611,7 @@ def main() -> None:
             "paths": paths})
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -1,5 +1,7 @@
 """Single-process batch loader (counterpart of pvcnn_tpu/data/loader.py's
-serial path): a map-style dataset -> (features, labels) numpy batches.
+serial path): a map-style dataset -> (features, labels) numpy batches. An
+item's features or labels may be a dict of arrays (the Frustum items); the
+batch then holds a dict of stacked arrays.
 
 The order is shuffled per epoch from np.random.RandomState(seed + epoch + 1)
 (the JAX loader's first epoch draws from seed + 1); the trainer sets `epoch`
@@ -35,5 +37,11 @@ class DataLoader:
         for start in range(0, len(order), self.batch_size):
             items = [self.dataset[int(i)]
                      for i in order[start:start + self.batch_size]]
-            yield (np.stack([f for f, _ in items]),
-                   np.stack([y for _, y in items]))
+            yield (_stack([f for f, _ in items]),
+                   _stack([y for _, y in items]))
+
+
+def _stack(parts):
+    if isinstance(parts[0], dict):
+        return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)

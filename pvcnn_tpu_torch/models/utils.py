@@ -16,7 +16,8 @@ from pvcnn_tpu_torch.nn import (DenseBNReLU, PointNetAModule,
 
 __all__ = ["Dropout", "apply_layers", "create_mlp_components",
            "create_pointnet2_fp_modules", "create_pointnet2_sa_components",
-           "create_pointnet_components", "set_dropout_generator"]
+           "create_pointnet_components", "set_dropout_generator",
+           "set_sample_generator"]
 
 
 class Dropout(nn.Dropout):
@@ -40,6 +41,15 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator):
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
+
+
+def set_sample_generator(model: nn.Module, generator: torch.Generator):
+    """Make every module of `model` that samples (one with a
+    `sample_generator` attribute: the Frustum models' foreground sampler)
+    draw from `generator`."""
+    for mod in model.modules():
+        if hasattr(mod, "sample_generator"):
+            mod.sample_generator = generator
 
 
 def apply_layers(layers, x):

@@ -2,11 +2,14 @@
 (counterpart of pvcnn_tpu/nn/pvconv.py).
 
 Two voxel branches, as in the JAX package. By default (PVCNN_TPU_CONV_ROWS
-auto) the fused flat-rows branch: the grid stays channel-major and flat,
+auto) the flat-rows branch: the grid stays channel-major and flat,
 [B, C, R^3], from the scatter-mean to the trilinear gather (K1 writes it in
-that layout, K3 reads and writes it, K2 reads it through strides). With
-PVCNN_TPU_CONV_ROWS=0 the unfused NDHWC branch: K1 and K2 in their
-channel-last modes around Conv3dSame.ndhwc -> BatchNorm -> LeakyReLU twice.
+that layout, K3 reads and writes it, K2 reads it through strides). It is
+fused by default; with PVCNN_TPU_CONV_BN_FUSED=0 it runs unfused: K3 without
+its prologue and statistics, then BatchNorm and LeakyReLU as passes of their
+own, twice. With PVCNN_TPU_CONV_ROWS=0 (which takes precedence) the unfused
+NDHWC branch: K1 and K2 in their channel-last modes around
+Conv3dSame.ndhwc -> BatchNorm -> LeakyReLU twice.
 Module names follow the reference (voxel_layers.0/1/3/4/6, point_features)
 on both branches, so `state_dict()` keys match released checkpoints.
 """
@@ -82,10 +85,11 @@ class PVConv(nn.Module):
         """features [B, N, C], coords [B, N, 3] -> (fused [B, N, C'], coords).
 
         With PVCNN_TPU_CONV_ROWS=0 the voxel branch is the NDHWC one
-        (_voxel_ndhwc). Otherwise it is fused as in the JAX package: conv0, then conv1
-        with BatchNorm 0's folded affine and LeakyReLU as its input prologue,
-        then BatchNorm 1 and LeakyReLU as one elementwise pass, then SE and
-        the trilinear gather. In eval mode the BatchNorms fold their running
+        (_voxel_ndhwc); with PVCNN_TPU_CONV_BN_FUSED=0 the unfused rows one
+        (_rows_unfused). Otherwise it is fused as in the JAX package: conv0,
+        then conv1 with BatchNorm 0's folded affine and LeakyReLU as its
+        input prologue, then BatchNorm 1 and LeakyReLU as one elementwise
+        pass, then SE and the trilinear gather. In eval mode the BatchNorms fold their running
         statistics; in train mode each conv also returns its output's
         per-channel sums, and its BatchNorm folds those batch statistics
         (updating its running ones)."""
@@ -95,7 +99,9 @@ class PVConv(nn.Module):
         r = self.resolution
         conv0, bn0, _, conv1, bn1, _ = self.voxel_layers[:6]
         grid, norm_coords = self.voxelization(features, coords)
-        if self.training:
+        if knobs.get("PVCNN_TPU_CONV_BN_FUSED") == "0":
+            grid = self._rows_unfused(grid)
+        elif self.training:
             count = grid.shape[0] * r ** 3
             grid, s1, s2 = conv0(grid, r, want_stats=True)
             pro = bn0.fold_from_sums(s1, s2, count)
@@ -110,6 +116,18 @@ class PVConv(nn.Module):
         voxel_features = ops.devoxelize_rows(grid, norm_coords, r,
                                              channels_first=True)
         return voxel_features + self.point_features(features), coords
+
+    def _rows_unfused(self, grid):
+        """The unfused rows branch (pvcnn_tpu/nn/pvconv.py with
+        PVCNN_TPU_CONV_BN_FUSED=0) on [B, C, R^3] rows: each conv without
+        prologue or statistics, then its BatchNorm over the channel axis (batch
+        statistics in train mode, running ones in eval mode) and LeakyReLU,
+        each a pass of its own."""
+        r = self.resolution
+        for conv, bn, act in (self.voxel_layers[0:3], self.voxel_layers[3:6]):
+            grid, _, _ = conv(grid, r)
+            grid = act(bn.channels_first(grid))
+        return grid
 
     def _voxel_ndhwc(self, features, coords):
         """The unfused NDHWC voxel branch (pvcnn_tpu/nn/pvconv.py with

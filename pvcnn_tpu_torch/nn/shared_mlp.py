@@ -69,7 +69,9 @@ class BatchNorm(nn.BatchNorm1d):
     bn(y) == y * scale_eff + shift_eff, the prologue the fused conv
     (ops/conv3d.py) applies in place of a normalize pass over the grid.
     `fold_from_sums()` is its training-mode twin, from the batch sums the
-    conv's statistics epilogue returns; `apply_from_sums()` applies it."""
+    conv's statistics epilogue returns; `apply_from_sums()` applies it.
+    `channels_first()` normalizes channel-major features instead (the
+    unfused rows branch's grids)."""
 
     def forward(self, x):
         c = x.shape[-1]
@@ -77,6 +79,13 @@ class BatchNorm(nn.BatchNorm1d):
                          self.running_var, self.weight, self.bias,
                          self.training, self.momentum, self.eps)
         return y.reshape(x.shape)
+
+    def channels_first(self, x):
+        """BatchNorm over axis 1 of channel-major features [B, C, ...] (the
+        rows branch's grids [B, C, R^3])."""
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, self.training,
+                            self.momentum, self.eps)
 
     def fold(self):
         if self.training:

@@ -13,7 +13,8 @@ from pvcnn_tpu_torch.ops.interpolate import (nearest_neighbor_interpolate,
 from pvcnn_tpu_torch.ops.neighbors import ball_query, grouping
 from pvcnn_tpu_torch.ops.sampling import (furthest_point_sample,
                                           furthest_point_sample_indices,
-                                          gather)
+                                          gather, logits_mask,
+                                          logits_mask_indices)
 from pvcnn_tpu_torch.ops.voxelize import (avg_voxelize, flat_voxel_index,
                                           normalize_coords, scatter_mean,
                                           scatter_sum)
@@ -22,6 +23,7 @@ __all__ = ["avg_voxelize", "ball_query", "conv3d_rows_act", "conv3d_same",
            "corner_base_bins", "dense_rows_act", "devoxelize_rows",
            "flat_voxel_index", "furthest_point_sample",
            "furthest_point_sample_indices", "gather", "grouping",
-           "leaky_affine", "nearest_neighbor_interpolate", "normalize_coords",
+           "leaky_affine", "logits_mask", "logits_mask_indices",
+           "nearest_neighbor_interpolate", "normalize_coords",
            "scatter_mean", "scatter_sum", "take_rows", "three_nn",
            "trilinear_devoxelize"]

@@ -1,13 +1,13 @@
-"""Loss primitives (counterpart of pvcnn_tpu/ops/losses.py, the part the
-segmentation configs use). The class axis is the LAST axis, as in the JAX
-package's channel-last layout."""
+"""Loss primitives (counterpart of pvcnn_tpu/ops/losses.py, the parts the
+segmentation and Frustum configs use). The class axis is the LAST axis, as
+in the JAX package's channel-last layout."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "huber_loss"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
@@ -15,3 +15,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     labels [...] -> scalar (torch F.cross_entropy over every position)."""
     k = logits.shape[-1]
     return F.cross_entropy(logits.reshape(-1, k), labels.reshape(-1).long())
+
+
+def huber_loss(error: torch.Tensor, delta: float):
+    """Mean Huber loss (smooth L1 with knee `delta`) over all elements:
+    0.5 * min(|e|, delta)^2 + delta * (|e| - min(|e|, delta))."""
+    abs_error = error.abs()
+    quadratic = abs_error.clamp(max=delta)
+    return (0.5 * quadratic ** 2 + delta * (abs_error - quadratic)).mean()

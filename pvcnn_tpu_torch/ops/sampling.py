@@ -1,5 +1,5 @@
-"""Furthest point sampling and feature gathering (counterpart of
-pvcnn_tpu/ops/sampling.py; its `logits_mask` comes with the Frustum models).
+"""Furthest point sampling, feature gathering and the Frustum models'
+foreground sampler (counterpart of pvcnn_tpu/ops/sampling.py).
 
 `furthest_point_sample_indices` dispatches by device: a CUDA tensor goes to
 kernel K6 (pvcnn_tpu_torch/csrc/fps.cu: any cloud size, launched as
@@ -10,6 +10,11 @@ d² = (dx² + dy²) + dz², argmax ties to the lowest index (torch.argmax
 returns the first maximum). The indices carry no gradient;
 `furthest_point_sample` gathers the coordinates with `take_rows`, so a
 gradient flows into the chosen points.
+
+`logits_mask` keeps M foreground points a cloud, as the JAX package's
+on-device sampler does: a random permutation of the candidates (a sort of
+uniform keys, candidates first) walked cyclically. It runs on the tensors'
+device with no host sync, so the same code serves the CPU and the card.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from pvcnn_tpu_torch import kernels
 from pvcnn_tpu_torch.ops.gather_utils import take_rows
 
 __all__ = ["furthest_point_sample", "furthest_point_sample_indices",
-           "gather"]
+           "gather", "logits_mask", "logits_mask_indices"]
 
 
 def furthest_point_sample_indices(coords: torch.Tensor, num_samples: int):
@@ -99,3 +104,45 @@ def gather(features: torch.Tensor, indices: torch.Tensor):
 def furthest_point_sample(coords: torch.Tensor, num_samples: int):
     """coords [B, N, 3] -> [B, M, 3] coords of the FPS centers."""
     return gather(coords, furthest_point_sample_indices(coords, num_samples))
+
+
+def logits_mask(coords: torch.Tensor, logits: torch.Tensor,
+                num_points_per_object: int,
+                generator: torch.Generator | None = None):
+    """Foreground resampling from binary segmentation logits.
+
+    coords [B, N, 3], logits [B, N, 2] -> (selected [B, M, 3] foreground
+    coords minus their mean, mean [B, 3] of the foreground coords, mask
+    [B, N] bool with logits[..., 0] < logits[..., 1]). The mean divides by
+    max(count, 1); the M indices come from `logits_mask_indices`, looked up
+    at call time, with draws from `generator` (a torch.Generator on the
+    tensors' device; None: torch's default one)."""
+    m = int(num_points_per_object)
+    mask = logits[..., 0] < logits[..., 1]
+    maskf = mask.to(coords.dtype)
+    count = mask.sum(dim=-1)
+    masked = coords * maskf[..., None]
+    mean = masked.sum(dim=1) / count.clamp(min=1).to(coords.dtype)[:, None]
+    idx = logits_mask_indices(mask, m, generator)
+    return gather(masked - mean[:, None, :], idx), mean, mask
+
+
+def logits_mask_indices(mask: torch.Tensor, m: int,
+                        generator: torch.Generator | None = None):
+    """The index selection of `logits_mask`: [B, N] bool -> [B, M] int32.
+
+    Each point draws u uniform in [0, 1), a non-candidate u + 2, so the
+    sorted keys list the candidates first in random order; slot j takes
+    the (j mod max(count, 1))-th of them. With count >= M that is a uniform
+    M-subset without replacement; with 0 < count < M each candidate is
+    taken floor(M / count) or floor(M / count) + 1 times, the reference's
+    repeat-and-shuffle law (pvcnn_tpu/ops/sampling.py:logits_mask_indices);
+    with count = 0 every slot takes the first of a random order of all
+    points."""
+    b, n = mask.shape
+    u = torch.rand((b, n), generator=generator, device=mask.device)
+    key = torch.where(mask, u, u + 2.0)
+    order = torch.argsort(key, dim=-1, stable=True)
+    count = mask.sum(dim=-1, keepdim=True).clamp(min=1)
+    j = torch.arange(m, device=mask.device)[None, :] % count
+    return torch.gather(order, 1, j).to(torch.int32)

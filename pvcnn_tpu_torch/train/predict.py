@@ -31,9 +31,14 @@ def fp32_precision():
         torch.backends.cudnn.allow_tf32 = cudnn
 
 
-def predict(model: nn.Module, inputs: torch.Tensor) -> torch.Tensor:
+def predict(model: nn.Module, inputs):
     """Eval-mode forward of a [B, N, C] batch -> softmax probabilities over
-    the last axis, in fp32."""
+    the last axis, in fp32. A model with dict inputs and outputs (the
+    Frustum models, whose foreground sampler draws in eval mode too) gives
+    its output dict as it is."""
     model.eval()
     with torch.inference_mode(), fp32_precision():
-        return torch.softmax(model(inputs), dim=-1)
+        outputs = model(inputs)
+        if isinstance(outputs, dict):
+            return outputs
+        return torch.softmax(outputs, dim=-1)

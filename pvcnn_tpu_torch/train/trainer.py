@@ -7,7 +7,12 @@ BatchNorms, dropout), criterion, backward, optimizer update. Losses stay on
 the device and are fetched once per epoch, not once per step, so the host
 never waits on the card inside an epoch. Dropout draws from a
 torch.Generator on the model's device that the Trainer owns, seeded with
-`seed`. fp32 throughout with TF32 off (train/predict.py:fp32_precision).
+`seed`; a model that samples (the Frustum models' foreground sampler) draws
+from a second one, seeded apart (the JAX trainer's `sample` stream,
+has_sample_rng), in training and evaluation alike. Inputs and targets are
+arrays, or dicts of arrays (the Frustum batches); outputs a tensor or a
+dict of tensors. fp32 throughout with TF32 off
+(train/predict.py:fp32_precision).
 
 A checkpoint is {"epoch", "model": state_dict, "optimizer": state_dict,
 "meters"}; its `model` entry carries the reference's module names, so
@@ -24,12 +29,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from pvcnn_tpu_torch.models.utils import set_dropout_generator
+from pvcnn_tpu_torch.models.utils import (set_dropout_generator,
+                                          set_sample_generator)
 from pvcnn_tpu_torch.train.optim import set_learning_rate
 from pvcnn_tpu_torch.train.predict import fp32_precision
 
-__all__ = ["Trainer", "copy_checkpoint", "load_checkpoint",
-           "save_checkpoint"]
+__all__ = ["SAMPLE_SEED_OFFSET", "Trainer", "copy_checkpoint",
+           "load_checkpoint", "save_checkpoint"]
+
+# the sampler's generator is seeded with seed + SAMPLE_SEED_OFFSET, apart
+# from the dropout generator's seed
+SAMPLE_SEED_OFFSET = 0x5A3D1E
 
 
 class Trainer:
@@ -42,8 +52,13 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         set_dropout_generator(self.model, self.generator)
+        self.sample_generator = torch.Generator(device=self.device)
+        self.sample_generator.manual_seed(int(seed) + SAMPLE_SEED_OFFSET)
+        set_sample_generator(self.model, self.sample_generator)
 
     def _to_device(self, array):
+        if isinstance(array, dict):
+            return {k: self._to_device(v) for k, v in array.items()}
         return torch.from_numpy(np.asarray(array)).to(self.device)
 
     def train_step(self, inputs: torch.Tensor, targets: torch.Tensor):
@@ -75,14 +90,21 @@ class Trainer:
 
     def evaluate(self, loader, meters: dict) -> dict:
         """Eval-mode forward over the loader, each meter updated with the
-        logits of every batch -> {name: meter.compute()}."""
+        outputs of every batch (numpy; a dict of them for a dict output) ->
+        {name: meter.compute()}."""
         self.model.eval()
         with torch.inference_mode(), fp32_precision():
             for inputs, targets in loader:
-                outputs = self.model(self._to_device(inputs)).cpu().numpy()
+                outputs = _to_numpy(self.model(self._to_device(inputs)))
                 for meter in meters.values():
                     meter.update(outputs, targets)
         return {k: meter.compute() for k, meter in meters.items()}
+
+
+def _to_numpy(outputs):
+    if isinstance(outputs, dict):
+        return {k: v.cpu().numpy() for k, v in outputs.items()}
+    return outputs.cpu().numpy()
 
 
 def save_checkpoint(path: str, epoch: int, model: nn.Module, optimizer,

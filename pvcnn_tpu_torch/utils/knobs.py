@@ -5,6 +5,11 @@ pvcnn_tpu/utils/knobs.py), so one variable switches both packages.
     PVCNN_TPU_CONV_ROWS          auto | 0   (auto)  0: the PVConv voxel branch
                                  runs on NDHWC grids [B, R, R, R, C] instead
                                  of flat rows [B, C, R^3] (K3/K4)
+    PVCNN_TPU_CONV_BN_FUSED      auto | 0   (auto)  0: on the rows branch,
+                                 each conv runs K3 without its prologue and
+                                 statistics, and each BatchNorm and
+                                 LeakyReLU is a pass of its own over
+                                 [B, C, R^3] (CONV_ROWS=0 takes precedence)
     PVCNN_TPU_DENSE_BN_FUSED     auto | 0   (0)     auto: train-mode SharedMLP
                                  layers run Dense + BN statistics in one
                                  kernel (ops/dense_rows.py, K9/K10)
@@ -25,6 +30,7 @@ __all__ = ["KNOBS", "get"]
 # name -> (choices, default); a bool knob's choices are "0" and "1"
 KNOBS = {
     "PVCNN_TPU_CONV_ROWS": (("auto", "0"), "auto"),
+    "PVCNN_TPU_CONV_BN_FUSED": (("auto", "0"), "auto"),
     "PVCNN_TPU_DENSE_BN_FUSED": (("auto", "0"), "0"),
     "PVCNN_TPU_CUSTOM_CONV_WGRAD": (("0", "1"), "0"),
 }

@@ -189,13 +189,16 @@ def test_ndhwc_and_rows_branches_agree(monkeypatch):
 
 
 def _k11_cases():
-    """K11's (B, Ci, Co, R) on the S3DIS PVCNN opt-in step (chip_smoke.py's
-    CALLS3_ON, B = 32) and five edge shapes: Ci = 1 and 257, Co = 1 and
-    130, R = 1 and 5 (zero-filled segment ends), one cloud."""
+    """K11's (B, Ci, Co, R) on the S3DIS PVCNN and FrustumPVCNNE opt-in
+    steps (chip_smoke.py's CALLS3_ON and CALLS_PVCNNE_ON, B = 32: Ci = 4,
+    R = 12) and five edge shapes: Ci = 1 and 257, Co = 1 and 130, R = 1
+    and 5 (zero-filled segment ends), one cloud."""
     import chip_smoke
 
-    cases = sorted((chip_smoke.B,) + c for (k, c) in chip_smoke.CALLS3_ON
-                   if k == "conv3d_ndhwc_wgrad")
+    cases = sorted({(chip_smoke.B,) + c
+                    for calls in (chip_smoke.CALLS3_ON,
+                                  chip_smoke.CALLS_PVCNNE_ON)
+                    for (k, c) in calls if k == "conv3d_ndhwc_wgrad"})
     return cases + [(1, 1, 130, 5), (3, 257, 1, 1), (1, 257, 130, 16),
                     (3, 1, 1, 32), (1, 64, 64, 5)]
 

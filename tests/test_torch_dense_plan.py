@@ -4,8 +4,9 @@ CPU: no kernel runs here, so these hold the Python side of each launch to
 what csrc/dense_gemm.cuh and csrc/dense_rows.cu take.
 
 The cases are chip_smoke.py's CALLS3_ON (the S3DIS PVCNN 1x opt-in step,
-131,072 rows) on a card of 132 SMs, and a few edges: one row, rows that
-fill no tile, Ci = 130 and Co = 70."""
+131,072 rows) and CALLS_PVCNNE_ON (the FrustumPVCNNE 1x opt-in step,
+32,768 and 16,384 rows, Ci down to 3) on a card of 132 SMs, and a few
+edges: one row, rows that fill no tile, Ci = 130 and Co = 70."""
 
 import math
 
@@ -30,6 +31,13 @@ def _cases():
             cases.add(("dgrad", ROWS, c[1], c[0]))
         elif k == "dense_rows_wgrad":
             cases.add(("wgrad", c[0], c[1], ROWS))
+    # the Frustum cases lead with their rows: (rows, Ci, Co, prologue) and
+    # (rows, Co, Ci)
+    for (k, c), _ in chip_smoke.CALLS_PVCNNE_ON.items():
+        if k in ("dense_rows_fwd", "dense_rows_dgrad"):
+            cases.add((k[11:], c[0], c[2], c[1]))
+        elif k == "dense_rows_wgrad":
+            cases.add(("wgrad", c[1], c[2], c[0]))
     edges = [("fwd", 1, 70, 130), ("fwd", 100, 64, 9), ("dgrad", 129, 130, 70),
              ("wgrad", 130, 70, 1000), ("wgrad", 9, 64, 37),
              ("wgrad", 1, 1, 1)]

@@ -1114,3 +1114,139 @@ def test_dense_rows_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="prologue"):
         dense_rows._forward_cuda(x, w, bias, torch.ones(3, device=dev),
                                  torch.zeros(3, device=dev), 0.0, True, True)
+
+
+# ---- the KITTI Frustum paths' shapes ---------------------------------------
+
+
+def _frustum_points(dev, b, n, seed=0):
+    """[b, n, 3] synthetic frustum clouds (data/kitti/frustum.py): an
+    object's box holding 30-60% of the points, the rest spread over tens
+    of metres of depth."""
+    import numpy as np
+
+    from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
+
+    inputs, _ = synthetic_batch(np.random.RandomState(seed), b, n)
+    return torch.from_numpy(inputs["features"][..., :3]).to(dev)
+
+
+@pytest.mark.parametrize("ci,co,r", [(4, 64, 16), (64, 128, 12)])
+def test_conv3d_frustum_shapes(dev, ci, co, r):
+    """FrustumPVCNNE's first conv (Ci = 4: 7 reduction splits of
+    ceil(27 Ci / 16) slices) and its R = 12 conv (1,728 voxels, off K3's
+    128-voxel span): K3's forward with and without its prologue and
+    statistics (the unfused branch), its dgrad and K4, at B = 32, against
+    the plain versions."""
+    b = 32
+    x = torch.randn(b, ci, r ** 3, device=dev)
+    w = torch.randn(co, ci, 3, 3, 3, device=dev) * 0.1
+    bias = torch.randn(co, device=dev)
+    scale = torch.rand(ci, device=dev) + 0.5
+    shift = torch.randn(ci, device=dev)
+    for pro in (False, True):
+        args = (x, w, bias, scale, shift, r, pro)
+        for stats in (False, True):
+            y, s1, s2 = conv3d._forward_cuda(*args, stats)
+            want, w1, w2 = conv3d._forward_plain(*args, stats)
+            torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+            if stats:
+                torch.testing.assert_close(
+                    s1, w1, rtol=1e-4, atol=1e-4 * want.abs().sum().item()
+                    / co)
+                torch.testing.assert_close(s2, w2, rtol=1e-4, atol=0)
+            assert torch.equal(y, conv3d._forward_cuda(*args, stats)[0])
+        x_, gy, scale_, shift_ = _wgrad_inputs(dev, b, ci, co, r)
+        _wgrad_check((x_, gy, scale_, shift_, r, pro))
+    gy = torch.randn(b, co, r ** 3, device=dev)
+    got = conv3d._dgrad_cuda(gy, w, r)
+    torch.testing.assert_close(got, conv3d._dgrad_plain(gy, w, r),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, conv3d._dgrad_cuda(gy, w, r))
+
+
+@pytest.mark.parametrize("channels_first", [False, True])
+@pytest.mark.parametrize("c", [4, 64])
+def test_k1_k2_k5_at_r12(dev, c, channels_first):
+    """K1, K2 and K5 at R = 12 on 32 frustum clouds of 1,024 points (the
+    object's points crowd a few bins, the rest spread thin), both layouts,
+    against the plain versions."""
+    r, n = 12, 1024
+    pts = _frustum_points(dev, 32, n)
+    vox, norm = ops.normalize_coords(pts, r, normalize=True)
+    flat = ops.flat_voxel_index(vox, r)
+    _k1_check(torch.randn(32, n, c, device=dev), flat, r ** 3,
+              channels_first)
+    grid = torch.randn(32, c, r ** 3, device=dev)
+    if not channels_first:
+        grid = grid.transpose(1, 2).contiguous()
+    got = devoxelize._devoxelize_cuda(grid, norm, r, channels_first)
+    torch.testing.assert_close(
+        got, devoxelize._devoxelize_plain(grid, norm, r, channels_first),
+        rtol=1e-5, atol=1e-6)
+    g = torch.randn(32, n, c, device=dev)
+    got = devoxelize._devoxelize_bwd_cuda(g, norm, r, channels_first)
+    torch.testing.assert_close(
+        got, devoxelize._devoxelize_bwd_plain(g, norm, r, channels_first),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(
+        g, norm, r, channels_first))
+
+
+@pytest.mark.parametrize("n,m", [(1024, 128), (512, 128), (128, 32)])
+def test_fps_frustum_shapes(dev, n, m):
+    """K6 at FrustumPointNet2's cases on frustum clouds (B = 24): indices
+    equal the plain version's."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    x = _frustum_points(dev, 24, n, seed=n)
+    got = ops.furthest_point_sample_indices(x, m)
+    assert torch.equal(got, sampling._fps_plain(x, m))
+    assert torch.equal(got, ops.furthest_point_sample_indices(x, m))
+
+
+@pytest.mark.parametrize("radius,u", [(0.2, 32), (0.4, 64), (0.8, 128)])
+def test_ball_query_sparse_frustum(dev, radius, u):
+    """K7 at FrustumPointNet2's SA1 (1,024 points, 128 FPS centers) on
+    sparse frustum clouds, where most centers hold few hits and fill U by
+    repeating their first: indices equal the plain version's."""
+    from pvcnn_tpu_torch.ops import sampling
+
+    x = _frustum_points(dev, 24, 1024, seed=3)
+    c = sampling.furthest_point_sample(x, 128)
+    got = _ball_query_check(c, x, radius, u)
+    filled = (got[..., -1] == got[..., 0]).float().mean().item()
+    assert filled > 0.5                      # most centers take the fill
+
+
+@pytest.mark.parametrize("n,m", [(32, 1), (128, 32), (1024, 128)])
+def test_three_nn_frustum_shapes(dev, n, m):
+    """K8 at FrustumPointNet2's feature propagations on frustum clouds (B =
+    24): 32 queries against the group-all level's one zero center (two
+    slots with d² = inf), and the two FP levels above it; indices and d²
+    exactly the plain version's, and the interpolation weights too."""
+    from pvcnn_tpu_torch.ops import interpolate
+
+    x = _frustum_points(dev, 24, n, seed=n)
+    c = (torch.zeros(24, 1, 3, device=dev) if m == 1
+         else x[:, :m].contiguous())
+    _three_nn_check(x, c)
+    idx, d2 = interpolate._three_nn_cuda(x, c)
+    if m == 1:
+        assert torch.isinf(d2[..., 1:]).all() and (idx == 0).all()
+    assert torch.equal(interpolate._weights_from_d2(d2),
+                       interpolate._weights_from_d2(
+                           interpolate._three_nn_plain(x, c)[1]))
+
+
+@pytest.mark.parametrize("co,r", [(64, 16), (64, 12)])
+def test_ndhwc_wgrad_ci4(dev, co, r):
+    """K11 at FrustumPVCNNE's first conv (Ci = 4) on the opt-in path, B =
+    32: z-slots of one channel quad (`last_slots`), against the plain
+    version and cuDNN's weight gradient."""
+    ci = 4
+    x = torch.randn(32, r, r, r, ci, device=dev)
+    g = torch.randn(32, r, r, r, co, device=dev)
+    plan = conv3d._wgrad_plan(32, ci, co, r, conv3d._sm_count(dev.index or 0))
+    assert conv3d._ndhwc_layout(ci, plan) == "last_slots"
+    _ndhwc_check(x, g)
