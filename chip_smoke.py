@@ -138,7 +138,8 @@ lines and its seconds, and raising on failure:
                 one FrustumPVCNNE step with PVCNN_TPU_CONV_BN_FUSED=0 (the
                 unfused rows branch) and one with the three switches on,
                 each against the default step 1 (launches asserted,
-                ms/step, peak memory);
+                ms/step against the default step's in turns, peak memory;
+                with --profile their breakdowns too);
  24. frustum trainer
                 for each Frustum model from zeroed counters, with its
                 recipe: Trainer.train_epoch (4 steps) over synthetic
@@ -2279,13 +2280,15 @@ def phase_frustum_train(label: str, base, batches, per_step: dict,
 
 
 def phase_frustum_switched(label: str, base, batch, ref, env: dict,
-                           per_step: dict, what: str) -> dict:
+                           per_step: dict, what: str,
+                           profile: bool = False) -> dict:
     """One Frustum training step with the environment variables of `env`
     set: its step 1, replaying the default kernel path's draws, against
     that path's (`ref`: loss, gradients, draws; phase_same_function), its
     launches from zeroed counters exactly per_step's, its ms/step against
     the default step's (medians of 3 rounds of 5, in turns) and peak
-    memory. Returns its launches."""
+    memory (with profile, its torch.profiler breakdown too). Returns its
+    launches."""
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.models.kitti import frustum as kitti
 
@@ -2322,6 +2325,9 @@ def phase_frustum_switched(label: str, base, batch, ref, env: dict,
         f"the default step's {np.median(ms_default):.3f} (medians of {ms} "
         f"/ {ms_default}, in turns), peak memory {mem:.3f} GiB, launches "
         f"per step {ran}")
+    if profile:
+        with environ(env):
+            _profile_steps(f"{label}, {what}", trainer, x, y)
     return counts
 
 
@@ -2560,10 +2566,10 @@ def main() -> None:
                               PER_STEP_PVCNNE, profile)
     phase_frustum_switched("FrustumPVCNNE 1x", models["pvcnne"], batches[0],
                            ref, {"PVCNN_TPU_CONV_BN_FUSED": "0"},
-                           PER_STEP_PVCNNE, "CONV_BN_FUSED=0")
+                           PER_STEP_PVCNNE, "CONV_BN_FUSED=0", profile)
     counts[pvcnne_on] = phase_frustum_switched(
         "FrustumPVCNNE 1x", models["pvcnne"], batches[0], ref, SWITCHES,
-        PER_STEP_PVCNNE_ON, "switches on")
+        PER_STEP_PVCNNE_ON, "switches on", profile)
     # FrustumPointNet2's plain path moves by 5.5e-4 against itself at step
     # 3 (scatter_add_ atomics in its groupings' and interpolations'
     # gradients; PVCNNE's by 7.1e-5): its steps 2-3 are held to 5e-3, as

@@ -1170,7 +1170,11 @@ def test_conv3d_frustum_shapes(dev, ci, co, r):
 def test_k1_k2_k5_at_r12(dev, c, channels_first):
     """K1, K2 and K5 at R = 12 on 32 frustum clouds of 1,024 points (the
     object's points crowd a few bins, the rest spread thin), both layouts,
-    against the plain versions."""
+    against the plain versions. K5 sums hundreds of terms into an
+    object's bins, and the plain version adds them by atomics in any
+    order: it is held, as chip_smoke.py holds it, to an fp64 sum at 1e-6
+    of each output's sum of |terms| and to the plain version at that
+    bound (at least 1e-5)."""
     r, n = 12, 1024
     pts = _frustum_points(dev, 32, n)
     vox, norm = ops.normalize_coords(pts, r, normalize=True)
@@ -1186,9 +1190,13 @@ def test_k1_k2_k5_at_r12(dev, c, channels_first):
         rtol=1e-5, atol=1e-6)
     g = torch.randn(32, n, c, device=dev)
     got = devoxelize._devoxelize_bwd_cuda(g, norm, r, channels_first)
-    torch.testing.assert_close(
-        got, devoxelize._devoxelize_bwd_plain(g, norm, r, channels_first),
-        rtol=1e-5, atol=1e-5)
+    mag = devoxelize._devoxelize_bwd_plain(g.abs(), norm, r, channels_first)
+    exact = devoxelize._devoxelize_bwd_plain(g.double(), norm.double(), r,
+                                             channels_first)
+    assert ((got - exact).abs() <= 1e-6 * mag + 1e-12).all()
+    want = devoxelize._devoxelize_bwd_plain(g, norm, r, channels_first)
+    assert ((got - want).abs()
+            <= 1e-5 * want.abs() + (1e-6 * mag).clamp(min=1e-5)).all()
     assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(
         g, norm, r, channels_first))
 
