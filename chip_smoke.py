@@ -13,8 +13,10 @@ path) and SSG 1x (6 channels), the PointNets, whose default paths
 launch no kernel, and the KITTI Frustum family at its configs' full width
 (FrustumPVCNNE and FrustumPointNet at B = 32, FrustumPointNet2 at B = 24,
 frustums of 1,024 points x 4 channels, 512 points an object; synthetic
-frustum batches, data/kitti/frustum.py). Phases, each printing its own
-lines and its seconds, and raising on failure:
+frustum batches and trees, data/kitti/frustum.py), ShapeNet PVCNN 1x by
+deep mutual learning, and the entry points that train and evaluate them.
+Phases, each printing its own lines and its seconds, and raising on
+failure:
 
   1. device     requires CUDA (exits non-zero without it), prints
                 `nvidia-smi --query-gpu=name,power.limit`, turns TF32 off;
@@ -143,18 +145,45 @@ lines and its seconds, and raising on failure:
  24. frustum trainer
                 for each Frustum model from zeroed counters, with its
                 recipe: Trainer.train_epoch (4 steps) over synthetic
-                frustums through the DataLoader, Trainer.evaluate (the
-                sampler draws in eval mode too) and a checkpoint round
-                trip: the three Frustum main paths.
+                frustums through the DataLoader, Trainer.evaluate with the
+                configs' four MeterFrustumKitti meters (the sampler draws
+                in eval mode too) and a checkpoint round trip: the three
+                Frustum main paths;
+ 25. dml train  ShapeNet PVCNN 1x deep mutual learning steps (DMLTrainer:
+                two peers from seeds 0 and 100, one forward each, KL to the
+                detached peer) on the kernel path and on the plain path
+                from the same two sets of weights, held to phase 6's
+                criteria for both peers (step 1 bitwise equal over two
+                kernel-path runs, step 1 and steps 2-3 against the plain
+                path); launches per step from zeroed counters exactly twice
+                phase 6's; ms/step against one single-model step, in turns,
+                and peak memory (with --profile its breakdown too);
+ 26. dml trainer
+                the DML entry point (train.dml) from zeroed counters: one
+                epoch of 4 steps with the iter schedule on a synthetic tree
+                of 64 shapes, the test split scored for both peers, both
+                peers' checkpoints, and a resumed run: the DML main path;
+ 27. kitti      a synthetic KITTI tree (write_synthetic_root: 128 frustums a
+                split, label files, image ids), then for each Frustum model
+                at its configs' width: the training entry point
+                (train.kitti) for one epoch of 4 steps with the four meters
+                and its best checkpoints, from zeroed counters; the
+                evaluator entry point (evaluate.kitti.frustum) from that
+                checkpoint with 2 tests on the rgb-detection split, from
+                zeroed counters: exactly the eval forward's kernels launch,
+                every AP is finite and in [0, 100], every image has its
+                label file; frustums/s of the forward and the evaluator's
+                seconds split into data, forward and the host's AP.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
-the trainer phases (7, 11, both runs of 15, 19's two and 24's) and, for
-K9/K10 on the MSG opt-in path, the switched step of 18, for FrustumPVCNNE's
-opt-in path the switched step of 23; its times, bounds and
-library time are per training step, summed over the paths' steps (each
-path's own numbers under "paths"; K1's and K5's records there also carry
-glue_ms and kernel_alone_ms, the two parts of their ms).
+the trainer phases (7, 11, both runs of 15, 19's two, 24's, 26 and 27's
+training and evaluation runs) and, for K9/K10 on the MSG opt-in path, the
+switched step of 18, for FrustumPVCNNE's opt-in path the switched step of
+23; its times, bounds and library time are per training step, summed over
+the paths' steps (each path's own numbers under "paths"; K1's and K5's
+records there also carry glue_ms and kernel_alone_ms, the two parts of
+their ms).
 """
 
 from __future__ import annotations
@@ -440,6 +469,10 @@ PER_STEP_S3DIS_POINTNET_ON = {"dense_rows_fwd": 6, "dense_rows_dgrad": 5,
 # KITTI Frustum (models/kitti/frustum): frustums of NF points with one
 # extra channel, MF points an object; FrustumPointNet2 trains at batch BF2
 NF, MF, BF2 = 1024, 512, 24
+# frustums a split of the synthetic KITTI tree of the kitti phase
+# (data/kitti/frustum.py:write_synthetic_root; two an image): 4 training
+# steps at batch 32, and 128 val and rgb-detection frustums
+NUM_KITTI = 128
 # The same per FrustumPVCNNE 1x training step (B = 32), from the model's
 # structure: the instance segmentation's PVConvs (Ci -> Co, R) 4 -> 64 and
 # 64 -> 64 at 16, 64 -> 64 and 64 -> 128 at 12, on NF points; the first
@@ -2331,35 +2364,18 @@ def phase_frustum_switched(label: str, base, batch, ref, env: dict,
     return counts
 
 
-class _MaskAccuracy:
-    """A stand-in meter for the Frustum evaluation path (the Frustum meters
-    are not ported yet): the fraction of points whose foreground argmax
-    equals its target, over the finite outputs of every batch."""
-
-    def __init__(self):
-        self.hits = self.total = 0
-
-    def update(self, outputs: dict, targets: dict) -> None:
-        if not all(np.isfinite(v).all() for v in outputs.values()):
-            raise AssertionError("non-finite Frustum outputs")
-        pred = outputs["mask_logits"].argmax(-1)
-        self.hits += int((pred == targets["mask_logits"]).sum())
-        self.total += pred.size
-
-    def compute(self) -> float:
-        return self.hits / max(self.total, 1)
-
-
 def phase_frustum_trainer(name: str, per_step: dict) -> dict:
     """A Frustum main path from zeroed counters, with the model's recipe
     (models/kitti/frustum MODELS: its batch size, Adam lr 1e-3, its
     schedule): Trainer.train_epoch over 4 batches of synthetic frustum
-    items through the DataLoader, Trainer.evaluate over one more (the
-    sampler draws there too), then a checkpoint round trip."""
+    items through the DataLoader, Trainer.evaluate over one more with the
+    configs' four MeterFrustumKitti meters (the sampler draws there too),
+    then a checkpoint round trip."""
     from pvcnn_tpu_torch import kernels
     from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
     from pvcnn_tpu_torch.data.loader import DataLoader
     from pvcnn_tpu_torch.models.kitti import frustum as kitti
+    from pvcnn_tpu_torch.train.kitti import meters
     from pvcnn_tpu_torch.train.optim import Adam
     from pvcnn_tpu_torch.train.trainer import (Trainer, load_checkpoint,
                                                save_checkpoint)
@@ -2378,8 +2394,7 @@ def phase_frustum_trainer(name: str, per_step: dict) -> dict:
     start = time.perf_counter()
     loss = trainer.train_epoch(DataLoader(items[:4 * b], b, shuffle=True,
                                           seed=SEED), 0, scheduler)
-    scores = trainer.evaluate(DataLoader(items[4 * b:], b),
-                              {"acc/mask_val": _MaskAccuracy()})
+    scores = trainer.evaluate(DataLoader(items[4 * b:], b), meters("val"))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts = kernels.launch_counts()
@@ -2395,13 +2410,259 @@ def phase_frustum_trainer(name: str, per_step: dict) -> dict:
         f"{seconds:.2f} s, mean loss {loss:.4f}, {scores} (random "
         f"weights), launches {counts}; checkpoint round trip: epoch {epoch},"
         f" meters {saved}, state_dict equal {same}")
-    if not np.isfinite(loss) or not 0.0 <= scores["acc/mask_val"] <= 1.0:
+    if not np.isfinite(loss) or len(scores) != 4 \
+            or not all(0.0 <= v <= 1.0 for v in scores.values()):
         raise AssertionError(f"bad Frustum {name} trainer result")
     if not same or epoch != 0 or saved != scores:
         raise AssertionError(f"Frustum {name} checkpoint does not "
                              "round-trip")
     _check_ran(counts, per_step)
     return counts
+
+
+def _dml_trainer(teacher, student):
+    """A DMLTrainer (Adam lr 1e-3 for both peers, KLLoss, seeded dropout)
+    on copies of the two peers."""
+    from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss, KLLoss
+    from pvcnn_tpu_torch.train.optim import Adam
+    from pvcnn_tpu_torch.train.trainer import DMLTrainer
+
+    t, s = copy.deepcopy(teacher), copy.deepcopy(student)
+    return DMLTrainer(t, CrossEntropyLoss(), Adam(t.parameters(), lr=1e-3),
+                      s, Adam(s.parameters(), lr=1e-3), KLLoss(),
+                      torch.device(DEVICE), SEED)
+
+
+def dml_grads_of(trainer, x, y, seed):
+    """Both peers' step-1 losses and gradients, without the update."""
+    from pvcnn_tpu_torch.train.trainer import STUDENT_SEED_OFFSET
+
+    trainer.generator.manual_seed(seed)
+    trainer.student.generator.manual_seed(seed + STUDENT_SEED_OFFSET)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    trainer.student.optimizer.zero_grad(set_to_none=True)
+    loss_t, loss_s = trainer.losses(x, y)
+    (loss_t + loss_s).backward()
+    return ((loss_t.item(), _flat_grads(trainer.model).clone()),
+            (loss_s.item(), _flat_grads(trainer.student.model).clone()))
+
+
+def phase_dml_train(label: str, teacher, student, batches,
+                    per_step: dict, profile: bool) -> None:
+    """Deep mutual learning steps (DMLTrainer: two peers, one forward
+    each, each loss CE + KL to the detached peer) on the kernel path and
+    on the plain path from the same two sets of weights, held to phase 6's
+    criteria for both peers: two kernel-path runs of step 1 bitwise equal;
+    step 1 against the plain path (loss, flipped gradients, rel-L2; the
+    same bounds as phase_train); steps 2-3 within 1e-3; launches per step
+    from zeroed counters exactly twice the single model's; ms/step against
+    one single-model step of the teacher, in turns, and peak memory (with
+    profile, a torch.profiler breakdown of 3 DML steps)."""
+    from pvcnn_tpu_torch import kernels
+
+    b, n = batches[0][0].shape[:2]
+    make = lambda: _dml_trainer(teacher, student)
+    kern = make()
+    first = dml_grads_of(kern, *batches[0], SEED)
+    again = dml_grads_of(kern, *batches[0], SEED)
+    if any(a[0] != b_[0] or not torch.equal(a[1], b_[1])
+           for a, b_ in zip(first, again)):
+        raise AssertionError("two kernel-path DML runs of step 1 differ")
+    log("dml train", f"{label}: both peers' step-1 losses and gradients of "
+        "two kernel-path runs are bitwise equal")
+    with plain_on_card():
+        plain = dml_grads_of(make(), *batches[0], SEED)
+    for peer, (loss_k, grads_k), (loss_p, grads_p) in zip(
+            ("teacher", "student"), first, plain):
+        rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+        g, w = grads_k.double(), grads_p.double()
+        flipped = ((g - w).abs() > 5e-3 * w.abs().max()).double().mean()
+        rel_l2 = ((g - w).norm() / w.norm()).item()
+        log("dml train", f"{label} step 1, {peer}: loss kernel "
+            f"{loss_k:.7f} plain {loss_p:.7f} (rel {rel_loss:.2e} <= 1e-5); "
+            f"gradients flipped fraction {flipped.item():.2e} (< 2e-3), "
+            f"rel-L2 {rel_l2:.2e} (< 5e-2)")
+        if rel_loss > 1e-5 or flipped.item() >= 2e-3 or rel_l2 >= 5e-2:
+            raise AssertionError(f"DML step 1 ({peer}): kernel path "
+                                 "disagrees with the plain path")
+
+    kern, plain = make(), make()
+    steps_k, steps_p = [], []
+    want = {k: 2 * v for k, v in per_step.items()}
+    for i, (x, y) in enumerate(batches):
+        kernels.reset_launch_counts()
+        steps_k.append({k: v.item() for k, v in kern.train_step(x, y).items()})
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        if counts != want:
+            raise AssertionError(f"DML step {i + 1} launches {counts}, "
+                                 f"expected {want}")
+        with plain_on_card():
+            steps_p.append({k: v.item()
+                            for k, v in plain.train_step(x, y).items()})
+    log("dml train", f"{label}: launches per DML step: {counts} (twice the "
+        "single model's)")
+    for tag in sorted(steps_k[0]):
+        lk = [s[tag] for s in steps_k]
+        lp = [s[tag] for s in steps_p]
+        rel = [abs(a - b_) / abs(b_) for a, b_ in zip(lk, lp)]
+        log("dml train", f"{label} {tag}: kernel {lk} plain {lp}: relative "
+            f"differences {['%.2e' % r for r in rel]} (step 1 <= 1e-5, "
+            "steps 2-3 <= 1e-3)")
+        if not all(np.isfinite(lk)) or rel[0] > 1e-5 or max(rel[1:]) > 1e-3:
+            raise AssertionError(f"DML losses disagree ({tag})")
+
+    x, y = batches[0]
+    single = _trainer(teacher, 0.0)
+    ms_dml, ms_one, mem = [], [], {}
+    for _ in range(3):                               # in turns
+        for name, trainer, out in (("dml", kern, ms_dml),
+                                   ("single", single, ms_one)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out.append(time_ms(lambda: trainer.train_step(x, y), reps=5,
+                               warmup=1))
+            mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_on_card():
+        ms_plain = time_ms(lambda: plain.train_step(x, y), reps=3, warmup=1)
+    log("dml train", f"{label} DML step, {b} x {n}, fp32: kernel path "
+        f"{np.median(ms_dml):.3f} ms/step against one single-model step's "
+        f"{np.median(ms_one):.3f} (x{np.median(ms_dml) / np.median(ms_one):.3f}"
+        f"; medians of {ms_dml} / {ms_one}, in turns), plain path "
+        f"{ms_plain:.3f} ms/step; peak memory DML {mem['dml']:.3f} GiB, "
+        f"single {mem['single']:.3f} GiB")
+    if profile:
+        _profile_steps(f"{label} DML", kern, x, y)
+
+
+def phase_dml_trainer(per_step: dict) -> dict:
+    """The DML entry point (train.dml) for ShapeNet PVCNN 1x from zeroed
+    counters: one epoch of 4 steps at batch 32 with an iter schedule on a
+    synthetic tree of 64 shapes, the test split scored for both peers,
+    both peers' checkpoints, then a resumed run that loads both: the DML
+    main path. Each kernel of per_step must launch."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.shapenet import write_synthetic
+    from pvcnn_tpu_torch.train.dml import train
+
+    rng = np.random.RandomState(SEED + 4)
+    items = [(int(s), int(n)) for s, n in zip(rng.randint(0, 16, 64),
+                                              rng.randint(2000, 3000, 64))]
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        write_synthetic(root, items, seed=SEED)
+        save = os.path.join(root, "run")
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        teacher, student = train(root, width_multiplier=1.0, batch_size=32,
+                                 epochs=1, max_steps=4, save_path=save,
+                                 device=DEVICE, seed=SEED,
+                                 scheduler_unit="iter")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = kernels.launch_counts()
+        names = ("latest.pth.tar", "latest.pth.tar.student",
+                 "latest/e0.pth.tar", "best.pth.tar", "best_student.pth.tar")
+        missing = [n for n in names
+                   if not os.path.exists(os.path.join(save, n))]
+        if missing:
+            raise AssertionError(f"DML trainer wrote no {missing}")
+        again = train(root, width_multiplier=1.0, batch_size=32, epochs=1,
+                      save_path=save, device=DEVICE, seed=SEED)
+    scores = [m["acc/iou_test"] for m in (teacher, student)]
+    log("dml trainer", f"pvcnn: 64 synthetic shapes, 1 epoch of 4 DML steps "
+        f"at batch 32 (iter schedule) + test split for both peers: "
+        f"{seconds:.2f} s, acc/iou_test teacher {scores[0]:.4f} student "
+        f"{scores[1]:.4f} (random labels), checkpoints {list(names)}, "
+        f"launches {counts}")
+    resumed = [m["acc/iou_test"] for m in again]
+    log("dml trainer", f"pvcnn: resumed run re-evaluated both peers: "
+        f"{resumed}")
+    if not all(0.0 <= v <= 1.0 for v in scores + resumed) \
+            or teacher["acc/iou_test"] != teacher["acc/iou_test_best"]:
+        raise AssertionError("bad DML trainer result")
+    _check_ran(counts, per_step)
+    return counts
+
+
+def _add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
+
+
+def phase_kitti(name: str, root: str, paths: dict, per_step: dict,
+                fwd_kernels) -> dict:
+    """One Frustum model's train and evaluation entry points at the
+    configs' full width on the synthetic tree at `root`: train.kitti for
+    one epoch of 4 steps (its batch size, 1,024 points a frustum) with the
+    four meters and its checkpoints, from zeroed counters (each kernel of
+    per_step must launch); then the evaluator (evaluate.kitti.frustum) on
+    the rgb-detection split from that run's best checkpoint, num_tests 2,
+    from zeroed counters: exactly fwd_kernels launch, every AP is finite
+    and in [0, 100], and every image id has a label file in each test's
+    folder. Logs the forward's frustums/s and the evaluator's seconds
+    split into data, forward (to the outputs on the host) and the host's
+    AP. Returns the launches of both runs."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.evaluate.kitti.frustum.eval import evaluate
+    from pvcnn_tpu_torch.train.kitti import METRICS, train
+
+    save = os.path.join(root, f"run.{name}")
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    scores = train(root, model=name, epochs=1, max_steps=4, save_path=save,
+                   device=DEVICE, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    checkpoints = ["latest.pth.tar", "latest/e0.pth.tar", "best.pth.tar"] + [
+        os.path.join("best", "best.{}.pth.tar".format(m.replace("/", ".")))
+        for m in METRICS]
+    missing = [c for c in checkpoints
+               if not os.path.exists(os.path.join(save, c))]
+    log("kitti", f"{name}: train.kitti, 1 epoch of 4 steps + the val split: "
+        f"{seconds:.2f} s, {scores} (random weights), launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if missing or len(scores) != 6 \
+            or not all(0.0 <= v <= 1.0 for v in scores.values()):
+        raise AssertionError(f"bad Frustum {name} training run: missing "
+                             f"{missing}, meters {scores}")
+    _check_ran(counts, per_step)
+
+    timings = []
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    results = evaluate(root, model_name=name,
+                       checkpoint=os.path.join(save, "best.pth.tar"),
+                       num_tests=2, device=DEVICE, seed=SEED,
+                       output=os.path.join(save, "best"), timings=timings,
+                       **paths)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    ran = {k: v for k, v in kernels.launch_counts().items() if v}
+    aps = np.array([r for v in results.values() for rs in v.values()
+                    for r in rs])
+    with open(paths["image_ids"]) as f:
+        ids = [line.strip() for line in f]
+    unwritten = [(t, i) for t in range(2) for i in ids
+                 if not os.path.exists(os.path.join(
+                     save, "best.predictions.t", f"best.predictions.t{t}",
+                     f"{i}.txt"))]
+    frustums = timings[0]["frustums"]
+    log("kitti", f"{name}: evaluator, 2 tests of {frustums} rgb-detection "
+        f"frustums: {seconds:.2f} s; per test "
+        + "; ".join(f"forward {t['forward']:.3f} s "
+                    f"({t['frustums'] / t['forward']:.1f} frustums/s), "
+                    f"data {t['data']:.3f} s, host AP {t['ap']:.3f} s"
+                    for t in timings)
+        + f"; launches {ran}; 3-D AP (easy, moderate, hard) "
+        + str({c: np.mean(v["3d"], 0).round(2).tolist()
+               for c, v in results.items()}))
+    if aps.shape != (3 * 3 * 2, 3) or not np.isfinite(aps).all() \
+            or aps.min() < 0 or aps.max() > 100 or unwritten:
+        raise AssertionError(f"bad Frustum {name} evaluation: AP {aps}, "
+                             f"label files missing {unwritten[:5]}")
+    if set(ran) != set(fwd_kernels):
+        raise AssertionError(f"evaluator launches {ran}, expected the eval "
+                             f"forward's {fwd_kernels}")
+    return _add_counts(counts, kernels.launch_counts())
 
 
 def _stopwatch():
@@ -2417,13 +2678,15 @@ def _stopwatch():
 
 def main() -> None:
     from pvcnn_tpu_torch import kernels
-    from pvcnn_tpu_torch.data.kitti.frustum import synthetic_batch
+    from pvcnn_tpu_torch.data.kitti.frustum import (synthetic_batch,
+                                                    write_synthetic_root)
     from pvcnn_tpu_torch.models.kitti import frustum as kitti
     from pvcnn_tpu_torch.models.s3dis import PVCNN as S3DISPVCNN
     from pvcnn_tpu_torch.models.s3dis import PVCNN2
     from pvcnn_tpu_torch.models.s3dis import PointNet as S3DISPointNet
     from pvcnn_tpu_torch.models.shapenet import (PVCNN, PointNet,
                                                  pointnet2_msg, pointnet2_ssg)
+    from pvcnn_tpu_torch.train.trainer import STUDENT_SEED_OFFSET
     from pvcnn_tpu_torch.utils.weights import init_random_
 
     profile = "--profile" in sys.argv[1:]
@@ -2585,6 +2848,30 @@ def main() -> None:
     counts[fpn2] = phase_frustum_trainer("pointnet2", PER_STEP_FPN2)
     phase_frustum_trainer("pointnet", {})
     lap("frustum trainer")
+
+    rng = np.random.RandomState(SEED + 70)
+    batches = [(torch.from_numpy(cloud(rng, B, N)).to(dev),
+                torch.from_numpy(rng.randint(0, 50, (B, N))).to(dev))
+               for _ in range(3)]
+    phase_dml_train("PVCNN 1x", init_random_(PVCNN(50, 16, 3), SEED),
+                    init_random_(PVCNN(50, 16, 3), SEED + STUDENT_SEED_OFFSET),
+                    batches, PER_STEP, profile)
+    del batches
+    lap("dml train")
+    counts["ShapeNet PVCNN 1x"] = _add_counts(counts["ShapeNet PVCNN 1x"],
+                                              phase_dml_trainer(PER_STEP))
+    lap("dml trainer")
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        paths = write_synthetic_root(root, np.random.RandomState(SEED + 80),
+                                     NUM_KITTI)
+        for m, path, per_step, fwd_kernels in (
+                ("pvcnne", pvcnne, PER_STEP_PVCNNE, fwd),
+                ("pointnet2", fpn2, PER_STEP_FPN2, fwd_pn2),
+                ("pointnet", None, {}, ())):
+            more = phase_kitti(m, root, paths, per_step, fwd_kernels)
+            if path is not None:
+                counts[path] = _add_counts(counts[path], more)
+    lap("kitti")
 
     lines = []
     for k in kernels.KERNELS.values():

@@ -2,9 +2,9 @@
 
 from __future__ import annotations
 
-from pvcnn_tpu_torch.ops.losses import cross_entropy
+from pvcnn_tpu_torch.ops.losses import cross_entropy, kl_loss
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "KLLoss"]
 
 
 class CrossEntropyLoss:
@@ -13,3 +13,11 @@ class CrossEntropyLoss:
 
     def __call__(self, logits, labels):
         return cross_entropy(logits, labels)
+
+
+class KLLoss:
+    """The deep-mutual-learning criterion: KL(softmax(peer) || softmax(own))
+    over the last (class) axis, the peer's logits detached."""
+
+    def __call__(self, x, y):
+        return kl_loss(x, y)

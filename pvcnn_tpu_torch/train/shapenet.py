@@ -32,12 +32,14 @@ from pvcnn_tpu_torch.meters.shapenet import MeterShapeNet
 from pvcnn_tpu_torch.models.shapenet import MODELS
 from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
 from pvcnn_tpu_torch.train.optim import Adam, CosineAnnealingLR, StepLR
-from pvcnn_tpu_torch.train.trainer import (Trainer, copy_checkpoint,
-                                           load_checkpoint, save_checkpoint)
+from pvcnn_tpu_torch.train.trainer import (Trainer, check_device,
+                                           copy_checkpoint, load_checkpoint,
+                                           save_checkpoint)
 from pvcnn_tpu_torch.utils.weights import (init_random_,
                                            load_reference_checkpoint)
 
-__all__ = ["main", "train"]
+__all__ = ["LR", "METRIC", "RECIPES", "main", "make_loaders", "make_model",
+           "train"]
 
 METRIC = "acc/iou_test"
 LR = 1e-3
@@ -52,6 +54,35 @@ RECIPES = {
 }
 
 
+def make_loaders(root: str, model: str, num_points: int, batch_size: int,
+                 seed: int) -> dict:
+    """The train split (shuffled, jittered) and the test split of the tree
+    at `root`, with the input columns the model's config gives it."""
+    spec = MODELS[model]
+    columns = dict(with_normal=spec.with_normal,
+                   with_one_hot_shape_id=spec.with_one_hot_shape_id)
+    return {
+        "train": DataLoader(ShapeNetDataset(root, num_points, "train",
+                                            seed=seed, **columns),
+                            batch_size, shuffle=True, seed=seed),
+        "test": DataLoader(ShapeNetDataset(root, num_points, "test",
+                                           seed=seed + 1, **columns),
+                           batch_size),
+    }
+
+
+def make_model(model: str, width_multiplier: float, checkpoint: str | None,
+               seed: int, device) -> torch.nn.Module:
+    """The model named `model` with a reference checkpoint's weights, or
+    seeded random ones, on `device`."""
+    net = MODELS[model].build(NUM_CLASSES, NUM_SHAPES, width_multiplier)
+    if checkpoint is not None:
+        load_reference_checkpoint(net, checkpoint)
+    else:
+        init_random_(net, seed)
+    return net.to(device)
+
+
 def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
           batch_size: int = 32, epochs: int | None = None,
           max_steps: int | None = None, save_path: str | None = None,
@@ -60,29 +91,12 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
     """Train (or resume) the model named `model` (models.shapenet.MODELS)
     and return the last evaluation's meters. `epochs` and `save_path`
     default to the model's recipe."""
-    spec = MODELS[model]
     default_epochs, schedule, default_path = RECIPES[model]
     epochs = default_epochs if epochs is None else epochs
     save_path = default_path if save_path is None else save_path
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda requested but CUDA is not available")
-    columns = dict(with_normal=spec.with_normal,
-                   with_one_hot_shape_id=spec.with_one_hot_shape_id)
-    loaders = {
-        "train": DataLoader(ShapeNetDataset(root, num_points, "train",
-                                            seed=seed, **columns),
-                            batch_size, shuffle=True, seed=seed),
-        "test": DataLoader(ShapeNetDataset(root, num_points, "test",
-                                           seed=seed + 1, **columns),
-                           batch_size),
-    }
-    net = spec.build(NUM_CLASSES, NUM_SHAPES, width_multiplier)
-    if checkpoint is not None:
-        load_reference_checkpoint(net, checkpoint)
-    else:
-        init_random_(net, seed)
-    net = net.to(device)
+    device = check_device(device)
+    loaders = make_loaders(root, model, num_points, batch_size, seed)
+    net = make_model(model, width_multiplier, checkpoint, seed, device)
     optimizer = Adam(net.parameters(), lr=LR, weight_decay=0.0)
     scheduler = schedule(epochs).bind(LR)
     trainer = Trainer(net, CrossEntropyLoss(), optimizer, device, seed)

@@ -14,6 +14,19 @@ arrays, or dicts of arrays (the Frustum batches); outputs a tensor or a
 dict of tensors. fp32 throughout with TF32 off
 (train/predict.py:fp32_precision).
 
+The learning rate is set once per epoch (scheduler_unit "epoch") or
+before every step from a step count that runs on across epochs ("iter"),
+as the JAX trainer's `_step_count`. A step may return a dict of named
+losses; the epoch then returns a dict of their means.
+
+DMLTrainer (deep mutual learning, the JAX package's DMLTrainer) trains
+two peers of one architecture at once: each one's loss adds
+KL(softmax(peer) || softmax(own)) with the peer's logits detached. Each
+peer runs one train-mode forward a step, so its BatchNorm running
+statistics move once and its dropout masks are drawn once, as in the
+reference's step (JAX runs a second forward for the gradient, which XLA
+merges with the first, and keeps only its statistics).
+
 A checkpoint is {"epoch", "model": state_dict, "optimizer": state_dict,
 "meters"}; its `model` entry carries the reference's module names, so
 pvcnn_tpu/utils/checkpoint_import.py:import_state_dict maps it into JAX
@@ -24,6 +37,7 @@ from __future__ import annotations
 
 import os
 import shutil
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,12 +48,24 @@ from pvcnn_tpu_torch.models.utils import (set_dropout_generator,
 from pvcnn_tpu_torch.train.optim import set_learning_rate
 from pvcnn_tpu_torch.train.predict import fp32_precision
 
-__all__ = ["SAMPLE_SEED_OFFSET", "Trainer", "copy_checkpoint",
-           "load_checkpoint", "save_checkpoint"]
+__all__ = ["DMLState", "DMLTrainer", "SAMPLE_SEED_OFFSET",
+           "STUDENT_SEED_OFFSET", "Trainer", "check_device",
+           "copy_checkpoint", "load_checkpoint", "save_checkpoint"]
 
 # the sampler's generator is seeded with seed + SAMPLE_SEED_OFFSET, apart
 # from the dropout generator's seed
 SAMPLE_SEED_OFFSET = 0x5A3D1E
+# a DML student's generators are seeded with seed + STUDENT_SEED_OFFSET,
+# apart from the teacher's
+STUDENT_SEED_OFFSET = 100
+
+
+def check_device(device) -> torch.device:
+    """torch.device(device), refusing cuda where CUDA is not available."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda requested but CUDA is not available")
+    return device
 
 
 class Trainer:
@@ -55,6 +81,8 @@ class Trainer:
         self.sample_generator = torch.Generator(device=self.device)
         self.sample_generator.manual_seed(int(seed) + SAMPLE_SEED_OFFSET)
         set_sample_generator(self.model, self.sample_generator)
+        # steps taken by this trainer, across epochs (scheduler_unit "iter")
+        self.step_count = 0
 
     def _to_device(self, array):
         if isinstance(array, dict):
@@ -71,21 +99,38 @@ class Trainer:
             self.optimizer.step()
         return loss.detach()
 
+    def set_learning_rate(self, lr: float) -> None:
+        set_learning_rate(self.optimizer, lr)
+
     def train_epoch(self, loader, epoch: int, scheduler=None,
-                    max_steps: int | None = None) -> float:
-        """Train one epoch at the scheduler's lr for `epoch` (at most
-        `max_steps` steps) -> the mean loss, fetched once."""
-        if scheduler is not None:
-            set_learning_rate(self.optimizer, scheduler(epoch))
+                    max_steps: int | None = None,
+                    scheduler_unit: str = "epoch"):
+        """Train one epoch (at most `max_steps` steps) -> the mean loss, or
+        a dict of mean losses where the step returns named ones, fetched
+        once. The scheduler gives the lr for `epoch` (scheduler_unit
+        "epoch") or, before each step, for the trainer's step count
+        ("iter")."""
+        if scheduler_unit not in ("epoch", "iter"):
+            raise ValueError(f"unknown scheduler_unit {scheduler_unit!r}")
+        if scheduler is not None and scheduler_unit == "epoch":
+            self.set_learning_rate(scheduler(epoch))
         loader.epoch = epoch
         losses = []
         for inputs, targets in loader:
             if max_steps is not None and len(losses) >= max_steps:
                 break
+            if scheduler is not None and scheduler_unit == "iter":
+                self.set_learning_rate(scheduler(self.step_count))
             losses.append(self.train_step(self._to_device(inputs),
                                           self._to_device(targets)))
+            self.step_count += 1
         if not losses:
             return 0.0
+        if isinstance(losses[0], dict):
+            names = sorted(losses[0])
+            means = torch.stack([torch.stack([loss[k] for k in names])
+                                 for loss in losses]).mean(0).tolist()
+            return dict(zip(names, means))
         return float(torch.stack(losses).mean().item())
 
     def evaluate(self, loader, meters: dict) -> dict:
@@ -105,6 +150,65 @@ def _to_numpy(outputs):
     if isinstance(outputs, dict):
         return {k: v.cpu().numpy() for k, v in outputs.items()}
     return outputs.cpu().numpy()
+
+
+class DMLState(NamedTuple):
+    """The two peers of a DMLTrainer (the JAX package's DMLState): each a
+    Trainer with its own model, optimizer and generators."""
+
+    teacher: Trainer
+    student: Trainer
+
+
+class DMLTrainer(Trainer):
+    """Deep mutual learning (pvcnn_tpu/train/trainer.py:DMLTrainer): the
+    teacher is this Trainer's own model and optimizer, the student a Trainer
+    of its own whose generators are seeded with seed +
+    STUDENT_SEED_OFFSET. A step returns {"loss/train", "loss/train_student"};
+    the scheduler sets both optimizers' lr. `evaluate` scores the teacher,
+    `self.student.evaluate` the student."""
+
+    def __init__(self, model: nn.Module, criterion, optimizer,
+                 student: nn.Module, student_optimizer, criterion_dml,
+                 device="cuda", seed: int = 0):
+        super().__init__(model, criterion, optimizer, device, seed)
+        self.criterion_dml = criterion_dml
+        self.student = Trainer(student, criterion, student_optimizer, device,
+                               int(seed) + STUDENT_SEED_OFFSET)
+
+    @property
+    def state(self) -> DMLState:
+        return DMLState(teacher=self, student=self.student)
+
+    def set_learning_rate(self, lr: float) -> None:
+        set_learning_rate(self.optimizer, lr)
+        set_learning_rate(self.student.optimizer, lr)
+
+    def losses(self, inputs, targets):
+        """Both peers' train-mode forward, once each -> (teacher loss,
+        student loss): each CE(own) + KL(peer detached, own)."""
+        self.model.train()
+        self.student.model.train()
+        out_t = self.model(inputs)
+        out_s = self.student.model(inputs)
+        return (self.criterion(out_t, targets)
+                + self.criterion_dml(out_s.detach(), out_t),
+                self.student.criterion(out_s, targets)
+                + self.criterion_dml(out_t.detach(), out_s))
+
+    def train_step(self, inputs, targets):
+        """One update of both peers: their losses, one backward (the two
+        graphs share nothing), both optimizers step -> the named losses,
+        still on the device."""
+        with fp32_precision():
+            loss_t, loss_s = self.losses(inputs, targets)
+            self.optimizer.zero_grad(set_to_none=True)
+            self.student.optimizer.zero_grad(set_to_none=True)
+            (loss_t + loss_s).backward()
+            self.optimizer.step()
+            self.student.optimizer.step()
+        return {"loss/train": loss_t.detach(),
+                "loss/train_student": loss_s.detach()}
 
 
 def save_checkpoint(path: str, epoch: int, model: nn.Module, optimizer,
