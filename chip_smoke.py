@@ -173,7 +173,14 @@ failure:
                 zeroed counters: exactly the eval forward's kernels launch,
                 every AP is finite and in [0, 100], every image has its
                 label file; frustums/s of the forward and the evaluator's
-                seconds split into data, forward and the host's AP.
+                seconds split into data, forward and the host's AP. Then
+                the evaluator at the real val split's size (3,769 image
+                ids, 11,307 frustums, one test): FrustumPVCNNE 1x from
+                zeroed counters (its forward's kernels launch), and perfect
+                boxes (the val split's own targets as outputs) through the
+                same decode, label files and AP stack, whose every 3-D AP
+                must be above 0; the forward's share of a test with the
+                model's AP and with the perfect boxes'.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
@@ -473,6 +480,9 @@ NF, MF, BF2 = 1024, 512, 24
 # (data/kitti/frustum.py:write_synthetic_root; two an image): 4 training
 # steps at batch 32, and 128 val and rgb-detection frustums
 NUM_KITTI = 128
+# the evaluator's AP stack at the size of the real val split: KITTI's val
+# image set holds 3,769 image ids; three frustums an image (11,307)
+KITTI_VAL_IMAGES, KITTI_PER_IMAGE = 3769, 3
 # The same per FrustumPVCNNE 1x training step (B = 32), from the model's
 # structure: the instance segmentation's PVConvs (Ci -> Co, R) 4 -> 64 and
 # 64 -> 64 at 16, 64 -> 64 and 64 -> 128 at 12, on NF points; the first
@@ -2665,6 +2675,129 @@ def phase_kitti(name: str, root: str, paths: dict, per_step: dict,
     return _add_counts(counts, kernels.launch_counts())
 
 
+class _BoxOracle(torch.nn.Module):
+    """Stands in for a Frustum model in the evaluator: it gives, batch by
+    batch in the split's order (which the synthetic rgb-detection split
+    shares with the val split), outputs that decode to the val split's own
+    boxes: one-hot heading and size bins, their residuals and the center
+    in the frustum frame. Every box it predicts is a true positive of the
+    AP stack."""
+
+    KEYS = ("center", "heading_scores", "heading_residuals", "size_scores",
+            "size_residuals")
+
+    def __init__(self, root: str):
+        from pvcnn_tpu_torch.data.kitti import attributes
+        from pvcnn_tpu_torch.data.kitti.frustum import FrustumKitti
+        from pvcnn_tpu_torch.models.kitti import frustum as kitti
+
+        super().__init__()
+        nh, templates = (kitti.NUM_HEADING_ANGLE_BINS,
+                         attributes.size_templates())
+        val = FrustumKitti(root, 1, split="val", classes=kitti.CLASSES,
+                           num_heading_angle_bins=nh,
+                           frustum_rotate=True)["val"]
+        targets = [val[i][1] for i in range(len(val))]
+        col = lambda key: np.array([t[key] for t in targets])
+        rows = np.arange(len(targets))
+        heading_bin, size_bin = col("heading_bin_id"), col("size_template_id")
+        outputs = {"center": col("center"),
+                   "heading_scores": np.zeros((len(rows), nh)),
+                   "heading_residuals": np.zeros((len(rows), nh)),
+                   "size_scores": np.zeros((len(rows), len(templates))),
+                   "size_residuals": np.zeros((len(rows), len(templates),
+                                               3))}
+        outputs["heading_scores"][rows, heading_bin] = 1.0
+        outputs["heading_residuals"][rows, heading_bin] = col(
+            "heading_residual")
+        outputs["size_scores"][rows, size_bin] = 1.0
+        outputs["size_residuals"][rows, size_bin] = col("size_residual")
+        self.register_buffer("size_templates",
+                             torch.from_numpy(templates).float())
+        for key in self.KEYS:
+            self.register_buffer(key, torch.from_numpy(outputs[key]).float())
+        self.next = 0
+
+    def forward(self, inputs: dict) -> dict:
+        b = inputs["features"].shape[0]
+        outputs = {k: getattr(self, k)[self.next:self.next + b]
+                   for k in self.KEYS}
+        self.next += b
+        return outputs
+
+
+def phase_kitti_ap(fwd_kernels) -> None:
+    """The evaluator entry point at the size of the real val split: a
+    synthetic tree of KITTI_VAL_IMAGES image ids with KITTI_PER_IMAGE
+    frustums each, one test. First FrustumPVCNNE 1x with random weights,
+    from zeroed counters: exactly fwd_kernels launch, every AP is finite
+    and in [0, 100] (its BEV and 3-D APs are 0: with no true positive the
+    AP stack skips its loops over score thresholds). Then _BoxOracle's
+    perfect boxes through the same entry point (decode, label files, AP
+    stack): every class's 3-D AP at each difficulty must be above 0, and
+    its host AP is what the stack costs with true positives. Logs each
+    run's seconds split into data, forward and the host's AP, and the
+    forward's share of a test with either AP."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.kitti.frustum import write_synthetic_root
+    from pvcnn_tpu_torch.evaluate.kitti.frustum.eval import evaluate
+    from pvcnn_tpu_torch.models.kitti import frustum as kitti
+    from pvcnn_tpu_torch.utils.weights import init_random_
+
+    n = KITTI_VAL_IMAGES * KITTI_PER_IMAGE
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        start = time.perf_counter()
+        paths = write_synthetic_root(root, np.random.RandomState(SEED + 81),
+                                     n, KITTI_PER_IMAGE)
+        log("kitti AP", f"synthetic tree of {n} frustums a split, "
+            f"{KITTI_VAL_IMAGES} image ids: written in "
+            f"{time.perf_counter() - start:.2f} s")
+        spent = {}
+        for label, make in (
+                ("FrustumPVCNNE 1x", lambda: init_random_(
+                    kitti.MODELS["pvcnne"].build(1.0), SEED)),
+                ("perfect boxes", lambda: _BoxOracle(root))):
+            model = make()
+            timings = []
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            results = evaluate(root, model, num_tests=1, device=DEVICE,
+                               seed=SEED, timings=timings,
+                               output=os.path.join(root, label.split()[0]),
+                               **paths)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            ran = {k: v for k, v in kernels.launch_counts().items() if v}
+            t = spent[label] = timings[0]
+            aps = np.array([r for v in results.values() for r in v.values()])
+            ap_3d = {c: v["3d"].round(2).tolist() for c, v in results.items()}
+            log("kitti AP", f"{label}: evaluator, 1 test of {t['frustums']} "
+                f"rgb-detection frustums: {seconds:.2f} s; data "
+                f"{t['data']:.3f} s, forward {t['forward']:.3f} s "
+                f"({t['frustums'] / t['forward']:.1f} frustums/s), host AP "
+                f"{t['ap']:.3f} s; launches {ran}; 3-D AP (easy, moderate, "
+                f"hard) {ap_3d}")
+            if aps.shape != (3 * 3, 3) or not np.isfinite(aps).all() \
+                    or aps.min() < 0 or aps.max() > 100:
+                raise AssertionError(f"bad {label} evaluation: AP {aps}")
+            want = set(fwd_kernels) if label.startswith("Frustum") else set()
+            if set(ran) != want:
+                raise AssertionError(f"{label}: launches {ran}, expected "
+                                     f"{sorted(want)}")
+            if label == "perfect boxes" and min(
+                    min(v) for v in ap_3d.values()) <= 0:
+                raise AssertionError(f"perfect boxes score a 3-D AP of 0: "
+                                     f"{ap_3d}")
+            del model
+    model_run, perfect = spent["FrustumPVCNNE 1x"], spent["perfect boxes"]
+    for label, ap in (("its own (no true positive)", model_run["ap"]),
+                      ("the perfect boxes'", perfect["ap"])):
+        total = model_run["data"] + model_run["forward"] + ap
+        log("kitti AP", f"FrustumPVCNNE 1x forward share of a test with "
+            f"{label} AP: {model_run['forward'] / total:.3f} (data "
+            f"{model_run['data'] / total:.3f}, host AP {ap / total:.3f})")
+
+
 def _stopwatch():
     """lap(phase) logs the seconds since the previous lap (or the start)."""
     last = [time.perf_counter()]
@@ -2872,6 +3005,8 @@ def main() -> None:
             if path is not None:
                 counts[path] = _add_counts(counts[path], more)
     lap("kitti")
+    phase_kitti_ap(fwd)
+    lap("kitti AP")
 
     lines = []
     for k in kernels.KERNELS.values():

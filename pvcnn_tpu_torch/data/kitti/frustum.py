@@ -19,8 +19,8 @@ import numpy as np
 
 from pvcnn_tpu_torch.data.kitti import attributes
 
-__all__ = ["FrustumKitti", "angle_to_bin_id", "rotate_points_along_y",
-           "synthetic_batch", "write_synthetic_root"]
+__all__ = ["FrustumKitti", "angle_to_bin_id", "box_corners_np",
+           "rotate_points_along_y", "synthetic_batch", "write_synthetic_root"]
 
 # classes (Car, Pedestrian, Cyclist) -> their size template in
 # attributes.class_names order
@@ -35,6 +35,19 @@ def angle_to_bin_id(angle: float, num_angle_bins: int):
     shifted = (angle + per_bin / 2) % (2 * np.pi)
     bin_id = int(shifted / per_bin)
     return bin_id, shifted - (bin_id * per_bin + per_bin / 2)
+
+
+def box_corners_np(centers, headings, sizes):
+    """numpy twin of nn/frustum.py:get_box_corners_3d -> [B, 3, 8]."""
+    l, w, h = sizes[:, 0], sizes[:, 1], sizes[:, 2]
+    x_c = np.stack([l, l, -l, -l, l, l, -l, -l], axis=1) * 0.5
+    y_c = np.stack([h, h, h, h, -h, -h, -h, -h], axis=1) * 0.5
+    z_c = np.stack([w, -w, -w, w, w, -w, -w, w], axis=1) * 0.5
+    corners = np.stack([x_c, y_c, z_c], axis=1)
+    c, s = np.cos(headings), np.sin(headings)
+    o, z = np.ones_like(headings), np.zeros_like(headings)
+    rot = np.stack([c, z, s, z, o, z, -s, z, c], axis=1).reshape(-1, 3, 3)
+    return np.matmul(rot, corners) + centers[:, :, None]
 
 
 def rotate_points_along_y(features, rotation_angle):
@@ -253,8 +266,8 @@ def synthetic_batch(rng: np.random.RandomState, batch_size: int,
 # a KITTI-like camera (focal length and principal point in pixels) that
 # gives the synthetic objects their 2-D boxes
 _FOCAL, _CU, _CV = 721.5377, 609.5593, 172.854
-# frustums an image id, and the range of points a frustum holds
-_OBJECTS_PER_IMAGE, _POINTS = 2, (256, 1024)
+# the range of points a frustum holds
+_POINTS = (256, 1024)
 
 
 def _synthetic_object(rng: np.random.RandomState, num_points: int) -> dict:
@@ -262,8 +275,6 @@ def _synthetic_object(rng: np.random.RandomState, num_points: int) -> dict:
     frame into the camera frame: its frustum axis turned by a rotation
     angle in [-0.6, 0.6] away from +z. Its corners [8, 3] are
     nn/frustum.py:get_box_corners_3d's (corners 0 and 6 opposite)."""
-    from pvcnn_tpu_torch.meters.kitti.frustum import _corners_np
-
     inputs, targets = synthetic_batch(rng, 1, num_points)
     per_bin = 2 * np.pi / 12
     heading = (float(targets["heading_bin_id"][0]) * per_bin
@@ -275,7 +286,7 @@ def _synthetic_object(rng: np.random.RandomState, num_points: int) -> dict:
     cloud = rotate_points_along_y(inputs["features"][0].copy(), -angle)
     center = rotate_points_along_y(
         targets["center"][0].astype(np.float64)[None, :], -angle)[0]
-    corners = _corners_np(center[None], np.array([heading + angle]),
+    corners = box_corners_np(center[None], np.array([heading + angle]),
                           size[None])[0].T
     u = _FOCAL * corners[:, 0] / corners[:, 2] + _CU
     v = _FOCAL * corners[:, 1] / corners[:, 2] + _CV
@@ -286,23 +297,23 @@ def _synthetic_object(rng: np.random.RandomState, num_points: int) -> dict:
             "frustum_angle": angle - np.pi / 2, "center": center}
 
 
-def write_synthetic_root(root: str, rng: np.random.RandomState,
-                         n: int) -> dict:
+def write_synthetic_root(root: str, rng: np.random.RandomState, n: int,
+                         objects_per_image: int = 2) -> dict:
     """Write a synthetic KITTI Frustum tree at `root`, in the layout of the
     real data: frustum_carpedcyc_{train,val}.pickle with `n` frustums
     each, frustum_carpedcyc_val_rgb_detection.pickle (the val objects, as
     a 2-D detector would propose them: boxes moved by up to 2 pixels and a
     score in [0.5, 1)), the val objects' label files
     ground_truth/NNNNNN.txt and image_sets/val.txt. Each frustum holds one
-    real box of synthetic_batch's generator with 256-1,024 points; two
-    frustums share an image id. -> {"ground_truth", "image_ids"}: the
-    label folder and the id list."""
+    real box of synthetic_batch's generator with 256-1,024 points;
+    `objects_per_image` frustums share an image id. -> {"ground_truth",
+    "image_ids"}: the label folder and the id list."""
     os.makedirs(root, exist_ok=True)
     val = None
     for split in ("train", "val"):
         objects = [_synthetic_object(rng, rng.randint(*_POINTS))
                    for _ in range(n)]
-        ids = [i // _OBJECTS_PER_IMAGE for i in range(n)]
+        ids = [i // objects_per_image for i in range(n)]
         with open(os.path.join(root, f"frustum_carpedcyc_{split}.pickle"),
                   "wb") as f:
             for value in (ids, [o["box_2d"] for o in objects],

@@ -10,22 +10,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from pvcnn_tpu_torch.data.kitti.frustum import box_corners_np
 from pvcnn_tpu_torch.meters.kitti.utils import get_box_iou_3d
 
 __all__ = ["MeterFrustumKitti"]
-
-
-def _corners_np(centers, headings, sizes):
-    """numpy twin of nn/frustum.py:get_box_corners_3d -> [B, 3, 8]."""
-    l, w, h = sizes[:, 0], sizes[:, 1], sizes[:, 2]
-    x_c = np.stack([l, l, -l, -l, l, l, -l, -l], axis=1) * 0.5
-    y_c = np.stack([h, h, h, h, -h, -h, -h, -h], axis=1) * 0.5
-    z_c = np.stack([w, -w, -w, w, w, -w, -w, w], axis=1) * 0.5
-    corners = np.stack([x_c, y_c, z_c], axis=1)
-    c, s = np.cos(headings), np.sin(headings)
-    o, z = np.ones_like(headings), np.zeros_like(headings)
-    rot = np.stack([c, z, s, z, o, z, -s, z, c], axis=1).reshape(-1, 3, 3)
-    return np.matmul(rot, corners) + centers[:, :, None]
 
 
 class MeterFrustumKitti:
@@ -82,12 +70,13 @@ class MeterFrustumKitti:
         size_template_id = size_scores.argmax(-1)
         size = (self.size_templates[size_template_id]
                 + size_residuals[batch, size_template_id])
-        corners = _corners_np(center, heading, size)
+        corners = box_corners_np(center, heading, size)
         heading_target = (self.heading_angle_bin_centers[heading_bin_id_target]
                           + heading_residual_target)
         size_target = (self.size_templates[size_template_id_target]
                        + size_residual_target)
-        corners_target = _corners_np(center_target, heading_target, size_target)
+        corners_target = box_corners_np(center_target, heading_target,
+                                        size_target)
 
         iou_3d, iou_2d = get_box_iou_3d(corners, corners_target)
         self.iou_2d_sum += iou_2d.sum()

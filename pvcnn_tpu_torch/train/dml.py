@@ -15,33 +15,22 @@ cosine schedule's t_max by the steps in an epoch. --no-dml trains the
 model alone with the plain Trainer (the configs'
 deep_mutual_learning=False).
 
-Checkpoints, in the JAX layout under --save-path: the teacher at
-latest.pth.tar, the student at latest.pth.tar.student, the teacher's of
-every epoch at latest/e{N}.pth.tar, and on a new best of acc/iou_test
-best.pth.tar (teacher) and best_student.pth.tar (student). A run whose
-save path holds latest.pth.tar resumes both peers from it, and the step
-count of an iter schedule from its epoch. After each epoch the test split
-is scored for both peers: the student's meters print with a _student
-suffix.
+Checkpoints, in the JAX layout under --save-path (train/trainer.py:fit):
+the teacher at latest.pth.tar, the student at latest.pth.tar.student, the
+teacher's of every epoch at latest/e{N}.pth.tar, and on a new best of
+acc/iou_test best.pth.tar (teacher) and best_student.pth.tar (student). A
+run whose save path holds latest.pth.tar resumes both peers from it, and
+the step count of an iter schedule from its epoch. After each epoch the
+test split is scored for both peers: the student's meters print with a
+_student suffix.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
-import time
 
-from pvcnn_tpu_torch.data.shapenet import NUM_CLASSES, NUM_SHAPES
-from pvcnn_tpu_torch.meters.shapenet import MeterShapeNet
 from pvcnn_tpu_torch.models.shapenet import MODELS
-from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss, KLLoss
-from pvcnn_tpu_torch.train.optim import Adam
-from pvcnn_tpu_torch.train.shapenet import (LR, METRIC, RECIPES, make_loaders,
-                                            make_model)
-from pvcnn_tpu_torch.train.trainer import (STUDENT_SEED_OFFSET, DMLTrainer,
-                                           Trainer, check_device,
-                                           copy_checkpoint, load_checkpoint,
-                                           save_checkpoint)
+from pvcnn_tpu_torch.train.shapenet import RECIPES, train_peers
 
 __all__ = ["main", "train"]
 
@@ -56,91 +45,15 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
     model with `dml=False`) -> (the teacher's last meters, the student's;
     {} without DML). `epochs` defaults to the model's recipe, `save_path`
     to the recipe's path with a `.dml` suffix."""
-    default_epochs, schedule, default_path = RECIPES[model]
-    epochs = default_epochs if epochs is None else epochs
-    save_path = default_path + ".dml" if save_path is None else save_path
-    device = check_device(device)
-    loaders = make_loaders(root, model, num_points, batch_size, seed)
-    net = make_model(model, width_multiplier, checkpoint, seed, device)
-    optimizer = Adam(net.parameters(), lr=LR, weight_decay=0.0)
-    if dml:
-        student = make_model(model, width_multiplier, checkpoint,
-                             seed + STUDENT_SEED_OFFSET, device)
-        trainer = DMLTrainer(net, CrossEntropyLoss(), optimizer, student,
-                             Adam(student.parameters(), lr=LR,
-                                  weight_decay=0.0),
-                             KLLoss(), device, seed)
-        peers = {"": trainer, "_student": trainer.student}
-    else:
-        trainer = Trainer(net, CrossEntropyLoss(), optimizer, device, seed)
-        peers = {"": trainer}
-
-    steps = len(loaders["train"])
-    if max_steps is not None:
-        steps = min(steps, max_steps)
-    scheduler = schedule(epochs).bind(LR)
-    if scheduler_unit == "iter" and hasattr(scheduler, "t_max"):
-        scheduler.t_max = epochs * steps
-
-    latest = os.path.join(save_path, "latest.pth.tar")
-    paths = {"": latest, "_student": latest + ".student"}
-    best_paths = {"": os.path.join(save_path, "best.pth.tar"),
-                  "_student": os.path.join(save_path, "best_student.pth.tar")}
-    start, best = 0, {tag: None for tag in peers}
-    if os.path.exists(latest):
-        print(f'==> resuming from "{latest}"')
-        for tag, peer in peers.items():
-            if os.path.exists(paths[tag]):
-                epoch, meters = load_checkpoint(paths[tag], peer.model,
-                                                peer.optimizer)
-                best[tag] = meters.get(METRIC + "_best")
-                if not tag:
-                    start = epoch + 1
-        trainer.step_count = start * steps
-
-    def evaluate():
-        return {tag: peer.evaluate(loaders["test"],
-                                   {METRIC: MeterShapeNet(NUM_CLASSES,
-                                                          NUM_SHAPES)})
-                for tag, peer in peers.items()}
-
-    def report(scores):
-        for tag, meters in scores.items():
-            for k, v in meters.items():
-                print(f"[{k}{tag}] = {v:2f}")
-
-    if start >= epochs:                   # finished: report once
-        scores = evaluate()
-        report(scores)
-        return scores[""], scores.get("_student", {})
-
-    for epoch in range(start, epochs):
-        print(f"\n==> training epoch {epoch}/{epochs}")
-        begin = time.perf_counter()
-        loss = trainer.train_epoch(loaders["train"], epoch, scheduler,
-                                   max_steps, scheduler_unit)
-        seconds = time.perf_counter() - begin
-        if not isinstance(loss, dict):
-            loss = {"loss/train": loss}
-        for tag in sorted(loss):
-            print(f"[{tag}] = {loss[tag]:.6f}")
-        print(f"[seconds] = {seconds:.3f}")
-        scores = evaluate()
-        is_best = {}
-        for tag, meters in scores.items():
-            is_best[tag] = best[tag] is None or best[tag] < meters[METRIC]
-            if is_best[tag]:
-                best[tag] = meters[METRIC]
-            meters[METRIC + "_best"] = best[tag]
-        report(scores)
-        for tag, peer in peers.items():
-            save_checkpoint(paths[tag], epoch, peer.model, peer.optimizer,
-                            scores[tag])
-            if is_best[tag]:
-                copy_checkpoint(paths[tag], best_paths[tag])
-        copy_checkpoint(latest, os.path.join(save_path, "latest",
-                                             f"e{epoch}.pth.tar"))
-        print(f"[save_path] = {save_path}")
+    if save_path is None:
+        save_path = RECIPES[model][2] + ".dml"
+    scores = train_peers(root, model=model,
+                         width_multiplier=width_multiplier,
+                         batch_size=batch_size, epochs=epochs,
+                         max_steps=max_steps, save_path=save_path,
+                         device=device, seed=seed, checkpoint=checkpoint,
+                         num_points=num_points,
+                         scheduler_unit=scheduler_unit, dml=dml)
     return scores[""], scores.get("_student", {})
 
 

@@ -12,7 +12,7 @@ acc/iou_3d_acc_val, acc/iou_3d_class_acc_val), and the checkpoints
 <save-path>/latest.pth.tar and latest/e{N}.pth.tar are written, with, on a
 new best, best/best.acc.iou_3d_class_acc_val.pth.tar and
 best/best.acc.iou_3d_acc_val.pth.tar, and best.pth.tar for the first (the
-evaluator's checkpoint). A run whose save path holds latest.pth.tar
+evaluator's checkpoint; train/trainer.py:fit). A run whose save path holds latest.pth.tar
 resumes from it. Weights are drawn from a torch.Generator seeded with
 --seed unless --checkpoint names a reference .pth.tar; the reader draws
 from np.random.RandomState(--seed), the sampler from the Trainer's
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 
@@ -33,9 +32,7 @@ from pvcnn_tpu_torch.data.loader import DataLoader
 from pvcnn_tpu_torch.meters.kitti.frustum import MeterFrustumKitti
 from pvcnn_tpu_torch.models.kitti import frustum as kitti
 from pvcnn_tpu_torch.train.optim import Adam
-from pvcnn_tpu_torch.train.trainer import (Trainer, check_device,
-                                           copy_checkpoint, load_checkpoint,
-                                           save_checkpoint)
+from pvcnn_tpu_torch.train.trainer import Trainer, check_device, fit
 from pvcnn_tpu_torch.utils.weights import (init_random_,
                                            load_reference_checkpoint)
 
@@ -89,55 +86,12 @@ def train(root: str, *, model: str = "pvcnne", width_multiplier: float = 1.0,
         init_random_(net, seed)
     net = net.to(device)
     optimizer = Adam(net.parameters(), lr=kitti.LR, weight_decay=0.0)
-    scheduler = spec.scheduler(epochs).bind(kitti.LR)
     trainer = Trainer(net, kitti.criterion(), optimizer, device, seed)
-
-    latest = os.path.join(save_path, "latest.pth.tar")
-    best_paths = {m: os.path.join(save_path, "best",
-                                  "best.{}.pth.tar".format(
-                                      m.replace("/", ".")))
-                  for m in METRICS}
-    start, best = 0, {m: None for m in METRICS}
-    if os.path.exists(latest):
-        print(f'==> loading checkpoint "{latest}"')
-        epoch, saved = load_checkpoint(latest, trainer.model, optimizer)
-        start = epoch + 1
-        best = {m: saved.get(m + "_best") for m in METRICS}
-
-    def report(scores):
-        for k, v in scores.items():
-            print(f"[{k}] = {v:2f}")
-
-    if start >= epochs:                   # finished: report once
-        scores = trainer.evaluate(loaders["val"], meters("val"))
-        report(scores)
-        return scores
-
-    for epoch in range(start, epochs):
-        print(f"\n==> training epoch {epoch}/{epochs}")
-        begin = time.perf_counter()
-        loss = trainer.train_epoch(loaders["train"], epoch, scheduler,
-                                   max_steps)
-        seconds = time.perf_counter() - begin
-        print(f"[loss/train] = {loss:.6f}  [seconds] = {seconds:.3f}")
-        scores = trainer.evaluate(loaders["val"], meters("val"))
-        is_best = {}
-        for m in METRICS:
-            is_best[m] = best[m] is None or best[m] < scores[m]
-            if is_best[m]:
-                best[m] = scores[m]
-            scores[m + "_best"] = best[m]
-        report(scores)
-        save_checkpoint(latest, epoch, trainer.model, optimizer, scores)
-        copy_checkpoint(latest, os.path.join(save_path, "latest",
-                                             f"e{epoch}.pth.tar"))
-        for m in METRICS:
-            if is_best[m]:
-                copy_checkpoint(latest, best_paths[m])
-        if is_best[METRICS[0]]:
-            copy_checkpoint(latest, os.path.join(save_path, "best.pth.tar"))
-        print(f"[save_path] = {save_path}")
-    return scores
+    return fit(trainer, loaders["train"], loaders["val"],
+               lambda: meters("val"), METRICS, epochs=epochs,
+               save_path=save_path,
+               scheduler=spec.scheduler(epochs).bind(kitti.LR),
+               max_steps=max_steps)[""]
 
 
 def main(argv=None):

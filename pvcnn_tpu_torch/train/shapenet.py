@@ -11,7 +11,8 @@ CosineAnnealingLR, the others 200 of StepLR (step 20, gamma 0.5), each
 stepped per epoch. After each epoch the test split is
 scored with MeterShapeNet (acc/iou_test) and the checkpoints
 <save-path>/latest.pth.tar, <save-path>/latest/e{N}.pth.tar and, on a new
-best, <save-path>/best.pth.tar are written. A run whose save path holds
+best, <save-path>/best.pth.tar and best/best.acc.iou_test.pth.tar are
+written (train/trainer.py:fit). A run whose save path holds
 latest.pth.tar resumes from it. Weights are drawn from a torch.Generator
 seeded with --seed unless --checkpoint names a reference .pth.tar.
 --max-steps cuts every epoch short (smoke runs).
@@ -20,8 +21,6 @@ seeded with --seed unless --checkpoint names a reference .pth.tar.
 from __future__ import annotations
 
 import argparse
-import os
-import time
 
 import torch
 
@@ -30,16 +29,15 @@ from pvcnn_tpu_torch.data.shapenet import (NUM_CLASSES, NUM_SHAPES,
                                            ShapeNetDataset)
 from pvcnn_tpu_torch.meters.shapenet import MeterShapeNet
 from pvcnn_tpu_torch.models.shapenet import MODELS
-from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
+from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss, KLLoss
 from pvcnn_tpu_torch.train.optim import Adam, CosineAnnealingLR, StepLR
-from pvcnn_tpu_torch.train.trainer import (Trainer, check_device,
-                                           copy_checkpoint, load_checkpoint,
-                                           save_checkpoint)
+from pvcnn_tpu_torch.train.trainer import (STUDENT_SEED_OFFSET, DMLTrainer,
+                                           Trainer, check_device, fit)
 from pvcnn_tpu_torch.utils.weights import (init_random_,
                                            load_reference_checkpoint)
 
 __all__ = ["LR", "METRIC", "RECIPES", "main", "make_loaders", "make_model",
-           "train"]
+           "train", "train_peers"]
 
 METRIC = "acc/iou_test"
 LR = 1e-3
@@ -91,6 +89,21 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
     """Train (or resume) the model named `model` (models.shapenet.MODELS)
     and return the last evaluation's meters. `epochs` and `save_path`
     default to the model's recipe."""
+    return train_peers(root, model=model, width_multiplier=width_multiplier,
+                       batch_size=batch_size, epochs=epochs,
+                       max_steps=max_steps, save_path=save_path,
+                       device=device, seed=seed, checkpoint=checkpoint,
+                       num_points=num_points)[""]
+
+
+def train_peers(root: str, *, model: str, width_multiplier: float,
+                batch_size: int, epochs: int | None, max_steps: int | None,
+                save_path: str | None, device: str, seed: int,
+                checkpoint: str | None, num_points: int,
+                scheduler_unit: str = "epoch", dml: bool = False) -> dict:
+    """train's recipe for one model or, with `dml`, for two peers trained
+    by deep mutual learning (the student's weights drawn with seed +
+    STUDENT_SEED_OFFSET) -> trainer.fit's {peer suffix: last meters}."""
     default_epochs, schedule, default_path = RECIPES[model]
     epochs = default_epochs if epochs is None else epochs
     save_path = default_path if save_path is None else save_path
@@ -98,48 +111,20 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
     loaders = make_loaders(root, model, num_points, batch_size, seed)
     net = make_model(model, width_multiplier, checkpoint, seed, device)
     optimizer = Adam(net.parameters(), lr=LR, weight_decay=0.0)
-    scheduler = schedule(epochs).bind(LR)
-    trainer = Trainer(net, CrossEntropyLoss(), optimizer, device, seed)
-
-    latest = os.path.join(save_path, "latest.pth.tar")
-    start, best = 0, None
-    if os.path.exists(latest):
-        print(f'==> loading checkpoint "{latest}"')
-        epoch, meters = load_checkpoint(latest, trainer.model, optimizer)
-        start, best = epoch + 1, meters.get(METRIC + "_best")
-
-    def evaluate():
-        return trainer.evaluate(loaders["test"],
-                                {METRIC: MeterShapeNet(NUM_CLASSES,
-                                                       NUM_SHAPES)})
-
-    if start >= epochs:                   # finished: report once
-        meters = evaluate()
-        for k, v in meters.items():
-            print(f"[{k}] = {v:2f}")
-        return meters
-
-    for epoch in range(start, epochs):
-        print(f"\n==> training epoch {epoch}/{epochs}")
-        begin = time.perf_counter()
-        loss = trainer.train_epoch(loaders["train"], epoch, scheduler,
-                                   max_steps)
-        seconds = time.perf_counter() - begin
-        print(f"[loss/train] = {loss:.6f}  [seconds] = {seconds:.3f}")
-        meters = evaluate()
-        is_best = best is None or best < meters[METRIC]
-        if is_best:
-            best = meters[METRIC]
-        meters[METRIC + "_best"] = best
-        for k, v in meters.items():
-            print(f"[{k}] = {v:2f}")
-        save_checkpoint(latest, epoch, trainer.model, optimizer, meters)
-        copy_checkpoint(latest, os.path.join(save_path, "latest",
-                                             f"e{epoch}.pth.tar"))
-        if is_best:
-            copy_checkpoint(latest, os.path.join(save_path, "best.pth.tar"))
-        print(f"[save_path] = {save_path}")
-    return meters
+    if dml:
+        student = make_model(model, width_multiplier, checkpoint,
+                             seed + STUDENT_SEED_OFFSET, device)
+        trainer = DMLTrainer(net, CrossEntropyLoss(), optimizer, student,
+                             Adam(student.parameters(), lr=LR,
+                                  weight_decay=0.0),
+                             KLLoss(), device, seed)
+    else:
+        trainer = Trainer(net, CrossEntropyLoss(), optimizer, device, seed)
+    return fit(trainer, loaders["train"], loaders["test"],
+               lambda: {METRIC: MeterShapeNet(NUM_CLASSES, NUM_SHAPES)},
+               (METRIC,), epochs=epochs, save_path=save_path,
+               scheduler=schedule(epochs).bind(LR),
+               scheduler_unit=scheduler_unit, max_steps=max_steps)
 
 
 def main(argv=None):

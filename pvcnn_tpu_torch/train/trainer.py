@@ -27,6 +27,9 @@ statistics move once and its dropout masks are drawn once, as in the
 reference's step (JAX runs a second forward for the gradient, which XLA
 merges with the first, and keeps only its statistics).
 
+fit is the entry points' epoch loop (the JAX train.py's and
+train_dml.py's): resume, train, score every peer, write the checkpoints.
+
 A checkpoint is {"epoch", "model": state_dict, "optimizer": state_dict,
 "meters"}; its `model` entry carries the reference's module names, so
 pvcnn_tpu/utils/checkpoint_import.py:import_state_dict maps it into JAX
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import NamedTuple
+import time
 
 import numpy as np
 import torch
@@ -48,9 +51,9 @@ from pvcnn_tpu_torch.models.utils import (set_dropout_generator,
 from pvcnn_tpu_torch.train.optim import set_learning_rate
 from pvcnn_tpu_torch.train.predict import fp32_precision
 
-__all__ = ["DMLState", "DMLTrainer", "SAMPLE_SEED_OFFSET",
-           "STUDENT_SEED_OFFSET", "Trainer", "check_device",
-           "copy_checkpoint", "load_checkpoint", "save_checkpoint"]
+__all__ = ["DMLTrainer", "SAMPLE_SEED_OFFSET", "STUDENT_SEED_OFFSET",
+           "Trainer", "check_device", "copy_checkpoint", "fit",
+           "load_checkpoint", "save_checkpoint"]
 
 # the sampler's generator is seeded with seed + SAMPLE_SEED_OFFSET, apart
 # from the dropout generator's seed
@@ -152,19 +155,12 @@ def _to_numpy(outputs):
     return outputs.cpu().numpy()
 
 
-class DMLState(NamedTuple):
-    """The two peers of a DMLTrainer (the JAX package's DMLState): each a
-    Trainer with its own model, optimizer and generators."""
-
-    teacher: Trainer
-    student: Trainer
-
-
 class DMLTrainer(Trainer):
     """Deep mutual learning (pvcnn_tpu/train/trainer.py:DMLTrainer): the
     teacher is this Trainer's own model and optimizer, the student a Trainer
     of its own whose generators are seeded with seed +
-    STUDENT_SEED_OFFSET. A step returns {"loss/train", "loss/train_student"};
+    STUDENT_SEED_OFFSET (the two hold what the JAX DMLState threads
+    through its step). A step returns {"loss/train", "loss/train_student"};
     the scheduler sets both optimizers' lr. `evaluate` scores the teacher,
     `self.student.evaluate` the student."""
 
@@ -175,10 +171,6 @@ class DMLTrainer(Trainer):
         self.criterion_dml = criterion_dml
         self.student = Trainer(student, criterion, student_optimizer, device,
                                int(seed) + STUDENT_SEED_OFFSET)
-
-    @property
-    def state(self) -> DMLState:
-        return DMLState(teacher=self, student=self.student)
 
     def set_learning_rate(self, lr: float) -> None:
         set_learning_rate(self.optimizer, lr)
@@ -234,3 +226,95 @@ def load_checkpoint(path: str, model: nn.Module, optimizer=None):
 def copy_checkpoint(src: str, dst: str) -> None:
     os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
     shutil.copyfile(src, dst)
+
+
+def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
+        *, epochs: int, save_path: str, scheduler=None,
+        scheduler_unit: str = "epoch", max_steps: int | None = None) -> dict:
+    """Train `trainer` to `epochs` epochs and score `eval_loader` with fresh
+    `make_meters()` after each, for every peer: the trainer itself and, for
+    a DMLTrainer, its student, whose meters print with a _student suffix.
+    An iter schedule's cosine t_max is stretched by the steps in an epoch.
+
+    Checkpoints, in the JAX entry points' layout under `save_path`: each
+    peer's latest (latest.pth.tar, the student's latest.pth.tar.student)
+    and, on a new best of metrics[0], best.pth.tar (best_student.pth.tar);
+    the trainer's of every epoch at latest/e{N}.pth.tar and, on a new best
+    of each metric m, at best/best.{m with / as .}.pth.tar. A save path
+    that holds latest.pth.tar resumes every peer, its bests and the step
+    count. -> {peer suffix ("" or "_student"): its last meters, with each
+    metric's best under m + "_best"}."""
+    peers = {"": trainer}
+    if isinstance(trainer, DMLTrainer):
+        peers["_student"] = trainer.student
+    steps = len(train_loader)
+    if max_steps is not None:
+        steps = min(steps, max_steps)
+    if scheduler_unit == "iter" and hasattr(scheduler, "t_max"):
+        scheduler.t_max = epochs * steps
+
+    latest = os.path.join(save_path, "latest.pth.tar")
+    paths = {tag: latest + ("." + tag[1:] if tag else "") for tag in peers}
+    best = {tag: dict.fromkeys(metrics) for tag in peers}
+    start = 0
+    if os.path.exists(latest):
+        print(f'==> loading checkpoint "{latest}"')
+        for tag, peer in peers.items():
+            if os.path.exists(paths[tag]):
+                epoch, saved = load_checkpoint(paths[tag], peer.model,
+                                               peer.optimizer)
+                best[tag] = {m: saved.get(m + "_best") for m in metrics}
+                if not tag:
+                    start = epoch + 1
+        trainer.step_count = start * steps
+
+    def evaluate() -> dict:
+        return {tag: peer.evaluate(eval_loader, make_meters())
+                for tag, peer in peers.items()}
+
+    def report(scores: dict) -> None:
+        for tag, meters in scores.items():
+            for k, v in meters.items():
+                print(f"[{k}{tag}] = {v:2f}")
+
+    if start >= epochs:                   # finished: report once
+        scores = evaluate()
+        report(scores)
+        return scores
+
+    for epoch in range(start, epochs):
+        print(f"\n==> training epoch {epoch}/{epochs}")
+        begin = time.perf_counter()
+        loss = trainer.train_epoch(train_loader, epoch, scheduler,
+                                   max_steps, scheduler_unit)
+        seconds = time.perf_counter() - begin
+        if not isinstance(loss, dict):
+            loss = {"loss/train": loss}
+        for k in sorted(loss):
+            print(f"[{k}] = {loss[k]:.6f}")
+        print(f"[seconds] = {seconds:.3f}")
+        scores = evaluate()
+        is_best = {}
+        for tag, meters in scores.items():
+            for m in metrics:
+                is_best[tag, m] = (best[tag][m] is None
+                                   or best[tag][m] < meters[m])
+                if is_best[tag, m]:
+                    best[tag][m] = meters[m]
+                meters[m + "_best"] = best[tag][m]
+        report(scores)
+        for tag, peer in peers.items():
+            save_checkpoint(paths[tag], epoch, peer.model, peer.optimizer,
+                            scores[tag])
+            if is_best[tag, metrics[0]]:
+                copy_checkpoint(paths[tag],
+                                os.path.join(save_path, f"best{tag}.pth.tar"))
+        copy_checkpoint(latest, os.path.join(save_path, "latest",
+                                             f"e{epoch}.pth.tar"))
+        for m in metrics:
+            if is_best["", m]:
+                copy_checkpoint(latest, os.path.join(
+                    save_path, "best",
+                    "best.{}.pth.tar".format(m.replace("/", "."))))
+        print(f"[save_path] = {save_path}")
+    return scores

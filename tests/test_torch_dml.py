@@ -26,8 +26,7 @@ from pvcnn_tpu_torch.models.shapenet import PVCNN
 from pvcnn_tpu_torch.models.utils import Dropout
 from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss, KLLoss
 from pvcnn_tpu_torch.ops import losses as tlosses
-from pvcnn_tpu_torch.train.trainer import (STUDENT_SEED_OFFSET, DMLState,
-                                           DMLTrainer)
+from pvcnn_tpu_torch.train.trainer import STUDENT_SEED_OFFSET, DMLTrainer
 from pvcnn_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_train import _flat, _grad_tree, _inputs
 
@@ -201,9 +200,7 @@ def test_dml_step_matches_jax(peers, jax_dml, dtype):
     dt = getattr(torch, dtype)
     trainer = _dml(peers, dt)
     got = trainer.train_step(*_torch(*TRAJECTORY[0], dt))
-    assert isinstance(trainer.state, DMLState)
-    for p in PEERS:
-        model = getattr(trainer.state, p).model
+    for p, model in zip(PEERS, (trainer.model, trainer.student.model)):
         grads = _flat(_grad_tree(model, variables[p]))
         loss = got[TAGS[p]].item()
         if dtype == "float64":

@@ -131,7 +131,7 @@ def test_dml_cli_writes_and_resumes_both_peers(tree, tmp_path, capsys):
         assert text in out, text
     for name in ("latest.pth.tar", "latest.pth.tar.student",
                  "latest/e0.pth.tar", "latest/e1.pth.tar", "best.pth.tar",
-                 "best_student.pth.tar"):
+                 "best_student.pth.tar", "best/best.acc.iou_test.pth.tar"):
         assert os.path.exists(os.path.join(save, name)), name
     assert 0.0 <= teacher["acc/iou_test"] <= 1.0
     assert 0.0 <= student["acc/iou_test"] <= 1.0
@@ -145,7 +145,7 @@ def test_dml_cli_writes_and_resumes_both_peers(tree, tmp_path, capsys):
 
     dml_main(args + ["--epochs", "3"])
     out = capsys.readouterr().out
-    assert "resuming" in out and "training epoch 2/3" in out
+    assert "loading checkpoint" in out and "training epoch 2/3" in out
     assert "training epoch 1/3" not in out
     t2, s2 = load("latest.pth.tar"), load("latest.pth.tar.student")
     assert t2["epoch"] == s2["epoch"] == 2

@@ -26,11 +26,12 @@ from pvcnn_tpu.evaluate.kitti.frustum import eval as jeval
 from pvcnn_tpu.meters.kitti import frustum as jmeter
 from pvcnn_tpu.meters.kitti.utils import get_box_iou_3d as jbox_iou
 from pvcnn_tpu_torch.data.kitti import attributes
-from pvcnn_tpu_torch.data.kitti.frustum import (FrustumKitti, synthetic_batch,
+from pvcnn_tpu_torch.data.kitti.frustum import (FrustumKitti, box_corners_np,
+                                                synthetic_batch,
                                                 write_synthetic_root)
 from pvcnn_tpu_torch.evaluate.kitti import common, iou, official_eval
 from pvcnn_tpu_torch.evaluate.kitti.frustum import eval as teval
-from pvcnn_tpu_torch.meters.kitti.frustum import MeterFrustumKitti, _corners_np
+from pvcnn_tpu_torch.meters.kitti.frustum import MeterFrustumKitti
 from pvcnn_tpu_torch.meters.kitti.utils import get_box_iou_3d
 from pvcnn_tpu_torch.train.kitti import main as kitti_main
 from test_torch_frustum import (CASES, deterministic_sampler,  # noqa: F401
@@ -90,8 +91,7 @@ def test_reader_items_equal_jax(root, split, kwargs):
 
 
 def _boxes(rng, b):
-    """Random boxes -> their corners [b, 3, 8] (the meter's twin of
-    get_box_corners_3d)."""
+    """Random boxes (centers, headings, sizes), for box_corners_np."""
     centers = rng.uniform(-3, 3, (b, 3))
     headings = rng.uniform(-np.pi, np.pi, b)
     sizes = rng.uniform(0.5, 4.0, (b, 3))
@@ -106,12 +106,12 @@ def test_box_iou_3d_matches_jax():
     for parity)."""
     rng = np.random.RandomState(0)
     c, h, s = _boxes(rng, 16)
-    corners = _corners_np(c, h, s)
-    moved = _corners_np(c + rng.uniform(-1, 1, c.shape),
+    corners = box_corners_np(c, h, s)
+    moved = box_corners_np(c + rng.uniform(-1, 1, c.shape),
                         h + rng.uniform(-0.5, 0.5, h.shape),
                         s * rng.uniform(0.7, 1.3, s.shape))
-    far = _corners_np(c + 50.0, h, s)
-    near = _corners_np(c + 1e-9, h + 1e-9, s)
+    far = box_corners_np(c + 50.0, h, s)
+    near = box_corners_np(c + 1e-9, h + 1e-9, s)
     for other in (moved, far, near):
         got = get_box_iou_3d(corners, other)
         want = jbox_iou(corners, other)
