@@ -14,7 +14,8 @@ launch no kernel, and the KITTI Frustum family at its configs' full width
 (FrustumPVCNNE and FrustumPointNet at B = 32, FrustumPointNet2 at B = 24,
 frustums of 1,024 points x 4 channels, 512 points an object; synthetic
 frustum batches and trees, data/kitti/frustum.py), ShapeNet PVCNN 1x by
-deep mutual learning, and the entry points that train and evaluate them.
+deep mutual learning, and the entry points that train and evaluate them
+(S3DIS's on synthetic rooms prepared into windows).
 Phases, each printing its own lines and its seconds, and raising on
 failure:
 
@@ -120,6 +121,26 @@ failure:
                 DENSE_BN_FUSED=auto (K9/K10, launches asserted) against
                 it; the training entry point with model pointnet and
                 phase 11's trainer for S3DIS PointNet, without a launch;
+ 20b. s3dis pipeline
+                four synthetic rooms of about a million points (two in
+                Area_5, the test split; one in Area_1 and one in Area_2)
+                prepared into windows by the port's preparation
+                (data/prepare_s3dis.py:room_windows) and held in an
+                in-memory WindowStore (the card's machine has no h5py);
+                then for PVCNN2, PVCNN and PointNet at width 1.0 and batch
+                32: the training entry point (train.s3dis, one epoch of 4
+                steps and the test split's meters, launches exactly 4
+                steps' and the test forwards', checkpoints, a resumed run
+                that only scores; the epoch's wall time split into waiting
+                for batches and the steps) and the scene evaluator
+                (evaluate.s3dis, one vote, 10 windows a forward: exactly
+                the forwards' launches, a prediction for every point a
+                window holds and no other, the stats cache; points/s of
+                the forward and its wall time split into reading,
+                assembling, the forward, the votes and the stats); for
+                PVCNN2 and PVCNN the first test room again on the plain
+                path (>= 99.99% of its predictions equal, confidences
+                within 1e-4);
  21. frustum kernels
                 as phase 8 at the shapes the Frustum training steps give
                 every kernel: K1-K5 at FrustumPVCNNE's PVConvs (R = 16 and
@@ -184,8 +205,8 @@ failure:
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
-the trainer phases (7, 11, both runs of 15, 19's two, 24's, 26 and 27's
-training and evaluation runs) and, for K9/K10 on the MSG opt-in path, the
+the trainer phases (7, 11, both runs of 15, 19's two, 20b's, 24's, 26
+and 27's training and evaluation runs) and, for K9/K10 on the MSG opt-in path, the
 switched step of 18, for FrustumPVCNNE's opt-in path the switched step of
 23; its times, bounds and library time are per training step, summed over
 the paths' steps (each path's own numbers under "paths"; K1's and K5's
@@ -199,6 +220,7 @@ import contextlib
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2049,6 +2071,233 @@ def phase_s3dis_trainer(label: str, make_model, n: int,
     return counts
 
 
+# synthetic S3DIS rooms of the s3dis pipeline phase (area, room, points):
+# two in the holdout area (the test split), one in each of two others (the
+# train split), on the order of an S3DIS room's million points
+S3DIS_ROOMS = (("Area_1", "office_1", 1_000_000),
+               ("Area_2", "office_1", 950_000),
+               ("Area_5", "office_1", 1_050_000),
+               ("Area_5", "office_2", 900_000))
+
+
+def _droppable(xyz, offset: float):
+    """Mask of the points the grid resampling may drop at `offset`: those
+    in a 3 cm cell of fewer points than its block's mean count, whose
+    repeats it cuts short (every other point is kept)."""
+    from pvcnn_tpu_torch.data.prepare_s3dis import _blocks, _unique_rows
+
+    mask = np.zeros(len(xyz), dtype=bool)
+    for idx in _blocks(xyz, offset, 1.5, N2)[0]:
+        if len(idx):
+            cells = xyz[idx] - xyz[idx].min(axis=0)
+            _, inverse, counts = _unique_rows(
+                np.floor(cells / 0.03).astype(np.int64))
+            mask[idx] = counts[inverse] < int(np.average(counts))
+    return mask
+
+
+def s3dis_rooms(root: str, seed: int):
+    """Prepare S3DIS_ROOMS with the port's preparation (room_windows) from
+    synthetic_room's arrays: each room's label.npy under root/<area>/<room>
+    and its windows in a WindowStore under the paths the reader walks (no
+    h5py on the card's machine). Logs each room's windows, data_num's
+    range and the seconds; checks the windows' shapes and indices, and
+    that every point no window holds is one the grid resampling may drop
+    at both offsets (_droppable: a few hundred of a million points fall
+    out so, in the JAX package too). -> (store, {scene: mask of the points
+    some window holds})."""
+    from pvcnn_tpu_torch.data.prepare_s3dis import (room_windows,
+                                                    synthetic_room)
+    from pvcnn_tpu_torch.data.s3dis import WindowStore
+
+    rng = np.random.RandomState(seed)
+    store, covered = WindowStore(), {}
+    for area, room, points in S3DIS_ROOMS:
+        start = time.perf_counter()
+        xyzrgb, labels = synthetic_room(rng, points)
+        drawn = time.perf_counter() - start
+        scene = os.path.join(root, area, room)
+        os.makedirs(scene)
+        np.save(os.path.join(scene, "label.npy"), labels)
+        index = sorted(r for a, r, _ in S3DIS_ROOMS if a == area).index(room)
+        start = time.perf_counter()
+        files = room_windows(xyzrgb, labels, index, rng, max_num_points=N2)
+        seconds = time.perf_counter() - start
+        mask = np.zeros(points, dtype=bool)
+        for offset, k, arrays in files:
+            store[os.path.join(scene, f"{offset}_{k}.h5")] = arrays
+            nums = arrays["data_num"]
+            if arrays["data"].shape[1:] != (N2, 9) or nums.min() < 1 \
+                    or nums.max() > N2:
+                raise AssertionError(f"bad windows in {scene} {offset}")
+            for row, num in zip(arrays["indices_split_to_full"], nums):
+                mask[row[:num]] = True
+        xyz = xyzrgb[:, :3] - xyzrgb[:, :3].min(axis=0)
+        droppable = _droppable(xyz, 0.0) & _droppable(xyz, 0.75)
+        lost = points - int(mask.sum())
+        log("s3dis", f"{area}/{room}: {points} points, drawn in {drawn:.2f} "
+            f"s, prepared in {seconds:.2f} s: "
+            + ", ".join(f"{o}_{k} {a['data'].shape[0]} windows, data_num "
+                        f"{a['data_num'].min()}-{a['data_num'].max()}"
+                        for o, k, a in files)
+            + f"; points in no window {lost} ({lost / points:.2e}), of "
+            f"{int(droppable.sum())} the resampling may drop at both "
+            "offsets")
+        if [(o, k) for o, k, _ in files] != [("zero", 0), ("half", 0)] \
+                or (~mask & ~droppable).any():
+            raise AssertionError(f"bad windows of {scene}: "
+                                 f"{int((~mask & ~droppable).sum())} points "
+                                 "the resampling keeps are in no window")
+        covered[scene] = mask
+    return store, covered
+
+
+def _miou(stats) -> float:
+    """The scene evaluator's mIoU (print_stats) of stats [3, 13, scenes]."""
+    seen, positive, true = stats.sum(-1)
+    return float(np.mean(true / np.maximum(seen + positive - true, 1)))
+
+
+def phase_s3dis_pipeline(name: str, root: str, store, covered: dict,
+                         per_step: dict, fwd_kernels, plain: bool) -> dict:
+    """One S3DIS model's entry points at width 1.0 on the prepared rooms,
+    through the reader over the in-memory store: train.s3dis for one epoch
+    of 4 steps at batch 32 and the test split's two meters, from zeroed
+    counters: its launches must be 4 x per_step plus the eval forwards'
+    (fwd_kernels' counts in per_step, a test batch each); its checkpoints,
+    and a second call that resumes and only scores. Then the scene
+    evaluator (evaluate.s3dis) from its best.pth.tar, num_votes 1, batch
+    10, from zeroed counters: exactly the forwards' launches; every point a
+    window holds has a prediction, no other does; the stats cache
+    answers a second call. With `plain`, the first test room again under
+    plain_on_card(): its predictions on >= 99.99% of the points and its
+    confidences within 1e-4 of the kernel path's. Logs the epoch's wall
+    time split into waiting for batches and the steps, the forward's
+    points/s and the evaluator's time split. -> the launches of the
+    training and evaluation runs."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.data.s3dis import S3DIS, WindowStore
+    from pvcnn_tpu_torch.evaluate.s3dis.eval import evaluate
+    from pvcnn_tpu_torch.models.s3dis import MODELS
+    from pvcnn_tpu_torch.train.s3dis import METRIC, train
+    from pvcnn_tpu_torch.train.trainer import load_checkpoint
+
+    fwd = {k: per_step[k] for k in fwd_kernels}
+    test = S3DIS(root, MODELS[name].num_points, split="test",
+                 opener=store)["test"]
+    test_batches = -(-len(test) // B)
+    save = os.path.join(root, f"run.{name}")
+    run = dict(model=name, batch_size=B, epochs=1, max_steps=4,
+               save_path=save, device=DEVICE, seed=SEED, opener=store)
+    spent = {}
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    scores = train(root, timings=spent, **run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    want = {k: 4 * per_step.get(k, 0) + test_batches * fwd.get(k, 0)
+            for k in counts}
+    checkpoints = ("latest.pth.tar", "latest/e0.pth.tar", "best.pth.tar",
+                   "best/best.acc.iou_test.pth.tar")
+    missing = [c for c in checkpoints
+               if not os.path.exists(os.path.join(save, c))]
+    epoch, _ = load_checkpoint(os.path.join(save, "latest.pth.tar"),
+                               MODELS[name].build(1.0))
+    kernels.reset_launch_counts()
+    again = train(root, **run)
+    resumed = kernels.launch_counts()
+    log("s3dis", f"{name}: train.s3dis, 1 epoch of 4 steps at batch {B} + "
+        f"{len(test)} test windows: {seconds:.2f} s, {scores} (random "
+        f"weights, synthetic labels); epoch {spent['train']:.3f} s = "
+        f"waiting for batches {spent['train_data']:.3f} s + steps "
+        f"{spent['train'] - spent['train_data']:.3f} s; scoring "
+        f"{spent['eval']:.3f} s, of it waiting for batches "
+        f"{spent['test_data']:.3f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; resumed from epoch "
+        f"{epoch}: {again}")
+    if missing or epoch != 0 or not all(0.0 <= v <= 1.0
+                                        for v in scores.values()):
+        raise AssertionError(f"bad S3DIS {name} training run: missing "
+                             f"{missing}, epoch {epoch}, meters {scores}")
+    if counts != want:
+        raise AssertionError(f"train.s3dis launches {counts}, expected "
+                             f"{want}")
+    if resumed != {k: test_batches * fwd.get(k, 0) for k in counts}:
+        raise AssertionError(f"the resumed run did not only score: "
+                             f"{resumed}")
+
+    best = os.path.join(save, "best.pth.tar")
+    spent, outputs = {}, {}
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    stats = evaluate(root, model_name=name, checkpoint=best, num_votes=1,
+                     batch_size=10, device=DEVICE, seed=SEED, opener=store,
+                     timings=spent, scene_outputs=outputs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    ran = kernels.launch_counts()
+    forwards = sum(-(-store[f]["data"].shape[0] // 10)
+                   for files in test.scene_list.values() for f in files)
+    unpredicted = {s: int(((p >= 0) != covered[s]).sum())
+                   for s, (_, p) in outputs.items()}
+    kernels.reset_launch_counts()
+    cached = evaluate(root, model_name=name, checkpoint=best, device=DEVICE,
+                      opener=store)
+    log("s3dis", f"{name}: scene evaluator, {len(outputs)} rooms of "
+        f"{stats[0].sum():.0f} points, {spent['windows']} windows, "
+        f"{spent['sub_clouds']} sub-clouds: {seconds:.2f} s = read "
+        f"{spent['read']:.3f} + assemble {spent['assemble']:.3f} + forward "
+        f"{spent['forward']:.3f} ({spent['points'] / spent['forward']:.0f} "
+        f"points/s) + votes {spent['votes']:.3f} + stats "
+        f"{spent['stats']:.3f} s; mIoU {_miou(stats):.4f}; "
+        f"launches { {k: v for k, v in ran.items() if v} } in {forwards} "
+        f"forwards; points without a vote "
+        f"{stats[0].sum() - stats[1].sum():.0f}")
+    held = sum(int(covered[s].sum()) for s in outputs)
+    if stats.shape != (3, 13, 2) or not np.isfinite(stats).all() \
+            or any(unpredicted.values()) or stats[1].sum() != held \
+            or stats[0].sum() != sum(covered[s].size for s in outputs):
+        raise AssertionError(f"bad S3DIS {name} evaluation: points whose "
+                             f"prediction disagrees with its windows "
+                             f"{unpredicted}")
+    if ran != {k: forwards * fwd.get(k, 0) for k in ran}:
+        raise AssertionError(f"evaluator launches {ran}, expected "
+                             f"{forwards} x {fwd}")
+    if not np.array_equal(cached, stats) or any(
+            kernels.launch_counts().values()):
+        raise AssertionError("the evaluator's stats cache did not answer")
+    if plain:
+        scene = next(iter(test.scene_list))
+        one = os.path.join(root, "plain", name)
+        alone = os.path.join(one, os.path.relpath(scene, root))
+        os.makedirs(alone)
+        shutil.copyfile(os.path.join(scene, "label.npy"),
+                        os.path.join(alone, "label.npy"))
+        plain_store = WindowStore({f.replace(scene, alone): store[f]
+                                   for f in test.scene_list[scene]})
+        plain_out = {}
+        start = time.perf_counter()
+        with plain_on_card():
+            evaluate(one, model_name=name, checkpoint=best, num_votes=1,
+                     batch_size=10, device=DEVICE, seed=SEED,
+                     opener=plain_store,
+                     stats_path=os.path.join(save, "plain.eval.npy"),
+                     scene_outputs=plain_out)
+        seconds = time.perf_counter() - start
+        (conf_k, pred_k), (conf_p, pred_p) = outputs[scene], plain_out[alone]
+        flips = int((pred_k != pred_p).sum())
+        dconf = float(np.abs(conf_k - conf_p).max())
+        log("s3dis", f"{name}: {scene} on the plain path ({seconds:.2f} s): "
+            f"{flips} of {pred_k.size} predictions flipped (agreement "
+            f"{1 - flips / pred_k.size:.6f}, >= 0.9999), max |dconfidence| "
+            f"{dconf:.3e} (<= 1e-4)")
+        if flips > 1e-4 * pred_k.size or dconf > 1e-4:
+            raise AssertionError(f"S3DIS {name}: kernel and plain paths' "
+                                 "scene predictions disagree")
+    return _add_counts(counts, ran)
+
+
 def frustum_batches(seed: int, b: int, count: int):
     """`count` synthetic frustum batches (data/kitti/frustum.py) of b x NF
     points: (inputs, targets) dicts of tensors on the card."""
@@ -2942,6 +3191,19 @@ def main() -> None:
     phase_s3dis_trainer("S3DIS PointNet", lambda: S3DISPointNet(13, 6), N3,
                         {})
     lap("pointnet")
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        store, covered = s3dis_rooms(root, SEED + 90)
+        lap("s3dis rooms")
+        for m, path, per_step, fwd_kernels in (
+                ("pvcnn2", "S3DIS PVCNN2 1x", PER_STEP2, fwd2),
+                ("pvcnn", "S3DIS PVCNN 1x", PER_STEP3, fwd),
+                ("pointnet", None, {}, ())):
+            more = phase_s3dis_pipeline(m, root, store, covered, per_step,
+                                        fwd_kernels, plain=path is not None)
+            if path is not None:
+                counts[path] = _add_counts(counts[path], more)
+        del store
+    lap("s3dis pipeline")
 
     pvcnne, pvcnne_on, fpn2 = ("KITTI FrustumPVCNNE 1x",
                                "KITTI FrustumPVCNNE 1x opt-in",

@@ -7,9 +7,10 @@ in fixed-size padded batches, and keep for each original point the
 prediction of its highest-confidence vote, with the argmax restricted to the
 shape's part-class range. Reports per-class and mean IoU.
 
-The vote reduction and the IoU update are the JAX evaluator's numpy code,
-restated here so that the port imports nothing of the JAX package
-(tests/test_torch_model.py holds them equal).
+The IoU update is the JAX evaluator's numpy code, restated here so that the
+port imports nothing of the JAX package; the vote reduction is
+evaluate/votes.py's, which the S3DIS evaluator shares
+(tests/test_torch_model.py holds both equal to JAX's).
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ import numpy as np
 import torch
 
 from pvcnn_tpu_torch.data import shapenet as shapenet_data
+from pvcnn_tpu_torch.evaluate.votes import vote_reduce_max
 
 __all__ = ["evaluate", "evaluate_with", "mean_iou", "part_class_ranges",
-           "print_stats", "update_shape_predictions", "update_stats"]
+           "print_stats", "update_stats"]
 
 
 def part_class_ranges():
@@ -32,23 +34,6 @@ def part_class_ranges():
     for _, parts in shapenet_data.SHAPE_PART_CLASSES:
         out += [(parts[0], parts[-1] + 1)] * len(parts)
     return out
-
-
-def update_shape_predictions(vote_confidences, vote_predictions,
-                             shuffled_point_indices, shape_confidences,
-                             shape_predictions):
-    """Keep, per original point, the prediction of its max-confidence vote:
-    a vote replaces the kept one only if strictly more confident, so the
-    first of equal votes wins (in place)."""
-    votes = np.arange(len(vote_confidences))
-    order = np.lexsort((votes, -vote_confidences, shuffled_point_indices))
-    points = shuffled_point_indices[order]
-    first = np.ones(len(order), dtype=bool)
-    first[1:] = points[1:] != points[:-1]
-    best, points = order[first], points[first]
-    better = vote_confidences[best] > shape_confidences[points]
-    shape_confidences[points[better]] = vote_confidences[best[better]]
-    shape_predictions[points[better]] = vote_predictions[best[better]]
 
 
 def update_stats(stats, ground_truth, predictions, shape_id, start_class,
@@ -116,8 +101,8 @@ def evaluate_with(predict_fn, root: str, num_points: int = 2048,
             vote_conf[flat] = probs.max(-1).reshape(-1)
             vote_pred[flat] = probs.argmax(-1).reshape(-1) + start_class
 
-        update_shape_predictions(vote_conf, vote_pred, shuffled, confidences,
-                                 predictions)
+        vote_reduce_max(vote_conf, vote_pred, shuffled, confidences,
+                        predictions)
         update_stats(stats, ground_truth, predictions, shape_id, start_class,
                      end_class)
     return stats

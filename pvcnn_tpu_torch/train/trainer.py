@@ -230,7 +230,8 @@ def copy_checkpoint(src: str, dst: str) -> None:
 
 def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
         *, epochs: int, save_path: str, scheduler=None,
-        scheduler_unit: str = "epoch", max_steps: int | None = None) -> dict:
+        scheduler_unit: str = "epoch", max_steps: int | None = None,
+        timings: dict | None = None) -> dict:
     """Train `trainer` to `epochs` epochs and score `eval_loader` with fresh
     `make_meters()` after each, for every peer: the trainer itself and, for
     a DMLTrainer, its student, whose meters print with a _student suffix.
@@ -242,7 +243,9 @@ def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
     the trainer's of every epoch at latest/e{N}.pth.tar and, on a new best
     of each metric m, at best/best.{m with / as .}.pth.tar. A save path
     that holds latest.pth.tar resumes every peer, its bests and the step
-    count. -> {peer suffix ("" or "_student"): its last meters, with each
+    count. `timings`, if given, gets the seconds of the epochs' training
+    (to the mean loss on the host) and of their scoring under "train" and
+    "eval". -> {peer suffix ("" or "_student"): its last meters, with each
     metric's best under m + "_best"}."""
     peers = {"": trainer}
     if isinstance(trainer, DMLTrainer):
@@ -293,7 +296,12 @@ def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
         for k in sorted(loss):
             print(f"[{k}] = {loss[k]:.6f}")
         print(f"[seconds] = {seconds:.3f}")
+        begin = time.perf_counter()
         scores = evaluate()
+        if timings is not None:
+            timings["train"] = timings.get("train", 0.0) + seconds
+            timings["eval"] = (timings.get("eval", 0.0)
+                               + time.perf_counter() - begin)
         is_best = {}
         for tag, meters in scores.items():
             for m in metrics:

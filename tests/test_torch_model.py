@@ -21,6 +21,7 @@ from pvcnn_tpu.utils import checkpoint_import as ci
 from pvcnn_tpu_torch.data import shapenet as tdata
 from pvcnn_tpu_torch.evaluate.shapenet import eval as teval
 from pvcnn_tpu_torch.evaluate.shapenet.__main__ import main as eval_main
+from pvcnn_tpu_torch.evaluate.votes import vote_reduce_max
 from pvcnn_tpu_torch.models.shapenet import PVCNN
 from pvcnn_tpu_torch.train.predict import predict
 from pvcnn_tpu_torch.utils.weights import (init_random_,
@@ -186,7 +187,7 @@ def test_vote_reduction_matches_jax(seed):
     idx = rng.randint(0, points, votes).astype(np.int64)
     start = (rng.rand(points) * 0.5).astype(np.float32)
     outs = []
-    for fn in (teval.update_shape_predictions,
+    for fn in (vote_reduce_max,
                jeval.update_shape_predictions):
         c, p = start.copy(), np.full(points, -1, np.int64)
         fn(conf, pred, idx, c, p)
