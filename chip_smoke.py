@@ -129,8 +129,9 @@ failure:
                 in-memory WindowStore (the card's machine has no h5py);
                 then for PVCNN2, PVCNN and PointNet at width 1.0 and batch
                 32: the training entry point (train.s3dis, one epoch of 4
-                steps and the test split's meters, launches exactly 4
-                steps' and the test forwards', checkpoints, a resumed run
+                steps on the serial loader, setting (a) of 20c, and the
+                test split's meters, launches exactly 4 steps' and the
+                test forwards', checkpoints, a resumed run
                 that only scores; the epoch's wall time split into waiting
                 for batches and the steps) and the scene evaluator
                 (evaluate.s3dis, one vote, 10 windows a forward: exactly
@@ -141,6 +142,26 @@ failure:
                 PVCNN2 and PVCNN the first test room again on the plain
                 path (>= 99.99% of its predictions equal, confidences
                 within 1e-4);
+ 20c. host      the host data path (the loader, the host library, the
+                trainer's writer, meter and trace): train.s3dis for PVCNN2,
+                PVCNN and PointNet at width 1 under each loader setting,
+                4 steps at batch 32 from zeroed counters (exactly 4 steps'
+                launches; the test split scored only in 20b's serial run
+                (a)): (b) prefetch 2, (c) the CLI default (16 thread
+                workers, clamped to the host's cores), (d) a process pool
+                of 2 and of 4; each one's epoch wall time and wait share;
+                the training batches of (a) and (b) bitwise equal (crc32
+                of every array), and those of the two pools; the S3DIS
+                PointNet scene evaluator's recorded votes through the host
+                library's reducer and the plain lexsort (exactly equal,
+                seconds of each); on a synthetic ShapeNet tree of 96
+                shapes, the host library's parser against np.loadtxt
+                (equal values, ms), the train split's loader serial and in
+                process mode with 2 and 4 workers (ms a batch over two
+                epochs, the pools' batches bitwise equal), and
+                train.shapenet --profile from zeroed counters (PVCNN's
+                kernels launch; the trace names the port's kernels; the
+                scalar writer's kind and the points/s);
  21. frustum kernels
                 as phase 8 at the shapes the Frustum training steps give
                 every kernel: K1-K5 at FrustumPVCNNE's PVConvs (R = 16 and
@@ -225,6 +246,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -2159,10 +2181,13 @@ def _miou(stats) -> float:
 
 
 def phase_s3dis_pipeline(name: str, root: str, store, covered: dict,
-                         per_step: dict, fwd_kernels, plain: bool) -> dict:
+                         per_step: dict, fwd_kernels, plain: bool,
+                         serial: dict) -> dict:
     """One S3DIS model's entry points at width 1.0 on the prepared rooms,
     through the reader over the in-memory store: train.s3dis for one epoch
-    of 4 steps at batch 32 and the test split's two meters, from zeroed
+    of 4 steps at batch 32 on the serial loader (prefetch 0, the host
+    phase's setting (a): serial[name] gets its training batches' digests
+    and its timings) and the test split's two meters, from zeroed
     counters: its launches must be 4 x per_step plus the eval forwards'
     (fwd_kernels' counts in per_step, a test batch each); its checkpoints,
     and a second call that resumes and only scores. Then the scene
@@ -2192,7 +2217,9 @@ def phase_s3dis_pipeline(name: str, root: str, store, covered: dict,
     spent = {}
     kernels.reset_launch_counts()
     start = time.perf_counter()
-    scores = train(root, timings=spent, **run)
+    with train_batch_digests([]) as digests:
+        scores = train(root, timings=spent, prefetch=0, **run)
+    serial[name] = (digests, spent)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts = kernels.launch_counts()
@@ -2207,8 +2234,9 @@ def phase_s3dis_pipeline(name: str, root: str, store, covered: dict,
     kernels.reset_launch_counts()
     again = train(root, **run)
     resumed = kernels.launch_counts()
-    log("s3dis", f"{name}: train.s3dis, 1 epoch of 4 steps at batch {B} + "
-        f"{len(test)} test windows: {seconds:.2f} s, {scores} (random "
+    log("s3dis", f"{name}: train.s3dis (serial loader), 1 epoch of 4 steps "
+        f"at batch {B} + {len(test)} test windows: {seconds:.2f} s, "
+        f"{scores} (random "
         f"weights, synthetic labels); epoch {spent['train']:.3f} s = "
         f"waiting for batches {spent['train_data']:.3f} s + steps "
         f"{spent['train'] - spent['train_data']:.3f} s; scoring "
@@ -2296,6 +2324,250 @@ def phase_s3dis_pipeline(name: str, root: str, store, covered: dict,
             raise AssertionError(f"S3DIS {name}: kernel and plain paths' "
                                  "scene predictions disagree")
     return _add_counts(counts, ran)
+
+
+@contextlib.contextmanager
+def train_batch_digests(out: list):
+    """Append (shape, dtype, crc32) of each numpy array the Trainer moves
+    to the card while its model is in training mode (the training batches,
+    not the test split's) to `out`."""
+    from pvcnn_tpu_torch.train.trainer import Trainer
+
+    to_device = Trainer._to_device
+
+    def recording(self, array):
+        if self.model.training and isinstance(array, np.ndarray):
+            a = np.ascontiguousarray(array)
+            out.append((a.shape, a.dtype.str,
+                        zlib.crc32(memoryview(a).cast("B"))))
+        return to_device(self, array)
+
+    with mock.patch.object(Trainer, "_to_device", recording):
+        yield out
+
+
+# the host phase's loader settings of train.s3dis beside phase 20b's serial
+# run (a): (b) prefetch 2; (c) the CLI default (16 thread workers, clamped
+# to the host's cores, prefetch 2); (d) a process pool of 2, then of 4
+LOADER_SETTINGS = (
+    ("b prefetch 2", dict(prefetch=2)),
+    ("c CLI default", dict(num_workers=16, workers_mode="thread",
+                           prefetch=2)),
+    ("d process x2", dict(num_workers=2, workers_mode="process",
+                          prefetch=2)),
+    ("d process x4", dict(num_workers=4, workers_mode="process",
+                          prefetch=2)),
+)
+
+
+def phase_host_loader(name: str, root: str, store, per_step: dict,
+                      serial: tuple) -> None:
+    """train.s3dis for one model under each LOADER_SETTINGS entry, one
+    epoch of 4 steps at batch 32 from zeroed counters, the test split not
+    scored (Trainer.evaluate stubbed): launches exactly 4 x per_step; the
+    wait share (waiting for batches over the epoch) and the epoch's wall
+    time beside phase 20b's serial run `serial` = (digests, timings); the
+    training batches of (b) bitwise those of (a), and those of the two
+    pools bitwise each other's."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.train.s3dis import train
+    from pvcnn_tpu_torch.train.trainer import Trainer
+
+    runs = {"a serial": serial}
+    for label, options in LOADER_SETTINGS:
+        digests, spent = [], {}
+        kernels.reset_launch_counts()
+        with train_batch_digests(digests), mock.patch.object(
+                Trainer, "evaluate",
+                lambda self, loader, meters: dict.fromkeys(meters, 0.0)):
+            train(root, model=name, batch_size=B, epochs=1, max_steps=4,
+                  save_path=os.path.join(root, f"host.{name}.{label[0]}"
+                                         f"{len(runs)}"),
+                  device=DEVICE, seed=SEED, opener=store, timings=spent,
+                  **options)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k: 4 * per_step.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name} {label}: launches {counts}, "
+                                 f"expected {want}")
+        runs[label] = (digests, spent)
+    for label, (digests, spent) in runs.items():
+        log("host", f"S3DIS {name} train.s3dis, 4 steps at batch {B}, "
+            f"loader {label}: epoch {spent['train']:.3f} s, waiting for "
+            f"batches {spent['train_data']:.3f} s (wait share "
+            f"{spent['train_data'] / spent['train']:.4f}); "
+            f"{len(digests) // 2} batches hashed")
+    a, b = runs["a serial"][0], runs["b prefetch 2"][0]
+    d2, d4 = runs["d process x2"][0], runs["d process x4"][0]
+    if len(a) != 8 or a != b:
+        raise AssertionError(f"{name}: prefetch's batches are not the serial "
+                             "loader's")
+    if len(d2) != 8 or d2 != d4:
+        raise AssertionError(f"{name}: the pools of 2 and 4 workers gave "
+                             "other batches")
+    log("host", f"S3DIS {name}: batches (a) == (b) and (d x2) == (d x4) "
+        "bitwise (crc32 of every array); (c) equals (a): "
+        f"{runs['c CLI default'][0] == a}")
+
+
+def phase_host_votes(root: str, store) -> None:
+    """The scene evaluator (S3DIS PointNet from phase 20b's best.pth.tar,
+    one vote, 10 windows a forward) with its vote reductions recorded;
+    the recorded votes then go, scene by scene, through the host library's
+    reducer and through the plain lexsort: equal confidences and
+    predictions exactly, each one's seconds."""
+    from pvcnn_tpu_torch.evaluate import votes
+    from pvcnn_tpu_torch.evaluate.s3dis import eval as s3dis_eval
+
+    calls = []
+
+    def recording(conf, pred, idx, confidences, predictions):
+        calls.append((conf.copy(), pred.copy(), idx.copy(), confidences))
+        votes.vote_reduce_max(conf, pred, idx, confidences, predictions)
+
+    outputs = {}
+    with mock.patch.object(s3dis_eval, "vote_reduce_max", recording):
+        s3dis_eval.evaluate(root, model_name="pointnet",
+                            checkpoint=os.path.join(root, "run.pointnet",
+                                                    "best.pth.tar"),
+                            num_votes=1, batch_size=10, device=DEVICE,
+                            seed=SEED, opener=store,
+                            stats_path=os.path.join(root, "host.eval.npy"),
+                            scene_outputs=outputs)
+    kept = {id(conf): (conf, pred) for conf, pred in outputs.values()}
+    results, seconds = {}, {}
+    for fn in (votes.vote_reduce_max, votes.vote_reduce_max_plain):
+        fresh = {k: (np.zeros_like(c), np.full_like(p, -1))
+                 for k, (c, p) in kept.items()}
+        start = time.perf_counter()
+        for conf, pred, idx, target in calls:
+            fn(conf, pred, idx, *fresh[id(target)])
+        seconds[fn.__name__] = time.perf_counter() - start
+        results[fn.__name__] = fresh
+    total = sum(len(c[0]) for c in calls)
+    for k, (conf, pred) in kept.items():
+        for got in results.values():
+            if not (np.array_equal(got[k][0], conf)
+                    and np.array_equal(got[k][1], pred)):
+                raise AssertionError("the reducers kept other votes")
+    log("host", f"vote reduction of the scene evaluator's {total} votes in "
+        f"{len(calls)} calls over {len(kept)} rooms: host library "
+        f"{seconds['vote_reduce_max']:.4f} s, plain lexsort "
+        f"{seconds['vote_reduce_max_plain']:.4f} s; kept confidences and "
+        "predictions exactly equal")
+
+
+# ShapeNet tree of the host phase: shapes of 2,000-3,000 points
+HOST_SHAPES = 96
+
+
+def phase_host_shapenet(per_step: dict) -> None:
+    """On a synthetic tree of HOST_SHAPES shapes: the host library's
+    parser against np.loadtxt on every item file (equal values, ms of
+    each); the train split's DataLoader (batch 32) serial and in process
+    mode with 2 and 4 workers over two epochs, ms a batch, the two pools'
+    batches bitwise equal; then train.shapenet --profile for one epoch of
+    4 steps from zeroed counters (each of per_step's kernels launches): the
+    trace under <save>/profile names a port kernel, the scalar writer's
+    kind and the points/s."""
+    import io
+
+    from pvcnn_tpu_torch import kernels, native
+    from pvcnn_tpu_torch.data.loader import DataLoader
+    from pvcnn_tpu_torch.data.shapenet import (ShapeNetDataset, file_paths,
+                                               write_synthetic)
+    from pvcnn_tpu_torch.train.shapenet import main as train_main
+    from pvcnn_tpu_torch.utils.logging import ScalarWriter
+
+    rng = np.random.RandomState(SEED + 5)
+    items = [(int(s), int(n)) for s, n in
+             zip(rng.randint(0, 16, HOST_SHAPES),
+                 rng.randint(2000, 3000, HOST_SHAPES))]
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        write_synthetic(root, items, seed=SEED)
+        paths = [p for p, _ in file_paths(root, "test")]
+        times = {}
+        # in turns, twice each (the first pass reads the files from disk);
+        # the second pass's ms are logged
+        for label, parse in 2 * (("native", native.loadtxt),
+                                 ("np.loadtxt", lambda p: np.loadtxt(
+                                     p, dtype=np.float32, ndmin=2))):
+            start = time.perf_counter()
+            tables = [parse(p) for p in paths]
+            times[label] = (time.perf_counter() - start) * 1e3
+            times[label + " tables"] = tables
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(times["native tables"], times["np.loadtxt tables"])):
+            raise AssertionError("the host library parsed other values")
+        rows = sum(len(t) for t in times["native tables"])
+        log("host", f"parse {len(paths)} ShapeNet item files ({rows} rows): "
+            f"host library {times['native']:.1f} ms, np.loadtxt "
+            f"{times['np.loadtxt']:.1f} ms, values equal")
+
+        runs = {}
+        for label, options in (("serial", dict(prefetch=0)),
+                               ("process x2", dict(num_workers=2,
+                                                   workers_mode="process")),
+                               ("process x4", dict(num_workers=4,
+                                                   workers_mode="process"))):
+            loader = DataLoader(ShapeNetDataset(root, N, "train", seed=SEED),
+                                B, shuffle=True, seed=SEED, **options)
+            ms, digests = [], []
+            try:
+                for epoch in range(2):
+                    loader.epoch = epoch
+                    start = time.perf_counter()
+                    batches = list(loader)
+                    ms.append((time.perf_counter() - start) * 1e3
+                              / len(batches))
+                    digests += [zlib.crc32(memoryview(a).cast("B"))
+                                for x, y in batches for a in (x, y)]
+            finally:
+                loader.close()
+            runs[label] = digests
+            log("host", f"ShapeNet train split ({2 * HOST_SHAPES} items), "
+                f"batch {B}, loader {label}: epoch 0 (parse + resample) "
+                f"{ms[0]:.2f} ms a batch, epoch 1 (cached) {ms[1]:.2f} ms "
+                "a batch")
+        if runs["process x2"] != runs["process x4"]:
+            raise AssertionError("ShapeNet process pools of 2 and 4 gave "
+                                 "other batches")
+        log("host", "ShapeNet process batches of 2 and 4 workers bitwise "
+            "equal")
+
+        save = os.path.join(root, "profiled")
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train_main(["--root", root, "--epochs", "1", "--max-steps", "4",
+                        "--batch-size", str(B), "--num-points", str(N),
+                        "--save-path", save, "--device", DEVICE,
+                        "--num-workers", "0", "--profile"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = kernels.launch_counts()
+        traces = [os.path.join(save, "profile", f)
+                  for f in os.listdir(os.path.join(save, "profile"))]
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        found = sorted({k for _, keys in PROFILE_GROUPS[:14] for k in keys
+                        if any(k in n for n in names)})
+        writer = ScalarWriter(os.path.join(root, "kind"))
+        kind = type(writer).__name__
+        writer.close()
+        pps = [line for line in out.getvalue().splitlines()
+               if line.startswith("[points/sec]")]
+        log("host", f"train.shapenet --profile, 1 epoch of 4 steps + test "
+            f"split: {seconds:.2f} s; trace {os.path.basename(traces[0])} "
+            f"({os.path.getsize(traces[0])} bytes, {len(names)} event names) "
+            f"names the port kernels {found}; ScalarWriter is {kind}; "
+            f"{pps}")
+        if len(traces) != 1 or not found or not pps:
+            raise AssertionError("the profiled epoch wrote no trace of the "
+                                 "port's kernels")
+        _check_ran(counts, per_step)
 
 
 def frustum_batches(seed: int, b: int, count: int):
@@ -3194,16 +3466,25 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
         store, covered = s3dis_rooms(root, SEED + 90)
         lap("s3dis rooms")
+        serial = {}
         for m, path, per_step, fwd_kernels in (
                 ("pvcnn2", "S3DIS PVCNN2 1x", PER_STEP2, fwd2),
                 ("pvcnn", "S3DIS PVCNN 1x", PER_STEP3, fwd),
                 ("pointnet", None, {}, ())):
             more = phase_s3dis_pipeline(m, root, store, covered, per_step,
-                                        fwd_kernels, plain=path is not None)
+                                        fwd_kernels, plain=path is not None,
+                                        serial=serial)
             if path is not None:
                 counts[path] = _add_counts(counts[path], more)
+        lap("s3dis pipeline")
+        for m, per_step in (("pvcnn2", PER_STEP2), ("pvcnn", PER_STEP3),
+                            ("pointnet", {})):
+            phase_host_loader(m, root, store, per_step, serial[m])
+        phase_host_votes(root, store)
         del store
-    lap("s3dis pipeline")
+    lap("host s3dis")
+    phase_host_shapenet(PER_STEP)
+    lap("host shapenet")
 
     pvcnne, pvcnne_on, fpn2 = ("KITTI FrustumPVCNNE 1x",
                                "KITTI FrustumPVCNNE 1x opt-in",

@@ -127,6 +127,14 @@ class _S3DISDataset:
         self.cache[filename] = window_file
         return window_file
 
+    def after_fork(self):
+        """In a forked loader worker (data/loader.py): a lock and a cache
+        of its own. The parent's open files stay referenced here, unused
+        and unclosed: an h5py handle must not be used across a fork."""
+        self._cache_lock = threading.Lock()
+        self._parent_files = self.cache
+        self.cache = {}
+
     def __del__(self):
         for window_file in getattr(self, "cache", {}).values():
             try:

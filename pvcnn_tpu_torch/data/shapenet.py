@@ -5,7 +5,9 @@ A tree holds `synsetoffset2category.txt` (one `<name> <shape dir>` line per
 shape category, in shape-id order), `train_test_split/
 shuffled_<split>_file_list.json` (entries `shape_data/<dir>/<item>`) and one
 whitespace table per item, `<dir>/<item>.txt`, with columns
-x y z nx ny nz part_label.
+x y z nx ny nz part_label, parsed by the host library (native.loadtxt:
+each token rounded once to float32, as the JAX reader's
+pvcnn_tpu.native.loadtxt does).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import json
 import os
 
 import numpy as np
+
+from pvcnn_tpu_torch import native
 
 __all__ = ["NUM_CLASSES", "NUM_SHAPES", "SHAPE_PART_CLASSES",
            "ShapeNetDataset", "file_paths", "normalize_point_cloud",
@@ -92,7 +96,7 @@ class ShapeNetDataset:
     def __getitem__(self, index):
         if index not in self.cache:
             path, shape_id = self.file_paths[index]
-            data = np.loadtxt(path, dtype=np.float32, ndmin=2)
+            data = native.loadtxt(path)
             columns = [normalize_point_cloud(data[:, :3])]
             if self.with_normal:
                 columns.append(data[:, 3:6])

@@ -195,7 +195,9 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
         else:
             predictions = np.zeros((len(dataset), 8))
             current_step = 0
-            batches = iter(DataLoader(dataset, batch_size))
+            # serial: each test's draws come from the generator seeded
+            # above, in item order (a pool would interleave them)
+            batches = iter(DataLoader(dataset, batch_size, num_workers=0))
             while True:
                 start = time.perf_counter()
                 batch = next(batches, None)

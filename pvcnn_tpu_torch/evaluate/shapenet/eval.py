@@ -8,7 +8,8 @@ prediction of its highest-confidence vote, with the argmax restricted to the
 shape's part-class range. Reports per-class and mean IoU.
 
 The IoU update is the JAX evaluator's numpy code, restated here so that the
-port imports nothing of the JAX package; the vote reduction is
+port imports nothing of the JAX package; the item tables are parsed by
+the host library (native.loadtxt), as JAX's are; the vote reduction is
 evaluate/votes.py's, which the S3DIS evaluator shares
 (tests/test_torch_model.py holds both equal to JAX's).
 """
@@ -21,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from pvcnn_tpu_torch import native
 from pvcnn_tpu_torch.data import shapenet as shapenet_data
 from pvcnn_tpu_torch.evaluate.votes import vote_reduce_max
 
@@ -63,7 +65,7 @@ def evaluate_with(predict_fn, root: str, num_points: int = 2048,
     ranges = part_class_ranges()
     stats = np.zeros((shapenet_data.NUM_SHAPES, 2))
     for file_path, shape_id in shapenet_data.file_paths(root, "test"):
-        data = np.loadtxt(file_path, dtype=np.float32, ndmin=2)
+        data = native.loadtxt(file_path)
         total_points = data.shape[0]
         confidences = np.zeros(total_points, dtype=np.float32)
         predictions = np.full(total_points, -1, dtype=np.int64)

@@ -2,19 +2,38 @@
 vote_reduce_max; reference evaluate/shapenet/eval.py:176-185 and
 evaluate/s3dis/eval.py:188-203): each point keeps the prediction of its
 most confident vote, and a vote replaces the kept one only if strictly
-more confident, so the first of equal votes wins, across calls too."""
+more confident, so the first of equal votes wins, across calls too.
+
+vote_reduce_max runs the host library's one pass over the votes
+(native/ptio.cpp); vote_reduce_max_plain is its plain version, a three-key
+lexsort, exact too, which PVCNN_TPU_NO_NATIVE=1 selects."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["vote_reduce_max"]
+from pvcnn_tpu_torch import native
+
+__all__ = ["vote_reduce_max", "vote_reduce_max_plain"]
 
 
 def vote_reduce_max(vote_confidences, vote_predictions, point_indices,
                     confidences, predictions) -> None:
     """Fold the votes (confidence, prediction, point index; flat arrays)
-    into the points' kept confidences and predictions, in place."""
+    into the points' kept confidences (float32) and predictions (int64),
+    in place."""
+    if native.native():
+        native.vote_reduce_max(vote_confidences, vote_predictions,
+                               point_indices, confidences, predictions)
+    else:
+        vote_reduce_max_plain(vote_confidences, vote_predictions,
+                              point_indices, confidences, predictions)
+
+
+def vote_reduce_max_plain(vote_confidences, vote_predictions, point_indices,
+                          confidences, predictions) -> None:
+    """vote_reduce_max by sorting: each point's first most confident vote,
+    kept where it beats the point's kept confidence."""
     votes = np.arange(len(vote_confidences))
     order = np.lexsort((votes, -vote_confidences, point_indices))
     points = point_indices[order]

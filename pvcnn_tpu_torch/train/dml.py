@@ -23,6 +23,10 @@ run whose save path holds latest.pth.tar resumes both peers from it, and
 the step count of an iter schedule from its epoch. After each epoch the
 test split is scored for both peers: the student's meters print with a
 _student suffix.
+The loader, writer and trace flags are train.shapenet's (--num-workers 16
+in process mode, --prefetch 2, --profile); the scalars carry JAX
+train_dml.py's tags (loss/train, loss/train_student, the meters and their
+_student twins).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import argparse
 
 from pvcnn_tpu_torch.models.shapenet import MODELS
 from pvcnn_tpu_torch.train.shapenet import RECIPES, train_peers
+from pvcnn_tpu_torch.train.trainer import add_host_arguments, host_options
 
 __all__ = ["main", "train"]
 
@@ -40,7 +45,9 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
           max_steps: int | None = None, save_path: str | None = None,
           device: str = "cuda", seed: int = 0,
           checkpoint: str | None = None, num_points: int = 2048,
-          scheduler_unit: str = "epoch", dml: bool = True):
+          scheduler_unit: str = "epoch", dml: bool = True,
+          num_workers: int = 0, workers_mode: str = "thread",
+          prefetch: int = 2, profile: bool = False):
     """Train (or resume) two peers of `model` by deep mutual learning (one
     model with `dml=False`) -> (the teacher's last meters, the student's;
     {} without DML). `epochs` defaults to the model's recipe, `save_path`
@@ -53,7 +60,9 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
                          max_steps=max_steps, save_path=save_path,
                          device=device, seed=seed, checkpoint=checkpoint,
                          num_points=num_points,
-                         scheduler_unit=scheduler_unit, dml=dml)
+                         scheduler_unit=scheduler_unit, dml=dml,
+                         num_workers=num_workers, workers_mode=workers_mode,
+                         prefetch=prefetch, profile=profile)
     return scores[""], scores.get("_student", {})
 
 
@@ -89,13 +98,15 @@ def main(argv=None):
                    help="train one model with the plain Trainer")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    add_host_arguments(p, "process")
     args = p.parse_args(argv)
     return train(args.root, model=args.model, width_multiplier=args.width,
                  batch_size=args.batch_size, epochs=args.epochs,
                  max_steps=args.max_steps, save_path=args.save_path,
                  device=args.device, seed=args.seed,
                  checkpoint=args.checkpoint, num_points=args.num_points,
-                 scheduler_unit=args.scheduler_unit, dml=not args.no_dml)
+                 scheduler_unit=args.scheduler_unit, dml=not args.no_dml,
+                 **host_options(args))
 
 
 if __name__ == "__main__":

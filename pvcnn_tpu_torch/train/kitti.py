@@ -16,7 +16,12 @@ evaluator's checkpoint; train/trainer.py:fit). A run whose save path holds lates
 resumes from it. Weights are drawn from a torch.Generator seeded with
 --seed unless --checkpoint names a reference .pth.tar; the reader draws
 from np.random.RandomState(--seed), the sampler from the Trainer's
-generator. --max-steps cuts every epoch short (smoke runs).
+generator. --max-steps cuts every epoch short (smoke runs). Both splits
+load with --num-workers (16, clamped to the host's cores) in
+--workers-mode (thread, the JAX configs') and --prefetch 2; train() itself
+defaults to the loader's serial setting with prefetch 2. Scalars go to a
+ScalarWriter in the save path; --profile traces steps 1-5 of the first
+epoch into <save-path>/profile.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from pvcnn_tpu_torch.data.loader import DataLoader
 from pvcnn_tpu_torch.meters.kitti.frustum import MeterFrustumKitti
 from pvcnn_tpu_torch.models.kitti import frustum as kitti
 from pvcnn_tpu_torch.train.optim import Adam
-from pvcnn_tpu_torch.train.trainer import Trainer, check_device, fit
+from pvcnn_tpu_torch.train.trainer import (Trainer, add_host_arguments,
+                                           check_device, fit, host_options)
 from pvcnn_tpu_torch.utils.weights import (init_random_,
                                            load_reference_checkpoint)
 
@@ -61,11 +67,15 @@ def train(root: str, *, model: str = "pvcnne", width_multiplier: float = 1.0,
           max_steps: int | None = None, save_path: str | None = None,
           device: str = "cuda", seed: int = 0,
           checkpoint: str | None = None,
-          num_points: int = kitti.NUM_POINTS) -> dict:
+          num_points: int = kitti.NUM_POINTS, num_workers: int = 0,
+          workers_mode: str = "thread", prefetch: int = 2,
+          profile: bool = False) -> dict:
     """Train (or resume) the Frustum model named `model`
     (models.kitti.frustum.MODELS) and return the last evaluation's meters.
     `batch_size` defaults to the model's, `save_path` to
-    runs/kitti.frustum.<model>."""
+    runs/kitti.frustum.<model>; `num_workers`, `workers_mode` and
+    `prefetch` set both splits' DataLoader; `profile` traces steps 1-5 of
+    the first epoch into <save_path>/profile."""
     spec = kitti.MODELS[model]
     batch_size = spec.batch_size if batch_size is None else batch_size
     save_path = (os.path.join("runs", f"kitti.frustum.{model}")
@@ -76,9 +86,11 @@ def train(root: str, *, model: str = "pvcnne", width_multiplier: float = 1.0,
                            random_flip=True, random_shift=True,
                            frustum_rotate=True,
                            rng=np.random.RandomState(seed))
+    options = dict(num_workers=num_workers, workers_mode=workers_mode,
+                   prefetch=prefetch)
     loaders = {"train": DataLoader(dataset["train"], batch_size,
-                                   shuffle=True, seed=seed),
-               "val": DataLoader(dataset["val"], batch_size)}
+                                   shuffle=True, seed=seed, **options),
+               "val": DataLoader(dataset["val"], batch_size, **options)}
     net = spec.build(width_multiplier)
     if checkpoint is not None:
         load_reference_checkpoint(net, checkpoint)
@@ -91,7 +103,7 @@ def train(root: str, *, model: str = "pvcnne", width_multiplier: float = 1.0,
                lambda: meters("val"), METRICS, epochs=epochs,
                save_path=save_path,
                scheduler=spec.scheduler(epochs).bind(kitti.LR),
-               max_steps=max_steps)[""]
+               max_steps=max_steps, profile=profile)[""]
 
 
 def main(argv=None):
@@ -117,12 +129,14 @@ def main(argv=None):
                         "weights if absent")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    add_host_arguments(p, "thread")
     args = p.parse_args(argv)
     return train(args.root, model=args.model, width_multiplier=args.width,
                  batch_size=args.batch_size, epochs=args.epochs,
                  max_steps=args.max_steps, save_path=args.save_path,
                  device=args.device, seed=args.seed,
-                 checkpoint=args.checkpoint, num_points=args.num_points)
+                 checkpoint=args.checkpoint, num_points=args.num_points,
+                 **host_options(args))
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@ torch.Generator seeded with --seed unless --checkpoint names a reference
 .pth.tar; the reader draws from np.random.RandomState(--seed). The save
 path defaults to the JAX train.py's, runs/s3dis.<model>.area5.c1 at width
 1 (runs/s3dis.pointnet.area5 for pointnet). --max-steps cuts every epoch
-short (smoke runs).
+short (smoke runs). Both splits load with --num-workers (16, clamped to
+the host's cores) in --workers-mode (thread, the JAX configs') and
+--prefetch 2; train() itself defaults to the loader's serial setting with
+prefetch 2. Scalars go to a ScalarWriter in the save path; --profile
+traces steps 1-5 of the first epoch into <save-path>/profile.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from pvcnn_tpu_torch.meters.s3dis import MeterS3DIS
 from pvcnn_tpu_torch.models import s3dis
 from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss
 from pvcnn_tpu_torch.train.optim import Adam
-from pvcnn_tpu_torch.train.trainer import Trainer, check_device, fit
+from pvcnn_tpu_torch.train.trainer import (Trainer, add_host_arguments,
+                                           check_device, fit, host_options)
 from pvcnn_tpu_torch.utils.weights import (init_random_,
                                            load_reference_checkpoint)
 
@@ -51,7 +56,7 @@ def meters() -> dict:
 
 class TimedLoader:
     """A loader whose batches are timed: the seconds spent waiting for each
-    batch add up under timings[key]."""
+    batch add up under timings[key]. `epoch` and close() pass through."""
 
     def __init__(self, loader, timings: dict, key: str):
         self.loader, self.timings, self.key = loader, timings, key
@@ -68,15 +73,21 @@ class TimedLoader:
     def __len__(self):
         return len(self.loader)
 
+    def close(self):
+        self.loader.close()
+
     def __iter__(self):
         batches = iter(self.loader)
-        while True:
-            start = time.perf_counter()
-            batch = next(batches, None)
-            self.timings[self.key] += time.perf_counter() - start
-            if batch is None:
-                return
-            yield batch
+        try:
+            while True:
+                start = time.perf_counter()
+                batch = next(batches, None)
+                self.timings[self.key] += time.perf_counter() - start
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            batches.close()
 
 
 def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
@@ -85,13 +96,17 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
           device: str = "cuda", seed: int = 0,
           checkpoint: str | None = None, num_points: int | None = None,
           holdout_area: int = s3dis.HOLDOUT_AREA, opener=open_h5,
-          timings: dict | None = None) -> dict:
+          timings: dict | None = None, num_workers: int = 0,
+          workers_mode: str = "thread", prefetch: int = 2,
+          profile: bool = False) -> dict:
     """Train (or resume) the S3DIS model named `model` (models.s3dis.MODELS)
     and return the last evaluation's meters. `num_points` and `save_path`
     default to the model's recipe; `opener` reads the window files
-    (data/s3dis.py). `timings`, if given, gets the seconds of training and
-    scoring (trainer.fit) and, within them, of waiting for the train and
-    test batches ("train_data", "test_data")."""
+    (data/s3dis.py); `num_workers`, `workers_mode` and `prefetch` set both
+    splits' DataLoader; `profile` traces steps 1-5 of the first epoch into
+    <save_path>/profile. `timings`, if given, gets the seconds of training
+    and scoring (trainer.fit) and, within them, of waiting for the train
+    and test batches ("train_data", "test_data")."""
     spec = s3dis.MODELS[model]
     num_points = spec.num_points if num_points is None else num_points
     if save_path is None:
@@ -99,9 +114,11 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
     device = check_device(device)
     dataset = S3DIS(root, num_points, holdout_area=holdout_area,
                     rng=np.random.RandomState(seed), opener=opener)
+    options = dict(num_workers=num_workers, workers_mode=workers_mode,
+                   prefetch=prefetch)
     train_loader = DataLoader(dataset["train"], batch_size, shuffle=True,
-                              seed=seed)
-    test_loader = DataLoader(dataset["test"], batch_size)
+                              seed=seed, **options)
+    test_loader = DataLoader(dataset["test"], batch_size, **options)
     if timings is not None:
         train_loader = TimedLoader(train_loader, timings, "train_data")
         test_loader = TimedLoader(test_loader, timings, "test_data")
@@ -117,7 +134,7 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
     return fit(trainer, train_loader, test_loader, meters, (METRIC,),
                epochs=epochs, save_path=save_path,
                scheduler=spec.scheduler().bind(s3dis.LR),
-               max_steps=max_steps, timings=timings)[""]
+               max_steps=max_steps, timings=timings, profile=profile)[""]
 
 
 def main(argv=None):
@@ -146,13 +163,14 @@ def main(argv=None):
                         "weights if absent")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    add_host_arguments(p, "thread")
     args = p.parse_args(argv)
     return train(args.root, model=args.model, width_multiplier=args.width,
                  batch_size=args.batch_size, epochs=args.epochs,
                  max_steps=args.max_steps, save_path=args.save_path,
                  device=args.device, seed=args.seed,
                  checkpoint=args.checkpoint, num_points=args.num_points,
-                 holdout_area=args.holdout_area)
+                 holdout_area=args.holdout_area, **host_options(args))
 
 
 if __name__ == "__main__":

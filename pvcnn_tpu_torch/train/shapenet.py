@@ -15,7 +15,13 @@ best, <save-path>/best.pth.tar and best/best.acc.iou_test.pth.tar are
 written (train/trainer.py:fit). A run whose save path holds
 latest.pth.tar resumes from it. Weights are drawn from a torch.Generator
 seeded with --seed unless --checkpoint names a reference .pth.tar.
---max-steps cuts every epoch short (smoke runs).
+--max-steps cuts every epoch short (smoke runs). Both splits load with
+--num-workers (16, clamped to the host's cores) in --workers-mode
+(process, the JAX ShapeNet config's) and --prefetch 2; train() itself
+defaults to the loader's serial setting with prefetch 2. Scalars go to a
+ScalarWriter in the save path (each step's loss, perf/points_per_sec and
+the meters per epoch); --profile traces steps 1-5 of the first epoch into
+<save-path>/profile.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from pvcnn_tpu_torch.models.shapenet import MODELS
 from pvcnn_tpu_torch.nn.loss import CrossEntropyLoss, KLLoss
 from pvcnn_tpu_torch.train.optim import Adam, CosineAnnealingLR, StepLR
 from pvcnn_tpu_torch.train.trainer import (STUDENT_SEED_OFFSET, DMLTrainer,
-                                           Trainer, check_device, fit)
+                                           Trainer, add_host_arguments,
+                                           check_device, fit, host_options)
 from pvcnn_tpu_torch.utils.weights import (init_random_,
                                            load_reference_checkpoint)
 
@@ -53,19 +60,21 @@ RECIPES = {
 
 
 def make_loaders(root: str, model: str, num_points: int, batch_size: int,
-                 seed: int) -> dict:
+                 seed: int, **options) -> dict:
     """The train split (shuffled, jittered) and the test split of the tree
-    at `root`, with the input columns the model's config gives it."""
+    at `root`, with the input columns the model's config gives it;
+    `options` are DataLoader keywords for both (num_workers, workers_mode,
+    prefetch)."""
     spec = MODELS[model]
     columns = dict(with_normal=spec.with_normal,
                    with_one_hot_shape_id=spec.with_one_hot_shape_id)
     return {
         "train": DataLoader(ShapeNetDataset(root, num_points, "train",
                                             seed=seed, **columns),
-                            batch_size, shuffle=True, seed=seed),
+                            batch_size, shuffle=True, seed=seed, **options),
         "test": DataLoader(ShapeNetDataset(root, num_points, "test",
                                            seed=seed + 1, **columns),
-                           batch_size),
+                           batch_size, **options),
     }
 
 
@@ -85,22 +94,30 @@ def train(root: str, *, model: str = "pvcnn", width_multiplier: float = 1.0,
           batch_size: int = 32, epochs: int | None = None,
           max_steps: int | None = None, save_path: str | None = None,
           device: str = "cuda", seed: int = 0,
-          checkpoint: str | None = None, num_points: int = 2048) -> dict:
+          checkpoint: str | None = None, num_points: int = 2048,
+          num_workers: int = 0, workers_mode: str = "thread",
+          prefetch: int = 2, profile: bool = False) -> dict:
     """Train (or resume) the model named `model` (models.shapenet.MODELS)
     and return the last evaluation's meters. `epochs` and `save_path`
-    default to the model's recipe."""
+    default to the model's recipe; `num_workers`, `workers_mode` and
+    `prefetch` set both splits' DataLoader; `profile` traces steps 1-5 of
+    the first epoch into <save_path>/profile."""
     return train_peers(root, model=model, width_multiplier=width_multiplier,
                        batch_size=batch_size, epochs=epochs,
                        max_steps=max_steps, save_path=save_path,
                        device=device, seed=seed, checkpoint=checkpoint,
-                       num_points=num_points)[""]
+                       num_points=num_points, num_workers=num_workers,
+                       workers_mode=workers_mode, prefetch=prefetch,
+                       profile=profile)[""]
 
 
 def train_peers(root: str, *, model: str, width_multiplier: float,
                 batch_size: int, epochs: int | None, max_steps: int | None,
                 save_path: str | None, device: str, seed: int,
                 checkpoint: str | None, num_points: int,
-                scheduler_unit: str = "epoch", dml: bool = False) -> dict:
+                scheduler_unit: str = "epoch", dml: bool = False,
+                num_workers: int = 0, workers_mode: str = "thread",
+                prefetch: int = 2, profile: bool = False) -> dict:
     """train's recipe for one model or, with `dml`, for two peers trained
     by deep mutual learning (the student's weights drawn with seed +
     STUDENT_SEED_OFFSET) -> trainer.fit's {peer suffix: last meters}."""
@@ -108,7 +125,9 @@ def train_peers(root: str, *, model: str, width_multiplier: float,
     epochs = default_epochs if epochs is None else epochs
     save_path = default_path if save_path is None else save_path
     device = check_device(device)
-    loaders = make_loaders(root, model, num_points, batch_size, seed)
+    loaders = make_loaders(root, model, num_points, batch_size, seed,
+                           num_workers=num_workers,
+                           workers_mode=workers_mode, prefetch=prefetch)
     net = make_model(model, width_multiplier, checkpoint, seed, device)
     optimizer = Adam(net.parameters(), lr=LR, weight_decay=0.0)
     if dml:
@@ -124,7 +143,8 @@ def train_peers(root: str, *, model: str, width_multiplier: float,
                lambda: {METRIC: MeterShapeNet(NUM_CLASSES, NUM_SHAPES)},
                (METRIC,), epochs=epochs, save_path=save_path,
                scheduler=schedule(epochs).bind(LR),
-               scheduler_unit=scheduler_unit, max_steps=max_steps)
+               scheduler_unit=scheduler_unit, max_steps=max_steps,
+               profile=profile)
 
 
 def main(argv=None):
@@ -152,12 +172,14 @@ def main(argv=None):
                         "weights if absent")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    add_host_arguments(p, "process")
     args = p.parse_args(argv)
     return train(args.root, model=args.model, width_multiplier=args.width,
                  batch_size=args.batch_size, epochs=args.epochs,
                  max_steps=args.max_steps, save_path=args.save_path,
                  device=args.device, seed=args.seed,
-                 checkpoint=args.checkpoint, num_points=args.num_points)
+                 checkpoint=args.checkpoint, num_points=args.num_points,
+                 **host_options(args))
 
 
 if __name__ == "__main__":

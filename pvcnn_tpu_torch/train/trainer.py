@@ -17,7 +17,12 @@ dict of tensors. fp32 throughout with TF32 off
 The learning rate is set once per epoch (scheduler_unit "epoch") or
 before every step from a step count that runs on across epochs ("iter"),
 as the JAX trainer's `_step_count`. A step may return a dict of named
-losses; the epoch then returns a dict of their means.
+losses; the epoch then returns a dict of their means. As the JAX
+train_epoch does, an epoch may write every step's loss to a scalar writer
+(at the step count, under log_tag or, for named losses, under their
+names; fetched once, at the epoch's end), tick a ThroughputMeter with
+each batch's points, and trace its steps 1 to profile_steps with
+torch.profiler (the first epoch only).
 
 DMLTrainer (deep mutual learning, the JAX package's DMLTrainer) trains
 two peers of one architecture at once: each one's loss adds
@@ -28,7 +33,8 @@ reference's step (JAX runs a second forward for the gradient, which XLA
 merges with the first, and keeps only its statistics).
 
 fit is the entry points' epoch loop (the JAX train.py's and
-train_dml.py's): resume, train, score every peer, write the checkpoints.
+train_dml.py's): resume, train, score every peer, write the checkpoints
+and the scalars, print points/s.
 
 A checkpoint is {"epoch", "model": state_dict, "optimizer": state_dict,
 "meters"}; its `model` entry carries the reference's module names, so
@@ -38,6 +44,7 @@ variables.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -50,10 +57,13 @@ from pvcnn_tpu_torch.models.utils import (set_dropout_generator,
                                           set_sample_generator)
 from pvcnn_tpu_torch.train.optim import set_learning_rate
 from pvcnn_tpu_torch.train.predict import fp32_precision
+from pvcnn_tpu_torch.utils.logging import ScalarWriter
+from pvcnn_tpu_torch.utils.profiler import ThroughputMeter, trace
 
 __all__ = ["DMLTrainer", "SAMPLE_SEED_OFFSET", "STUDENT_SEED_OFFSET",
-           "Trainer", "check_device", "copy_checkpoint", "fit",
-           "load_checkpoint", "save_checkpoint"]
+           "Trainer", "add_host_arguments", "check_device",
+           "copy_checkpoint", "fit", "host_options", "load_checkpoint",
+           "save_checkpoint"]
 
 # the sampler's generator is seeded with seed + SAMPLE_SEED_OFFSET, apart
 # from the dropout generator's seed
@@ -61,6 +71,32 @@ SAMPLE_SEED_OFFSET = 0x5A3D1E
 # a DML student's generators are seeded with seed + STUDENT_SEED_OFFSET,
 # apart from the teacher's
 STUDENT_SEED_OFFSET = 100
+
+
+def add_host_arguments(parser, workers_mode: str) -> None:
+    """The entry points' loader and trace flags. The loader's defaults are
+    the JAX configs' (configs/__init__.py:12-13: 16 workers, thread mode;
+    configs/shapenet/__init__.py:12: process mode), which data/loader.py
+    clamps to the host's cores."""
+    parser.add_argument("--num-workers", type=int, default=16,
+                        help="loader workers for every split (0: serial; "
+                             "clamped to the host's cores)")
+    parser.add_argument("--workers-mode", choices=("thread", "process"),
+                        default=workers_mode,
+                        help="item fetch on a thread pool, or whole batches "
+                             f"on worker processes (default {workers_mode})")
+    parser.add_argument("--prefetch", type=int, default=2,
+                        help="batches assembled ahead on a background "
+                             "thread (0: none)")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace steps 1-5 of the first epoch into "
+                             "<save-path>/profile")
+
+
+def host_options(args) -> dict:
+    """add_host_arguments' values as train() keywords."""
+    return dict(num_workers=args.num_workers, workers_mode=args.workers_mode,
+                prefetch=args.prefetch, profile=args.profile)
 
 
 def check_device(device) -> torch.device:
@@ -107,46 +143,91 @@ class Trainer:
 
     def train_epoch(self, loader, epoch: int, scheduler=None,
                     max_steps: int | None = None,
-                    scheduler_unit: str = "epoch"):
+                    scheduler_unit: str = "epoch", writer=None,
+                    log_tag: str = "loss/train", throughput_meter=None,
+                    profile_dir: str | None = None, profile_steps: int = 5):
         """Train one epoch (at most `max_steps` steps) -> the mean loss, or
         a dict of mean losses where the step returns named ones, fetched
         once. The scheduler gives the lr for `epoch` (scheduler_unit
         "epoch") or, before each step, for the trainer's step count
-        ("iter")."""
+        ("iter"). `writer` gets each step's loss at the step count, under
+        `log_tag` or the losses' own names, once the epoch is done;
+        `throughput_meter` a tick a step with the batch's points (batch x
+        the second axis of its first array, in sorted-key order); with
+        `profile_dir`, epoch 0's steps 1 to `profile_steps` are traced
+        into it (utils/profiler.py:trace)."""
         if scheduler_unit not in ("epoch", "iter"):
             raise ValueError(f"unknown scheduler_unit {scheduler_unit!r}")
         if scheduler is not None and scheduler_unit == "epoch":
             self.set_learning_rate(scheduler(epoch))
         loader.epoch = epoch
-        losses = []
-        for inputs, targets in loader:
-            if max_steps is not None and len(losses) >= max_steps:
-                break
-            if scheduler is not None and scheduler_unit == "iter":
-                self.set_learning_rate(scheduler(self.step_count))
-            losses.append(self.train_step(self._to_device(inputs),
-                                          self._to_device(targets)))
-            self.step_count += 1
+        losses, first_step = [], self.step_count
+        with _batches(loader) as batches, contextlib.ExitStack() as tracing:
+            for inputs, targets in batches:
+                if max_steps is not None and len(losses) >= max_steps:
+                    break
+                if profile_dir is not None and epoch == 0:
+                    if len(losses) == 1:
+                        tracing.enter_context(trace(profile_dir))
+                    elif len(losses) == profile_steps + 1:
+                        tracing.close()
+                if scheduler is not None and scheduler_unit == "iter":
+                    self.set_learning_rate(scheduler(self.step_count))
+                losses.append(self.train_step(self._to_device(inputs),
+                                              self._to_device(targets)))
+                if throughput_meter is not None:
+                    first = _first_array(inputs)
+                    throughput_meter.tick(points=first.shape[0]
+                                          * first.shape[1])
+                self.step_count += 1
         if not losses:
             return 0.0
-        if isinstance(losses[0], dict):
-            names = sorted(losses[0])
-            means = torch.stack([torch.stack([loss[k] for k in names])
-                                 for loss in losses]).mean(0).tolist()
-            return dict(zip(names, means))
-        return float(torch.stack(losses).mean().item())
+        named = isinstance(losses[0], dict)
+        names = sorted(losses[0]) if named else [log_tag]
+        series = (torch.stack([torch.stack([loss[k] for k in names])
+                               for loss in losses]) if named
+                  else torch.stack(losses))
+        means = series.mean(0).tolist()
+        if writer is not None:           # tag by tag, as JAX writes them
+            columns = series.reshape(len(losses), len(names)).T.tolist()
+            for name, values in zip(names, columns):
+                for step, value in enumerate(values, first_step):
+                    writer.add_scalar(name, value, step)
+        return dict(zip(names, means)) if named else means
 
     def evaluate(self, loader, meters: dict) -> dict:
         """Eval-mode forward over the loader, each meter updated with the
         outputs of every batch (numpy; a dict of them for a dict output) ->
         {name: meter.compute()}."""
         self.model.eval()
-        with torch.inference_mode(), fp32_precision():
-            for inputs, targets in loader:
+        with torch.inference_mode(), fp32_precision(), \
+                _batches(loader) as batches:
+            for inputs, targets in batches:
                 outputs = _to_numpy(self.model(self._to_device(inputs)))
                 for meter in meters.values():
                     meter.update(outputs, targets)
         return {k: meter.compute() for k, meter in meters.items()}
+
+
+@contextlib.contextmanager
+def _batches(loader):
+    """iter(loader), closed on the way out where it can be: a
+    DataLoader's generator then stops and joins its prefetch thread before
+    the next loader draws."""
+    batches = iter(loader)
+    try:
+        yield batches
+    finally:
+        close = getattr(batches, "close", None)
+        if close is not None:
+            close()
+
+
+def _first_array(batch):
+    """The first array of a batch part (a dict's in sorted-key order)."""
+    while isinstance(batch, dict):
+        batch = batch[sorted(batch)[0]]
+    return batch
 
 
 def _to_numpy(outputs):
@@ -231,7 +312,7 @@ def copy_checkpoint(src: str, dst: str) -> None:
 def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
         *, epochs: int, save_path: str, scheduler=None,
         scheduler_unit: str = "epoch", max_steps: int | None = None,
-        timings: dict | None = None) -> dict:
+        timings: dict | None = None, profile: bool = False) -> dict:
     """Train `trainer` to `epochs` epochs and score `eval_loader` with fresh
     `make_meters()` after each, for every peer: the trainer itself and, for
     a DMLTrainer, its student, whose meters print with a _student suffix.
@@ -245,8 +326,31 @@ def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
     that holds latest.pth.tar resumes every peer, its bests and the step
     count. `timings`, if given, gets the seconds of the epochs' training
     (to the mean loss on the host) and of their scoring under "train" and
-    "eval". -> {peer suffix ("" or "_student"): its last meters, with each
-    metric's best under m + "_best"}."""
+    "eval". After each epoch the points/s of its steps (a
+    ThroughputMeter over the last 50) prints; a ScalarWriter in
+    `save_path` gets, as the JAX train.py and train_dml.py write them,
+    each step's loss (Trainer.train_epoch) and at the epoch
+    perf/points_per_sec and every meter with its _best, the student's
+    with a _student suffix. `profile` traces steps 1-5 of epoch 0 into
+    <save_path>/profile (Trainer.train_epoch). The writer and both loaders
+    are closed at the end (a process pool stops). -> {peer suffix ("" or
+    "_student"): its last meters, with each metric's best under m +
+    "_best"}."""
+    with contextlib.ExitStack() as stack:
+        for loader in (train_loader, eval_loader):
+            if hasattr(loader, "close"):
+                stack.callback(loader.close)
+        writer = ScalarWriter(save_path)
+        stack.callback(writer.close)
+        return _fit(trainer, train_loader, eval_loader, make_meters, metrics,
+                    epochs, save_path, scheduler, scheduler_unit, max_steps,
+                    timings, writer,
+                    os.path.join(save_path, "profile") if profile else None)
+
+
+def _fit(trainer, train_loader, eval_loader, make_meters, metrics, epochs,
+         save_path, scheduler, scheduler_unit, max_steps, timings, writer,
+         profile_dir) -> dict:
     peers = {"": trainer}
     if isinstance(trainer, DMLTrainer):
         peers["_student"] = trainer.student
@@ -285,16 +389,21 @@ def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
         report(scores)
         return scores
 
+    meter = ThroughputMeter()
     for epoch in range(start, epochs):
         print(f"\n==> training epoch {epoch}/{epochs}")
         begin = time.perf_counter()
         loss = trainer.train_epoch(train_loader, epoch, scheduler,
-                                   max_steps, scheduler_unit)
+                                   max_steps, scheduler_unit, writer=writer,
+                                   throughput_meter=meter,
+                                   profile_dir=profile_dir)
         seconds = time.perf_counter() - begin
         if not isinstance(loss, dict):
             loss = {"loss/train": loss}
         for k in sorted(loss):
             print(f"[{k}] = {loss[k]:.6f}")
+        points_per_sec = meter.points_per_sec()
+        print(f"[points/sec] = {points_per_sec:,.0f}")
         print(f"[seconds] = {seconds:.3f}")
         begin = time.perf_counter()
         scores = evaluate()
@@ -311,6 +420,10 @@ def fit(trainer: Trainer, train_loader, eval_loader, make_meters, metrics,
                     best[tag][m] = meters[m]
                 meters[m + "_best"] = best[tag][m]
         report(scores)
+        writer.add_scalar("perf/points_per_sec", points_per_sec, epoch)
+        for tag, meters in scores.items():
+            for k, v in meters.items():
+                writer.add_scalar(k + tag, v, epoch)
         for tag, peer in peers.items():
             save_checkpoint(paths[tag], epoch, peer.model, peer.optimizer,
                             scores[tag])
