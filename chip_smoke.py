@@ -147,9 +147,9 @@ failure:
                 PVCNN and PointNet at width 1 under each loader setting,
                 4 steps at batch 32 from zeroed counters (exactly 4 steps'
                 launches; the test split scored only in 20b's serial run
-                (a)): (b) prefetch 2, (c) the CLI default (16 thread
-                workers, clamped to the host's cores), (d) a process pool
-                of 2 and of 4; each one's epoch wall time and wait share;
+                (a)): (b) prefetch 2, the CLI default, (c) the JAX
+                configs' 16 thread workers (clamped to the host's cores),
+                (d) a process pool of 2 and of 4; each one's epoch wall time and wait share;
                 the training batches of (a) and (b) bitwise equal (crc32
                 of every array), and those of the two pools; the S3DIS
                 PointNet scene evaluator's recorded votes through the host
@@ -161,7 +161,7 @@ failure:
                 epochs, the pools' batches bitwise equal), and
                 train.shapenet --profile from zeroed counters (PVCNN's
                 kernels launch; the trace names the port's kernels; the
-                scalar writer's kind and the points/s);
+                scalars it wrote and the points/s);
  21. frustum kernels
                 as phase 8 at the shapes the Frustum training steps give
                 every kernel: K1-K5 at FrustumPVCNNE's PVConvs (R = 16 and
@@ -2347,12 +2347,13 @@ def train_batch_digests(out: list):
 
 
 # the host phase's loader settings of train.s3dis beside phase 20b's serial
-# run (a): (b) prefetch 2; (c) the CLI default (16 thread workers, clamped
-# to the host's cores, prefetch 2); (d) a process pool of 2, then of 4
+# run (a): (b) prefetch 2, the CLI default; (c) the JAX configs' 16 thread
+# workers (clamped to the host's cores, prefetch 2); (d) a process pool of
+# 2, then of 4
 LOADER_SETTINGS = (
     ("b prefetch 2", dict(prefetch=2)),
-    ("c CLI default", dict(num_workers=16, workers_mode="thread",
-                           prefetch=2)),
+    ("c 16 threads", dict(num_workers=16, workers_mode="thread",
+                          prefetch=2)),
     ("d process x2", dict(num_workers=2, workers_mode="process",
                           prefetch=2)),
     ("d process x4", dict(num_workers=4, workers_mode="process",
@@ -2408,7 +2409,7 @@ def phase_host_loader(name: str, root: str, store, per_step: dict,
                              "other batches")
     log("host", f"S3DIS {name}: batches (a) == (b) and (d x2) == (d x4) "
         "bitwise (crc32 of every array); (c) equals (a): "
-        f"{runs['c CLI default'][0] == a}")
+        f"{runs['c 16 threads'][0] == a}")
 
 
 def phase_host_votes(root: str, store) -> None:
@@ -2469,8 +2470,8 @@ def phase_host_shapenet(per_step: dict) -> None:
     mode with 2 and 4 workers over two epochs, ms a batch, the two pools'
     batches bitwise equal; then train.shapenet --profile for one epoch of
     4 steps from zeroed counters (each of per_step's kernels launches): the
-    trace under <save>/profile names a port kernel, the scalar writer's
-    kind and the points/s."""
+    trace under <save>/profile names a port kernel, the scalars the run
+    wrote and the points/s."""
     import io
 
     from pvcnn_tpu_torch import kernels, native
@@ -2478,7 +2479,6 @@ def phase_host_shapenet(per_step: dict) -> None:
     from pvcnn_tpu_torch.data.shapenet import (ShapeNetDataset, file_paths,
                                                write_synthetic)
     from pvcnn_tpu_torch.train.shapenet import main as train_main
-    from pvcnn_tpu_torch.utils.logging import ScalarWriter
 
     rng = np.random.RandomState(SEED + 5)
     items = [(int(s), int(n)) for s, n in
@@ -2554,17 +2554,17 @@ def phase_host_shapenet(per_step: dict) -> None:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         found = sorted({k for _, keys in PROFILE_GROUPS[:14] for k in keys
                         if any(k in n for n in names)})
-        writer = ScalarWriter(os.path.join(root, "kind"))
-        kind = type(writer).__name__
-        writer.close()
+        with open(os.path.join(save, "scalars.jsonl")) as f:
+            tags = sorted({json.loads(line)["tag"] for line in f})
         pps = [line for line in out.getvalue().splitlines()
                if line.startswith("[points/sec]")]
         log("host", f"train.shapenet --profile, 1 epoch of 4 steps + test "
             f"split: {seconds:.2f} s; trace {os.path.basename(traces[0])} "
             f"({os.path.getsize(traces[0])} bytes, {len(names)} event names) "
-            f"names the port kernels {found}; ScalarWriter is {kind}; "
+            f"names the port kernels {found}; scalars.jsonl tags {tags}; "
             f"{pps}")
-        if len(traces) != 1 or not found or not pps:
+        if len(traces) != 1 or not found or not pps \
+                or "perf/points_per_sec" not in tags:
             raise AssertionError("the profiled epoch wrote no trace of the "
                                  "port's kernels")
         _check_ran(counts, per_step)

@@ -39,11 +39,11 @@ Determinism:
   every call behind one global lock, so threads cannot read h5 files in
   parallel.
 
-num_workers is clamped to the host's cores (0 on one core) unless
-PVCNN_TPU_LOADER_FORCE_WORKERS=1. shard_by_process gives each process a
-disjoint rank-strided slice of every epoch's order, len(dataset) // world
-samples each; the rank and world come from process_index / process_count,
-else from torch.distributed where it is initialized, else (0, 1).
+num_workers is clamped to the host's cores (0 on one core).
+shard_by_process gives each process a disjoint rank-strided slice of every
+epoch's order, len(dataset) // world samples each; the rank and world come
+from process_index / process_count, else from torch.distributed where it
+is initialized, else (0, 1).
 """
 
 from __future__ import annotations
@@ -59,8 +59,6 @@ import time
 from typing import Any, Iterator
 
 import numpy as np
-
-from pvcnn_tpu_torch.utils import knobs
 
 __all__ = ["DataLoader", "data_parallel_args"]
 
@@ -163,12 +161,8 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = int(seed)
         self.prefetch = int(prefetch)
-        if knobs.get("PVCNN_TPU_LOADER_FORCE_WORKERS"):
-            self.num_workers = int(num_workers)
-        else:
-            cores = _cores()
-            self.num_workers = 0 if cores <= 1 else min(int(num_workers),
-                                                        cores)
+        cores = _cores()
+        self.num_workers = 0 if cores <= 1 else min(int(num_workers), cores)
         self.workers_mode = workers_mode
         self.shard_by_process = shard_by_process
         self.process_index = process_index

@@ -195,9 +195,12 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
         else:
             predictions = np.zeros((len(dataset), 8))
             current_step = 0
-            # serial: each test's draws come from the generator seeded
-            # above, in item order (a pool would interleave them)
-            batches = iter(DataLoader(dataset, batch_size, num_workers=0))
+            # serial, no prefetch: each test's draws come from the
+            # generator seeded above, in item order (a pool would
+            # interleave them), and spent["data"] is the time to assemble
+            # each batch
+            batches = iter(DataLoader(dataset, batch_size, prefetch=0,
+                                      num_workers=0))
             while True:
                 start = time.perf_counter()
                 batch = next(batches, None)

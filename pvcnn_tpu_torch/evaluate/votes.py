@@ -6,28 +6,15 @@ more confident, so the first of equal votes wins, across calls too.
 
 vote_reduce_max runs the host library's one pass over the votes
 (native/ptio.cpp); vote_reduce_max_plain is its plain version, a three-key
-lexsort, exact too, which PVCNN_TPU_NO_NATIVE=1 selects."""
+lexsort, exact too, which the tests and chip_smoke.py hold it against."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from pvcnn_tpu_torch import native
+from pvcnn_tpu_torch.native import vote_reduce_max
 
 __all__ = ["vote_reduce_max", "vote_reduce_max_plain"]
-
-
-def vote_reduce_max(vote_confidences, vote_predictions, point_indices,
-                    confidences, predictions) -> None:
-    """Fold the votes (confidence, prediction, point index; flat arrays)
-    into the points' kept confidences (float32) and predictions (int64),
-    in place."""
-    if native.native():
-        native.vote_reduce_max(vote_confidences, vote_predictions,
-                               point_indices, confidences, predictions)
-    else:
-        vote_reduce_max_plain(vote_confidences, vote_predictions,
-                              point_indices, confidences, predictions)
 
 
 def vote_reduce_max_plain(vote_confidences, vote_predictions, point_indices,

@@ -7,10 +7,10 @@ ctypes.
 directory, under a name keyed by a hash of the source and the command, so
 an edit rebuilds. It is written to a temporary name and renamed into place,
 so processes that build at once (test workers) do not collide. A failed
-build raises: nothing falls back on its own. PVCNN_TPU_NO_NATIVE=1
-(utils/knobs.py, read at each call) selects the plain versions:
-np.loadtxt, exact only where each token rounds to the same float32 from
-float64 as by strtof, and evaluate/votes.py:vote_reduce_max_plain.
+build raises: nothing falls back. The plain versions, np.loadtxt (exact
+only where each token rounds to the same float32 from float64 as by
+strtof) and evaluate/votes.py:vote_reduce_max_plain, serve as references
+only.
 """
 
 from __future__ import annotations
@@ -24,9 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from pvcnn_tpu_torch.utils import knobs
-
-__all__ = ["BUILD_DIR", "CXX", "build", "library", "loadtxt", "native",
+__all__ = ["BUILD_DIR", "CXX", "build", "library", "loadtxt",
            "vote_reduce_max"]
 
 SOURCE = Path(__file__).resolve().parent / "ptio.cpp"
@@ -75,20 +73,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def native() -> bool:
-    """Whether the calls below take the library (PVCNN_TPU_NO_NATIVE unset
-    or 0) or the plain versions."""
-    return not knobs.get("PVCNN_TPU_NO_NATIVE")
-
-
 def loadtxt(path: str, num_cols: int | None = None) -> np.ndarray:
     """A whitespace-separated float table -> [rows, cols] float32, each
     token rounded once (strtof), a one-row file kept 2-D. `num_cols`
     defaults to the first non-blank line's token count; unparsable tokens
     are skipped, and a value count that is not a multiple of the columns
     raises ValueError."""
-    if not native():
-        return np.loadtxt(path, dtype=np.float32, ndmin=2)
     with open(path, "rb") as f:
         buf = f.read()
     if num_cols is None:

@@ -23,8 +23,8 @@ run whose save path holds latest.pth.tar resumes both peers from it, and
 the step count of an iter schedule from its epoch. After each epoch the
 test split is scored for both peers: the student's meters print with a
 _student suffix.
-The loader, writer and trace flags are train.shapenet's (--num-workers 16
-in process mode, --prefetch 2, --profile); the scalars carry JAX
+The loader, writer and trace flags are train.shapenet's (--num-workers 0
+with --workers-mode process, --prefetch 2, --profile); the scalars carry JAX
 train_dml.py's tags (loss/train, loss/train_student, the meters and their
 _student twins).
 """

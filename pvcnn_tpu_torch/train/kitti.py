@@ -17,9 +17,9 @@ resumes from it. Weights are drawn from a torch.Generator seeded with
 --seed unless --checkpoint names a reference .pth.tar; the reader draws
 from np.random.RandomState(--seed), the sampler from the Trainer's
 generator. --max-steps cuts every epoch short (smoke runs). Both splits
-load with --num-workers (16, clamped to the host's cores) in
---workers-mode (thread, the JAX configs') and --prefetch 2; train() itself
-defaults to the loader's serial setting with prefetch 2. Scalars go to a
+load with --num-workers (0: serial; clamped to the host's cores) in
+--workers-mode (thread, the JAX configs') and --prefetch 2, train()'s own
+defaults. Scalars go to a
 ScalarWriter in the save path; --profile traces steps 1-5 of the first
 epoch into <save-path>/profile.
 """

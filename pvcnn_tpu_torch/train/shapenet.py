@@ -16,9 +16,9 @@ written (train/trainer.py:fit). A run whose save path holds
 latest.pth.tar resumes from it. Weights are drawn from a torch.Generator
 seeded with --seed unless --checkpoint names a reference .pth.tar.
 --max-steps cuts every epoch short (smoke runs). Both splits load with
---num-workers (16, clamped to the host's cores) in --workers-mode
-(process, the JAX ShapeNet config's) and --prefetch 2; train() itself
-defaults to the loader's serial setting with prefetch 2. Scalars go to a
+--num-workers (0: serial; clamped to the host's cores) in --workers-mode
+(process, the JAX ShapeNet config's) and --prefetch 2, train()'s own
+defaults. Scalars go to a
 ScalarWriter in the save path (each step's loss, perf/points_per_sec and
 the meters per epoch); --profile traces steps 1-5 of the first epoch into
 <save-path>/profile.

@@ -74,11 +74,14 @@ STUDENT_SEED_OFFSET = 100
 
 
 def add_host_arguments(parser, workers_mode: str) -> None:
-    """The entry points' loader and trace flags. The loader's defaults are
-    the JAX configs' (configs/__init__.py:12-13: 16 workers, thread mode;
-    configs/shapenet/__init__.py:12: process mode), which data/loader.py
-    clamps to the host's cores."""
-    parser.add_argument("--num-workers", type=int, default=16,
+    """The entry points' loader and trace flags. The default is train()'s,
+    the serial loader with prefetch 2: on the card, the JAX configs' 16
+    workers (configs/__init__.py:12-13) made train.s3dis's epochs slower,
+    and a thread pool interleaves the S3DIS and KITTI readers' draws.
+    `workers_mode` is the JAX config's mode (configs/shapenet/__init__.py:12:
+    process for ShapeNet) for runs that ask for workers; data/loader.py
+    clamps them to the host's cores."""
+    parser.add_argument("--num-workers", type=int, default=0,
                         help="loader workers for every split (0: serial; "
                              "clamped to the host's cores)")
     parser.add_argument("--workers-mode", choices=("thread", "process"),

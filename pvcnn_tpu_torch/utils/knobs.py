@@ -1,7 +1,6 @@
-"""The switches that open the port's opt-in paths, and two of its host
-path, under the JAX package's environment-variable names, defaults and
-choices (its registry is pvcnn_tpu/utils/knobs.py), so one variable
-switches both packages.
+"""The switches that open the port's opt-in paths, under the JAX package's
+environment-variable names, defaults and choices (its registry is
+pvcnn_tpu/utils/knobs.py), so one variable switches both packages.
 
     PVCNN_TPU_CONV_ROWS          auto | 0   (auto)  0: the PVConv voxel branch
                                  runs on NDHWC grids [B, R, R, R, C] instead
@@ -17,13 +16,6 @@ switches both packages.
     PVCNN_TPU_CUSTOM_CONV_WGRAD  0 | 1      (0)     1: the NDHWC conv's
                                  weight gradient runs K11
                                  (ops/conv3d.py:conv3d_same)
-    PVCNN_TPU_LOADER_FORCE_WORKERS 0 | 1    (0)     1: data/loader.py keeps
-                                 num_workers as given instead of clamping
-                                 it to the host's cores (tests run the
-                                 pools on any host)
-    PVCNN_TPU_NO_NATIVE          0 | 1      (0)     1: the plain versions of
-                                 the host library's parser and vote
-                                 reducer (native/__init__.py)
 
 Values are read each time a forward asks (not cached at import); a value
 outside the choices raises ValueError naming the variable.
@@ -41,11 +33,8 @@ KNOBS = {
     "PVCNN_TPU_CONV_BN_FUSED": (("auto", "0"), "auto"),
     "PVCNN_TPU_DENSE_BN_FUSED": (("auto", "0"), "0"),
     "PVCNN_TPU_CUSTOM_CONV_WGRAD": (("0", "1"), "0"),
-    "PVCNN_TPU_LOADER_FORCE_WORKERS": (("0", "1"), "0"),
-    "PVCNN_TPU_NO_NATIVE": (("0", "1"), "0"),
 }
-_BOOL = {"PVCNN_TPU_CUSTOM_CONV_WGRAD", "PVCNN_TPU_LOADER_FORCE_WORKERS",
-         "PVCNN_TPU_NO_NATIVE"}
+_BOOL = {"PVCNN_TPU_CUSTOM_CONV_WGRAD"}
 
 
 def get(name: str):

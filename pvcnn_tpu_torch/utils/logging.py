@@ -1,8 +1,8 @@
 """Scalar logging (counterpart of pvcnn_tpu/utils/logging.py; reference
-train.py:114,244-246): `ScalarWriter(save_path)` is tensorboard's
-SummaryWriter where `torch.utils.tensorboard` imports, else a writer of
-JSON lines to `<save_path>/scalars.jsonl` with the same add_scalar and
-close, so a training run always keeps its scalars.
+train.py:114,244-246): `ScalarWriter(save_path)` appends JSON lines to
+`<save_path>/scalars.jsonl`, with tensorboard's add_scalar and close. It
+imports nothing, so a run pays no tensorboard import and writes the same
+format on every host.
 """
 
 from __future__ import annotations
@@ -11,10 +11,10 @@ import json
 import os
 import time
 
-__all__ = ["JsonlWriter", "ScalarWriter"]
+__all__ = ["ScalarWriter"]
 
 
-class JsonlWriter:
+class ScalarWriter:
     """One JSON object a scalar, {"tag", "value", "step", "wall_time"},
     appended to <save_path>/scalars.jsonl, line-buffered."""
 
@@ -30,13 +30,3 @@ class JsonlWriter:
 
     def close(self) -> None:
         self._f.close()
-
-
-def ScalarWriter(save_path: str):
-    """tensorboard's SummaryWriter(save_path) if it imports, else a
-    JsonlWriter(save_path)."""
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-    except Exception:
-        return JsonlWriter(save_path)
-    return SummaryWriter(save_path)

@@ -164,9 +164,7 @@ def test_dml_cli_writes_and_resumes_both_peers(tree, tmp_path, capsys):
 def test_finished_run_reports_both_saved_peers(tree, tmp_path):
     """A run whose checkpoints reach --epochs trains no more and scores
     both peers as saved: its meters equal those of the checkpoints'
-    models, evaluated in the same order on a test loader of the CLI's
-    default setting (worker processes, whose batches do not depend on
-    their number)."""
+    models, evaluated in the same order on the same test loader."""
     from pvcnn_tpu_torch.meters.shapenet import MeterShapeNet
     from pvcnn_tpu_torch.train.shapenet import make_loaders
 
@@ -176,16 +174,12 @@ def test_finished_run_reports_both_saved_peers(tree, tmp_path):
             "--save-path", save, "--epochs", "1"]
     dml_main(args)
     teacher, student = dml_main(args)
-    loader = make_loaders(tree, "pvcnn", 64, 2, 0, num_workers=2,
-                          workers_mode="process")["test"]
+    loader = make_loaders(tree, "pvcnn", 64, 2, 0)["test"]
     want = []
-    try:
-        for name in ("latest.pth.tar", "latest.pth.tar.student"):
-            model = PVCNN(50, 16, 3, width_multiplier=0.125)
-            model.load_state_dict(torch.load(os.path.join(save, name),
-                                             weights_only=True)["model"])
-            want.append(Trainer(model, None, None, "cpu").evaluate(
-                loader, {"iou": MeterShapeNet()})["iou"])
-    finally:
-        loader.close()
+    for name in ("latest.pth.tar", "latest.pth.tar.student"):
+        model = PVCNN(50, 16, 3, width_multiplier=0.125)
+        model.load_state_dict(torch.load(os.path.join(save, name),
+                                         weights_only=True)["model"])
+        want.append(Trainer(model, None, None, "cpu").evaluate(
+            loader, {"iou": MeterShapeNet()})["iou"])
     assert [teacher["acc/iou_test"], student["acc/iou_test"]] == want

@@ -17,6 +17,7 @@ import torch
 
 from pvcnn_tpu.data.loader import DataLoader as JDataLoader
 from pvcnn_tpu.data.shapenet import ShapeNet
+from pvcnn_tpu_torch.data import loader as tloader
 from pvcnn_tpu_torch.data import shapenet as tdata
 from pvcnn_tpu_torch.data.loader import DataLoader, data_parallel_args
 from pvcnn_tpu_torch.data.s3dis import S3DIS, WindowStore
@@ -28,7 +29,7 @@ from pvcnn_tpu_torch.train.trainer import Trainer
 def _force_workers(monkeypatch):
     # the loader clamps num_workers to the host's cores (0 on one core);
     # the pool paths must run here all the same
-    monkeypatch.setenv("PVCNN_TPU_LOADER_FORCE_WORKERS", "1")
+    monkeypatch.setattr(tloader, "_cores", lambda: 64)
 
 
 def _dataset(n=10):
@@ -246,9 +247,6 @@ def test_unknown_workers_mode_raises():
 
 
 def test_workers_clamp_to_the_cores(monkeypatch):
-    monkeypatch.delenv("PVCNN_TPU_LOADER_FORCE_WORKERS")
-    from pvcnn_tpu_torch.data import loader as tloader
-
     monkeypatch.setattr(tloader, "_cores", lambda: 1)
     assert DataLoader(_dataset(), 2, num_workers=16).num_workers == 0
     monkeypatch.setattr(tloader, "_cores", lambda: 8)

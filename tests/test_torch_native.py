@@ -4,7 +4,7 @@ table parser bit for bit, on tokens near a float32 tie too, where
 np.loadtxt(dtype=float32) rounds twice and differs; the ShapeNet reader's
 items and the voting evaluator's inputs on such a table, against JAX's;
 the vote reducer exactly, against JAX's C++ path and the plain lexsort;
-PVCNN_TPU_NO_NATIVE=1 and a failed build."""
+the call sites on the library, with no fallback, and a failed build."""
 
 import decimal
 import os
@@ -22,7 +22,7 @@ from pvcnn_tpu_torch.evaluate.shapenet import eval as teval
 
 @pytest.fixture(autouse=True)
 def _native_paths(monkeypatch):
-    """Both packages on their C++ paths."""
+    """The JAX package on its C++ path."""
     monkeypatch.delenv("PVCNN_TPU_NO_NATIVE", raising=False)
     assert jnative.available()
 
@@ -222,28 +222,23 @@ def test_vote_reduce_max_refuses_bad_kept_arrays():
                                np.zeros(10, np.int64))
 
 
-def test_no_native_selects_the_plain_versions(tmp_path, monkeypatch):
-    """PVCNN_TPU_NO_NATIVE=1: np.loadtxt and the lexsort, the library not
-    touched (library() is made to raise)."""
+def test_call_sites_take_the_library(tmp_path, monkeypatch):
+    """The ShapeNet reader's and evaluator's parser and the voting
+    evaluators' reducer go through the library, with no plain fallback:
+    made to raise, library() raises from each."""
     def refuse():
-        raise AssertionError("the library was used")
+        raise RuntimeError("the library was used")
 
     monkeypatch.setattr(native, "library", refuse)
-    monkeypatch.setenv("PVCNN_TPU_NO_NATIVE", "1")
-    assert not native.native()
     path = str(_write(tmp_path / "t.txt", "0.5 1.5\n"))
-    got = native.loadtxt(path)
-    assert got.shape == (1, 2) and got.dtype == np.float32
-    calls = []
-    monkeypatch.setattr(votes, "vote_reduce_max_plain",
-                        lambda *a: calls.append(a))
-    conf, pred, idx = _votes(np.random.RandomState(0), 10, 20, 0)
-    votes.vote_reduce_max(conf, pred, idx, np.zeros(10, np.float32),
-                          np.zeros(10, np.int64))
-    assert len(calls) == 1
-    monkeypatch.setenv("PVCNN_TPU_NO_NATIVE", "2")
-    with pytest.raises(ValueError, match="PVCNN_TPU_NO_NATIVE"):
+    with pytest.raises(RuntimeError, match="library was used"):
         native.loadtxt(path)
+    assert votes.vote_reduce_max is native.vote_reduce_max
+    assert tdata.native is native and teval.native is native
+    conf, pred, idx = _votes(np.random.RandomState(0), 10, 20, 0)
+    with pytest.raises(RuntimeError, match="library was used"):
+        votes.vote_reduce_max(conf, pred, idx, np.zeros(10, np.float32),
+                              np.zeros(10, np.int64))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
