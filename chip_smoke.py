@@ -223,11 +223,32 @@ failure:
                 same decode, label files and AP stack, whose every 3-D AP
                 must be above 0; the forward's share of a test with the
                 model's AP and with the perfect boxes'.
+ 28. configs    the config-driven entry points (pvcnn_tpu_torch/configs/,
+                train/cli.py's prepare and run, python -m
+                pvcnn_tpu_torch.train / .evaluate, train_dml, the parity
+                tool) at the configs' full width, each main path from
+                zeroed counters: ShapeNet PVCNN c1 on a synthetic tree of
+                64 shapes, S3DIS PVCNN2 area5/c1 over 20b's rooms (the
+                WindowStore set on configs.dataset between prepare and
+                run, --configs.train.max_steps=4) and Frustum pvcnne on
+                27's tree: one epoch of 4 steps (launches exactly 4 x the
+                path's per step plus the scored split's forwards';
+                checkpoints bitwise equal to the per-dataset entry point's
+                run with the config's seed, and its scalars: the losses
+                only for S3DIS, whose test draws follow the prefetch
+                thread's early stop), then the evaluator from that run's
+                best.pth.tar (ShapeNet 2 votes, S3DIS 1 vote, Frustum 1
+                test: exactly the eval forwards' launches, stats or APs
+                finite and in range); train_dml for one epoch of ShapeNet
+                PVCNN c1 (twice the single path's launches, both peers'
+                checkpoints equal to train.dml's); the parity tool's dry
+                run of shapenet_pvcnn_c1 on the card (its evaluation in a
+                process of its own); --devices 0,1 must raise.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
-the trainer phases (7, 11, both runs of 15, 19's two, 20b's, 24's, 26
-and 27's training and evaluation runs) and, for K9/K10 on the MSG opt-in path, the
+the trainer phases (7, 11, both runs of 15, 19's two, 20b's, 24's, 26,
+27's and 28's training and evaluation runs) and, for K9/K10 on the MSG opt-in path, the
 switched step of 18, for FrustumPVCNNE's opt-in path the switched step of
 23; its times, bounds and library time are per training step, summed over
 the paths' steps (each path's own numbers under "paths"; K1's and K5's
@@ -3319,6 +3340,261 @@ def phase_kitti_ap(fwd_kernels) -> None:
             f"{model_run['data'] / total:.3f}, host AP {ap / total:.3f})")
 
 
+# the port's config tree, beside this script
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "pvcnn_tpu_torch", "configs")
+
+
+def _counted(fn):
+    """fn() from zeroed launch counters -> (its result, the launches,
+    seconds to the card's last work)."""
+    from pvcnn_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, kernels.launch_counts(), time.perf_counter() - start
+
+
+def _expected(counts: dict, per_step: dict, fwd_kernels, steps: int,
+              forwards: int) -> dict:
+    """Launches of `steps` training steps and `forwards` eval forwards
+    (fwd_kernels' per-step counts a forward), for every kernel."""
+    return {k: steps * per_step.get(k, 0)
+            + forwards * (per_step.get(k, 0) if k in fwd_kernels else 0)
+            for k in counts}
+
+
+def _checkpoint_tensors(path: str) -> dict:
+    """The model's and the optimizer's tensors of a checkpoint, by name,
+    and its epoch under "epoch"."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"model/{k}": v for k, v in ckpt["model"].items()}
+    for i, state in ckpt["optimizer"]["state"].items():
+        out.update({f"optimizer/{i}/{k}": v for k, v in state.items()
+                    if isinstance(v, torch.Tensor)})
+    out["epoch"] = torch.tensor(ckpt["epoch"])
+    return out
+
+
+def _scalars(save: str, prefix: str = "") -> list:
+    """(tag, step, value) of the run's scalars whose tag starts with
+    `prefix`, but the points/s timings."""
+    with open(os.path.join(save, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["tag"], r["step"], r["value"]) for r in rows
+            if r["tag"].startswith(prefix)
+            and not r["tag"].startswith("perf/")]
+
+
+def _same_run(label: str, got: str, want: str, names, prefix: str = ""):
+    """The config-driven run at `got` against the per-dataset entry point's
+    at `want`: each named checkpoint's model and optimizer tensors bitwise
+    equal, and the same scalars (those starting with `prefix`)."""
+    differ = []
+    for name in names:
+        a, b = (_checkpoint_tensors(os.path.join(d, name))
+                for d in (got, want))
+        if a.keys() != b.keys():
+            differ.append(f"{name}: keys")
+            continue
+        differ += [f"{name}: {k}" for k in a if not torch.equal(a[k], b[k])]
+    scalars = _scalars(got, prefix)
+    same = scalars == _scalars(want, prefix)
+    log("configs", f"{label}: checkpoints {list(names)} bitwise equal to "
+        f"the per-dataset entry point's: {not differ}; {len(scalars)} "
+        f"scalars equal: {same}")
+    if differ or not same or not scalars:
+        raise AssertionError(f"{label}: the config-driven run differs from "
+                             f"the per-dataset one: {differ[:5]}, scalars "
+                             f"equal {same}")
+
+
+def _check_launches(label: str, counts: dict, want: dict) -> None:
+    log("configs", f"{label}: launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def phase_configs(s3dis_root: str, store, kitti_root: str,
+                  kitti_paths: dict, fwd, fwd2) -> dict:
+    """The config-driven entry points (train/cli.py, train/__main__.py,
+    train_dml.py, evaluate/__main__.py, tools/parity.py) on the card at
+    the configs' full width, each main path from zeroed counters: for
+    ShapeNet PVCNN c1 (a synthetic tree of 64 shapes: 4 training
+    batches), S3DIS PVCNN2 area5/c1 (20b's rooms, its WindowStore set on
+    configs.dataset between prepare and run, 4 steps) and Frustum
+    pvcnne (27's tree), prepare(<config> --devices 0 ...) and run for
+    one epoch: launches exactly 4 x the path's per-step ones plus the
+    scored split's forwards', checkpoints bitwise equal to the
+    per-dataset entry point's run with the config's seed; then the
+    evaluator from that run's best.pth.tar (2 votes, 1 vote, 1 test):
+    exactly the eval forwards' launches, results finite and in range.
+    Then train_dml for one epoch of ShapeNet PVCNN c1 (both peers
+    against train.dml's), the parity tool's dry run of shapenet_pvcnn_c1
+    on the card, and --devices 0,1, which must raise. -> each path's
+    launches."""
+    from pvcnn_tpu_torch.data.kitti.frustum import FrustumKitti
+    from pvcnn_tpu_torch.data.s3dis import S3DIS
+    from pvcnn_tpu_torch.data.shapenet import write_synthetic
+    from pvcnn_tpu_torch.evaluate.__main__ import main as evaluate_main
+    from pvcnn_tpu_torch.tools import parity
+    from pvcnn_tpu_torch.train import dml, kitti, s3dis, shapenet
+    from pvcnn_tpu_torch.train.cli import prepare, run
+    from pvcnn_tpu_torch.train_dml import main as train_dml_main
+
+    totals = {}
+    # ShapeNet PVCNN c1: train, evaluate, train_dml
+    config = os.path.join(CONFIGS, "shapenet", "pvcnn", "c1.py")
+    rng = np.random.RandomState(SEED + 3)
+    items = [(int(s), int(n)) for s, n in zip(rng.randint(0, 16, 64),
+                                              rng.randint(2000, 3000, 64))]
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        write_synthetic(root, items, seed=SEED)
+        args = [config, "--devices", "0", f"--configs.dataset.root={root}",
+                "--configs.train.num_epochs=1"]
+        save = f"--configs.train.save_path={root}/cli"
+        configs = prepare(args + [save])
+        seed = configs.seed
+        shapenet.train(root, epochs=1, save_path=f"{root}/ref",
+                       device=DEVICE, seed=seed)
+        meters, counts, seconds = _counted(lambda: run(configs))
+        log("configs", f"shapenet pvcnn c1: prepare + run, 1 epoch of 4 "
+            f"steps at batch 32 + 64 test shapes (seed {seed}): "
+            f"{seconds:.2f} s, {meters}")
+        _check_launches("shapenet train", counts,
+                        _expected(counts, PER_STEP, fwd, 4, 2))
+        _same_run("shapenet pvcnn c1", f"{root}/cli", f"{root}/ref",
+                  ("latest.pth.tar", "best.pth.tar"))
+        totals["ShapeNet PVCNN 1x"] = counts
+
+        stats, ran, seconds = _counted(lambda: evaluate_main(
+            args + [save, "--configs.evaluate.num_votes=2"]))
+        forwards = sum(-(-2 * -(-n // N) // B) for _, n in items)
+        iou = float(stats[:, 0].sum() / max(stats[:, 1].sum(), 1))
+        log("configs", f"shapenet pvcnn c1: python -m "
+            f"pvcnn_tpu_torch.evaluate (2 votes, batch 32): {seconds:.2f} "
+            f"s, mIoU {iou:.4f} over {stats[:, 1].sum():.0f} shapes in "
+            f"{forwards} forwards")
+        if stats.shape != (16, 2) or not np.isfinite(stats).all() \
+                or stats[:, 1].sum() != len(items) or not 0 <= iou <= 1:
+            raise AssertionError(f"bad evaluation stats {stats}")
+        _check_launches("shapenet evaluate", ran,
+                        _expected(ran, PER_STEP, fwd, 0, forwards))
+        totals["ShapeNet PVCNN 1x"] = _add_counts(totals["ShapeNet PVCNN 1x"],
+                                                  ran)
+
+        dml.train(root, epochs=1, save_path=f"{root}/ref_dml",
+                  device=DEVICE, seed=seed)
+        (teacher, student), counts, seconds = _counted(
+            lambda: train_dml_main(
+                args + [f"--configs.train.save_path={root}/dml"]))
+        log("configs", f"shapenet pvcnn c1: train_dml, 1 epoch of 4 DML "
+            f"steps + the test split for both peers: {seconds:.2f} s, "
+            f"acc/iou_test teacher {teacher['acc/iou_test']:.4f}, student "
+            f"{student['acc/iou_test']:.4f}")
+        _check_launches("shapenet train_dml", counts,
+                        _expected(counts, PER_STEP, fwd, 8, 4))
+        _same_run("shapenet pvcnn c1 train_dml", f"{root}/dml",
+                  f"{root}/ref_dml",
+                  ("latest.pth.tar", "latest.pth.tar.student"))
+        totals["ShapeNet PVCNN 1x"] = _add_counts(totals["ShapeNet PVCNN 1x"],
+                                                  counts)
+
+    start = time.perf_counter()
+    got = parity.main(["shapenet_pvcnn_c1", "--dry-run", "--devices", "0"])
+    log("configs", f"parity dry run shapenet_pvcnn_c1 on the card: "
+        f"{time.perf_counter() - start:.2f} s, mIoU {got:.2f} (synthetic)")
+    if not 0.0 <= got <= 100.0:
+        raise AssertionError(f"parity dry run gave {got}")
+    try:
+        prepare([config, "--devices", "0,1"])
+    except ValueError as e:
+        log("configs", f"--devices 0,1 refused: {e}")
+    else:
+        raise AssertionError("--devices 0,1 was not refused")
+
+    # S3DIS PVCNN2 area5/c1 over 20b's store
+    config = os.path.join(CONFIGS, "s3dis", "pvcnn2", "area5", "c1.py")
+    args = [config, "--devices", "0", f"--configs.dataset.root={s3dis_root}",
+            "--configs.train.num_epochs=1", "--configs.train.max_steps=4"]
+    save = f"--configs.train.save_path={s3dis_root}/cli.pvcnn2"
+    configs = prepare(args + [save])
+    configs.dataset.opener = store
+    seed = configs.seed
+    s3dis.train(s3dis_root, model="pvcnn2", epochs=1, max_steps=4,
+                save_path=f"{s3dis_root}/ref.pvcnn2", device=DEVICE,
+                seed=seed, opener=store)
+    meters, counts, seconds = _counted(lambda: run(configs))
+    test = S3DIS(s3dis_root, N2, split="test", opener=store)["test"]
+    log("configs", f"s3dis pvcnn2 area5/c1: prepare, the store, run: 1 "
+        f"epoch of 4 steps at batch 32 + {len(test)} test windows: "
+        f"{seconds:.2f} s, {meters}")
+    _check_launches("s3dis train", counts, _expected(
+        counts, PER_STEP2, fwd2, 4, -(-len(test) // B)))
+    # the test split's draws follow the prefetch thread's early stop: the
+    # losses and checkpoints are compared, not the meters
+    _same_run("s3dis pvcnn2 area5/c1", f"{s3dis_root}/cli.pvcnn2",
+              f"{s3dis_root}/ref.pvcnn2", ("latest.pth.tar",), "loss/")
+    totals["S3DIS PVCNN2 1x"] = counts
+
+    configs = prepare(args + [save, "--evaluate"])
+    configs.dataset.opener = store
+    stats, ran, seconds = _counted(lambda: configs.evaluate.fn(configs))
+    forwards = sum(-(-store[f]["data"].shape[0] // 10)
+                   for files in test.scene_list.values() for f in files)
+    log("configs", f"s3dis pvcnn2 area5/c1: the evaluator (1 vote, 10 "
+        f"windows a forward): {seconds:.2f} s, mIoU {_miou(stats):.4f} in "
+        f"{forwards} forwards")
+    if stats.shape != (3, 13, 2) or not np.isfinite(stats).all() \
+            or stats[1].sum() == 0 or not 0 <= _miou(stats) <= 1:
+        raise AssertionError(f"bad S3DIS evaluation stats {stats}")
+    _check_launches("s3dis evaluate", ran,
+                    _expected(ran, PER_STEP2, fwd2, 0, forwards))
+    totals["S3DIS PVCNN2 1x"] = _add_counts(totals["S3DIS PVCNN2 1x"], ran)
+
+    # Frustum pvcnne over 27's tree
+    config = os.path.join(CONFIGS, "kitti", "frustum", "pvcnne.py")
+    args = [config, "--devices", "0", f"--configs.dataset.root={kitti_root}",
+            "--configs.train.num_epochs=1",
+            f"--configs.train.save_path={kitti_root}/cli.pvcnne"]
+    configs = prepare(args)
+    seed = configs.seed
+    kitti.train(kitti_root, epochs=1, save_path=f"{kitti_root}/ref.pvcnne",
+                device=DEVICE, seed=seed)
+    meters, counts, seconds = _counted(lambda: run(configs))
+    log("configs", f"kitti frustum pvcnne: prepare + run, 1 epoch of 4 "
+        f"steps at batch 32 + {NUM_KITTI} val frustums: {seconds:.2f} s, "
+        f"{meters}")
+    _check_launches("kitti train", counts, _expected(
+        counts, PER_STEP_PVCNNE, fwd, 4, -(-NUM_KITTI // B)))
+    _same_run("kitti frustum pvcnne", f"{kitti_root}/cli.pvcnne",
+              f"{kitti_root}/ref.pvcnne", ("latest.pth.tar", "best.pth.tar"))
+    totals["KITTI FrustumPVCNNE 1x"] = counts
+
+    frustums = len(FrustumKitti(kitti_root, NF, split="val",
+                                from_rgb_detection=True)["val"])
+    results, ran, seconds = _counted(lambda: evaluate_main(args + [
+        "--configs.evaluate.num_tests=1",
+        f"--configs.evaluate.ground_truth_path={kitti_paths['ground_truth']}",
+        f"--configs.evaluate.image_id_file_path={kitti_paths['image_ids']}"]))
+    aps = np.array([r for v in results.values() for r in v.values()])
+    log("configs", f"kitti frustum pvcnne: python -m "
+        f"pvcnn_tpu_torch.evaluate (1 test of {frustums} rgb-detection "
+        f"frustums): {seconds:.2f} s, 3-D AP "
+        + str({c: np.round(v["3d"], 2).tolist() for c, v in results.items()}))
+    if aps.shape != (9, 3) or not np.isfinite(aps).all() or aps.min() < 0 \
+            or aps.max() > 100:
+        raise AssertionError(f"bad Frustum evaluation: AP {aps}")
+    _check_launches("kitti evaluate", ran, _expected(
+        ran, PER_STEP_PVCNNE, fwd, 0, -(-frustums // B)))
+    totals["KITTI FrustumPVCNNE 1x"] = _add_counts(
+        totals["KITTI FrustumPVCNNE 1x"], ran)
+    return totals
+
+
 def _stopwatch():
     """lap(phase) logs the seconds since the previous lap (or the start)."""
     last = [time.perf_counter()]
@@ -3463,25 +3739,26 @@ def main() -> None:
     phase_s3dis_trainer("S3DIS PointNet", lambda: S3DISPointNet(13, 6), N3,
                         {})
     lap("pointnet")
-    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
-        store, covered = s3dis_rooms(root, SEED + 90)
-        lap("s3dis rooms")
-        serial = {}
-        for m, path, per_step, fwd_kernels in (
-                ("pvcnn2", "S3DIS PVCNN2 1x", PER_STEP2, fwd2),
-                ("pvcnn", "S3DIS PVCNN 1x", PER_STEP3, fwd),
-                ("pointnet", None, {}, ())):
-            more = phase_s3dis_pipeline(m, root, store, covered, per_step,
-                                        fwd_kernels, plain=path is not None,
-                                        serial=serial)
-            if path is not None:
-                counts[path] = _add_counts(counts[path], more)
-        lap("s3dis pipeline")
-        for m, per_step in (("pvcnn2", PER_STEP2), ("pvcnn", PER_STEP3),
-                            ("pointnet", {})):
-            phase_host_loader(m, root, store, per_step, serial[m])
-        phase_host_votes(root, store)
-        del store
+    # 20b's rooms stay for the configs phase
+    s3dis_dir = tempfile.TemporaryDirectory(dir=_scratch_dir())
+    root = s3dis_dir.name
+    store, covered = s3dis_rooms(root, SEED + 90)
+    lap("s3dis rooms")
+    serial = {}
+    for m, path, per_step, fwd_kernels in (
+            ("pvcnn2", "S3DIS PVCNN2 1x", PER_STEP2, fwd2),
+            ("pvcnn", "S3DIS PVCNN 1x", PER_STEP3, fwd),
+            ("pointnet", None, {}, ())):
+        more = phase_s3dis_pipeline(m, root, store, covered, per_step,
+                                    fwd_kernels, plain=path is not None,
+                                    serial=serial)
+        if path is not None:
+            counts[path] = _add_counts(counts[path], more)
+    lap("s3dis pipeline")
+    for m, per_step in (("pvcnn2", PER_STEP2), ("pvcnn", PER_STEP3),
+                        ("pointnet", {})):
+        phase_host_loader(m, root, store, per_step, serial[m])
+    phase_host_votes(root, store)
     lap("host s3dis")
     phase_host_shapenet(PER_STEP)
     lap("host shapenet")
@@ -3537,19 +3814,29 @@ def main() -> None:
     counts["ShapeNet PVCNN 1x"] = _add_counts(counts["ShapeNet PVCNN 1x"],
                                               phase_dml_trainer(PER_STEP))
     lap("dml trainer")
-    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
-        paths = write_synthetic_root(root, np.random.RandomState(SEED + 80),
-                                     NUM_KITTI)
-        for m, path, per_step, fwd_kernels in (
-                ("pvcnne", pvcnne, PER_STEP_PVCNNE, fwd),
-                ("pointnet2", fpn2, PER_STEP_FPN2, fwd_pn2),
-                ("pointnet", None, {}, ())):
-            more = phase_kitti(m, root, paths, per_step, fwd_kernels)
-            if path is not None:
-                counts[path] = _add_counts(counts[path], more)
+    # 27's tree stays for the configs phase
+    kitti_dir = tempfile.TemporaryDirectory(dir=_scratch_dir())
+    root = kitti_dir.name
+    kitti_paths = write_synthetic_root(root, np.random.RandomState(SEED + 80),
+                                       NUM_KITTI)
+    for m, path, per_step, fwd_kernels in (
+            ("pvcnne", pvcnne, PER_STEP_PVCNNE, fwd),
+            ("pointnet2", fpn2, PER_STEP_FPN2, fwd_pn2),
+            ("pointnet", None, {}, ())):
+        more = phase_kitti(m, root, kitti_paths, per_step, fwd_kernels)
+        if path is not None:
+            counts[path] = _add_counts(counts[path], more)
     lap("kitti")
     phase_kitti_ap(fwd)
     lap("kitti AP")
+    more = phase_configs(s3dis_dir.name, store, kitti_dir.name, kitti_paths,
+                         fwd, fwd2)
+    for path, c in more.items():
+        counts[path] = _add_counts(counts[path], c)
+    del store
+    s3dis_dir.cleanup()
+    kitti_dir.cleanup()
+    lap("configs")
 
     lines = []
     for k in kernels.KERNELS.values():

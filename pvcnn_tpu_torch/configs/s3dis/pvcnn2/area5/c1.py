@@ -1,0 +1,1 @@
+# width multiplier 1.0 (defaults)

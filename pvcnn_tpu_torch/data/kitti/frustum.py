@@ -167,21 +167,22 @@ class FrustumKitti(dict):
     """{split: dataset} over the pickles at `root`
     (frustum_carpedcyc_{split}.pickle, or for val with from_rgb_detection
     frustum_carpedcyc_val_rgb_detection.pickle). The splits draw from one
-    `rng` (np.random.RandomState(0) if absent), as the JAX reader's draw
-    from numpy's global state; val never flips or shifts."""
+    `rng` (np.random.RandomState(seed) if absent), as the JAX reader's
+    draw from numpy's global state; val never flips or shifts."""
 
     def __init__(self, root, num_points, split=None,
                  classes=("Car", "Pedestrian", "Cyclist"),
                  num_heading_angle_bins=12,
                  class_name_to_size_template_id=None,
                  from_rgb_detection=False, random_flip=False,
-                 random_shift=False, frustum_rotate=False, rng=None):
+                 random_shift=False, frustum_rotate=False, rng=None,
+                 seed=0):
         super().__init__()
         if class_name_to_size_template_id is None:
             class_name_to_size_template_id = {
                 c: i for i, c in enumerate(attributes.class_names)}
         if rng is None:
-            rng = np.random.RandomState(0)
+            rng = np.random.RandomState(seed)
         if not isinstance(split, (list, tuple)):
             split = ["train", "val"] if split is None else [split]
         common = dict(root=root, num_points=num_points, classes=classes,

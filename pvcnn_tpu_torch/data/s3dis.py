@@ -59,6 +59,9 @@ class WindowStore(dict):
     """Window files in memory: path -> {dataset name: array}. Called with a
     path, it opens that entry as open_h5 opens a file."""
 
+    def __repr__(self):
+        return f"WindowStore({len(self)} files)"
+
     def __call__(self, path: str) -> WindowFile:
         arrays = self[path]
         return WindowFile(*(arrays[name] for name in FIELDS), lambda: None)
@@ -163,19 +166,19 @@ class _S3DISDataset:
 class S3DIS(dict):
     """The splits (train: every area but holdout_area; test: holdout_area)
     of the prepared tree at `root`, by name. Their draws share `rng`
-    (np.random.RandomState(0) if absent); `opener` reads the window files
-    (open_h5, or a WindowStore)."""
+    (np.random.RandomState(seed) if absent); `opener` reads the window
+    files (open_h5, or a WindowStore)."""
 
     def __init__(self, root, num_points, split=None,
                  with_normalized_coords=True, holdout_area=5, rng=None,
-                 opener=open_h5):
+                 opener=open_h5, seed=0):
         super().__init__()
         if split is None:
             split = ["train", "test"]
         elif not isinstance(split, (list, tuple)):
             split = [split]
         if rng is None:
-            rng = np.random.RandomState(0)
+            rng = np.random.RandomState(seed)
         for s in split:
             self[s] = _S3DISDataset(
                 root=root, num_points=num_points, split=s,

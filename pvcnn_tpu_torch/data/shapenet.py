@@ -19,7 +19,7 @@ import numpy as np
 
 from pvcnn_tpu_torch import native
 
-__all__ = ["NUM_CLASSES", "NUM_SHAPES", "SHAPE_PART_CLASSES",
+__all__ = ["NUM_CLASSES", "NUM_SHAPES", "SHAPE_PART_CLASSES", "ShapeNet",
            "ShapeNetDataset", "file_paths", "normalize_point_cloud",
            "write_synthetic"]
 
@@ -114,6 +114,33 @@ class ShapeNetDataset:
         if self.with_one_hot_shape_id:
             features[:, width + shape_id] = 1.0
         return features, label[choice]
+
+
+class ShapeNet(dict):
+    """The splits of the ShapeNet tree at `root` by name, 'train' and
+    'test' unless `split` names others (the configs' dataset; counterpart
+    of the JAX package's ShapeNet). The train split draws from
+    np.random.RandomState(seed), any other from seed + 1, as
+    train/shapenet.py's loaders do; `jitter` applies to the train split
+    only. The points are always normalized (`normalize=False` raises)."""
+
+    def __init__(self, root, num_points, split=None, with_normal=True,
+                 with_one_hot_shape_id=True, normalize=True, jitter=True,
+                 seed=0):
+        super().__init__()
+        if not normalize:
+            raise ValueError("the port's ShapeNet reader always normalizes")
+        if split is None:
+            split = ["train", "test"]
+        elif not isinstance(split, (list, tuple)):
+            split = [split]
+        for s in split:
+            dataset = ShapeNetDataset(
+                root, num_points, s, seed=seed + (s != "train"),
+                with_normal=with_normal,
+                with_one_hot_shape_id=with_one_hot_shape_id)
+            dataset.jitter = dataset.jitter and jitter
+            self[s] = dataset
 
 
 def write_synthetic(root: str, items, seed: int = 0):

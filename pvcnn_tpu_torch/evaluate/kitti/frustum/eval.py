@@ -30,8 +30,8 @@ import torch
 
 from pvcnn_tpu_torch.evaluate.kitti.common import eval_from_files
 
-__all__ = ["decode_boxes", "evaluate", "update_predictions",
-           "write_predictions"]
+__all__ = ["decode_boxes", "evaluate", "evaluate_from_configs",
+           "update_predictions", "write_predictions"]
 
 
 def update_predictions(predictions, center, heading, size, rotation_angle,
@@ -252,3 +252,30 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
                 for mv, sv, uv in zip(r.mean(0), r.std(0), r.max(0)))
             print(f"{kind:<4} AP: {line}")
     return results
+
+
+def evaluate_from_configs(configs):
+    """The evaluation a config describes (configs.evaluate.fn; the JAX
+    package's evaluate(configs)): the model configs.model() builds, with
+    the weights of configs.evaluate.best_checkpoint_path (a trusted file,
+    it is unpickled), on configs.device; the rgb-detection frustums of the
+    val split at configs.dataset.root with its num_points;
+    evaluate.batch_size, num_tests, ground_truth_path and
+    image_id_file_path; test 0 seeded with configs.seed. A test's
+    predictions and label files go beside evaluate.stats_path (its stem
+    + .eval.npy and .predictions for one test, as the keyword evaluate
+    names them). -> evaluate's AP dict, or None where the checkpoint is
+    missing."""
+    from pvcnn_tpu_torch.evaluate import configured_model
+
+    model = configured_model(configs)
+    if model is None:
+        return None
+    return evaluate(
+        configs.dataset.root, model, num_points=configs.dataset.num_points,
+        batch_size=configs.evaluate.batch_size,
+        num_tests=int(configs.evaluate.get("num_tests", 1)),
+        ground_truth=configs.evaluate.ground_truth_path,
+        image_ids=configs.evaluate.image_id_file_path,
+        output=configs.evaluate.stats_path.removesuffix(".eval.npy"),
+        device=configs.device, seed=configs.get("seed") or 0)

@@ -27,7 +27,8 @@ import torch
 from pvcnn_tpu_torch.data.s3dis import S3DIS, open_h5
 from pvcnn_tpu_torch.evaluate.votes import vote_reduce_max
 
-__all__ = ["evaluate", "print_stats", "update_stats"]
+__all__ = ["evaluate", "evaluate_from_configs", "print_stats",
+           "update_stats"]
 
 NUM_CLASSES = 13
 
@@ -193,3 +194,34 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
     if timings is not None:
         timings.update(spent)
     return stats
+
+
+def evaluate_from_configs(configs):
+    """The scene evaluation a config describes (configs.evaluate.fn; the
+    JAX package's evaluate(configs)): the model configs.model() builds,
+    with the weights of configs.evaluate.best_checkpoint_path (a trusted
+    file, it is unpickled), on configs.device; the holdout area of
+    configs.dataset.root with its num_points, holdout_area and opener
+    (open_h5 unless the caller set one, e.g. a WindowStore);
+    evaluate.num_votes and batch_size; the shuffles seeded with
+    configs.seed. The stats go to evaluate.stats_path, where a later run
+    finds and prints them. -> the stats, or None where the checkpoint is
+    missing."""
+    from pvcnn_tpu_torch.evaluate import configured_model
+
+    stats_path = configs.evaluate.stats_path
+    if os.path.exists(stats_path):
+        stats = np.load(stats_path)
+        print_stats(stats)
+        return stats
+    model = configured_model(configs)
+    if model is None:
+        return None
+    dataset = configs.dataset
+    return evaluate(dataset.root, model, num_points=dataset.num_points,
+                    holdout_area=dataset.get("holdout_area", 5),
+                    num_votes=configs.evaluate.num_votes,
+                    batch_size=configs.evaluate.get("batch_size", 10),
+                    stats_path=stats_path, device=configs.device,
+                    seed=configs.get("seed") or 0,
+                    opener=dataset.get("opener", open_h5))

@@ -26,8 +26,8 @@ from pvcnn_tpu_torch import native
 from pvcnn_tpu_torch.data import shapenet as shapenet_data
 from pvcnn_tpu_torch.evaluate.votes import vote_reduce_max
 
-__all__ = ["evaluate", "evaluate_with", "mean_iou", "part_class_ranges",
-           "print_stats", "update_stats"]
+__all__ = ["evaluate", "evaluate_from_configs", "evaluate_with", "mean_iou",
+           "part_class_ranges", "print_stats", "update_stats"]
 
 
 def part_class_ranges():
@@ -126,13 +126,11 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
     torch.Generator seeded with `seed`. Returns the stats array and prints
     the IoUs; saves the stats to `stats_path` if given."""
     from pvcnn_tpu_torch.models.shapenet import MODELS
-    from pvcnn_tpu_torch.train.predict import predict
+    from pvcnn_tpu_torch.train.trainer import check_device
     from pvcnn_tpu_torch.utils.weights import (init_random_,
                                                load_reference_checkpoint)
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda requested but CUDA is not available")
+    device = check_device(device)
     spec = MODELS[model_name]
     if model is None:
         model = spec.build(shapenet_data.NUM_CLASSES,
@@ -143,19 +141,63 @@ def evaluate(root: str, model: torch.nn.Module | None = None, *,
             init_random_(model, seed)
     model = model.to(device)
 
-    def predict_fn(chunk):
-        inputs = torch.from_numpy(chunk).to(device)
-        return predict(model, inputs).cpu().numpy()
-
-    stats = evaluate_with(predict_fn, root, num_points=num_points,
-                          num_votes=num_votes, batch_size=batch_size,
-                          seed=seed, with_normal=spec.with_normal,
+    stats = evaluate_with(_predictor(model, device), root,
+                          num_points=num_points, num_votes=num_votes,
+                          batch_size=batch_size, seed=seed,
+                          with_normal=spec.with_normal,
                           with_one_hot_shape_id=spec.with_one_hot_shape_id)
+    _save(stats, stats_path)
+    return stats
+
+
+def evaluate_from_configs(configs):
+    """The voting evaluation a config describes (configs.evaluate.fn; the
+    JAX package's evaluate(configs)): the model configs.model() builds,
+    with the weights of configs.evaluate.best_checkpoint_path (the port's
+    training checkpoint or a reference .pth.tar: a trusted file, it is
+    unpickled), on configs.device; the test split of configs.dataset.root
+    with its num_points and input columns; evaluate.num_votes and
+    batch_size; the shuffles seeded with configs.seed. The stats go to
+    evaluate.stats_path, where a later run finds and prints them. ->
+    the stats, or None where the checkpoint is missing."""
+    from pvcnn_tpu_torch.evaluate import configured_model
+
+    stats_path = configs.evaluate.stats_path
+    if os.path.exists(stats_path):
+        stats = np.load(stats_path)
+        print_stats(stats)
+        return stats
+    model = configured_model(configs)
+    if model is None:
+        return None
+    device = configs.device
+    dataset = configs.dataset
+    stats = evaluate_with(
+        _predictor(model.to(device), device), dataset.root,
+        num_points=dataset.num_points,
+        num_votes=configs.evaluate.num_votes,
+        batch_size=configs.evaluate.get("batch_size", 32),
+        seed=configs.get("seed") or 0, with_normal=dataset.with_normal,
+        with_one_hot_shape_id=dataset.with_one_hot_shape_id)
+    _save(stats, stats_path)
+    return stats
+
+
+def _predictor(model: torch.nn.Module, device):
+    """numpy batch -> the model's eval-mode probabilities, as numpy."""
+    from pvcnn_tpu_torch.train.predict import predict
+
+    def predict_fn(chunk):
+        return predict(model, torch.from_numpy(chunk).to(device)).cpu().numpy()
+    return predict_fn
+
+
+def _save(stats, stats_path: str | None) -> None:
+    """Save the stats to `stats_path` (if any) and print them."""
     if stats_path:
         os.makedirs(os.path.dirname(stats_path) or ".", exist_ok=True)
         np.save(stats_path, stats)
     print_stats(stats)
-    return stats
 
 
 def mean_iou(stats) -> float:
