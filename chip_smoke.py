@@ -14,8 +14,9 @@ launch no kernel, and the KITTI Frustum family at its configs' full width
 (FrustumPVCNNE and FrustumPointNet at B = 32, FrustumPointNet2 at B = 24,
 frustums of 1,024 points x 4 channels, 512 points an object; synthetic
 frustum batches and trees, data/kitti/frustum.py), ShapeNet PVCNN 1x by
-deep mutual learning, and the entry points that train and evaluate them
-(S3DIS's on synthetic rooms prepared into windows).
+deep mutual learning, the entry points that train and evaluate them
+(S3DIS's on synthetic rooms prepared into windows), and ShapeNet PVCNN
+with bf16 activations (1x at B = 32 and 0.25x at B = 64, N = 2048).
 Phases, each printing its own lines and its seconds, and raising on
 failure:
 
@@ -244,11 +245,37 @@ failure:
                 checkpoints equal to train.dml's); the parity tool's dry
                 run of shapenet_pvcnn_c1 on the card (its evaluation in a
                 process of its own); --devices 0,1 must raise.
+ 29. bf16       ShapeNet PVCNN with bf16 activations (dtype="bfloat16"):
+                the bf16 modes of K1-K5 at the training shapes of 1x (32
+                x 2048) and 0.25x (64 x 2048: K3's and K4's narrow tile),
+                each twice bitwise equal and within two bf16 roundings of
+                its plain version (K3's f32 statistics within 1e-4), timed
+                beside the plain version, the PyTorch call in bf16 and the
+                bound (bf16 operations over 989 TFLOP/s); the bf16
+                training step of PVCNN 1x at 32 x 2048 and 0.25x at 64 x
+                2048 (the JAX headline's batch) on the kernel and plain
+                paths: step 1 twice bitwise equal; the eval logits, step-1
+                loss and gradients of the kernel path against the plain
+                path (BF16_APART); step 1 and a 3-step trajectory held to
+                the fp32 step (the kernel path's distance at most twice
+                the plain path's, plus 1e-3); the leaves that carry the
+                gradients' distance from fp32, and the fp32 gradients'
+                move with only the input normals rounded to bf16;
+                launches per step of every record (the first PVConv's K1
+                in fp32, every other K1-K5 launch bf16), parameters,
+                BatchNorm statistics and Adam state float32, ms/step in
+                turns with the fp32 step and peak memory (with --profile
+                the bf16 step's breakdown); then `python -m
+                pvcnn_tpu_torch.train` with c0p25 and
+                --configs.model.dtype=bfloat16 (4 steps on a synthetic tree
+                of 64 shapes) and its evaluator, from zeroed counters.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
 the trainer phases (7, 11, both runs of 15, 19's two, 20b's, 24's, 26,
-27's and 28's training and evaluation runs) and, for K9/K10 on the MSG opt-in path, the
+27's and 28's training and evaluation runs; the bf16 records 29's
+3-step trajectories at 1x and 0.25x, the config run and its evaluator
+under 0.25x) and, for K9/K10 on the MSG opt-in path, the
 switched step of 18, for FrustumPVCNNE's opt-in path the switched step of
 23; its times, bounds and library time are per training step, summed over
 the paths' steps (each path's own numbers under "paths"; K1's and K5's
@@ -278,10 +305,10 @@ N2 = 8192                    # S3DIS PVCNN2 window size
 N3 = 4096                    # S3DIS PVCNN window size
 DEVICE = "cuda"
 # the card's peaks (NVIDIA H100 SXM data sheet): fp32 outside the tensor
-# cores and HBM bandwidth; the bound of a call is the larger of its FLOPs
-# over the first and its bytes (inputs read once, outputs written once)
-# over the second
-PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# cores, bf16 on the tensor cores (dense) and HBM bandwidth; the bound of a
+# call is the larger of its FLOPs over the peak of their type and its bytes
+# (inputs read once, outputs written once) over the bandwidth
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 # kernel-vs-plain tolerances (rtol, atol): K1/K2/K5 and K1's sum mode sum a
 # few fp32 terms in another order (K5 and K1's sum mode: many where a bin
 # holds many points, see below); K3 and its dgrad sum 27 * Ci terms in
@@ -295,14 +322,21 @@ PEAK_FP32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # bin; a Frustum object puts hundreds of points into one bin, and a sum of
 # under 128 rows of cancelling terms moved by 3.8e-5 there). The index kernels (fps,
 # ball_query, three_nn) must equal their plain versions exactly; three_nn's
-# d² and weights are held to 1e-5.
+# d² and weights are held to 1e-5. The bf16 modes (phase 29) round their
+# bf16 outputs once after f32 sums that the plain versions take in other
+# orders: atol 2^-7 (two bf16 roundings) of each case's scale, the largest
+# |output| (K5: each bin's sum of |terms|).
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
        "conv3d_fwd": (1e-4, 1e-4), "conv3d_dgrad": (1e-4, 1e-4),
        "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5),
        "scatter_sum": (1e-5, 1e-5), "three_nn": (1e-5, 1e-5),
        "fps": (0.0, 0.0), "ball_query": (0.0, 0.0),
        "dense_rows_fwd": (1e-4, 1e-4), "dense_rows_dgrad": (1e-4, 1e-4),
-       "dense_rows_wgrad": (1e-4, 1e-4), "conv3d_ndhwc_wgrad": (1e-4, 1e-4)}
+       "dense_rows_wgrad": (1e-4, 1e-4), "conv3d_ndhwc_wgrad": (1e-4, 1e-4),
+       **{k: (0.0, 2.0 ** -7) for k in (
+           "avg_voxelize_bf16", "trilinear_devoxelize_bf16",
+           "conv3d_fwd_bf16", "conv3d_dgrad_bf16", "conv3d_wgrad_bf16",
+           "devoxelize_bwd_bf16")}}
 # (kernel, case) -> calls per ShapeNet PVCNN 1x training step (the
 # forward's calls are the eval forward's too). Cases: K1/K2/K5 (C, R, N);
 # K3 and K4 (Ci, Co, R, prologue) of the forward conv; dgrad (Co, Ci, R) of
@@ -659,7 +693,9 @@ def check_calls() -> None:
                             (CALLS_MSG_ON, _FUSED_MSG),
                             (CALLS_PVCNNE, PER_STEP_PVCNNE),
                             (CALLS_PVCNNE_ON, PER_STEP_PVCNNE_ON),
-                            (CALLS_FPN2, PER_STEP_FPN2)):
+                            (CALLS_FPN2, PER_STEP_FPN2),
+                            (CALLS_BF16, PER_STEP_BF16),
+                            (CALLS_BF16_QUARTER, PER_STEP_BF16)):
         sums = {}
         for (k, _), n in calls.items():
             sums[k] = sums.get(k, 0) + n
@@ -782,6 +818,8 @@ def phase_device() -> str:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 (phase 29), as in the trainer
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     log("device", f"{name}, {torch.cuda.device_count()} device(s), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -829,8 +867,8 @@ def _twice(kernel, case, run):
     return got
 
 
-def _bound_ms(flops: float, nbytes: float):
-    ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms
 
 
@@ -863,7 +901,7 @@ class Record:
                     for k in TOL}
 
     def add(self, kernel, case, err, run_k, run_p, flops, nbytes,
-            run_lib=None, plain_reps=20, split=None):
+            run_lib=None, plain_reps=20, split=None, peak=PEAK_FP32_FLOPS):
         """split: (glue, kernel alone) callables that time `run_k`'s two
         parts apart (K1, K5: the sort, and the kernel on its output).
         Returns (ms, bound ms) of a timed case, None where it has no
@@ -876,7 +914,7 @@ class Record:
         ms = time_ms(run_k)
         plain_ms = time_ms(run_p, reps=plain_reps, warmup=1)
         lib_ms = time_ms(run_lib) if run_lib is not None else None
-        bound, ops_ms, bytes_ms = _bound_ms(flops, nbytes)
+        bound, ops_ms, bytes_ms = _bound_ms(flops, nbytes, peak)
         lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
         parts = ""
         if split is not None:
@@ -1936,6 +1974,10 @@ PROFILE_GROUPS = (
                                    "conv3d_split_sum_kernel")),
     ("K4 conv3d wgrad", ("conv3d_wgrad_kernel", "conv3d_wgrad_sum_kernel")),
     ("K3 / K4 prologue pass", ("conv3d_prologue_kernel",)),
+    ("K3 bf16 conv3d forward + dgrad", ("conv3d_bf16_fwd_kernel",)),
+    ("K4 bf16 conv3d wgrad", ("conv3d_bf16_wgrad_kernel",
+                              "conv3d_bf16_wgrad_sum_kernel")),
+    ("K3 / K4 bf16 staging pass", ("conv3d_bf16_stage_kernel",)),
     ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",
                                 "conv3d_ndhwc_wgrad_sum_kernel")),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
@@ -3345,6 +3387,56 @@ CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "pvcnn_tpu_torch", "configs")
 
 
+# (kernel, case) -> calls per ShapeNet PVCNN 1x training step with bf16
+# activations (cases as CALLS'): the first PVConv voxelizes the fp32 cloud
+# (K1 in fp32), every later K1-K5 launch is bf16
+CALLS_BF16 = {
+    ("avg_voxelize", (6, 32, N)): 1,
+    ("avg_voxelize_bf16", (64, 16, N)): 1,
+    ("avg_voxelize_bf16", (128, 16, N)): 1,
+    ("trilinear_devoxelize_bf16", (64, 32, N)): 1,
+    ("trilinear_devoxelize_bf16", (128, 16, N)): 2,
+    ("conv3d_fwd_bf16", (6, 64, 32, False)): 1,
+    ("conv3d_fwd_bf16", (64, 64, 32, True)): 1,
+    ("conv3d_fwd_bf16", (64, 128, 16, False)): 1,
+    ("conv3d_fwd_bf16", (128, 128, 16, True)): 2,
+    ("conv3d_fwd_bf16", (128, 128, 16, False)): 1,
+    ("conv3d_dgrad_bf16", (64, 64, 32)): 1,
+    ("conv3d_dgrad_bf16", (128, 64, 16)): 1,
+    ("conv3d_dgrad_bf16", (128, 128, 16)): 3,
+    ("devoxelize_bwd_bf16", (64, 32, N)): 1,
+    ("devoxelize_bwd_bf16", (128, 16, N)): 2,
+}
+CALLS_BF16.update({("conv3d_wgrad_bf16", c): n
+                   for (k, c), n in list(CALLS_BF16.items())
+                   if k == "conv3d_fwd_bf16"})
+PER_STEP_BF16 = {"avg_voxelize": 1, "avg_voxelize_bf16": 2,
+                 "trilinear_devoxelize_bf16": 3, "conv3d_fwd_bf16": 6,
+                 "conv3d_dgrad_bf16": 5, "conv3d_wgrad_bf16": 6,
+                 "devoxelize_bwd_bf16": 3}
+
+
+def _narrowed(calls: dict, wm: float) -> dict:
+    """A call table at width multiplier wm: every channel count of a case
+    but the cloud's 6 input channels scaled as PVCNN scales its layers
+    (int(wm * C)); the convs' cases lead with two channel counts, K1's,
+    K2's and K5's with one."""
+    out = {}
+    for (k, case), n in calls.items():
+        lead = 2 if k.startswith("conv3d") else 1
+        out[k, tuple(int(wm * v) if i < lead and v != 6 else v
+                     for i, v in enumerate(case))] = n
+    return out
+
+
+# the same at 0.25x, the JAX package's headline width, trained at B = 64:
+# its convs (Co <= 32) run K3's and K4's narrow tile
+CALLS_BF16_QUARTER = _narrowed(CALLS_BF16, 0.25)
+# the bf16 eval forward's kernels
+FWD_BF16 = ("avg_voxelize", "avg_voxelize_bf16", "conv3d_fwd_bf16",
+            "trilinear_devoxelize_bf16")
+
+
 def _counted(fn):
     """fn() from zeroed launch counters -> (its result, the launches,
     seconds to the card's last work)."""
@@ -3595,6 +3687,412 @@ def phase_configs(s3dis_root: str, store, kitti_root: str,
     return totals
 
 
+def _bf16_compare(kernel, case, got, want, scale=None) -> float:
+    """A bf16 mode's output against its plain version at TOL[kernel], atol
+    relative to `scale` (the largest |want| unless given)."""
+    got, want = got.float(), want.float()
+    if scale is None:
+        scale = want.abs().max().item()
+    return _compare(kernel, case, got, want, scale)
+
+
+def _time_bf16_kernels(rec: Record, coords) -> None:
+    """The bf16 modes of K1-K5 at the cases of rec.calls on clouds of the
+    coords' batch: each twice, bitwise equal, against its plain version,
+    timed beside the plain version, the one PyTorch call in bf16 and the
+    bound (bf16 operations over 989 TFLOP/s, bytes over 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    from pvcnn_tpu_torch import ops
+    from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
+
+    dev, bf, b = torch.device(DEVICE), torch.bfloat16, coords.shape[0]
+    cases = lambda kernel: sorted(c for k, c in rec.calls if k == kernel)
+    add = lambda *a, **kw: rec.add(*a, peak=PEAK_BF16_FLOPS, **kw)
+
+    for c, r, n in cases("avg_voxelize_bf16"):
+        case = (c, r, n)
+        vox, _ = ops.normalize_coords(coords[:, :n], r, normalize=False)
+        flat = ops.flat_voxel_index(vox, r)
+        feats = torch.randn(b, n, c, device=dev).to(bf)
+        run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3,
+                                                    True)[0]
+        run_p = lambda: voxelize._scatter_mean_plain(feats, flat, r ** 3,
+                                                     True)
+        idx = flat.long()[..., None].expand(-1, -1, c)
+        run_lib = lambda: feats.new_zeros(b, r ** 3, c).scatter_reduce_(
+            1, idx, feats, "mean", include_self=False)
+        got = _twice("avg_voxelize_bf16", case, run_k)
+        want = run_p()
+        err = _bf16_compare("avg_voxelize_bf16", case, got, want)
+        lib_ok = _library_agrees("avg_voxelize_bf16", case,
+                                 run_lib().transpose(1, 2).float(),
+                                 want.float(), want.abs().max().item())
+        split, longest = _k1_split("avg_voxelize_bf16", feats, flat, r ** 3,
+                                   True, True)
+        log("kernels", f"avg_voxelize_bf16 {case}: longest run {longest} "
+            "rows")
+        add("avg_voxelize_bf16", case, err, run_k, run_p, b * n * c,
+            2 * b * n * c + 4 * b * n + 2 * b * r ** 3 * c,
+            run_lib if lib_ok else None, split=split)
+
+    for c, r, n in cases("trilinear_devoxelize_bf16"):
+        case = (c, r, n)
+        _, norm = ops.normalize_coords(coords[:, :n], r, normalize=False)
+        grid = torch.randn(b, c, r ** 3, device=dev).to(bf)
+        g5 = grid.reshape(b, c, r, r, r)
+        gs = _grid5(norm, r).to(bf)
+        run_k = lambda: devoxelize._devoxelize_cuda(grid, norm, r, True)
+        run_p = lambda: devoxelize._devoxelize_plain(grid, norm, r, True)
+        run_lib = lambda: F.grid_sample(g5, gs, mode="bilinear",
+                                        align_corners=True)
+        got = _twice("trilinear_devoxelize_bf16", case, run_k)
+        want = run_p()
+        err = _bf16_compare("trilinear_devoxelize_bf16", case, got, want)
+        lib_ok = _library_agrees(
+            "trilinear_devoxelize_bf16", case,
+            run_lib().reshape(b, c, n).transpose(1, 2).float(), want.float(),
+            want.abs().max().item())
+        add("trilinear_devoxelize_bf16", case, err, run_k, run_p,
+            16 * b * n * c, 2 * b * c * r ** 3 + 12 * b * n + 2 * b * n * c,
+            run_lib if lib_ok else None)
+
+        # K5's bf16 mode: the grid gradient of the same gather
+        case = (c, r, n)
+        if ("devoxelize_bwd_bf16", case) not in rec.calls:
+            continue
+        g = torch.randn(b, n, c, device=dev).to(bf)
+        run_k = lambda: devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
+        run_p = lambda: devoxelize._devoxelize_bwd_plain(g, norm, r, True)
+        points, bounds = devoxelize._sort_points(norm, r)
+        split = (lambda: devoxelize._sort_points(norm, r),
+                 lambda: devoxelize._launch_k5_sorted(g, points, bounds, r,
+                                                      True))
+        gt5 = g.transpose(1, 2).reshape(b, c, 1, 1, n)
+        run_lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
+            gt5, g5, gs, 0, 0, True, [True, False])[0]
+        got = _twice("devoxelize_bwd_bf16", case, run_k)
+        want = run_p()
+        mag = devoxelize._devoxelize_bwd_plain(g.abs().float(), norm, r,
+                                               True)
+        err = _compare("devoxelize_bwd_bf16", case, got.float(),
+                       want.float(), mag)
+        lib_ok = _library_agrees("devoxelize_bwd_bf16", case,
+                                 run_lib().reshape(b, c, r ** 3).float(),
+                                 want.float(), mag)
+        add("devoxelize_bwd_bf16", case, err, run_k, run_p, 16 * b * n * c,
+            2 * b * n * c + 12 * b * n + 2 * b * c * r ** 3,
+            run_lib if lib_ok else None, split=split)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for ci, co, r in sorted({c[:3] for c in cases("conv3d_fwd_bf16")}):
+        bound = 1.0 / (27 * ci) ** 0.5
+        x = torch.randn(b, ci, r ** 3, device=dev).to(bf)
+        w = torch.empty(co, ci, 3, 3, 3, device=dev).uniform_(
+            -bound, bound).to(bf)
+        bias = torch.empty(co, device=dev).uniform_(-bound, bound)
+        scale = torch.empty(ci, device=dev).uniform_(0.5, 1.5)
+        shift = torch.randn(ci, device=dev) * 0.5
+        gy = torch.randn(b, co, r ** 3, device=dev).to(bf)
+        flops = 2.0 * b * r ** 3 * 27 * ci * co
+        for pro in (False, True):
+            case = (ci, co, r, pro)
+            if ("conv3d_fwd_bf16", case) not in rec.calls:
+                continue
+            args = (x, w, bias, scale, shift, r, pro)
+            x5 = conv3d._activated(x, scale, shift, pro).to(bf).reshape(
+                b, ci, r, r, r)
+            run_k = lambda: conv3d._forward_cuda(*args, True)
+            run_p = lambda: conv3d._forward_plain(*args, True)
+            run_lib = lambda: F.conv3d(x5, w, bias.to(bf), padding=1)
+            y, s1, s2 = _twice("conv3d_fwd_bf16", case, run_k)
+            want, w1, w2 = run_p()
+            err = _bf16_compare("conv3d_fwd_bf16", case, y, want)
+            yf = conv3d._conv3d_plain(x5.float().reshape(b, ci, -1),
+                                      w.float(), bias, None, None, r, False)
+            e1 = ((s1 - w1).abs() / yf.abs().sum(dim=(0, 2))).max().item()
+            e2 = ((s2 - w2).abs() / w2).max().item()
+            log("kernels", f"conv3d_fwd_bf16 {case} statistics: max |s1 - "
+                f"plain| / sum|y| {e1:.3e}, max |s2 - plain| / s2 {e2:.3e} "
+                "(<= 1e-4)")
+            if e1 > 1e-4 or e2 > 1e-4:
+                raise AssertionError(f"conv3d_fwd_bf16 {case}: statistics "
+                                     "disagree with the plain sums")
+            lib_ok = _library_agrees(
+                "conv3d_fwd_bf16", case,
+                run_lib().reshape(b, co, r ** 3).float(), want.float(),
+                want.abs().max().item())
+            add("conv3d_fwd_bf16", case, err, run_k, run_p, flops,
+                2 * (b * ci * r ** 3 + 27 * ci * co + b * co * r ** 3)
+                + 4 * co, run_lib if lib_ok else None)
+
+            run_k = lambda: conv3d._wgrad_cuda(x, gy, scale, shift, r, pro)
+            run_p = lambda: conv3d._wgrad_plain(x, gy, scale, shift, r, pro)
+            g5 = gy.reshape(b, co, r, r, r)
+            run_lib = lambda: torch.nn.grad.conv3d_weight(x5, w.shape, g5,
+                                                          padding=1)
+            dw = _twice("conv3d_wgrad_bf16", case, run_k)
+            want = run_p()
+            err = _bf16_compare("conv3d_wgrad_bf16", case, dw, want)
+            lib_ok = _library_agrees("conv3d_wgrad_bf16", case,
+                                     run_lib().float(), want.float(),
+                                     want.abs().max().item())
+            timed = add("conv3d_wgrad_bf16", case, err, run_k, run_p, flops,
+                        2 * (b * ci * r ** 3 + b * co * r ** 3
+                             + 27 * ci * co), run_lib if lib_ok else None)
+            splits, per = conv3d._wgrad_bf16_plan(b, ci, co, r, sms)
+            share = (f", {timed[1] / timed[0]:.1%} of its bound"
+                     if timed else "")
+            log("kernels", f"conv3d_wgrad_bf16 {case}: {splits} split(s) of "
+                f"{per} slices{share}")
+
+        if ("conv3d_dgrad_bf16", (co, ci, r)) in rec.calls:
+            case = (co, ci, r)
+            run_k = lambda: conv3d._dgrad_cuda(gy, w, r)
+            run_p = lambda: conv3d._dgrad_plain(gy, w, r)
+            g5 = gy.reshape(b, co, r, r, r)
+            run_lib = lambda: torch.nn.grad.conv3d_input(
+                (b, ci, r, r, r), w, g5, padding=1)
+            dx = _twice("conv3d_dgrad_bf16", case, run_k)
+            want = run_p()
+            err = _bf16_compare("conv3d_dgrad_bf16", case, dx, want)
+            lib_ok = _library_agrees(
+                "conv3d_dgrad_bf16", case,
+                run_lib().reshape(b, ci, r ** 3).float(), want.float(),
+                want.abs().max().item())
+            add("conv3d_dgrad_bf16", case, err, run_k, run_p, flops,
+                2 * (b * co * r ** 3 + 27 * ci * co + b * ci * r ** 3),
+                run_lib if lib_ok else None)
+
+
+def phase_bf16_kernels() -> dict:
+    """Phase 29's kernels: the bf16 modes at the shapes ShapeNet PVCNN
+    training with bf16 activations gives them, at 1x (B = 32) and at 0.25x
+    (B = 64). -> {path: record}"""
+    torch.manual_seed(SEED + 100)
+    rng = np.random.RandomState(SEED + 100)
+    recs = {}
+    for path, calls, b in (("ShapeNet PVCNN 1x bf16", CALLS_BF16, B),
+                           ("ShapeNet PVCNN 0.25x bf16", CALLS_BF16_QUARTER,
+                            2 * B)):
+        coords = torch.from_numpy(cloud(rng, b, N)[..., :3]).to(DEVICE)
+        rec = Record(calls)
+        _time_bf16_kernels(rec, coords)
+        recs[path] = rec.summary(path)
+    return recs
+
+
+def _rel(a, b) -> float:
+    a, b = (torch.as_tensor(v, dtype=torch.float64) for v in (a, b))
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _bf16_rule(label: str, what: str, kern, plain, fp32) -> None:
+    """The kernel path in bf16 against the plain path in bf16, both held
+    to the fp32 kernel path: the kernel path's distance (rel-L2) from fp32
+    at most twice the plain path's, plus 1e-3 (the CPU tests' rule against
+    JAX)."""
+    got, own = _rel(kern, fp32), _rel(plain, fp32)
+    log("bf16", f"{label} {what}: kernel bf16 vs fp32 {got:.3e}, plain bf16 "
+        f"vs fp32 {own:.3e} (kernel <= 2 x plain + 1e-3)")
+    if got > 2 * own + 1e-3:
+        raise AssertionError(f"{label} {what}: the bf16 kernel path strays "
+                             "from fp32 by more than bf16 itself costs")
+
+
+# the bf16 kernel path against the bf16 plain path directly (rel-L2; the
+# step-1 loss relative), at 2-2.5x the most that PVCNN 1x and 0.25x showed
+# on an H100 80GB HBM3 at 700 W (eval logits 2.2e-3 / 8.1e-4, step-1 loss
+# 6.0e-6 / 1.2e-7, step-1 gradients 0.244 / 0.215; PERF.md). Both paths
+# round the same activations to bf16 after f32 sums taken in other
+# orders; where the two roundings differ at a LeakyReLU/ReLU input within
+# a rounding of zero, the gate flips and the gradient below it moves by
+# its whole size, so the gradients sit much further apart than the logits
+# (rounding only the input normals to bf16 moved the fp32 gradients by
+# 0.119 / 0.134 in the same run).
+BF16_APART = {"eval logits": 5e-3, "step-1 loss": 1.5e-5,
+              "step-1 gradients": 0.5}
+
+
+def _apart(label: str, what: str, kern, plain) -> None:
+    got = (abs(kern - plain) / abs(plain) if isinstance(kern, float)
+           else _rel(kern, plain))
+    log("bf16", f"{label} {what}: kernel bf16 vs plain bf16 {got:.3e} "
+        f"(<= {BF16_APART[what]:g})")
+    if got > BF16_APART[what]:
+        raise AssertionError(f"{label} {what}: the bf16 kernel path "
+                             "disagrees with the bf16 plain path")
+
+
+def _leaf_gaps(label: str, model, grads, ref, top: int = 3) -> None:
+    """Log the leaves that carry most of |grads - ref|^2 (each leaf's
+    share and its own rel-L2) and the classifier's last layer."""
+    named, rows, at = list(model.named_parameters()), [], 0
+    total = (grads - ref).double().norm().item() ** 2
+    for name, p in named:
+        g, w = (t[at:at + p.numel()].double() for t in (grads, ref))
+        at += p.numel()
+        gap = (g - w).norm().item()
+        rows.append((gap ** 2 / total, name, gap / max(w.norm().item(),
+                                                         1e-30)))
+    worst = sorted(rows, reverse=True)[:top]
+    log("bf16", f"{label}: leaves carrying the bf16 step-1 gradients' "
+        "distance from fp32: " + ", ".join(
+            f"{n} {share:.1%} of it (its own rel-L2 {r:.3f})"
+            for share, n, r in worst)
+        + "; the classifier's last weight {} {:.3e}".format(*[
+            (nm, r) for _, nm, r in rows if nm.endswith("weight")][-1]))
+
+
+def phase_bf16_train(label: str, base, wm: float, batches, per_step: dict,
+                     profile: bool) -> dict:
+    """Training steps of base's model with bf16 activations (the same
+    weights) on the kernel and plain paths, and of base itself (fp32) on
+    the kernel path: step 1 twice bitwise equal on the kernel path; the
+    eval logits, step-1 loss and gradients of the bf16 kernel path against
+    the bf16 plain path (BF16_APART); step 1 (loss, gradients) and the
+    losses of 3 steps under _bf16_rule; the leaves that carry the bf16
+    gradients' distance from fp32, and the fp32 gradients' move when only
+    the input normals are rounded to bf16; launches per step of every
+    record; ms/step (medians of 3 rounds of 5 steps, in turns with the fp32
+    step) and peak memory of both. -> the bf16 kernel path's launches over
+    its 3 steps."""
+    from pvcnn_tpu_torch import kernels
+    from pvcnn_tpu_torch.models.shapenet import PVCNN
+
+    b, n = batches[0][0].shape[:2]
+    model16 = PVCNN(50, 16, 3, width_multiplier=wm, dtype="bfloat16")
+    model16.load_state_dict(base.state_dict())
+    make16, make32 = (lambda: _trainer(model16, 0.0),
+                      lambda: _trainer(base, 0.0))
+    k16 = make16()
+    with torch.no_grad():
+        logits_k = k16.model.eval()(batches[0][0])
+        with plain_on_card():
+            logits_p = k16.model(batches[0][0])
+    _apart(label, "eval logits", logits_k.float(), logits_p.float())
+    loss_k, grads_k = grads_of(k16, *batches[0], SEED)
+    loss_k2, grads_k2 = grads_of(k16, *batches[0], SEED)
+    if loss_k != loss_k2 or not torch.equal(grads_k, grads_k2):
+        raise AssertionError(f"{label} bf16: two kernel-path runs of step 1 "
+                             "differ")
+    log("bf16", f"{label}: step-1 loss and gradients of two bf16 kernel-path "
+        "runs are bitwise equal")
+    with plain_on_card():
+        loss_p, grads_p = grads_of(make16(), *batches[0], SEED)
+    loss_f, grads_f = grads_of(make32(), *batches[0], SEED)
+    log("bf16", f"{label} step 1: loss bf16 kernel {loss_k:.7f}, bf16 plain "
+        f"{loss_p:.7f}, fp32 {loss_f:.7f}")
+    _apart(label, "step-1 loss", loss_k, loss_p)
+    _apart(label, "step-1 gradients", grads_k, grads_p)
+    _bf16_rule(label, "step-1 gradients", grads_k, grads_p, grads_f)
+    _bf16_rule(label, "step-1 loss", [loss_k], [loss_p], [loss_f])
+    _leaf_gaps(label, model16, grads_k, grads_f)
+    x, y = batches[0]
+    xr = x.clone()
+    xr[..., 3:6] = xr[..., 3:6].to(torch.bfloat16).float()
+    _, grads_r = grads_of(make32(), xr, y, SEED)
+    log("bf16", f"{label}: the fp32 step-1 gradients with only the input "
+        f"normals rounded to bf16 sit {_rel(grads_r, grads_f):.3e} (rel-L2) "
+        "from fp32")
+
+    k16, p16, k32 = make16(), make16(), make32()
+    losses = {"kernel": [], "plain": [], "fp32": []}
+    total = {}
+    for i, (x, y) in enumerate(batches):
+        kernels.reset_launch_counts()
+        losses["kernel"].append(k16.train_step(x, y).item())
+        ran = kernels.launch_counts()
+        total = _add_counts(total, ran)
+        counts = {k: v for k, v in ran.items() if v}
+        if counts != per_step:
+            raise AssertionError(f"{label} bf16 step {i + 1} launches "
+                                 f"{counts}, expected {per_step}")
+        with plain_on_card():
+            losses["plain"].append(p16.train_step(x, y).item())
+        losses["fp32"].append(k32.train_step(x, y).item())
+    log("bf16", f"{label}: launches per bf16 step: {counts}")
+    log("bf16", f"{label}: losses {losses}")
+    if not all(np.isfinite(losses["kernel"])):
+        raise AssertionError(f"{label} bf16: non-finite losses")
+    _bf16_rule(label, "3-step losses", losses["kernel"], losses["plain"],
+               losses["fp32"])
+    kept = list(k16.model.state_dict().values()) + [
+        v for st in k16.optimizer.state.values() for v in st.values()
+        if torch.is_tensor(v) and v.dim()]
+    if {t.dtype for t in kept if t.is_floating_point()} != {torch.float32}:
+        raise AssertionError(f"{label} bf16: parameters, BatchNorm "
+                             "statistics or Adam state left float32")
+
+    ms, mem = {"bf16": [], "fp32": []}, {}
+    x, y = batches[0]
+    for _ in range(3):                               # in turns
+        for name, trainer in (("bf16", k16), ("fp32", k32)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms[name].append(time_ms(lambda: trainer.train_step(x, y),
+                                    reps=5, warmup=1))
+            mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("bf16", f"{label} training step, {b} x {n}: bf16 kernel path "
+        f"{np.median(ms['bf16']):.3f} ms/step, fp32 kernel path "
+        f"{np.median(ms['fp32']):.3f} ms/step (medians of {ms['bf16']} / "
+        f"{ms['fp32']}, in turns); peak memory bf16 {mem['bf16']:.3f} GiB, "
+        f"fp32 {mem['fp32']:.3f} GiB")
+    if profile:
+        _profile_steps(f"{label} bf16", k16, x, y)
+    return total
+
+
+def phase_bf16_configs() -> dict:
+    """`python -m pvcnn_tpu_torch.train` (train/cli.py's prepare and run)
+    with ShapeNet PVCNN c0p25 and --configs.model.dtype=bfloat16 on a
+    synthetic tree of 64 shapes, one epoch of 4 steps from zeroed counters
+    (launches exactly 4 x the bf16 step's plus the test split's forwards),
+    then its evaluator from that run's best.pth.tar (2 votes: exactly the
+    bf16 eval forwards' launches, stats finite and in range). -> the
+    launches of both."""
+    from pvcnn_tpu_torch.data.shapenet import write_synthetic
+    from pvcnn_tpu_torch.evaluate.__main__ import main as evaluate_main
+    from pvcnn_tpu_torch.train.cli import prepare, run
+
+    config = os.path.join(CONFIGS, "shapenet", "pvcnn", "c0p25.py")
+    rng = np.random.RandomState(SEED + 3)
+    items = [(int(s), int(n)) for s, n in zip(rng.randint(0, 16, 64),
+                                              rng.randint(2000, 3000, 64))]
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as root:
+        write_synthetic(root, items, seed=SEED)
+        args = [config, "--devices", "0", f"--configs.dataset.root={root}",
+                "--configs.train.num_epochs=1",
+                "--configs.model.dtype=bfloat16",
+                f"--configs.train.save_path={root}/cli"]
+        configs = prepare(args)
+        if configs.model().act_dtype != torch.bfloat16:
+            raise AssertionError("--configs.model.dtype did not reach the "
+                                 "model")
+        meters, counts, seconds = _counted(lambda: run(configs))
+        log("bf16", f"shapenet pvcnn c0p25 --configs.model.dtype=bfloat16: "
+            f"prepare + run, 1 epoch of 4 steps at batch 32 + 64 test "
+            f"shapes: {seconds:.2f} s, {meters}")
+        _check_launches("shapenet bf16 train", counts,
+                        _expected(counts, PER_STEP_BF16, FWD_BF16, 4, 2))
+        if not all(np.isfinite(v) for v in meters.values()):
+            raise AssertionError(f"bad bf16 training meters {meters}")
+        stats, ran, seconds = _counted(lambda: evaluate_main(
+            args + ["--configs.evaluate.num_votes=2"]))
+        forwards = sum(-(-2 * -(-n // N) // B) for _, n in items)
+        iou = float(stats[:, 0].sum() / max(stats[:, 1].sum(), 1))
+        log("bf16", f"shapenet pvcnn c0p25 bf16: python -m "
+            f"pvcnn_tpu_torch.evaluate (2 votes, batch 32): {seconds:.2f} "
+            f"s, mIoU {iou:.4f} over {stats[:, 1].sum():.0f} shapes in "
+            f"{forwards} forwards")
+        if stats.shape != (16, 2) or not np.isfinite(stats).all() \
+                or stats[:, 1].sum() != len(items) or not 0 <= iou <= 1:
+            raise AssertionError(f"bad bf16 evaluation stats {stats}")
+        _check_launches("shapenet bf16 evaluate", ran,
+                        _expected(ran, PER_STEP_BF16, FWD_BF16, 0, forwards))
+    return _add_counts(counts, ran)
+
+
 def _stopwatch():
     """lap(phase) logs the seconds since the previous lap (or the start)."""
     last = [time.perf_counter()]
@@ -3837,6 +4335,24 @@ def main() -> None:
     s3dis_dir.cleanup()
     kitti_dir.cleanup()
     lap("configs")
+
+    rec.update(phase_bf16_kernels())
+    lap("bf16 kernels")
+    for wm, b, seed in ((1.0, B, SEED + 101), (0.25, 2 * B, SEED + 102)):
+        rng = np.random.RandomState(seed)
+        batches = [(torch.from_numpy(cloud(rng, b, N)).to(dev),
+                    torch.from_numpy(rng.randint(0, 50, (b, N))).to(dev))
+                   for _ in range(3)]
+        counts[f"ShapeNet PVCNN {wm:g}x bf16"] = phase_bf16_train(
+            f"PVCNN {wm:g}x", init_random_(
+                PVCNN(50, 16, 3, width_multiplier=wm), SEED), wm, batches,
+            PER_STEP_BF16, profile)
+        del batches
+    lap("bf16 train")
+    # the c0p25 config: the 0.25x path's entry points
+    counts["ShapeNet PVCNN 0.25x bf16"] = _add_counts(
+        counts["ShapeNet PVCNN 0.25x bf16"], phase_bf16_configs())
+    lap("bf16 configs")
 
     lines = []
     for k in kernels.KERNELS.values():

@@ -43,6 +43,16 @@
 // sectors left in L2) was slower still. Where B * N / 32 warps are too
 // few to fill the card (PVCNN2's coarse levels), the channel tiles are split
 // over more warps.
+//
+// bf16 mode (pvcnn_trilinear_devoxelize_bf16, counted as
+// trilinear_devoxelize_bf16): the channel-major mapping on a bf16 grid, a
+// template on the grid's type. Coordinates and weights stay f32, the 8
+// terms sum in f32 in the same order, and the output is rounded to bf16
+// once, as the JAX package's sorted gather (f32 weights and sum,
+// pvcnn_tpu/ops/devoxelize.py:219-231: out.astype(grid.dtype)). The fp32
+// instantiations are the fp32 kernel's code.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -81,13 +91,26 @@ __device__ __forceinline__ void corners(const float* __restrict__ p, int R,
   off[7] = x1 * r2 + y1 * R + z1;  w[7] = fx * fy * fz;
 }
 
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+      << 16);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // sum_k w[k] * g[off[k] * stride], in corner order
-__device__ __forceinline__ float blend(const float* __restrict__ g,
+template <typename T>
+__device__ __forceinline__ float blend(const T* __restrict__ g,
                                        int64_t stride, const int off[8],
                                        const float w[8]) {
-  float acc = w[0] * __ldg(g + off[0] * stride);
+  float acc = w[0] * load(g + off[0] * stride);
 #pragma unroll
-  for (int k = 1; k < 8; ++k) acc += w[k] * __ldg(g + off[k] * stride);
+  for (int k = 1; k < 8; ++k) acc += w[k] * load(g + off[k] * stride);
   return acc;
 }
 
@@ -109,12 +132,12 @@ trilinear_devoxelize_kernel(const float* __restrict__ grid,   // [B, R^3, C]
   out[t] = blend(grid + b * r3 * C + c, C, off, w);
 }
 
-template <int TC>
+template <int TC, typename T>
 __global__ void __launch_bounds__(pvcnn::kThreads)
 trilinear_devoxelize_planes_kernel(
-    const float* __restrict__ grid,     // [B, C, R^3]
+    const T* __restrict__ grid,         // [B, C, R^3]
     const float* __restrict__ coords,   // [B, N, 3]
-    float* __restrict__ out,            // [B, N, C]
+    T* __restrict__ out,                // [B, N, C]
     int B, int N, int C, int R, int groups) {
   __shared__ float tiles[kWarps][32 * (TC + 1)];
   float* tile = tiles[threadIdx.x >> 5];
@@ -131,7 +154,7 @@ trilinear_devoxelize_planes_kernel(
   const int64_t r3 = static_cast<int64_t>(R) * R * R;
   int off[8];
   float w[8];
-  const float* gb = grid;
+  const T* gb = grid;
   if (lane < np) {
     corners(coords + bn * 3, R, off, w);
     gb += bn / N * r3 * C;
@@ -139,7 +162,7 @@ trilinear_devoxelize_planes_kernel(
   // the tile's store: 32 / TC rows per instruction, lane = channel in a row
   constexpr int kRows = 32 / TC;
   const int col = lane % TC, sub = lane / TC;
-  float* o = out + p0 * C + col;
+  T* o = out + p0 * C + col;
   for (int c0 = g * TC; c0 < C; c0 += groups * TC) {
     const int ct = min(TC, C - c0);
     if (lane < np) {
@@ -153,23 +176,23 @@ trilinear_devoxelize_planes_kernel(
     __syncwarp();
     if (col < ct) {
       for (int p = sub; p < np; p += kRows) {
-        o[p * static_cast<int64_t>(C) + c0] = tile[p * (TC + 1) + col];
+        store(o + p * static_cast<int64_t>(C) + c0, tile[p * (TC + 1) + col]);
       }
     }
     __syncwarp();
   }
 }
 
-template <int TC>
-void launch_planes(const float* grid, const float* coords, float* out, int B,
-                   int N, int C, int R, cudaStream_t stream) {
+template <int TC, typename T>
+void launch_planes(const T* grid, const float* coords, T* out, int B, int N,
+                   int C, int R, cudaStream_t stream) {
   // split the channel tiles over more warps where the points alone give
   // too few (the coarse levels of PVCNN2)
   const int64_t point_warps = (static_cast<int64_t>(B) * N + 31) / 32;
   const int tiles = (C + TC - 1) / TC;
   int groups = 1;
   while (point_warps * groups < kMinWarps && groups * 2 <= tiles) groups *= 2;
-  trilinear_devoxelize_planes_kernel<TC><<<
+  trilinear_devoxelize_planes_kernel<TC, T><<<
       pvcnn::blocks_for(point_warps * groups * 32), pvcnn::kThreads, 0,
       stream>>>(grid, coords, out, B, N, C, R, groups);
 }
@@ -198,6 +221,25 @@ PVCNN_EXPORT int pvcnn_trilinear_devoxelize(const void* grid,
   } else {
     trilinear_devoxelize_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads,
                                   0, s>>>(gp, cp, op, B, N, C, R);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 mode: a bf16 channel-major grid [B, C, R^3] -> bf16 [B, N, C]
+PVCNN_EXPORT int pvcnn_trilinear_devoxelize_bf16(const void* grid,
+                                                 const void* coords,
+                                                 void* out, int B, int N,
+                                                 int C, int R,
+                                                 void* stream) {
+  if (static_cast<int64_t>(B) * N * C == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const __nv_bfloat16*>(grid);
+  const auto* cp = static_cast<const float*>(coords);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (R >= 32) {
+    launch_planes<16>(gp, cp, op, B, N, C, R, s);
+  } else {
+    launch_planes<32>(gp, cp, op, B, N, C, R, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

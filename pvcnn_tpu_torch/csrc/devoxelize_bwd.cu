@@ -41,6 +41,20 @@
 // at B = 32, R = 32, C = 64) against the N * C cotangent read and the
 // coordinates. A g row is read once by each of its (up to 8) corner bins,
 // mostly from L1/L2: the bins of one block share their runs.
+//
+// bf16 mode (pvcnn_devoxelize_bwd_bf16, counted as devoxelize_bwd_bf16): the
+// same sort and walk on a bf16 cotangent, channel-major output (the rows
+// branch) only, a template on the cotangent's type. As the JAX backward
+// (pvcnn_tpu/ops/devoxelize.py:366-395: w8.astype(g.dtype) * g, summed by
+// the f32 scatter kernel, cast to g.dtype), each weight is rounded to bf16,
+// each term w * g is rounded to bf16 (the product of two bf16 is exact in
+// f32, then rounded), the terms add in f32 in the fixed order, and the sum
+// is rounded to bf16 once. The fp32 instantiations are the fp32 kernel's
+// code.
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 #include "counting_sort.cuh"
 
@@ -104,6 +118,48 @@ __device__ __forceinline__ bool corner_weight(float4 p, int k, float* w) {
   return true;
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float bf16_bits(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+
+// a row's V values of type E: S is the stored vector (float, float4; one
+// bf16, four bf16 in 8 bytes)
+template <typename E, int V>
+struct Load;
+template <>
+struct Load<float, 1> {
+  using S = float;
+};
+template <>
+struct Load<float, 4> {
+  using S = float4;
+};
+template <>
+struct Load<__nv_bfloat16, 1> {
+  using S = unsigned short;
+  static __device__ __forceinline__ float get(const S* p) {
+    return bf16_bits(__ldg(p));
+  }
+};
+template <>
+struct Load<__nv_bfloat16, 4> {
+  using S = uint2;
+  static __device__ __forceinline__ float4 get(const S* p) {
+    const uint2 u = __ldg(p);
+    return make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16),
+                       bf16_bits(u.y & 0xffffu), bf16_bits(u.y >> 16));
+  }
+};
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 template <int V>
 struct Vec;
 template <>
@@ -111,6 +167,10 @@ struct Vec<1> {
   using T = float;
   static __device__ __forceinline__ void fma(T& acc, float w, T g) {
     acc = fmaf(w, g, acc);
+  }
+  // the bf16 mode's term: acc += bf16(w * g), w and g bf16 values
+  static __device__ __forceinline__ void add_rounded(T& acc, float w, T g) {
+    acc = __fadd_rn(acc, round_bf16(__fmul_rn(w, g)));
   }
   static __device__ __forceinline__ float at(const T& a, int) { return a; }
 };
@@ -123,20 +183,28 @@ struct Vec<4> {
     acc.z = fmaf(w, g.z, acc.z);
     acc.w = fmaf(w, g.w, acc.w);
   }
+  static __device__ __forceinline__ void add_rounded(T& acc, float w, T g) {
+    Vec<1>::add_rounded(acc.x, w, g.x);
+    Vec<1>::add_rounded(acc.y, w, g.y);
+    Vec<1>::add_rounded(acc.z, w, g.z);
+    Vec<1>::add_rounded(acc.w, w, g.w);
+  }
   static __device__ __forceinline__ float at(const T& a, int j) {
     return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
   }
 };
 
-// G lanes per bin, M vectors of V floats per lane and pass over the channels
-template <int V, int G, int M, bool kChannelsFirst>
+// G lanes per bin, M vectors of V values per lane and pass over the channels
+template <typename In, int V, int G, int M, bool kChannelsFirst>
 __global__ void __launch_bounds__(pvcnn::kThreads)
-devoxelize_bwd_kernel(const float* __restrict__ g,          // [B, N, C]
+devoxelize_bwd_kernel(const In* __restrict__ g,             // [B, N, C]
                       const float4* __restrict__ sorted,    // [B, N]
                       const int* __restrict__ bounds,       // [B, R^3 + 1]
-                      float* __restrict__ out,  // [B, C, R^3] or [B, R^3, C]
+                      In* __restrict__ out,     // [B, C, R^3] or [B, R^3, C]
                       int N, int C, int R) {
   using T = typename Vec<V>::T;
+  using S = typename Load<In, V>::S;
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   constexpr int kCT = G * M * V;                  // channels per pass
   constexpr int kGroups = pvcnn::kThreads / G;    // lane groups per block
   constexpr int kStride = kCT + 1;                // odd: no bank conflicts
@@ -149,7 +217,7 @@ devoxelize_bwd_kernel(const float* __restrict__ g,          // [B, N, C]
   const int* bnd = bounds + b * (R3 + 1);
   const float4* pts = sorted + b * N;
   const int nv = C / V;                           // vectors per row
-  const T* gb = reinterpret_cast<const T*>(g + b * N * C);
+  const S* gb = reinterpret_cast<const S*>(g + b * N * C);
 
   for (int c0 = 0; c0 < nv; c0 += G * M) {        // passes, in vectors
     for (int t = grp; t < kBinsPerBlock; t += kGroups) {
@@ -177,11 +245,22 @@ devoxelize_bwd_kernel(const float* __restrict__ g,          // [B, N, C]
           const float4 p = __ldg(pts + j);
           float w;
           if (!corner_weight(p, k, &w)) continue;
-          const T* row = gb + static_cast<int64_t>(__float_as_int(p.w)) * nv;
+          const S* row = gb + static_cast<int64_t>(__float_as_int(p.w)) * nv;
+          if constexpr (kBf16) {
+            const float wb = round_bf16(w);
 #pragma unroll
-          for (int m = 0; m < M; ++m) {
-            const int c = c0 + m * G + li;
-            if (c < nv) Vec<V>::fma(acc[m], w, __ldg(row + c));
+            for (int m = 0; m < M; ++m) {
+              const int c = c0 + m * G + li;
+              if (c < nv) {
+                Vec<V>::add_rounded(acc[m], wb, Load<In, V>::get(row + c));
+              }
+            }
+          } else {
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const int c = c0 + m * G + li;
+              if (c < nv) Vec<V>::fma(acc[m], w, __ldg(row + c));
+            }
           }
         }
       }
@@ -209,7 +288,8 @@ devoxelize_bwd_kernel(const float* __restrict__ g,          // [B, N, C]
       for (int e = threadIdx.x; e < cs * kBinsPerBlock; e += blockDim.x) {
         const int cl = e / kBinsPerBlock, t = e % kBinsPerBlock;
         if (v0 + t < R3) {
-          out[(b * C + c0 * V + cl) * R3 + v0 + t] = tile[t * kStride + cl];
+          store(out + (b * C + c0 * V + cl) * R3 + v0 + t,
+                tile[t * kStride + cl]);
         }
       }
       __syncthreads();
@@ -217,20 +297,22 @@ devoxelize_bwd_kernel(const float* __restrict__ g,          // [B, N, C]
   }
 }
 
-struct Args {
-  const float* g;
+template <typename In>
+struct ArgsOf {
+  const In* g;
   const float4* sorted;
   const int* bounds;
-  float* out;
+  In* out;
   int B, N, C, R;
   cudaStream_t stream;
 };
+using Args = ArgsOf<float>;
 
-template <int V, int G, int M, bool kChannelsFirst>
-void launch(const Args& a) {
+template <int V, int G, int M, bool kChannelsFirst, typename In>
+void launch(const ArgsOf<In>& a) {
   const int r3 = a.R * a.R * a.R;
   const dim3 grid((r3 + kBinsPerBlock - 1) / kBinsPerBlock, a.B);
-  devoxelize_bwd_kernel<V, G, M, kChannelsFirst>
+  devoxelize_bwd_kernel<In, V, G, M, kChannelsFirst>
       <<<grid, pvcnn::kThreads, 0, a.stream>>>(a.g, a.sorted, a.bounds, a.out,
                                                a.N, a.C, a.R);
 }
@@ -238,8 +320,8 @@ void launch(const Args& a) {
 // rows of up to 32 vectors take 8 lanes per bin (4 bins per warp: each run
 // lookup serves more channels per instruction where most bins are empty);
 // wider rows a whole warp, 256 channels per pass
-template <int V, bool kChannelsFirst>
-void launch_for(const Args& a) {
+template <int V, bool kChannelsFirst, typename In>
+void launch_for(const ArgsOf<In>& a) {
   const int nv = a.C / V;
   if (nv <= 8) {
     launch<V, 8, 1, kChannelsFirst>(a);
@@ -291,5 +373,23 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd(const void* g, const void* sorted,
   } else {
     vec4 ? launch_for<4, false>(a) : launch_for<1, false>(a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 mode: a bf16 cotangent g [B, N, C] -> the bf16 channel-major
+// grid gradient [B, C, R^3]; sorted and bounds from
+// pvcnn_devoxelize_bwd_sort
+PVCNN_EXPORT int pvcnn_devoxelize_bwd_bf16(const void* g, const void* sorted,
+                                           const void* bounds, void* out,
+                                           int B, int N, int C, int R,
+                                           void* stream) {
+  if (static_cast<int64_t>(B) * C * R == 0) return 0;
+  const ArgsOf<__nv_bfloat16> a{
+      static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float4*>(sorted), static_cast<const int*>(bounds),
+      static_cast<__nv_bfloat16*>(out), B, N, C, R,
+      static_cast<cudaStream_t>(stream)};
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0;
+  vec4 ? launch_for<4, true>(a) : launch_for<1, true>(a);
   return static_cast<int>(cudaGetLastError());
 }

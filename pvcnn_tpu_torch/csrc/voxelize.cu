@@ -44,6 +44,17 @@
 // Bound. Bytes: the N * C input read once, every output element written once
 // (B * bins * C floats), the ids and the permutation read once. At R = 32
 // the grid dominates: 268 MB at B = 32, C = 64, 37.7 MB at C = 9.
+//
+// bf16 mode (pvcnn_avg_voxelize_bf16, counted as avg_voxelize_bf16): the
+// same sort and kernel on bf16 values, the mean of the rows branch
+// (channel-major, mean) only. The kernel is a template on the value type
+// (kernel<In, Out, ...>): bf16 rows are read 4 values (8 bytes) a lane
+// where C % 4 == 0, summed in f32 in the same order, divided by the count
+// in f32 and rounded to bf16 once, as the JAX package's f32 one-hot sums
+// (pvcnn_tpu/ops/voxelize.py:122-129: means.astype(features.dtype)). The
+// fp32 instantiations are the fp32 kernel's code.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 #include "counting_sort.cuh"
 
@@ -71,6 +82,46 @@ avg_voxelize_sort_kernel(const int* __restrict__ ids,  // [B, N]
       [&](const BinId&, int i, int slot) { p[slot] = i; });
 }
 
+// a row's V values of type E as the f32 accumulator type: S is the stored
+// vector (float, float4; one bf16, four bf16 in 8 bytes)
+template <typename E, int V>
+struct Load;
+template <>
+struct Load<float, 1> {
+  using S = float;
+  static __device__ __forceinline__ float get(const S* p) { return __ldg(p); }
+};
+template <>
+struct Load<float, 4> {
+  using S = float4;
+  static __device__ __forceinline__ float4 get(const S* p) {
+    return __ldg(p);
+  }
+};
+template <>
+struct Load<__nv_bfloat16, 1> {
+  using S = unsigned short;
+  static __device__ __forceinline__ float get(const S* p) {
+    return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
+  }
+};
+template <>
+struct Load<__nv_bfloat16, 4> {
+  using S = uint2;
+  static __device__ __forceinline__ float4 get(const S* p) {
+    const uint2 u = __ldg(p);
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+};
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 template <int V>
 struct Vec;
 template <>
@@ -94,16 +145,17 @@ struct Vec<4> {
   }
 };
 
-// G lanes per bin, M vectors of V floats per lane and pass over the
+// G lanes per bin, M vectors of V values per lane and pass over the
 // channels; out [B, C, bins] with kChannelsFirst, else [B, bins, C]
-template <int V, int G, int M, bool kChannelsFirst>
+template <typename In, typename Out, int V, int G, int M, bool kChannelsFirst>
 __global__ void __launch_bounds__(pvcnn::kThreads)
-avg_voxelize_bins_kernel(const float* __restrict__ feats,   // [B, N, C]
+avg_voxelize_bins_kernel(const In* __restrict__ feats,      // [B, N, C]
                          const int* __restrict__ perm,      // [B, N]
                          const int* __restrict__ bounds,    // [B, bins + 1]
-                         float* __restrict__ out,  // see kChannelsFirst
+                         Out* __restrict__ out,    // see kChannelsFirst
                          int N, int C, int bins, int mean) {
   using T = typename Vec<V>::T;
+  using S = typename Load<In, V>::S;
   constexpr int kCT = G * M * V;                  // channels per pass
   constexpr int kGroups = pvcnn::kThreads / G;    // lane groups per block
   constexpr int kBins = kChannelsFirst ? 32 : kGroups;   // bins per block
@@ -115,7 +167,7 @@ avg_voxelize_bins_kernel(const float* __restrict__ feats,   // [B, N, C]
   const int* bnd = bounds + b * (bins + 1);
   const int* p = perm + b * N;
   const int nv = C / V;                           // vectors per row
-  const T* f = reinterpret_cast<const T*>(feats + b * N * C);
+  const S* f = reinterpret_cast<const S*>(feats + b * N * C);
 
   for (int c0 = 0; c0 < nv; c0 += G * M) {        // passes, in vectors
     for (int t = grp; t < kBins; t += kGroups) {
@@ -132,11 +184,11 @@ avg_voxelize_bins_kernel(const float* __restrict__ feats,   // [B, N, C]
       for (int m = 0; m < M; ++m) acc[m] = T{};
 #pragma unroll 4
       for (int j = start; j < end; ++j) {
-        const T* row = f + static_cast<int64_t>(__ldg(p + j)) * nv;
+        const S* row = f + static_cast<int64_t>(__ldg(p + j)) * nv;
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           const int c = c0 + m * G + li;
-          if (c < nv) Vec<V>::add(acc[m], __ldg(row + c));
+          if (c < nv) Vec<V>::add(acc[m], Load<In, V>::get(row + c));
         }
       }
       if constexpr (kChannelsFirst) {
@@ -164,7 +216,8 @@ avg_voxelize_bins_kernel(const float* __restrict__ feats,   // [B, N, C]
       for (int e = threadIdx.x; e < cs * kBins; e += blockDim.x) {
         const int cl = e / kBins, t = e % kBins;
         if (v0 + t < bins) {
-          out[(b * C + c0 * V + cl) * bins + v0 + t] = tile[t * kStride + cl];
+          store(out + (b * C + c0 * V + cl) * bins + v0 + t,
+                tile[t * kStride + cl]);
         }
       }
       __syncthreads();
@@ -172,20 +225,22 @@ avg_voxelize_bins_kernel(const float* __restrict__ feats,   // [B, N, C]
   }
 }
 
-struct Args {
-  const float* feats;
+template <typename In, typename Out>
+struct ArgsOf {
+  const In* feats;
   const int* perm;
   const int* bounds;
-  float* out;
+  Out* out;
   int B, N, C, bins, mean;
   cudaStream_t stream;
 };
+using Args = ArgsOf<float, float>;
 
-template <int V, int G, int M, bool kChannelsFirst>
-void launch(const Args& a) {
+template <int V, int G, int M, bool kChannelsFirst, typename In, typename Out>
+void launch(const ArgsOf<In, Out>& a) {
   constexpr int kBins = kChannelsFirst ? 32 : pvcnn::kThreads / G;
   const dim3 grid((a.bins + kBins - 1) / kBins, a.B);
-  avg_voxelize_bins_kernel<V, G, M, kChannelsFirst>
+  avg_voxelize_bins_kernel<In, Out, V, G, M, kChannelsFirst>
       <<<grid, pvcnn::kThreads, 0, a.stream>>>(a.feats, a.perm, a.bounds,
                                                a.out, a.N, a.C, a.bins,
                                                a.mean);
@@ -196,8 +251,8 @@ void launch(const Args& a) {
 // pass. Bin-major: rows of up to 16 vectors take 4 lanes per bin (64 bins a
 // block), wider rows a whole warp (rows wider than 32 * M vectors take more
 // walks).
-template <int V>
-void launch_channels_first(const Args& a) {
+template <int V, typename In, typename Out>
+void launch_channels_first(const ArgsOf<In, Out>& a) {
   const int nv = a.C / V;
   if (nv <= 8) {
     launch<V, 8, 1, true>(a);
@@ -275,6 +330,27 @@ PVCNN_EXPORT int pvcnn_avg_voxelize(const void* feats, const void* ids,
   } else {
     vec4 ? launch_bin_major<4>(a) : launch_bin_major<1>(a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 mode: bf16 feats [B, N, C] -> the bf16 channel-major means
+// [B, C, bins]; ids and the sort as pvcnn_avg_voxelize's
+PVCNN_EXPORT int pvcnn_avg_voxelize_bf16(const void* feats, const void* ids,
+                                         void* perm, void* bounds, void* out,
+                                         int B, int N, int C, int bins,
+                                         void* stream) {
+  if (ids != nullptr) {
+    const int err =
+        pvcnn_avg_voxelize_sort(ids, perm, bounds, B, N, bins, stream);
+    if (err != 0) return err;
+  }
+  if (static_cast<int64_t>(B) * C * bins == 0) return 0;
+  const ArgsOf<__nv_bfloat16, __nv_bfloat16> a{
+      static_cast<const __nv_bfloat16*>(feats), static_cast<const int*>(perm),
+      static_cast<const int*>(bounds), static_cast<__nv_bfloat16*>(out),
+      B, N, C, bins, 1, static_cast<cudaStream_t>(stream)};
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 8 == 0;
+  vec4 ? launch_channels_first<4>(a) : launch_channels_first<1>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

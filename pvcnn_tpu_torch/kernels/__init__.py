@@ -57,6 +57,13 @@ _SIGNATURES = {
                                _I, _I, _I, _P],
     "pvcnn_conv3d_ndhwc_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P],
+    "pvcnn_avg_voxelize_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_trilinear_devoxelize_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_conv3d_bf16_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P],
+    "pvcnn_conv3d_bf16_wgrad": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _P],
 }
 
 
@@ -102,6 +109,20 @@ KERNELS = {k.name: k for k in (
            "pvcnn_tpu/ops/pallas/dense_rows.py:158"),
     Kernel("conv3d_ndhwc_wgrad", "pvcnn_tpu_torch/csrc/conv3d_ndhwc_wgrad.cu",
            "pvcnn_tpu/ops/pallas/conv_wgrad.py:166"),
+    # the bf16 modes of K1-K5 (bf16 activations), each counted apart from
+    # its fp32 kernel
+    Kernel("avg_voxelize_bf16", "pvcnn_tpu_torch/csrc/voxelize.cu",
+           "pvcnn_tpu/ops/pallas/scatter.py:144"),
+    Kernel("trilinear_devoxelize_bf16", "pvcnn_tpu_torch/csrc/devoxelize.cu",
+           "pvcnn_tpu/ops/pallas/sorted_gather.py:178"),
+    Kernel("conv3d_fwd_bf16", "pvcnn_tpu_torch/csrc/conv3d_bf16.cu",
+           "pvcnn_tpu/ops/pallas/conv_rows.py:636"),
+    Kernel("conv3d_dgrad_bf16", "pvcnn_tpu_torch/csrc/conv3d_bf16.cu",
+           "pvcnn_tpu/ops/pallas/conv_rows.py:477"),
+    Kernel("conv3d_wgrad_bf16", "pvcnn_tpu_torch/csrc/conv3d_bf16.cu",
+           "pvcnn_tpu/ops/pallas/conv_rows.py:690"),
+    Kernel("devoxelize_bwd_bf16", "pvcnn_tpu_torch/csrc/devoxelize_bwd.cu",
+           "pvcnn_tpu/ops/pallas/sorted_scatter.py:209"),
 )}
 
 

@@ -27,6 +27,7 @@ from pvcnn_tpu_torch.models.kitti.frustum.segmentation import (
     InstanceSegmentationPointNet, InstanceSegmentationPointNet2,
     InstanceSegmentationPVCNN)
 from pvcnn_tpu_torch.ops import sampling
+from pvcnn_tpu_torch.utils.dtype import fp32_only
 
 __all__ = ["FrustumNet", "FrustumPVCNNE", "FrustumPointNet",
            "FrustumPointNet2"]
@@ -100,7 +101,8 @@ def _net(make_seg, make_box, num_classes, num_heading_angle_bins,
 
 def FrustumPointNet(num_classes, num_heading_angle_bins, num_size_templates,
                     num_points_per_object, size_templates,
-                    extra_feature_channels=1, width_multiplier=1):
+                    extra_feature_channels=1, width_multiplier=1, dtype=None):
+    fp32_only(dtype, "FrustumPointNet")
     return _net(lambda wm: InstanceSegmentationPointNet(
         num_classes, extra_feature_channels, wm), BoxEstimationPointNet,
         num_classes, num_heading_angle_bins, num_size_templates,
@@ -109,7 +111,9 @@ def FrustumPointNet(num_classes, num_heading_angle_bins, num_size_templates,
 
 def FrustumPointNet2(num_classes, num_heading_angle_bins, num_size_templates,
                      num_points_per_object, size_templates,
-                     extra_feature_channels=1, width_multiplier=1):
+                     extra_feature_channels=1, width_multiplier=1,
+                     dtype=None):
+    fp32_only(dtype, "FrustumPointNet2")
     return _net(lambda wm: InstanceSegmentationPointNet2(
         num_classes, extra_feature_channels, wm), BoxEstimationPointNet2,
         num_classes, num_heading_angle_bins, num_size_templates,
@@ -119,7 +123,8 @@ def FrustumPointNet2(num_classes, num_heading_angle_bins, num_size_templates,
 def FrustumPVCNNE(num_classes, num_heading_angle_bins, num_size_templates,
                   num_points_per_object, size_templates,
                   extra_feature_channels=1, width_multiplier=1,
-                  voxel_resolution_multiplier=1):
+                  voxel_resolution_multiplier=1, dtype=None):
+    fp32_only(dtype, "FrustumPVCNNE")
     return _net(lambda wm: InstanceSegmentationPVCNN(
         num_classes, extra_feature_channels, wm,
         voxel_resolution_multiplier), BoxEstimationPointNet,

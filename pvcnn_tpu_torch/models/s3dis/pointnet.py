@@ -14,6 +14,7 @@ import torch.nn as nn
 
 from pvcnn_tpu_torch.models.utils import (apply_layers, create_mlp_components,
                                           create_pointnet_components)
+from pvcnn_tpu_torch.utils.dtype import fp32_only
 
 __all__ = ["PointNet"]
 
@@ -22,7 +23,8 @@ class PointNet(nn.Module):
     blocks = ((64, 3, None), (128, 1, None), (1024, 1, None))
 
     def __init__(self, num_classes: int, extra_feature_channels: int = 6,
-                 width_multiplier: float = 1):
+                 width_multiplier: float = 1, dtype=None):
+        fp32_only(dtype, "S3DIS PointNet")
         super().__init__()
         self.in_channels = extra_feature_channels + 3
         layers, channels_point, _ = create_pointnet_components(

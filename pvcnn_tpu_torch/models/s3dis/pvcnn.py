@@ -17,6 +17,7 @@ import torch.nn as nn
 from pvcnn_tpu_torch.models.utils import (apply_layers, create_mlp_components,
                                           create_pointnet_components)
 from pvcnn_tpu_torch.nn import PVConv
+from pvcnn_tpu_torch.utils.dtype import fp32_only
 
 __all__ = ["PVCNN"]
 
@@ -26,7 +27,8 @@ class PVCNN(nn.Module):
 
     def __init__(self, num_classes: int, extra_feature_channels: int = 6,
                  width_multiplier: float = 1,
-                 voxel_resolution_multiplier: float = 1):
+                 voxel_resolution_multiplier: float = 1, dtype=None):
+        fp32_only(dtype, "S3DIS PVCNN")
         super().__init__()
         self.in_channels = extra_feature_channels + 3
         layers, channels_point, concat_channels_point = \

@@ -19,6 +19,7 @@ from pvcnn_tpu_torch.models.shapenet.pointnetpp import (run_fp_layers,
 from pvcnn_tpu_torch.models.utils import (apply_layers, create_mlp_components,
                                           create_pointnet2_fp_modules,
                                           create_pointnet2_sa_components)
+from pvcnn_tpu_torch.utils.dtype import fp32_only
 
 __all__ = ["PVCNN2"]
 
@@ -39,7 +40,8 @@ class PVCNN2(nn.Module):
 
     def __init__(self, num_classes: int, extra_feature_channels: int = 6,
                  width_multiplier: float = 1,
-                 voxel_resolution_multiplier: float = 1):
+                 voxel_resolution_multiplier: float = 1, dtype=None):
+        fp32_only(dtype, "S3DIS PVCNN2")
         super().__init__()
         self.in_channels = extra_feature_channels + 3
         sa_layers, sa_in_channels, channels_sa, _ = \

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from pvcnn_tpu_torch.models.utils import apply_layers, create_mlp_components
 from pvcnn_tpu_torch.nn import BatchNorm, SharedMLP
+from pvcnn_tpu_torch.utils.dtype import fp32_only
 
 __all__ = ["PointNet", "Transformer"]
 
@@ -52,7 +53,8 @@ class PointNet(nn.Module):
     def __init__(self, num_classes: int, num_shapes: int,
                  with_transformer: bool = False,
                  extra_feature_channels: int = 0,
-                 width_multiplier: float = 1):
+                 width_multiplier: float = 1, dtype=None):
+        fp32_only(dtype, "ShapeNet PointNet")
         super().__init__()
         r = width_multiplier
         self.in_channels = in_channels = extra_feature_channels + 3

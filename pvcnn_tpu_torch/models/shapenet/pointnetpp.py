@@ -19,6 +19,7 @@ from pvcnn_tpu_torch.models.utils import (apply_layers, create_mlp_components,
                                           create_pointnet2_sa_components)
 from pvcnn_tpu_torch.nn import (PointNetAModule, PointNetFPModule,
                                 PointNetSAModule, PVConv)
+from pvcnn_tpu_torch.utils.dtype import fp32_only
 
 __all__ = ["MSG_FP_BLOCKS", "MSG_SA_BLOCKS", "PointNet2", "PointNet2MSG",
            "PointNet2SSG", "SSG_FP_BLOCKS", "SSG_SA_BLOCKS", "pointnet2_msg",
@@ -143,8 +144,10 @@ class PointNet2MSG(PointNet2):
 def pointnet2_ssg(num_classes: int, num_shapes: int,
                   extra_feature_channels: int = 3,
                   width_multiplier: float = 1,
-                  voxel_resolution_multiplier: float = 1) -> PointNet2SSG:
+                  voxel_resolution_multiplier: float = 1,
+                  dtype=None) -> PointNet2SSG:
     """Single-scale grouping, without the one-hot shape id."""
+    fp32_only(dtype, "ShapeNet PointNet2 SSG")
     return PointNet2SSG(num_classes, num_shapes, SSG_SA_BLOCKS, SSG_FP_BLOCKS,
                         with_one_hot_shape_id=False,
                         extra_feature_channels=extra_feature_channels,
@@ -155,8 +158,10 @@ def pointnet2_ssg(num_classes: int, num_shapes: int,
 def pointnet2_msg(num_classes: int, num_shapes: int,
                   extra_feature_channels: int = 3,
                   width_multiplier: float = 1,
-                  voxel_resolution_multiplier: float = 1) -> PointNet2MSG:
+                  voxel_resolution_multiplier: float = 1,
+                  dtype=None) -> PointNet2MSG:
     """Multi-scale grouping, with the one-hot shape id."""
+    fp32_only(dtype, "ShapeNet PointNet2 MSG")
     return PointNet2MSG(num_classes, num_shapes, MSG_SA_BLOCKS, MSG_FP_BLOCKS,
                         with_one_hot_shape_id=True,
                         extra_feature_channels=extra_feature_channels,

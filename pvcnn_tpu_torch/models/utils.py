@@ -13,6 +13,7 @@ import torch.nn as nn
 from pvcnn_tpu_torch.nn import (DenseBNReLU, PointNetAModule,
                                 PointNetFPModule, PointNetSAModule, PVConv,
                                 SharedMLP, SplitDense)
+from pvcnn_tpu_torch.nn.shared_mlp import Linear
 
 __all__ = ["Dropout", "apply_layers", "create_mlp_components",
            "create_pointnet2_fp_modules", "create_pointnet2_sa_components",
@@ -24,7 +25,10 @@ class Dropout(nn.Dropout):
     """Dropout whose mask is drawn from `self.generator`, a torch.Generator
     on the input's device that the trainer owns (the counterpart of the JAX
     trainer's explicit dropout key); None draws from torch's default
-    generator. Holds no parameters, so state_dict keys do not change."""
+    generator. Holds no parameters, so state_dict keys do not change. A
+    bf16 input's mask is drawn in float32, so a bf16 model draws the masks
+    its fp32 twin draws from the same generator state (JAX's masks do not
+    depend on the dtype either)."""
 
     generator: torch.Generator | None = None
 
@@ -32,7 +36,9 @@ class Dropout(nn.Dropout):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        mask = torch.empty_like(
+            x, dtype=torch.promote_types(x.dtype, torch.float32)).bernoulli_(
+                keep, generator=self.generator).to(x.dtype)
         return x * mask / keep
 
 
@@ -61,11 +67,12 @@ def apply_layers(layers, x):
 
 def create_mlp_components(in_channels: int, out_channels: Sequence,
                           classifier: bool = False, dim: int = 2,
-                          width_multiplier: float = 1):
+                          width_multiplier: float = 1, dtype=None):
     """MLP -> (layers, out channels). dim=2: per-point SharedMLP layers on
     [B, N, C]; dim=1: per-cloud DenseBNReLU layers on [B, C]. With
     classifier=True the last entry is a plain layer of that many outputs
-    (the reference's Conv1d, or Linear with dim=1)."""
+    (the reference's Conv1d, or Linear with dim=1). dtype: every layer's
+    activation dtype (nn/shared_mlp.py)."""
     if dim not in (1, 2):
         raise ValueError(f"create_mlp_components dim must be 1 or 2, got "
                          f"{dim}")
@@ -78,36 +85,37 @@ def create_mlp_components(in_channels: int, out_channels: Sequence,
             layers.append(Dropout(oc))
         else:
             oc = int(r * oc)
-            layers.append(block(in_channels, oc))
+            layers.append(block(in_channels, oc, dtype=dtype))
             in_channels = oc
     if classifier:
-        last = nn.Linear if dim == 1 else SplitDense
-        layers.append(last(in_channels, int(out_channels[-1])))
+        last = Linear if dim == 1 else SplitDense
+        layers.append(last(in_channels, int(out_channels[-1]), dtype=dtype))
         return layers, int(out_channels[-1])
     oc = int(r * out_channels[-1])
-    layers.append(block(in_channels, oc))
+    layers.append(block(in_channels, oc, dtype=dtype))
     return layers, oc
 
 
 def create_pointnet_components(blocks, in_channels: int,
                                with_se: bool = False, normalize: bool = True,
                                eps: float = 0.0, width_multiplier: float = 1,
-                               voxel_resolution_multiplier: float = 1):
+                               voxel_resolution_multiplier: float = 1,
+                               dtype=None):
     """blocks: ((out_channels, num_blocks, voxel_resolution | None), ...) ->
     (layers, out channels, concat channels): PVConv where a resolution is
-    given, SharedMLP otherwise."""
+    given, SharedMLP otherwise, each with activation dtype `dtype`."""
     layers, concat_channels = [], 0
     for conv_configs in blocks:
         group, in_channels = _conv_blocks(
             conv_configs, in_channels, with_se, normalize, eps,
-            width_multiplier, voxel_resolution_multiplier)
+            width_multiplier, voxel_resolution_multiplier, dtype)
         layers += group
         concat_channels += len(group) * in_channels
     return layers, in_channels, concat_channels
 
 
 def _conv_blocks(conv_configs, in_channels: int, with_se, normalize, eps,
-                 r, vr):
+                 r, vr, dtype=None):
     """(out_channels, num_blocks, voxel_resolution | None) -> (PVConv or
     SharedMLP layers, out channels)."""
     out_channels, num_blocks, voxel_resolution = conv_configs
@@ -115,12 +123,12 @@ def _conv_blocks(conv_configs, in_channels: int, with_se, normalize, eps,
     layers = []
     for _ in range(num_blocks):
         if voxel_resolution is None:
-            layers.append(SharedMLP(in_channels, out_channels))
+            layers.append(SharedMLP(in_channels, out_channels, dtype=dtype))
         else:
             layers.append(PVConv(in_channels, out_channels, kernel_size=3,
                                  resolution=int(vr * voxel_resolution),
                                  with_se=with_se, normalize=normalize,
-                                 eps=eps))
+                                 eps=eps, dtype=dtype))
         in_channels = out_channels
     return layers, in_channels
 

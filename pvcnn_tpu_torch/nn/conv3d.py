@@ -5,7 +5,14 @@ The parameters are torch Conv3d's (weight [Co, Ci, k, k, k], bias [Co]),
 so checkpoints of the reference load unchanged in either layout. `forward`
 runs ops.conv3d_rows_act on [B, Ci, R^3] rows (the fused rows mode);
 `ndhwc` runs on [B, R, R, R, Ci] grids (the JAX package's NDHWC mode, taken
-with PVCNN_TPU_CONV_ROWS=0)."""
+with PVCNN_TPU_CONV_ROWS=0).
+
+With dtype bfloat16 the rows mode casts its input and its float32 weight
+to bf16 at use (pvcnn_tpu/nn/conv3d.py:128-134: x.astype(dt),
+kernel.astype(dt)); the bias stays float32 and joins the f32 sum inside
+the op. Autograd then rounds the weight's gradient to bf16 and widens it,
+as JAX's dw.astype(kernel.dtype). The first PVConv's grid is the float32
+mean of the input cloud: its cast happens here."""
 
 from __future__ import annotations
 
@@ -15,19 +22,21 @@ import torch.nn.functional as F
 
 from pvcnn_tpu_torch.ops.conv3d import conv3d_rows_act, conv3d_same
 from pvcnn_tpu_torch.utils import knobs
+from pvcnn_tpu_torch.utils.dtype import fp32_only, resolve_dtype
 
 __all__ = ["Conv3dSame"]
 
 
 class Conv3dSame(nn.Conv3d):
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dtype=None):
         k = int(kernel_size)
         # an even k pads asymmetrically in SAME convs and differs from the
         # reference's Conv3d(padding=k // 2): only odd k is defined
         if k % 2 != 1:
             raise ValueError(f"Conv3dSame requires an odd kernel_size, got {k}")
         super().__init__(in_channels, out_channels, k, padding=k // 2)
+        self.act_dtype = resolve_dtype(dtype)
 
     def forward(self, x: torch.Tensor, resolution: int, prologue=None,
                 want_stats: bool = False):
@@ -37,7 +46,10 @@ class Conv3dSame(nn.Conv3d):
         previous BatchNorm, folded). want_stats: s1, s2 are the per-channel
         sum and sum of squares of y (zeros otherwise)."""
         pscale, pshift = prologue if prologue is not None else (None, None)
-        return conv3d_rows_act(x, self.weight, self.bias, pscale, pshift,
+        weight = self.weight
+        if self.act_dtype is not None:
+            x, weight = x.to(self.act_dtype), weight.to(self.act_dtype)
+        return conv3d_rows_act(x, weight, self.bias, pscale, pshift,
                                resolution, prologue is not None, want_stats)
 
     def ndhwc(self, x: torch.Tensor):
@@ -45,6 +57,7 @@ class Conv3dSame(nn.Conv3d):
         With PVCNN_TPU_CUSTOM_CONV_WGRAD=1 the conv is ops.conv3d_same,
         whose weight gradient is kernel K11; otherwise F.conv3d with torch's
         own autograd (XLA autodiff in the JAX package)."""
+        fp32_only(self.act_dtype, "Conv3dSame.ndhwc (PVCNN_TPU_CONV_ROWS=0)")
         if knobs.get("PVCNN_TPU_CUSTOM_CONV_WGRAD"):
             y = conv3d_same(x, self.weight)
         else:

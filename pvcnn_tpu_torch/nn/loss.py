@@ -9,7 +9,9 @@ __all__ = ["CrossEntropyLoss", "KLLoss"]
 
 class CrossEntropyLoss:
     """Per-point or per-example softmax cross entropy, mean over positions;
-    logits [..., num_classes], integer labels [...]."""
+    logits [..., num_classes], integer labels [...]. bf16 logits are
+    widened to f32 (ops/losses.py says where that differs from the JAX
+    package's bf16 log_softmax)."""
 
     def __call__(self, logits, labels):
         return cross_entropy(logits, labels)

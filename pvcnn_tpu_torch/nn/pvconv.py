@@ -12,6 +12,15 @@ NDHWC branch: K1 and K2 in their channel-last modes around
 Conv3dSame.ndhwc -> BatchNorm -> LeakyReLU twice.
 Module names follow the reference (voxel_layers.0/1/3/4/6, point_features)
 on both branches, so `state_dict()` keys match released checkpoints.
+
+With dtype bfloat16 (the fused rows branch only; the unfused branches raise
+NotImplementedError) the block runs as the JAX package's PVConv(dtype):
+the voxelized grid is the mean in the features' dtype (float32 for the
+first PVConv, whose input is the cloud itself, bf16 after), each conv casts
+its input and weight to bf16 (Conv3dSame), BatchNorms fold in f32, the
+last BatchNorm and LeakyReLU run in f32 and round to bf16
+(pvcnn_tpu/nn/pvconv.py:142-145), SE and the gather run in bf16, and the
+point branch is a bf16 SharedMLP; coordinates stay float32.
 """
 
 from __future__ import annotations
@@ -20,8 +29,9 @@ import torch.nn as nn
 
 from pvcnn_tpu_torch import ops
 from pvcnn_tpu_torch.nn.conv3d import Conv3dSame
-from pvcnn_tpu_torch.nn.shared_mlp import BatchNorm, SharedMLP
+from pvcnn_tpu_torch.nn.shared_mlp import BatchNorm, Linear, SharedMLP
 from pvcnn_tpu_torch.utils import knobs
+from pvcnn_tpu_torch.utils.dtype import fp32_only, resolve_dtype
 
 __all__ = ["PVConv", "SE3d", "Voxelization"]
 
@@ -46,14 +56,16 @@ class Voxelization(nn.Module):
 
 
 class SE3d(nn.Module):
-    """Squeeze-and-excitation over the voxel grid (reference modules/se.py)."""
+    """Squeeze-and-excitation over the voxel grid (reference modules/se.py).
+    With dtype bfloat16 the mean, the two layers, the sigmoid and the
+    scaling run in bf16 (pvcnn_tpu/nn/pvconv.py:SE3d: nn.Dense(dtype))."""
 
-    def __init__(self, channels: int, reduction: int = 8):
+    def __init__(self, channels: int, reduction: int = 8, dtype=None):
         super().__init__()
         self.fc = nn.Sequential(
-            nn.Linear(channels, channels // reduction, bias=False),
+            Linear(channels, channels // reduction, bias=False, dtype=dtype),
             nn.ReLU(),
-            nn.Linear(channels // reduction, channels, bias=False),
+            Linear(channels // reduction, channels, bias=False, dtype=dtype),
             nn.Sigmoid())
 
     def forward(self, x):
@@ -68,18 +80,20 @@ class PVConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, resolution: int = 32,
                  with_se: bool = False, normalize: bool = True,
-                 eps: float = 0.0):
+                 eps: float = 0.0, dtype=None):
         super().__init__()
         self.resolution = int(resolution)
+        self.act_dtype = resolve_dtype(dtype)
         self.voxelization = Voxelization(resolution, normalize, eps)
-        layers = [Conv3dSame(in_channels, out_channels, kernel_size),
+        layers = [Conv3dSame(in_channels, out_channels, kernel_size, dtype),
                   BatchNorm(out_channels, eps=1e-4), nn.LeakyReLU(0.1),
-                  Conv3dSame(out_channels, out_channels, kernel_size),
+                  Conv3dSame(out_channels, out_channels, kernel_size, dtype),
                   BatchNorm(out_channels, eps=1e-4), nn.LeakyReLU(0.1)]
         if with_se:
-            layers.append(SE3d(out_channels))
+            layers.append(SE3d(out_channels, dtype=dtype))
         self.voxel_layers = nn.Sequential(*layers)
-        self.point_features = SharedMLP(in_channels, out_channels)
+        self.point_features = SharedMLP(in_channels, out_channels,
+                                        dtype=dtype)
 
     def forward(self, features, coords):
         """features [B, N, C], coords [B, N, 3] -> (fused [B, N, C'], coords).
@@ -94,12 +108,15 @@ class PVConv(nn.Module):
         per-channel sums, and its BatchNorm folds those batch statistics
         (updating its running ones)."""
         if knobs.get("PVCNN_TPU_CONV_ROWS") == "0":
+            fp32_only(self.act_dtype, "PVConv with PVCNN_TPU_CONV_ROWS=0")
             voxel_features = self._voxel_ndhwc(features, coords)
             return voxel_features + self.point_features(features), coords
         r = self.resolution
         conv0, bn0, _, conv1, bn1, _ = self.voxel_layers[:6]
         grid, norm_coords = self.voxelization(features, coords)
         if knobs.get("PVCNN_TPU_CONV_BN_FUSED") == "0":
+            fp32_only(self.act_dtype,
+                      "PVConv with PVCNN_TPU_CONV_BN_FUSED=0")
             grid = self._rows_unfused(grid)
         elif self.training:
             count = grid.shape[0] * r ** 3

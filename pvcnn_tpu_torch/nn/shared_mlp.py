@@ -5,6 +5,18 @@ Parameters keep the reference's torch names and shapes (Conv1d weight
 [out, in, 1], or Conv2d [out, in, 1, 1] for the `dim=2` stacks of the
 PointNet++ set abstraction; BatchNorm weight/bias/running stats), so the
 port's `state_dict()` matches released checkpoints key for key.
+
+Activation dtype (`dtype=`, the JAX modules' `dtype`): None or float32
+runs as before, with no cast anywhere; bfloat16 runs the activations in
+bf16 while the parameters, BatchNorm's running statistics and every
+gradient of a parameter stay float32. Where the JAX package rounds
+(pvcnn_tpu/nn/shared_mlp.py): a Dense casts its input, kernel and bias to
+bf16 at use (flax nn.Dense(dtype)); SplitDense casts its parts and its
+kernel, accumulates the parts' products in f32, adds the f32 bias and
+rounds once (:42-62); BatchNorm takes its statistics and normalizes in f32
+and rounds its output to its dtype (:127-152). The f32 accumulation of a
+bf16 product is the card's when cuBLAS's reduced-precision reduction is
+off (train/predict.py:fp32_precision turns it off).
 """
 
 from __future__ import annotations
@@ -17,8 +29,14 @@ import torch.nn.functional as F
 
 from pvcnn_tpu_torch.ops.dense_rows import dense_rows_act
 from pvcnn_tpu_torch.utils import knobs
+from pvcnn_tpu_torch.utils.dtype import fp32_only, resolve_dtype
 
-__all__ = ["BatchNorm", "Dense2d", "DenseBNReLU", "SharedMLP", "SplitDense"]
+__all__ = ["BatchNorm", "Dense2d", "DenseBNReLU", "Linear", "SharedMLP",
+           "SplitDense"]
+
+
+def _cast(t, dtype):
+    return t if dtype is None or t is None else t.to(dtype)
 
 
 class SplitDense(nn.Conv1d):
@@ -29,25 +47,105 @@ class SplitDense(nn.Conv1d):
     per-segment products, never building the concat; a segment with a
     singleton points axis ([B, 1, C], the global feature) broadcasts instead
     of being tiled. That is how PVCNN's classifier reads its 4944 input
-    channels at width 1."""
+    channels at width 1. With dtype bfloat16 the parts are cast to bf16 and
+    their products summed in f32 with the f32 bias, rounded once (the
+    products of the widened bf16 operands are exact in f32); one array
+    runs as nn.Dense(dtype) does, in bf16 with a bf16 bias."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__(in_channels, out_channels, 1)
+        self.act_dtype = resolve_dtype(dtype)
 
     def forward(self, x):
-        w = self.weight[..., 0]                               # [out, in]
+        dt = self.act_dtype
+        w = _cast(self.weight[..., 0], dt)                    # [out, in]
         if not isinstance(x, (list, tuple)):
-            return F.linear(x, w, self.bias)
+            return F.linear(_cast(x, dt), w, _cast(self.bias, dt))
+        if sum(seg.shape[-1] for seg in x) != w.shape[1]:
+            raise ValueError(f"segments hold {sum(s.shape[-1] for s in x)} "
+                             f"channels, the layer takes {w.shape[1]}")
+        if dt is not None:
+            return _SplitDenseBF16.apply(w, self.bias,
+                                         *(seg.to(dt) for seg in x))
         y, off = None, 0
         for seg in x:
             c = seg.shape[-1]
             t = torch.matmul(seg, w[:, off:off + c].t())
             y = t if y is None else y + t
             off += c
-        if off != w.shape[1]:
-            raise ValueError(f"segments hold {off} channels, the layer "
-                             f"takes {w.shape[1]}")
         return y + self.bias
+
+
+def _mm_f32(a, b):
+    """a [M, K] @ b [K, N] of bf16 operands -> float32, the products
+    summed in f32 and not rounded (cuBLAS's out_dtype on the card; the
+    exact products of the widened operands on the CPU)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _SplitDenseBF16(torch.autograd.Function):
+    """SplitDense on bf16 parts [..., N or 1, C_i] with a bf16 weight [out,
+    in] and a float32 bias, as the JAX package's SplitDense(dtype) and its
+    transposes (pvcnn_tpu/nn/shared_mlp.py:42-62): forward, the parts'
+    products summed in f32 with the bias, rounded once to bf16; backward,
+    a full part's input and weight gradients as bf16 products with f32
+    sums (dot_general's transposes into the bf16 operands' dtype), a
+    broadcast part's from the cotangent summed over the points in f32,
+    and the bias gradient the f32 sum of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, *segs):
+        co = weight.shape[0]
+        y, off = None, 0
+        for seg in segs:
+            c = seg.shape[-1]
+            t = _mm_f32(seg.reshape(-1, c), weight[:, off:off + c].t())
+            t = t.reshape(*seg.shape[:-1], co)
+            y = t if y is None else y + t
+            off += c
+        ctx.save_for_backward(weight, *segs)
+        return (y + bias).to(weight.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, *segs = ctx.saved_tensors
+        co = weight.shape[0]
+        rows = g.reshape(-1, co)
+        dbias = g.float().reshape(-1, co).sum(0)
+        dw = torch.empty_like(weight)
+        dsegs, off = [], 0
+        for seg in segs:
+            c = seg.shape[-1]
+            w = weight[:, off:off + c]
+            x = seg.reshape(-1, c)
+            if seg.shape[-2] == g.shape[-2]:       # a part of every point
+                dsegs.append((rows @ w).reshape(seg.shape))
+                dw[:, off:off + c] = rows.t() @ x
+            else:                                  # broadcast over points
+                gs = g.float().sum(dim=-2).reshape(-1, co)
+                dsegs.append((gs @ w.float()).to(seg.dtype).reshape(
+                    seg.shape))
+                dw[:, off:off + c] = (gs.t() @ x.float()).to(weight.dtype)
+            off += c
+        return (dw, dbias, *dsegs)
+
+
+class Linear(nn.Linear):
+    """nn.Linear with an activation dtype: with bfloat16 its input, weight
+    and bias are cast to bf16 at use (flax nn.Dense(dtype)); the parameters
+    stay float32."""
+
+    def __init__(self, in_features: int, out_features: int, bias=True,
+                 dtype=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.act_dtype = resolve_dtype(dtype)
+
+    def forward(self, x):
+        dt = self.act_dtype
+        return F.linear(_cast(x, dt), _cast(self.weight, dt),
+                        _cast(self.bias, dt))
 
 
 class Dense2d(nn.Conv2d):
@@ -71,14 +169,23 @@ class BatchNorm(nn.BatchNorm1d):
     `fold_from_sums()` is its training-mode twin, from the batch sums the
     conv's statistics epilogue returns; `apply_from_sums()` applies it.
     `channels_first()` normalizes channel-major features instead (the
-    unfused rows branch's grids)."""
+    unfused rows branch's grids). With dtype bfloat16 (or a bf16 input)
+    the statistics and the normalization run in f32 and the output is
+    rounded to bf16."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, dtype=None):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.act_dtype = resolve_dtype(dtype)
 
     def forward(self, x):
         c = x.shape[-1]
+        # a bf16 x with the float32 parameters: torch's batch norm takes
+        # its statistics and normalizes in f32 and rounds once to bf16
         y = F.batch_norm(x.reshape(-1, c), self.running_mean,
                          self.running_var, self.weight, self.bias,
                          self.training, self.momentum, self.eps)
-        return y.reshape(x.shape)
+        return y.reshape(x.shape).to(self.act_dtype or x.dtype)
 
     def channels_first(self, x):
         """BatchNorm over axis 1 of channel-major features [B, C, ...] (the
@@ -138,20 +245,27 @@ class SharedMLP(nn.Module):
     over: at S3DIS PVCNN 1x's shapes (32 x 4096 rows, 9 to 512 input and
     64 to 1024 output channels) it accepts all six layers, as the shape
     conditions do, so both packages route the same layers. Eval mode never
-    takes this path."""
+    takes this path.
+
+    dtype bfloat16 (dim=1 only) runs the layers' activations in bf16; with
+    PVCNN_TPU_DENSE_BN_FUSED=auto it raises NotImplementedError (the fused
+    path's bf16 mode is queued in ROADMAP.md)."""
 
     def __init__(self, in_channels: int, out_channels: int | Sequence[int],
-                 dim: int = 1):
+                 dim: int = 1, dtype=None):
         super().__init__()
         if dim not in (1, 2):
             raise ValueError(f"SharedMLP dim must be 1 or 2, got {dim}")
-        dense = SplitDense if dim == 1 else Dense2d
+        self.act_dtype = resolve_dtype(dtype)
+        if dim == 2:
+            fp32_only(dtype, "SharedMLP(dim=2)")
         if not isinstance(out_channels, (list, tuple)):
             out_channels = [out_channels]
         layers = []
         for oc in out_channels:
-            layers += [dense(in_channels, int(oc)), BatchNorm(int(oc)),
-                       nn.ReLU()]
+            dense = (SplitDense(in_channels, int(oc), dtype=dtype) if dim == 1
+                     else Dense2d(in_channels, int(oc)))
+            layers += [dense, BatchNorm(int(oc), dtype=dtype), nn.ReLU()]
             in_channels = int(oc)
         self.layers = nn.Sequential(*layers)
 
@@ -161,6 +275,8 @@ class SharedMLP(nn.Module):
         for i in range(0, len(self.layers), 3):
             dense, bn, relu = self.layers[i:i + 3]
             if _fused_rows(x):
+                fp32_only(self.act_dtype,
+                          "SharedMLP with PVCNN_TPU_DENSE_BN_FUSED=auto")
                 co, ci = dense.weight.shape[:2]
                 y, s1, s2 = dense_rows_act(
                     x, dense.weight.reshape(co, ci).t(), dense.bias, None,
@@ -184,8 +300,8 @@ def _fused_rows(x) -> bool:
 class DenseBNReLU(nn.Sequential):
     """Linear -> BatchNorm -> ReLU on per-cloud features [B, C] (reference
     models/utils.py:_linear_bn_relu; its children 0 and 1 give the
-    reference's state_dict keys)."""
+    reference's state_dict keys), with an activation dtype."""
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(nn.Linear(in_channels, out_channels),
-                         BatchNorm(out_channels), nn.ReLU())
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+        super().__init__(Linear(in_channels, out_channels, dtype=dtype),
+                         BatchNorm(out_channels, dtype=dtype), nn.ReLU())

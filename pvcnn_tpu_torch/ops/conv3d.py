@@ -23,6 +23,22 @@ plain versions beside them.
 Only the gradients autograd asks for are computed: the first PVConv's grid
 comes from the input cloud, so its conv0 runs no dgrad.
 
+bf16 activations (a bfloat16 x and weight; bias, pscale and pshift stay
+float32): the kernels' bf16 mode (csrc/conv3d_bf16.cu, counted as
+conv3d_fwd_bf16, conv3d_dgrad_bf16 and conv3d_wgrad_bf16) on the card, on
+the CPU the plain versions on the operands widened to f32. The rounding
+points are the JAX package's (pvcnn_tpu/ops/pallas/conv_rows.py):
+
+  forward  a(x) in f32, rounded to bf16 before the product (_stage_act);
+           f32 products and sums; the f32 bias added to the f32 sum; the
+           statistics from it; y rounded to bf16 once (_fwd_act_kernel)
+  backward the cotangent with the statistics' terms in f32, its bias sum in
+           f32, then rounded to bf16 (_act_bwd: ge); the dgrad's output
+           rounded to bf16 (_run_fwd's out dtype); the prologue's backward
+           in f32 on it, dx rounded to bf16, dscale and dshift f32; dW
+           summed in f32 and rounded to bf16 once (dw.astype(kernel.dtype)),
+           which the caller's weight.to(bfloat16) widens back to f32
+
 `conv3d_same` is the NDHWC conv of the unfused voxel branch
 (PVCNN_TPU_CONV_ROWS=0) with its custom weight gradient
 (PVCNN_TPU_CUSTOM_CONV_WGRAD=1), counterpart of pvcnn_tpu/nn/conv3d.py:
@@ -47,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from pvcnn_tpu_torch import kernels
+from pvcnn_tpu_torch.utils.dtype import wide
 
 __all__ = ["conv3d_rows_act", "conv3d_same", "leaky_affine"]
 
@@ -67,7 +84,10 @@ _K4_WAVES, _K4_MIN_SLICES = 2, 8
 
 def leaky_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor):
     """leaky_relu(x * scale + shift, 0.1) on [B, C, ...] with per-channel
-    scale/shift [C]."""
+    scale/shift [C]. A bf16 x is computed in f32 and the result rounded to
+    bf16 (pvcnn_tpu/nn/pvconv.py:142-145)."""
+    if x.dtype == torch.bfloat16:
+        return leaky_affine(x.float(), scale, shift).to(x.dtype)
     shape = (-1,) + (1,) * (x.dim() - 2)
     return F.leaky_relu(x * scale.reshape(shape) + shift.reshape(shape), 0.1)
 
@@ -81,7 +101,8 @@ def conv3d_rows_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     (y [B, Co, R^3], s1 [Co], s2 [Co]) with s1 = sum of y and s2 = sum of
     y^2 over clouds and voxels when want_stats, zeros otherwise. The flat row
     index is x * R^2 + y * R + z. Differentiable in x, weight, bias, pscale
-    and pshift."""
+    and pshift. A bfloat16 x takes a bfloat16 weight and returns a bfloat16
+    y (the statistics stay float32)."""
     return _Conv3dRowsAct.apply(x, weight, bias, pscale, pshift,
                                 int(resolution), bool(has_prologue),
                                 bool(want_stats))
@@ -107,22 +128,26 @@ class _Conv3dRowsAct(torch.autograd.Function):
         r, pro = ctx.resolution, ctx.has_prologue
         need_x, need_w, need_b, need_s, need_t = ctx.needs_input_grad[:5]
         cpu = x.device.type == "cpu"
+        # a bf16 operand widened to f32, rounded back to x's dtype where the
+        # JAX package rounds (the module docstring)
+        gy = wide(gy)
         # the statistics' cotangents fold into y's: s1 = sum(y),
         # s2 = sum(y^2) => dL/dy += gs1 + 2 * y * gs2 (y biased)
         if ctx.want_stats:
-            gy = gy + gs1[None, :, None] + 2.0 * y * gs2[None, :, None]
-        gy = gy.contiguous()
+            gy = gy + gs1[None, :, None] + 2.0 * wide(y) * gs2[None, :, None]
         dx = dw = dbias = dscale = dshift = None
         if need_b:
             dbias = gy.sum(dim=(0, 2))
+        gy = gy.to(x.dtype).contiguous()
         if need_x or (pro and (need_s or need_t)):
             # d loss / d a(x) at every grid voxel
             dxt = (_dgrad_plain if cpu else _dgrad_cuda)(gy, weight, r)
             if pro:
-                t = x * pscale[:, None] + pshift[:, None]
-                dxf = dxt * torch.where(t > 0, 1.0, 0.1).to(dxt.dtype)
-                dx = dxf * pscale[:, None] if need_x else None
-                dscale = (dxf * x).sum(dim=(0, 2)) if need_s else None
+                xf, dxw = wide(x), wide(dxt)
+                t = xf * pscale[:, None] + pshift[:, None]
+                dxf = dxw * torch.where(t > 0, 1.0, 0.1).to(dxw.dtype)
+                dx = (dxf * pscale[:, None]).to(x.dtype) if need_x else None
+                dscale = (dxf * xf).sum(dim=(0, 2)) if need_s else None
                 dshift = dxf.sum(dim=(0, 2)) if need_t else None
             else:
                 dx = dxt
@@ -133,15 +158,29 @@ class _Conv3dRowsAct(torch.autograd.Function):
 
 
 # ---- plain versions (CPU tensors; chip_smoke.py's comparison on the card) --
+# A bf16 operand is widened to f32 and the result rounded where the bf16
+# kernels round (the module docstring).
+
+def _activated(x, pscale, pshift, has_prologue):
+    """a(x) in f32, rounded to x's dtype (the bf16 kernels' prologue pass),
+    widened back to f32; x itself without the prologue."""
+    if not has_prologue:
+        return x.float()
+    return leaky_affine(x.float(), pscale, pshift).to(x.dtype).float()
+
 
 def _forward_plain(x, weight, bias, pscale, pshift, resolution, has_prologue,
                    want_stats):
-    y = _conv3d_plain(x, weight, bias, pscale, pshift, resolution,
-                      has_prologue)
+    if x.dtype == torch.bfloat16:
+        y = _conv3d_plain(_activated(x, pscale, pshift, has_prologue),
+                          weight.float(), bias, None, None, resolution, False)
+    else:
+        y = _conv3d_plain(x, weight, bias, pscale, pshift, resolution,
+                          has_prologue)
     if want_stats:
-        return (y,) + _stats_plain(y)
+        return (y.to(x.dtype),) + _stats_plain(y)
     zeros = y.new_zeros(y.shape[1])
-    return y, zeros, zeros.clone()
+    return y.to(x.dtype), zeros, zeros.clone()
 
 
 def _conv3d_plain(x, weight, bias, pscale, pshift, resolution, has_prologue):
@@ -167,9 +206,10 @@ def _dgrad_weight(weight):
 def _dgrad_plain(gy, weight, resolution):
     r = int(resolution)
     b, co, _ = gy.shape
-    dx = F.conv3d(gy.reshape(b, co, r, r, r), _dgrad_weight(weight),
+    dx = F.conv3d(wide(gy.reshape(b, co, r, r, r)),
+                  wide(_dgrad_weight(weight)),
                   padding=weight.shape[-1] // 2)
-    return dx.reshape(b, weight.shape[1], r ** 3)
+    return dx.reshape(b, weight.shape[1], r ** 3).to(gy.dtype)
 
 
 def _wgrad_plain(x, gy, pscale, pshift, resolution, has_prologue):
@@ -178,29 +218,43 @@ def _wgrad_plain(x, gy, pscale, pshift, resolution, has_prologue):
     r = int(resolution)
     b, ci, _ = x.shape
     co = gy.shape[1]
-    a = leaky_affine(x, pscale, pshift) if has_prologue else x
+    if x.dtype == torch.bfloat16:
+        a = _activated(x, pscale, pshift, has_prologue)
+    else:
+        a = leaky_affine(x, pscale, pshift) if has_prologue else x
     ap = F.pad(a.reshape(b, ci, r, r, r), (1, 1, 1, 1, 1, 1))
-    dw = x.new_empty((co, ci, 3, 3, 3))
+    g = wide(gy)
+    dw = a.new_empty((co, ci, 3, 3, 3))
     for tx in range(3):
         for ty in range(3):
             for tz in range(3):
                 xs = ap[:, :, tx:tx + r, ty:ty + r, tz:tz + r].reshape(
                     b, ci, r ** 3)
-                dw[:, :, tx, ty, tz] = torch.tensordot(gy, xs,
+                dw[:, :, tx, ty, tz] = torch.tensordot(g, xs,
                                                        dims=([0, 2], [0, 2]))
-    return dw
+    return dw.to(x.dtype)
 
 
 # ---- kernels (CUDA tensors) ------------------------------------------------
 
-def _check(tensors, what):
+def _check(tensors, what, bf16=()):
+    """Every operand on one CUDA device and float32, or, where `bf16` names
+    the kernel's bf16 mode, the first len(bf16) operands bfloat16 (the
+    activations and the weight) and the rest float32."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{what} kernel needs every operand on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{what} kernel takes float32 operands, got "
-                         f"{[t.dtype for t in tensors]}")
+    want = [torch.float32] * len(tensors)
+    if bf16 and tensors[0].dtype == torch.bfloat16:
+        want[:len(bf16)] = [torch.bfloat16] * len(bf16)
+    got = [t.dtype for t in tensors]
+    if got != want:
+        modes = f"float32 operands ({what})"
+        if bf16:
+            modes += (f", or bfloat16 {' and '.join(bf16)} with the rest "
+                      f"float32 ({what}_bf16)")
+        raise ValueError(f"{what} kernel takes {modes}, got {got}")
 
 
 def _check_conv(x, weight, r):
@@ -321,7 +375,10 @@ def _forward_cuda(x, weight, bias, pscale, pshift, resolution, has_prologue,
                   want_stats):
     r = int(resolution)
     _check([x, weight, bias] + ([pscale, pshift] if has_prologue else []),
-           "conv3d")
+           "conv3d_fwd", bf16=("x", "weight"))
+    if x.dtype == torch.bfloat16:
+        return _forward_cuda_bf16(x, weight, bias, pscale, pshift, r,
+                                  has_prologue, want_stats)
     b, ci, co, bins = _check_conv(x, weight, r)
     if tuple(bias.shape) != (co,):
         raise ValueError(f"bias {tuple(bias.shape)} does not match Co={co}")
@@ -354,7 +411,9 @@ def _forward_cuda(x, weight, bias, pscale, pshift, resolution, has_prologue,
 
 def _dgrad_cuda(gy, weight, resolution):
     r = int(resolution)
-    _check([gy, weight], "conv3d dgrad")
+    _check([gy, weight], "conv3d_dgrad", bf16=("dy", "weight"))
+    if gy.dtype == torch.bfloat16:
+        return _dgrad_cuda_bf16(gy, weight, r)
     wt = _dgrad_weight(weight)                         # [Ci, Co, 3, 3, 3]
     b, co, ci, bins = _check_conv(gy, wt, r)
     gy = gy.contiguous()
@@ -369,7 +428,9 @@ def _dgrad_cuda(gy, weight, resolution):
 def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue):
     r = int(resolution)
     _check([x, gy] + ([pscale, pshift] if has_prologue else []),
-           "conv3d wgrad")
+           "conv3d_wgrad", bf16=("x", "dy"))
+    if x.dtype == torch.bfloat16:
+        return _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue)
     b, ci, bins = x.shape
     co = gy.shape[1]
     if bins != r ** 3 or tuple(gy.shape) != (b, co, bins):
@@ -400,6 +461,128 @@ def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue):
             None if partial is None else partial.data_ptr(), dw.data_ptr(),
             b, ci, co, r, plan.seg, plan.cols, plan.cb, plan.splits,
             torch.cuda.current_stream().cuda_stream)
+    return dw
+
+
+# ---- the bf16 mode of K3 and K4 (csrc/conv3d_bf16.cu) -----------------------
+
+# K3's bf16 statistics slots: one per (cloud, 64-voxel span of a warp)
+_BF16_SPAN = 64
+# K4's bf16 mode: voxels per reduction slice; it splits the slices so that
+# its blocks (about _K4_BF16_BLOCKS_PER_SM resident per SM) fill
+# _K4_BF16_WAVES waves, no split shorter than _K4_MIN_SLICES slices
+_K4_BF16_SLICE, _K4_BF16_BLOCKS_PER_SM, _K4_BF16_WAVES = 32, 4, 2
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _taps_bf16(weight):
+    """[Co, Ci, 3, 3, 3] -> (K3's bf16 weight [27 * Cp, Co], tap-major,
+    the rows of channels Ci .. Cp - 1 zero; Cp = Ci rounded up to 16)."""
+    co, ci = weight.shape[:2]
+    cp = -(-ci // 16) * 16
+    w = weight.permute(2, 3, 4, 1, 0)                      # [3, 3, 3, Ci, Co]
+    if cp != ci:
+        w = F.pad(w, (0, 0, 0, cp - ci))
+    return w.reshape(27 * cp, co).contiguous(), cp
+
+
+def _launch_fwd_bf16(kernel, x, weight, bias, pro, y, partial, r):
+    """K3's bf16 mode on x [B, Ci, R^3] with weight [Co, Ci, 3, 3, 3]; pro:
+    the prologue's (scale, shift) or two Nones. The kernel first stages x
+    voxel-major into a buffer [B, R^3, Cp]."""
+    b, ci, bins = x.shape
+    w_taps, cp = _taps_bf16(weight)
+    xt = torch.empty((b, bins, cp), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.launch(
+            kernel, "pvcnn_conv3d_bf16_fwd", x.data_ptr(), w_taps.data_ptr(),
+            _ptr(bias), *(_ptr(t) for t in pro), xt.data_ptr(),
+            y.data_ptr(), _ptr(partial), b, ci, weight.shape[0], r,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _forward_cuda_bf16(x, weight, bias, pscale, pshift, r, has_prologue,
+                       want_stats):
+    b, ci, co, bins = _check_conv(x, weight, r)
+    if tuple(bias.shape) != (co,):
+        raise ValueError(f"bias {tuple(bias.shape)} does not match Co={co}")
+    if has_prologue and (pscale.shape != (ci,) or pshift.shape != (ci,)):
+        raise ValueError(f"prologue scale/shift must be [{ci}]")
+    pro = ((pscale.contiguous(), pshift.contiguous()) if has_prologue
+           else (None, None))
+    x, bias = x.contiguous(), bias.contiguous()
+    y = torch.empty((b, co, bins), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((2, co, b * math.ceil(bins / _BF16_SPAN)),
+                           dtype=torch.float32, device=x.device)
+               if want_stats else None)
+    _launch_fwd_bf16("conv3d_fwd_bf16", x, weight, bias, pro, y, partial, r)
+    if want_stats:
+        s1, s2 = partial.sum(dim=2)
+    else:
+        s1 = torch.zeros(co, dtype=torch.float32, device=x.device)
+        s2 = torch.zeros_like(s1)
+    return y, s1, s2
+
+
+def _dgrad_cuda_bf16(gy, weight, r):
+    wt = _dgrad_weight(weight)                         # [Ci, Co, 3, 3, 3]
+    b, co, ci, bins = _check_conv(gy, wt, r)
+    dx = torch.empty((b, ci, bins), dtype=torch.bfloat16, device=gy.device)
+    _launch_fwd_bf16("conv3d_dgrad_bf16", gy.contiguous(), wt, None,
+                     (None, None), dx, None, r)
+    return dx
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_bf16_plan(b, ci, co, r, sms):
+    """K4's bf16 launch on a card of `sms` SMs -> (splits, slices per
+    split). Its blocks tile Co (32 or 64 a block) x 27 * Cp (64 a block; Cp
+    = Ci rounded up to 16); the B * ceil(R^3 / 32) slices of the reduction
+    go to `splits` equal runs, enough for _K4_BF16_WAVES waves of resident
+    blocks, none shorter than _K4_MIN_SLICES slices."""
+    cp = -(-ci // 16) * 16
+    tiles = math.ceil(co / (32 if co <= 32 else 64)) * math.ceil(27 * cp / 64)
+    slices = b * math.ceil(r ** 3 / _K4_BF16_SLICE)
+    want = math.ceil(_K4_BF16_WAVES * _K4_BF16_BLOCKS_PER_SM * sms / tiles)
+    splits = max(1, min(want, slices // _K4_MIN_SLICES))
+    per_split = math.ceil(slices / splits)
+    return math.ceil(slices / per_split), per_split
+
+
+def _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue):
+    b, ci, bins = x.shape
+    co = gy.shape[1]
+    if bins != r ** 3 or tuple(gy.shape) != (b, co, bins):
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(gy.shape)} do "
+                         f"not match R={r}")
+    if has_prologue and (pscale.shape != (ci,) or pshift.shape != (ci,)):
+        raise ValueError(f"prologue scale/shift must be [{ci}]")
+    dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.bfloat16,
+                     device=x.device)
+    if b == 0 or r == 0:                 # no voxels: nothing to launch
+        return dw.zero_()
+    x, gy = x.contiguous(), gy.contiguous()
+    pro = ((pscale.contiguous(), pshift.contiguous()) if has_prologue
+           else (None, None))
+    cp, cop = -(-ci // 16) * 16, -(-co // 16) * 16
+    # the staged operands, voxel-major
+    xt = torch.empty((b, bins, cp), dtype=torch.bfloat16, device=x.device)
+    gt = torch.empty((b, bins, cop), dtype=torch.bfloat16, device=x.device)
+    splits, per_split = _wgrad_bf16_plan(b, ci, co, r,
+                                         _sm_count(x.device.index))
+    # each split's f32 partial, added in split order by the kernel's second
+    # pass: reproducible bit for bit
+    partial = torch.empty((splits, co, 27 * cp), dtype=torch.float32,
+                          device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.launch(
+            "conv3d_wgrad_bf16", "pvcnn_conv3d_bf16_wgrad", x.data_ptr(),
+            gy.data_ptr(), *(_ptr(t) for t in pro), xt.data_ptr(),
+            gt.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, ci, co, r,
+            splits, per_split, torch.cuda.current_stream().cuda_stream)
     return dw
 
 

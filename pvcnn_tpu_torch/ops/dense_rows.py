@@ -190,7 +190,8 @@ def _check(tensors, what):
         raise ValueError(f"{what} kernel needs every operand on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{what} kernel takes float32 operands, got "
+        raise ValueError(f"{what} kernel takes float32 operands only (its "
+                         "bf16 mode is queued in ROADMAP.md), got "
                          f"{[t.dtype for t in tensors]}")
 
 

@@ -13,6 +13,16 @@ norm_coords, as in the reference.
 Edge rule, bit-for-bit with the reference CUDA kernel: coordinates arrive
 clamped to [0, R-1]; the hi corner collapses onto lo where the fractional
 part is 0, and that corner's weight is then exactly 0.
+
+A bf16 grid (bf16 activations; the channel-major grid of the rows branch
+only) takes K2's and K5's bf16 modes on the card (counted as
+trilinear_devoxelize_bf16 and devoxelize_bwd_bf16) and the plain versions
+on widened operands on the CPU. Coordinates and weights stay f32. Forward:
+f32 weights and sum, the output rounded to bf16 once
+(pvcnn_tpu/ops/devoxelize.py:219-231, 250-258). Backward: each weight
+rounded to bf16, each term w * g rounded to bf16, the terms summed in f32
+and the sum rounded to bf16 (pvcnn_tpu/ops/devoxelize.py:366-395:
+w8.astype(g.dtype) * g, the f32 scatter, .astype(g.dtype)).
 """
 
 from __future__ import annotations
@@ -86,6 +96,9 @@ class _DevoxelizeRows(torch.autograd.Function):
 
 
 def _devoxelize_plain(grid, norm_coords, resolution, channels_first):
+    if grid.dtype == torch.bfloat16:           # f32 sum, rounded once
+        return _devoxelize_plain(grid.float(), norm_coords, resolution,
+                                 channels_first).to(grid.dtype)
     r = int(resolution)
     b, n, _ = norm_coords.shape
     rows = grid.transpose(1, 2) if channels_first else grid      # [B, R^3, C]
@@ -104,9 +117,16 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
         raise ValueError("trilinear_devoxelize kernel needs grid and "
                          "norm_coords on one CUDA device, got "
                          f"{grid.device} and {norm_coords.device}")
-    if grid.dtype != torch.float32 or norm_coords.dtype != torch.float32:
-        raise ValueError("trilinear_devoxelize kernel takes float32, got "
-                         f"{grid.dtype} and {norm_coords.dtype}")
+    bf16 = grid.dtype == torch.bfloat16
+    if (grid.dtype not in (torch.float32, torch.bfloat16)
+            or norm_coords.dtype != torch.float32
+            or (bf16 and not channels_first)):
+        raise ValueError(
+            "trilinear_devoxelize kernel takes a float32 grid and "
+            "norm_coords (trilinear_devoxelize), or a channel-major "
+            "bfloat16 grid with float32 norm_coords "
+            f"(trilinear_devoxelize_bf16), got {grid.dtype} and "
+            f"{norm_coords.dtype}, channels_first={channels_first}")
     b, n, three = norm_coords.shape
     if channels_first:
         bg, c, bins = grid.shape
@@ -117,13 +137,21 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
                          f"{tuple(norm_coords.shape)} do not match R={r}")
     grid = grid.contiguous()
     norm_coords = norm_coords.detach().contiguous()
-    out = torch.empty((b, n, c), dtype=torch.float32, device=grid.device)
-    # the kernel maps a channel-major grid and a channel-last one differently
+    out = torch.empty((b, n, c), dtype=grid.dtype, device=grid.device)
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(grid.device):
-        kernels.launch(
-            "trilinear_devoxelize", "pvcnn_trilinear_devoxelize",
-            grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b, n, c,
-            r, int(channels_first), torch.cuda.current_stream().cuda_stream)
+        if bf16:
+            kernels.launch(
+                "trilinear_devoxelize_bf16", "pvcnn_trilinear_devoxelize_bf16",
+                grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b,
+                n, c, r, stream)
+        else:
+            # the kernel maps a channel-major grid and a channel-last one
+            # differently
+            kernels.launch(
+                "trilinear_devoxelize", "pvcnn_trilinear_devoxelize",
+                grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b,
+                n, c, r, int(channels_first), stream)
     return out
 
 
@@ -133,10 +161,15 @@ def _devoxelize_bwd_plain(g, norm_coords, resolution, channels_first):
     r = int(resolution)
     b, n, c = g.shape
     idx8, w8 = _corners(norm_coords.detach(), r)
-    rows = g.new_zeros((b, r ** 3, c))
+    bf16 = g.dtype == torch.bfloat16
+    rows = g.new_zeros((b, r ** 3, c), dtype=torch.float32 if bf16 else None)
     for k in range(8):
-        rows.scatter_add_(1, idx8[..., k, None].expand(-1, -1, c),
-                          w8[..., k, None] * g)
+        if bf16:       # bf16 weight, bf16 term, f32 sum
+            term = (w8[..., k, None].to(g.dtype) * g).float()
+        else:
+            term = w8[..., k, None] * g
+        rows.scatter_add_(1, idx8[..., k, None].expand(-1, -1, c), term)
+    rows = rows.to(g.dtype)
     return rows.transpose(1, 2).contiguous() if channels_first else rows
 
 
@@ -146,9 +179,15 @@ def _devoxelize_bwd_cuda(g, norm_coords, resolution, channels_first):
         raise ValueError("devoxelize_bwd kernel needs g and norm_coords on "
                          f"one CUDA device, got {g.device} and "
                          f"{norm_coords.device}")
-    if g.dtype != torch.float32 or norm_coords.dtype != torch.float32:
-        raise ValueError("devoxelize_bwd kernel takes float32, got "
-                         f"{g.dtype} and {norm_coords.dtype}")
+    if (g.dtype not in (torch.float32, torch.bfloat16)
+            or norm_coords.dtype != torch.float32
+            or (g.dtype == torch.bfloat16 and not channels_first)):
+        raise ValueError(
+            "devoxelize_bwd kernel takes a float32 g and norm_coords "
+            "(devoxelize_bwd), or a bfloat16 g with float32 norm_coords "
+            "into a channel-major grid (devoxelize_bwd_bf16), got "
+            f"{g.dtype} and {norm_coords.dtype}, "
+            f"channels_first={channels_first}")
     b, n, c = g.shape
     if tuple(norm_coords.shape) != (b, n, 3):
         raise ValueError(f"g {tuple(g.shape)} and norm_coords "
@@ -199,12 +238,19 @@ def _launch_k5_sorted(g, points, bounds, r, channels_first):
     b, n, c = g.shape
     bins = r ** 3
     out = torch.empty((b, c, bins) if channels_first else (b, bins, c),
-                      dtype=torch.float32, device=g.device)
+                      dtype=g.dtype, device=g.device)
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(g.device):
-        kernels.launch(
-            "devoxelize_bwd", "pvcnn_devoxelize_bwd", g.data_ptr(),
-            points.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, n, c, r,
-            int(channels_first), torch.cuda.current_stream().cuda_stream)
+        if g.dtype == torch.bfloat16:          # channel-major
+            kernels.launch(
+                "devoxelize_bwd_bf16", "pvcnn_devoxelize_bwd_bf16",
+                g.data_ptr(), points.data_ptr(), bounds.data_ptr(),
+                out.data_ptr(), b, n, c, r, stream)
+        else:
+            kernels.launch(
+                "devoxelize_bwd", "pvcnn_devoxelize_bwd", g.data_ptr(),
+                points.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, n,
+                c, r, int(channels_first), stream)
     return out
 
 

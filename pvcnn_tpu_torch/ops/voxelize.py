@@ -14,6 +14,14 @@ kernel).
 counted as the `scatter_sum` kernel; plain: `scatter_add_`): the backward of
 the row gather `take_rows` (ops/gather_utils.py), as pvcnn_tpu/ops/voxelize.py:
 _scatter_sum is in the JAX package.
+
+bf16 values (bf16 activations; the rows branch's channel-major mean only):
+K1's bf16 mode on the card (counted as `avg_voxelize_bf16`), the plain
+version on the values widened to f32 on the CPU. The sums and the divide
+are f32 and the means are rounded to bf16 once (pvcnn_tpu/ops/voxelize.py:
+122-139: the f32 one-hot sums, means.astype(features.dtype)). The backward
+divides by the counts cast to the cotangent's dtype, as the JAX package's
+(counts above 256 are not exact in bf16) and rounds there.
 """
 
 from __future__ import annotations
@@ -109,6 +117,9 @@ def _counts(flat_idx, num_bins):
 
 
 def _scatter_mean_plain(features, flat_idx, num_bins, channels_first):
+    if features.dtype == torch.bfloat16:       # f32 sums, rounded once
+        return _scatter_mean_plain(features.float(), flat_idx, num_bins,
+                                   channels_first).to(features.dtype)
     b, n, c = features.shape
     idx = flat_idx.long()
     sums = features.new_zeros((b, num_bins, c)).scatter_add_(
@@ -121,8 +132,10 @@ def _scatter_mean_plain(features, flat_idx, num_bins, channels_first):
 
 def _scatter_mean_cuda(features, flat_idx, num_bins, channels_first):
     """K1 on the card -> (the means, the sort's run bounds [B, bins + 1])."""
-    return _launch_k1("avg_voxelize", features, flat_idx, num_bins,
-                      channels_first, mean=True)
+    kernel = ("avg_voxelize_bf16" if features.dtype == torch.bfloat16
+              else "avg_voxelize")
+    return _launch_k1(kernel, features, flat_idx, num_bins, channels_first,
+                      mean=True)
 
 
 def scatter_sum(values: torch.Tensor, idx: torch.Tensor, num_bins: int):
@@ -149,9 +162,19 @@ def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
         raise ValueError(f"{kernel} kernel needs values and indices on one "
                          f"CUDA device, got {features.device} and "
                          f"{flat_idx.device}")
-    if features.dtype != torch.float32 or features.dim() != 3:
-        raise ValueError(f"{kernel} kernel takes float32 [B, N, C] values, "
-                         f"got {features.dtype} {tuple(features.shape)}")
+    bf16 = kernel == "avg_voxelize_bf16"
+    if bf16 and not channels_first:
+        raise ValueError("avg_voxelize_bf16 kernel takes bfloat16 values "
+                         "into the channel-major grid only "
+                         "(channels_first=True); the channel-last grid "
+                         "takes float32 values (avg_voxelize), got "
+                         f"{features.dtype} with channels_first=False")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if features.dtype != dtype or features.dim() != 3:
+        raise ValueError(f"{kernel} kernel takes {dtype} [B, N, C] values, "
+                         f"got {features.dtype} {tuple(features.shape)} "
+                         "(avg_voxelize and scatter_sum take float32, "
+                         "avg_voxelize_bf16 bfloat16)")
     b, n, c = features.shape
     if flat_idx.shape != (b, n) or flat_idx.dtype != torch.int32:
         raise ValueError(f"{kernel} indices must be int32 [{b}, {n}], got "
@@ -204,14 +227,20 @@ def _launch_k1_sorted(kernel, features, perm, bounds, num_bins,
     layouts differently)."""
     b, n, c = features.shape
     out = torch.empty((b, c, num_bins) if channels_first else (b, num_bins, c),
-                      dtype=torch.float32, device=features.device)
+                      dtype=features.dtype, device=features.device)
+    ids_ptr = None if ids is None else ids.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(features.device):
-        kernels.launch(
-            kernel, "pvcnn_avg_voxelize", features.data_ptr(),
-            None if ids is None else ids.data_ptr(), perm.data_ptr(),
-            bounds.data_ptr(), out.data_ptr(), b, n, c, int(num_bins),
-            int(channels_first), int(mean),
-            torch.cuda.current_stream().cuda_stream)
+        if features.dtype == torch.bfloat16:   # channel-major means
+            kernels.launch(
+                kernel, "pvcnn_avg_voxelize_bf16", features.data_ptr(),
+                ids_ptr, perm.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+                b, n, c, int(num_bins), stream)
+        else:
+            kernels.launch(
+                kernel, "pvcnn_avg_voxelize", features.data_ptr(), ids_ptr,
+                perm.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, n, c,
+                int(num_bins), int(channels_first), int(mean), stream)
     return out
 
 

@@ -12,7 +12,11 @@ from a second one, seeded apart (the JAX trainer's `sample` stream,
 has_sample_rng), in training and evaluation alike. Inputs and targets are
 arrays, or dicts of arrays (the Frustum batches); outputs a tensor or a
 dict of tensors. fp32 throughout with TF32 off
-(train/predict.py:fp32_precision).
+(train/predict.py:fp32_precision), or, for a model built with bf16
+activations (ShapeNet PVCNN's dtype), a bf16 forward and backward with
+float32 parameters, BatchNorm statistics, gradients and Adam state, bf16
+products accumulating in f32; the loss is taken on the logits widened to
+f32 (ops/losses.py), and the evaluation hands its meters f32 outputs.
 
 The learning rate is set once per epoch (scheduler_unit "epoch") or
 before every step from a step count that runs on across epochs ("iter"),
@@ -234,8 +238,12 @@ def _first_array(batch):
 
 
 def _to_numpy(outputs):
+    """Outputs as numpy, bf16 ones widened to float32 (numpy has no
+    bfloat16)."""
     if isinstance(outputs, dict):
-        return {k: v.cpu().numpy() for k, v in outputs.items()}
+        return {k: _to_numpy(v) for k, v in outputs.items()}
+    if outputs.dtype == torch.bfloat16:
+        outputs = outputs.float()
     return outputs.cpu().numpy()
 
 

@@ -13,6 +13,9 @@ and undoes its transposes:
                                      -> weight/bias, running_mean/running_var
 
 The mapping module imports only numpy, so this file never imports jax.
+A model with bf16 activations (ShapeNet PVCNN's dtype="bfloat16") holds
+float32 parameters and statistics, as the JAX model does in either dtype,
+so the same variables carry over unchanged.
 """
 
 from __future__ import annotations

@@ -1258,3 +1258,193 @@ def test_ndhwc_wgrad_ci4(dev, co, r):
     plan = conv3d._wgrad_plan(32, ci, co, r, conv3d._sm_count(dev.index or 0))
     assert conv3d._ndhwc_layout(ci, plan) == "last_slots"
     _ndhwc_check(x, g)
+
+
+# ---- the bf16 modes of K1-K5 ------------------------------------------------
+
+def _bf16_close(got, want, scale=None):
+    """bf16 outputs within two bf16 roundings of want's scale (the kernel
+    and the plain version sum in f32 in other orders and round once)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item() if scale is None else scale
+    torch.testing.assert_close(got, want, rtol=0, atol=2 ** -7 * scale)
+
+
+def _counted(name, fn, *args):
+    before = kernels.KERNELS[name].launches
+    out = fn(*args)
+    assert kernels.KERNELS[name].launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("want_stats", [False, True])
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("b,ci,co,r", [
+    (2, 6, 16, 8), (2, 9, 33, 5), (1, 16, 32, 16), (2, 32, 64, 8),
+    (1, 64, 130, 8), (3, 1, 1, 4), (2, 128, 128, 16), (1, 20, 70, 12),
+    (4, 16, 16, 32), (8, 32, 32, 16)])
+def test_conv3d_bf16_kernel(dev, b, ci, co, r, has_prologue, want_stats):
+    """K3's bf16 mode (both tiles, Ci % 16 == 0 and not, ragged voxel and
+    channel tiles; the narrow tile at ShapeNet PVCNN 0.25x's grids)
+    against its plain version: y within two bf16 roundings,
+    the f32 statistics within 1e-4 of their plain sums, two runs bitwise
+    equal; the dgrad and K4's bf16 mode likewise."""
+    bf = torch.bfloat16
+    x = torch.randn(b, ci, r ** 3, device=dev).to(bf)
+    w = (torch.randn(co, ci, 3, 3, 3, device=dev) / (27 * ci) ** 0.5).to(bf)
+    bias = torch.randn(co, device=dev)
+    scale = torch.rand(ci, device=dev) + 0.5
+    shift = torch.randn(ci, device=dev)
+    args = (x, w, bias, scale, shift, r, has_prologue, want_stats)
+    y, s1, s2 = _counted("conv3d_fwd_bf16", conv3d._forward_cuda, *args)
+    want, w1, w2 = conv3d._forward_plain(*args)
+    _bf16_close(y, want)
+    if want_stats:
+        yf = conv3d._conv3d_plain(
+            conv3d._activated(x, scale, shift, has_prologue), w.float(),
+            bias, None, None, r, False)
+        torch.testing.assert_close(s1, w1, rtol=0,
+                                   atol=1e-4 * yf.abs().sum(dim=(0, 2)).max())
+        torch.testing.assert_close(s2, w2, rtol=1e-4, atol=1e-6)
+    assert all(torch.equal(a, c) for a, c in
+               zip((y, s1, s2), conv3d._forward_cuda(*args)))
+    gy = torch.randn(b, co, r ** 3, device=dev).to(bf)
+    dx = _counted("conv3d_dgrad_bf16", conv3d._dgrad_cuda, gy, w, r)
+    _bf16_close(dx, conv3d._dgrad_plain(gy, w, r))
+    assert torch.equal(dx, conv3d._dgrad_cuda(gy, w, r))
+    wargs = (x, gy, scale, shift, r, has_prologue)
+    dw = _counted("conv3d_wgrad_bf16", conv3d._wgrad_cuda, *wargs)
+    _bf16_close(dw, conv3d._wgrad_plain(*wargs))
+    assert torch.equal(dw, conv3d._wgrad_cuda(*wargs))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 40])
+def test_wgrad_bf16_splits(dev, monkeypatch, splits):
+    """K4's bf16 mode at forced splits (runs of slices across clouds, the
+    last run short): the same dW within two bf16 roundings."""
+    bf = torch.bfloat16
+    b, ci, co, r = 3, 16, 32, 8
+    x = torch.randn(b, ci, r ** 3, device=dev).to(bf)
+    gy = torch.randn(b, co, r ** 3, device=dev).to(bf)
+    slices = b * r ** 3 // 32
+    per = -(-slices // splits)
+    monkeypatch.setattr(conv3d, "_wgrad_bf16_plan",
+                        lambda *a: (-(-slices // per), per))
+    _bf16_close(conv3d._wgrad_cuda(x, gy, None, None, r, False),
+                conv3d._wgrad_plain(x, gy, None, None, r, False))
+
+
+@pytest.mark.parametrize("c,r", [(1, 8), (5, 8), (16, 16), (64, 32),
+                                 (130, 16)])
+def test_k1_k2_k5_bf16(dev, c, r):
+    """K1's, K2's and K5's bf16 modes (channel-major) against their plain
+    versions on the card and on the CPU: K1 and K2 within two bf16
+    roundings of the output's scale, K5 within 2^-7 of each bin's sum of
+    |terms|; two runs bitwise equal."""
+    bf = torch.bfloat16
+    b, n = 2, 700
+    vox, norm = ops.normalize_coords(_coords(dev, b=b, n=n), r,
+                                     normalize=False)
+    flat = ops.flat_voxel_index(vox, r)
+    flat[0, :300] = flat[0, 0]                       # a run of 300 rows
+    feats = torch.randn(b, n, c, device=dev).to(bf)
+    got = _counted("avg_voxelize_bf16", voxelize._scatter_mean_cuda, feats,
+                   flat, r ** 3, True)[0]
+    _bf16_close(got, voxelize._scatter_mean_plain(feats.cpu(), flat.cpu(),
+                                                  r ** 3, True).to(dev))
+    assert torch.equal(got, voxelize._scatter_mean_cuda(feats, flat, r ** 3,
+                                                        True)[0])
+    grid = torch.randn(b, c, r ** 3, device=dev).to(bf)
+    got = _counted("trilinear_devoxelize_bf16", devoxelize._devoxelize_cuda,
+                   grid, norm, r, True)
+    _bf16_close(got, devoxelize._devoxelize_plain(grid, norm, r, True))
+    assert torch.equal(got, devoxelize._devoxelize_cuda(grid, norm, r, True))
+    g = torch.randn(b, n, c, device=dev).to(bf)
+    got = _counted("devoxelize_bwd_bf16", devoxelize._devoxelize_bwd_cuda, g,
+                   norm, r, True)
+    want = devoxelize._devoxelize_bwd_plain(g.cpu(), norm.cpu(), r, True)
+    mag = devoxelize._devoxelize_bwd_plain(g.abs().float().cpu(), norm.cpu(),
+                                           r, True)
+    assert got.dtype == bf
+    bad = (got.float().cpu() - want.float()).abs() > 2 ** -7 * mag + 1e-30
+    assert not bad.any()
+    assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(g, norm, r,
+                                                            True))
+
+
+def test_bf16_kernels_reject_what_they_do_not_take(dev):
+    """Channel-last bf16 grids, mixed bf16 and float32 operands: a
+    ValueError naming the dtype it got and the kernels that take it."""
+    bf = torch.bfloat16
+    x = torch.randn(1, 4, 512, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        voxelize._scatter_mean_cuda(x.transpose(1, 2).to(bf), torch.zeros(
+            1, 512, dtype=torch.int32, device=dev), 512, False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        devoxelize._devoxelize_cuda(x.transpose(1, 2).contiguous().to(bf),
+                                    torch.rand(1, 64, 3, device=dev), 8,
+                                    False)
+    with pytest.raises(ValueError, match="conv3d_fwd_bf16"):
+        conv3d._forward_cuda(x.to(bf), torch.randn(4, 4, 3, 3, 3, device=dev),
+                             torch.zeros(4, device=dev), None, None, 8,
+                             False, False)
+    with pytest.raises(ValueError, match="conv3d_wgrad_bf16"):
+        conv3d._wgrad_cuda(x.to(bf), x, None, None, 8, False)
+
+
+@pytest.mark.parametrize("has_prologue,want_stats", [(False, True),
+                                                     (True, True)])
+def test_conv3d_bf16_grads_on_card(dev, has_prologue, want_stats):
+    """The bf16 conv op's VJP on the card against the CPU's plain versions
+    (dx and dW bf16 within two roundings, dbias, dscale and dshift f32)."""
+    bf = torch.bfloat16
+    b, ci, co, r = 2, 16, 32, 8
+    leaves = [torch.randn(b, ci, r ** 3).to(bf),
+              (torch.randn(co, ci, 3, 3, 3) / (27 * ci) ** 0.5).to(bf),
+              torch.randn(co), torch.rand(ci) + 0.5, torch.randn(ci)]
+    cot = (torch.randn(b, co, r ** 3).to(bf), 0.1 * torch.randn(co),
+           0.01 * torch.randn(co))
+
+    def grads(device):
+        args = [t.to(device).requires_grad_() for t in leaves]
+        out = ops.conv3d_rows_act(*args, r, has_prologue, want_stats)
+        got = torch.autograd.grad(out, args, [c.to(device) for c in cot],
+                                  allow_unused=True)
+        return [None if g is None else g.cpu() for g in got]
+
+    got, want = grads(dev), grads("cpu")
+    _bf16_close(got[0], want[0])
+    _bf16_close(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=2 ** -7 * w.abs().max().item())
+
+
+def test_split_dense_bf16_on_card(dev):
+    """The bf16 SplitDense (cuBLAS products of bf16 parts into f32, one
+    rounding) on the card against the CPU's widened products: output and
+    gradients within two bf16 roundings of their scale."""
+    from pvcnn_tpu_torch.nn.shared_mlp import SplitDense
+
+    layer = SplitDense(16 + 40 + 8, 24, dtype="bfloat16")
+    shapes = [(2, 300, 16), (2, 300, 40), (2, 1, 8)]
+    parts = [torch.randn(s).to(torch.bfloat16) for s in shapes]
+    cot = torch.randn(2, 300, 24).to(torch.bfloat16)
+
+    def run(device):
+        mod = layer.to(device)
+        mod.zero_grad()
+        xs = [p.detach().clone().to(device).requires_grad_() for p in parts]
+        y = mod(xs)
+        y.backward(cot.to(device))
+        return [t.detach().cpu() for t in
+                [y] + [x.grad for x in xs] + [mod.weight.grad, mod.bias.grad]]
+
+    want = run("cpu")
+    got = run(dev)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=2 ** -7 * w.float().abs().max().item())
