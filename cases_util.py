@@ -5,6 +5,12 @@ digests that compare two trees bit for bit.
 
 Each script imports this module after its `--tree` has put another
 checkout first on sys.path; this module imports nothing of the package.
+
+Run as a script, it compares the SASS of every kernel of two built kernel
+libraries (addresses and encodings stripped, names demangled without
+their parameter lists):
+
+    python3 cases_util.py --sass-diff NEW.so OLD.so
 """
 
 from __future__ import annotations
@@ -163,3 +169,66 @@ class Digests:
             same = sum(self.theirs.get(k) == v for k, v in self.saved.items())
             print(f"[{self.label}] {same} of {len(self.saved)} outputs "
                   "bitwise equal against the saved tree")
+
+
+def sass_functions(lib_path) -> dict:
+    """{demangled kernel name without its parameters: its SASS lines, with
+    addresses and encodings stripped} of a built kernel library."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name and "/*" in line and ";" in line:
+            body = re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", line)
+            funcs[name].append(body.split(";")[0].strip())
+    names = list(funcs)
+    demangled = subprocess.run([os.path.join(CUDA_HOME, "bin", "cu++filt")],
+                               input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    out = {}
+    for mangled, full in zip(names, demangled):
+        depth, cut = 0, len(full)
+        for i, ch in enumerate(full):          # the parameter list's "("
+            depth += ch == "<"
+            depth -= ch == ">"
+            if (ch == "(" and depth == 0 and i > 0 and full[i - 1] != "<"
+                    and not full[i:].startswith("(anonymous")):
+                cut = i
+                break
+        out.setdefault(full[:cut], funcs[mangled])
+    return out
+
+
+def sass_diff(new_lib, old_lib) -> None:
+    """Print which kernels of old_lib have the same SASS in new_lib, which
+    differ or are gone, and which are new."""
+    new, old = sass_functions(new_lib), sass_functions(old_lib)
+    same = 0
+    for name in sorted(old):
+        if name not in new:
+            print(f"[sass-diff] gone: {name}")
+        elif new[name] == old[name]:
+            same += 1
+        else:
+            print(f"[sass-diff] differs: {name} ({len(old[name])} -> "
+                  f"{len(new[name])} instructions)")
+    added = sorted(n for n in new if n not in old)
+    print(f"[sass-diff] {same} of {len(old)} kernels identical; "
+          f"{len(added)} new: " + "; ".join(added), flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if len(sys.argv) != 4 or sys.argv[1] != "--sass-diff":
+        raise SystemExit("usage: python3 cases_util.py --sass-diff NEW.so "
+                         "OLD.so")
+    sass_diff(sys.argv[2], sys.argv[3])

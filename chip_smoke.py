@@ -251,7 +251,11 @@ failure:
                 each twice bitwise equal and within two bf16 roundings of
                 its plain version (K3's f32 statistics within 1e-4), timed
                 beside the plain version, the PyTorch call in bf16 and the
-                bound (bf16 operations over 989 TFLOP/s); the bf16
+                bound (bf16 operations over 989 TFLOP/s); each K3, dgrad
+                and K4 case's share of its bound and ratio to cuDNN, K3's
+                staging pass alone, K4 timed as the step runs it (on the
+                forward's staged a(x) and the dgrad's staged cotangent);
+                HGMMA in K3's and K4's SASS (cuobjdump); the bf16
                 training step of PVCNN 1x at 32 x 2048 and 0.25x at 64 x
                 2048 (the JAX headline's batch) on the kernel and plain
                 paths: step 1 twice bitwise equal; the eval logits, step-1
@@ -904,8 +908,8 @@ class Record:
             run_lib=None, plain_reps=20, split=None, peak=PEAK_FP32_FLOPS):
         """split: (glue, kernel alone) callables that time `run_k`'s two
         parts apart (K1, K5: the sort, and the kernel on its output).
-        Returns (ms, bound ms) of a timed case, None where it has no
-        calls."""
+        Returns (ms, bound ms, library ms or None) of a timed case, None
+        where it has no calls."""
         calls = self.calls.get((kernel, case), 0)
         r = self.rec[kernel]
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -935,7 +939,7 @@ class Record:
         if lib_ms is not None:
             r["library_ms"] += calls * lib_ms
             r["library_cases"] += calls
-        return ms, bound
+        return ms, bound, lib_ms
 
     def summary(self, label: str) -> dict:
         for k, r in self.rec.items():
@@ -1225,7 +1229,7 @@ def _fps_case(rec: Record, pts, m):
     timed = rec.add("fps", case, 0.0, run_k, run_p, 10.0 * b * n * (m - 1),
                     4 * (b * n * 3 + b * m), plain_reps=3)
     if timed:
-        ms, bound = timed
+        ms, bound, _ = timed
         chain = time_ms(lambda: sampling._fps_cuda(pts, m, chain_only=True))
         holds = "chain floor" if chain >= bound else "FLOP bound"
         log("kernels", f"fps {case}: {m - 1} dependent steps; (cluster, "
@@ -1284,7 +1288,7 @@ def _three_nn_case(rec: Record, pts, ctr, sms):
                     4 * (b * n * 3 + b * m * 3 + 2 * b * n * 3),
                     plain_reps=5)
     if timed:
-        _three_nn_log(case, run_k, *timed, sms, b)
+        _three_nn_log(case, run_k, *timed[:2], sms, b)
     return idx
 
 
@@ -1974,7 +1978,9 @@ PROFILE_GROUPS = (
                                    "conv3d_split_sum_kernel")),
     ("K4 conv3d wgrad", ("conv3d_wgrad_kernel", "conv3d_wgrad_sum_kernel")),
     ("K3 / K4 prologue pass", ("conv3d_prologue_kernel",)),
-    ("K3 bf16 conv3d forward + dgrad", ("conv3d_bf16_fwd_kernel",)),
+    ("K3 bf16 conv3d forward + dgrad", ("conv3d_bf16_fwd_kernel",
+                                        "conv3d_bf16_weights_kernel",
+                                        "conv3d_bf16_stats_kernel")),
     ("K4 bf16 conv3d wgrad", ("conv3d_bf16_wgrad_kernel",
                               "conv3d_bf16_wgrad_sum_kernel")),
     ("K3 / K4 bf16 staging pass", ("conv3d_bf16_stage_kernel",)),
@@ -3785,6 +3791,17 @@ def _time_bf16_kernels(rec: Record, coords) -> None:
             run_lib if lib_ok else None, split=split)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def shares(kernel, case, timed, extra=""):
+        """A K3 / dgrad / K4 case's share of its bound and its time over
+        the cuDNN call's."""
+        if not timed:
+            return
+        ms, bound, lib_ms = timed
+        lib = f", {ms / lib_ms:.2f}x cuDNN" if lib_ms else ""
+        log("kernels", f"{kernel} {case}: {bound / ms:.1%} of its bound"
+            f"{lib}{extra}")
+
     for ci, co, r in sorted({c[:3] for c in cases("conv3d_fwd_bf16")}):
         bound = 1.0 / (27 * ci) ** 0.5
         x = torch.randn(b, ci, r ** 3, device=dev).to(bf)
@@ -3822,11 +3839,27 @@ def _time_bf16_kernels(rec: Record, coords) -> None:
                 "conv3d_fwd_bf16", case,
                 run_lib().reshape(b, co, r ** 3).float(), want.float(),
                 want.abs().max().item())
-            add("conv3d_fwd_bf16", case, err, run_k, run_p, flops,
-                2 * (b * ci * r ** 3 + 27 * ci * co + b * co * r ** 3)
-                + 4 * co, run_lib if lib_ok else None)
+            timed = add("conv3d_fwd_bf16", case, err, run_k, run_p, flops,
+                        2 * (b * ci * r ** 3 + 27 * ci * co
+                             + b * co * r ** 3) + 4 * co,
+                        run_lib if lib_ok else None)
+            # the staging pass alone (its share of the call; K4 skips it
+            # on the forward's saved copy)
+            stage_ms = (time_ms(lambda: conv3d._stage_bf16(
+                x, *((scale, shift) if pro else ()))) if timed else 0.0)
+            staged_mib = 2 * b * r ** 3 * (-(-ci // 16) * 16) / 2 ** 20
+            shares("conv3d_fwd_bf16", case, timed, f"; staging pass "
+                   f"{stage_ms:.4f} ms, {staged_mib:.1f} MiB staged")
 
-            run_k = lambda: conv3d._wgrad_cuda(x, gy, scale, shift, r, pro)
+            # K4 as the step runs it: on the forward's staged a(x) and,
+            # where the layer runs a dgrad, the cotangent the dgrad staged
+            # (its staging pass is the dgrad's; the first conv stages it)
+            staged = {"xt": conv3d._stage_bf16(
+                x, *((scale, shift) if pro else ()))}
+            if ("conv3d_dgrad_bf16", (co, ci, r)) in rec.calls:
+                staged["gt"] = conv3d._stage_bf16(gy)
+            run_k = lambda: conv3d._wgrad_cuda(x, gy, scale, shift, r, pro,
+                                               staged=staged)
             run_p = lambda: conv3d._wgrad_plain(x, gy, scale, shift, r, pro)
             g5 = gy.reshape(b, co, r, r, r)
             run_lib = lambda: torch.nn.grad.conv3d_weight(x5, w.shape, g5,
@@ -3840,11 +3873,11 @@ def _time_bf16_kernels(rec: Record, coords) -> None:
             timed = add("conv3d_wgrad_bf16", case, err, run_k, run_p, flops,
                         2 * (b * ci * r ** 3 + b * co * r ** 3
                              + 27 * ci * co), run_lib if lib_ok else None)
-            splits, per = conv3d._wgrad_bf16_plan(b, ci, co, r, sms)
-            share = (f", {timed[1] / timed[0]:.1%} of its bound"
-                     if timed else "")
-            log("kernels", f"conv3d_wgrad_bf16 {case}: {splits} split(s) of "
-                f"{per} slices{share}")
+            plan = conv3d._wgrad_bf16_plan(b, ci, co, r, sms)
+            shares("conv3d_wgrad_bf16", case, timed,
+                   f"; {plan.col_blocks} column block(s) of {plan.cols} "
+                   f"channels x {plan.co_tiles} Co tile(s) x {plan.splits} "
+                   f"split(s) of {plan.per_split} chunks")
 
         if ("conv3d_dgrad_bf16", (co, ci, r)) in rec.calls:
             case = (co, ci, r)
@@ -3860,15 +3893,45 @@ def _time_bf16_kernels(rec: Record, coords) -> None:
                 "conv3d_dgrad_bf16", case,
                 run_lib().reshape(b, ci, r ** 3).float(), want.float(),
                 want.abs().max().item())
-            add("conv3d_dgrad_bf16", case, err, run_k, run_p, flops,
-                2 * (b * co * r ** 3 + 27 * ci * co + b * ci * r ** 3),
-                run_lib if lib_ok else None)
+            timed = add("conv3d_dgrad_bf16", case, err, run_k, run_p,
+                        flops,
+                        2 * (b * co * r ** 3 + 27 * ci * co
+                             + b * ci * r ** 3),
+                        run_lib if lib_ok else None)
+            shares("conv3d_dgrad_bf16", case, timed)
+
+
+def _check_bf16_sass() -> None:
+    """K3's and K4's bf16 kernels multiply on wgmma: HGMMA in their SASS
+    (cuobjdump -sass of the built library)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from pvcnn_tpu_torch import kernels
+
+    lib_path, _, _ = kernels.build()
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    for key in ("conv3d_bf16_fwd_kernel", "conv3d_bf16_wgrad_kernel"):
+        found = {n: c for n, c in counts.items() if key in n}
+        log("kernels", f"{key}: HGMMA instructions per instantiation "
+            f"{sorted(found.values())}")
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"{key}: no HGMMA in its SASS")
 
 
 def phase_bf16_kernels() -> dict:
     """Phase 29's kernels: the bf16 modes at the shapes ShapeNet PVCNN
     training with bf16 activations gives them, at 1x (B = 32) and at 0.25x
-    (B = 64). -> {path: record}"""
+    (B = 64); K3's and K4's SASS holds HGMMA. -> {path: record}"""
+    _check_bf16_sass()
     torch.manual_seed(SEED + 100)
     rng = np.random.RandomState(SEED + 100)
     recs = {}

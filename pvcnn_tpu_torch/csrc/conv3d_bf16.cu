@@ -1,76 +1,94 @@
-// K3 and K4 in bf16: the 3x3x3 conv3d on flat voxel rows with bf16
-// activations and weights, on the tensor cores.
+// K3 and K4 in bf16 on Hopper: the 3x3x3 conv3d on flat voxel rows with
+// bf16 activations and weights, on wgmma (warpgroup tensor-core products)
+// fed by TMA into rings of shared-memory stages.
 //
 // Replaces the bf16 mode of the TPU kernels pvcnn_tpu/ops/pallas/conv_rows.py:
-// _run_fwd_act (body _fwd_act_kernel) and _run_fwd, its forward and data
-// gradient, and _run_wgrad_act / _run_wgrad, its weight gradient, which stage
-// a bf16 x in VMEM (conv_rows.py:496-519, 651-682), multiply on the MXU with
+// _run_fwd_act (:636, body _fwd_act_kernel) and _run_fwd (:477), the
+// forward and data gradient, and _run_wgrad (:527) / _run_wgrad_act (:690),
+// the weight gradient. They stage a bf16 x in VMEM, multiply on the MXU with
 // f32 accumulation and store the output in x's dtype. The fp32 kernels
-// (csrc/conv3d.cu, csrc/conv3d_wgrad.cu) stay as they are; this file holds
-// the bf16 mode beside them.
+// (csrc/conv3d.cu, csrc/conv3d_wgrad.cu) stay as they are.
 //
 // Rounding points, as in the JAX package:
 //   * the prologue a(x) = leaky(x * scale + shift, 0.1) runs in f32 on the
-//     bf16 x and is rounded to bf16 before the product (conv_rows.py:
-//     _stage_act), once per element, in the staging pass K3 and K4 share
-//     (conv3d_bf16_stage_kernel, with csrc/prologue.cuh's roundings);
-//   * products of bf16 operands accumulate in f32 (mma.sync m16n8k16, f32
-//     accumulators);
+//     bf16 x and is rounded to bf16 once (conv_rows.py: _stage_act), in the
+//     staging pass (conv3d_bf16_stage_kernel, csrc/prologue.cuh's roundings);
+//   * products of bf16 operands accumulate in f32 (wgmma, f32 accumulators);
 //   * forward: the f32 bias joins the f32 accumulator, the BatchNorm sums
-//     (sum of y and of y^2) are taken from it, and y is rounded to bf16 once
-//     (conv_rows.py:_fwd_act_kernel); the data gradient is the same kernel
-//     with a zero bias and no statistics;
-//   * weight gradient: dW sums in f32 over every cloud and voxel, in a fixed
-//     order (split partials added in split order), and is rounded to bf16
-//     once at the end, as JAX's dw.astype(kernel.dtype) of the bf16 kernel
-//     (conv_rows.py:_act_bwd).
+//     (of y and of y^2) are taken from it, y is rounded to bf16 once
+//     (conv_rows.py: _fwd_act_kernel); the data gradient is the same kernel
+//     with no bias and no statistics;
+//   * weight gradient: dW sums in f32 over every cloud and voxel in a fixed
+//     order (the splits' partials added in split order) and is rounded to
+//     bf16 once, as JAX's dw.astype(kernel.dtype) (conv_rows.py: _act_bwd).
 //
-// K3 (conv3d_bf16_fwd_kernel<BM>): an implicit GEMM, output channels x
-// voxels of one cloud, reduction K = 27 * Cp tap-major in slices of 16 (one
-// mma k-step, 16 channels of one tap), Cp = Ci rounded up to 16. A staging
-// pass (conv3d_bf16_stage_kernel) first writes the input voxel-major, [B,
-// R^3, Cp] with zero channels past Ci (the prologue applied and rounded on
-// the way), so a voxel's 16 channels of a slice are one 32-byte read: the
-// im2col slice is gathered by two 16-byte loads a voxel and tap, where
-// channel-major rows would take 16 scalar loads. A block of 4 warps
-// computes BM output channels x 256 / (BM / 32) voxels (64 x 128, or 32 x
-// 256 where Co <= 32); each warp a 32 x 64 tile as 2 x 8 mma tiles of 16 x
-// 8. The weight slice [16][BM] (channels fastest, read by ldmatrix.trans)
-// and the im2col slice [BN][16] (a voxel's channels fastest, read by
-// ldmatrix) are staged in shared memory with rows padded by 16 bytes, so
-// the 8 rows of an ldmatrix hit 8 different bank groups. The next slice is
-// loaded into registers while the current one multiplies, two buffers, one
-// barrier a slice, as csrc/conv3d.cu. Each warp also reduces its 64-voxel
-// span of the biased y to per-channel sum and sum of squares and writes
-// them to partial[2][Co][B * ceil(R^3 / 64)] at the slot of (cloud, span):
-// the caller adds the slots in a fixed order, so the statistics are
-// reproducible bit for bit.
+// The staged layout. The staging pass (a shared-memory transpose of 8
+// channels x 256 voxels a block) writes each operand as [B, Cp / 8, R^3,
+// 8]: 8-channel groups, each group's voxels contiguous, a voxel's 8
+// channels in 16 bytes (Cp = C rounded up to 16, zeros past C). Eight
+// voxels of a z-run are then one 128-byte core matrix of wgmma's
+// unswizzled layout (K-major for K3's A, MN-major for K4's B), so a tap's
+// shift is a 16-byte offset of a matrix descriptor's start address. A
+// block loads the halo'd slab of its voxels once (a 4-d TMA box of 10 z x
+// 10 y x (2 + halo) x per 8-channel group, zero-filled outside the grid:
+// no tap needs a mask, the staged copy needs no halo, and any R works)
+// and runs all its taps as shifted views of it. That lifts the 27-fold
+// re-gather of an im2col off L2: each input byte enters a block's shared
+// memory once, plus its halo (400 voxels for 128). The forward's staged
+// a(x) is kept for K4, and the backward stages the cotangent once for the
+// dgrad and K4 (pvcnn_tpu_torch/ops/conv3d.py).
 //
-// K4 (conv3d_bf16_wgrad_kernel<BM>): dW[co, ci, tap] = sum over clouds and
-// voxels of g[co, v] * a(x)[ci, v + tap], a GEMM of output channels x (27 *
-// Cp) columns, tap-major, over a reduction of B * R^3 voxels in slices of
-// 32 (two mma k-steps) that never straddle clouds. Both operands are
-// staged voxel-major first (the staging pass: x with the prologue, and g),
-// so a slice is gathered in 8-channel chunks of 16 bytes: a gradient chunk
-// at the voxel, an input chunk at the voxel shifted by its column's tap
-// (or zero outside the grid; a chunk lies in one tap). A block of 4 warps
-// computes BM (64, or 32 where Co <= 32) output channels x 64 columns over
-// a run of slices (its split); both slices sit in shared memory voxel
-// rows by channel columns, padded by 16 bytes, and are read by
-// ldmatrix.trans. Each split writes its f32 partial;
-// conv3d_bf16_wgrad_sum_kernel adds the splits in order, rounds, and
-// writes torch's [Co, Ci, 3, 3, 3] order. The wrapper picks the splits
-// (pvcnn_tpu_torch/ops/conv3d.py: _wgrad_bf16_plan).
+// K3 (conv3d_bf16_fwd_kernel<N>): a block computes a tile of 8 z x 8 y x 2
+// x voxels (M: 64 rows a consumer warpgroup, 8 z-runs of 8 at one x) x N
+// output channels (16, 32, 64 or 128; more channels take more blocks),
+// reducing over 27 taps x Cp channels. A producer warp keeps a ring of 3
+// slab stages (16 channels each, one TMA load) and a ring of 4 weight
+// stages (3 taps x 16 x N, one cp.async.bulk of the weight that
+// conv3d_bf16_weights_kernel lays out as [N tiles][Cp / 16][27][2][N][8])
+// in flight, each completing on its mbarrier by transaction bytes; the
+// two consumer warpgroups issue 3 wgmma m64nNk16 a weight stage (A: the
+// slab at the tap's offset; B: the weights; both K-major from shared
+// memory), commit, and release the stage the group before read once
+// wgmma.wait_group(1) says it is done. Epilogue: bias, the statistics from
+// the f32 sums (per column: 2 rows a thread, shuffles over the column's 8
+// lanes, then the 8 warps in order: one slot per (cloud, tile), which
+// conv3d_bf16_stats_kernel adds in a fixed order), y rounded once and
+// stored channel-major through a shared-memory transpose as 16-byte
+// z-runs (2-byte stores only where R % 8 != 0). One launcher call stages
+// x, lays out the weight, multiplies and sums the statistics: at 0.25x
+// the calls are bound by the host's work per call.
 //
-// Bound. Operations: 2 * Co * 27 * Ci per voxel (0.23 TFLOP for the 64 ->
-// 64 layer at B = 32, R = 32) against 989 TFLOP/s of bf16 tensor cores;
-// bytes: x, y (or g, dW) once, 2 bytes an element. Both kernels stage
-// their operands through registers, one slice ahead, and run far from the
-// tensor cores' rate (PERF.md). A later change can move the staging to
-// TMA and the product to wgmma.
+// K4 (conv3d_bf16_wgrad_kernel<NW>): dW[co, ci, tap] = sum over clouds and
+// voxels of g[co, v] * a(x)[ci, v + tap], a product of M = 64 output
+// channels (A: the staged gradient) by N = NW input channels of one tap
+// (B: the slab at the tap's offset, MN-major from shared memory) over K =
+// voxels, in chunks of the same 2 x 8 x 8 voxels (8 k16 steps of two
+// z-runs). A block owns a 64-channel tile of Co and a set of columns: with
+// NW = 16 (Cp an odd multiple of 16) all 27 taps of 16 channels,
+// warpgroup w the taps at dx = w (9 accumulator tiles); with NW = 32 or
+// 64 one dx plane of NW channels, warpgroup w the taps at dy = w (3
+// tiles). Its three consumer warpgroups share one ring of 4 stages (the
+// slab and the gradient tile of a chunk, two TMA loads on one mbarrier)
+// over a run of chunks (its split). A is the same for all of a
+// warpgroup's taps, so each warp loads its 16 rows into registers once a
+// k16 step (ldmatrix.trans) and the products read only B from shared
+// memory: small-N products are bound by shared-memory reads, not by the
+// tensor cores. The 0.25x shapes (Cp = 16, Co = 16 or 32) fill the 64-row
+// tile with rows past Co that are never stored: they are bound by bytes,
+// and a block reads each chunk's slab once for all 27 taps. Each split
+// writes its f32 partial [Co][Cp][27]; conv3d_bf16_wgrad_sum_kernel adds
+// the splits in order and rounds (ops/conv3d.py: _wgrad_bf16_plan: one
+// wave of one block an SM).
+//
+// Bound: operations, 2 * Co * 27 * Ci a voxel against 989 TFLOP/s of bf16
+// tensor cores at 1x; at 0.25x mostly bytes (x, y or g, and W once, 2 bytes
+// an element, against 3.35 TB/s). Weights stream from L2 per block (K3:
+// 32 N bytes a k16 step for 2 x 64 rows).
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 
-#include <type_traits>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -78,38 +96,14 @@ namespace {
 
 using u16 = unsigned short;
 
-constexpr int kThreads = 128;
 constexpr int kTaps = 27;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPad = 8;     // shared-memory row padding, in bf16 (16 bytes)
-constexpr int kBK = 16;     // K3: reduction slice
-constexpr int kSpan = 64;   // K3: voxels of one warp (statistics slot)
-constexpr int kWK = 32;     // K4: voxels per reduction slice
-
-// flat offset of tap t (dx, dy, dz in -1..1) on an R^3 grid
-__device__ __forceinline__ int tap_offset(int t, int R) {
-  return ((t / 9 - 1) * R + (t / 3) % 3 - 1) * R + t % 3 - 1;
-}
-
-// bit t set where tap t of voxel v lies in the grid (0 for v >= R^3)
-__device__ __forceinline__ unsigned tap_mask(int v, int R) {
-  if (v >= R * R * R) return 0u;
-  const int c[3] = {v / (R * R), (v / R) % R, v % R};
-  unsigned ok[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {   // bit d: offset d - 1 stays in the grid
-    ok[a] = (c[a] > 0 ? 1u : 0u) | 2u | (c[a] < R - 1 ? 4u : 0u);
-  }
-  unsigned m = 0u;
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    if ((ok[0] >> (t / 9)) & (ok[1] >> ((t / 3) % 3)) & (ok[2] >> (t % 3)) &
-        1u) {
-      m |= 1u << t;
-    }
-  }
-  return m;
-}
+constexpr int kVox = 16;     // bytes of a voxel's 8-channel group
+// K3's output tile and K4's reduction chunk: 8 z x 8 y x 2 x voxels
+constexpr int kTileZ = 8, kTileY = 8, kTileX = 2;
+// the halo'd slab's z and y extents
+constexpr int kSlabZ = kTileZ + 2, kSlabY = kTileY + 2;
+constexpr int kConsumer = 128;   // threads of a warpgroup
 
 // leaky(x * s + t, 0.1) with csrc/prologue.cuh's roundings (no fused
 // multiply-add: those of the plain version's x * s + t)
@@ -126,531 +120,1002 @@ __device__ __forceinline__ u16 float_to_bf16(float f) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(f));
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// four 8 x 8 b16 matrices; lanes 8j .. 8j + 7 address matrix j's rows
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+// ---- mbarriers, TMA and bulk copies ---------------------------------------
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of transactions this phase
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
       : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a phase that
+// never completes is a fault, which traps after ~2^34 cycles (~9 s)
+// instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// a box of a 4-d tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16) into shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// barrier `id` (1..15) of the first `threads` threads of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// a shared-memory matrix descriptor of wgmma's unswizzled layout: 8-row x
+// 16-byte core matrices, `k_stride` bytes between the two core matrices of
+// a k16 step (the leading dimension byte offset), `mn_stride` bytes
+// between neighbouring 8-row groups along M or N (the stride dimension
+// byte offset), for K-major and MN-major operands alike
+__device__ __forceinline__ uint64_t mat_desc(uint32_t addr, uint32_t k_stride,
+                                             uint32_t mn_stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((k_stride >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((mn_stride >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keep the accumulators' registers where the asynchronous products left
+// them
+template <int kN>
+__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N f32, the warpgroup's fragment) += A (64 x 16) * B (16 x N),
+// bf16 operands from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (N == 16) {
+    wgmma_ss_n16(d, a, b);
+  } else if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64(d, a, b);
+  } else {
+    static_assert(N == 128, "wgmma N: 16, 32, 64 or 128");
+    wgmma_ss_n128(d, a, b);
+  }
+}
+
+// the same with A from registers (a warp's 16 rows in mma.sync's m16k16
+// fragment) and B from shared memory, MN-major where TB is 1
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TB));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16<1>(d, a, b);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32<1>(d, a, b);
+  } else {
+    static_assert(N == 64, "wgmma N: 16, 32 or 64");
+    wgmma_rs_n64<1>(d, a, b);
+  }
+}
+
+// four 8 x 8 b16 matrices, transposed; lanes 8j .. 8j + 7 address matrix
+// j's rows
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
+      : "r"(addr)
       : "memory");
 }
 
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- the staging pass -----------------------------------------------------
 
-// the staging pass of K3 and K4's bf16 modes: x [B, C, R^3] channel-major
-// -> xt [B, R^3, Cp] voxel-major, Cp = C rounded up to 16, channels C ..
-// Cp - 1 zero; with the prologue each value is activated in f32 and
-// rounded to bf16 (the JAX kernel stage's rounding). A thread writes 8
-// channels of one voxel (16 bytes); neighbouring threads take neighbouring
-// voxels, so each channel's reads are coalesced.
-__global__ void __launch_bounds__(pvcnn::kThreads)
+// x [B, C, R^3] channel-major -> xt [B, G, R^3, 8] (G = Cp / 8 groups, a
+// voxel's 8 channels fastest, channels C .. Cp - 1 zero); with the
+// prologue each value is activated in f32 and rounded to bf16 (the JAX
+// kernel stage's rounding). A block transposes 8 channels x 256 voxels
+// through shared memory: warp w loads channel w's row as 16-byte pieces
+// (element by element where R^3 % 8 != 0 or x is not 16-byte aligned),
+// then thread t stores voxel t's 16 bytes, both coalesced.
+constexpr int kStageVox = 256;
+
+__global__ void __launch_bounds__(kStageVox)
 conv3d_bf16_stage_kernel(const u16* __restrict__ x,          // [B, C, R^3]
                          const float* __restrict__ pscale,   // [C] / null
                          const float* __restrict__ pshift,   // [C] / null
-                         u16* __restrict__ xt,               // [B, R^3, Cp]
-                         int C, int Cp, int R3, int64_t total) {
+                         u16* __restrict__ xt,               // [B, G, R^3, 8]
+                         int C, int G, int R3) {
+  __shared__ __align__(16) u16 tile[8][kStageVox + 8];
+  const int runs = (R3 + kStageVox - 1) / kStageVox;
+  const int v0 = static_cast<int>(blockIdx.x % runs) * kStageVox;
+  const int64_t bg = blockIdx.x / runs;    // cloud * G + group
+  const int64_t b = bg / G;
+  const int ci = threadIdx.x >> 5, vl = (threadIdx.x & 31) * 8;
+  const int c = static_cast<int>(bg % G) * 8 + ci;
+  union Row {
+    uint4 v;
+    u16 e[8];
+  } in;
+  in.v = make_uint4(0u, 0u, 0u, 0u);
+  if (c < C) {
+    const u16* row = x + (b * C + c) * R3 + v0 + vl;
+    if (R3 % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+        v0 + vl < R3) {
+      in.v = __ldg(reinterpret_cast<const uint4*>(row));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (v0 + vl + j < R3) in.e[j] = __ldg(row + j);
+      }
+    }
+    if (pscale != nullptr) {
+      const float sc = __ldg(pscale + c), sh = __ldg(pshift + c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        in.e[j] = float_to_bf16(activate(bf16_to_float(in.e[j]), sc, sh));
+      }
+    }
+  }
+  *reinterpret_cast<uint4*>(&tile[ci][vl]) = in.v;
+  __syncthreads();
+  const int v = v0 + static_cast<int>(threadIdx.x);
+  if (v >= R3) return;
+  Row out;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out.e[i] = tile[i][threadIdx.x];
+  *reinterpret_cast<uint4*>(xt + (bg * R3 + v) * 8) = out.v;
+}
+
+// K3's weight: w [Co, Ci, 27] (flip: the forward's [Ci, Co, 27] with the
+// taps reversed, the data gradient's) -> ws [NT][Cp / 16][27][2][N][8]:
+// per block of N output channels, 16-channel chunk and tap, the two
+// 8-channel halves as N rows of 8 (wgmma's K-major B), zeros past Ci, Co
+__global__ void __launch_bounds__(pvcnn::kThreads)
+conv3d_bf16_weights_kernel(const u16* __restrict__ w, u16* __restrict__ ws,
+                           int Ci, int Co, int N, int flip, int64_t total) {
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  if (t >= total) return;                 // total = B * R^3 * Cp / 8
-  const int groups = Cp / 8;
-  const int v = static_cast<int>(t % R3);
-  const int64_t rest = t / R3;
-  const int c0 = static_cast<int>(rest % groups) * 8;
-  const int64_t b = rest / groups;
-  auto value = [&](int c) -> unsigned {
-    if (c >= C) return 0u;
-    const u16 raw = __ldg(x + (b * C + c) * R3 + v);
-    if (pscale == nullptr) return raw;
-    return float_to_bf16(activate(bf16_to_float(raw), __ldg(pscale + c),
-                                  __ldg(pshift + c)));
-  };
-  uint4 out;
-  out.x = value(c0) | (value(c0 + 1) << 16);
-  out.y = value(c0 + 2) | (value(c0 + 3) << 16);
-  out.z = value(c0 + 4) | (value(c0 + 5) << 16);
-  out.w = value(c0 + 6) | (value(c0 + 7) << 16);
-  *reinterpret_cast<uint4*>(xt + (b * R3 + v) * Cp + c0) = out;
+  if (t >= total) return;             // total = NT * Cp * 27 * N
+  const int k = static_cast<int>(t % 8);
+  int64_t rest = t / 8;
+  const int n = static_cast<int>(rest % N);
+  rest /= N;
+  const int h = static_cast<int>(rest % 2);
+  rest /= 2;
+  const int tap = static_cast<int>(rest % kTaps);
+  rest /= kTaps;                      // nt * chunks + chunk
+  const int chunks = (Ci + 15) / 16;
+  const int co = static_cast<int>(rest / chunks) * N + n;
+  const int ci = static_cast<int>(rest % chunks) * 16 + 8 * h + k;
+  u16 v = 0;
+  if (co < Co && ci < Ci) {
+    v = flip ? __ldg(w + (static_cast<int64_t>(ci) * Co + co) * kTaps +
+                     kTaps - 1 - tap)
+             : __ldg(w + (static_cast<int64_t>(co) * Ci + ci) * kTaps + tap);
+  }
+  ws[t] = v;
 }
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-conv3d_bf16_fwd_kernel(const u16* __restrict__ xt,       // [B, R^3, Cp]
-                       const u16* __restrict__ w,        // [27 * Cp, Co]
+// stats[i] = the sum of partial[i][0 .. slots) in a fixed order (a block
+// a row: strided partial sums, then a tree), the BatchNorm sums of K3
+__global__ void __launch_bounds__(pvcnn::kThreads)
+conv3d_bf16_stats_kernel(const float* __restrict__ partial,
+                         float* __restrict__ stats, int slots) {
+  __shared__ float part[pvcnn::kThreads];
+  const float* row = partial + static_cast<int64_t>(blockIdx.x) * slots;
+  float s = 0.f;
+  for (int j = threadIdx.x; j < slots; j += pvcnn::kThreads) s += row[j];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = pvcnn::kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) stats[blockIdx.x] = part[0];
+}
+
+// ---- K3: forward and data gradient ----------------------------------------
+
+template <int N>
+struct Fwd {
+  static constexpr int kThreads = 2 * kConsumer + 32;   // + a producer warp
+  static constexpr int kSlabStages = 3, kWStages = 4;
+  static constexpr int kSlabVox = kSlabZ * kSlabY * (kTileX + 2);   // 400
+  static constexpr int kSlabBytes = 2 * kSlabVox * kVox;   // 16 channels
+  static constexpr int kWBytes = 3 * 16 * N * 2;           // 3 taps x 16 x N
+  static constexpr int kRing = kSlabStages * kSlabBytes + kWStages * kWBytes;
+  // the epilogue's transpose (over the ring): [2][N][64 + 8] bf16
+  static constexpr int kEpiStride = 64 + 8;
+  static constexpr int kEpiBytes = 2 * N * kEpiStride * 2;
+  static constexpr int kBarOff = kRing > kEpiBytes ? kRing : kEpiBytes;
+  static constexpr int kStatOff = kBarOff + 128;   // 14 barriers
+  static constexpr int kStatBytes = 2 * 4 * 2 * N * 4;   // [2][4][2][N]
+  static constexpr int kSmem = kStatOff + kStatBytes + 128;   // + alignment
+};
+
+__device__ __forceinline__ unsigned char* align128(unsigned char* p) {
+  return p + ((128 - (smem_addr(p) & 127)) & 127);
+}
+
+template <int N>
+__global__ void __launch_bounds__(Fwd<N>::kThreads, 2)
+conv3d_bf16_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const u16* __restrict__ w,   // [NT][Cp/16][27][2][N][8]
                        const float* __restrict__ bias,   // [Co] / null
                        u16* __restrict__ y,              // [B, Co, R^3]
-                       float* __restrict__ partial,  // [2, Co, B*spans]/null
-                       int B, int Cp, int Co, int R) {
-  constexpr int WM = BM / 32;                    // warps over channels
-  constexpr int WN = 4 / WM;                     // warps over voxels
-  constexpr int BN = kSpan * WN;                 // voxels per block
-  constexpr int kCols = BN / kThreads;           // voxels per thread
-  constexpr int kAVec = kBK * BM / kThreads;     // weights per thread
-  using AVec = typename std::conditional<kAVec == 8, uint4, uint2>::type;
-  __shared__ __align__(16) u16 As[2][kBK][BM + kPad];
-  // a voxel's 16 channels of the slice, padded to 48 bytes a row
-  __shared__ __align__(16) u16 Bs[2][BN][kBK + kPad];
-
+                       float* __restrict__ partial,      // [2, Co, slots]
+                       int groups, int Co, int R, int tz, int ty, int tiles,
+                       int slots) {
+  using C = Fwd<N>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align128(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* full_a = bars;           // slab stages
+  uint64_t* empty_a = bars + 3;
+  uint64_t* full_w = bars + 6;       // weight stages
+  uint64_t* empty_w = bars + 10;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wm = (tid >> 5) / WN;   // channels co0 + wm * 32 + {0..31}
-  const int wn = (tid >> 5) % WN;   // voxels v0 + wn * 64 + {0..63}
-  const int b = blockIdx.z;
-  const int co0 = blockIdx.y * BM;
-  const int v0 = blockIdx.x * BN;
-  const int R3 = R * R * R;
-  const int slices = Cp * kTaps / kBK;          // one tap each
-  const u16* xb = xt + static_cast<int64_t>(b) * R3 * Cp;
-
-  // this thread stages voxels v0 + tid + 128 q (their 16 channels of a
-  // slice, two 16-byte loads), with their in-grid taps
-  int col[kCols];
-  unsigned mask[kCols];
-#pragma unroll
-  for (int q = 0; q < kCols; ++q) {
-    col[q] = v0 + tid + kThreads * q;
-    mask[q] = tap_mask(col[q], R);
+  const int chunks = groups / 2;     // 16-channel chunks of Cp
+  const int slot = blockIdx.x;       // cloud * tiles + tile
+  const int b = slot / tiles, tile = slot % tiles;
+  const int z0 = tile % tz * kTileZ, y0 = tile / tz % ty * kTileY;
+  const int x0 = tile / (tz * ty) * kTileX;
+  if (tid == 0) {
+    for (int i = 0; i < C::kSlabStages; ++i) {
+      bar_init(&full_a[i], 1);
+      bar_init(&empty_a[i], 2);
+    }
+    for (int i = 0; i < C::kWStages; ++i) {
+      bar_init(&full_w[i], 1);
+      bar_init(&empty_w[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // and kAVec neighbouring weights of row ak of a slice
-  const int ak = tid >> 3, am = (tid & 7) * kAVec;
-  const bool a_vec = Co % kAVec == 0 && co0 + am + kAVec <= Co;
-
-  AVec a_next;
-  uint4 b_next[kCols][2];
-  auto load_slice = [&](int k0) {
-    const u16* wr = w + static_cast<int64_t>(k0 + ak) * Co + co0 + am;
-    if (a_vec) {
-      a_next = __ldg(reinterpret_cast<const AVec*>(wr));
-    } else {                   // the ragged channel tile
-      union {
-        AVec v;
-        u16 e[kAVec];
-      } u;
-#pragma unroll
-      for (int i = 0; i < kAVec; ++i) {
-        u.e[i] = co0 + am + i < Co ? __ldg(wr + i) : u16(0);
-      }
-      a_next = u.v;
-    }
-    const int tap = k0 / Cp;
-    const int off = tap_offset(tap, R);
-    const u16* src = xb + (k0 - tap * Cp);
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      if ((mask[q] >> tap) & 1u) {
-        const uint4* p = reinterpret_cast<const uint4*>(
-            src + static_cast<int64_t>(col[q] + off) * Cp);
-        b_next[q][0] = __ldg(p);
-        b_next[q][1] = __ldg(p + 1);
-      } else {
-        b_next[q][0] = b_next[q][1] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  };
-
-  auto store_slice = [&](int buf) {
-    *reinterpret_cast<AVec*>(&As[buf][ak][am]) = a_next;
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      uint4* d = reinterpret_cast<uint4*>(&Bs[buf][tid + kThreads * q][0]);
-      d[0] = b_next[q][0];
-      d[1] = b_next[q][1];
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    }
-  }
-
-  // ldmatrix: lane 8j + r addresses row r of matrix j
-  const int mat = lane >> 3, r8 = lane & 7;
-  load_slice(0);
-  store_slice(0);
   __syncthreads();
-  for (int s = 0; s < slices; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < slices) load_slice((s + 1) * kBK);
-    unsigned a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // a0a1 a2a3 a4a5 a6a7: (m, k) 00 10 01 11
-      ldmatrix_x4_trans(
-          a[i], &As[cur][r8 + (mat >> 1) * 8][wm * 32 + i * 16 + (mat & 1) * 8]);
+
+  unsigned char* wring = smem + C::kSlabStages * C::kSlabBytes;
+  if (tid >= 2 * kConsumer) {        // the producer warp: one thread loads
+    if (tid == 2 * kConsumer) {
+      const u16* wt = w + static_cast<int64_t>(blockIdx.y) * chunks * kTaps *
+                              16 * N;
+      int k = 0;                     // weight stages issued
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % C::kSlabStages;
+        if (c >= C::kSlabStages) {
+          bar_wait(&empty_a[s], (c / C::kSlabStages - 1) & 1);
+        }
+        bar_expect(&full_a[s], C::kSlabBytes);
+        tma_load(smem + s * C::kSlabBytes, &xmap, &full_a[s],
+                 (z0 - 1) * 8, y0 - 1, x0 - 1, b * groups + 2 * c);
+        for (int t = 0; t < 9; ++t, ++k) {
+          const int ws = k % C::kWStages;
+          if (k >= C::kWStages) {
+            bar_wait(&empty_w[ws], (k / C::kWStages - 1) & 1);
+          }
+          bar_expect(&full_w[ws], C::kWBytes);
+          bulk_load(wring + ws * C::kWBytes,
+                    wt + (static_cast<int64_t>(c) * kTaps + 3 * t) * 16 * N,
+                    C::kWBytes, &full_w[ws]);
+        }
+      }
     }
+    return;
+  }
+
+  // consumers: warpgroup wg computes output x = x0 + wg, 64 rows (8 y-rows
+  // of one z-run each) x N channels
+  const int wg = tid / kConsumer, lt = tid % kConsumer;
+  float acc[N / 2];
 #pragma unroll
-    for (int j2 = 0; j2 < 4; ++j2) {   // n8 tiles 2 j2 and 2 j2 + 1
-      unsigned bf[4];                  // (n, k) 00 01 10 11
-      ldmatrix_x4(bf, &Bs[cur][wn * kSpan + j2 * 16 + (mat >> 1) * 8 + r8]
-                         [(mat & 1) * 8]);
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const uint32_t slab0 = smem_addr(smem) + wg * kSlabZ * kSlabY * kVox;
+  const uint32_t wbase = smem_addr(wring);
+  int k = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % C::kSlabStages;
+    bar_wait(&full_a[s], (c / C::kSlabStages) & 1);
+    const uint32_t slab = slab0 + s * C::kSlabBytes;
+    for (int t = 0; t < 9; ++t, ++k) {   // taps 3 t .. 3 t + 2: (dx, dy)
+      const int ws = k % C::kWStages;
+      bar_wait(&full_w[ws], (k / C::kWStages) & 1);
+      const uint32_t at =
+          slab + ((t / 3) * kSlabY + t % 3) * kSlabZ * kVox;
+      const uint32_t bt = wbase + ws * C::kWBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+        // A: 8 y-rows (SBO) of 8 z-voxels, channels 0-7 | 8-15 (LBO);
+        // B: N rows of 8 k, k-halves N * 16 bytes apart
+        wgmma_ss<N>(acc,
+                       mat_desc(at + dz * kVox, C::kSlabVox * kVox,
+                                kSlabZ * kVox),
+                       mat_desc(bt + dz * 32 * N, N * kVox, 8 * kVox));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();     // the group before this one has read its stage
+      if (lt == 0 && k > 0) {
+        bar_arrive(&empty_w[(k - 1) % C::kWStages]);
+        if ((k - 1) % 9 == 8) {
+          bar_arrive(&empty_a[((k - 1) / 9) % C::kSlabStages]);
+        }
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // epilogue. Fragment: warp q, lane l holds rows m = 16 q + l / 4 + 8 i
+  // (y-row m / 8 = 2 q + i, z = l / 4) and columns 8 j + 2 (l % 4) + e in
+  // acc[4 j + 2 i + e].
+  named_sync(1, 2 * kConsumer);   // both warpgroups are done with the ring
+  const int warp = lt >> 5, lane = tid & 31;
+  const int x = x0 + wg;
+  const int zz = lane >> 2;
+  u16* ebuf = reinterpret_cast<u16*>(smem) + wg * N * C::kEpiStride;
+  float* stat = reinterpret_cast<float*>(smem + C::kStatOff);
+  const int n0 = blockIdx.y * N;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * (lane & 3) + e;
+      const float bc =
+          bias != nullptr && n0 + n < Co ? __ldg(bias + n0 + n) : 0.f;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][2 * j2], a[i], bf[0], bf[1]);
-        mma_bf16(acc[i][2 * j2 + 1], a[i], bf[2], bf[3]);
+        const int m = warp * 16 + zz + 8 * i;
+        const float v = acc[4 * j + 2 * i + e] + bc;
+        ebuf[n * C::kEpiStride + m] = float_to_bf16(v);
+        if (z0 + zz < R && y0 + (m >> 3) < R && x < R) {
+          s1[e] += v;
+          s2[e] = fmaf(v, v, s2[e]);
+        }
       }
     }
-    // the other buffer was last read in slice s - 1, before the barrier
-    // that ended it
-    if (s + 1 < slices) store_slice(cur ^ 1);
-    __syncthreads();
+    if (partial != nullptr) {   // the column's 8 lanes, in a fixed order
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s1[e] += __shfl_xor_sync(kFull, s1[e], o);
+          s2[e] += __shfl_xor_sync(kFull, s2[e], o);
+        }
+        if (lane < 4) {
+          float* row = stat + (wg * 4 + warp) * 2 * N + 8 * j + 2 * lane + e;
+          row[0] = s1[e];
+          row[N] = s2[e];
+        }
+      }
+    }
   }
-
-  // epilogue: lane (g, t4) holds rows g, g + 8 of each 16-row tile and
-  // columns 2 t4, 2 t4 + 1 of each 8-column tile
-  const int g = lane >> 2, t4 = lane & 3;
-  const int vw = v0 + wn * kSpan;              // this warp's 64-voxel span
-  const int spans = (R3 + kSpan - 1) / kSpan;
-  const int64_t slots = static_cast<int64_t>(B) * spans;
-  const int slot = b * spans + vw / kSpan;
+  named_sync(1, 2 * kConsumer);
+  if (partial != nullptr && tid < N && n0 + tid < Co) {
+    float a = 0.f, q = 0.f;   // the 8 warps in order
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = co0 + wm * 32 + i * 16 + h * 8 + g;
-      float s1 = 0.f, s2 = 0.f;
-      if (co < Co) {
-        const float bc = bias != nullptr ? __ldg(bias + co) : 0.f;
-        u16* yrow = y + (static_cast<int64_t>(b) * Co + co) * R3;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int v = vw + j * 8 + t4 * 2;
-          const float y0 = acc[i][j][2 * h] + bc;
-          const float y1 = acc[i][j][2 * h + 1] + bc;
-          if (v + 1 < R3 && (R3 & 1) == 0) {
-            *reinterpret_cast<unsigned*>(yrow + v) =
-                static_cast<unsigned>(float_to_bf16(y0)) |
-                (static_cast<unsigned>(float_to_bf16(y1)) << 16);
-          } else {
-            if (v < R3) yrow[v] = float_to_bf16(y0);
-            if (v + 1 < R3) yrow[v + 1] = float_to_bf16(y1);
-          }
-          if (v < R3) {
-            s1 += y0;
-            s2 = fmaf(y0, y0, s2);
-          }
-          if (v + 1 < R3) {
-            s1 += y1;
-            s2 = fmaf(y1, y1, s2);
-          }
-        }
-      }
-      if (partial != nullptr) {   // the 4 lanes of row g, in a fixed order
-        s1 += __shfl_xor_sync(kFull, s1, 1);
-        s2 += __shfl_xor_sync(kFull, s2, 1);
-        s1 += __shfl_xor_sync(kFull, s1, 2);
-        s2 += __shfl_xor_sync(kFull, s2, 2);
-        if (t4 == 0 && co < Co && vw < R3) {
-          partial[static_cast<int64_t>(co) * slots + slot] = s1;
-          partial[(static_cast<int64_t>(Co) + co) * slots + slot] = s2;
-        }
-      }
+    for (int p = 0; p < 8; ++p) {
+      a += stat[p * 2 * N + tid];
+      q += stat[p * 2 * N + N + tid];
+    }
+    partial[static_cast<int64_t>(n0 + tid) * slots + slot] = a;
+    partial[(static_cast<int64_t>(Co) + n0 + tid) * slots + slot] = q;
+  }
+  // y: a z-run of 8 voxels of one channel a step, 16 bytes where R % 8 == 0
+  const int64_t r3 = static_cast<int64_t>(R) * R * R;
+  for (int p = lt; p < N * kTileY; p += kConsumer) {
+    const int n = p / kTileY, yy = p % kTileY;
+    if (n0 + n >= Co || y0 + yy >= R || x >= R) continue;
+    const u16* src = ebuf + n * C::kEpiStride + yy * kTileZ;
+    u16* dst = y + (static_cast<int64_t>(b) * Co + n0 + n) * r3 +
+               (static_cast<int64_t>(x) * R + y0 + yy) * R + z0;
+    if (R % kTileZ == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int q = 0; q < kTileZ && z0 + q < R; ++q) dst[q] = src[q];
     }
   }
 }
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-conv3d_bf16_wgrad_kernel(const u16* __restrict__ xt,  // [B, R^3, Cp] a(x)
-                         const u16* __restrict__ gt,  // [B, R^3, Cop]
-                         float* __restrict__ partial,  // [S, Co, 27 * Cp]
-                         int B, int Cp, int Cop, int Co, int R,
+// ---- K4: weight gradient --------------------------------------------------
+
+template <int NW>
+struct Wgrad {
+  static constexpr int kThreads = 3 * kConsumer + 32;   // + a producer warp
+  // NW == 16: all 27 taps a block (warpgroup w: dx = w, 9 tiles); else
+  // one dx plane (warpgroup w: dy = w, 3 tiles)
+  static constexpr bool kAllTaps = NW == 16;
+  static constexpr int kTW = kAllTaps ? 9 : 3;
+  // k16 steps whose A fragments are held at once: the producer warp takes
+  // a fourth warpgroup's registers, so a thread has 128; 9 tiles of
+  // accumulators leave room for 4 steps, 3 tiles for all 8 (no spills)
+  static constexpr int kGroup = kAllTaps ? 4 : 8;
+  static constexpr int kSlabX = kTileX + (kAllTaps ? 2 : 0);
+  static constexpr int kSlabVox = kSlabZ * kSlabY * kSlabX;
+  static constexpr int kSlabBytes = NW / 8 * kSlabVox * kVox;
+  static constexpr int kGVox = kTileZ * kTileY * kTileX;      // 128
+  static constexpr int kGBytes = 8 * kGVox * kVox;            // 64 channels
+  static constexpr int kStage = kSlabBytes + kGBytes;
+  static constexpr int kStages = 4;
+  static constexpr int kBarOff = kStages * kStage;
+  static constexpr int kSmem = kBarOff + 64 + 128;   // + alignment
+};
+
+template <int NW>
+__global__ void __launch_bounds__(Wgrad<NW>::kThreads, 1)
+conv3d_bf16_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap gmap,
+                         float* __restrict__ partial,   // [S, Co, Cp, 27]
+                         int groups, int ggroups, int gbox, int Co, int R,
+                         int tz, int ty, int tiles, int chunks,
                          int per_split) {
-  constexpr int BN = 64;                          // (tap, channel) columns
-  constexpr int WTM = BM / 2;                     // warp tile WTM x 32
-  constexpr int MT = WTM / 16;                    // 16-row tiles per warp
-  constexpr int kAChunks = BM * kWK / 8 / kThreads;  // 8-channel loads
-  constexpr int kBChunks = BN * kWK / 8 / kThreads;
-  // voxel-major slices: a voxel's channels (columns) fastest, rows padded
-  // by 16 bytes
-  __shared__ __align__(16) u16 As[2][kWK][BM + kPad];
-  __shared__ __align__(16) u16 Bs[2][kWK][BN + kPad];
-
+  using C = Wgrad<NW>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align128(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOff);
+  uint64_t* empty = full + C::kStages;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * BN;
-  const int co0 = blockIdx.y * BM;
-  const int split = blockIdx.z;
-  const int R3 = R * R * R;
-  const int N = Cp * kTaps;
-  const int spc = (R3 + kWK - 1) / kWK;         // slices per cloud
-  const int s_begin = split * per_split;
-  const int s_end = min(B * spc, s_begin + per_split);
-
-  // this thread's 8-channel chunks of a slice: gradient chunk (voxel
-  // ak, channels co0 + am ..) and input chunk (voxel bk, columns bn ..);
-  // an input chunk lies in one tap (Cp % 16 == 0), fixed for the block
-  int ak[kAChunks], am[kAChunks], bk[kBChunks], boff[kBChunks];
-  int bd[kBChunks][3];   // the chunk's tap as offsets -1..1 on x, y, z
-  bool bvalid[kBChunks];
-#pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int e = tid + kThreads * i;
-    ak[i] = e / (BM / 8);
-    am[i] = e % (BM / 8) * 8;
-  }
-#pragma unroll
-  for (int i = 0; i < kBChunks; ++i) {
-    const int e = tid + kThreads * i;
-    bk[i] = e / (BN / 8);
-    const int n = n0 + e % (BN / 8) * 8;
-    const int tap = n / Cp;
-    bvalid[i] = n < N;
-    bd[i][0] = tap / 9 - 1;
-    bd[i][1] = tap / 3 % 3 - 1;
-    bd[i][2] = tap % 3 - 1;
-    boff[i] = bvalid[i] ? tap_offset(tap, R) * Cp + (n - tap * Cp) : 0;
-  }
-
-  uint4 a_next[kAChunks], b_next[kBChunks];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto load_slice = [&](int s) {
-    const int cb = s / spc;
-    const int v0 = (s - cb * spc) * kWK;
-    const u16* gb = gt + static_cast<int64_t>(cb) * R3 * Cop;
-    const u16* xb = xt + static_cast<int64_t>(cb) * R3 * Cp;
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int v = v0 + ak[i];
-      a_next[i] = (v < R3 && co0 + am[i] < Cop)
-                      ? __ldg(reinterpret_cast<const uint4*>(
-                            gb + static_cast<int64_t>(v) * Cop + co0 + am[i]))
-                      : zero;
+  const int split = blockIdx.x, col = blockIdx.y, ct = blockIdx.z;
+  // the block's input channels (group g0 ..) and, for one plane, its dx
+  const int g0 = C::kAllTaps ? 2 * col : col / 3 * (NW / 8);
+  const int dxb = C::kAllTaps ? 0 : col % 3;
+  const int k0 = split * per_split;
+  const int k1 = min(chunks, k0 + per_split);
+  if (tid == 0) {
+    for (int i = 0; i < C::kStages; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 3);
     }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int v = v0 + bk[i];
-      const int px = v / (R * R) + bd[i][0];
-      const int py = v / R % R + bd[i][1];
-      const int pz = v % R + bd[i][2];
-      const bool in = bvalid[i] && v < R3 && px >= 0 && px < R && py >= 0 &&
-                      py < R && pz >= 0 && pz < R;
-      b_next[i] = in ? __ldg(reinterpret_cast<const uint4*>(
-                           xb + static_cast<int64_t>(v) * Cp + boff[i]))
-                     : zero;
-    }
-  };
-
-  auto store_slice = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      *reinterpret_cast<uint4*>(&As[buf][ak[i]][am[i]]) = a_next[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      *reinterpret_cast<uint4*>(
-          &Bs[buf][bk[i]][(tid + kThreads * i) % (BN / 8) * 8]) = b_next[i];
-    }
-  };
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    }
-  }
-
-  const int mat = lane >> 3, r8 = lane & 7;
-  if (s_begin < s_end) {
-    load_slice(s_begin);
-    store_slice(0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int s = s_begin; s < s_end; ++s) {
-    const int cur = (s - s_begin) & 1;
-    if (s + 1 < s_end) load_slice(s + 1);
-#pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      unsigned a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {   // (m, k) 00 10 01 11
-        ldmatrix_x4_trans(a[i], &As[cur][kk + (mat >> 1) * 8 + r8]
-                                   [wm * WTM + i * 16 + (mat & 1) * 8]);
-      }
-#pragma unroll
-      for (int j2 = 0; j2 < 2; ++j2) {   // n8 tiles 2 j2 and 2 j2 + 1
-        unsigned bf[4];                  // (k, n) 00 10 01 11
-        ldmatrix_x4_trans(bf, &Bs[cur][kk + (mat & 1) * 8 + r8]
-                                 [wn * 32 + j2 * 16 + (mat >> 1) * 8]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][2 * j2], a[i], bf[0], bf[1]);
-          mma_bf16(acc[i][2 * j2 + 1], a[i], bf[2], bf[3]);
-        }
+
+  if (tid >= 3 * kConsumer) {        // the producer warp: one thread loads
+    if (tid == 3 * kConsumer) {
+      const unsigned bytes = C::kSlabBytes + gbox * C::kGVox * kVox;
+      for (int k = k0, i = 0; k < k1; ++k, ++i) {
+        const int s = i % C::kStages;
+        if (i >= C::kStages) bar_wait(&empty[s], (i / C::kStages - 1) & 1);
+        const int b = k / tiles, tile = k % tiles;
+        const int z0 = tile % tz * kTileZ, y0 = tile / tz % ty * kTileY;
+        const int x0 = tile / (tz * ty) * kTileX;
+        unsigned char* stage = smem + s * C::kStage;
+        bar_expect(&full[s], bytes);
+        tma_load(stage, &xmap, &full[s], (z0 - 1) * 8, y0 - 1,
+                 x0 - 1 + dxb, b * groups + g0);
+        tma_load(stage + C::kSlabBytes, &gmap, &full[s], z0 * 8, y0, x0,
+                 b * ggroups + ct * 8);
       }
     }
-    if (s + 1 < s_end) store_slice(cur ^ 1);
-    __syncthreads();
+    return;
   }
 
-  // this split's partial dW, columns (tap, channel) tap-major, every entry
-  // of the block's tile (zeros for a split without slices)
-  const int gq = lane >> 2, t4 = lane & 3;
-  float* out = partial + static_cast<int64_t>(split) * Co * N;
+  const int wg = tid / kConsumer, lt = tid % kConsumer;
+  const int warp = lt >> 5, lane = tid & 31;
+  float acc[C::kTW][NW / 2];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int t = 0; t < C::kTW; ++t) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = co0 + wm * WTM + i * 16 + h * 8 + gq;
+    for (int i = 0; i < NW / 2; ++i) acc[t][i] = 0.f;
+  }
+  // A, the gradient, is the same for all the warpgroup's taps: each warp
+  // loads its 16 rows (output channels) of a k16 step once, by
+  // ldmatrix.trans from the voxel-major tile: matrix lane / 8 = (channel
+  // half, y-row of the step), row lane % 8 = z
+  const uint32_t arow = ((warp * 2 + ((lane >> 3) & 1)) * C::kGVox +
+                         (lane >> 4) * kTileZ + (lane & 7)) * kVox;
+  const uint32_t base = smem_addr(smem);
+  for (int k = k0, i = 0; k < k1; ++k, ++i) {
+    const int s = i % C::kStages;
+    bar_wait(&full[s], (i / C::kStages) & 1);
+    const uint32_t slab = base + s * C::kStage;
+    // the 8 k16 steps (step st: x st / 4, y-rows 2 (st % 4) and + 1) in
+    // groups of kGroup: a group's A fragments are loaded, its products
+    // issued and finished before the next group rewrites the fragments'
+    // registers (the other warpgroups keep the tensor cores busy)
+#pragma unroll 1
+    for (int g0 = 0; g0 < 8; g0 += C::kGroup) {
+      uint32_t afr[C::kGroup][4];
+#pragma unroll
+      for (int q = 0; q < C::kGroup; ++q) {
+        const int st = g0 + q;
+        ldmatrix_x4_trans(afr[q], slab + C::kSlabBytes + arow +
+                                      ((st >> 2) * kTileY + 2 * (st & 3)) *
+                                          kTileZ * kVox);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < C::kGroup; ++q) {
+        const int st = g0 + q, xl = st >> 2, yl = 2 * (st & 3);
+#pragma unroll
+        for (int t = 0; t < C::kTW; ++t) {
+          const int dxl = C::kAllTaps ? wg : 0;
+          const int dy = C::kAllTaps ? t / 3 : wg;
+          const int dz = C::kAllTaps ? t % 3 : t;
+          // B: the slab at the tap, channel groups (SBO), two y-rows (LBO)
+          const uint32_t bs =
+              slab + (((xl + dxl) * kSlabY + yl + dy) * kSlabZ + dz) * kVox;
+          wgmma_rs<NW>(acc[t], afr[q],
+                       mat_desc(bs, kSlabZ * kVox, C::kSlabVox * kVox));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    if (lt == 0) bar_arrive(&empty[s]);
+  }
+
+  // this split's partial dW (every entry of the block's columns; zeros for
+  // a split without chunks). Fragment: rows (output channels) 16 q + l / 4
+  // + 8 i, columns (input channels) 8 j + 2 (l % 4) + e.
+  const int cp = groups * 8;
+  float* out = partial + static_cast<int64_t>(split) * Co * cp * kTaps;
+#pragma unroll
+  for (int t = 0; t < C::kTW; ++t) {
+    fence_acc(acc[t]);
+    const int tap = C::kAllTaps ? 9 * wg + t : 9 * dxb + 3 * wg + t;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int co = ct * 64 + warp * 16 + (lane >> 2) + 8 * i;
       if (co >= Co) continue;
-      float* row = out + static_cast<int64_t>(co) * N;
+      float* row = out + static_cast<int64_t>(co) * cp * kTaps;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + t4 * 2;
-        if (n < N) row[n] = acc[i][j][2 * h];
-        if (n + 1 < N) row[n + 1] = acc[i][j][2 * h + 1];
+      for (int j = 0; j < NW / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ci = g0 * 8 + 8 * j + 2 * (lane & 3) + e;
+          row[ci * kTaps + tap] = acc[t][4 * j + 2 * i + e];
+        }
       }
     }
   }
 }
 
-// dW[co, ci, tap] = bf16(the sum of the splits' partials at column
-// tap * Cp + ci, in split order), in torch's [Co, Ci, 3, 3, 3] order
+// dW[co, ci, tap] = bf16(the sum of the splits' partials at (co, ci, tap),
+// in split order), in torch's [Co, Ci, 3, 3, 3] order
 __global__ void __launch_bounds__(pvcnn::kThreads)
 conv3d_bf16_wgrad_sum_kernel(const float* __restrict__ partial,
                              u16* __restrict__ dw,  // [Co, Ci * 27]
                              int Co, int Ci, int Cp, int splits) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  const int64_t n = static_cast<int64_t>(Co) * Ci * kTaps;
-  if (i >= n) return;
-  const int tap = static_cast<int>(i % kTaps);
-  const int64_t rest = i / kTaps;
-  const int ci = static_cast<int>(rest % Ci);
-  const int64_t co = rest / Ci;
+  const int64_t row = static_cast<int64_t>(Ci) * kTaps;
+  if (i >= Co * row) return;
+  const int64_t co = i / row;
+  const int64_t at = co * Cp * kTaps + (i - co * row);
   const int64_t stride = static_cast<int64_t>(Co) * Cp * kTaps;
-  const int64_t at = co * Cp * kTaps + tap * Cp + ci;
   float sum = __ldg(partial + at);
   for (int s = 1; s < splits; ++s) sum += __ldg(partial + s * stride + at);
   dw[i] = float_to_bf16(sum);
 }
 
-template <int BM>
-int launch_fwd(const u16* xt, const u16* w, const float* bias, u16* y,
-               float* partial, int B, int Cp, int Co, int R,
+// ---- host side ------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda that the CUDA runtime
+// has loaded (the library links no libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// a staged operand [B * G][R][R][R * 8] as a 4-d tensor map (z and the
+// group's 8 channels merged innermost, y, x, cloud * G + group) with box
+// (bz * 8, by, bx, bg); outside the grid TMA fills zeros
+int staged_map(CUtensorMap* map, const void* base, int64_t groups, int R,
+               int bz, int by, int bx, int bg) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) {
+    return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  }
+  const int64_t r = R;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(r * 8),
+                              static_cast<cuuint64_t>(r),
+                              static_cast<cuuint64_t>(r),
+                              static_cast<cuuint64_t>(groups)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(r * kVox),
+                                 static_cast<cuuint64_t>(r * r * kVox),
+                                 static_cast<cuuint64_t>(r * r * r * kVox)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(bz * 8),
+                             static_cast<cuuint32_t>(by),
+                             static_cast<cuuint32_t>(bx),
+                             static_cast<cuuint32_t>(bg)};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool* done) {
+  if (*done) return 0;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  *done = err == 0;
+  return err;
+}
+
+template <int N>
+int launch_fwd(const CUtensorMap& map, const u16* w, const float* bias,
+               u16* y, float* partial, int B, int Cp, int Co, int R,
                cudaStream_t stream) {
-  constexpr int BN = kSpan * 4 / (BM / 32);
-  const int64_t r3 = static_cast<int64_t>(R) * R * R;
-  const dim3 grid(static_cast<unsigned>((r3 + BN - 1) / BN),
-                  static_cast<unsigned>((Co + BM - 1) / BM),
-                  static_cast<unsigned>(B));
-  conv3d_bf16_fwd_kernel<BM><<<grid, kThreads, 0, stream>>>(
-      xt, w, bias, y, partial, B, Cp, Co, R);
+  using C = Fwd<N>;
+  static bool ready = false;
+  const int err = allow_smem(conv3d_bf16_fwd_kernel<N>, C::kSmem, &ready);
+  if (err != 0) return err;
+  const int tz = (R + kTileZ - 1) / kTileZ, ty = (R + kTileY - 1) / kTileY;
+  const int tiles = tz * ty * ((R + kTileX - 1) / kTileX);
+  const dim3 grid(static_cast<unsigned>(B) * tiles,
+                  static_cast<unsigned>((Co + N - 1) / N));
+  conv3d_bf16_fwd_kernel<N><<<grid, C::kThreads, C::kSmem, stream>>>(
+      map, w, bias, y, partial, Cp / 8, Co, R, tz, ty, tiles, B * tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NW>
+int launch_wgrad(const void* xt, const void* gt, float* partial, int B,
+                 int Cp, int Cop, int Co, int R, int splits, int per_split,
+                 cudaStream_t stream) {
+  using C = Wgrad<NW>;
+  static bool ready = false;
+  int err = allow_smem(conv3d_bf16_wgrad_kernel<NW>, C::kSmem, &ready);
+  if (err != 0) return err;
+  const int gbox = Cop / 8 < 8 ? Cop / 8 : 8;
+  CUtensorMap xmap, gmap;
+  err = staged_map(&xmap, xt, static_cast<int64_t>(B) * Cp / 8, R, kSlabZ,
+                   kSlabY, C::kSlabX, NW / 8);
+  if (err != 0) return err;
+  err = staged_map(&gmap, gt, static_cast<int64_t>(B) * Cop / 8, R, kTileZ,
+                   kTileY, kTileX, gbox);
+  if (err != 0) return err;
+  const int tz = (R + kTileZ - 1) / kTileZ, ty = (R + kTileY - 1) / kTileY;
+  const int tiles = tz * ty * ((R + kTileX - 1) / kTileX);
+  const int cols = C::kAllTaps ? Cp / 16 : 3 * Cp / NW;
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(cols),
+                  static_cast<unsigned>((Co + 63) / 64));
+  conv3d_bf16_wgrad_kernel<NW><<<grid, C::kThreads, C::kSmem, stream>>>(
+      xmap, gmap, partial, Cp / 8, Cop / 8, gbox, Co, R, tz, ty, tiles,
+      B * tiles, per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K3 in bf16: x [B, Ci, R^3] and y bf16; w [27 * Cp, Co] bf16, tap-major,
-// Cp = Ci rounded up to 16 (the rows of channels Ci .. Cp - 1 zero); xt a
-// bf16 buffer [B, R^3, Cp] for the staged input; bias f32 or null (the
-// data gradient); with pscale/pshift (f32) the stage applies the
-// prologue; partial (f32 [2, Co, B * ceil(R^3 / 64)]) or null: the
-// statistics slots
-PVCNN_EXPORT int pvcnn_conv3d_bf16_fwd(const void* x, const void* w,
-                                       const void* bias, const void* pscale,
-                                       const void* pshift, void* xt,
-                                       void* y, void* partial, int B, int Ci,
-                                       int Co, int R, void* stream) {
-  if (B == 0 || R == 0 || Co == 0) return 0;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int r3 = R * R * R;
-  const int cp = (Ci + kBK - 1) / kBK * kBK;
-  auto* xs = static_cast<u16*>(xt);
-  const int64_t total = static_cast<int64_t>(B) * r3 * (cp / 8);
-  conv3d_bf16_stage_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads, 0,
-                             st>>>(
+// the staging pass: x [B, C, R3] bf16 -> xt [B, Cp / 8, R3, 8] bf16 (Cp =
+// C rounded up to 16); with pscale/pshift (f32 [C]) a(x), rounded
+PVCNN_EXPORT int pvcnn_conv3d_bf16_stage(const void* x, const void* pscale,
+                                         const void* pshift, void* xt, int B,
+                                         int C, int R3, void* stream) {
+  const int groups = (C + 15) / 16 * 2;
+  const int64_t blocks = static_cast<int64_t>(B) * groups *
+                         ((R3 + kStageVox - 1) / kStageVox);
+  if (blocks == 0) return 0;
+  conv3d_bf16_stage_kernel<<<static_cast<unsigned>(blocks), kStageVox, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u16*>(x), static_cast<const float*>(pscale),
-      static_cast<const float*>(pshift), xs, Ci, cp, r3, total);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const auto* wb = static_cast<const u16*>(w);
-  const auto* bf = static_cast<const float*>(bias);
-  auto* yb = static_cast<u16*>(y);
-  auto* pf = static_cast<float*>(partial);
-  return Co <= 32 ? launch_fwd<32>(xs, wb, bf, yb, pf, B, cp, Co, R, st)
-                  : launch_fwd<64>(xs, wb, bf, yb, pf, B, cp, Co, R, st);
+      static_cast<const float*>(pshift), static_cast<u16*>(xt), C, groups,
+      R3);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K4 in bf16: x [B, Ci, R^3] and g [B, Co, R^3] bf16, dw [Co, Ci * 27]
-// bf16; xt [B, R^3, Cp] and gt [B, R^3, Cop] bf16 buffers for the staged
-// operands (Cp, Cop: Ci, Co rounded up to 16); partial f32 [splits, Co,
-// 27 * Cp]; the reduction's B * ceil(R^3 / 32) slices go to splits runs of
-// per_split; with pscale/pshift the stage applies the prologue to x
-PVCNN_EXPORT int pvcnn_conv3d_bf16_wgrad(const void* x, const void* g,
-                                         const void* pscale,
-                                         const void* pshift, void* xt,
-                                         void* gt, void* partial, void* dw,
-                                         int B, int Ci, int Co, int R,
-                                         int splits, int per_split,
-                                         void* stream) {
-  if (Co == 0 || Ci == 0) return 0;
-  if (splits < 1 || per_split < 1) {
+// K3 in bf16, one call: the staging pass of x [B, Ci, R^3] bf16 into xt
+// [B, Cp / 8, R^3, 8] (with pscale/pshift, f32 [Ci], a(x)), or xt given
+// staged (x null); w [Co, Ci, 27] bf16 (flip: the forward's [Ci, Co, 27],
+// taps reversed: the data gradient) into ws (bf16, ceil(Co / N) * N * Cp *
+// 27) in K3's layout; then the product with N output channels a block
+// (16, 32, 64 or 128): bias f32 [Co] or null; y [B, Co, R^3] bf16; with
+// partial (f32 [2, Co, B * tiles], tiles = ceil(R / 2) * ceil(R / 8)^2)
+// and stats (f32 [2, Co]) the BatchNorm sums, slots added in order
+PVCNN_EXPORT int pvcnn_conv3d_bf16_fwd(
+    const void* x, const void* pscale, const void* pshift, void* xt,
+    const void* w, void* ws, const void* bias, void* y, void* partial,
+    void* stats, int B, int Ci, int Co, int R, int N, int flip,
+    void* stream) {
+  if (B == 0 || R == 0 || Co == 0) return 0;
+  if (Ci <= 0 || (N != 16 && N != 32 && N != 64 && N != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto st = static_cast<cudaStream_t>(stream);
+  const int cp = (Ci + 15) / 16 * 16;
   const int r3 = R * R * R;
-  const int cp = (Ci + kBK - 1) / kBK * kBK;
-  const int cop = (Co + kBK - 1) / kBK * kBK;
-  auto* xs = static_cast<u16*>(xt);
-  auto* gs = static_cast<u16*>(gt);
-  int64_t total = static_cast<int64_t>(B) * r3 * (cp / 8);
-  if (total > 0) {
-    conv3d_bf16_stage_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads,
-                               0, st>>>(
+  if (x != nullptr) {
+    const int64_t blocks = static_cast<int64_t>(B) * (cp / 8) *
+                           ((r3 + kStageVox - 1) / kStageVox);
+    conv3d_bf16_stage_kernel<<<static_cast<unsigned>(blocks), kStageVox, 0,
+                               st>>>(
         static_cast<const u16*>(x), static_cast<const float*>(pscale),
-        static_cast<const float*>(pshift), xs, Ci, cp, r3, total);
+        static_cast<const float*>(pshift), static_cast<u16*>(xt), Ci,
+        cp / 8, r3);
   }
-  total = static_cast<int64_t>(B) * r3 * (cop / 8);
-  if (total > 0) {
-    conv3d_bf16_stage_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads,
-                               0, st>>>(static_cast<const u16*>(g), nullptr,
-                                        nullptr, gs, Co, cop, r3, total);
-  }
+  const int64_t wtotal =
+      static_cast<int64_t>((Co + N - 1) / N) * N * cp * kTaps;
+  conv3d_bf16_weights_kernel<<<pvcnn::blocks_for(wtotal), pvcnn::kThreads,
+                               0, st>>>(static_cast<const u16*>(w),
+                                        static_cast<u16*>(ws), Ci, Co, N,
+                                        flip, wtotal);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  CUtensorMap map;
+  err = staged_map(&map, xt, static_cast<int64_t>(B) * cp / 8, R, kSlabZ,
+                   kSlabY, kTileX + 2, 2);
+  if (err != 0) return err;
+  const auto* wb = static_cast<const u16*>(ws);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* yb = static_cast<u16*>(y);
   auto* pf = static_cast<float*>(partial);
-  const unsigned nt = static_cast<unsigned>((cp * kTaps + 63) / 64);
-  if (Co <= 32) {
-    const dim3 grid(nt, static_cast<unsigned>((Co + 31) / 32),
-                    static_cast<unsigned>(splits));
-    conv3d_bf16_wgrad_kernel<32><<<grid, kThreads, 0, st>>>(
-        xs, gs, pf, B, cp, cop, Co, R, per_split);
-  } else {
-    const dim3 grid(nt, static_cast<unsigned>((Co + 63) / 64),
-                    static_cast<unsigned>(splits));
-    conv3d_bf16_wgrad_kernel<64><<<grid, kThreads, 0, st>>>(
-        xs, gs, pf, B, cp, cop, Co, R, per_split);
+  switch (N) {
+    case 16: err = launch_fwd<16>(map, wb, bf, yb, pf, B, cp, Co, R, st);
+      break;
+    case 32: err = launch_fwd<32>(map, wb, bf, yb, pf, B, cp, Co, R, st);
+      break;
+    case 64: err = launch_fwd<64>(map, wb, bf, yb, pf, B, cp, Co, R, st);
+      break;
+    default: err = launch_fwd<128>(map, wb, bf, yb, pf, B, cp, Co, R, st);
   }
-  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || stats == nullptr) return err;
+  const int slots = B * ((R + 1) / 2) * ((R + 7) / 8) * ((R + 7) / 8);
+  conv3d_bf16_stats_kernel<<<2 * Co, pvcnn::kThreads, 0, st>>>(
+      pf, static_cast<float*>(stats), slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 in bf16 on the staged a(x) xt [B, Cp / 8, R^3, 8] and gradient gt [B,
+// Cop / 8, R^3, 8] (Cp, Cop: Ci, Co rounded up to 16): dw [Co, Ci * 27]
+// bf16; partial f32 [splits, Co, Cp, 27]; cols the input channels of a
+// warpgroup's product (16: all taps a block, 32 or 64: a dx plane); the
+// reduction's B * tiles chunks go to splits runs of per_split
+PVCNN_EXPORT int pvcnn_conv3d_bf16_wgrad(const void* xt, const void* gt,
+                                         void* partial, void* dw, int B,
+                                         int Ci, int Co, int R, int cols,
+                                         int splits, int per_split,
+                                         void* stream) {
+  if (Co == 0 || Ci == 0) return 0;
+  const int cp = (Ci + 15) / 16 * 16, cop = (Co + 15) / 16 * 16;
+  if (B < 1 || R < 1 || splits < 1 || per_split < 1 || cp % cols != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* pf = static_cast<float*>(partial);
+  int err;
+  switch (cols) {
+    case 16:
+      err = launch_wgrad<16>(xt, gt, pf, B, cp, cop, Co, R, splits,
+                             per_split, st);
+      break;
+    case 32:
+      err = launch_wgrad<32>(xt, gt, pf, B, cp, cop, Co, R, splits,
+                             per_split, st);
+      break;
+    case 64:
+      err = launch_wgrad<64>(xt, gt, pf, B, cp, cop, Co, R, splits,
+                             per_split, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != 0) return err;
   const int64_t n = static_cast<int64_t>(Co) * Ci * kTaps;
   conv3d_bf16_wgrad_sum_kernel<<<pvcnn::blocks_for(n), pvcnn::kThreads, 0,

@@ -24,10 +24,14 @@ Only the gradients autograd asks for are computed: the first PVConv's grid
 comes from the input cloud, so its conv0 runs no dgrad.
 
 bf16 activations (a bfloat16 x and weight; bias, pscale and pshift stay
-float32): the kernels' bf16 mode (csrc/conv3d_bf16.cu, counted as
-conv3d_fwd_bf16, conv3d_dgrad_bf16 and conv3d_wgrad_bf16) on the card, on
-the CPU the plain versions on the operands widened to f32. The rounding
-points are the JAX package's (pvcnn_tpu/ops/pallas/conv_rows.py):
+float32): the kernels' bf16 mode (csrc/conv3d_bf16.cu: wgmma on TMA-fed
+rings, counted as conv3d_fwd_bf16, conv3d_dgrad_bf16 and
+conv3d_wgrad_bf16) on the card, on the CPU the plain versions on the
+operands widened to f32. The kernels read their operands staged as [B,
+Cp / 8, R^3, 8] (_stage_bf16); the op keeps the forward's staged a(x)
+for K4 and stages the cotangent once for the dgrad and K4 (the wrappers'
+`staged` dict). The rounding points are the JAX package's
+(pvcnn_tpu/ops/pallas/conv_rows.py):
 
   forward  a(x) in f32, rounded to bf16 before the product (_stage_act);
            f32 products and sums; the f32 bias added to the f32 sum; the
@@ -113,18 +117,23 @@ class _Conv3dRowsAct(torch.autograd.Function):
     def forward(ctx, x, weight, bias, pscale, pshift, resolution,
                 has_prologue, want_stats):
         fwd = _forward_plain if x.device.type == "cpu" else _forward_cuda
+        staged = {}
         y, s1, s2 = fwd(x, weight, bias, pscale, pshift, resolution,
-                        has_prologue, want_stats)
+                        has_prologue, want_stats, staged=staged)
         ctx.resolution = resolution
         ctx.has_prologue = has_prologue
         ctx.want_stats = want_stats
+        # the bf16 kernels' staged a(x), kept for K4: it saves K4 a staging
+        # pass for 6% more peak memory at 1x (PERF.md, section 6)
+        keep = ((staged["xt"],) if "xt" in staged and ctx.needs_input_grad[1]
+                else ())
         ctx.save_for_backward(x, weight, pscale, pshift,
-                              y if want_stats else None)
+                              y if want_stats else None, *keep)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
-        x, weight, pscale, pshift, y = ctx.saved_tensors
+        x, weight, pscale, pshift, y, *xt = ctx.saved_tensors
         r, pro = ctx.resolution, ctx.has_prologue
         need_x, need_w, need_b, need_s, need_t = ctx.needs_input_grad[:5]
         cpu = x.device.type == "cpu"
@@ -139,9 +148,13 @@ class _Conv3dRowsAct(torch.autograd.Function):
         if need_b:
             dbias = gy.sum(dim=(0, 2))
         gy = gy.to(x.dtype).contiguous()
+        # the bf16 kernels' staged operands: the forward's a(x), and the
+        # cotangent, staged once for the dgrad and K4
+        staged = {"xt": xt[0]} if xt else {}
         if need_x or (pro and (need_s or need_t)):
             # d loss / d a(x) at every grid voxel
-            dxt = (_dgrad_plain if cpu else _dgrad_cuda)(gy, weight, r)
+            dxt = (_dgrad_plain if cpu else _dgrad_cuda)(gy, weight, r,
+                                                         staged=staged)
             if pro:
                 xf, dxw = wide(x), wide(dxt)
                 t = xf * pscale[:, None] + pshift[:, None]
@@ -152,14 +165,15 @@ class _Conv3dRowsAct(torch.autograd.Function):
             else:
                 dx = dxt
         if need_w:
-            dw = (_wgrad_plain if cpu else _wgrad_cuda)(x, gy, pscale, pshift,
-                                                        r, pro)
+            dw = (_wgrad_plain if cpu else _wgrad_cuda)(
+                x, gy, pscale, pshift, r, pro, staged=staged)
         return dx, dw, dbias, dscale, dshift, None, None, None
 
 
 # ---- plain versions (CPU tensors; chip_smoke.py's comparison on the card) --
 # A bf16 operand is widened to f32 and the result rounded where the bf16
-# kernels round (the module docstring).
+# kernels round (the module docstring). They take the kernel wrappers'
+# arguments; `staged` (the bf16 kernels' staged copies) is not read.
 
 def _activated(x, pscale, pshift, has_prologue):
     """a(x) in f32, rounded to x's dtype (the bf16 kernels' prologue pass),
@@ -170,7 +184,7 @@ def _activated(x, pscale, pshift, has_prologue):
 
 
 def _forward_plain(x, weight, bias, pscale, pshift, resolution, has_prologue,
-                   want_stats):
+                   want_stats, staged=None):
     if x.dtype == torch.bfloat16:
         y = _conv3d_plain(_activated(x, pscale, pshift, has_prologue),
                           weight.float(), bias, None, None, resolution, False)
@@ -203,7 +217,7 @@ def _dgrad_weight(weight):
     return weight.flip(2, 3, 4).transpose(0, 1)
 
 
-def _dgrad_plain(gy, weight, resolution):
+def _dgrad_plain(gy, weight, resolution, staged=None):
     r = int(resolution)
     b, co, _ = gy.shape
     dx = F.conv3d(wide(gy.reshape(b, co, r, r, r)),
@@ -212,7 +226,8 @@ def _dgrad_plain(gy, weight, resolution):
     return dx.reshape(b, weight.shape[1], r ** 3).to(gy.dtype)
 
 
-def _wgrad_plain(x, gy, pscale, pshift, resolution, has_prologue):
+def _wgrad_plain(x, gy, pscale, pshift, resolution, has_prologue,
+                 staged=None):
     """dW[co, ci, tap] = sum over clouds and voxels of g[co, v] * a(x)[ci,
     v + tap], the activated input zero-padded, one product per tap."""
     r = int(resolution)
@@ -372,13 +387,18 @@ def _launch_fwd(kernel, x, w_taps, bias, pro, y, partial, b, ci, co, r):
 
 
 def _forward_cuda(x, weight, bias, pscale, pshift, resolution, has_prologue,
-                  want_stats):
+                  want_stats, staged=None):
+    """staged: a dict that receives a bf16 x's staged a(x) as "xt" (K4's
+    operand, csrc/conv3d_bf16.cu's layout)."""
     r = int(resolution)
     _check([x, weight, bias] + ([pscale, pshift] if has_prologue else []),
            "conv3d_fwd", bf16=("x", "weight"))
     if x.dtype == torch.bfloat16:
-        return _forward_cuda_bf16(x, weight, bias, pscale, pshift, r,
-                                  has_prologue, want_stats)
+        y, s1, s2, xt = _forward_cuda_bf16(x, weight, bias, pscale, pshift, r,
+                                           has_prologue, want_stats)
+        if staged is not None:
+            staged["xt"] = xt
+        return y, s1, s2
     b, ci, co, bins = _check_conv(x, weight, r)
     if tuple(bias.shape) != (co,):
         raise ValueError(f"bias {tuple(bias.shape)} does not match Co={co}")
@@ -409,11 +429,14 @@ def _forward_cuda(x, weight, bias, pscale, pshift, resolution, has_prologue,
     return y, s1, s2
 
 
-def _dgrad_cuda(gy, weight, resolution):
+def _dgrad_cuda(gy, weight, resolution, staged=None):
+    """staged: a dict that holds, or receives, a bf16 gy's staged copy as
+    "gt" (shared with K4)."""
     r = int(resolution)
     _check([gy, weight], "conv3d_dgrad", bf16=("dy", "weight"))
     if gy.dtype == torch.bfloat16:
-        return _dgrad_cuda_bf16(gy, weight, r)
+        return _dgrad_cuda_bf16(gy, weight, r,
+                                {} if staged is None else staged)
     wt = _dgrad_weight(weight)                         # [Ci, Co, 3, 3, 3]
     b, co, ci, bins = _check_conv(gy, wt, r)
     gy = gy.contiguous()
@@ -425,12 +448,16 @@ def _dgrad_cuda(gy, weight, resolution):
     return dx
 
 
-def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue):
+def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue,
+                staged=None):
+    """staged: a dict that may hold a bf16 a(x)'s and gy's staged copies as
+    "xt" and "gt" (csrc/conv3d_bf16.cu's layout)."""
     r = int(resolution)
     _check([x, gy] + ([pscale, pshift] if has_prologue else []),
            "conv3d_wgrad", bf16=("x", "dy"))
     if x.dtype == torch.bfloat16:
-        return _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue)
+        return _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue,
+                                {} if staged is None else staged)
     b, ci, bins = x.shape
     co = gy.shape[1]
     if bins != r ** 3 or tuple(gy.shape) != (b, co, bins):
@@ -466,46 +493,70 @@ def _wgrad_cuda(x, gy, pscale, pshift, resolution, has_prologue):
 
 # ---- the bf16 mode of K3 and K4 (csrc/conv3d_bf16.cu) -----------------------
 
-# K3's bf16 statistics slots: one per (cloud, 64-voxel span of a warp)
-_BF16_SPAN = 64
-# K4's bf16 mode: voxels per reduction slice; it splits the slices so that
-# its blocks (about _K4_BF16_BLOCKS_PER_SM resident per SM) fill
-# _K4_BF16_WAVES waves, no split shorter than _K4_MIN_SLICES slices
-_K4_BF16_SLICE, _K4_BF16_BLOCKS_PER_SM, _K4_BF16_WAVES = 32, 4, 2
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _taps_bf16(weight):
-    """[Co, Ci, 3, 3, 3] -> (K3's bf16 weight [27 * Cp, Co], tap-major,
-    the rows of channels Ci .. Cp - 1 zero; Cp = Ci rounded up to 16)."""
-    co, ci = weight.shape[:2]
-    cp = -(-ci // 16) * 16
-    w = weight.permute(2, 3, 4, 1, 0)                      # [3, 3, 3, Ci, Co]
-    if cp != ci:
-        w = F.pad(w, (0, 0, 0, cp - ci))
-    return w.reshape(27 * cp, co).contiguous(), cp
+def _round16(c):
+    return -(-c // 16) * 16
 
 
-def _launch_fwd_bf16(kernel, x, weight, bias, pro, y, partial, r):
-    """K3's bf16 mode on x [B, Ci, R^3] with weight [Co, Ci, 3, 3, 3]; pro:
-    the prologue's (scale, shift) or two Nones. The kernel first stages x
-    voxel-major into a buffer [B, R^3, Cp]."""
-    b, ci, bins = x.shape
-    w_taps, cp = _taps_bf16(weight)
-    xt = torch.empty((b, bins, cp), dtype=torch.bfloat16, device=x.device)
+def _bf16_tiles(r):
+    """K3's bf16 output tiles (one statistics slot each) and K4's bf16
+    reduction chunks per cloud of an R^3 grid: 2 x 8 x 8 voxels (x, y, z)."""
+    return math.ceil(r / 2) * math.ceil(r / 8) ** 2
+
+
+def _stage_bf16(x, pscale=None, pshift=None):
+    """x [B, C, R^3] bf16 on the card -> the staged operand [B, Cp / 8, R^3,
+    8] of K3's and K4's bf16 modes: 8-channel groups, a voxel's 8 channels
+    fastest, Cp = C rounded up to 16 (zeros past C); with pscale/pshift
+    a(x), rounded to bf16 once."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("the bf16 staging pass takes a bfloat16 tensor on "
+                         f"a CUDA device, got {x.dtype} on {x.device}")
+    b, c, bins = x.shape
+    xt = torch.empty((b, _round16(c) // 8, bins, 8), dtype=torch.bfloat16,
+                     device=x.device)
     with torch.cuda.device(x.device):
+        kernels.call("pvcnn_conv3d_bf16_stage", x.data_ptr(), _ptr(pscale),
+                     _ptr(pshift), xt.data_ptr(), b, c, bins,
+                     torch.cuda.current_stream().cuda_stream)
+    return xt
+
+
+def _k3_bf16_cols(co):
+    """K3's bf16 output channels a block (wgmma's N): the least of 16, 32,
+    64 that holds Co, else 128 (ceil(Co / 128) blocks)."""
+    return next((n for n in (16, 32, 64) if co <= n), 128)
+
+
+def _launch_fwd_bf16(kernel, x, pro, xt, weight, flip, bias, y, stats, r):
+    """K3's bf16 mode, one launcher call: x [B, Ci, R^3] staged into xt
+    [B, Cp / 8, R^3, 8] (pro: the prologue's (scale, shift) or two Nones),
+    or xt given staged (x None); weight [Co, Ci, 3, 3, 3] (flip: the
+    forward's [Ci, Co, 3, 3, 3], taps reversed: the data gradient) laid
+    out for the kernel; y [B, Co, R^3]; stats [2, Co] or None (the
+    BatchNorm sums)."""
+    b, co = y.shape[:2]
+    ci = weight.shape[0 if flip else 1]
+    n = _k3_bf16_cols(co)
+    ws = torch.empty(-(-co // n) * n * _round16(ci) * 27,
+                     dtype=torch.bfloat16, device=y.device)
+    # one statistics slot per (cloud, tile), added in a fixed order
+    partial = (torch.empty((2, co, b * _bf16_tiles(r)), dtype=torch.float32,
+                           device=y.device) if stats is not None else None)
+    with torch.cuda.device(y.device):
         kernels.launch(
-            kernel, "pvcnn_conv3d_bf16_fwd", x.data_ptr(), w_taps.data_ptr(),
-            _ptr(bias), *(_ptr(t) for t in pro), xt.data_ptr(),
-            y.data_ptr(), _ptr(partial), b, ci, weight.shape[0], r,
-            torch.cuda.current_stream().cuda_stream)
+            kernel, "pvcnn_conv3d_bf16_fwd", _ptr(x), *(_ptr(t) for t in pro),
+            xt.data_ptr(), weight.data_ptr(), ws.data_ptr(), _ptr(bias),
+            y.data_ptr(), _ptr(partial), _ptr(stats), b, ci, co, r, n,
+            int(flip), torch.cuda.current_stream().cuda_stream)
 
 
 def _forward_cuda_bf16(x, weight, bias, pscale, pshift, r, has_prologue,
                        want_stats):
+    """-> (y, s1, s2, the staged a(x))"""
     b, ci, co, bins = _check_conv(x, weight, r)
     if tuple(bias.shape) != (co,):
         raise ValueError(f"bias {tuple(bias.shape)} does not match Co={co}")
@@ -513,46 +564,72 @@ def _forward_cuda_bf16(x, weight, bias, pscale, pshift, r, has_prologue,
         raise ValueError(f"prologue scale/shift must be [{ci}]")
     pro = ((pscale.contiguous(), pshift.contiguous()) if has_prologue
            else (None, None))
-    x, bias = x.contiguous(), bias.contiguous()
-    y = torch.empty((b, co, bins), dtype=torch.bfloat16, device=x.device)
-    partial = (torch.empty((2, co, b * math.ceil(bins / _BF16_SPAN)),
-                           dtype=torch.float32, device=x.device)
-               if want_stats else None)
-    _launch_fwd_bf16("conv3d_fwd_bf16", x, weight, bias, pro, y, partial, r)
-    if want_stats:
-        s1, s2 = partial.sum(dim=2)
-    else:
-        s1 = torch.zeros(co, dtype=torch.float32, device=x.device)
-        s2 = torch.zeros_like(s1)
-    return y, s1, s2
+    x = x.contiguous()
+    dev = x.device
+    y = torch.empty((b, co, bins), dtype=torch.bfloat16, device=dev)
+    xt = torch.empty((b, _round16(ci) // 8, bins, 8), dtype=torch.bfloat16,
+                     device=dev)
+    stats = (torch.empty((2, co), dtype=torch.float32, device=dev)
+             if want_stats and b else
+             torch.zeros((2, co), dtype=torch.float32, device=dev))
+    _launch_fwd_bf16("conv3d_fwd_bf16", x, pro, xt, weight.contiguous(),
+                     False, bias.contiguous(), y,
+                     stats if want_stats else None, r)
+    return y, stats[0], stats[1], xt
 
 
-def _dgrad_cuda_bf16(gy, weight, r):
-    wt = _dgrad_weight(weight)                         # [Ci, Co, 3, 3, 3]
-    b, co, ci, bins = _check_conv(gy, wt, r)
+def _dgrad_cuda_bf16(gy, weight, r, staged):
+    """staged["gt"]: gy staged (K4 shares it), here if not given."""
+    b, co, bins = gy.shape
+    ci = weight.shape[1]
+    if tuple(weight.shape) != (co, ci, 3, 3, 3) or bins != r ** 3:
+        raise ValueError(f"dy {tuple(gy.shape)} does not match the weight "
+                         f"{tuple(weight.shape)} at R={r}")
     dx = torch.empty((b, ci, bins), dtype=torch.bfloat16, device=gy.device)
-    _launch_fwd_bf16("conv3d_dgrad_bf16", gy.contiguous(), wt, None,
-                     (None, None), dx, None, r)
+    x = None
+    if "gt" not in staged:
+        x = gy.contiguous()
+        staged["gt"] = torch.empty((b, _round16(co) // 8, bins, 8),
+                                   dtype=torch.bfloat16, device=gy.device)
+    _launch_fwd_bf16("conv3d_dgrad_bf16", x, (None, None), staged["gt"],
+                     weight.contiguous(), True, None, dx, None, r)
     return dx
 
 
+class WgradBf16Plan(NamedTuple):
+    """K4's bf16 launch (csrc/conv3d_bf16.cu: conv3d_bf16_wgrad_kernel)."""
+
+    cols: int        # input channels of one warpgroup product: 16, 32, 64
+    col_blocks: int  # column blocks a Co tile: Cp / 16 (cols 16: 27 taps a
+    #                  block), else 3 * Cp / cols (one dx plane a block)
+    co_tiles: int    # 64-channel tiles of Co
+    chunks: int      # 2 x 8 x 8-voxel chunks of the reduction, B * tiles
+    splits: int      # blocks a (column block, Co tile): runs of chunks
+    per_split: int   # chunks a run (the last may be shorter, none empty)
+
+
 @functools.lru_cache(maxsize=None)
-def _wgrad_bf16_plan(b, ci, co, r, sms):
-    """K4's bf16 launch on a card of `sms` SMs -> (splits, slices per
-    split). Its blocks tile Co (32 or 64 a block) x 27 * Cp (64 a block; Cp
-    = Ci rounded up to 16); the B * ceil(R^3 / 32) slices of the reduction
-    go to `splits` equal runs, enough for _K4_BF16_WAVES waves of resident
-    blocks, none shorter than _K4_MIN_SLICES slices."""
-    cp = -(-ci // 16) * 16
-    tiles = math.ceil(co / (32 if co <= 32 else 64)) * math.ceil(27 * cp / 64)
-    slices = b * math.ceil(r ** 3 / _K4_BF16_SLICE)
-    want = math.ceil(_K4_BF16_WAVES * _K4_BF16_BLOCKS_PER_SM * sms / tiles)
-    splits = max(1, min(want, slices // _K4_MIN_SLICES))
-    per_split = math.ceil(slices / splits)
-    return math.ceil(slices / per_split), per_split
+def _wgrad_bf16_plan(b, ci, co, r, sms) -> WgradBf16Plan:
+    """K4's bf16 launch on a card of `sms` SMs. A block holds one 64-row
+    tile of Co against its columns (all 27 taps of 16 input channels where
+    Cp is an odd multiple of 16, else a dx plane of 32 or 64 channels) and
+    takes one SM (its ring: 117-168 KB); the B * tiles chunks are split
+    into equal runs so that the blocks fill one wave, the splits' f32
+    partials added in split order."""
+    cp = _round16(ci)
+    cols = 64 if cp % 64 == 0 else 32 if cp % 32 == 0 else 16
+    col_blocks = cp // 16 if cols == 16 else 3 * cp // cols
+    co_tiles = math.ceil(co / 64)
+    chunks = b * _bf16_tiles(r)
+    want = min(chunks, max(1, sms // (col_blocks * co_tiles)))
+    per = math.ceil(chunks / want)
+    return WgradBf16Plan(cols, col_blocks, co_tiles, chunks,
+                         math.ceil(chunks / per), per)
 
 
-def _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue):
+def _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue, staged):
+    """staged["xt"], ["gt"]: a(x) and gy staged (the forward's and the
+    dgrad's copies), here if not given."""
     b, ci, bins = x.shape
     co = gy.shape[1]
     if bins != r ** 3 or tuple(gy.shape) != (b, co, bins):
@@ -564,25 +641,24 @@ def _wgrad_cuda_bf16(x, gy, pscale, pshift, r, has_prologue):
                      device=x.device)
     if b == 0 or r == 0:                 # no voxels: nothing to launch
         return dw.zero_()
-    x, gy = x.contiguous(), gy.contiguous()
-    pro = ((pscale.contiguous(), pshift.contiguous()) if has_prologue
-           else (None, None))
-    cp, cop = -(-ci // 16) * 16, -(-co // 16) * 16
-    # the staged operands, voxel-major
-    xt = torch.empty((b, bins, cp), dtype=torch.bfloat16, device=x.device)
-    gt = torch.empty((b, bins, cop), dtype=torch.bfloat16, device=x.device)
-    splits, per_split = _wgrad_bf16_plan(b, ci, co, r,
-                                         _sm_count(x.device.index))
+    xt, gt = staged.get("xt"), staged.get("gt")
+    if xt is None:
+        pro = ((pscale.contiguous(), pshift.contiguous()) if has_prologue
+               else (None, None))
+        xt = _stage_bf16(x.contiguous(), *pro)
+    if gt is None:
+        gt = _stage_bf16(gy.contiguous())
+    plan = _wgrad_bf16_plan(b, ci, co, r, _sm_count(x.device.index))
     # each split's f32 partial, added in split order by the kernel's second
     # pass: reproducible bit for bit
-    partial = torch.empty((splits, co, 27 * cp), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((plan.splits, co, _round16(ci), 27),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         kernels.launch(
-            "conv3d_wgrad_bf16", "pvcnn_conv3d_bf16_wgrad", x.data_ptr(),
-            gy.data_ptr(), *(_ptr(t) for t in pro), xt.data_ptr(),
+            "conv3d_wgrad_bf16", "pvcnn_conv3d_bf16_wgrad", xt.data_ptr(),
             gt.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, ci, co, r,
-            splits, per_split, torch.cuda.current_stream().cuda_stream)
+            plan.cols, plan.splits, plan.per_split,
+            torch.cuda.current_stream().cuda_stream)
     return dw
 
 

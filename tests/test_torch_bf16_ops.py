@@ -15,6 +15,7 @@ statistics are held to 2^-7 of their sum of |terms|; its f32 bias, scale
 and shift gradients to 2^-7 of their largest entry.
 """
 
+import itertools
 import types
 
 import jax
@@ -213,21 +214,37 @@ def test_leaky_affine_bf16():
 @pytest.mark.parametrize("b,ci,co,r", [
     (32, 6, 64, 32), (32, 64, 64, 32), (32, 64, 128, 16),
     (32, 128, 128, 16), (64, 6, 16, 32), (64, 16, 16, 32), (64, 16, 32, 16),
-    (64, 32, 32, 16), (2, 16, 16, 8), (1, 1, 1, 1), (3, 5, 33, 5)])
+    (64, 32, 32, 16), (2, 16, 16, 8), (1, 1, 1, 1), (3, 5, 33, 5),
+    (1, 20, 70, 12), (2, 48, 130, 4)])
 def test_wgrad_bf16_plan(b, ci, co, r):
-    """K4's bf16 plan on a card of 132 SMs: runs of whole slices that
-    cover the B * ceil(R^3 / 32) slices once, none empty, none shorter
-    than 8 slices unless there is one split, within two waves of 4
-    resident blocks an SM (blocks of 32 or 64 output channels x 64 of the
-    27 * Cp columns)."""
-    splits, per = conv3d._wgrad_bf16_plan(b, ci, co, r, 132)
-    slices = b * -(-r ** 3 // 32)
-    assert (splits - 1) * per < slices <= splits * per
+    """K4's bf16 plan on a card of 132 SMs: the columns (27 x Cp) covered
+    by whole column blocks, runs of chunks that cover the B * tiles chunks
+    once, none empty, and at most one wave of one block an SM where the
+    chunks allow."""
+    plan = conv3d._wgrad_bf16_plan(b, ci, co, r, 132)
     cp = -(-ci // 16) * 16                   # Ci rounded up to 16
-    tiles = -(-co // (32 if co <= 32 else 64)) * -(-27 * cp // 64)
-    if splits > 1:
-        assert per >= 8
-        assert (splits - 1) * tiles < 2 * 4 * 132
+    assert cp % plan.cols == 0
+    taps = 27 if plan.cols == 16 else 9      # taps a column block
+    assert plan.col_blocks * plan.cols * taps == 27 * cp
+    assert plan.co_tiles * 64 >= co > (plan.co_tiles - 1) * 64
+    tiles = -(-r // 2) * (-(-r // 8)) ** 2    # 2 x 8 x 8 voxels (x, y, z)
+    assert plan.chunks == b * tiles
+    runs = [range(s * plan.per_split,
+                  min(plan.chunks, (s + 1) * plan.per_split))
+            for s in range(plan.splits)]
+    assert all(len(run) > 0 for run in runs)
+    assert sorted(k for run in runs for k in run) == list(range(plan.chunks))
+    blocks = plan.splits * plan.col_blocks * plan.co_tiles
+    assert blocks <= max(132, plan.col_blocks * plan.co_tiles)
+
+
+@pytest.mark.parametrize("r", [1, 4, 5, 8, 12, 16, 32])
+def test_bf16_tiles(r):
+    """K3's statistics slots per cloud (and K4's chunks): one per 2 x 8 x 8
+    tile (x, y, z) that covers the grid, ragged tiles included."""
+    origins = {(x // 2, y // 8, z // 8) for x, y, z in
+               itertools.product(range(r), repeat=3)}
+    assert conv3d._bf16_tiles(r) == len(origins)
 
 
 def _meta(*shape, dtype=torch.bfloat16):

@@ -1321,18 +1321,99 @@ def test_conv3d_bf16_kernel(dev, b, ci, co, r, has_prologue, want_stats):
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 7, 40])
 def test_wgrad_bf16_splits(dev, monkeypatch, splits):
-    """K4's bf16 mode at forced splits (runs of slices across clouds, the
+    """K4's bf16 mode at forced splits (runs of chunks across clouds, the
     last run short): the same dW within two bf16 roundings."""
     bf = torch.bfloat16
     b, ci, co, r = 3, 16, 32, 8
     x = torch.randn(b, ci, r ** 3, device=dev).to(bf)
     gy = torch.randn(b, co, r ** 3, device=dev).to(bf)
-    slices = b * r ** 3 // 32
-    per = -(-slices // splits)
-    monkeypatch.setattr(conv3d, "_wgrad_bf16_plan",
-                        lambda *a: (-(-slices // per), per))
+    plan = conv3d._wgrad_bf16_plan(b, ci, co, r, 132)
+    per = -(-plan.chunks // splits)
+    monkeypatch.setattr(conv3d, "_wgrad_bf16_plan", lambda *a: plan._replace(
+        splits=-(-plan.chunks // per), per_split=per))
     _bf16_close(conv3d._wgrad_cuda(x, gy, None, None, r, False),
                 conv3d._wgrad_plain(x, gy, None, None, r, False))
+
+
+def _conv_bf16_case(dev, b, ci, co, r, has_prologue=True):
+    bf = torch.bfloat16
+    x = torch.randn(b, ci, r ** 3, device=dev).to(bf)
+    w = (torch.randn(co, ci, 3, 3, 3, device=dev) / (27 * ci) ** 0.5).to(bf)
+    bias = torch.randn(co, device=dev)
+    scale = torch.rand(ci, device=dev) + 0.5
+    shift = torch.randn(ci, device=dev)
+    gy = torch.randn(b, co, r ** 3, device=dev).to(bf)
+    return (x, w, bias, scale, shift, r, has_prologue), gy
+
+
+# ShapeNet PVCNN's bf16 convs (Ci, Co, R) at 1x and 0.25x, at a small B
+SHAPENET_BF16 = [(6, 64, 32), (64, 64, 32), (64, 128, 16), (128, 128, 16),
+                 (6, 16, 32), (16, 16, 32), (16, 32, 16), (32, 32, 16)]
+
+
+@pytest.mark.parametrize("ci,co,r", SHAPENET_BF16)
+def test_conv3d_bf16_shapenet_shapes(dev, ci, co, r):
+    """K3, its dgrad and K4 in bf16 at the training step's channel counts
+    and grids (B = 2): within two bf16 roundings of the plain versions, the
+    statistics within 1e-4 of their plain sums."""
+    args, gy = _conv_bf16_case(dev, 2, ci, co, r)
+    y, s1, s2 = conv3d._forward_cuda(*args, True)
+    want, w1, w2 = conv3d._forward_plain(*args, True)
+    _bf16_close(y, want)
+    torch.testing.assert_close(s2, w2, rtol=1e-4, atol=1e-6)
+    w = args[1]
+    _bf16_close(conv3d._dgrad_cuda(gy, w, r), conv3d._dgrad_plain(gy, w, r))
+    wargs = (args[0], gy) + args[3:]
+    _bf16_close(conv3d._wgrad_cuda(*wargs), conv3d._wgrad_plain(*wargs))
+
+
+def test_conv3d_bf16_no_clouds(dev):
+    """B = 0: empty outputs, zero statistics and a zero dW, one launch
+    counted each."""
+    args, gy = _conv_bf16_case(dev, 0, 16, 32, 8)
+    y, s1, s2 = _counted("conv3d_fwd_bf16", conv3d._forward_cuda, *args,
+                         True)
+    assert y.shape == (0, 32, 512) and not s1.any() and not s2.any()
+    dx = _counted("conv3d_dgrad_bf16", conv3d._dgrad_cuda, gy, args[1], 8)
+    assert dx.shape == (0, 16, 512)
+    dw = conv3d._wgrad_cuda(args[0], gy, *args[3:])
+    assert dw.shape == (32, 16, 3, 3, 3) and not dw.any()
+
+
+@pytest.mark.parametrize("ci,co", [(16, 32), (40, 24)])
+def test_conv3d_bf16_ragged_tile(dev, ci, co):
+    """R = 12: K3's 8 x 8 M tile and K4's chunk ragged in both z and y (and
+    x odd), the halo outside the grid on every side."""
+    args, gy = _conv_bf16_case(dev, 2, ci, co, 12)
+    y, s1, s2 = conv3d._forward_cuda(*args, True)
+    want, w1, w2 = conv3d._forward_plain(*args, True)
+    _bf16_close(y, want)
+    torch.testing.assert_close(s2, w2, rtol=1e-4, atol=1e-6)
+    _bf16_close(conv3d._dgrad_cuda(gy, args[1], 12),
+                conv3d._dgrad_plain(gy, args[1], 12))
+    wargs = (args[0], gy) + args[3:]
+    _bf16_close(conv3d._wgrad_cuda(*wargs), conv3d._wgrad_plain(*wargs))
+
+
+def test_conv3d_bf16_bitwise_on_another_stream(dev):
+    """Two runs of K3 (with statistics), its dgrad and K4 bitwise equal, the
+    second on another stream."""
+    args, gy = _conv_bf16_case(dev, 4, 64, 64, 16)
+    wargs = (args[0], gy) + args[3:]
+
+    def run():
+        return (conv3d._forward_cuda(*args, True)
+                + (conv3d._dgrad_cuda(gy, args[1], 16),
+                   conv3d._wgrad_cuda(*wargs)))
+
+    first = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
 @pytest.mark.parametrize("c,r", [(1, 8), (5, 8), (16, 16), (64, 32),
