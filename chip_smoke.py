@@ -15,8 +15,10 @@ launch no kernel, and the KITTI Frustum family at its configs' full width
 frustums of 1,024 points x 4 channels, 512 points an object; synthetic
 frustum batches and trees, data/kitti/frustum.py), ShapeNet PVCNN 1x by
 deep mutual learning, the entry points that train and evaluate them
-(S3DIS's on synthetic rooms prepared into windows), and ShapeNet PVCNN
-with bf16 activations (1x at B = 32 and 0.25x at B = 64, N = 2048).
+(S3DIS's on synthetic rooms prepared into windows), ShapeNet PVCNN
+with bf16 activations (1x at B = 32 and 0.25x at B = 64, N = 2048), and
+S3DIS PVCNN2 and PVCNN and ShapeNet PointNet++ SSG / MSG 1x with bf16
+activations.
 Phases, each printing its own lines and its seconds, and raising on
 failure:
 
@@ -260,11 +262,14 @@ failure:
                 2048 (the JAX headline's batch) on the kernel and plain
                 paths: step 1 twice bitwise equal; the eval logits, step-1
                 loss and gradients of the kernel path against the plain
-                path (BF16_APART); step 1 and a 3-step trajectory held to
+                path (BF16_APART; the gradients within sqrt(2) x the plain
+                path's distance from fp32 + 1e-3, _grads_apart); step 1
+                and a 3-step trajectory held to
                 the fp32 step (the kernel path's distance at most twice
                 the plain path's, plus 1e-3); the leaves that carry the
                 gradients' distance from fp32, and the fp32 gradients'
-                move with only the input normals rounded to bf16;
+                move with only the input features past xyz rounded to
+                bf16;
                 launches per step of every record (the first PVConv's K1
                 in fp32, every other K1-K5 launch bf16), parameters,
                 BatchNorm statistics and Adam state float32, ms/step in
@@ -273,13 +278,39 @@ failure:
                 pvcnn_tpu_torch.train` with c0p25 and
                 --configs.model.dtype=bfloat16 (4 steps on a synthetic tree
                 of 64 shapes) and its evaluator, from zeroed counters.
+ 30. bf16 pointnet++ / s3dis
+                S3DIS PVCNN2 1x (32 x 8192), S3DIS PVCNN 1x (32 x 4096, its
+                default path) and ShapeNet PointNet++ SSG / MSG 1x (32 x
+                2048) with bf16 activations: K1's bf16 sum mode (the
+                take_rows backward of a bf16 cotangent) at the groupings'
+                and interpolations' shapes of PVCNN2, SSG and MSG (FP1's
+                384 rows into one bin among them), each twice bitwise
+                equal, within 2^-7 of each output's sum of |terms| of its
+                plain version and within one bf16 rounding of the fp64
+                sum, timed beside the plain version, index_add_ on the
+                values widened to f32 and the bound; the bf16 modes of
+                K1-K5 at PVCNN2's and S3DIS PVCNN's new shapes, as phase
+                29 checks them (shares of bound, ratio to cuDNN); each
+                model's bf16 training step on the kernel and plain paths
+                under phase 29's rules (step 1 twice bitwise equal,
+                BF16_APART, _grads_apart, _bf16_rule against the fp32
+                step, launches per
+                step of every record, fp32 parameters, statistics and Adam
+                state, ms/step in turns with fp32, peak memory; with
+                --profile the bf16 step's breakdown); then `python -m
+                pvcnn_tpu_torch.train` with S3DIS PVCNN2 area5/c1 and
+                --configs.model.dtype=bfloat16 for 4 steps over 20b's
+                rooms and its evaluator, from zeroed counters: exactly the
+                bf16 steps' and forwards' launches.
 
 The last two lines are a JSON object with the per-kernel record and
 {"ok": true, "device": {...}}. A kernel's `launches` sums its launches in
 the trainer phases (7, 11, both runs of 15, 19's two, 20b's, 24's, 26,
 27's and 28's training and evaluation runs; the bf16 records 29's
 3-step trajectories at 1x and 0.25x, the config run and its evaluator
-under 0.25x) and, for K9/K10 on the MSG opt-in path, the
+under 0.25x, and 30's 3-step trajectories of each model, with the PVCNN2
+config run and its evaluator under PVCNN2) and, for K9/K10 on the MSG
+opt-in path, the
 switched step of 18, for FrustumPVCNNE's opt-in path the switched step of
 23; its times, bounds and library time are per training step, summed over
 the paths' steps (each path's own numbers under "paths"; K1's and K5's
@@ -329,7 +360,8 @@ PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 # d² and weights are held to 1e-5. The bf16 modes (phase 29) round their
 # bf16 outputs once after f32 sums that the plain versions take in other
 # orders: atol 2^-7 (two bf16 roundings) of each case's scale, the largest
-# |output| (K5: each bin's sum of |terms|).
+# |output| (K5 and K1's bf16 sum mode, phase 30: each bin's sum of
+# |terms|).
 TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
        "conv3d_fwd": (1e-4, 1e-4), "conv3d_dgrad": (1e-4, 1e-4),
        "conv3d_wgrad": (1e-4, 1e-4), "devoxelize_bwd": (1e-5, 1e-5),
@@ -340,7 +372,7 @@ TOL = {"avg_voxelize": (1e-5, 1e-6), "trilinear_devoxelize": (1e-5, 1e-6),
        **{k: (0.0, 2.0 ** -7) for k in (
            "avg_voxelize_bf16", "trilinear_devoxelize_bf16",
            "conv3d_fwd_bf16", "conv3d_dgrad_bf16", "conv3d_wgrad_bf16",
-           "devoxelize_bwd_bf16")}}
+           "devoxelize_bwd_bf16", "scatter_sum_bf16")}}
 # (kernel, case) -> calls per ShapeNet PVCNN 1x training step (the
 # forward's calls are the eval forward's too). Cases: K1/K2/K5 (C, R, N);
 # K3 and K4 (Ci, Co, R, prologue) of the forward conv; dgrad (Co, Ci, R) of
@@ -699,7 +731,11 @@ def check_calls() -> None:
                             (CALLS_PVCNNE_ON, PER_STEP_PVCNNE_ON),
                             (CALLS_FPN2, PER_STEP_FPN2),
                             (CALLS_BF16, PER_STEP_BF16),
-                            (CALLS_BF16_QUARTER, PER_STEP_BF16)):
+                            (CALLS_BF16_QUARTER, PER_STEP_BF16),
+                            (CALLS2_BF16, PER_STEP2_BF16),
+                            (CALLS3_BF16, PER_STEP3_BF16),
+                            (CALLS_SSG_BF16, PER_STEP_SSG_BF16),
+                            (CALLS_MSG_BF16, PER_STEP_MSG_BF16)):
         sums = {}
         for (k, _), n in calls.items():
             sums[k] = sums.get(k, 0) + n
@@ -3443,6 +3479,44 @@ FWD_BF16 = ("avg_voxelize", "avg_voxelize_bf16", "conv3d_fwd_bf16",
             "trilinear_devoxelize_bf16")
 
 
+def _in_bf16(calls: dict, fp32_case=None) -> dict:
+    """An fp32 step's call table as the same model's bf16 step launches
+    it: every K1-K5 launch and K1's sum mode in its bf16 mode, but K1 at
+    fp32_case (the first PVConv voxelizes the fp32 input, as ShapeNet
+    PVCNN's does); FPS, ball query and three-NN run on the fp32
+    coordinates as they are."""
+    keep = ("fps", "ball_query", "three_nn")
+    return {(k if k in keep or (k, c) == ("avg_voxelize", fp32_case)
+             else k + "_bf16", c): n for (k, c), n in calls.items()}
+
+
+# Phase 30: S3DIS PVCNN2 1x, S3DIS PVCNN 1x (its default path) and
+# ShapeNet PointNet++ SSG / MSG 1x with bf16 activations. Every take_rows
+# backward gets a bf16 cotangent (the groupings and interpolations of bf16
+# features; concatenated with the fp32 relative coordinates or skip
+# features their concatenation is fp32, and its backward casts the bf16
+# part's gradient back), so K1's sum mode runs in bf16 throughout.
+CALLS2_BF16 = _in_bf16(CALLS2, (9, 32, N2))
+CALLS3_BF16 = _in_bf16(CALLS3, (9, 32, N3))
+CALLS_SSG_BF16 = _in_bf16(CALLS_SSG)
+CALLS_MSG_BF16 = _in_bf16(CALLS_MSG)
+PER_STEP2_BF16 = {"avg_voxelize": 1, "avg_voxelize_bf16": 12,
+                  "trilinear_devoxelize_bf16": 13, "conv3d_fwd_bf16": 26,
+                  "conv3d_dgrad_bf16": 25, "conv3d_wgrad_bf16": 26,
+                  "devoxelize_bwd_bf16": 13, "scatter_sum_bf16": 8,
+                  "fps": 4, "ball_query": 4, "three_nn": 4}
+PER_STEP3_BF16 = {"avg_voxelize": 1, "avg_voxelize_bf16": 3,
+                  "trilinear_devoxelize_bf16": 4, "conv3d_fwd_bf16": 8,
+                  "conv3d_dgrad_bf16": 7, "conv3d_wgrad_bf16": 8,
+                  "devoxelize_bwd_bf16": 4}
+PER_STEP_SSG_BF16 = {"fps": 2, "ball_query": 2, "three_nn": 3,
+                     "scatter_sum_bf16": 4}
+PER_STEP_MSG_BF16 = {"fps": 2, "ball_query": 5, "three_nn": 3,
+                     "scatter_sum_bf16": 5}
+# the bf16 eval forwards' kernels of PVCNN2 (S3DIS PVCNN's: FWD_BF16)
+FWD2_BF16 = FWD_BF16 + ("fps", "ball_query", "three_nn")
+
+
 def _counted(fn):
     """fn() from zeroed launch counters -> (its result, the launches,
     seconds to the card's last work)."""
@@ -3702,11 +3776,14 @@ def _bf16_compare(kernel, case, got, want, scale=None) -> float:
     return _compare(kernel, case, got, want, scale)
 
 
-def _time_bf16_kernels(rec: Record, coords) -> None:
+def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
+                       coords_of=None) -> None:
     """The bf16 modes of K1-K5 at the cases of rec.calls on clouds of the
-    coords' batch: each twice, bitwise equal, against its plain version,
-    timed beside the plain version, the one PyTorch call in bf16 and the
-    bound (bf16 operations over 989 TFLOP/s, bytes over 3.35 TB/s)."""
+    coords' batch (the first n points of each; coords_of(n), where given,
+    gives the clouds of n points), normalized as the model's PVConvs
+    normalize: each twice, bitwise equal, against its plain version, timed
+    beside the plain version, the one PyTorch call in bf16 and the bound
+    (bf16 operations over 989 TFLOP/s, bytes over 3.35 TB/s)."""
     import torch.nn.functional as F
 
     from pvcnn_tpu_torch import ops
@@ -3715,10 +3792,11 @@ def _time_bf16_kernels(rec: Record, coords) -> None:
     dev, bf, b = torch.device(DEVICE), torch.bfloat16, coords.shape[0]
     cases = lambda kernel: sorted(c for k, c in rec.calls if k == kernel)
     add = lambda *a, **kw: rec.add(*a, peak=PEAK_BF16_FLOPS, **kw)
+    clouds = coords_of or (lambda n: coords[:, :n])
 
     for c, r, n in cases("avg_voxelize_bf16"):
         case = (c, r, n)
-        vox, _ = ops.normalize_coords(coords[:, :n], r, normalize=False)
+        vox, _ = ops.normalize_coords(clouds(n), r, normalize=normalize)
         flat = ops.flat_voxel_index(vox, r)
         feats = torch.randn(b, n, c, device=dev).to(bf)
         run_k = lambda: voxelize._scatter_mean_cuda(feats, flat, r ** 3,
@@ -3744,7 +3822,7 @@ def _time_bf16_kernels(rec: Record, coords) -> None:
 
     for c, r, n in cases("trilinear_devoxelize_bf16"):
         case = (c, r, n)
-        _, norm = ops.normalize_coords(coords[:, :n], r, normalize=False)
+        _, norm = ops.normalize_coords(clouds(n), r, normalize=normalize)
         grid = torch.randn(b, c, r ** 3, device=dev).to(bf)
         g5 = grid.reshape(b, c, r, r, r)
         gs = _grid5(norm, r).to(bf)
@@ -3966,15 +4044,14 @@ def _bf16_rule(label: str, what: str, kern, plain, fp32) -> None:
 # the bf16 kernel path against the bf16 plain path directly (rel-L2; the
 # step-1 loss relative), at 2-2.5x the most that PVCNN 1x and 0.25x showed
 # on an H100 80GB HBM3 at 700 W (eval logits 2.2e-3 / 8.1e-4, step-1 loss
-# 6.0e-6 / 1.2e-7, step-1 gradients 0.244 / 0.215; PERF.md). Both paths
-# round the same activations to bf16 after f32 sums taken in other
+# 6.0e-6 / 1.2e-7; PERF.md); the step-1 gradients by _grads_apart. Both
+# paths round the same activations to bf16 after f32 sums taken in other
 # orders; where the two roundings differ at a LeakyReLU/ReLU input within
 # a rounding of zero, the gate flips and the gradient below it moves by
 # its whole size, so the gradients sit much further apart than the logits
 # (rounding only the input normals to bf16 moved the fp32 gradients by
 # 0.119 / 0.134 in the same run).
-BF16_APART = {"eval logits": 5e-3, "step-1 loss": 1.5e-5,
-              "step-1 gradients": 0.5}
+BF16_APART = {"eval logits": 5e-3, "step-1 loss": 1.5e-5}
 
 
 def _apart(label: str, what: str, kern, plain) -> None:
@@ -3985,6 +4062,26 @@ def _apart(label: str, what: str, kern, plain) -> None:
     if got > BF16_APART[what]:
         raise AssertionError(f"{label} {what}: the bf16 kernel path "
                              "disagrees with the bf16 plain path")
+
+
+def _grads_apart(label: str, kern, plain, fp32) -> None:
+    """The bf16 kernel path's step-1 gradients against the bf16 plain
+    path's: within sqrt(2) own + 1e-3, own being the plain path's rel-L2
+    distance from fp32 (the CPU tests' rule: two bf16 runs, each `own`
+    from fp32, that round in independent places). How far a rounding moves
+    the gradients depends on the model (H100 80GB HBM3, 700 W: ShapeNet
+    PVCNN 1x 0.244 apart with own 0.318; S3DIS PVCNN2 1x 0.846 with own
+    0.947, whose gradients pass through max-pools over the neighbors and
+    moved by 0.497 with only the fp32 input features rounded), so a
+    fixed bound from one model's spread (0.5, ShapeNet PVCNN's) does not
+    hold another's."""
+    got, own = _rel(kern, plain), _rel(plain, fp32)
+    log("bf16", f"{label} step-1 gradients: kernel bf16 vs plain bf16 "
+        f"{got:.3e}, plain bf16 vs fp32 {own:.3e} (<= sqrt(2) x plain vs "
+        "fp32 + 1e-3)")
+    if got > 2 ** 0.5 * own + 1e-3:
+        raise AssertionError(f"{label} step-1 gradients: the bf16 kernel "
+                             "path disagrees with the bf16 plain path")
 
 
 def _leaf_gaps(label: str, model, grads, ref, top: int = 3) -> None:
@@ -4007,27 +4104,26 @@ def _leaf_gaps(label: str, model, grads, ref, top: int = 3) -> None:
             (nm, r) for _, nm, r in rows if nm.endswith("weight")][-1]))
 
 
-def phase_bf16_train(label: str, base, wm: float, batches, per_step: dict,
-                     profile: bool) -> dict:
-    """Training steps of base's model with bf16 activations (the same
-    weights) on the kernel and plain paths, and of base itself (fp32) on
-    the kernel path: step 1 twice bitwise equal on the kernel path; the
-    eval logits, step-1 loss and gradients of the bf16 kernel path against
-    the bf16 plain path (BF16_APART); step 1 (loss, gradients) and the
-    losses of 3 steps under _bf16_rule; the leaves that carry the bf16
-    gradients' distance from fp32, and the fp32 gradients' move when only
-    the input normals are rounded to bf16; launches per step of every
-    record; ms/step (medians of 3 rounds of 5 steps, in turns with the fp32
-    step) and peak memory of both. -> the bf16 kernel path's launches over
-    its 3 steps."""
+def phase_bf16_train(label: str, base, model16, batches, per_step: dict,
+                     profile: bool, weight_decay: float = 0.0) -> dict:
+    """Training steps of model16 (base's model with bf16 activations; it
+    takes base's weights) on the kernel and plain paths, and of base itself
+    (fp32) on the kernel path, Adam with the recipe's weight decay: step 1
+    twice bitwise equal on the kernel path; the eval logits, step-1 loss
+    and gradients of the bf16 kernel path against the bf16 plain path
+    (BF16_APART, _grads_apart); step 1 (loss, gradients) and the losses
+    of 3 steps under _bf16_rule; the leaves that carry the bf16 gradients' distance from
+    fp32, and the fp32 gradients' move when only the input features past
+    xyz (normals and the one-hot id; rgb and the room coordinates) are
+    rounded to bf16; launches per step of every record; ms/step (medians
+    of 3 rounds of 5 steps, in turns with the fp32 step) and peak memory
+    of both. -> the bf16 kernel path's launches over its 3 steps."""
     from pvcnn_tpu_torch import kernels
-    from pvcnn_tpu_torch.models.shapenet import PVCNN
 
     b, n = batches[0][0].shape[:2]
-    model16 = PVCNN(50, 16, 3, width_multiplier=wm, dtype="bfloat16")
     model16.load_state_dict(base.state_dict())
-    make16, make32 = (lambda: _trainer(model16, 0.0),
-                      lambda: _trainer(base, 0.0))
+    make16, make32 = (lambda: _trainer(model16, weight_decay),
+                      lambda: _trainer(base, weight_decay))
     k16 = make16()
     with torch.no_grad():
         logits_k = k16.model.eval()(batches[0][0])
@@ -4047,17 +4143,17 @@ def phase_bf16_train(label: str, base, wm: float, batches, per_step: dict,
     log("bf16", f"{label} step 1: loss bf16 kernel {loss_k:.7f}, bf16 plain "
         f"{loss_p:.7f}, fp32 {loss_f:.7f}")
     _apart(label, "step-1 loss", loss_k, loss_p)
-    _apart(label, "step-1 gradients", grads_k, grads_p)
+    _grads_apart(label, grads_k, grads_p, grads_f)
     _bf16_rule(label, "step-1 gradients", grads_k, grads_p, grads_f)
     _bf16_rule(label, "step-1 loss", [loss_k], [loss_p], [loss_f])
     _leaf_gaps(label, model16, grads_k, grads_f)
     x, y = batches[0]
     xr = x.clone()
-    xr[..., 3:6] = xr[..., 3:6].to(torch.bfloat16).float()
+    xr[..., 3:] = xr[..., 3:].to(torch.bfloat16).float()
     _, grads_r = grads_of(make32(), xr, y, SEED)
     log("bf16", f"{label}: the fp32 step-1 gradients with only the input "
-        f"normals rounded to bf16 sit {_rel(grads_r, grads_f):.3e} (rel-L2) "
-        "from fp32")
+        f"features past xyz rounded to bf16 sit {_rel(grads_r, grads_f):.3e} "
+        "(rel-L2) from fp32")
 
     k16, p16, k32 = make16(), make16(), make32()
     losses = {"kernel": [], "plain": [], "fp32": []}
@@ -4153,6 +4249,204 @@ def phase_bf16_configs() -> dict:
             raise AssertionError(f"bad bf16 evaluation stats {stats}")
         _check_launches("shapenet bf16 evaluate", ran,
                         _expected(ran, PER_STEP_BF16, FWD_BF16, 0, forwards))
+    return _add_counts(counts, ran)
+
+
+def _scatter_sum_bf16_case(rec: Record, idx, bins, c) -> None:
+    """K1's bf16 sum mode, the take_rows backward of a bf16 cotangent, on
+    idx [B, K] into `bins` rows of C channels: twice bitwise equal; against
+    the plain version within 2^-7 of each output's sum of |terms| and
+    within one bf16 rounding (2^-8 of the sum) plus 1e-6 of its sum of
+    |terms| of the fp64 sum; timed beside the plain version and index_add_
+    on the values widened to f32 (f32 sums, not rounded to bf16: the same
+    sums one rounding short); logs the longest run."""
+    from pvcnn_tpu_torch.ops import voxelize
+
+    dev = idx.device
+    b, k = idx.shape
+    case = (k, bins, c)
+    values = torch.randn(b, k, c, device=dev).to(torch.bfloat16)
+    run_k = lambda: voxelize._scatter_sum_cuda(values, idx, bins)
+    run_p = lambda: voxelize._scatter_sum_plain(values, idx, bins)
+    flat = (idx.long() + torch.arange(b, device=dev)[:, None] * bins
+            ).reshape(-1)
+    rows = values.float().reshape(-1, c)
+    run_lib = lambda: rows.new_zeros(b * bins, c).index_add_(0, flat, rows)
+    got = _twice("scatter_sum_bf16", case, run_k)
+    want = run_p()
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"scatter_sum_bf16 {case}: {got.dtype} out")
+    mag = voxelize._scatter_sum_plain(values.abs().float(), idx, bins)
+    err = _compare("scatter_sum_bf16", case, got.float(), want.float(), mag)
+    exact = voxelize._scatter_sum_plain(values.double(), idx, bins)
+    off = ((got.double() - exact).abs() - 2.0 ** -8 * exact.abs()) \
+        / mag.double().clamp(min=1e-30)
+    log("kernels", f"scatter_sum_bf16 {case}: max (|kernel - fp64 sum| - "
+        f"2^-8 |fp64 sum|) / sum|terms| {off.max().item():.3e} (<= 1e-6)")
+    if off.max().item() > 1e-6:
+        raise AssertionError(f"scatter_sum_bf16 {case}: kernel more than "
+                             "one bf16 rounding off the fp64 sum")
+    lib_ok = _library_agrees("scatter_sum_bf16", case,
+                             run_lib().reshape(b, bins, c), want.float(),
+                             mag)
+    split, longest = _k1_split("scatter_sum_bf16", values, idx, bins, False,
+                               False)
+    log("kernels", f"scatter_sum_bf16 {case}: longest run {longest} rows")
+    rec.add("scatter_sum_bf16", case, err, run_k, run_p, b * k * c,
+            2 * b * k * c + 4 * b * k + 2 * b * bins * c,
+            run_lib if lib_ok else None, split=split)
+
+
+def _take_rows_indices(pts, calls: dict, sms) -> dict:
+    """The take_rows indices of a PointNet++ hierarchy on clouds pts [B, N,
+    3], from the FPS, ball-query and three-NN cases of `calls` (run on the
+    card, not timed: phases 8 and 16 time them) -> ({(K, bins): idx [B,
+    K]} for the groupings (M * U rows into N bins) and the interpolations
+    (3N rows into M bins), {points: the level's clouds [B, points, 3]})."""
+    from pvcnn_tpu_torch import ops
+
+    cases = lambda kernel: sorted((c for k, c in calls if k == kernel),
+                                  reverse=True)
+    b = pts.shape[0]
+    by_n = {pts.shape[1]: pts, 1: torch.zeros(b, 1, 3, device=pts.device)}
+    for n, m in cases("fps"):
+        idx = ops.furthest_point_sample_indices(by_n[n], m)
+        by_n[m] = torch.gather(by_n[n], 1, idx.long()[..., None].expand(
+            -1, -1, 3))
+    rows = {}
+    for m, n, radius, u in cases("ball_query"):
+        rows[(m * u, n)] = ops.ball_query(by_n[m], by_n[n], radius,
+                                          u).reshape(b, -1)
+    for n, m in cases("three_nn"):
+        rows[(3 * n, m)] = ops.three_nn(by_n[n], by_n[m])[0].reshape(b, -1)
+    return rows, by_n
+
+
+def phase_bf16_pn2_kernels() -> dict:
+    """Phase 30's kernels: K1's bf16 sum mode at the take_rows shapes of
+    S3DIS PVCNN2 1x (B = 32 x 8192) and ShapeNet PointNet++ SSG / MSG 1x
+    (32 x 2048; MSG's and SSG's FP1 sums 384 rows into one bin), and the
+    bf16 modes of K1-K5 at PVCNN2's and S3DIS PVCNN's new shapes (32 x
+    4096), on their FPS levels (PVCNN2) or windows, normalized as their
+    PVConvs normalize; each K3 / dgrad / K4 case's share of its bound and
+    ratio to cuDNN. HGMMA in every compiled instantiation of the bf16 conv
+    kernels was checked in phase 29. -> {path: record}"""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    torch.manual_seed(SEED + 110)
+    recs = {}
+
+    x, _ = windows(np.random.RandomState(SEED + 111), B, N2)
+    pts = torch.from_numpy(x[..., :3]).to(dev)
+    rec = Record(CALLS2_BF16)
+    rows, by_n = _take_rows_indices(pts, CALLS2_BF16, sms)
+    for k, bins, c in sorted(c for kk, c in CALLS2_BF16
+                             if kk == "scatter_sum_bf16"):
+        _scatter_sum_bf16_case(rec, rows[(k, bins)], bins, c)
+    _time_bf16_kernels(rec, pts, normalize=True, coords_of=lambda n: by_n[n])
+    recs["S3DIS PVCNN2 1x bf16"] = rec.summary("S3DIS PVCNN2 1x bf16")
+
+    x, _ = windows(np.random.RandomState(SEED + 112), B, N3)
+    rec = Record(CALLS3_BF16)
+    _time_bf16_kernels(rec, torch.from_numpy(x[..., :3]).to(dev),
+                       normalize=True)
+    recs["S3DIS PVCNN 1x bf16"] = rec.summary("S3DIS PVCNN 1x bf16")
+
+    pts = torch.from_numpy(cloud(np.random.RandomState(SEED + 113), B,
+                                 N)[..., :3]).to(dev)
+    for label, calls in (("ShapeNet PointNet2 SSG 1x bf16", CALLS_SSG_BF16),
+                         ("ShapeNet PointNet2 MSG 1x bf16", CALLS_MSG_BF16)):
+        rec = Record(calls)
+        rows, _ = _take_rows_indices(pts, calls, sms)
+        for k, bins, c in sorted(c for kk, c in calls
+                                 if kk == "scatter_sum_bf16"):
+            _scatter_sum_bf16_case(rec, rows[(k, bins)], bins, c)
+        recs[label] = rec.summary(label)
+    return recs
+
+
+def phase_bf16_pn2_train(profile: bool) -> dict:
+    """Phase 30's training steps (phase_bf16_train) of S3DIS PVCNN2 1x (32
+    x 8192) and PVCNN 1x (32 x 4096; the c1 recipes' weight decay 1e-5)
+    and ShapeNet PointNet++ SSG / MSG 1x (32 x 2048) with bf16
+    activations, each from seeded fp32 weights. -> {path: launches}"""
+    from pvcnn_tpu_torch.models.s3dis import PVCNN as S3DISPVCNN
+    from pvcnn_tpu_torch.models.s3dis import PVCNN2
+    from pvcnn_tpu_torch.models.shapenet import pointnet2_msg, pointnet2_ssg
+    from pvcnn_tpu_torch.utils.weights import init_random_
+
+    dev, counts = torch.device(DEVICE), {}
+    for path, make, n, per_step, wd, seed in (
+            ("S3DIS PVCNN2 1x bf16", lambda dt: PVCNN2(13, 6, dtype=dt), N2,
+             PER_STEP2_BF16, 1e-5, SEED + 121),
+            ("S3DIS PVCNN 1x bf16", lambda dt: S3DISPVCNN(13, 6, dtype=dt),
+             N3, PER_STEP3_BF16, 1e-5, SEED + 122),
+            ("ShapeNet PointNet2 SSG 1x bf16",
+             lambda dt: pointnet2_ssg(50, 16, dtype=dt), N,
+             PER_STEP_SSG_BF16, 0.0, SEED + 123),
+            ("ShapeNet PointNet2 MSG 1x bf16",
+             lambda dt: pointnet2_msg(50, 16, dtype=dt), N,
+             PER_STEP_MSG_BF16, 0.0, SEED + 124)):
+        rng = np.random.RandomState(seed)
+        if path.startswith("ShapeNet"):
+            cols = 6 if "SSG" in path else 22
+            batches = [(torch.from_numpy(np.ascontiguousarray(
+                cloud(rng, B, n)[..., :cols])).to(dev),
+                torch.from_numpy(rng.randint(0, 50, (B, n))).to(dev))
+                for _ in range(3)]
+        else:
+            batches = [tuple(torch.from_numpy(a).to(dev)
+                             for a in windows(rng, B, n)) for _ in range(3)]
+        counts[path] = phase_bf16_train(
+            path.removesuffix(" bf16"), init_random_(make(None), SEED),
+            make("bfloat16"), batches, per_step, profile, weight_decay=wd)
+    return counts
+
+
+def phase_bf16_s3dis_configs(s3dis_root: str, store) -> dict:
+    """`python -m pvcnn_tpu_torch.train` (prepare and run) with S3DIS
+    PVCNN2 area5/c1 and --configs.model.dtype=bfloat16 over 20b's rooms
+    (its WindowStore set on configs.dataset between prepare and run), one
+    epoch of 4 steps from zeroed counters (launches exactly 4 bf16 steps'
+    plus the test windows' forwards, meters finite), then its evaluator
+    from that run's best.pth.tar (1 vote, 10 windows a forward: exactly
+    the bf16 eval forwards' launches, stats finite and in range). -> the
+    launches of both."""
+    from pvcnn_tpu_torch.data.s3dis import S3DIS
+    from pvcnn_tpu_torch.train.cli import prepare, run
+
+    config = os.path.join(CONFIGS, "s3dis", "pvcnn2", "area5", "c1.py")
+    args = [config, "--devices", "0", f"--configs.dataset.root={s3dis_root}",
+            "--configs.train.num_epochs=1", "--configs.train.max_steps=4",
+            "--configs.model.dtype=bfloat16",
+            f"--configs.train.save_path={s3dis_root}/cli.pvcnn2.bf16"]
+    configs = prepare(args)
+    configs.dataset.opener = store
+    if configs.model().act_dtype != torch.bfloat16:
+        raise AssertionError("--configs.model.dtype did not reach PVCNN2")
+    meters, counts, seconds = _counted(lambda: run(configs))
+    test = S3DIS(s3dis_root, N2, split="test", opener=store)["test"]
+    log("bf16", f"s3dis pvcnn2 area5/c1 --configs.model.dtype=bfloat16: "
+        f"prepare, the store, run: 1 epoch of 4 steps at batch 32 + "
+        f"{len(test)} test windows: {seconds:.2f} s, {meters}")
+    _check_launches("s3dis pvcnn2 bf16 train", counts, _expected(
+        counts, PER_STEP2_BF16, FWD2_BF16, 4, -(-len(test) // B)))
+    if not all(np.isfinite(v) for v in meters.values()):
+        raise AssertionError(f"bad bf16 training meters {meters}")
+
+    configs = prepare(args + ["--evaluate"])
+    configs.dataset.opener = store
+    stats, ran, seconds = _counted(lambda: configs.evaluate.fn(configs))
+    forwards = sum(-(-store[f]["data"].shape[0] // 10)
+                   for files in test.scene_list.values() for f in files)
+    log("bf16", f"s3dis pvcnn2 area5/c1 bf16: the evaluator (1 vote, 10 "
+        f"windows a forward): {seconds:.2f} s, mIoU {_miou(stats):.4f} in "
+        f"{forwards} forwards")
+    if stats.shape != (3, 13, 2) or not np.isfinite(stats).all() \
+            or stats[1].sum() == 0 or not 0 <= _miou(stats) <= 1:
+        raise AssertionError(f"bad bf16 S3DIS evaluation stats {stats}")
+    _check_launches("s3dis pvcnn2 bf16 evaluate", ran,
+                    _expected(ran, PER_STEP2_BF16, FWD2_BF16, 0, forwards))
     return _add_counts(counts, ran)
 
 
@@ -4300,7 +4594,7 @@ def main() -> None:
     phase_s3dis_trainer("S3DIS PointNet", lambda: S3DISPointNet(13, 6), N3,
                         {})
     lap("pointnet")
-    # 20b's rooms stay for the configs phase
+    # 20b's rooms stay for the configs phases (28, 30)
     s3dis_dir = tempfile.TemporaryDirectory(dir=_scratch_dir())
     root = s3dis_dir.name
     store, covered = s3dis_rooms(root, SEED + 90)
@@ -4394,8 +4688,6 @@ def main() -> None:
                          fwd, fwd2)
     for path, c in more.items():
         counts[path] = _add_counts(counts[path], c)
-    del store
-    s3dis_dir.cleanup()
     kitti_dir.cleanup()
     lap("configs")
 
@@ -4408,14 +4700,26 @@ def main() -> None:
                    for _ in range(3)]
         counts[f"ShapeNet PVCNN {wm:g}x bf16"] = phase_bf16_train(
             f"PVCNN {wm:g}x", init_random_(
-                PVCNN(50, 16, 3, width_multiplier=wm), SEED), wm, batches,
-            PER_STEP_BF16, profile)
+                PVCNN(50, 16, 3, width_multiplier=wm), SEED),
+            PVCNN(50, 16, 3, width_multiplier=wm, dtype="bfloat16"),
+            batches, PER_STEP_BF16, profile)
         del batches
     lap("bf16 train")
     # the c0p25 config: the 0.25x path's entry points
     counts["ShapeNet PVCNN 0.25x bf16"] = _add_counts(
         counts["ShapeNet PVCNN 0.25x bf16"], phase_bf16_configs())
     lap("bf16 configs")
+
+    rec.update(phase_bf16_pn2_kernels())
+    lap("bf16 pointnet++ kernels")
+    counts.update(phase_bf16_pn2_train(profile))
+    lap("bf16 pointnet++ / s3dis train")
+    counts["S3DIS PVCNN2 1x bf16"] = _add_counts(
+        counts["S3DIS PVCNN2 1x bf16"],
+        phase_bf16_s3dis_configs(s3dis_dir.name, store))
+    del store
+    s3dis_dir.cleanup()
+    lap("bf16 s3dis configs")
 
     lines = []
     for k in kernels.KERNELS.values():

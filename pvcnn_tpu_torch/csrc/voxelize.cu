@@ -53,6 +53,19 @@
 // in f32 and rounded to bf16 once, as the JAX package's f32 one-hot sums
 // (pvcnn_tpu/ops/voxelize.py:122-129: means.astype(features.dtype)). The
 // fp32 instantiations are the fp32 kernel's code.
+//
+// bf16 sum mode (pvcnn_scatter_sum_bf16, counted as scatter_sum_bf16): the
+// take_rows backward of bf16 activations, whose cotangent is bf16 (grouping,
+// FPS gather and three-NN interpolation of bf16 features). The same sort and
+// the bin-major kernel on bf16 values, summed in f32 in stable-sorted point
+// order and rounded to bf16 once, as the JAX package's one-hot kernel sums
+// bf16 values in f32 (pvcnn_tpu/ops/pallas/scatter.py:131-140) and
+// take_rows rounds the sums to the cotangent's dtype
+// (pvcnn_tpu/ops/gather_utils.py:49). Rows of C % 4 == 0 are read and
+// written 4 values (8 bytes) a lane. A run is walked by one lane group
+// whatever its length: the FP module after a group-all level sends every
+// row of a cloud to one bin (384 rows of 1,024 channels in PointNet++'s
+// FP1), which one warp sums in two passes of 512 channels.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -120,6 +133,27 @@ struct Load<__nv_bfloat16, 4> {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+// vector c of a bin-major output row: V f32 values stored as Out (a bf16
+// vector of 4 as 8 bytes, each value rounded once)
+__device__ __forceinline__ void store_vec(float* row, int c, float v) {
+  row[c] = v;
+}
+__device__ __forceinline__ void store_vec(float* row, int c, float4 v) {
+  reinterpret_cast<float4*>(row)[c] = v;
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int c,
+                                          float v) {
+  row[c] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int c,
+                                          float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  reinterpret_cast<uint2*>(row)[c] =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
 }
 
 template <int V>
@@ -201,11 +235,11 @@ avg_voxelize_bins_kernel(const In* __restrict__ feats,      // [B, N, C]
           }
         }
       } else if (v < bins) {
-        T* o = reinterpret_cast<T*>(out + (b * bins + v) * C);
+        Out* o = out + (b * bins + v) * C;
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           const int c = c0 + m * G + li;
-          if (c < nv) o[c] = Vec<V>::div(acc[m], denom);
+          if (c < nv) store_vec(o, c, Vec<V>::div(acc[m], denom));
         }
       }
     }
@@ -265,8 +299,8 @@ void launch_channels_first(const ArgsOf<In, Out>& a) {
   }
 }
 
-template <int V>
-void launch_bin_major(const Args& a) {
+template <int V, typename In, typename Out>
+void launch_bin_major(const ArgsOf<In, Out>& a) {
   const int nv = a.C / V;
   if (nv <= 4) {
     launch<V, 4, 1, false>(a);
@@ -351,6 +385,30 @@ PVCNN_EXPORT int pvcnn_avg_voxelize_bf16(const void* feats, const void* ids,
       B, N, C, bins, 1, static_cast<cudaStream_t>(stream)};
   const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 8 == 0;
   vec4 ? launch_channels_first<4>(a) : launch_channels_first<1>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 sum mode: bf16 values [B, N, C] -> the bf16 bin-major sums
+// [B, bins, C]; ids and the sort as pvcnn_avg_voxelize's
+PVCNN_EXPORT int pvcnn_scatter_sum_bf16(const void* values, const void* ids,
+                                        void* perm, void* bounds, void* out,
+                                        int B, int N, int C, int bins,
+                                        void* stream) {
+  if (ids != nullptr) {
+    const int err =
+        pvcnn_avg_voxelize_sort(ids, perm, bounds, B, N, bins, stream);
+    if (err != 0) return err;
+  }
+  if (static_cast<int64_t>(B) * C * bins == 0) return 0;
+  const ArgsOf<__nv_bfloat16, __nv_bfloat16> a{
+      static_cast<const __nv_bfloat16*>(values),
+      static_cast<const int*>(perm), static_cast<const int*>(bounds),
+      static_cast<__nv_bfloat16*>(out), B, N, C, bins, 0,
+      static_cast<cudaStream_t>(stream)};
+  const bool vec4 = C % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(values) % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  vec4 ? launch_bin_major<4>(a) : launch_bin_major<1>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "pvcnn_conv3d_ndhwc_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P],
     "pvcnn_avg_voxelize_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_scatter_sum_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pvcnn_trilinear_devoxelize_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pvcnn_conv3d_bf16_stage": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -123,6 +124,10 @@ KERNELS = {k.name: k for k in (
            "pvcnn_tpu/ops/pallas/conv_rows.py:690"),
     Kernel("devoxelize_bwd_bf16", "pvcnn_tpu_torch/csrc/devoxelize_bwd.cu",
            "pvcnn_tpu/ops/pallas/sorted_scatter.py:209"),
+    # K1's sum mode on bf16 values: the take_rows backward of bf16
+    # activations
+    Kernel("scatter_sum_bf16", "pvcnn_tpu_torch/csrc/voxelize.cu",
+           "pvcnn_tpu/ops/pallas/scatter.py:144"),
 )}
 
 

@@ -7,7 +7,9 @@ Input [B, N, 3 + extra_feature_channels] (S3DIS: xyz in the block, rgb,
 room-normalized xyz); output [B, N, num_classes] logits. Four point blocks
 (PVConvs at R = 32, 16, 16, 16 without SE, then a SharedMLP to 1024), a
 per-cloud MLP on the max-pooled features, and a classifier over the
-channel concat of every block output and the cloud feature.
+channel concat of every block output and the cloud feature. `dtype` is the
+activation dtype of every module (bfloat16: bf16 activations, float32
+parameters, bf16 logits, as the JAX model's).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch.nn as nn
 from pvcnn_tpu_torch.models.utils import (apply_layers, create_mlp_components,
                                           create_pointnet_components)
 from pvcnn_tpu_torch.nn import PVConv
-from pvcnn_tpu_torch.utils.dtype import fp32_only
+from pvcnn_tpu_torch.utils.dtype import resolve_dtype
 
 __all__ = ["PVCNN"]
 
@@ -28,23 +30,25 @@ class PVCNN(nn.Module):
     def __init__(self, num_classes: int, extra_feature_channels: int = 6,
                  width_multiplier: float = 1,
                  voxel_resolution_multiplier: float = 1, dtype=None):
-        fp32_only(dtype, "S3DIS PVCNN")
         super().__init__()
+        self.act_dtype = resolve_dtype(dtype)
         self.in_channels = extra_feature_channels + 3
         layers, channels_point, concat_channels_point = \
             create_pointnet_components(
                 blocks=self.blocks, in_channels=self.in_channels,
                 with_se=False, width_multiplier=width_multiplier,
-                voxel_resolution_multiplier=voxel_resolution_multiplier)
+                voxel_resolution_multiplier=voxel_resolution_multiplier,
+                dtype=dtype)
         self.point_features = nn.ModuleList(layers)
         layers, channels_cloud = create_mlp_components(
             in_channels=channels_point, out_channels=[256, 128],
-            classifier=False, dim=1, width_multiplier=width_multiplier)
+            classifier=False, dim=1, width_multiplier=width_multiplier,
+            dtype=dtype)
         self.cloud_features = nn.Sequential(*layers)
         layers, _ = create_mlp_components(
             in_channels=concat_channels_point + channels_cloud,
             out_channels=[512, 0.3, 256, 0.3, num_classes], classifier=True,
-            width_multiplier=width_multiplier)
+            width_multiplier=width_multiplier, dtype=dtype)
         self.classifier = nn.Sequential(*layers)
 
     def forward(self, inputs):

@@ -8,6 +8,9 @@ point, MSG); output [B, N, num_classes] logits. The set-abstraction stack
 sees the normals, the coordinates apart; the last feature-propagation skip
 takes the whole input. Module names follow the reference (`sa_layers`,
 `fp_layers`, `classifier`), so released checkpoints load as they are.
+`dtype` is the activation dtype of every module (bfloat16: bf16
+activations, float32 parameters, bf16 logits, as the JAX model's); the
+input stays float32 until the first Dense rounds it.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from pvcnn_tpu_torch.models.utils import (apply_layers, create_mlp_components,
                                           create_pointnet2_sa_components)
 from pvcnn_tpu_torch.nn import (PointNetAModule, PointNetFPModule,
                                 PointNetSAModule, PVConv)
-from pvcnn_tpu_torch.utils.dtype import fp32_only
+from pvcnn_tpu_torch.utils.dtype import resolve_dtype
 
 __all__ = ["MSG_FP_BLOCKS", "MSG_SA_BLOCKS", "PointNet2", "PointNet2MSG",
            "PointNet2SSG", "SSG_FP_BLOCKS", "SSG_SA_BLOCKS", "pointnet2_msg",
@@ -91,15 +94,16 @@ class PointNet2(nn.Module):
                  fp_blocks, with_one_hot_shape_id: bool = True,
                  extra_feature_channels: int = 3,
                  width_multiplier: float = 1,
-                 voxel_resolution_multiplier: float = 1):
+                 voxel_resolution_multiplier: float = 1, dtype=None):
         super().__init__()
+        self.act_dtype = resolve_dtype(dtype)
         self.in_channels = extra_feature_channels + 3
         self.num_shapes = num_shapes
         self.with_one_hot_shape_id = with_one_hot_shape_id
         sa_layers, sa_in_channels, channels_sa, _ = \
             create_pointnet2_sa_components(
                 sa_blocks, extra_feature_channels,
-                width_multiplier=width_multiplier)
+                width_multiplier=width_multiplier, dtype=dtype)
         self.sa_layers = nn.ModuleList(sa_layers)
         # the last skip takes the whole input, one-hot shape id included
         if with_one_hot_shape_id:
@@ -107,11 +111,12 @@ class PointNet2(nn.Module):
         fp_layers, channels_fp = create_pointnet2_fp_modules(
             fp_blocks, channels_sa, sa_in_channels,
             width_multiplier=width_multiplier,
-            voxel_resolution_multiplier=voxel_resolution_multiplier)
+            voxel_resolution_multiplier=voxel_resolution_multiplier,
+            dtype=dtype)
         self.fp_layers = nn.ModuleList(fp_layers)
         layers, _ = create_mlp_components(
             channels_fp, [128, 0.5, num_classes], classifier=True,
-            width_multiplier=width_multiplier)
+            width_multiplier=width_multiplier, dtype=dtype)
         self.classifier = nn.Sequential(*layers)
 
     def forward(self, inputs):
@@ -147,12 +152,12 @@ def pointnet2_ssg(num_classes: int, num_shapes: int,
                   voxel_resolution_multiplier: float = 1,
                   dtype=None) -> PointNet2SSG:
     """Single-scale grouping, without the one-hot shape id."""
-    fp32_only(dtype, "ShapeNet PointNet2 SSG")
     return PointNet2SSG(num_classes, num_shapes, SSG_SA_BLOCKS, SSG_FP_BLOCKS,
                         with_one_hot_shape_id=False,
                         extra_feature_channels=extra_feature_channels,
                         width_multiplier=width_multiplier,
-                        voxel_resolution_multiplier=voxel_resolution_multiplier)
+                        voxel_resolution_multiplier=voxel_resolution_multiplier,
+                        dtype=dtype)
 
 
 def pointnet2_msg(num_classes: int, num_shapes: int,
@@ -161,9 +166,9 @@ def pointnet2_msg(num_classes: int, num_shapes: int,
                   voxel_resolution_multiplier: float = 1,
                   dtype=None) -> PointNet2MSG:
     """Multi-scale grouping, with the one-hot shape id."""
-    fp32_only(dtype, "ShapeNet PointNet2 MSG")
     return PointNet2MSG(num_classes, num_shapes, MSG_SA_BLOCKS, MSG_FP_BLOCKS,
                         with_one_hot_shape_id=True,
                         extra_feature_channels=extra_feature_channels,
                         width_multiplier=width_multiplier,
-                        voxel_resolution_multiplier=voxel_resolution_multiplier)
+                        voxel_resolution_multiplier=voxel_resolution_multiplier,
+                        dtype=dtype)

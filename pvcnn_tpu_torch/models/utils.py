@@ -144,12 +144,14 @@ def create_pointnet2_sa_components(sa_blocks, extra_feature_channels: int,
                                    with_se: bool = False,
                                    normalize: bool = True, eps: float = 0.0,
                                    width_multiplier: float = 1,
-                                   voxel_resolution_multiplier: float = 1):
+                                   voxel_resolution_multiplier: float = 1,
+                                   dtype=None):
     """sa_blocks: ((conv_configs | None, sa_configs), ...) with sa_configs =
     (num_centers, radius, num_neighbors, out_channels) -> (sa_layers,
     sa_in_channels, out channels, num_centers). Each entry of sa_layers is
     a group: optional PVConv/SharedMLP blocks, then one PointNetSAModule (or
-    PointNetAModule when num_centers is None).
+    PointNetAModule when num_centers is None), each with activation dtype
+    `dtype`.
 
     A set-abstraction module takes the group's features without the
     coordinates (it appends the 3 relative ones itself): the extra feature
@@ -165,17 +167,20 @@ def create_pointnet2_sa_components(sa_blocks, extra_feature_channels: int,
         group = []
         if conv_configs is not None:
             group, in_channels = _conv_blocks(conv_configs, in_channels,
-                                              with_se, normalize, eps, r, vr)
+                                              with_se, normalize, eps, r, vr,
+                                              dtype)
             extra_feature_channels = in_channels
         num_centers, radius, num_neighbors, out_channels = sa_configs
         out_channels = [[int(r * c) for c in oc]
                         if isinstance(oc, (list, tuple)) else int(r * oc)
                         for oc in out_channels]
         if num_centers is None:
-            sa = PointNetAModule(extra_feature_channels, out_channels)
+            sa = PointNetAModule(extra_feature_channels, out_channels,
+                                 dtype=dtype)
         else:
             sa = PointNetSAModule(num_centers, radius, num_neighbors,
-                                  extra_feature_channels, out_channels)
+                                  extra_feature_channels, out_channels,
+                                  dtype=dtype)
         group.append(sa)
         in_channels = extra_feature_channels = sa.out_channels
         sa_layers.append(_group(group))
@@ -187,20 +192,23 @@ def create_pointnet2_fp_modules(fp_blocks, in_channels: int,
                                 sa_in_channels, with_se: bool = False,
                                 normalize: bool = True, eps: float = 0.0,
                                 width_multiplier: float = 1,
-                                voxel_resolution_multiplier: float = 1):
+                                voxel_resolution_multiplier: float = 1,
+                                dtype=None):
     """fp_blocks: ((fp_mlp_channels, conv_configs | None), ...) -> (fp_layers,
     out channels). Group i starts with a PointNetFPModule whose skip
-    features come from sa_in_channels[-1 - i]."""
+    features come from sa_in_channels[-1 - i]; every module has activation
+    dtype `dtype`."""
     r, vr = width_multiplier, voxel_resolution_multiplier
     fp_layers = []
     for fp_idx, (fp_configs, conv_configs) in enumerate(fp_blocks):
         out_channels = [int(r * oc) for oc in fp_configs]
         group = [PointNetFPModule(in_channels + sa_in_channels[-1 - fp_idx],
-                                  out_channels)]
+                                  out_channels, dtype=dtype)]
         in_channels = out_channels[-1]
         if conv_configs is not None:
             blocks, in_channels = _conv_blocks(conv_configs, in_channels,
-                                               with_se, normalize, eps, r, vr)
+                                               with_se, normalize, eps, r, vr,
+                                               dtype)
             group += blocks
         fp_layers.append(_group(group))
     return fp_layers, in_channels

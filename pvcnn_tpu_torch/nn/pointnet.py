@@ -9,6 +9,15 @@ between tied maxima as JAX's max does (the first-hit fill repeats a
 neighbor, so ties are common). Module names follow the reference
 (`groupers`, `mlps`, `mlp`), so `state_dict()` keys match released
 checkpoints.
+
+Activation dtype (`dtype=`, as pvcnn_tpu/nn/pointnet.py's): the modules'
+SharedMLPs run in bf16; neighbors, FPS centers and three-NN weights come
+from the float32 coordinates. The concatenation of the float32 relative
+coordinates (or float32 skip features) with bf16 features is float32, as
+JAX promotes it, and the next Dense rounds it to bf16; its backward hands
+the bf16 part a bf16 cotangent (autograd casts a gradient to its input's
+dtype, as JAX's convert transposes), so take_rows sums it in K1's bf16 sum
+mode. The BallQuery grouper itself has no dtype: it groups what it gets.
 """
 
 from __future__ import annotations
@@ -65,11 +74,12 @@ class PointNetAModule(nn.Module):
     max-pooled feature per cloud [B, 1, C'] and a zero center."""
 
     def __init__(self, in_channels: int, out_channels,
-                 include_coordinates: bool = True):
+                 include_coordinates: bool = True, dtype=None):
         super().__init__()
         branches = _branches(out_channels)
         extra = 3 if include_coordinates else 0
-        self.mlps = nn.ModuleList([SharedMLP(in_channels + extra, oc)
+        self.mlps = nn.ModuleList([SharedMLP(in_channels + extra, oc,
+                                             dtype=dtype)
                                    for oc in branches])
         self.include_coordinates = include_coordinates
         self.out_channels = sum(oc[-1] for oc in branches)
@@ -89,7 +99,7 @@ class PointNetSAModule(nn.Module):
 
     def __init__(self, num_centers: int, radius, num_neighbors,
                  in_channels: int, out_channels,
-                 include_coordinates: bool = True):
+                 include_coordinates: bool = True, dtype=None):
         super().__init__()
         radius = list(radius) if isinstance(radius, (list, tuple)) \
             else [radius]
@@ -103,7 +113,8 @@ class PointNetSAModule(nn.Module):
         self.groupers = nn.ModuleList([
             BallQuery(r, u, include_coordinates)
             for r, u in zip(radius, num_neighbors)])
-        self.mlps = nn.ModuleList([SharedMLP(in_channels + extra, oc, dim=2)
+        self.mlps = nn.ModuleList([SharedMLP(in_channels + extra, oc, dim=2,
+                                             dtype=dtype)
                                    for oc in branches])
         self.out_channels = sum(oc[-1] for oc in branches)
 
@@ -119,9 +130,10 @@ class PointNetFPModule(nn.Module):
     """Feature propagation: three-NN interpolation of the center features
     onto the points, the skip features appended, then a SharedMLP."""
 
-    def __init__(self, in_channels: int, out_channels: Sequence[int]):
+    def __init__(self, in_channels: int, out_channels: Sequence[int],
+                 dtype=None):
         super().__init__()
-        self.mlp = SharedMLP(in_channels, list(out_channels))
+        self.mlp = SharedMLP(in_channels, list(out_channels), dtype=dtype)
 
     def forward(self, points_coords, centers_coords, centers_features,
                 points_features=None):

@@ -150,13 +150,18 @@ class Linear(nn.Linear):
 
 class Dense2d(nn.Conv2d):
     """The reference's 1x1 Conv2d, applied over the last axis of
-    channel-last features such as grouped neighborhoods [B, M, U, C]."""
+    channel-last features such as grouped neighborhoods [B, M, U, C].
+    With dtype bfloat16 its input, weight and bias are cast to bf16 at use,
+    as Linear's (flax nn.Dense(dtype)); the parameters stay float32."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__(in_channels, out_channels, 1)
+        self.act_dtype = resolve_dtype(dtype)
 
     def forward(self, x):
-        return F.linear(x, self.weight[..., 0, 0], self.bias)
+        dt = self.act_dtype
+        return F.linear(_cast(x, dt), _cast(self.weight[..., 0, 0], dt),
+                        _cast(self.bias, dt))
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -247,9 +252,10 @@ class SharedMLP(nn.Module):
     conditions do, so both packages route the same layers. Eval mode never
     takes this path.
 
-    dtype bfloat16 (dim=1 only) runs the layers' activations in bf16; with
-    PVCNN_TPU_DENSE_BN_FUSED=auto it raises NotImplementedError (the fused
-    path's bf16 mode is queued in ROADMAP.md)."""
+    dtype bfloat16 runs the layers' activations in bf16 (dim=2: on the
+    grouped neighborhoods [B, M, U, C]); with PVCNN_TPU_DENSE_BN_FUSED=auto
+    it raises NotImplementedError (the fused path's bf16 mode is queued in
+    ROADMAP.md)."""
 
     def __init__(self, in_channels: int, out_channels: int | Sequence[int],
                  dim: int = 1, dtype=None):
@@ -257,14 +263,12 @@ class SharedMLP(nn.Module):
         if dim not in (1, 2):
             raise ValueError(f"SharedMLP dim must be 1 or 2, got {dim}")
         self.act_dtype = resolve_dtype(dtype)
-        if dim == 2:
-            fp32_only(dtype, "SharedMLP(dim=2)")
         if not isinstance(out_channels, (list, tuple)):
             out_channels = [out_channels]
         layers = []
         for oc in out_channels:
-            dense = (SplitDense(in_channels, int(oc), dtype=dtype) if dim == 1
-                     else Dense2d(in_channels, int(oc)))
+            dense = (SplitDense if dim == 1 else Dense2d)(
+                in_channels, int(oc), dtype=dtype)
             layers += [dense, BatchNorm(int(oc), dtype=dtype), nn.ReLU()]
             in_channels = int(oc)
         self.layers = nn.Sequential(*layers)

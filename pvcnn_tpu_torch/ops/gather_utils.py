@@ -6,7 +6,10 @@ JAX package, not a Pallas kernel). The backward is `scatter_sum`
 (ops/voxelize.py): on a CUDA tensor kernel K1 in its sum mode, on a CPU
 tensor `scatter_add_`, as the JAX custom VJP routes it through the one-hot
 scatter kernel. It serves grouping, the FPS gather and the three-NN
-interpolation, whose reference backwards are these scatter-adds.
+interpolation, whose reference backwards are these scatter-adds. A bf16
+cotangent (bf16 activations) takes K1's bf16 sum mode (`scatter_sum_bf16`)
+on the card: f32 sums rounded to bf16 once, as the JAX backward's
+`_scatter_sum(g, idx, m).astype(g.dtype)`.
 """
 
 from __future__ import annotations

@@ -15,13 +15,18 @@ counted as the `scatter_sum` kernel; plain: `scatter_add_`): the backward of
 the row gather `take_rows` (ops/gather_utils.py), as pvcnn_tpu/ops/voxelize.py:
 _scatter_sum is in the JAX package.
 
-bf16 values (bf16 activations; the rows branch's channel-major mean only):
+bf16 values (bf16 activations): the rows branch's channel-major mean is
 K1's bf16 mode on the card (counted as `avg_voxelize_bf16`), the plain
 version on the values widened to f32 on the CPU. The sums and the divide
 are f32 and the means are rounded to bf16 once (pvcnn_tpu/ops/voxelize.py:
 122-139: the f32 one-hot sums, means.astype(features.dtype)). The backward
 divides by the counts cast to the cotangent's dtype, as the JAX package's
-(counts above 256 are not exact in bf16) and rounds there.
+(counts above 256 are not exact in bf16) and rounds there. `scatter_sum`
+of bf16 values (a bf16 cotangent of take_rows) is K1's bf16 sum mode on
+the card (counted as `scatter_sum_bf16`), on the CPU `scatter_add_` on
+the values widened to f32: f32 sums rounded to bf16 once, as the JAX
+package's one-hot kernel sums and take_rows rounds
+(pvcnn_tpu/ops/gather_utils.py:49).
 """
 
 from __future__ import annotations
@@ -140,20 +145,26 @@ def _scatter_mean_cuda(features, flat_idx, num_bins, channels_first):
 
 def scatter_sum(values: torch.Tensor, idx: torch.Tensor, num_bins: int):
     """Per-cloud sum of the rows that share a bin: values [B, K, C], idx
-    [B, K] int in [0, num_bins) -> [B, num_bins, C]; empty bins are 0."""
+    [B, K] int in [0, num_bins) -> [B, num_bins, C] of values' dtype;
+    empty bins are 0. bf16 values are summed in f32 and rounded once."""
     fn = _scatter_sum_plain if values.device.type == "cpu" else \
         _scatter_sum_cuda
     return fn(values, idx, int(num_bins))
 
 
 def _scatter_sum_plain(values, idx, num_bins):
+    if values.dtype == torch.bfloat16:         # f32 sums, rounded once
+        return _scatter_sum_plain(values.float(), idx,
+                                  num_bins).to(values.dtype)
     b, _, c = values.shape
     return values.new_zeros((b, num_bins, c)).scatter_add_(
         1, idx.long()[..., None].expand(-1, -1, c), values)
 
 
 def _scatter_sum_cuda(values, idx, num_bins):
-    return _launch_k1("scatter_sum", values, idx.to(torch.int32), num_bins,
+    kernel = ("scatter_sum_bf16" if values.dtype == torch.bfloat16
+              else "scatter_sum")
+    return _launch_k1(kernel, values, idx.to(torch.int32), num_bins,
                       False, mean=False)[0]
 
 
@@ -162,19 +173,20 @@ def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
         raise ValueError(f"{kernel} kernel needs values and indices on one "
                          f"CUDA device, got {features.device} and "
                          f"{flat_idx.device}")
-    bf16 = kernel == "avg_voxelize_bf16"
-    if bf16 and not channels_first:
+    if kernel == "avg_voxelize_bf16" and not channels_first:
         raise ValueError("avg_voxelize_bf16 kernel takes bfloat16 values "
                          "into the channel-major grid only "
                          "(channels_first=True); the channel-last grid "
                          "takes float32 values (avg_voxelize), got "
                          f"{features.dtype} with channels_first=False")
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    dtype = (torch.bfloat16 if kernel.endswith("_bf16")
+             else torch.float32)
     if features.dtype != dtype or features.dim() != 3:
         raise ValueError(f"{kernel} kernel takes {dtype} [B, N, C] values, "
                          f"got {features.dtype} {tuple(features.shape)} "
                          "(avg_voxelize and scatter_sum take float32, "
-                         "avg_voxelize_bf16 bfloat16)")
+                         "avg_voxelize_bf16 and scatter_sum_bf16 "
+                         "bfloat16)")
     b, n, c = features.shape
     if flat_idx.shape != (b, n) or flat_idx.dtype != torch.int32:
         raise ValueError(f"{kernel} indices must be int32 [{b}, {n}], got "
@@ -231,9 +243,10 @@ def _launch_k1_sorted(kernel, features, perm, bounds, num_bins,
     ids_ptr = None if ids is None else ids.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(features.device):
-        if features.dtype == torch.bfloat16:   # channel-major means
+        if features.dtype == torch.bfloat16:   # channel-major means, or sums
             kernels.launch(
-                kernel, "pvcnn_avg_voxelize_bf16", features.data_ptr(),
+                kernel, ("pvcnn_avg_voxelize_bf16" if mean
+                         else "pvcnn_scatter_sum_bf16"), features.data_ptr(),
                 ids_ptr, perm.data_ptr(), bounds.data_ptr(), out.data_ptr(),
                 b, n, c, int(num_bins), stream)
         else:

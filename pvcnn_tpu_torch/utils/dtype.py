@@ -32,8 +32,10 @@ def fp32_only(dtype, what: str) -> None:
     if resolve_dtype(dtype) is not None:
         raise NotImplementedError(
             f"{what} runs float32 activations only; bf16 activations are "
-            "ported for ShapeNet PVCNN on its default fused rows path, and "
-            "the rest is queued in ROADMAP.md (Queue 1)")
+            "ported for ShapeNet PVCNN, S3DIS PVCNN2, S3DIS PVCNN and "
+            "ShapeNet PointNet++ SSG / MSG on their default paths (the "
+            "fused rows branch, the unfused SharedMLPs), and the rest is "
+            "queued in ROADMAP.md (Queue 1)")
 
 
 def wide(t: torch.Tensor) -> torch.Tensor:

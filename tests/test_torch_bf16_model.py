@@ -232,12 +232,14 @@ def test_config_dtype_reaches_the_model(tmp_path):
 
 
 @pytest.mark.parametrize("name", [
-    "shapenet/pointnet.py", "shapenet/pointnet2ssg.py",
-    "s3dis/pvcnn2/area5/c1.py", "s3dis/pvcnn/area5/c1.py",
+    "shapenet/pointnet.py", "s3dis/pointnet/area5.py",
+    "kitti/frustum/pointnet.py", "kitti/frustum/pointnet2.py",
     "kitti/frustum/pvcnne.py"])
 def test_other_models_refuse_bf16(name):
-    """Every model but ShapeNet PVCNN raises NotImplementedError naming
-    ROADMAP.md for bf16 activations, rather than run fp32 quietly."""
+    """The models whose bf16 activations are not ported yet (the PointNets
+    and the Frustum family; ShapeNet PVCNN, S3DIS PVCNN2 and PVCNN and
+    ShapeNet PointNet++ SSG / MSG run bf16) raise NotImplementedError
+    naming ROADMAP.md, rather than run fp32 quietly."""
     configs = prepare([os.path.join(CONFIGS, name), "--devices", "cpu",
                        "--configs.model.dtype=bfloat16"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -28,7 +28,7 @@ from pvcnn_tpu import ops as jops
 from pvcnn_tpu.ops.pallas.conv_rows import conv3d_rows_act as j_conv_act
 from pvcnn_tpu.ops.pallas.conv_rows import conv_rows_supported
 from pvcnn_tpu_torch import kernels, ops
-from pvcnn_tpu_torch.ops import conv3d, devoxelize, voxelize
+from pvcnn_tpu_torch.ops import conv3d, devoxelize, gather_utils, voxelize
 from test_torch_ops import _coords
 
 BF16 = 2.0 ** -7          # two bf16 roundings, relative to the scale
@@ -289,6 +289,15 @@ BF16_CALLS = {
                                                       False),
                                     resolution=8, channels_first=True),
                                 _meta(2, 64, 16))),
+    # the take_rows backward dispatches on the bf16 cotangent's device
+    "scatter_sum_bf16": (voxelize, "_scatter_sum_plain", lambda:
+                         gather_utils._TakeRows.backward(
+                             types.SimpleNamespace(
+                                 saved_tensors=(_meta(
+                                     2, 40, dtype=torch.int32),),
+                                 needs_input_grad=(True, False),
+                                 num_rows=16),
+                             _meta(2, 40, 8))),
 }
 
 

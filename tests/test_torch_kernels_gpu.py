@@ -1351,11 +1351,28 @@ SHAPENET_BF16 = [(6, 64, 32), (64, 64, 32), (64, 128, 16), (128, 128, 16),
                  (6, 16, 32), (16, 16, 32), (16, 32, 16), (32, 32, 16)]
 
 
+# S3DIS PVCNN2's (Co = 32: the N = 32 tile; Co = 256: two column blocks)
+# and S3DIS PVCNN's new ones
+S3DIS_BF16 = [(9, 32, 32), (32, 32, 32), (64, 64, 16), (128, 128, 8),
+              (256, 256, 8), (9, 64, 32)]
+
+
 @pytest.mark.parametrize("ci,co,r", SHAPENET_BF16)
 def test_conv3d_bf16_shapenet_shapes(dev, ci, co, r):
     """K3, its dgrad and K4 in bf16 at the training step's channel counts
     and grids (B = 2): within two bf16 roundings of the plain versions, the
     statistics within 1e-4 of their plain sums."""
+    _conv_bf16_shape(dev, ci, co, r)
+
+
+@pytest.mark.parametrize("ci,co,r", S3DIS_BF16)
+def test_conv3d_bf16_s3dis_shapes(dev, ci, co, r):
+    """As test_conv3d_bf16_shapenet_shapes at S3DIS PVCNN2's and PVCNN's
+    bf16 convs."""
+    _conv_bf16_shape(dev, ci, co, r)
+
+
+def _conv_bf16_shape(dev, ci, co, r):
     args, gy = _conv_bf16_case(dev, 2, ci, co, r)
     y, s1, s2 = conv3d._forward_cuda(*args, True)
     want, w1, w2 = conv3d._forward_plain(*args, True)
@@ -1529,3 +1546,65 @@ def test_split_dense_bf16_on_card(dev):
         assert g.dtype == w.dtype
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=2 ** -7 * w.float().abs().max().item())
+
+
+def _k1_sum_bf16(values, idx, bins):
+    """scatter_sum on bf16 values on the card (one scatter_sum_bf16 launch
+    counted), held to its plain version and the fp64 sum: bf16 out, within
+    2^-7 of each output's sum of |terms| of the plain version and within
+    one bf16 rounding (2^-8) plus 1e-6 of the sum of |terms| of the exact
+    sum; the bins that hold rows are the plain version's."""
+    got = _counted("scatter_sum_bf16", ops.scatter_sum, values, idx, bins)
+    assert got.dtype == torch.bfloat16
+    want = voxelize._scatter_sum_plain(values, idx, bins)
+    mag = voxelize._scatter_sum_plain(values.abs().float(), idx, bins)
+    assert not ((got.float() - want.float()).abs() > 2 ** -7 * mag).any()
+    exact = voxelize._scatter_sum_plain(values.double(), idx, bins)
+    assert ((got.double() - exact).abs()
+            <= 2 ** -8 * exact.abs() + 1e-6 * mag.double()).all()
+    assert int((got != 0).any(-1).sum()) == int((want != 0).any(-1).sum())
+    return got
+
+
+@pytest.mark.parametrize("spread", ["one_bin", "few_bins"])
+@pytest.mark.parametrize("c", [5, 9, 32, 130, 512])
+def test_k1_sum_bf16_kernel(dev, c, spread):
+    """K1's bf16 sum mode (the take_rows backward of a bf16 cotangent):
+    every row in one bin (one lane group walks the whole run, as after a
+    group-all level), or 6 bins of 512 holding all rows; channel counts on
+    both sides of the 8-byte vector path and of the lane group's width.
+    Two runs bitwise equal; take_rows' backward launches it."""
+    k, bins = 1500, 512
+    if spread == "one_bin":
+        idx = torch.full((2, k), 300, dtype=torch.int32, device=dev)
+        idx[1] = 0
+    else:
+        idx = torch.randint(0, 6, (2, k), dtype=torch.int32, device=dev) * 97
+    values = torch.randn(2, k, c, device=dev).to(torch.bfloat16)
+    got = _k1_sum_bf16(values, idx, bins)
+    assert torch.equal(got, ops.scatter_sum(values, idx, bins))
+    table = torch.randn(2, bins, c, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    (grad,) = torch.autograd.grad(ops.take_rows(table, idx), table, values)
+    assert torch.equal(grad, got)
+
+
+@pytest.mark.parametrize("b,k,bins,c", [(2, 32768, 8192, 32),
+                                        (3, 384, 1, 1024),
+                                        (2, 24576, 1024, 128)])
+def test_k1_sum_bf16_model_shapes(dev, b, k, bins, c):
+    """At PVCNN2's SA1 grouping and FP4 interpolation and PointNet++'s FP1
+    (384 rows of 1,024 channels into one bin) on random indices."""
+    values = torch.randn(b, k, c, device=dev).to(torch.bfloat16)
+    idx = torch.randint(0, bins, (b, k), device=dev, dtype=torch.int32)
+    _k1_sum_bf16(values, idx, bins)
+
+
+def test_k1_sum_bf16_unaligned_rows(dev):
+    """Rows that start off an 8-byte boundary take the scalar path (C = 32
+    would take 8-byte vectors) and give the same sums."""
+    values = torch.randn(2 * 300 * 32 + 1, device=dev).to(
+        torch.bfloat16)[1:].view(2, 300, 32)
+    idx = torch.randint(0, 64, (2, 300), dtype=torch.int32, device=dev)
+    got = _k1_sum_bf16(values, idx, 64)
+    assert torch.equal(got, ops.scatter_sum(values.clone(), idx, 64))
