@@ -11,6 +11,24 @@ libraries (addresses and encodings stripped, names demangled without
 their parameter lists):
 
     python3 cases_util.py --sass-diff NEW.so OLD.so
+
+or builds this checkout's kernel sources at two paths of different names
+and depths under build/ and compares what each compile gives, source by
+source: the PTX (nvcc -ptx), then the objects' SASS kernel by kernel and
+their ELF sections (cuobjdump -elf), each as kernels/__init__.py's build
+compiles it and as the same compile from the source's own directory with
+relative names, and the same compile twice at one path; or compiles each
+source to PTX RUNS times at one path and counts the distinct texts:
+
+    python3 cases_util.py --build-paths
+    python3 cases_util.py --build-repeat RUNS
+
+(The path reaches a compile only through the anonymous namespace's tag
+in mangled names, which --sass-diff's demangling drops; nvcc's PTX of a
+few sources differs from one compile to the next at one path, so one
+kernel's SASS may differ between two builds of one tree: PERF.md,
+section 7.) The two build experiments import the package's kernels
+module for nvcc and its flags.
 """
 
 from __future__ import annotations
@@ -225,10 +243,195 @@ def sass_diff(new_lib, old_lib) -> None:
           f"{len(added)} new: " + "; ".join(added), flush=True)
 
 
+def _cuobjdump(flag, path) -> list:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), flag,
+                          str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    return [line for line in out.splitlines()
+            if not line.startswith("Fatbin") and "code for sm_" not in line
+            and not line.startswith("arch =") and "filename" not in line]
+
+
+# the anonymous namespace's per-compile tag in mangled names
+# (_GLOBAL__N__<8 hex>_<length>_<file>_<8 hex>)
+_ANON = r"_GLOBAL__N__[0-9a-f]{8}_"
+
+
+def _kernels_of(lines) -> dict:
+    """cuobjdump -sass lines -> {kernel name: instruction lines}, the
+    addresses and encodings stripped."""
+    import re
+
+    funcs, name = {}, None
+    for line in lines:
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name and "/*" in line and ";" in line:
+            funcs[name].append(re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", line)
+                               .split(";")[0].strip())
+    return funcs
+
+
+def build_paths() -> None:
+    """Compile every csrc/*.cu of this checkout at two paths (copies under
+    build/paths/a and build/paths/deeper/by/far/b) with the kernel build's
+    flags, and compare the two: the PTX (nvcc -ptx), then each object's
+    SASS kernel by kernel and its ELF sections (cuobjdump -sass / -elf),
+    for objects compiled as kernels/__init__.py compiles them (absolute
+    source and object paths) and from the sources' directory with
+    relative names; and, at one path, two compiles of the same command
+    ("twice"). Each comparison is printed raw and with the anonymous
+    namespace's tag in mangled names (_GLOBAL__N__<8 hex>_) masked; the
+    kernels whose SASS still differs are counted. Writes the full diffs
+    under build/paths/diffs/."""
+    import difflib
+    import re
+    import shutil
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(repo, "pvcnn_tpu_torch", "csrc")
+    import importlib
+
+    kernels = importlib.import_module("pvcnn_tpu_torch.kernels")
+    nvcc, flags = kernels._nvcc(), list(kernels.NVCC_FLAGS)
+    report = os.path.join(repo, "build", "paths", "diffs")
+    os.makedirs(report, exist_ok=True)
+    roots = [os.path.join(repo, "build", "paths", "a"),
+             os.path.join(repo, "build", "paths", "deeper", "by", "far",
+                          "b")]
+    for root in roots:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(src, os.path.join(root, "csrc"))
+    names = sorted(n for n in os.listdir(src) if n.endswith(".cu"))
+
+    def compile_all(root, mode, sub):
+        """-> {source: output path}; mode ptx, obj (absolute paths) or rel
+        (from the sources' directory, relative names)"""
+        csrc, out, procs = os.path.join(root, "csrc"), {}, []
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for name in names:
+            stem = name[:-3]
+            target = os.path.join(root, sub, stem + (
+                ".ptx" if mode == "ptx" else ".o"))
+            own = flags
+            if mode == "rel":
+                cmd = [nvcc, *own, "-c", "-o",
+                       os.path.join("..", sub, stem + ".o"), name]
+                cwd = csrc
+            else:
+                cmd = [nvcc, *own, "-ptx" if mode == "ptx" else "-c",
+                       "-o", target, os.path.join(csrc, name)]
+                cwd = repo
+            if mode == "ptx":
+                at = cmd.index("-gencode")
+                cmd[at:at + 2] = ["-arch=sm_90a"]
+                cmd = [c for c in cmd if c not in ("-Xcompiler", "-fPIC")]
+            out[name] = target
+            procs.append((name, subprocess.Popen(
+                cmd, cwd=cwd, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        for name, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        return out
+
+    mask = lambda lines: [re.sub(_ANON, "_GLOBAL__N__*_", x) for x in lines]
+
+    def compare(label, name, a, b):
+        """a, b: lists of lines; -> one summary field, full diff to file"""
+        if a == b:
+            return f"{label} equal"
+        with open(os.path.join(report, f"{name}.{label}.diff"), "a") as f:
+            f.writelines(line + "\n" for line in difflib.unified_diff(
+                a, b, lineterm="", n=1))
+        where = ("only the anonymous tag" if mask(a) == mask(b)
+                 else "beyond the anonymous tag")
+        return f"{label} differs ({where})"
+
+    pairs = [("ptx", compile_all(roots[0], "ptx", "ptx"),
+              compile_all(roots[1], "ptx", "ptx")),
+             ("obj", compile_all(roots[0], "obj", "obj"),
+              compile_all(roots[1], "obj", "obj")),
+             ("rel", compile_all(roots[0], "rel", "rel"),
+              compile_all(roots[1], "rel", "rel"))]
+    pairs.append(("twice", pairs[1][1], compile_all(roots[0], "obj",
+                                                    "obj2")))
+    for mode, a, b in pairs:
+        totals = collections.Counter()
+        for name in names:
+            if mode == "ptx":
+                fields = [compare("ptx", name, *(
+                    open(p[name]).read().splitlines() for p in (a, b)))]
+            else:
+                sa, sb = (_cuobjdump("-sass", p[name]) for p in (a, b))
+                ka, kb = (_kernels_of(mask(x)) for x in (sa, sb))
+                differ = [k for k in ka if ka[k] != kb.get(k)]
+                totals["kernels"] += len(ka)
+                totals["differ"] += len(differ)
+                fields = [compare(f"{mode}.sass", name, sa, sb),
+                          f"{len(differ)} of {len(ka)} kernels' SASS "
+                          "differs with the tag masked",
+                          compare(f"{mode}.elf", name, *(
+                              _cuobjdump("-elf", p[name]) for p in (a, b)))]
+            print(f"[build-paths] {mode} {name}: " + "; ".join(fields),
+                  flush=True)
+        if mode != "ptx":
+            print(f"[build-paths] {mode}: {totals['differ']} of "
+                  f"{totals['kernels']} kernels' SASS differs with the "
+                  "tag masked", flush=True)
+
+
+def build_repeat(runs: int) -> None:
+    """Compile every csrc/*.cu of this checkout to PTX `runs` times at one
+    path with the kernel build's flags, all sources of a round at once as
+    the build runs them, and print how many distinct PTX texts each source
+    gave."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(repo, "pvcnn_tpu_torch", "csrc")
+    import importlib
+
+    kernels = importlib.import_module("pvcnn_tpu_torch.kernels")
+    nvcc, flags = kernels._nvcc(), list(kernels.NVCC_FLAGS)
+    at = flags.index("-gencode")
+    flags[at:at + 2] = ["-arch=sm_90a"]
+    flags = [f for f in flags if f not in ("-Xcompiler", "-fPIC")]
+    names = sorted(n for n in os.listdir(src) if n.endswith(".cu"))
+    texts = collections.defaultdict(set)
+    with tempfile.TemporaryDirectory(dir=os.path.join(repo, "build")) as out:
+        for run in range(runs):
+            procs = []
+            for name in names:
+                target = os.path.join(out, f"{name}.{run}.ptx")
+                procs.append((name, target, subprocess.Popen(
+                    [nvcc, *flags, "-ptx", "-o", target,
+                     os.path.join(src, name)], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)))
+            for name, target, proc in procs:
+                log = proc.communicate()[0]
+                if proc.returncode:
+                    raise RuntimeError(f"{name}: nvcc failed\n{log}")
+                with open(target, "rb") as f:
+                    texts[name].add(hashlib.sha256(f.read()).hexdigest())
+    print(f"[build-repeat] {runs} compiles a source at one path: distinct "
+          "PTX " + ", ".join(f"{n} {len(texts[n])}" for n in names),
+          flush=True)
+
+
 if __name__ == "__main__":
     import sys
 
-    if len(sys.argv) != 4 or sys.argv[1] != "--sass-diff":
+    if sys.argv[1:] == ["--build-paths"]:
+        build_paths()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--build-repeat":
+        build_repeat(int(sys.argv[2]))
+    elif len(sys.argv) == 4 and sys.argv[1] == "--sass-diff":
+        sass_diff(sys.argv[2], sys.argv[3])
+    else:
         raise SystemExit("usage: python3 cases_util.py --sass-diff NEW.so "
-                         "OLD.so")
-    sass_diff(sys.argv[2], sys.argv[3])
+                         "OLD.so | --build-paths | --build-repeat RUNS")

@@ -80,6 +80,18 @@
 // the splits in order and rounds (ops/conv3d.py: _wgrad_bf16_plan: one
 // wave of one block an SM).
 //
+// K11 in bf16 (pvcnn_conv3d_bf16_stage_last, then pvcnn_conv3d_bf16_wgrad,
+// counted as conv3d_ndhwc_wgrad_bf16) replaces the bf16 mode of the TPU
+// kernel pvcnn_tpu/ops/pallas/conv_wgrad.py:_conv3d_wgrad_impl (:166): the
+// NDHWC branch's weight gradient from bf16 x and dY [B, R, R, R, C], f32
+// inside, returned as dw.astype(kernel.dtype), the bf16 weight's type
+// (pvcnn_tpu/nn/conv3d.py:65-75). It is K4's function on another layout:
+// a channel-last grid's flat voxel index is K4's (x * R^2 + y * R + z),
+// and each 8-channel group of a voxel is 16 contiguous bytes of it, so
+// conv3d_bf16_stage_last_kernel copies x and dY into K4's staged layout
+// [B, Cp / 8, R^3, 8] (16 bytes a thread, zeros past C; no transpose) and
+// K4's core runs on them as it does on the rows branch's.
+//
 // Bound: operations, 2 * Co * 27 * Ci a voxel against 989 TFLOP/s of bf16
 // tensor cores at 1x; at 0.25x mostly bytes (x, y or g, and W once, 2 bytes
 // an element, against 3.35 TB/s). Weights stream from L2 per block (K3:
@@ -473,6 +485,39 @@ conv3d_bf16_stage_kernel(const u16* __restrict__ x,          // [B, C, R^3]
 #pragma unroll
   for (int i = 0; i < 8; ++i) out.e[i] = tile[i][threadIdx.x];
   *reinterpret_cast<uint4*>(xt + (bg * R3 + v) * 8) = out.v;
+}
+
+// x [B, R^3, C] channel-last -> xt [B, G, R^3, 8] (G = Cp / 8), the staged
+// layout of conv3d_bf16_stage_kernel: a thread copies one voxel's 8
+// channels of one group, 16 bytes where C % 8 == 0 and x is 16-byte
+// aligned, else element by element, zeros past C; the voxels of a group
+// fastest, so a warp's stores are 512 contiguous bytes.
+__global__ void __launch_bounds__(pvcnn::kThreads)
+conv3d_bf16_stage_last_kernel(const u16* __restrict__ x,   // [B, R^3, C]
+                              u16* __restrict__ xt,        // [B, G, R^3, 8]
+                              int C, int G, int R3, int64_t total) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (t >= total) return;              // total = B * G * R^3
+  const int v = static_cast<int>(t % R3);
+  const int64_t bg = t / R3;           // cloud * G + group
+  const int64_t b = bg / G;
+  const int c0 = static_cast<int>(bg % G) * 8;
+  union Row {
+    uint4 v;
+    u16 e[8];
+  } in;
+  in.v = make_uint4(0u, 0u, 0u, 0u);
+  const u16* row = x + (b * R3 + v) * C + c0;
+  if (C % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    if (c0 < C) in.v = __ldg(reinterpret_cast<const uint4*>(row));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (c0 + j < C) in.e[j] = __ldg(row + j);
+    }
+  }
+  *reinterpret_cast<uint4*>(xt + t * 8) = in.v;
 }
 
 // K3's weight: w [Co, Ci, 27] (flip: the forward's [Ci, Co, 27] with the
@@ -1018,6 +1063,20 @@ PVCNN_EXPORT int pvcnn_conv3d_bf16_stage(const void* x, const void* pscale,
       static_cast<const u16*>(x), static_cast<const float*>(pscale),
       static_cast<const float*>(pshift), static_cast<u16*>(xt), C, groups,
       R3);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the channel-last staging pass (K11 in bf16): x [B, R^3, C] bf16 -> xt
+// [B, Cp / 8, R^3, 8] (Cp = C rounded up to 16, zeros past C)
+PVCNN_EXPORT int pvcnn_conv3d_bf16_stage_last(const void* x, void* xt, int B,
+                                              int C, int R3, void* stream) {
+  const int groups = (C + 15) / 16 * 2;
+  const int64_t total = static_cast<int64_t>(B) * groups * R3;
+  if (total == 0) return 0;
+  conv3d_bf16_stage_last_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads,
+                                  0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u16*>(x), static_cast<u16*>(xt), C, groups, R3,
+      total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,8 +45,8 @@
 // over more warps.
 //
 // bf16 mode (pvcnn_trilinear_devoxelize_bf16, counted as
-// trilinear_devoxelize_bf16): the channel-major mapping on a bf16 grid, a
-// template on the grid's type. Coordinates and weights stay f32, the 8
+// trilinear_devoxelize_bf16): either mapping on a bf16 grid, a template on
+// the grid's type. Coordinates and weights stay f32, the 8
 // terms sum in f32 in the same order, and the output is rounded to bf16
 // once, as the JAX package's sorted gather (f32 weights and sum,
 // pvcnn_tpu/ops/devoxelize.py:219-231: out.astype(grid.dtype)). The fp32
@@ -114,10 +114,11 @@ __device__ __forceinline__ float blend(const T* __restrict__ g,
   return acc;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(pvcnn::kThreads)
-trilinear_devoxelize_kernel(const float* __restrict__ grid,   // [B, R^3, C]
+trilinear_devoxelize_kernel(const T* __restrict__ grid,       // [B, R^3, C]
                             const float* __restrict__ coords,  // [B, N, 3]
-                            float* __restrict__ out,           // [B, N, C]
+                            T* __restrict__ out,               // [B, N, C]
                             int B, int N, int C, int R) {
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   const int64_t total = static_cast<int64_t>(B) * N * C;
@@ -129,7 +130,7 @@ trilinear_devoxelize_kernel(const float* __restrict__ grid,   // [B, R^3, C]
   float w[8];
   corners(coords + bn * 3, R, off, w);
   const int64_t r3 = static_cast<int64_t>(R) * R * R;
-  out[t] = blend(grid + b * r3 * C + c, C, off, w);
+  store(out + t, blend(grid + b * r3 * C + c, C, off, w));
 }
 
 template <int TC, typename T>
@@ -225,18 +226,24 @@ PVCNN_EXPORT int pvcnn_trilinear_devoxelize(const void* grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 mode: a bf16 channel-major grid [B, C, R^3] -> bf16 [B, N, C]
+// the bf16 mode: a bf16 grid, channel-major [B, C, R^3] with
+// channels_first, else channel-last [B, R^3, C] -> bf16 [B, N, C]
 PVCNN_EXPORT int pvcnn_trilinear_devoxelize_bf16(const void* grid,
                                                  const void* coords,
                                                  void* out, int B, int N,
                                                  int C, int R,
+                                                 int channels_first,
                                                  void* stream) {
-  if (static_cast<int64_t>(B) * N * C == 0) return 0;
+  const int64_t total = static_cast<int64_t>(B) * N * C;
+  if (total == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* gp = static_cast<const __nv_bfloat16*>(grid);
   const auto* cp = static_cast<const float*>(coords);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (R >= 32) {
+  if (!channels_first) {
+    trilinear_devoxelize_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads,
+                                  0, s>>>(gp, cp, op, B, N, C, R);
+  } else if (R >= 32) {
     launch_planes<16>(gp, cp, op, B, N, C, R, s);
   } else {
     launch_planes<32>(gp, cp, op, B, N, C, R, s);

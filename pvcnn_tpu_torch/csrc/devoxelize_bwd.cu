@@ -43,8 +43,9 @@
 // mostly from L1/L2: the bins of one block share their runs.
 //
 // bf16 mode (pvcnn_devoxelize_bwd_bf16, counted as devoxelize_bwd_bf16): the
-// same sort and walk on a bf16 cotangent, channel-major output (the rows
-// branch) only, a template on the cotangent's type. As the JAX backward
+// same sort and walk on a bf16 cotangent, into either layout (the NDHWC
+// branch's channel-last rows of C % 4 == 0 stored 4 values, 8 bytes, a
+// lane), a template on the cotangent's type. As the JAX backward
 // (pvcnn_tpu/ops/devoxelize.py:366-395: w8.astype(g.dtype) * g, summed by
 // the f32 scatter kernel, cast to g.dtype), each weight is rounded to bf16,
 // each term w * g is rounded to bf16 (the product of two bf16 is exact in
@@ -160,6 +161,27 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// vector c of a channel-last output row: V f32 values stored as E (a bf16
+// vector of 4 as 8 bytes, each value rounded once)
+__device__ __forceinline__ void store_vec(float* row, int c, float v) {
+  row[c] = v;
+}
+__device__ __forceinline__ void store_vec(float* row, int c, float4 v) {
+  reinterpret_cast<float4*>(row)[c] = v;
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int c,
+                                          float v) {
+  row[c] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int c,
+                                          float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  reinterpret_cast<uint2*>(row)[c] =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
+
 template <int V>
 struct Vec;
 template <>
@@ -273,11 +295,11 @@ devoxelize_bwd_kernel(const In* __restrict__ g,             // [B, N, C]
           }
         }
       } else if (v < R3) {
-        T* o = reinterpret_cast<T*>(out + (b * R3 + v) * C);
+        In* o = out + (b * R3 + v) * C;
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           const int c = c0 + m * G + li;
-          if (c < nv) o[c] = acc[m];
+          if (c < nv) store_vec(o, c, acc[m]);
         }
       }
     }
@@ -382,14 +404,20 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd(const void* g, const void* sorted,
 PVCNN_EXPORT int pvcnn_devoxelize_bwd_bf16(const void* g, const void* sorted,
                                            const void* bounds, void* out,
                                            int B, int N, int C, int R,
-                                           void* stream) {
+                                           int channels_first, void* stream) {
   if (static_cast<int64_t>(B) * C * R == 0) return 0;
   const ArgsOf<__nv_bfloat16> a{
       static_cast<const __nv_bfloat16*>(g),
       static_cast<const float4*>(sorted), static_cast<const int*>(bounds),
       static_cast<__nv_bfloat16*>(out), B, N, C, R,
       static_cast<cudaStream_t>(stream)};
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0;
-  vec4 ? launch_for<4, true>(a) : launch_for<1, true>(a);
+  if (channels_first) {
+    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0;
+    vec4 ? launch_for<4, true>(a) : launch_for<1, true>(a);
+  } else {
+    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 8 == 0;
+    vec4 ? launch_for<4, false>(a) : launch_for<1, false>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

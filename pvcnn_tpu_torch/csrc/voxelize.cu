@@ -46,8 +46,9 @@
 // the grid dominates: 268 MB at B = 32, C = 64, 37.7 MB at C = 9.
 //
 // bf16 mode (pvcnn_avg_voxelize_bf16, counted as avg_voxelize_bf16): the
-// same sort and kernel on bf16 values, the mean of the rows branch
-// (channel-major, mean) only. The kernel is a template on the value type
+// same sort and kernel on bf16 values, the mean into the rows branch's
+// channel-major grid or the NDHWC branch's bin-major one (rows of C % 4 ==
+// 0 stored 4 values, 8 bytes, a lane). The kernel is a template on the value type
 // (kernel<In, Out, ...>): bf16 rows are read 4 values (8 bytes) a lane
 // where C % 4 == 0, summed in f32 in the same order, divided by the count
 // in f32 and rounded to bf16 once, as the JAX package's f32 one-hot sums
@@ -367,12 +368,13 @@ PVCNN_EXPORT int pvcnn_avg_voxelize(const void* feats, const void* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 mode: bf16 feats [B, N, C] -> the bf16 channel-major means
-// [B, C, bins]; ids and the sort as pvcnn_avg_voxelize's
+// the bf16 mode: bf16 feats [B, N, C] -> the bf16 means, channel-major
+// [B, C, bins] with channels_first, else bin-major [B, bins, C]; ids and
+// the sort as pvcnn_avg_voxelize's
 PVCNN_EXPORT int pvcnn_avg_voxelize_bf16(const void* feats, const void* ids,
                                          void* perm, void* bounds, void* out,
                                          int B, int N, int C, int bins,
-                                         void* stream) {
+                                         int channels_first, void* stream) {
   if (ids != nullptr) {
     const int err =
         pvcnn_avg_voxelize_sort(ids, perm, bounds, B, N, bins, stream);
@@ -383,8 +385,16 @@ PVCNN_EXPORT int pvcnn_avg_voxelize_bf16(const void* feats, const void* ids,
       static_cast<const __nv_bfloat16*>(feats), static_cast<const int*>(perm),
       static_cast<const int*>(bounds), static_cast<__nv_bfloat16*>(out),
       B, N, C, bins, 1, static_cast<cudaStream_t>(stream)};
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 8 == 0;
-  vec4 ? launch_channels_first<4>(a) : launch_channels_first<1>(a);
+  if (channels_first) {
+    const bool vec4 =
+        C % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 8 == 0;
+    vec4 ? launch_channels_first<4>(a) : launch_channels_first<1>(a);
+  } else {
+    const bool vec4 = C % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(feats) % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 8 == 0;
+    vec4 ? launch_bin_major<4>(a) : launch_bin_major<1>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

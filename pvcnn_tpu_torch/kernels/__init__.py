@@ -57,14 +57,20 @@ _SIGNATURES = {
                                _I, _I, _I, _P],
     "pvcnn_conv3d_ndhwc_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P],
-    "pvcnn_avg_voxelize_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_scatter_sum_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "pvcnn_trilinear_devoxelize_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_trilinear_devoxelize_bf16": [_P, _P, _P, _I, _I, _I, _I, _I,
+                                        _P],
+    "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_conv3d_bf16_stage": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pvcnn_conv3d_bf16_fwd": [_P] * 10 + [_I] * 6 + [_P],
     "pvcnn_conv3d_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
+    "pvcnn_conv3d_bf16_stage_last": [_P, _P, _I, _I, _I, _P],
+    "pvcnn_dense_rows_fwd_bf16": [_P, _I, _P, _I, _I, _P, _P, _P, _F, _P,
+                                  _I, _P, _I, _I, _I, _I, _I, _P],
+    "pvcnn_dense_rows_wgrad_bf16": [_P, _I, _P, _I, _P, _P, _F, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -128,6 +134,16 @@ KERNELS = {k.name: k for k in (
     # activations
     Kernel("scatter_sum_bf16", "pvcnn_tpu_torch/csrc/voxelize.cu",
            "pvcnn_tpu/ops/pallas/scatter.py:144"),
+    # the bf16 modes of K9 (forward, dgrad), K10 and K11, each counted apart
+    # from its fp32 kernel
+    Kernel("dense_rows_fwd_bf16", "pvcnn_tpu_torch/csrc/dense_rows.cu",
+           "pvcnn_tpu/ops/pallas/dense_rows.py:119"),
+    Kernel("dense_rows_dgrad_bf16", "pvcnn_tpu_torch/csrc/dense_rows.cu",
+           "pvcnn_tpu/ops/pallas/dense_rows.py:119"),
+    Kernel("dense_rows_wgrad_bf16", "pvcnn_tpu_torch/csrc/dense_rows.cu",
+           "pvcnn_tpu/ops/pallas/dense_rows.py:158"),
+    Kernel("conv3d_ndhwc_wgrad_bf16", "pvcnn_tpu_torch/csrc/conv3d_bf16.cu",
+           "pvcnn_tpu/ops/pallas/conv_wgrad.py:166"),
 )}
 
 

@@ -7,22 +7,24 @@ runs ops.conv3d_rows_act on [B, Ci, R^3] rows (the fused rows mode);
 `ndhwc` runs on [B, R, R, R, Ci] grids (the JAX package's NDHWC mode, taken
 with PVCNN_TPU_CONV_ROWS=0).
 
-With dtype bfloat16 the rows mode casts its input and its float32 weight
+With dtype bfloat16 both modes cast their input and their float32 weight
 to bf16 at use (pvcnn_tpu/nn/conv3d.py:128-134: x.astype(dt),
-kernel.astype(dt)); the bias stays float32 and joins the f32 sum inside
-the op. Autograd then rounds the weight's gradient to bf16 and widens it,
-as JAX's dw.astype(kernel.dtype). The first PVConv's grid is the float32
-mean of the input cloud: its cast happens here."""
+kernel.astype(dt)); in the rows mode the bias stays float32 and joins the
+f32 sum inside the op, in the NDHWC mode it is cast to bf16 and added to
+the bf16 output (:156-157: bias.astype(y.dtype)). Autograd then rounds the
+weight's gradient to bf16 and widens it, as JAX's dw.astype(kernel.dtype).
+The first PVConv's grid is the float32 mean of the input cloud: its cast
+happens here."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from pvcnn_tpu_torch.ops.conv3d import conv3d_rows_act, conv3d_same
+from pvcnn_tpu_torch.ops.conv3d import (conv3d_ndhwc, conv3d_rows_act,
+                                        conv3d_same)
 from pvcnn_tpu_torch.utils import knobs
-from pvcnn_tpu_torch.utils.dtype import fp32_only, resolve_dtype
+from pvcnn_tpu_torch.utils.dtype import resolve_dtype
 
 __all__ = ["Conv3dSame"]
 
@@ -55,12 +57,14 @@ class Conv3dSame(nn.Conv3d):
     def ndhwc(self, x: torch.Tensor):
         """x [B, R, R, R, Ci] grid -> y [B, R, R, R, Co] (bias added).
         With PVCNN_TPU_CUSTOM_CONV_WGRAD=1 the conv is ops.conv3d_same,
-        whose weight gradient is kernel K11; otherwise F.conv3d with torch's
-        own autograd (XLA autodiff in the JAX package)."""
-        fp32_only(self.act_dtype, "Conv3dSame.ndhwc (PVCNN_TPU_CONV_ROWS=0)")
+        whose weight gradient is kernel K11; otherwise ops.conv3d_ndhwc
+        with torch's own autograd (XLA autodiff in the JAX package)."""
+        weight, bias = self.weight, self.bias
+        if self.act_dtype is not None:
+            x, weight = x.to(self.act_dtype), weight.to(self.act_dtype)
+            bias = bias.to(self.act_dtype)
         if knobs.get("PVCNN_TPU_CUSTOM_CONV_WGRAD"):
-            y = conv3d_same(x, self.weight)
+            y = conv3d_same(x, weight)
         else:
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight,
-                         padding=self.padding).permute(0, 2, 3, 4, 1)
-        return y + self.bias
+            y = conv3d_ndhwc(x, weight)
+        return y + bias

@@ -13,14 +13,17 @@ Conv3dSame.ndhwc -> BatchNorm -> LeakyReLU twice.
 Module names follow the reference (voxel_layers.0/1/3/4/6, point_features)
 on both branches, so `state_dict()` keys match released checkpoints.
 
-With dtype bfloat16 (the fused rows branch only; the unfused branches raise
-NotImplementedError) the block runs as the JAX package's PVConv(dtype):
-the voxelized grid is the mean in the features' dtype (float32 for the
-first PVConv, whose input is the cloud itself, bf16 after), each conv casts
-its input and weight to bf16 (Conv3dSame), BatchNorms fold in f32, the
-last BatchNorm and LeakyReLU run in f32 and round to bf16
-(pvcnn_tpu/nn/pvconv.py:142-145), SE and the gather run in bf16, and the
-point branch is a bf16 SharedMLP; coordinates stay float32.
+With dtype bfloat16 the block runs as the JAX package's PVConv(dtype) on
+every branch: the voxelized grid is the mean in the features' dtype
+(float32 for the first PVConv, whose input is the cloud itself, bf16
+after), each conv casts its input and weight to bf16 (Conv3dSame), SE and
+the gather run in bf16, and the point branch is a bf16 SharedMLP;
+coordinates stay float32. On the fused rows branch the BatchNorms fold in
+f32 and the last BatchNorm and LeakyReLU run in f32 and round to bf16
+(pvcnn_tpu/nn/pvconv.py:142-145). On the unfused branches each BatchNorm
+takes its statistics and normalizes in f32 and rounds its output to bf16
+(pvcnn_tpu/nn/shared_mlp.py:BatchNorm), and LeakyReLU runs on the bf16
+grid (:155, nn.leaky_relu in the grid's dtype).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from pvcnn_tpu_torch import ops
 from pvcnn_tpu_torch.nn.conv3d import Conv3dSame
 from pvcnn_tpu_torch.nn.shared_mlp import BatchNorm, Linear, SharedMLP
 from pvcnn_tpu_torch.utils import knobs
-from pvcnn_tpu_torch.utils.dtype import fp32_only, resolve_dtype
+from pvcnn_tpu_torch.utils.dtype import resolve_dtype, wide
 
 __all__ = ["PVConv", "SE3d", "Voxelization"]
 
@@ -108,15 +111,12 @@ class PVConv(nn.Module):
         per-channel sums, and its BatchNorm folds those batch statistics
         (updating its running ones)."""
         if knobs.get("PVCNN_TPU_CONV_ROWS") == "0":
-            fp32_only(self.act_dtype, "PVConv with PVCNN_TPU_CONV_ROWS=0")
             voxel_features = self._voxel_ndhwc(features, coords)
             return voxel_features + self.point_features(features), coords
         r = self.resolution
         conv0, bn0, _, conv1, bn1, _ = self.voxel_layers[:6]
         grid, norm_coords = self.voxelization(features, coords)
         if knobs.get("PVCNN_TPU_CONV_BN_FUSED") == "0":
-            fp32_only(self.act_dtype,
-                      "PVConv with PVCNN_TPU_CONV_BN_FUSED=0")
             grid = self._rows_unfused(grid)
         elif self.training:
             count = grid.shape[0] * r ** 3
@@ -170,9 +170,10 @@ def _batch_norm_ndhwc(bn: BatchNorm, grid):
     (mean = sum(x) / n, var = sum(x^2) / n - mean^2, as the JAX package's
     BatchNorm computes them) through BatchNorm.apply_from_sums: on the CPU,
     F.batch_norm over the [B * R^3, C] rows accumulates them about 50 times
-    less accurately (4e-5 against 8e-7 at 524,288 rows)."""
+    less accurately (4e-5 against 8e-7 at 524,288 rows). A bf16 grid's
+    sums and normalization run in f32 and the output is rounded to bf16."""
     if not bn.training:
         return bn(grid)
-    rows = grid.reshape(-1, grid.shape[-1])
-    return bn.apply_from_sums(grid, rows.sum(0), (rows * rows).sum(0),
-                              rows.shape[0])
+    rows = wide(grid.reshape(-1, grid.shape[-1]))
+    return bn.apply_from_sums(wide(grid), rows.sum(0), (rows * rows).sum(0),
+                              rows.shape[0]).to(grid.dtype)

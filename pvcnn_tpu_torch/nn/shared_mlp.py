@@ -27,9 +27,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pvcnn_tpu_torch.ops.dense_rows import dense_rows_act
+from pvcnn_tpu_torch.ops.dense_rows import dense_rows_act, dense_rows_plan
 from pvcnn_tpu_torch.utils import knobs
-from pvcnn_tpu_torch.utils.dtype import fp32_only, resolve_dtype
+from pvcnn_tpu_torch.utils.dtype import resolve_dtype, wide
 
 __all__ = ["BatchNorm", "Dense2d", "DenseBNReLU", "Linear", "SharedMLP",
            "SplitDense"]
@@ -242,20 +242,18 @@ class SharedMLP(nn.Module):
     weights (Dense2d), as the reference's set-abstraction MLPs do.
 
     With PVCNN_TPU_DENSE_BN_FUSED=auto, a train-mode layer whose input is
-    one array of rows >= 1024 with rows % 256 == 0 (the JAX plan's shape
-    conditions, pvcnn_tpu/ops/pallas/dense_rows.py:dense_rows_plan) runs
+    one array that the JAX package's plan takes
+    (ops.dense_rows.dense_rows_plan, in the layer's activation dtype) runs
     as in the JAX package's fused path: ops.dense_rows_act with its
     statistics epilogue (kernel K9 on the card), BatchNorm.apply_from_sums,
-    then relu. The TPU plan's VMEM budget is not carried
-    over: at S3DIS PVCNN 1x's shapes (32 x 4096 rows, 9 to 512 input and
-    64 to 1024 output channels) it accepts all six layers, as the shape
-    conditions do, so both packages route the same layers. Eval mode never
-    takes this path.
+    then relu. Eval mode never takes this path.
 
     dtype bfloat16 runs the layers' activations in bf16 (dim=2: on the
-    grouped neighborhoods [B, M, U, C]); with PVCNN_TPU_DENSE_BN_FUSED=auto
-    it raises NotImplementedError (the fused path's bf16 mode is queued in
-    ROADMAP.md)."""
+    grouped neighborhoods [B, M, U, C]); on the fused path as the JAX
+    package's DenseStats(dtype) and its affine (pvcnn_tpu/nn/shared_mlp.py:
+    228-260): the input cast to bf16, K9's bf16 mode (y bf16, its
+    statistics from the f32 sums), the BatchNorm affine in f32 rounded
+    once to bf16, then relu."""
 
     def __init__(self, in_channels: int, out_channels: int | Sequence[int],
                  dim: int = 1, dtype=None):
@@ -276,29 +274,34 @@ class SharedMLP(nn.Module):
     def forward(self, x):
         if not self.training:
             return self.layers(x)
+        dt = self.act_dtype
         for i in range(0, len(self.layers), 3):
             dense, bn, relu = self.layers[i:i + 3]
-            if _fused_rows(x):
-                fp32_only(self.act_dtype,
-                          "SharedMLP with PVCNN_TPU_DENSE_BN_FUSED=auto")
-                co, ci = dense.weight.shape[:2]
+            co, ci = dense.weight.shape[:2]
+            if _fused_rows(x, co, dt):
                 y, s1, s2 = dense_rows_act(
-                    x, dense.weight.reshape(co, ci).t(), dense.bias, None,
-                    None, 0.0, False, True)
-                x = relu(bn.apply_from_sums(y, s1, s2, x.numel() // ci))
+                    _cast(x, dt), dense.weight.reshape(co, ci).t(),
+                    dense.bias, None, None, 0.0, False, True)
+                # a bf16 y's affine in f32, rounded once (relu commutes
+                # with the rounding: JAX's maximum(t, 0).astype(dt))
+                x = relu(bn.apply_from_sums(wide(y), s1, s2,
+                                            x.numel() // ci).to(y.dtype))
             else:
                 x = relu(bn(dense(x)))
         return x
 
 
-def _fused_rows(x) -> bool:
-    """Does a train-mode layer on x take the fused Dense + statistics
-    path? (The knob is read only for an array input, as in JAX.)"""
+def _fused_rows(x, co: int, dtype) -> bool:
+    """Does a train-mode layer of `co` outputs on x take the fused Dense +
+    statistics path? The JAX package's gate: the knob, read only for an
+    array input, and its plan at the layer's shape in its activation dtype
+    (dtype, or x's where the layer has none)."""
     if isinstance(x, (list, tuple)):
         return False
     rows = x.numel() // x.shape[-1]
     return (knobs.get("PVCNN_TPU_DENSE_BN_FUSED") == "auto"
-            and rows >= 1024 and rows % 256 == 0)
+            and dense_rows_plan(rows, x.shape[-1], co,
+                                dtype or x.dtype) is not None)
 
 
 class DenseBNReLU(nn.Sequential):

@@ -55,6 +55,20 @@ conv3d_same, on channel-last grids [B, R, R, R, C]:
   wgrad    K11 (csrc/conv3d_ndhwc_wgrad.cu, K4's design on channel-last
            operands, K4's plan); plain: 27 shifted-slice products, the JAX
            package's own fallback
+
+On bf16 x and weight (the NDHWC branch with bf16 activations) the convs
+are cuDNN's bf16 convs on the card (f32 sums, the output rounded to bf16
+once; on the CPU the f32 conv of the widened operands, rounded), and the
+weight gradient is K11's bf16 mode (counted as conv3d_ndhwc_wgrad_bf16):
+x and dY copied into K4's bf16 staged layout by a channel-last staging
+pass (csrc/conv3d_bf16.cu), then K4's bf16 core, dW summed in f32 in a
+fixed order and rounded to bf16 once, as the JAX package's
+dw.astype(kernel.dtype) with a bf16 kernel (pvcnn_tpu/nn/conv3d.py:65-75);
+plain: the 27 products on the widened operands, rounded once. The JAX
+package runs its Pallas kernel only where conv3d_wgrad_plan plans (on a
+TPU, grids of (R + 2)^3 >= 16,384 voxels) and the same 27 products in XLA
+elsewhere, both f32 sums rounded once: one function, which the port runs
+by K11 at every R.
 """
 
 from __future__ import annotations
@@ -69,7 +83,8 @@ import torch.nn.functional as F
 from pvcnn_tpu_torch import kernels
 from pvcnn_tpu_torch.utils.dtype import wide
 
-__all__ = ["conv3d_rows_act", "conv3d_same", "leaky_affine"]
+__all__ = ["conv3d_ndhwc", "conv3d_rows_act", "conv3d_same",
+           "leaky_affine"]
 
 # K3's voxels per warp (statistics slots)
 _FWD_TILE_V = 128
@@ -671,7 +686,14 @@ def conv3d_same(x: torch.Tensor, weight: torch.Tensor):
     return _Conv3dSame.apply(x, weight)
 
 
-def _conv_ndhwc(x, weight):
+def conv3d_ndhwc(x: torch.Tensor, weight: torch.Tensor):
+    """x [B, R, R, R, Ci] * weight [Co, Ci, k, k, k] -> [B, R, R, R, Co]
+    (stride 1, zero padding k // 2, no bias), differentiable by torch's
+    autograd: bf16 operands on the card by cuDNN's bf16 conv, on the CPU
+    widened to f32 and the output rounded to bf16 (one rounding of the f32
+    sums, as on the card)."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return conv3d_ndhwc(x.float(), weight.float()).to(x.dtype)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight,
                  padding=weight.shape[-1] // 2)
     return y.permute(0, 2, 3, 4, 1)
@@ -681,7 +703,7 @@ class _Conv3dSame(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight):
         ctx.save_for_backward(x, weight)
-        return _conv_ndhwc(x, weight)
+        return conv3d_ndhwc(x, weight)
 
     @staticmethod
     def backward(ctx, g):
@@ -689,7 +711,7 @@ class _Conv3dSame(torch.autograd.Function):
         need_x, need_w = ctx.needs_input_grad
         dx = dw = None
         if need_x:
-            dx = _conv_ndhwc(g, _dgrad_weight(weight))
+            dx = conv3d_ndhwc(g, _dgrad_weight(weight))
         if need_w:
             wgrad = (_ndhwc_wgrad_plain if x.device.type == "cpu"
                      else _ndhwc_wgrad_cuda)
@@ -699,7 +721,10 @@ class _Conv3dSame(torch.autograd.Function):
 
 def _ndhwc_wgrad_plain(x, g, k):
     """dW[co, ci, kx, ky, kz] = sum over clouds and voxels of
-    xpad[b, v + (kx, ky, kz), ci] * g[b, v, co], one product per tap."""
+    xpad[b, v + (kx, ky, kz), ci] * g[b, v, co], one product per tap; bf16
+    operands widened, the f32 sums rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return _ndhwc_wgrad_plain(x.float(), wide(g), k).to(x.dtype)
     b, d, h, w, ci = x.shape
     co = g.shape[-1]
     p = k // 2
@@ -715,7 +740,7 @@ def _ndhwc_wgrad_plain(x, g, k):
 
 
 def _ndhwc_wgrad_cuda(x, g, k):
-    _check([x, g], "conv3d_ndhwc_wgrad")
+    _check([x, g], "conv3d_ndhwc_wgrad", bf16=("x", "dy"))
     b, r, r2, r3, ci = x.shape
     co = g.shape[-1]
     if k != 3:
@@ -724,6 +749,8 @@ def _ndhwc_wgrad_cuda(x, g, k):
     if not r == r2 == r3 or tuple(g.shape) != (b, r, r, r, co):
         raise ValueError(f"x {tuple(x.shape)} and dy {tuple(g.shape)} are "
                          "not matching cubic grids")
+    if x.dtype == torch.bfloat16:
+        return _ndhwc_wgrad_cuda_bf16(x, g, r)
     dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.float32, device=x.device)
     if b == 0 or r == 0:                 # no voxels: nothing to launch
         return dw.zero_()
@@ -746,5 +773,45 @@ def _ndhwc_wgrad_cuda(x, g, k):
             g.data_ptr(), None if partial is None else partial.data_ptr(),
             dw.data_ptr(), b, ci, co, r, plan.seg, plan.cols, plan.cb,
             plan.splits, _NDHWC_LAYOUTS[layout],
+            torch.cuda.current_stream().cuda_stream)
+    return dw
+
+
+def _stage_last_bf16(x):
+    """x [B, R, R, R, C] bf16 on the card -> K4's bf16 staged operand [B,
+    Cp / 8, R^3, 8] (Cp = C rounded up to 16, zeros past C), by the
+    channel-last staging pass: no transpose, a voxel's 8-channel groups
+    are 16 contiguous bytes of x."""
+    b, c = x.shape[0], x.shape[-1]
+    bins = x.shape[1] * x.shape[2] * x.shape[3]
+    x = x.contiguous()
+    xt = torch.empty((b, _round16(c) // 8, bins, 8), dtype=torch.bfloat16,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.call("pvcnn_conv3d_bf16_stage_last", x.data_ptr(),
+                     xt.data_ptr(), b, c, bins,
+                     torch.cuda.current_stream().cuda_stream)
+    return xt
+
+
+def _ndhwc_wgrad_cuda_bf16(x, g, r):
+    """K11's bf16 mode: x and dY staged channel-last into K4's bf16 layout,
+    then K4's bf16 core and its split plan -> dW [Co, Ci, 3, 3, 3] bf16."""
+    b, ci, co = x.shape[0], x.shape[-1], g.shape[-1]
+    dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.bfloat16,
+                     device=x.device)
+    if b == 0 or r == 0:                 # no voxels: nothing to launch
+        return dw.zero_()
+    xt, gt = _stage_last_bf16(x), _stage_last_bf16(g)
+    plan = _wgrad_bf16_plan(b, ci, co, r, _sm_count(x.device.index))
+    # each split's f32 partial, added in split order: reproducible bit for
+    # bit
+    partial = torch.empty((plan.splits, co, _round16(ci), 27),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.launch(
+            "conv3d_ndhwc_wgrad_bf16", "pvcnn_conv3d_bf16_wgrad",
+            xt.data_ptr(), gt.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            b, ci, co, r, plan.cols, plan.splits, plan.per_split,
             torch.cuda.current_stream().cuda_stream)
     return dw

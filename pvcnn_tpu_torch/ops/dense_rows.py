@@ -25,6 +25,23 @@ SharedMLP passes its Conv1d weight's [Ci, Co] view, which no call copies.
 
 Only the gradients autograd asks for are computed: a layer whose input is
 the input cloud runs no dgrad.
+
+bf16 activations (a bfloat16 x; weight, bias, pscale and pshift float32,
+as the JAX op takes them): the kernels' bf16 mode on the card (csrc/
+dense_gemm.cuh's bf16 core on the tensor cores, counted as
+dense_rows_fwd_bf16, dense_rows_dgrad_bf16 and dense_rows_wgrad_bf16), the
+plain versions on the operands widened to f32 on the CPU. The rounding
+points are the JAX package's (pvcnn_tpu/ops/pallas/dense_rows.py):
+
+  forward  the weight cast to bf16 (w.astype(x.dtype), :276); a(x) in f32
+           from the bf16 x, rounded to bf16 (_fwd_kernel); f32 products
+           and sums, the f32 bias added to the f32 sum, the statistics from
+           it, y rounded to bf16 once
+  backward the cotangent with the statistics' terms in f32, rounded to
+           bf16 (ge2, :254); the dgrad's output rounded to bf16; the
+           prologue's backward in f32 on it, dx rounded to bf16, dscale and
+           dshift f32; dW and d(bias) f32 sums (K10), dW returned in the
+           weight's dtype, float32, not rounded
 """
 
 from __future__ import annotations
@@ -37,8 +54,9 @@ import torch
 
 from pvcnn_tpu_torch import kernels
 from pvcnn_tpu_torch.ops.conv3d import _sm_count
+from pvcnn_tpu_torch.utils.dtype import wide
 
-__all__ = ["dense_rows_act"]
+__all__ = ["dense_rows_act", "dense_rows_plan"]
 
 # K9's and K10's GEMM tile (csrc/dense_gemm.cuh): 128 output rows by 128
 # columns (64 where N <= 64) on 2 x columns threads, the reduction in slices
@@ -46,11 +64,39 @@ __all__ = ["dense_rows_act"]
 # the blocks per SM that its __launch_bounds__ promise, by column tile
 _BM, _BK, _STAGES, _PAD = 128, 16, 4, 4
 _MIN_BLOCKS = {128: 2, 64: 3}
+# the bf16 core's (csrc/dense_gemm.cuh: gemm16): 256 threads whatever the
+# column tile, slices of 32, a slot holding a tile in either layout (K-major
+# [W][32 + 8] or MN-major [32][W + 8] elements)
+_BK16, _THREADS16, _PAD16 = 32, 256, 8
 # an H100 SM's shared memory, and what the runtime keeps of it per block
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233472, 1024
 # K10's split: the chunk count whose last wave of resident blocks is
 # fullest within _WGRAD_WAVES waves, none shorter than _WGRAD_MIN_SLICES
 _WGRAD_WAVES, _WGRAD_MIN_SLICES = 2, 8
+
+
+def dense_rows_plan(rows: int, ci: int, co: int, dtype) -> int | None:
+    """The JAX package's gate of the fused dense layer, restated
+    (pvcnn_tpu/ops/pallas/dense_rows.py:dense_rows_plan): its row tile, or
+    None where the fused path is not taken. rows >= 1024 divisible by a
+    tile of 1024, 512 or 256 rows whose blocks fit the TPU kernel's VMEM
+    budget at the lane-padded widths, in the activations' dtype (bf16 rows
+    take half the bytes, so a wide bf16 layer may fuse where its fp32 twin
+    does not). The port's kernels take any shape; the SharedMLP routes the
+    layers the JAX package routes."""
+    if rows < 1024:
+        return None
+    ci_pad, co_pad = -(-ci // 128) * 128, -(-co // 128) * 128
+    mb = 2 if dtype == torch.bfloat16 else 4
+    for rt in (1024, 512, 256):
+        if rows % rt:
+            continue
+        use = (2 * rt * ci_pad * mb + 2 * rt * co_pad * mb
+               + ci_pad * co_pad * mb + 2 * rt * max(ci_pad, co_pad) * 4
+               + (2 * ci_pad + 2 * co_pad) * 4 + 16 * co_pad * 4)
+        if use <= 12 * 1024 * 1024:
+            return rt
+    return None
 
 
 def dense_rows_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -60,7 +106,9 @@ def dense_rows_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     bias [Co], pscale/pshift [Ci] (read only with has_prologue) -> (y [...,
     Co], s1 [Co], s2 [Co]) with s1 = sum of y and s2 = sum of y^2 over all
     rows when want_stats, zeros otherwise. Differentiable in x, weight,
-    bias, pscale and pshift."""
+    bias, pscale and pshift. A bfloat16 x gives a bfloat16 y (the weight,
+    bias and prologue stay float32, as do the statistics and the weight's
+    gradient)."""
     return _DenseRowsAct.apply(x, weight, bias, pscale, pshift, float(slope),
                                bool(has_prologue), bool(want_stats))
 
@@ -87,9 +135,10 @@ class _DenseRowsAct(torch.autograd.Function):
         need_x, need_w, need_b, need_s, need_t = ctx.needs_input_grad[:5]
         cpu = x.device.type == "cpu"
         # the statistics' cotangents fold into y's: s1 = sum(y),
-        # s2 = sum(y^2) => dL/dy += gs1 + 2 * y * gs2 (y biased)
+        # s2 = sum(y^2) => dL/dy += gs1 + 2 * y * gs2 (y biased); a bf16
+        # cotangent folded in f32 and rounded to bf16 (the JAX op's ge2)
         if ctx.want_stats:
-            gy = gy + gs1 + 2.0 * y * gs2
+            gy = (wide(gy) + gs1 + 2.0 * wide(y) * gs2).to(x.dtype)
         ci, co = weight.shape
         g2 = gy.reshape(-1, co).contiguous()
         x2 = x.reshape(-1, ci)
@@ -98,10 +147,12 @@ class _DenseRowsAct(torch.autograd.Function):
             # d loss / d a(x)
             dxt = (_dgrad_plain if cpu else _dgrad_cuda)(g2, weight)
             if pro:
-                t = x2 * pscale + pshift
-                dxf = dxt * torch.where(t > 0, 1.0, slope).to(dxt.dtype)
-                dx = (dxf * pscale).reshape(x.shape) if need_x else None
-                dscale = (dxf * x2).sum(0) if need_s else None
+                xf, dxw = wide(x2), wide(dxt)
+                t = xf * pscale + pshift
+                dxf = dxw * torch.where(t > 0, 1.0, slope).to(dxw.dtype)
+                dx = ((dxf * pscale).to(x.dtype).reshape(x.shape) if need_x
+                      else None)
+                dscale = (dxf * xf).sum(0) if need_s else None
                 dshift = dxf.sum(0) if need_t else None
             else:
                 dx = dxt.reshape(x.shape)
@@ -110,34 +161,54 @@ class _DenseRowsAct(torch.autograd.Function):
                 x2, g2, pscale, pshift, slope, pro)
             dbias = db if need_b else None
         elif need_b:
-            dbias = g2.sum(0)
+            dbias = wide(g2).sum(0)
         return dx, dw, dbias, dscale, dshift, None, None, None
 
 
 # ---- plain versions (CPU tensors; chip_smoke.py's comparison on the card) --
+# A bf16 operand is widened to f32 and the result rounded where the bf16
+# kernels round (the module docstring).
 
 def _act_plain(x2, pscale, pshift, slope):
     t = x2 * pscale + pshift
     return torch.where(t > 0, t, slope * t)
 
 
+def _activated(x2, pscale, pshift, slope, has_prologue):
+    """The product's operand: a(x) (a bf16 x's computed in f32 and rounded
+    to bf16), widened to f32 where x is bf16."""
+    if not has_prologue:
+        return wide(x2)
+    a = _act_plain(wide(x2), pscale, pshift, slope)
+    return a.to(x2.dtype).float() if x2.dtype == torch.bfloat16 else a
+
+
+def _weight_of(weight, x2):
+    """The weight as the product takes it: rounded to bf16 (and widened)
+    for a bf16 x."""
+    if x2.dtype == torch.bfloat16:
+        return weight.to(torch.bfloat16).float()
+    return weight
+
+
 def _forward_plain(x2, weight, bias, pscale, pshift, slope, has_prologue,
                    want_stats):
-    a = _act_plain(x2, pscale, pshift, slope) if has_prologue else x2
-    y = a @ weight + bias
+    a = _activated(x2, pscale, pshift, slope, has_prologue)
+    y = a @ _weight_of(weight, x2) + bias
     if want_stats:
-        return y, y.sum(0), (y * y).sum(0)
+        return y.to(x2.dtype), y.sum(0), (y * y).sum(0)
     zeros = y.new_zeros(y.shape[1])
-    return y, zeros, zeros.clone()
+    return y.to(x2.dtype), zeros, zeros.clone()
 
 
 def _dgrad_plain(g2, weight):
-    return g2 @ weight.t()
+    return (wide(g2) @ _weight_of(weight, g2).t()).to(g2.dtype)
 
 
 def _wgrad_plain(x2, g2, pscale, pshift, slope, has_prologue):
-    a = _act_plain(x2, pscale, pshift, slope) if has_prologue else x2
-    return a.t() @ g2, g2.sum(0)
+    a = _activated(x2, pscale, pshift, slope, has_prologue)
+    g = wide(g2)
+    return a.t() @ g, g.sum(0)
 
 
 # ---- kernels (CUDA tensors) ------------------------------------------------
@@ -146,7 +217,7 @@ class Plan(NamedTuple):
     """One launch of K9 or K10 (csrc/dense_gemm.cuh's tile)."""
 
     bn: int             # output columns per block: 64 or 128
-    threads: int        # 2 * bn
+    threads: int        # 2 * bn (the bf16 core: 256)
     bk: int             # reduction slice
     stages: int         # cp.async ring slots
     smem_bytes: int     # dynamic shared memory per block
@@ -157,19 +228,25 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(m, n, k, wgrad, sms) -> Plan:
+def _plan(m, n, k, wgrad, sms, bf16=False) -> Plan:
     """The launch of an [m, n] output reduced over k on a card of `sms`
-    SMs. K10 (wgrad) splits k into equal chunks of whole slices: the count
-    whose last wave of resident blocks is fullest within _WGRAD_WAVES
-    waves, the smaller on a tie, no chunk under _WGRAD_MIN_SLICES slices
-    (one chunk where even that is too long)."""
+    SMs, by the fp32 core or (bf16) the bf16 one. K10 (wgrad) splits k
+    into equal chunks of whole slices: the count whose last wave of
+    resident blocks is fullest within _WGRAD_WAVES waves, the smaller on a
+    tie, no chunk under _WGRAD_MIN_SLICES slices (one chunk where even
+    that is too long)."""
     bn = 64 if n <= 64 else 128
-    threads = 2 * bn
-    smem = 4 * _STAGES * _BK * (_BM + _PAD + bn + _PAD)
+    if bf16:
+        bk, threads = _BK16, _THREADS16
+        slot = lambda w: max(w * (bk + _PAD16), bk * (w + _PAD16))
+        smem = 2 * _STAGES * (slot(_BM) + slot(bn))
+    else:
+        bk, threads = _BK, 2 * bn
+        smem = 4 * _STAGES * _BK * (_BM + _PAD + bn + _PAD)
     tiles = math.ceil(m / _BM) * math.ceil(n / bn)
-    slices = max(1, math.ceil(k / _BK))
+    slices = max(1, math.ceil(k / bk))
     if not wgrad:
-        return Plan(bn, threads, _BK, _STAGES, smem, tiles, 1, max(k, 1), 0)
+        return Plan(bn, threads, bk, _STAGES, smem, tiles, 1, max(k, 1), 0)
     per_sm = min(_SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED),
                  _MIN_BLOCKS[bn])
     slots = per_sm * sms
@@ -177,22 +254,29 @@ def _plan(m, n, k, wgrad, sms) -> Plan:
                       math.ceil(_WGRAD_WAVES * slots / tiles)))
     splits = min(range(1, most + 1),
                  key=lambda s: (math.ceil(tiles * s / slots) / s, s))
-    chunk = _BK * math.ceil(slices / splits)
-    splits = math.ceil(slices * _BK / chunk)
+    chunk = bk * math.ceil(slices / splits)
+    splits = math.ceil(slices * bk / chunk)
     partial = 4 * splits * (m * n + n) if splits > 1 else 0
-    return Plan(bn, threads, _BK, _STAGES, smem, tiles, splits, chunk,
+    return Plan(bn, threads, bk, _STAGES, smem, tiles, splits, chunk,
                 partial)
 
 
-def _check(tensors, what):
+def _check(tensors, what, bf16=0):
+    """Every operand on one CUDA device and float32, or, with bf16 = n and
+    a bfloat16 first operand, the first n (the rows, the cotangent, the
+    weight's bf16 copy) bfloat16 and the rest (bias, prologue) float32."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{what} kernel needs every operand on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{what} kernel takes float32 operands only (its "
-                         "bf16 mode is queued in ROADMAP.md), got "
-                         f"{[t.dtype for t in tensors]}")
+    want = [torch.float32] * len(tensors)
+    if bf16 and tensors[0].dtype == torch.bfloat16:
+        want[:bf16] = [torch.bfloat16] * bf16
+    got = [t.dtype for t in tensors]
+    if got != want:
+        raise ValueError(f"{what} kernel takes float32 operands, or "
+                         f"bfloat16 rows with the rest float32 "
+                         f"({what.replace(' ', '_')}_bf16), got {got}")
 
 
 def _prologue(pscale, pshift, ci, has_prologue):
@@ -236,6 +320,9 @@ def _launch_fwd(kernel, x2, b, bias, pro, slope, y, partial, has_prologue,
 
 def _forward_cuda(x2, weight, bias, pscale, pshift, slope, has_prologue,
                   want_stats):
+    if x2.dtype == torch.bfloat16:
+        return _forward_cuda_bf16(x2, weight, bias, pscale, pshift, slope,
+                                  has_prologue, want_stats)
     _check([x2, weight, bias] + ([pscale, pshift] if has_prologue else []),
            "dense_rows")
     rows, ci = x2.shape
@@ -263,6 +350,8 @@ def _forward_cuda(x2, weight, bias, pscale, pshift, slope, has_prologue,
 
 
 def _dgrad_cuda(g2, weight):
+    if g2.dtype == torch.bfloat16:
+        return _dgrad_cuda_bf16(g2, weight)
     _check([g2, weight], "dense_rows dgrad")
     rows, co = g2.shape
     ci = weight.shape[0]
@@ -278,6 +367,8 @@ def _dgrad_cuda(g2, weight):
 
 
 def _wgrad_cuda(x2, g2, pscale, pshift, slope, has_prologue):
+    if x2.dtype == torch.bfloat16:
+        return _wgrad_cuda_bf16(x2, g2, pscale, pshift, slope, has_prologue)
     _check([x2, g2] + ([pscale, pshift] if has_prologue else []),
            "dense_rows wgrad")
     rows, ci = x2.shape
@@ -301,5 +392,114 @@ def _wgrad_cuda(x2, g2, pscale, pshift, slope, has_prologue):
             "dense_rows_wgrad", "pvcnn_dense_rows_wgrad", x2.data_ptr(),
             g2.data_ptr(), *map(_ptr, pro), slope, _ptr(partial),
             dw.data_ptr(), db.data_ptr(), rows, ci, co, plan.bn, plan.chunk,
+            int(has_prologue), torch.cuda.current_stream().cuda_stream)
+    return dw, db
+
+
+# ---- the bf16 mode (csrc/dense_gemm.cuh's bf16 core) ------------------------
+
+def _padded16(t2):
+    """A bf16 [R, C] operand as the bf16 core reads it: rows of a multiple
+    of 8 elements on a 16-byte aligned base; a zero-padded copy where t2 is
+    not so already (Ci = 9, Co = 196, a view)."""
+    c = t2.shape[1]
+    if c % 8 == 0 and t2.is_contiguous() and t2.data_ptr() % 16 == 0:
+        return t2
+    out = t2.new_zeros((t2.shape[0], -(-c // 8) * 8))
+    out[:, :c] = t2
+    return out
+
+
+def _weight16(weight):
+    """weight [Ci, Co] (float32, any layout) -> its bf16 copy [Co, Cp]
+    (Cp = Ci rounded up to 8, zeros past Ci): the forward's B read K-major,
+    the dgrad's (W^T) MN-major."""
+    ci, co = weight.shape
+    w16 = torch.zeros((co, -(-ci // 8) * 8), dtype=torch.bfloat16,
+                      device=weight.device)
+    w16[:, :ci] = weight.t()
+    return w16
+
+
+def _forward_cuda_bf16(x2, weight, bias, pscale, pshift, slope, has_prologue,
+                       want_stats):
+    rows, ci = x2.shape
+    co = weight.shape[1]
+    if weight.shape != (ci, co) or bias.shape != (co,):
+        raise ValueError(f"dense_rows_bf16 kernel takes weight [{ci}, Co] "
+                         f"and bias [Co], got {tuple(weight.shape)} and "
+                         f"{tuple(bias.shape)}")
+    w16 = _weight16(weight)
+    _check([x2, w16, bias] + ([pscale, pshift] if has_prologue else []),
+           "dense_rows", bf16=2)
+    pro = _prologue(pscale, pshift, ci, has_prologue)
+    xp, bias = _padded16(x2), bias.contiguous()
+    plan = _plan(rows, co, ci, False, _sm_count(x2.device.index), True)
+    y = torch.empty((rows, co), dtype=torch.bfloat16, device=x2.device)
+    # one statistics slot per row tile, summed in a fixed order
+    partial = (torch.empty((math.ceil(rows / _BM), 2, co),
+                           dtype=torch.float32, device=x2.device)
+               if want_stats else None)
+    with torch.cuda.device(x2.device):
+        kernels.launch(
+            "dense_rows_fwd_bf16", "pvcnn_dense_rows_fwd_bf16",
+            xp.data_ptr(), xp.shape[1], w16.data_ptr(), w16.shape[1], 1,
+            bias.data_ptr(), *map(_ptr, pro), slope, y.data_ptr(), co,
+            _ptr(partial), rows, ci, co, int(has_prologue), plan.bn,
+            torch.cuda.current_stream().cuda_stream)
+    if want_stats and rows:
+        s1, s2 = partial.sum(dim=0)
+    else:
+        s1 = torch.zeros(co, dtype=torch.float32, device=x2.device)
+        s2 = torch.zeros_like(s1)
+    return y, s1, s2
+
+
+def _dgrad_cuda_bf16(g2, weight):
+    rows, co = g2.shape
+    ci = weight.shape[0]
+    if weight.shape != (ci, co):
+        raise ValueError(f"dgrad of weight {tuple(weight.shape)} does not "
+                         f"match g {tuple(g2.shape)}")
+    w16 = _weight16(weight)
+    _check([g2, w16], "dense_rows dgrad", bf16=2)
+    gp = _padded16(g2)
+    plan = _plan(rows, ci, co, False, _sm_count(g2.device.index), True)
+    dxt = torch.empty((rows, ci), dtype=torch.bfloat16, device=g2.device)
+    # B(k, n) = W^T[co, ci]: the bf16 copy [Co, Cp] read MN-major
+    with torch.cuda.device(g2.device):
+        kernels.launch(
+            "dense_rows_dgrad_bf16", "pvcnn_dense_rows_fwd_bf16",
+            gp.data_ptr(), gp.shape[1], w16.data_ptr(), w16.shape[1], 0,
+            None, None, None, 0.0, dxt.data_ptr(), ci, None, rows, co, ci, 0,
+            plan.bn, torch.cuda.current_stream().cuda_stream)
+    return dxt
+
+
+def _wgrad_cuda_bf16(x2, g2, pscale, pshift, slope, has_prologue):
+    _check([x2, g2] + ([pscale, pshift] if has_prologue else []),
+           "dense_rows wgrad", bf16=2)
+    rows, ci = x2.shape
+    co = g2.shape[1]
+    if g2.shape[0] != rows:
+        raise ValueError(f"x {tuple(x2.shape)} and g {tuple(g2.shape)} "
+                         "differ in rows")
+    pro = _prologue(pscale, pshift, ci, has_prologue)
+    dw = torch.empty((ci, co), dtype=torch.float32, device=x2.device)
+    db = torch.empty(co, dtype=torch.float32, device=x2.device)
+    if rows == 0:                        # no rows: nothing to launch
+        return dw.zero_(), db.zero_()
+    xp, gp = _padded16(x2), _padded16(g2)
+    plan = _plan(ci, co, rows, True, _sm_count(x2.device.index), True)
+    # the chunks' f32 partials, added in order by the fold kernel:
+    # reproducible bit for bit
+    partial = (torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
+                           device=x2.device) if plan.splits > 1 else None)
+    with torch.cuda.device(x2.device):
+        kernels.launch(
+            "dense_rows_wgrad_bf16", "pvcnn_dense_rows_wgrad_bf16",
+            xp.data_ptr(), xp.shape[1], gp.data_ptr(), gp.shape[1],
+            *map(_ptr, pro), slope, _ptr(partial), dw.data_ptr(),
+            db.data_ptr(), rows, ci, co, plan.bn, plan.chunk,
             int(has_prologue), torch.cuda.current_stream().cuda_stream)
     return dw, db

@@ -14,15 +14,21 @@ Edge rule, bit-for-bit with the reference CUDA kernel: coordinates arrive
 clamped to [0, R-1]; the hi corner collapses onto lo where the fractional
 part is 0, and that corner's weight is then exactly 0.
 
-A bf16 grid (bf16 activations; the channel-major grid of the rows branch
-only) takes K2's and K5's bf16 modes on the card (counted as
-trilinear_devoxelize_bf16 and devoxelize_bwd_bf16) and the plain versions
-on widened operands on the CPU. Coordinates and weights stay f32. Forward:
-f32 weights and sum, the output rounded to bf16 once
+A bf16 grid (bf16 activations; the rows branch's channel-major grid or the
+NDHWC branch's channel-last one) takes K2's and K5's bf16 modes on the
+card (counted as trilinear_devoxelize_bf16 and devoxelize_bwd_bf16) and
+the plain versions on widened operands on the CPU. Coordinates and weights
+stay f32. Forward: f32 weights and sum, the output rounded to bf16 once
 (pvcnn_tpu/ops/devoxelize.py:219-231, 250-258). Backward: each weight
 rounded to bf16, each term w * g rounded to bf16, the terms summed in f32
 and the sum rounded to bf16 (pvcnn_tpu/ops/devoxelize.py:366-395:
-w8.astype(g.dtype) * g, the f32 scatter, .astype(g.dtype)).
+w8.astype(g.dtype) * g, the f32 scatter, .astype(g.dtype)). For a bf16
+cotangent JAX's sorted Pallas scatter declines at depth 0 (:366-373) and
+its corner-packed Pallas scatter or its one-hot `_scatter_sum` take the
+terms, both with f32 sums; where no Pallas plan fits, its XLA
+`segment_sum`s add the bf16 terms in bf16, rounding every partial sum. The
+port sums in f32 and rounds once everywhere, as the channel-major bf16 K5
+does.
 """
 
 from __future__ import annotations
@@ -119,14 +125,12 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
                          f"{grid.device} and {norm_coords.device}")
     bf16 = grid.dtype == torch.bfloat16
     if (grid.dtype not in (torch.float32, torch.bfloat16)
-            or norm_coords.dtype != torch.float32
-            or (bf16 and not channels_first)):
+            or norm_coords.dtype != torch.float32):
         raise ValueError(
             "trilinear_devoxelize kernel takes a float32 grid and "
-            "norm_coords (trilinear_devoxelize), or a channel-major "
-            "bfloat16 grid with float32 norm_coords "
-            f"(trilinear_devoxelize_bf16), got {grid.dtype} and "
-            f"{norm_coords.dtype}, channels_first={channels_first}")
+            "norm_coords (trilinear_devoxelize), or a bfloat16 grid with "
+            f"float32 norm_coords (trilinear_devoxelize_bf16), got "
+            f"{grid.dtype} and {norm_coords.dtype}")
     b, n, three = norm_coords.shape
     if channels_first:
         bg, c, bins = grid.shape
@@ -144,7 +148,7 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
             kernels.launch(
                 "trilinear_devoxelize_bf16", "pvcnn_trilinear_devoxelize_bf16",
                 grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b,
-                n, c, r, stream)
+                n, c, r, int(channels_first), stream)
         else:
             # the kernel maps a channel-major grid and a channel-last one
             # differently
@@ -180,14 +184,11 @@ def _devoxelize_bwd_cuda(g, norm_coords, resolution, channels_first):
                          f"one CUDA device, got {g.device} and "
                          f"{norm_coords.device}")
     if (g.dtype not in (torch.float32, torch.bfloat16)
-            or norm_coords.dtype != torch.float32
-            or (g.dtype == torch.bfloat16 and not channels_first)):
+            or norm_coords.dtype != torch.float32):
         raise ValueError(
             "devoxelize_bwd kernel takes a float32 g and norm_coords "
             "(devoxelize_bwd), or a bfloat16 g with float32 norm_coords "
-            "into a channel-major grid (devoxelize_bwd_bf16), got "
-            f"{g.dtype} and {norm_coords.dtype}, "
-            f"channels_first={channels_first}")
+            f"(devoxelize_bwd_bf16), got {g.dtype} and {norm_coords.dtype}")
     b, n, c = g.shape
     if tuple(norm_coords.shape) != (b, n, 3):
         raise ValueError(f"g {tuple(g.shape)} and norm_coords "
@@ -232,20 +233,21 @@ def _sort_points_plain(norm_coords, r):
 
 
 def _launch_k5_sorted(g, points, bounds, r, channels_first):
-    """K5 alone on a contiguous float32 g [B, N, C] and `_sort_points`'
-    output: the grid gradient [B, C, R^3] with channels_first, else
-    [B, R^3, C] (the kernel maps the two layouts differently)."""
+    """K5 alone on a contiguous float32 or bfloat16 g [B, N, C] and
+    `_sort_points`' output: the grid gradient [B, C, R^3] with
+    channels_first, else [B, R^3, C] (the kernel maps the two layouts
+    differently)."""
     b, n, c = g.shape
     bins = r ** 3
     out = torch.empty((b, c, bins) if channels_first else (b, bins, c),
                       dtype=g.dtype, device=g.device)
     stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(g.device):
-        if g.dtype == torch.bfloat16:          # channel-major
+        if g.dtype == torch.bfloat16:
             kernels.launch(
                 "devoxelize_bwd_bf16", "pvcnn_devoxelize_bwd_bf16",
                 g.data_ptr(), points.data_ptr(), bounds.data_ptr(),
-                out.data_ptr(), b, n, c, r, stream)
+                out.data_ptr(), b, n, c, r, int(channels_first), stream)
         else:
             kernels.launch(
                 "devoxelize_bwd", "pvcnn_devoxelize_bwd", g.data_ptr(),

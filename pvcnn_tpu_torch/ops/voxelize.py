@@ -15,9 +15,10 @@ counted as the `scatter_sum` kernel; plain: `scatter_add_`): the backward of
 the row gather `take_rows` (ops/gather_utils.py), as pvcnn_tpu/ops/voxelize.py:
 _scatter_sum is in the JAX package.
 
-bf16 values (bf16 activations): the rows branch's channel-major mean is
-K1's bf16 mode on the card (counted as `avg_voxelize_bf16`), the plain
-version on the values widened to f32 on the CPU. The sums and the divide
+bf16 values (bf16 activations): the mean, into the rows branch's
+channel-major grid or the NDHWC branch's channel-last one, is K1's bf16
+mode on the card (counted as `avg_voxelize_bf16`), the plain version on
+the values widened to f32 on the CPU. The sums and the divide
 are f32 and the means are rounded to bf16 once (pvcnn_tpu/ops/voxelize.py:
 122-139: the f32 one-hot sums, means.astype(features.dtype)). The backward
 divides by the counts cast to the cotangent's dtype, as the JAX package's
@@ -173,12 +174,6 @@ def _launch_k1(kernel, features, flat_idx, num_bins, channels_first, mean):
         raise ValueError(f"{kernel} kernel needs values and indices on one "
                          f"CUDA device, got {features.device} and "
                          f"{flat_idx.device}")
-    if kernel == "avg_voxelize_bf16" and not channels_first:
-        raise ValueError("avg_voxelize_bf16 kernel takes bfloat16 values "
-                         "into the channel-major grid only "
-                         "(channels_first=True); the channel-last grid "
-                         "takes float32 values (avg_voxelize), got "
-                         f"{features.dtype} with channels_first=False")
     dtype = (torch.bfloat16 if kernel.endswith("_bf16")
              else torch.float32)
     if features.dtype != dtype or features.dim() != 3:
@@ -243,10 +238,14 @@ def _launch_k1_sorted(kernel, features, perm, bounds, num_bins,
     ids_ptr = None if ids is None else ids.data_ptr()
     stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(features.device):
-        if features.dtype == torch.bfloat16:   # channel-major means, or sums
+        if features.dtype == torch.bfloat16 and mean:
             kernels.launch(
-                kernel, ("pvcnn_avg_voxelize_bf16" if mean
-                         else "pvcnn_scatter_sum_bf16"), features.data_ptr(),
+                kernel, "pvcnn_avg_voxelize_bf16", features.data_ptr(),
+                ids_ptr, perm.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+                b, n, c, int(num_bins), int(channels_first), stream)
+        elif features.dtype == torch.bfloat16:     # bin-major sums
+            kernels.launch(
+                kernel, "pvcnn_scatter_sum_bf16", features.data_ptr(),
                 ids_ptr, perm.data_ptr(), bounds.data_ptr(), out.data_ptr(),
                 b, n, c, int(num_bins), stream)
         else:

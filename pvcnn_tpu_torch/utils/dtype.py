@@ -33,9 +33,8 @@ def fp32_only(dtype, what: str) -> None:
         raise NotImplementedError(
             f"{what} runs float32 activations only; bf16 activations are "
             "ported for ShapeNet PVCNN, S3DIS PVCNN2, S3DIS PVCNN and "
-            "ShapeNet PointNet++ SSG / MSG on their default paths (the "
-            "fused rows branch, the unfused SharedMLPs), and the rest is "
-            "queued in ROADMAP.md (Queue 1)")
+            "ShapeNet PointNet++ SSG / MSG, on every branch the switches "
+            "open, and the rest is queued in ROADMAP.md (Queue 1)")
 
 
 def wide(t: torch.Tensor) -> torch.Tensor:

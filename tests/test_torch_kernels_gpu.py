@@ -1472,17 +1472,28 @@ def test_k1_k2_k5_bf16(dev, c, r):
 
 
 def test_bf16_kernels_reject_what_they_do_not_take(dev):
-    """Channel-last bf16 grids, mixed bf16 and float32 operands: a
-    ValueError naming the dtype it got and the kernels that take it."""
+    """Mixed bf16 and float32 operands, bf16 coordinates: a ValueError
+    naming the dtype it got and the kernels that take it (channel-last
+    bf16 grids are K1's, K2's and K5's bf16 modes since they serve the
+    NDHWC branch)."""
     bf = torch.bfloat16
     x = torch.randn(1, 4, 512, device=dev)
     with pytest.raises(ValueError, match="bfloat16"):
-        voxelize._scatter_mean_cuda(x.transpose(1, 2).to(bf), torch.zeros(
-            1, 512, dtype=torch.int32, device=dev), 512, False)
-    with pytest.raises(ValueError, match="bfloat16"):
         devoxelize._devoxelize_cuda(x.transpose(1, 2).contiguous().to(bf),
-                                    torch.rand(1, 64, 3, device=dev), 8,
-                                    False)
+                                    torch.rand(1, 64, 3, device=dev).to(bf),
+                                    8, False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        devoxelize._devoxelize_bwd_cuda(
+            torch.randn(1, 64, 4, device=dev).to(bf),
+            torch.rand(1, 64, 3, device=dev).double(), 8, False)
+    with pytest.raises(ValueError, match="dense_rows_wgrad_bf16"):
+        from pvcnn_tpu_torch.ops import dense_rows
+        dense_rows._wgrad_cuda(torch.randn(8, 4, device=dev).to(bf),
+                               torch.randn(8, 4, device=dev), None, None,
+                               0.0, False)
+    with pytest.raises(ValueError, match="conv3d_ndhwc_wgrad_bf16"):
+        conv3d._ndhwc_wgrad_cuda(torch.randn(1, 4, 4, 4, 2, device=dev).to(
+            bf), torch.randn(1, 4, 4, 4, 2, device=dev), 3)
     with pytest.raises(ValueError, match="conv3d_fwd_bf16"):
         conv3d._forward_cuda(x.to(bf), torch.randn(4, 4, 3, 3, 3, device=dev),
                              torch.zeros(4, device=dev), None, None, 8,
@@ -1608,3 +1619,313 @@ def test_k1_sum_bf16_unaligned_rows(dev):
     idx = torch.randint(0, 64, (2, 300), dtype=torch.int32, device=dev)
     got = _k1_sum_bf16(values, idx, 64)
     assert torch.equal(got, ops.scatter_sum(values.clone(), idx, 64))
+
+
+# ---- the bf16 modes of K9 / K10, K11 and the channel-last K1 / K2 / K5 -----
+
+
+def _dense_bf16_check(dev, rows, ci, co, has_prologue, x_offset=0,
+                      w_offset=0):
+    """K9 (with statistics), its dgrad and K10 in bf16 against their plain
+    versions: y and dx within two bf16 roundings of their scale, the f32
+    statistics within 1e-4 of the plain sums (s1 relative to sum |y|), dW
+    and d(bias) within 1e-4 of their largest entry; each bitwise equal
+    over two runs and on another stream; one launch a call of each bf16
+    record (K10 none without rows). x_offset / w_offset > 0 hand the
+    wrappers views that start off a 16-byte boundary."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    bf = torch.bfloat16
+    base = torch.randn(rows * ci + x_offset, device=dev).to(bf)
+    x = base[x_offset:].view(rows, ci)
+    wbase = torch.randn(co * ci + w_offset, device=dev) / ci ** 0.5
+    w = wbase[w_offset:].view(co, ci).t()               # the SharedMLP's view
+    bias = torch.randn(co, device=dev)
+    scale, shift = torch.rand(ci, device=dev) + 0.5, torch.randn(ci,
+                                                                 device=dev)
+    g = torch.randn(rows, co, device=dev).to(bf)
+    args = (x, w, bias, scale, shift, 0.1, has_prologue, True)
+
+    def run():
+        return (*dense_rows._forward_cuda(*args), dense_rows._dgrad_cuda(g, w),
+                *dense_rows._wgrad_cuda(x, g, scale, shift, 0.1,
+                                        has_prologue))
+
+    counts = kernels.launch_counts()
+    got = run()
+    after = kernels.launch_counts()
+    # K9 and its dgrad are launched (the launcher returns without rows);
+    # K10's wrapper returns zeros without a launch
+    for name in ("dense_rows_fwd_bf16", "dense_rows_dgrad_bf16",
+                 "dense_rows_wgrad_bf16"):
+        assert after[name] == counts[name] + (
+            1 if rows or not name.endswith("wgrad_bf16") else 0)
+    y, s1, s2, dx, dw, db = got
+    assert (y.dtype, dx.dtype, dw.dtype, db.dtype) == (bf, bf, torch.float32,
+                                                       torch.float32)
+    want, w1, w2 = dense_rows._forward_plain(*args)
+    if rows:
+        _bf16_close(y, want)
+        mag = want.float().abs().sum(0)                 # sum |y| a channel
+        assert ((s1 - w1).abs() <= 1e-4 * mag + 1e-6).all()
+        assert ((s2 - w2).abs() <= 1e-4 * w2 + 2e-4 * mag + 1e-6).all()
+        _bf16_close(dx, dense_rows._dgrad_plain(g, w))
+    want_dw, want_db = dense_rows._wgrad_plain(x, g, scale, shift, 0.1,
+                                               has_prologue)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                               atol=1e-4 * want_dw.abs().max().item())
+    torch.testing.assert_close(db, want_db, rtol=1e-4,
+                               atol=1e-4 * want_db.abs().max().item())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+    return got
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("rows", [0, 1, 37, 128, 129, 1000])
+@pytest.mark.parametrize("ci,co", [(9, 64), (9, 70), (130, 70), (64, 130),
+                                   (4, 4), (323, 196)])
+def test_dense_rows_bf16_ragged(dev, ci, co, rows, has_prologue):
+    """K9 / dgrad / K10 in bf16 on no rows, rows that fill no tile or one
+    tile and a row, Ci = 9 (padded to 16), Co = 70, 130, 196 (MSG's,
+    padded to 200 for the dgrad's rows)."""
+    _dense_bf16_check(dev, rows, ci, co, has_prologue)
+
+
+@pytest.mark.parametrize("ci,co", [(9, 64), (64, 64), (64, 128),
+                                   (128, 1024), (512, 256)])
+def test_dense_rows_bf16_opt_in_shapes(dev, ci, co):
+    """Every K9 / dgrad / K10 shape of the S3DIS PVCNN opt-in step at its
+    131,072 rows (K10 split into its plan's chunks)."""
+    _dense_bf16_check(dev, 131072, ci, co, False)
+
+
+@pytest.mark.parametrize("x_offset,w_offset", [(1, 0), (0, 1), (3, 5)])
+def test_dense_rows_bf16_unaligned(dev, x_offset, w_offset):
+    """Rows and a weight that start off a 16-byte boundary: the wrappers
+    copy them into aligned, padded operands, and the results are those of
+    the aligned tensors."""
+    torch.manual_seed(3)
+    got = _dense_bf16_check(dev, 1000, 64, 128, True, x_offset, w_offset)
+    torch.manual_seed(3)
+    base = _dense_bf16_check(dev, 1000, 64, 128, True)
+    if (x_offset, w_offset) == (0, 0):
+        assert all(torch.equal(a, b) for a, b in zip(got, base))
+
+
+@pytest.mark.parametrize("chunk", [32, 96, 4096])
+@pytest.mark.parametrize("ci,co", [(9, 64), (130, 70), (128, 256)])
+def test_dense_rows_bf16_wgrad_fold(dev, monkeypatch, ci, co, chunk):
+    """K10 in bf16 on forced chunks of 1, 3 and 128 slices of 32 rows
+    (4,100 rows, the last chunks ragged), folded in order, against the
+    plain version."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    plan = dense_rows._plan
+    monkeypatch.setattr(dense_rows, "_plan", lambda *a: plan(*a)._replace(
+        chunk=chunk, splits=-(-4100 // chunk),
+        partial_bytes=4 * -(-4100 // chunk) * (ci * co + co)))
+    bf = torch.bfloat16
+    x = torch.randn(4100, ci, device=dev).to(bf)
+    g = torch.randn(4100, co, device=dev).to(bf)
+    scale, shift = torch.rand(ci, device=dev) + 0.5, torch.randn(ci,
+                                                                 device=dev)
+    for pro in (False, True):
+        dw, db = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, pro)
+        want_dw, want_db = dense_rows._wgrad_plain(x, g, scale, shift, 0.1,
+                                                   pro)
+        torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                                   atol=1e-4 * want_dw.abs().max().item())
+        torch.testing.assert_close(db, want_db, rtol=1e-4,
+                                   atol=1e-4 * want_db.abs().max().item())
+        again = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, pro)
+        assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_dense_rows_bf16_grads_on_card(dev):
+    """The bf16 op's VJP on the card against the CPU's plain versions: y
+    and dx within two bf16 roundings of their scale, the statistics,
+    dW, d(bias), dscale and dshift f32 within 1e-3 of their scale."""
+    from pvcnn_tpu_torch.ops import dense_rows_act
+
+    bf = torch.bfloat16
+    rows, ci, co = 1024, 32, 48
+    x = torch.randn(rows, ci).to(bf)
+    w, bias = torch.randn(ci, co) / ci ** 0.5, torch.randn(co)
+    scale, shift = torch.rand(ci) + 0.5, torch.randn(ci)
+    gy = torch.randn(rows, co).to(bf)
+    gs1, gs2 = torch.randn(co) * 1e-3, torch.randn(co) * 1e-4
+
+    def vjp(device):
+        ins = [t.to(device).requires_grad_(t.is_floating_point())
+               for t in (x, w, bias, scale, shift)]
+        y, s1, s2 = dense_rows_act(*ins, 0.1, True, True)
+        torch.autograd.backward((y, s1, s2), (gy.to(device), gs1.to(device),
+                                              gs2.to(device)))
+        return [y, s1, s2] + [t.grad for t in ins]
+
+    got = [t.cpu() for t in vjp(dev)]
+    want = vjp("cpu")
+    _bf16_close(got[0], want[0])
+    _bf16_close(got[3], want[3])
+    for a, b in zip(got[1:3] + got[4:], want[1:3] + want[4:]):
+        assert a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-3,
+                                   atol=1e-3 * b.abs().max().item())
+
+
+def _ndhwc_bf16_inputs(dev, b, r, ci, co, offset=0):
+    bf = torch.bfloat16
+    base = torch.randn(b * r ** 3 * ci + offset, device=dev).to(bf)
+    x = base[offset:].view(b, r, r, r, ci)
+    return x, torch.randn(b, r, r, r, co, device=dev).to(bf)
+
+
+@pytest.mark.parametrize("b,r,ci,co", [(2, 8, 9, 64), (2, 8, 16, 16),
+                                       (1, 12, 70, 33), (2, 16, 64, 64),
+                                       (1, 16, 64, 128), (1, 16, 128, 128),
+                                       (2, 32, 9, 64), (1, 32, 64, 64),
+                                       (0, 8, 16, 16), (3, 5, 24, 40)])
+def test_conv3d_ndhwc_wgrad_bf16_kernel(dev, b, r, ci, co):
+    """K11 in bf16 against its plain version (within two bf16 roundings of
+    dW's scale), bitwise equal over two runs and on another stream, and
+    bitwise equal to K4's bf16 mode on the same grids channel-major (the
+    channel-last staging pass writes K4's staged layout); one launch a
+    call (none without clouds)."""
+    x, g = _ndhwc_bf16_inputs(dev, b, r, ci, co)
+    before = kernels.KERNELS["conv3d_ndhwc_wgrad_bf16"].launches
+    dw = conv3d._ndhwc_wgrad_cuda(x, g, 3)
+    assert kernels.KERNELS["conv3d_ndhwc_wgrad_bf16"].launches == \
+        before + (1 if b else 0)
+    assert dw.dtype == torch.bfloat16 and dw.shape == (co, ci, 3, 3, 3)
+    want = conv3d._ndhwc_wgrad_plain(x, g, 3)
+    if not b:
+        assert not dw.any()
+        return
+    _bf16_close(dw, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = conv3d._ndhwc_wgrad_cuda(x, g, 3)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, again)
+    assert torch.equal(dw, conv3d._ndhwc_wgrad_cuda(x, g, 3))
+    rows = lambda t: t.reshape(b, r ** 3, -1).transpose(1, 2).contiguous()
+    assert torch.equal(dw, conv3d._wgrad_cuda(rows(x), rows(g), None, None,
+                                              r, False))
+
+
+def test_conv3d_ndhwc_wgrad_bf16_unaligned(dev):
+    """x starting off a 16-byte boundary (and Ci = 9: 18-byte rows) is
+    staged element by element, to the same dW."""
+    for ci in (9, 64):
+        x, g = _ndhwc_bf16_inputs(dev, 2, 8, ci, 32, offset=3)
+        assert torch.equal(conv3d._ndhwc_wgrad_cuda(x, g, 3),
+                           conv3d._ndhwc_wgrad_cuda(x.clone(), g, 3))
+
+
+def test_conv3d_same_bf16_grads_on_card(dev):
+    """conv3d_same's VJP in bf16 on the card (cuDNN's bf16 convs, K11's bf16
+    mode) against the CPU's (f32 convs of the widened operands, rounded;
+    the plain K11): y, dx and dW bf16 within two roundings of their
+    scale."""
+    bf = torch.bfloat16
+    x = torch.randn(2, 8, 8, 8, 16).to(bf)
+    w = (torch.randn(32, 16, 3, 3, 3) / 12).to(bf)
+    g = torch.randn(2, 8, 8, 8, 32).to(bf)
+
+    def vjp(device):
+        xx, ww = (t.to(device).requires_grad_() for t in (x, w))
+        y = conv3d.conv3d_same(xx, ww)
+        y.backward(g.to(device))
+        return y, xx.grad, ww.grad
+
+    for a, b in zip(vjp(dev), vjp("cpu")):
+        _bf16_close(a.cpu(), b)
+
+
+@pytest.mark.parametrize("c,r", [(1, 8), (5, 8), (9, 32), (16, 16),
+                                 (64, 32), (130, 16)])
+def test_k1_k2_k5_bf16_channel_last(dev, c, r):
+    """K1's, K2's and K5's bf16 modes on channel-last grids [B, R^3, C] (the
+    NDHWC branch) against their plain versions (K1 and K2 within two bf16
+    roundings of the output's scale, K5 within 2^-7 of each bin's sum of
+    |terms|), two runs bitwise equal (the second also on another stream),
+    and bitwise equal to the channel-major modes transposed (the same sums
+    in the same order)."""
+    bf = torch.bfloat16
+    b, n = 2, 700
+    vox, norm = ops.normalize_coords(_coords(dev, b=b, n=n), r,
+                                     normalize=False)
+    flat = ops.flat_voxel_index(vox, r)
+    flat[0, :300] = flat[0, 0]                       # a run of 300 rows
+    feats = torch.randn(b, n, c, device=dev).to(bf)
+    got = _counted("avg_voxelize_bf16", voxelize._scatter_mean_cuda, feats,
+                   flat, r ** 3, False)[0]
+    assert got.shape == (b, r ** 3, c)
+    _bf16_close(got, voxelize._scatter_mean_plain(feats, flat, r ** 3,
+                                                  False))
+    assert torch.equal(got, voxelize._scatter_mean_cuda(feats, flat, r ** 3,
+                                                        False)[0])
+    assert torch.equal(got.transpose(1, 2), voxelize._scatter_mean_cuda(
+        feats, flat, r ** 3, True)[0])
+    grid = torch.randn(b, r ** 3, c, device=dev).to(bf)
+    got = _counted("trilinear_devoxelize_bf16", devoxelize._devoxelize_cuda,
+                   grid, norm, r, False)
+    _bf16_close(got, devoxelize._devoxelize_plain(grid, norm, r, False))
+    assert torch.equal(got, devoxelize._devoxelize_cuda(grid, norm, r,
+                                                        False))
+    assert torch.equal(got, devoxelize._devoxelize_cuda(
+        grid.transpose(1, 2).contiguous(), norm, r, True))
+    g = torch.randn(b, n, c, device=dev).to(bf)
+    got = _counted("devoxelize_bwd_bf16", devoxelize._devoxelize_bwd_cuda, g,
+                   norm, r, False)
+    assert got.shape == (b, r ** 3, c) and got.dtype == bf
+    want = devoxelize._devoxelize_bwd_plain(g, norm, r, False)
+    mag = devoxelize._devoxelize_bwd_plain(g.abs().float(), norm, r, False)
+    bad = (got.float() - want.float()).abs() > 2 ** -7 * mag + 1e-30
+    assert not bad.any()
+    assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(g, norm, r,
+                                                            False))
+    assert torch.equal(got.transpose(1, 2), devoxelize._devoxelize_bwd_cuda(
+        g, norm, r, True))
+
+    def run():
+        return (voxelize._scatter_mean_cuda(feats, flat, r ** 3, False)[0],
+                devoxelize._devoxelize_cuda(grid, norm, r, False),
+                devoxelize._devoxelize_bwd_cuda(g, norm, r, False))
+
+    first = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_k1_k2_k5_bf16_channel_last_unaligned(dev):
+    """Channel-last bf16 rows and grids off an 8-byte boundary take the
+    scalar paths, to the same results."""
+    bf = torch.bfloat16
+    b, n, c, r = 2, 500, 32, 8
+    vox, norm = ops.normalize_coords(_coords(dev, b=b, n=n), r,
+                                     normalize=False)
+    flat = ops.flat_voxel_index(vox, r)
+    feats = torch.randn(b * n * c + 1, device=dev).to(bf)[1:].view(b, n, c)
+    assert torch.equal(voxelize._scatter_mean_cuda(feats, flat, r ** 3,
+                                                   False)[0],
+                       voxelize._scatter_mean_cuda(feats.clone(), flat,
+                                                   r ** 3, False)[0])
+    g = torch.randn(b * n * c + 1, device=dev).to(bf)[1:].view(b, n, c)
+    assert torch.equal(devoxelize._devoxelize_bwd_cuda(g, norm, r, False),
+                       devoxelize._devoxelize_bwd_cuda(g.clone(), norm, r,
+                                                       False))
