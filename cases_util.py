@@ -1,6 +1,7 @@
-"""What the per-case scripts (k1_k6_cases.py, k4_cases.py, k7_k11_cases.py,
-k9_k10_cases.py) share: the card's name and power limit, ptxas's log and
-the SASS instruction mix of chosen kernels, host-clock and profiler timings of one call, and output
+"""What the per-case scripts (k1_k6_cases.py, k2_k5_cases.py, k4_cases.py,
+k7_k11_cases.py, k9_k10_cases.py) share: the card's name and power limit,
+ptxas's log, the SASS instruction mix of chosen kernels and digests of
+their SASS, host-clock and profiler timings of one call, and output
 digests that compare two trees bit for bit.
 
 Each script imports this module after its `--tree` has put another
@@ -169,6 +170,8 @@ class Digests:
         the saved tree's ("" without one)."""
         h = hashlib.sha256()
         for t in tensors:
+            if t.dtype == torch.bfloat16:       # numpy has no bf16: its bits
+                t = t.view(torch.int16)
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
         self.saved[key] = h.hexdigest()
         if self.theirs is None:
@@ -223,6 +226,25 @@ def sass_functions(lib_path) -> dict:
                 break
         out.setdefault(full[:cut], funcs[mangled])
     return out
+
+
+def sass_digests(lib_path, keys) -> dict:
+    """{demangled kernel name: SHA-256 (16 hex digits) of its stripped
+    SASS} of each kernel of a built library whose name holds one of
+    keys."""
+    return {name: hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+            for name, lines in sass_functions(lib_path).items()
+            if any(k in name for k in keys)}
+
+
+def nvcc_version() -> str:
+    """The last line of `nvcc --version` (its release and build)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"),
+                          "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    return out.strip().splitlines()[-1]
 
 
 def sass_diff(new_lib, old_lib) -> None:

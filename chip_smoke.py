@@ -262,7 +262,12 @@ failure:
                 and K4 case's share of its bound and ratio to cuDNN, K3's
                 staging pass alone, K4 timed as the step runs it (on the
                 forward's staged a(x) and the dgrad's staged cotangent);
-                HGMMA in K3's and K4's SASS (cuobjdump); the bf16
+                each K2 / K5 case's share of its bound (K5's kernel alone
+                too); HGMMA in K3's and K4's SASS (cuobjdump); the six
+                brick instantiations of the channel-major bf16 K2 and K5
+                each, none of the old ones, and the fp32 and channel-last
+                K2 / K5 kernels' SASS equal to DEVOX_SASS's (where nvcc is
+                the one that recorded it); the bf16
                 training step of PVCNN 1x at 32 x 2048 and 0.25x at 64 x
                 2048 (the JAX headline's batch) on the kernel and plain
                 paths: step 1 twice bitwise equal; the eval logits, step-1
@@ -976,6 +981,7 @@ class Record:
 
     def __init__(self, calls: dict):
         self.calls = calls
+        self.last_split = None     # (glue, kernel alone) ms of the last split
         self.rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                         "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
                         "library_ms": 0.0, "library_cases": 0, "cases": 0,
@@ -1002,6 +1008,7 @@ class Record:
         parts = ""
         if split is not None:
             glue_ms, alone_ms = time_ms(split[0]), time_ms(split[1])
+            self.last_split = glue_ms, alone_ms
             parts = f" (glue {glue_ms:.4f} ms, kernel alone {alone_ms:.4f})"
             r["glue_ms"] += calls * glue_ms
             r["kernel_alone_ms"] += calls * alone_ms
@@ -2071,10 +2078,12 @@ PROFILE_GROUPS = (
     ("K9 bf16 dense forward + dgrad", ("dense_rows_bf16_kernel",)),
     ("K10 dense wgrad + fold", ("dense_rows_wgrad_kernel",
                                 "dense_rows_fold_kernel")),
-    ("K5 devoxelize backward", ("devoxelize_bwd_kernel",)),
+    ("K5 devoxelize backward", ("devoxelize_bwd_kernel",
+                                "devoxelize_bwd_bricks_kernel")),
     ("K5 sort (glue)", ("devoxelize_bwd_sort_kernel",)),
     ("K2 trilinear devoxelize", ("trilinear_devoxelize_kernel",
-                                 "trilinear_devoxelize_planes_kernel")),
+                                 "trilinear_devoxelize_planes_kernel",
+                                 "trilinear_devoxelize_bricks_kernel")),
     ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_bins_kernel",)),
     ("K1 sort (glue)", ("avg_voxelize_sort_kernel",)),
     ("K6 fps", ("fps_kernel",)),
@@ -3913,9 +3922,14 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
             "trilinear_devoxelize_bf16", case,
             run_lib().reshape(b, c, n).transpose(1, 2).float(), want.float(),
             want.abs().max().item())
-        add("trilinear_devoxelize_bf16", case, err, run_k, run_p,
-            16 * b * n * c, 2 * b * c * r ** 3 + 12 * b * n + 2 * b * n * c,
-            run_lib if lib_ok else None)
+        timed = add("trilinear_devoxelize_bf16", case, err, run_k, run_p,
+                    16 * b * n * c,
+                    2 * b * c * r ** 3 + 12 * b * n + 2 * b * n * c,
+                    run_lib if lib_ok else None)
+        if timed:
+            log("kernels", f"trilinear_devoxelize_bf16 {case} "
+                f"{'channel-major' if cf else 'channel-last'}: "
+                f"{timed[1] / timed[0]:.1%} of its bound")
 
         # K5's bf16 mode: the grid gradient of the same gather
         case = (c, r, n)
@@ -3940,9 +3954,15 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
         lib_ok = _library_agrees("devoxelize_bwd_bf16", case,
                                  (lib if cf else lib.transpose(1, 2)).float(),
                                  want.float(), mag)
-        add("devoxelize_bwd_bf16", case, err, run_k, run_p, 16 * b * n * c,
-            2 * b * n * c + 12 * b * n + 2 * b * c * r ** 3,
-            run_lib if lib_ok else None, split=split)
+        timed = add("devoxelize_bwd_bf16", case, err, run_k, run_p,
+                    16 * b * n * c,
+                    2 * b * n * c + 12 * b * n + 2 * b * c * r ** 3,
+                    run_lib if lib_ok else None, split=split)
+        if timed:
+            log("kernels", f"devoxelize_bwd_bf16 {case} "
+                f"{'channel-major' if cf else 'channel-last'}: "
+                f"{timed[1] / timed[0]:.1%} of its bound, the kernel alone "
+                f"{timed[1] / rec.last_split[1]:.1%}")
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -4081,11 +4101,104 @@ def _check_bf16_sass() -> None:
             raise AssertionError(f"{key}: no HGMMA in its SASS")
 
 
+# The SASS digests (cases_util.sass_digests, names by _sass_name) of the
+# kernels of csrc/devoxelize.cu and csrc/devoxelize_bwd.cu whose names hold
+# one of DEVOX_KEEP, those that kept their code when
+# the channel-major bf16 K2 / K5 became brick kernels: fp32 K2 and K5, K5's
+# sort, the channel-last bf16 modes; as this nvcc built them from the
+# parent of that change (`k2_k5_cases.py --tree <parent> --sass FILE`;
+# NVIDIA H100 80GB HBM3, nvcc 12.9)
+DEVOX_KEEP = ("trilinear_devoxelize_kernel",
+              "trilinear_devoxelize_planes_kernel", "devoxelize_bwd_kernel<",
+              "devoxelize_bwd_sort_kernel")
+DEVOX_SASS = {
+    "nvcc": "Build cuda_12.9.r12.9/compiler.36037853_0",
+    "digests": {
+        "devoxelize_bwd_kernel<__nv_bfloat16,1,32,8,0>": "da09c92f35d7b50a",
+        "devoxelize_bwd_kernel<__nv_bfloat16,1,8,1,0>": "b52ae2859e6157d7",
+        "devoxelize_bwd_kernel<__nv_bfloat16,1,8,2,0>": "2174034916735037",
+        "devoxelize_bwd_kernel<__nv_bfloat16,1,8,4,0>": "63f452cf4bca674d",
+        "devoxelize_bwd_kernel<__nv_bfloat16,4,32,2,0>": "900b95bbe9f8162d",
+        "devoxelize_bwd_kernel<__nv_bfloat16,4,8,1,0>": "de424e6f6d341872",
+        "devoxelize_bwd_kernel<__nv_bfloat16,4,8,2,0>": "2ef72f907c081d33",
+        "devoxelize_bwd_kernel<__nv_bfloat16,4,8,4,0>": "591eb7f99eee30f1",
+        "devoxelize_bwd_kernel<float,1,32,8,0>": "f9d2915db13f4000",
+        "devoxelize_bwd_kernel<float,1,32,8,1>": "274c43f0d96965c3",
+        "devoxelize_bwd_kernel<float,1,8,1,0>": "a047fa1daf4c96e1",
+        "devoxelize_bwd_kernel<float,1,8,1,1>": "29838ffe7c365e62",
+        "devoxelize_bwd_kernel<float,1,8,2,0>": "910b65cc3d3cbccd",
+        "devoxelize_bwd_kernel<float,1,8,2,1>": "a876708399ccc164",
+        "devoxelize_bwd_kernel<float,1,8,4,0>": "b775d8356034073c",
+        "devoxelize_bwd_kernel<float,1,8,4,1>": "00a60c50dc64b556",
+        "devoxelize_bwd_kernel<float,4,32,2,0>": "4167bacd37abc92c",
+        "devoxelize_bwd_kernel<float,4,32,2,1>": "697d8d670936941d",
+        "devoxelize_bwd_kernel<float,4,8,1,0>": "1a524e657fd514c5",
+        "devoxelize_bwd_kernel<float,4,8,1,1>": "913a1d1a4c486d86",
+        "devoxelize_bwd_kernel<float,4,8,2,0>": "af4fa214c8c40c66",
+        "devoxelize_bwd_kernel<float,4,8,2,1>": "0e79e1581de125cc",
+        "devoxelize_bwd_kernel<float,4,8,4,0>": "bc5b10c4e90637d4",
+        "devoxelize_bwd_kernel<float,4,8,4,1>": "e3370742cc9b6c3f",
+        "devoxelize_bwd_sort_kernel": "14e5a35813b77e73",
+        "trilinear_devoxelize_kernel<__nv_bfloat16>": "d6809f04085fa259",
+        "trilinear_devoxelize_kernel<float>": "ff02cb75c8be64e4",
+        "trilinear_devoxelize_planes_kernel<16,float>": "5574c5132d270f2f",
+        "trilinear_devoxelize_planes_kernel<32,float>": "08eab714954093d2",
+    }}
+
+
+def _sass_name(name: str) -> str:
+    """A demangled kernel name as DEVOX_SASS keys it: without its return
+    type, namespace, casts and spaces."""
+    return name.split("::", 1)[-1].replace("(int)", "").replace(
+        "(bool)", "").replace(" ", "")
+
+
+def _check_devox_sass() -> None:
+    """The channel-major bf16 K2 / K5 are the brick kernels (each
+    instantiation built, none of the old channel-major bf16 ones left),
+    and the kernels that kept their code have DEVOX_SASS's SASS where
+    this nvcc is the one that recorded it."""
+    import cases_util
+    from pvcnn_tpu_torch import kernels
+
+    lib_path, _, _ = kernels.build()
+    names = list(cases_util.sass_functions(lib_path))
+    for key in ("trilinear_devoxelize_bricks_kernel<",
+                "devoxelize_bwd_bricks_kernel<"):
+        found = sorted(_sass_name(n) for n in names if key in n)
+        log("kernels", f"{key[:-1]}: {found}")
+        if len(found) != 6:                  # 8, 16, 32 channels x 2 bricks
+            raise AssertionError(f"{key[:-1]}: {len(found)} of its 6 "
+                                 "instantiations built")
+    old = [n for n in names if "__nv_bfloat16" in n and (
+        "trilinear_devoxelize_planes_kernel<" in n
+        or ("devoxelize_bwd_kernel<" in n and n.endswith("(bool)1>")))]
+    if old:
+        raise AssertionError(f"old channel-major bf16 kernels built: {old}")
+    nvcc = cases_util.nvcc_version()
+    if nvcc != DEVOX_SASS.get("nvcc"):
+        log("kernels", f"fp32 and channel-last K2 / K5 SASS not compared: "
+            f"nvcc {nvcc!r}, recorded {DEVOX_SASS.get('nvcc')!r}")
+        return
+    got = {_sass_name(n): d for n, d in cases_util.sass_digests(
+        lib_path, DEVOX_KEEP).items()}
+    differ = sorted(n for n in set(got) | set(DEVOX_SASS["digests"])
+                    if got.get(n) != DEVOX_SASS["digests"].get(n))
+    log("kernels", f"fp32 and channel-last K2 / K5: "
+        f"{len(DEVOX_SASS['digests']) - len(differ)} of "
+        f"{len(DEVOX_SASS['digests'])} kernels' SASS as recorded")
+    if differ:
+        raise AssertionError(f"SASS changed: {differ}")
+
+
 def phase_bf16_kernels() -> dict:
     """Phase 29's kernels: the bf16 modes at the shapes ShapeNet PVCNN
     training with bf16 activations gives them, at 1x (B = 32) and at 0.25x
-    (B = 64); K3's and K4's SASS holds HGMMA. -> {path: record}"""
+    (B = 64); K3's and K4's SASS holds HGMMA; the channel-major bf16 K2 /
+    K5 are the brick kernels and the fp32 and channel-last K2 / K5 kept
+    their SASS. -> {path: record}"""
     _check_bf16_sass()
+    _check_devox_sass()
     torch.manual_seed(SEED + 100)
     rng = np.random.RandomState(SEED + 100)
     recs = {}

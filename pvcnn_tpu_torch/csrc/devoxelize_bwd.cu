@@ -43,19 +43,66 @@
 // mostly from L1/L2: the bins of one block share their runs.
 //
 // bf16 mode (pvcnn_devoxelize_bwd_bf16, counted as devoxelize_bwd_bf16): the
-// same sort and walk on a bf16 cotangent, into either layout (the NDHWC
-// branch's channel-last rows of C % 4 == 0 stored 4 values, 8 bytes, a
-// lane), a template on the cotangent's type. As the JAX backward
+// same sort on a bf16 cotangent. As the JAX backward
 // (pvcnn_tpu/ops/devoxelize.py:366-395: w8.astype(g.dtype) * g, summed by
 // the f32 scatter kernel, cast to g.dtype), each weight is rounded to bf16,
 // each term w * g is rounded to bf16 (the product of two bf16 is exact in
 // f32, then rounded), the terms add in f32 in the fixed order, and the sum
-// is rounded to bf16 once. The fp32 instantiations are the fp32 kernel's
-// code.
+// is rounded to bf16 once. Into a channel-last grid (the NDHWC branch) it
+// runs the walk above, a template on the cotangent's type (rows of C % 4
+// == 0 stored 4 values, 8 bytes, a lane); the fp32 instantiations are the
+// fp32 kernel's code.
+//
+// Into the channel-major grid [B, C, R^3] (the rows branch of every
+// default bf16 step), devoxelize_bwd_bricks_kernel<TC, BZ>. The walk above
+// was slow there (8.8% of its bound at ShapeNet 1x):
+// 32 bins a block, 31 waves of blocks at R = 32, every bin's 8 bounds
+// loads and shuffles whether its runs are empty or not, a g row read once
+// per corner bin that holds it, 64 bytes a warp store. Here a block of 512
+// threads takes one (cloud, brick of 512 output bins: 16 z x 8 y x 4 x
+// where R % 16 == 0, bricks.cuh) and walks its chunks of TC channels (8,
+// 16 or 32; more blocks share a brick's chunks only where the bricks fill
+// under two waves):
+//   1. the runs of the brick's base bins and of its -1 halo (17 x 9 x 5:
+//      every base bin whose corners reach the brick) into shared memory,
+//      two bounds loads a halo bin;
+//   2. one warp scans the halo's (x, y) rows: a row's base bins are
+//      consecutive, so its points are one stretch of sorted slots, and the
+//      rows' stretches, end to end, number the block's points (the runs
+//      become staged positions);
+//   3. the first `staged` points (the wrapper's plan: as many as two
+//      blocks an SM leave room for) are staged once: their 8 corner
+//      weights rounded to bf16 (0xffff, a NaN's bits, for a collapsed
+//      corner) and their index; the bins with a term are listed;
+//   4. per chunk, the staged points' g rows (TC channels) by 16-byte
+//      cp.async (2-byte loads where C % 8 != 0 or g is not aligned): a g
+//      row is read from device memory once a brick and chunk. Points past
+//      `staged` (a denser brick than the plan) are read where they lie;
+//   5. TC / 8 consecutive lanes take a listed bin, 8 channels a lane, and
+//      walk its 8 corner runs, k = 0..7, each in the sort's order, into a
+//      bf16 tile [TC][512] in shared memory. Lanes over channels keep a
+//      warp's lanes busy where few bins of a brick hold points (R = 32);
+//      the list skips the empty bins, whose tile entries stay zero;
+//   6. the tile goes out as 16-byte stores, two neighbouring lanes a
+//      32-byte sector of a z-run (2-byte stores where R % 8 != 0).
+// The term is one instruction for two channels: fma.rn.bf16x2 of the
+// rounded weight (twice) and the g pair with a -0 addend, RN(w * g) in
+// bf16 (no flush of subnormals: bf16 fma has no .ftz). It equals
+// round_bf16(w * g in f32) bit for bit: the exact product of two bf16 has
+// at most 16 significant bits, so it is exact in f32 unless it is below
+// 2^-126, and there f32's rounding to a multiple of 2^-149 never lands on
+// a midpoint of bf16's 2^-133 grid that the exact product was not on (the
+// significand would have to be within 1 of an odd multiple of 2^16, but
+// it is at most 255 x 255); a -0 product stays -0, a NaN stays a NaN, and
+// the f32 sum never holds -0, so every output keeps the walk's bits (the
+// GPU tests hold both layouts to each other on subnormals, zeros, NaN).
+// A collapsed corner adds +0 rather than branching, which keeps those
+// bits too.
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
+#include "bricks.cuh"
 #include "common.cuh"
 #include "counting_sort.cuh"
 
@@ -157,9 +204,6 @@ struct Load<__nv_bfloat16, 4> {
 };
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // vector c of a channel-last output row: V f32 values stored as E (a bf16
 // vector of 4 as 8 bytes, each value rounded once)
@@ -356,6 +400,328 @@ void launch_for(const ArgsOf<In>& a) {
   }
 }
 
+// ---- the channel-major bf16 mode: a block a brick --------------------------
+
+constexpr unsigned kNoCorner = 0xffffu;  // a collapsed corner's staged weight
+constexpr int kMaxBrickBytes = 225 * 1024;      // dynamic, beside 1 KB static
+
+// the bytes of shared memory before the staged points: each halo bin's
+// staged positions (first, end), each row's position minus its first slot
+// and each row's position (rows + 1), rounded up to 16 bytes
+template <class Geo>
+constexpr int kHeadBytes =
+    ((2 * Geo::kHaloBins + 2 * Geo::kRows + 1) * 4 + 15) / 16 * 16;
+// a row of the chunk's tile of sums: 512 bins and 16 bytes, so that the
+// rows of a bin's lanes (one apart) fall 8 banks apart
+constexpr int kTilePitch = 528;
+
+// RN_bf16(a * b) for two bf16 pairs: fma with a -0 addend (exact a * b + -0
+// rounded once; a -0 product stays -0)
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// acc[i] += bf16(w * g[i]) for the 8 bf16 channels of g, w2 = (w, w); none
+// where !use (adding +0 keeps every sum's bits: a sum from +0 never holds
+// -0, and a product of a NaN or an infinity never enters)
+__device__ __forceinline__ void add_terms(float* acc, unsigned w2, uint4 g,
+                                          bool use) {
+  const unsigned p[4] = {use ? mul_bf16x2(w2, g.x) : 0u,
+                         use ? mul_bf16x2(w2, g.y) : 0u,
+                         use ? mul_bf16x2(w2, g.z) : 0u,
+                         use ? mul_bf16x2(w2, g.w) : 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[2 * i] = __fadd_rn(acc[2 * i], bricks::lo_bf16(p[i]));
+    acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], bricks::hi_bf16(p[i]));
+  }
+}
+
+// channels c .. c + 7 of a bf16 row of C, zeros past C: one 16-byte load
+// where vec (C % 8 == 0 and the row 16-byte aligned), else 2-byte loads
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, int c, int C,
+                                       bool vec) {
+  if (vec) {
+    return c < C ? __ldg(reinterpret_cast<const uint4*>(row + c))
+                 : make_uint4(0, 0, 0, 0);
+  }
+  const unsigned short* r16 = reinterpret_cast<const unsigned short*>(row);
+  unsigned v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = c + i < C ? __ldg(r16 + c + i) : 0u;
+  return make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                    v[6] | v[7] << 16);
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// TC channels a chunk, 8 a lane: a bin's TC / 8 lanes walk its runs
+// together (kLanes, consecutive threads), a block's 512 threads take the
+// brick's listed bins 512 / kLanes at a time
+template <int TC, int BZ>
+__global__ void __launch_bounds__(512, 2)
+devoxelize_bwd_bricks_kernel(
+    const __nv_bfloat16* __restrict__ g,   // [B, N, C]
+    const float4* __restrict__ sorted,     // [B, N]
+    const int* __restrict__ bounds,        // [B, R^3 + 1]
+    __nv_bfloat16* __restrict__ out,       // [B, C, R^3]
+    int N, int C, int R, int staged, int vec_g, int vec_out) {
+  using Geo = bricks::Brick<BZ>;
+  constexpr int kHY = Geo::kHY, kHZ = Geo::kHZ, kRows = Geo::kRows;
+  constexpr int kLanes = TC / 8;                  // lanes a bin
+  constexpr int kThreads = Geo::kBins;            // 512
+  constexpr int kPerRound = kThreads / kLanes;    // bins a round
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_pos = reinterpret_cast<int*>(smem);      // [halo] a run's first
+  int* s_end = s_pos + Geo::kHaloBins;            // [halo] and end position
+  int* s_off = s_end + Geo::kHaloBins;            // [rows] position - slot
+  int* s_pre = s_off + kRows;                     // [rows + 1] row position
+  // [TC][kTilePitch] the chunk's bf16 sums, channel 8 q + i at row
+  // i * kLanes + q (the lanes of a bin store into other banks)
+  unsigned short* s_tile =
+      reinterpret_cast<unsigned short*>(smem + kHeadBytes<Geo>);
+  uint4* s_w = reinterpret_cast<uint4*>(s_tile + TC * kTilePitch);
+  uint4* s_g = s_w + staged;                      // [staged][kLanes]
+  int* s_idx = reinterpret_cast<int*>(s_g + staged * kLanes);  // [staged]
+  __shared__ unsigned short s_bins[Geo::kBins];  // the bins with a term
+  __shared__ int s_nbins;
+  const int tid = threadIdx.x;
+  const bricks::Origin o = Geo::origin(blockIdx.x, R);
+  const int64_t b = blockIdx.z;
+  const int64_t R3 = static_cast<int64_t>(R) * R * R;
+  const int* bnd = bounds + b * (R3 + 1);
+  const float4* pts = sorted + b * N;
+  const __nv_bfloat16* gb = g + b * N * C;
+  if (tid == 0) s_nbins = 0;
+
+  // 1. the runs (slots) of the halo's base bins, o - 1 .. o + extent - 1
+  for (int h = tid; h < Geo::kHaloBins; h += kThreads) {
+    const int ux = o.x - 1 + h / (kHY * kHZ), uy = o.y - 1 + h / kHZ % kHY,
+              uz = o.z - 1 + h % kHZ;
+    int lo = 0, hi = 0;
+    if (min(ux, min(uy, uz)) >= 0 && max(ux, max(uy, uz)) < R) {
+      const int u = (ux * R + uy) * R + uz;
+      lo = __ldg(bnd + u);
+      hi = __ldg(bnd + u + 1);
+    }
+    s_pos[h] = lo;
+    s_end[h] = hi;
+  }
+  __syncthreads();
+
+  // 2. a row's in-grid base bins are consecutive, so its points are one
+  // stretch of slots; one warp numbers the rows' stretches end to end
+  if (tid < 32) {
+    const int z_first = o.z == 0 ? 1 : 0;         // the in-grid hz
+    const int z_last = min(Geo::kZ, R - o.z);
+    constexpr int kPer = (kRows + 31) / 32;
+    int len[kPer], first[kPer], sum = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = kPer * tid + i;
+      const int ux = o.x - 1 + r / kHY, uy = o.y - 1 + r % kHY;
+      len[i] = first[i] = 0;
+      if (r < kRows && min(ux, uy) >= 0 && max(ux, uy) < R) {
+        first[i] = s_pos[r * kHZ + z_first];
+        len[i] = s_end[r * kHZ + z_last] - first[i];
+      }
+      sum += len[i];
+    }
+    int x = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, d);
+      if (tid >= d) x += y;
+    }
+    int at = x - sum;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = kPer * tid + i;
+      if (r < kRows) {
+        s_pre[r] = at;
+        s_off[r] = at - first[i];
+        at += len[i];
+      }
+    }
+    if (tid == 31) s_pre[kRows] = x;
+  }
+  __syncthreads();
+  // the runs as staged positions
+  for (int h = tid; h < Geo::kHaloBins; h += kThreads) {
+    const int off = s_off[h / kHZ];
+    s_pos[h] += off;
+    s_end[h] += off;
+  }
+  const int total = s_pre[kRows];
+  const int S = min(total, staged);
+
+  // 3. the first S points: their corner weights rounded to bf16, and index
+  for (int s = tid; s < S; s += kThreads) {
+    int lo = 0, hi = kRows;                       // s_pre[lo] <= s < s_pre[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (s_pre[mid] <= s) {
+        lo = mid;
+      } else {
+        hi = mid;
+      }
+    }
+    const float4 p = __ldg(pts + s - s_off[lo]);
+    unsigned w16[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float w;
+      w16[k] = corner_weight(p, k, &w) ? bricks::bf16_bits(w) : kNoCorner;
+    }
+    s_w[s] = make_uint4(w16[0] | w16[1] << 16, w16[2] | w16[3] << 16,
+                        w16[4] | w16[5] << 16, w16[6] | w16[7] << 16);
+    s_idx[s] = __float_as_int(p.w);
+  }
+  __syncthreads();
+
+  // the bins that have a term, listed once for every chunk (any order: a
+  // bin's sum is its own); the tile's other entries stay zero
+  {
+    const int lz = tid % BZ, ly = tid / BZ % 8, lx = tid / (8 * BZ);
+    bool has = false;
+    if (total > 0 && max(o.x + lx, max(o.y + ly, o.z + lz)) < R) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int h = ((lx + 1 - (k >> 2)) * kHY + ly + 1 - ((k >> 1) & 1)) *
+                          kHZ + lz + 1 - (k & 1);
+        has |= s_end[h] > s_pos[h];
+      }
+    }
+    if (has) s_bins[atomicAdd(&s_nbins, 1)] = tid;
+    for (int i = tid; i < TC * kTilePitch / 8; i += kThreads) {
+      reinterpret_cast<uint4*>(s_tile)[i] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();
+  const int nbins = s_nbins;
+
+  // 4-6 for each of the block's chunks of channels (every gridDim.y-th)
+  const unsigned short* s_w16 = reinterpret_cast<const unsigned short*>(s_w);
+  const int q = tid % kLanes;                     // the lane's 8 channels
+  for (int c0 = blockIdx.y * TC; c0 < C; c0 += gridDim.y * TC) {
+    // 4. the staged points' g rows' chunk, 8 channels a copy
+    for (int it = tid; it < S * kLanes; it += kThreads) {
+      const int c = c0 + 8 * (it % kLanes);
+      const __nv_bfloat16* row =
+          gb + static_cast<int64_t>(s_idx[it / kLanes]) * C;
+      if (vec_g) {
+        copy16(s_g + it, row + (c < C ? c : 0), c < C);
+      } else {
+        s_g[it] = load8(row, c, C, false);
+      }
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+    __syncthreads();
+
+    // 5. each bin walks its 8 corner runs, k = 0..7, each in the sort's
+    // order (the staged positions, then any past them), into the tile
+#pragma unroll 1
+    for (int j = tid / kLanes; j < nbins; j += kPerRound) {
+      const int bin = s_bins[j];
+      const int lz = bin % BZ, ly = bin / BZ % 8, lx = bin / (8 * BZ);
+      float acc[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll 1
+      for (int k = 0; k < 8; ++k) {
+        const int r = (lx + 1 - (k >> 2)) * kHY + ly + 1 - ((k >> 1) & 1);
+        const int h = r * kHZ + lz + 1 - (k & 1);
+        const int first = s_pos[h], end = s_end[h];
+#pragma unroll 2
+        for (int pos = first; pos < min(end, S); ++pos) {
+          const unsigned wb = s_w16[pos * 8 + k];
+          add_terms(acc, wb | wb << 16, s_g[pos * kLanes + q],
+                    wb != kNoCorner);
+        }
+        for (int pos = max(first, S); pos < end; ++pos) {  // past staged
+          const float4 p = __ldg(pts + pos - s_off[r]);
+          float w = 0.f;
+          const bool use = corner_weight(p, k, &w);
+          const unsigned wb = bricks::bf16_bits(w);
+          const __nv_bfloat16* row =
+              gb + static_cast<int64_t>(__float_as_int(p.w)) * C;
+          add_terms(acc, wb | wb << 16, load8(row, c0 + 8 * q, C, vec_g),
+                    use);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s_tile[(i * kLanes + q) * kTilePitch + bin] =
+            bricks::bf16_bits(acc[i]);
+      }
+    }
+    __syncthreads();
+
+    // 6. the tile out: 16 bytes (8 bins of a z-run, channel c) a store
+    // where R % 8 == 0 and out is 16-byte aligned (a warp's neighbouring
+    // lanes fill whole sectors), else 2 bytes a bin
+    for (int it = tid; it < TC * Geo::kBins / 8; it += kThreads) {
+      const int row = it / (Geo::kBins / 8), bin = it % (Geo::kBins / 8) * 8;
+      const int c = c0 + 8 * (row % kLanes) + row / kLanes;
+      const int lz = bin % BZ, ly = bin / BZ % 8, lx = bin / (8 * BZ);
+      const int x = o.x + lx, y = o.y + ly, z = o.z + lz;
+      if (c >= C || max(x, max(y, z)) >= R) continue;
+      const unsigned short* src = s_tile + row * kTilePitch + bin;
+      unsigned short* dst = reinterpret_cast<unsigned short*>(out) +
+                            (b * C + c) * R3 + (x * R + y) * R + z;
+      if (vec_out) {
+        *reinterpret_cast<uint4*>(dst) =
+            *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int i = 0; i < 8 && z + i < R; ++i) dst[i] = src[i];
+      }
+    }
+    __syncthreads();                              // s_g and s_tile are read
+  }
+}
+
+template <int TC, int BZ>
+int launch_bricks(const ArgsOf<__nv_bfloat16>& a, int staged) {
+  using Geo = bricks::Brick<BZ>;
+  const size_t bytes = kHeadBytes<Geo> + TC * kTilePitch * 2 +
+                       static_cast<size_t>(staged) * (16 * (1 + TC / 8) + 4);
+  if (staged < 0 || bytes > kMaxBrickBytes || a.B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err =
+      bricks::allow_shared<devoxelize_bwd_bricks_kernel<TC, BZ>>(
+          static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_g = a.C % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.g) % 16 == 0;
+  const int vec_out = a.R % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  const int bricks = Geo::count(a.R);
+  const dim3 grid(bricks,
+                  bricks::chunk_split(static_cast<int64_t>(bricks) * a.B,
+                                      (a.C + TC - 1) / TC, 3),
+                  a.B);
+  devoxelize_bwd_bricks_kernel<TC, BZ><<<grid, Geo::kBins, bytes,
+                                         a.stream>>>(
+      a.g, a.sorted, a.bounds, a.out, a.N, a.C, a.R, staged, vec_g,
+      vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TC>
+int launch_bricks_for(const ArgsOf<__nv_bfloat16>& a, int staged) {
+  return a.R % 16 == 0 ? launch_bricks<TC, 16>(a, staged)
+                       : launch_bricks<TC, 8>(a, staged);
+}
+
 }  // namespace
 
 PVCNN_EXPORT int pvcnn_devoxelize_bwd_sort(const void* coords, void* sorted,
@@ -398,13 +764,16 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd(const void* g, const void* sorted,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the bf16 mode: a bf16 cotangent g [B, N, C] -> the bf16 channel-major
-// grid gradient [B, C, R^3]; sorted and bounds from
-// pvcnn_devoxelize_bwd_sort
+// the bf16 mode: a bf16 cotangent g [B, N, C] -> the bf16 grid gradient,
+// channel-major [B, C, R^3] with channels_first (a block a brick: tc
+// channels a block, 8 or 16; the first `staged` points of a brick's halo
+// staged in shared memory), else channel-last [B, R^3, C]; sorted and
+// bounds from pvcnn_devoxelize_bwd_sort
 PVCNN_EXPORT int pvcnn_devoxelize_bwd_bf16(const void* g, const void* sorted,
                                            const void* bounds, void* out,
                                            int B, int N, int C, int R,
-                                           int channels_first, void* stream) {
+                                           int channels_first, int tc,
+                                           int staged, void* stream) {
   if (static_cast<int64_t>(B) * C * R == 0) return 0;
   const ArgsOf<__nv_bfloat16> a{
       static_cast<const __nv_bfloat16*>(g),
@@ -412,12 +781,15 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd_bf16(const void* g, const void* sorted,
       static_cast<__nv_bfloat16*>(out), B, N, C, R,
       static_cast<cudaStream_t>(stream)};
   if (channels_first) {
-    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0;
-    vec4 ? launch_for<4, true>(a) : launch_for<1, true>(a);
-  } else {
-    const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0 &&
-                      reinterpret_cast<uintptr_t>(out) % 8 == 0;
-    vec4 ? launch_for<4, false>(a) : launch_for<1, false>(a);
+    switch (tc) {
+      case 8: return launch_bricks_for<8>(a, staged);
+      case 16: return launch_bricks_for<16>(a, staged);
+      case 32: return launch_bricks_for<32>(a, staged);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  vec4 ? launch_for<4, false>(a) : launch_for<1, false>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,8 +60,9 @@ _SIGNATURES = {
     "pvcnn_avg_voxelize_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_scatter_sum_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pvcnn_trilinear_devoxelize_bf16": [_P, _P, _P, _I, _I, _I, _I, _I,
-                                        _P],
-    "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                        _I, _P],
+    "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P],
     "pvcnn_conv3d_bf16_stage": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pvcnn_conv3d_bf16_fwd": [_P] * 10 + [_I] * 6 + [_P],
     "pvcnn_conv3d_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -28,10 +28,16 @@ its corner-packed Pallas scatter or its one-hot `_scatter_sum` take the
 terms, both with f32 sums; where no Pallas plan fits, its XLA
 `segment_sum`s add the bf16 terms in bf16, rounding every partial sum. The
 port sums in f32 and rounds once everywhere, as the channel-major bf16 K5
-does.
+does. On a channel-major bf16 grid both kernels take one block per (cloud,
+brick of 512 bins); `_brick_plan` picks their chunk of channels and how
+many of a brick's points K5 stages in shared memory.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -63,6 +69,43 @@ def _corners(norm_coords: torch.Tensor, r: int):
         fx * gy * gz, fx * gy * fz, fx * fy * gz, fx * fy * fz,
     ], dim=2)
     return idx8, w8
+
+
+class BrickPlan(NamedTuple):
+    """The channel-major bf16 K2 / K5 launch: `tc` channels a chunk (8, 16
+    or 32), and K5's `staged` points a brick (the first of the points its
+    halo's runs hold, in sort order, whose weights, index and g rows it
+    keeps in shared memory; a denser brick reads the rest where they
+    lie)."""
+
+    tc: int
+    staged: int
+
+
+# K5's shared memory: ~6.5 KB (the halo's runs, its rows' positions) and
+# the chunk's tile of sums (2 * 528 bytes a channel), then per staged point
+# 16 bytes of weights, 4 of index and 2 * tc of g: 1,536 points take 82 KB
+# at tc = 16 (two 512-thread blocks an SM), 169 KB at tc = 32 (one); 768
+# at tc = 32 take 105 KB (two)
+_K5_STAGED, _K5_FEW_STAGED = 1536, 768
+_K5_DENSE = 512            # mean points a brick's halo holds from which
+                           # tc = 32 stages 1,536
+
+
+@functools.lru_cache(maxsize=None)
+def _brick_plan(n: int, c: int, r: int) -> BrickPlan:
+    """The plan for clouds of n points, c channels, an R^3 grid: the
+    narrowest chunk of 8, 16 or 32 channels that holds c (32 past 32); K5
+    stages 1,536 points, or 768 at 32 channels unless a brick's -1
+    halo (17 x 9 x 5 bins where R % 16 == 0, else 9^3, at most R^3) holds
+    more than 512 points on average (measured on the card: staging more
+    points past that costs a block an SM more than reading them where
+    they lie); never more than n (rounded up to 32)."""
+    tc = 8 if c <= 8 else 16 if c <= 16 else 32
+    halo = min(765 if r % 16 == 0 else 729, r ** 3)
+    mean = n * halo / r ** 3
+    room = (_K5_STAGED if tc < 32 or mean > _K5_DENSE else _K5_FEW_STAGED)
+    return BrickPlan(tc, min(-(-n // 32) * 32, room))
 
 
 def corner_base_bins(norm_coords: torch.Tensor, r: int):
@@ -117,6 +160,21 @@ def _devoxelize_plain(grid, norm_coords, resolution, channels_first):
     return out
 
 
+def _launch_on(device: torch.device):
+    """(a context that makes `device` current, the raw handle of its
+    current stream) for a launch there: no context where `device` is
+    current already. Measured on an H100 host, entering torch.cuda.device
+    took ~7 us a call and torch.cuda.current_stream() ~10 us, against
+    ~9 us for the launch itself; the raw handle and a check of the current
+    device take ~1 us."""
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext(), stream
+    return torch.cuda.device(index), stream
+
+
 def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
     r = int(resolution)
     if grid.device.type != "cuda" or norm_coords.device != grid.device:
@@ -142,13 +200,15 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
     grid = grid.contiguous()
     norm_coords = norm_coords.detach().contiguous()
     out = torch.empty((b, n, c), dtype=grid.dtype, device=grid.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    with torch.cuda.device(grid.device):
+    context, stream = _launch_on(grid.device)
+    with context:
         if bf16:
+            # channel-major: a block a brick (the plan's chunk of channels)
             kernels.launch(
                 "trilinear_devoxelize_bf16", "pvcnn_trilinear_devoxelize_bf16",
                 grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b,
-                n, c, r, int(channels_first), stream)
+                n, c, r, int(channels_first), _brick_plan(n, c, r).tc,
+                stream)
         else:
             # the kernel maps a channel-major grid and a channel-last one
             # differently
@@ -208,10 +268,10 @@ def _sort_points(norm_coords, r):
                          device=norm_coords.device)
     bounds = torch.empty((b, r ** 3 + 1), dtype=torch.int32,
                          device=norm_coords.device)
-    with torch.cuda.device(norm_coords.device):
+    context, stream = _launch_on(norm_coords.device)
+    with context:
         kernels.call("pvcnn_devoxelize_bwd_sort", norm_coords.data_ptr(),
-                     points.data_ptr(), bounds.data_ptr(), b, n, r,
-                     torch.cuda.current_stream().cuda_stream)
+                     points.data_ptr(), bounds.data_ptr(), b, n, r, stream)
     return points, bounds
 
 
@@ -241,13 +301,15 @@ def _launch_k5_sorted(g, points, bounds, r, channels_first):
     bins = r ** 3
     out = torch.empty((b, c, bins) if channels_first else (b, bins, c),
                       dtype=g.dtype, device=g.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    with torch.cuda.device(g.device):
+    context, stream = _launch_on(g.device)
+    with context:
         if g.dtype == torch.bfloat16:
+            plan = _brick_plan(n, c, r)
             kernels.launch(
                 "devoxelize_bwd_bf16", "pvcnn_devoxelize_bwd_bf16",
                 g.data_ptr(), points.data_ptr(), bounds.data_ptr(),
-                out.data_ptr(), b, n, c, r, int(channels_first), stream)
+                out.data_ptr(), b, n, c, r, int(channels_first), plan.tc,
+                plan.staged, stream)
         else:
             kernels.launch(
                 "devoxelize_bwd", "pvcnn_devoxelize_bwd", g.data_ptr(),

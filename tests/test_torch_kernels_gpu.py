@@ -1929,3 +1929,202 @@ def test_k1_k2_k5_bf16_channel_last_unaligned(dev):
     assert torch.equal(devoxelize._devoxelize_bwd_cuda(g, norm, r, False),
                        devoxelize._devoxelize_bwd_cuda(g.clone(), norm, r,
                                                        False))
+
+
+# ---- the channel-major bf16 K2 / K5: a block a brick -------------------------
+
+def _k2_k5_bf16_check(norm, c, r, grid=None, g=None):
+    """The channel-major bf16 K2 and K5 (one launch a call) against their
+    plain versions (K2 within two bf16 roundings of the output's scale, K5
+    within 2^-7 of each bin's sum of |terms|), two runs bitwise equal, and
+    bitwise equal to the channel-last bf16 modes transposed (the same sums
+    in the same order). -> (K2's output, K5's)"""
+    bf = torch.bfloat16
+    b, n, _ = norm.shape
+    if grid is None:
+        grid = torch.randn(b, c, r ** 3, device=norm.device).to(bf)
+    if g is None:
+        g = torch.randn(b, n, c, device=norm.device).to(bf)
+    out = _counted("trilinear_devoxelize_bf16", devoxelize._devoxelize_cuda,
+                   grid, norm, r, True)
+    assert out.shape == (b, n, c) and out.dtype == bf
+    _bf16_close(out, devoxelize._devoxelize_plain(grid, norm, r, True))
+    assert torch.equal(out, devoxelize._devoxelize_cuda(grid, norm, r, True))
+    assert torch.equal(out, devoxelize._devoxelize_cuda(
+        grid.transpose(1, 2).contiguous(), norm, r, False))
+    dgrid = _counted("devoxelize_bwd_bf16", devoxelize._devoxelize_bwd_cuda,
+                     g, norm, r, True)
+    assert dgrid.shape == (b, c, r ** 3) and dgrid.dtype == bf
+    want = devoxelize._devoxelize_bwd_plain(g, norm, r, True)
+    mag = devoxelize._devoxelize_bwd_plain(g.abs().float(), norm, r, True)
+    assert not ((dgrid.float() - want.float()).abs()
+                > 2 ** -7 * mag + 1e-30).any()
+    assert torch.equal(dgrid, devoxelize._devoxelize_bwd_cuda(g, norm, r,
+                                                              True))
+    assert torch.equal(dgrid.transpose(1, 2), devoxelize._devoxelize_bwd_cuda(
+        g, norm, r, False))
+    return out, dgrid
+
+
+@pytest.mark.parametrize("c,r,n", [
+    (64, 32, 2048), (128, 16, 2048),          # ShapeNet PVCNN 1x
+    (16, 32, 2048), (32, 16, 2048),           # 0.25x
+    (32, 32, 8192), (64, 16, 1024), (128, 8, 256), (256, 8, 64),
+    (128, 16, 1024),                          # S3DIS PVCNN2
+    (64, 16, 4096)])                          # S3DIS PVCNN
+def test_k2_k5_bf16_model_shapes(dev, c, r, n):
+    """The channel-major bf16 K2 and K5 at the (C, R, N) of the default
+    bf16 steps, on 2 clouds normalized as the PVConvs normalize them:
+    PVCNN2's (128, 8, 256) and (256, 8, 64) put 64-256 points in 512
+    bins."""
+    _, norm = ops.normalize_coords(_coords(dev, b=2, n=n), r,
+                                   normalize=True)
+    _k2_k5_bf16_check(norm, c, r)
+
+
+@pytest.mark.parametrize("c,r", [(5, 5), (130, 5), (1, 12), (40, 12),
+                                 (16, 4), (9, 32)])
+def test_k2_k5_bf16_ragged(dev, c, r):
+    """R = 4, 5 and 12 (short bricks, 2-byte grid loads and output stores)
+    and C off the 8-channel groups (2-byte g loads and output stores, a
+    partial chunk of channels); exact grid hits and points on the R - 1
+    planes (collapsed corners)."""
+    norm = _k5_coords(dev, 3, 500, r, seed=c + r)
+    _k2_k5_bf16_check(norm, c, r)
+
+
+def test_k2_k5_bf16_one_bin(dev):
+    """300 points of a cloud in one base bin (one run that outgrows the
+    staged points of a plan for fewer points), the rest spread; a second
+    cloud at one exact grid point."""
+    r, n = 16, 700
+    gen = torch.Generator().manual_seed(3)
+    norm = torch.rand(2, n, 3, generator=gen) * (r - 1)
+    norm[0, :300] = 6.0 + torch.rand(300, 3, generator=gen) * 0.999
+    norm[1] = 9.0
+    _k2_k5_bf16_check(norm.to(dev), 64, r)
+
+
+@pytest.mark.parametrize("staged", [0, 1, 7, 64])
+def test_k5_bf16_staged_points(dev, monkeypatch, staged):
+    """K5 with fewer staged points than its bricks hold (the points past
+    them are read where they lie, in the same walk): bitwise equal to the
+    default plan's output."""
+    r, n, c = 16, 900, 24
+    gen = torch.Generator().manual_seed(4)
+    norm = torch.rand(2, n, 3, generator=gen) * (r - 1)
+    norm[0, :300] = 6.0 + torch.rand(300, 3, generator=gen) * 0.999
+    norm = norm.to(dev)
+    g = torch.randn(2, n, c, device=dev).to(torch.bfloat16)
+    want = devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
+    assert devoxelize._brick_plan(n, c, r).staged > staged
+    plan = devoxelize._brick_plan(n, c, r)._replace(staged=staged)
+    monkeypatch.setattr(devoxelize, "_brick_plan", lambda *_: plan)
+    assert torch.equal(devoxelize._devoxelize_bwd_cuda(g, norm, r, True),
+                       want)
+
+
+def test_k2_k5_bf16_refuse_bad_plans(dev, monkeypatch):
+    """A chunk other than 8, 16 or 32 channels, or more staged points than
+    shared memory holds: the launcher refuses, the wrapper raises."""
+    norm = _k5_coords(dev, 1, 100, 8, seed=5)
+    grid = torch.randn(1, 16, 512, device=dev).to(torch.bfloat16)
+    g = torch.randn(1, 100, 16, device=dev).to(torch.bfloat16)
+    for plan in (devoxelize.BrickPlan(12, 64),
+                 devoxelize.BrickPlan(16, 1 << 20)):
+        monkeypatch.setattr(devoxelize, "_brick_plan", lambda *_: plan)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            devoxelize._devoxelize_bwd_cuda(g, norm, 8, True)
+        if plan.tc == 12:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                devoxelize._devoxelize_cuda(grid, norm, 8, True)
+
+
+def test_k2_k5_bf16_no_clouds(dev):
+    """B = 0: empty outputs of the right shapes."""
+    norm = torch.rand(0, 64, 3, device=dev)
+    grid = torch.randn(0, 16, 512, device=dev).to(torch.bfloat16)
+    g = torch.randn(0, 64, 16, device=dev).to(torch.bfloat16)
+    assert devoxelize._devoxelize_cuda(grid, norm, 8, True).shape == (0, 64,
+                                                                      16)
+    assert devoxelize._devoxelize_bwd_cuda(g, norm, 8, True).shape == (0, 16,
+                                                                       512)
+
+
+@pytest.mark.parametrize("c", [16, 13])
+def test_k2_k5_bf16_unaligned(dev, c):
+    """A grid and a g one element off a 16-byte boundary (2-byte loads),
+    to the same bits as their aligned copies."""
+    bf = torch.bfloat16
+    r, n, b = 16, 600, 2
+    norm = _k5_coords(dev, b, n, r, seed=c)
+    grid = torch.randn(b * c * r ** 3 + 1, device=dev).to(bf)[1:].view(
+        b, c, r ** 3)
+    g = torch.randn(b * n * c + 1, device=dev).to(bf)[1:].view(b, n, c)
+    assert grid.data_ptr() % 16 and g.data_ptr() % 16
+    out, dgrid = _k2_k5_bf16_check(norm, c, r, grid=grid, g=g)
+    assert torch.equal(out, devoxelize._devoxelize_cuda(grid.clone(), norm,
+                                                        r, True))
+    assert torch.equal(dgrid, devoxelize._devoxelize_bwd_cuda(g.clone(), norm,
+                                                              r, True))
+
+
+def test_k2_k5_bf16_on_another_stream(dev):
+    """Two runs of the channel-major bf16 K2 and K5 bitwise equal, the
+    second on another stream."""
+    r, n, c = 32, 2048, 64
+    _, norm = ops.normalize_coords(_coords(dev, b=2, n=n), r, normalize=True)
+    grid = torch.randn(2, c, r ** 3, device=dev).to(torch.bfloat16)
+    g = torch.randn(2, n, c, device=dev).to(torch.bfloat16)
+
+    def run():
+        return (devoxelize._devoxelize_cuda(grid, norm, r, True),
+                devoxelize._devoxelize_bwd_cuda(g, norm, r, True))
+
+    first = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("c", [5, 16])
+def test_k2_k5_bf16_special_values(dev, c):
+    """Subnormal, tiny and huge cotangents and grids, signed zeros,
+    infinities and NaN, and points a hair past a grid plane (weights near
+    2^-20): the channel-major K5 (its bf16 fma terms) and K2 give the
+    channel-last modes' bits (f32 products rounded to bf16), NaN for NaN."""
+    bf = torch.bfloat16
+    r, n, b = 8, 400, 2
+    norm = _k5_coords(dev, b, n, r, seed=6)
+    norm[:, 50:150] = norm[:, 50:150].floor() + 2.0 ** -20
+    norm[:, 150:200] = norm[:, 150:200].floor() + (1 - 2.0 ** -20)
+    special = torch.tensor([0.0, -0.0, 1e-39, -3e-40, 9.2e-41, 1.2e-38,
+                            -1.1e-38, 2e-38, 3.3e38, -3.3e38, float("inf"),
+                            float("-inf"), float("nan"), 1.0, -2.5, 7e-3])
+
+    def pick(*shape):
+        t = torch.randn(*shape)
+        at = torch.rand(*shape) < 0.3
+        t[at] = special[torch.randint(len(special), (int(at.sum()),))]
+        return t.to(bf).to(dev)
+
+    def bits(t):
+        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+        return t.view(torch.int16)
+
+    grid, g = pick(b, c, r ** 3), pick(b, n, c)
+    # channel 0: bf16 subnormals only, so its products and sums are too
+    g[..., 0] = (torch.randn(b, n, device=dev) * 1e-39).to(bf)
+    out = devoxelize._devoxelize_cuda(grid, norm, r, True)
+    last = devoxelize._devoxelize_cuda(grid.transpose(1, 2).contiguous(),
+                                       norm, r, False)
+    assert torch.equal(bits(out), bits(last))
+    dgrid = devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
+    last = devoxelize._devoxelize_bwd_cuda(g, norm, r, False)
+    assert torch.equal(bits(dgrid), bits(last.transpose(1, 2)))
+    tiny = dgrid[:, 0].float().abs()
+    assert ((tiny > 0) & (tiny < 1.1754944e-38)).any()
