@@ -327,7 +327,10 @@ failure:
                 call in bf16 (F.linear and the two sums; F.linear;
                 torch.mm into f32 and the sum; conv3d_weight;
                 scatter_reduce_ mean; none for K2 / K5) and the bound, with
-                each case's share of its bound; the bf16 opt-in training
+                each case's share of its bound and ratio to the PyTorch
+                call (K9's dgrad reading the forward's bf16 copy of the
+                weight, as in a step; K9's plan, and K11's grids read in
+                place or staged); the bf16 opt-in training
                 step under phase 29's rules (phase_bf16_train: launches
                 PER_STEP3_ON_BF16, ms/step in turns with the fp32 opt-in
                 step) and its step 1 against the default bf16 path's
@@ -2068,6 +2071,7 @@ PROFILE_GROUPS = (
                                         "conv3d_bf16_weights_kernel",
                                         "conv3d_bf16_stats_kernel")),
     ("K4 / K11 bf16 conv3d wgrad", ("conv3d_bf16_wgrad_kernel",
+                                    "conv3d_bf16_wgrad_last_kernel",
                                     "conv3d_bf16_wgrad_sum_kernel")),
     ("K3 / K4 bf16 staging pass", ("conv3d_bf16_stage_kernel",)),
     ("K11 bf16 channel-last staging", ("conv3d_bf16_stage_last_kernel",)),
@@ -2075,7 +2079,8 @@ PROFILE_GROUPS = (
                                 "conv3d_ndhwc_wgrad_sum_kernel")),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
     ("K10 bf16 dense wgrad", ("false, false, true>",)),
-    ("K9 bf16 dense forward + dgrad", ("dense_rows_bf16_kernel",)),
+    ("K9 bf16 dense forward + dgrad", ("dense_rows_wgmma_kernel",
+                                       "dense_rows_bf16_weights_kernel")),
     ("K10 dense wgrad + fold", ("dense_rows_wgrad_kernel",
                                 "dense_rows_fold_kernel")),
     ("K5 devoxelize backward", ("devoxelize_bwd_kernel",
@@ -4076,8 +4081,8 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
 
 
 def _check_bf16_sass() -> None:
-    """K3's and K4's bf16 kernels multiply on wgmma: HGMMA in their SASS
-    (cuobjdump -sass of the built library)."""
+    """K3's, K4's, K11's and K9's bf16 kernels multiply on wgmma: HGMMA in
+    their SASS (cuobjdump -sass of the built library)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from pvcnn_tpu_torch import kernels
@@ -4093,7 +4098,8 @@ def _check_bf16_sass() -> None:
             counts[name] = 0
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
-    for key in ("conv3d_bf16_fwd_kernel", "conv3d_bf16_wgrad_kernel"):
+    for key in ("conv3d_bf16_fwd_kernel", "conv3d_bf16_wgrad_kernel",
+                "conv3d_bf16_wgrad_last_kernel", "dense_rows_wgmma_kernel"):
         found = {n: c for n, c in counts.items() if key in n}
         log("kernels", f"{key}: HGMMA instructions per instantiation "
             f"{sorted(found.values())}")
@@ -4682,10 +4688,12 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
     """K9 (forward with statistics, dgrad) and K10 in bf16 at the cases of
     rec.calls, as _time_dense_kernels times their fp32 modes: bf16 rows
     and cotangents, the weight the SharedMLP's float32 [Ci, Co] view (the
-    wrappers cast it to bf16); y and dx within two bf16 roundings of
-    their scale, the f32 statistics within 1e-4 of the plain sums, dW and
-    d(bias) f32 at K10's tolerance; library calls in bf16: F.linear and
-    the two sums, F.linear, torch.mm into f32 and the sum."""
+    forward's launch rounds it into the bf16 copy the dgrad reads, as in a
+    training step); y and dx within two bf16 roundings of their scale, the
+    f32 statistics within 1e-4 of the plain sums, dW and d(bias) f32 at
+    K10's tolerance; library calls in bf16: F.linear and the two sums,
+    F.linear, torch.mm into f32 and the sum; each case's share of its
+    bound and its ratio to the library call logged, with K9's plan."""
     import torch.nn.functional as F
 
     from pvcnn_tpu_torch.ops import dense_rows
@@ -4693,6 +4701,13 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
     dev, bf = torch.device(DEVICE), torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     add = lambda *a, **kw: rec.add(*a, peak=PEAK_BF16_FLOPS, **kw)
+
+    def share(name, case, timed, plan=None):
+        if timed:
+            lib = (f", {timed[0] / timed[2]:.2f}x the library call"
+                   if timed[2] else "")
+            log("kernels", f"{name} {case}: {timed[1] / timed[0]:.1%} of its "
+                f"bound{lib}" + (f"; plan {plan}" if plan else ""))
     shapes = sorted({(rows,) + c[:2] if rows else c[:3]
                      for k, c in rec.calls if k == "dense_rows_fwd_bf16"})
     for n_rows, ci, co in shapes:
@@ -4706,6 +4721,8 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
         shift = torch.randn(ci, device=dev) * 0.5
         g = torch.randn(n_rows, co, device=dev).to(bf)
         flops = 2.0 * n_rows * ci * co
+        # the forward's weight copy, which the dgrad reads
+        staged = {}
         for pro in (False, True):
             case = key(ci, co, pro)
             if ("dense_rows_fwd_bf16", case) not in rec.calls:
@@ -4713,7 +4730,7 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
             args = (x, w, bias, scale, shift, 0.0, pro)
             xa = (dense_rows._activated(x, scale, shift, 0.0, True).to(bf)
                   if pro else x)
-            run_k = lambda: dense_rows._forward_cuda(*args, True)
+            run_k = lambda: dense_rows._forward_cuda(*args, True, staged)
             run_p = lambda: dense_rows._forward_plain(*args, True)
 
             def run_lib():
@@ -4741,9 +4758,8 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
             timed = add("dense_rows_fwd_bf16", case, err, run_k, run_p,
                         flops, 2 * (n_rows * ci + n_rows * co)
                         + 4 * (ci * co + 3 * co), run_lib if lib_ok else None)
-            if timed:
-                log("kernels", f"dense_rows_fwd_bf16 {case}: "
-                    f"{timed[1] / timed[0]:.1%} of its bound")
+            share("dense_rows_fwd_bf16", case, timed, dense_rows._wgmma_plan(
+                n_rows, co, ci, dense_rows._tma_rows(x), pro, sms))
 
             run_k = lambda: dense_rows._wgrad_cuda(x, g, scale, shift, 0.0,
                                                    pro)
@@ -4764,14 +4780,16 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
             timed = add("dense_rows_wgrad_bf16", case, err, run_k, run_p,
                         flops, 2 * (n_rows * ci + n_rows * co)
                         + 4 * (ci * co + co), run_lib if lib_ok else None)
-            if timed:
-                log("kernels", f"dense_rows_wgrad_bf16 {case}: "
-                    f"{timed[1] / timed[0]:.1%} of its bound; {plan.splits} "
-                    f"chunk(s) of {plan.chunk} rows, column tile {plan.bn}")
+            share("dense_rows_wgrad_bf16", case, timed,
+                  f"{plan.splits} chunk(s) of {plan.chunk} rows, column "
+                  f"tile {plan.bn}")
 
         if ("dense_rows_dgrad_bf16", key(co, ci)) in rec.calls:
             case = key(co, ci)
-            run_k = lambda: dense_rows._dgrad_cuda(g, w)
+            if "w16" not in staged:
+                dense_rows._forward_cuda(x, w, bias, scale, shift, 0.0,
+                                         False, False, staged)
+            run_k = lambda: dense_rows._dgrad_cuda(g, w, staged)
             run_p = lambda: dense_rows._dgrad_plain(g, w)
             run_lib = lambda: F.linear(g, w16.t())
             dx = _twice("dense_rows_dgrad_bf16", case, run_k)
@@ -4783,9 +4801,8 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
             timed = add("dense_rows_dgrad_bf16", case, err, run_k, run_p,
                         flops, 2 * (n_rows * co + n_rows * ci) + 4 * ci * co,
                         run_lib if lib_ok else None)
-            if timed:
-                log("kernels", f"dense_rows_dgrad_bf16 {case}: "
-                    f"{timed[1] / timed[0]:.1%} of its bound")
+            share("dense_rows_dgrad_bf16", case, timed, dense_rows._wgmma_plan(
+                n_rows, ci, co, dense_rows._tma_rows(g), False, sms))
 
 
 def _time_ndhwc_wgrad_bf16(rec: Record) -> None:
@@ -4793,7 +4810,9 @@ def _time_ndhwc_wgrad_bf16(rec: Record) -> None:
     channel-last grids and cotangents: dW within two bf16 roundings of its
     scale of the plain version's (the 27 products in f32, rounded once),
     its distance from the fp64 sums logged; the library call is
-    conv3d_weight on the same bf16 grids (cuDNN's weight gradient)."""
+    conv3d_weight on the same bf16 grids (cuDNN's weight gradient); each
+    case's share of its bound, its ratio to cuDNN, K4's plan and the grids
+    it reads in place or stages (with the staging pass's time) logged."""
     from pvcnn_tpu_torch.ops import conv3d
 
     dev, bf = torch.device(DEVICE), torch.bfloat16
@@ -4825,15 +4844,18 @@ def _time_ndhwc_wgrad_bf16(rec: Record) -> None:
                         2 * (B * r ** 3 * (ci + co) + 27 * ci * co),
                         run_lib if lib_ok else None, peak=PEAK_BF16_FLOPS)
         plan = conv3d._wgrad_bf16_plan(B, ci, co, r, sms)
-        stage_ms = time_ms(lambda: conv3d._stage_last_bf16(x)) \
-            if timed else 0.0
+        route = "; ".join(
+            f"{name} in place" if conv3d._in_place(t) else
+            f"{name} staged ({time_ms(lambda: conv3d._stage_last_bf16(t)):.4f}"
+            f" ms)" if timed else f"{name} staged"
+            for name, t in (("x", x), ("dY", g)))
         share = (f", {timed[1] / timed[0]:.1%} of its bound"
                  + (f", {timed[0] / timed[2]:.2f}x cuDNN" if timed[2]
                     else "") if timed else "")
         log("kernels", f"conv3d_ndhwc_wgrad_bf16 {case}: K4's bf16 plan "
             f"{plan.col_blocks} column block(s) of {plan.cols} x "
             f"{plan.co_tiles} Co tile(s) x {plan.splits} split(s); "
-            f"channel-last staging pass {stage_ms:.4f} ms a grid{share}")
+            f"{route}{share}")
 
 
 def phase_bf16_optin_kernels() -> dict:

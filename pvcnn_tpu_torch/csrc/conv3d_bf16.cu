@@ -80,32 +80,38 @@
 // the splits in order and rounds (ops/conv3d.py: _wgrad_bf16_plan: one
 // wave of one block an SM).
 //
-// K11 in bf16 (pvcnn_conv3d_bf16_stage_last, then pvcnn_conv3d_bf16_wgrad,
-// counted as conv3d_ndhwc_wgrad_bf16) replaces the bf16 mode of the TPU
-// kernel pvcnn_tpu/ops/pallas/conv_wgrad.py:_conv3d_wgrad_impl (:166): the
-// NDHWC branch's weight gradient from bf16 x and dY [B, R, R, R, C], f32
-// inside, returned as dw.astype(kernel.dtype), the bf16 weight's type
-// (pvcnn_tpu/nn/conv3d.py:65-75). It is K4's function on another layout:
-// a channel-last grid's flat voxel index is K4's (x * R^2 + y * R + z),
-// and each 8-channel group of a voxel is 16 contiguous bytes of it, so
-// conv3d_bf16_stage_last_kernel copies x and dY into K4's staged layout
-// [B, Cp / 8, R^3, 8] (16 bytes a thread, zeros past C; no transpose) and
-// K4's core runs on them as it does on the rows branch's.
+// K11 in bf16 (pvcnn_conv3d_bf16_wgrad_last, counted as
+// conv3d_ndhwc_wgrad_bf16) replaces the bf16 mode of the TPU kernel
+// pvcnn_tpu/ops/pallas/conv_wgrad.py:_conv3d_wgrad_impl (:166): the NDHWC
+// branch's weight gradient from bf16 x and dY [B, R, R, R, C], f32 inside,
+// returned as dw.astype(kernel.dtype), the bf16 weight's type
+// (pvcnn_tpu/nn/conv3d.py:65-75). It is K4's function on another layout,
+// and runs K4's core, plan and split order on it
+// (conv3d_bf16_wgrad_last_kernel): a channel-last grid's flat voxel index
+// is K4's (x * R^2 + y * R + z), and each 8-channel group of a voxel is 16
+// contiguous bytes of it, so a 5-d tensor map (channels, z, y, x, cloud)
+// with a box of 8 channels lands one group of K4's staged box, byte for
+// byte, where the staged map puts it (one load per group; zeros outside
+// the grid, in no other cloud, and past C), and the grids are read in
+// place. An operand whose rows of C channels are not whole 16-byte pieces
+// or that starts off a 16-byte boundary (x at Ci = 9) is first copied into
+// K4's staged layout by conv3d_bf16_stage_last_kernel (16 bytes a thread,
+// zeros past C; no transpose), which the wrapper runs for it alone.
 //
 // Bound: operations, 2 * Co * 27 * Ci a voxel against 989 TFLOP/s of bf16
 // tensor cores at 1x; at 0.25x mostly bytes (x, y or g, and W once, 2 bytes
 // an element, against 3.35 TB/s). Weights stream from L2 per block (K3:
 // 32 N bytes a k16 step for 2 x 64 rows).
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+using namespace pvcnn::wg;
 using u16 = unsigned short;
 
 constexpr int kTaps = 27;
@@ -130,303 +136,6 @@ __device__ __forceinline__ float bf16_to_float(u16 u) {
 
 __device__ __forceinline__ u16 float_to_bf16(float f) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers, TMA and bulk copies ---------------------------------------
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of transactions this phase
-__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a phase that
-// never completes is a fault, which traps after ~2^34 cycles (~9 s)
-// instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_addr(bar);
-  long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-// a box of a 4-d tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a multiple of 16) into shared memory
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// barrier `id` (1..15) of the first `threads` threads of the block
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ---- wgmma ----------------------------------------------------------------
-
-// a shared-memory matrix descriptor of wgmma's unswizzled layout: 8-row x
-// 16-byte core matrices, `k_stride` bytes between the two core matrices of
-// a k16 step (the leading dimension byte offset), `mn_stride` bytes
-// between neighbouring 8-row groups along M or N (the stride dimension
-// byte offset), for K-major and MN-major operands alike
-__device__ __forceinline__ uint64_t mat_desc(uint32_t addr, uint32_t k_stride,
-                                             uint32_t mn_stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((k_stride >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((mn_stride >> 4) & 0x3FFF) << 32;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// keep the accumulators' registers where the asynchronous products left
-// them
-template <int kN>
-__device__ __forceinline__ void fence_acc(float (&d)[kN]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x N f32, the warpgroup's fragment) += A (64 x 16) * B (16 x N),
-// bf16 operands from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b) {
-  if constexpr (N == 16) {
-    wgmma_ss_n16(d, a, b);
-  } else if constexpr (N == 32) {
-    wgmma_ss_n32(d, a, b);
-  } else if constexpr (N == 64) {
-    wgmma_ss_n64(d, a, b);
-  } else {
-    static_assert(N == 128, "wgmma N: 16, 32, 64 or 128");
-    wgmma_ss_n128(d, a, b);
-  }
-}
-
-// the same with A from registers (a warp's 16 rows in mma.sync's m16k16
-// fragment) and B from shared memory, MN-major where TB is 1
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
-        "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
-        "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
-        "n"(TB));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 16) {
-    wgmma_rs_n16<1>(d, a, b);
-  } else if constexpr (N == 32) {
-    wgmma_rs_n32<1>(d, a, b);
-  } else {
-    static_assert(N == 64, "wgmma N: 16, 32 or 64");
-    wgmma_rs_n64<1>(d, a, b);
-  }
-}
-
-// four 8 x 8 b16 matrices, transposed; lanes 8j .. 8j + 7 address matrix
-// j's rows
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
 }
 
 // ---- the staging pass -----------------------------------------------------
@@ -586,10 +295,6 @@ struct Fwd {
   static constexpr int kStatBytes = 2 * 4 * 2 * N * 4;   // [2][4][2][N]
   static constexpr int kSmem = kStatOff + kStatBytes + 128;   // + alignment
 };
-
-__device__ __forceinline__ unsigned char* align128(unsigned char* p) {
-  return p + ((128 - (smem_addr(p) & 127)) & 127);
-}
 
 template <int N>
 __global__ void __launch_bounds__(Fwd<N>::kThreads, 2)
@@ -794,14 +499,17 @@ struct Wgrad {
   static constexpr int kSmem = kBarOff + 64 + 128;   // + alignment
 };
 
-template <int NW>
-__global__ void __launch_bounds__(Wgrad<NW>::kThreads, 1)
-conv3d_bf16_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
-                         const __grid_constant__ CUtensorMap gmap,
-                         float* __restrict__ partial,   // [S, Co, Cp, 27]
-                         int groups, int ggroups, int gbox, int Co, int R,
-                         int tz, int ty, int tiles, int chunks,
-                         int per_split) {
+// The block's work, as conv3d_bf16_wgrad_kernel (K4) and
+// conv3d_bf16_wgrad_last_kernel (K11) run it. With kLast, the operands
+// named in `last` (bit 0: x, bit 1: the gradient) are channel-last grids
+// read in place by 5-d tensor maps (dims C, z, y, x, cloud; box 8 x bz x
+// by x bx x 1, one load per 8-channel group, each landing where the staged
+// map's box puts that group), the others staged as K4's.
+template <int NW, bool kLast>
+__device__ __forceinline__ void wgrad_block(
+    const CUtensorMap& xmap, const CUtensorMap& gmap,
+    float* __restrict__ partial, int groups, int ggroups, int gbox, int Co,
+    int R, int tz, int ty, int tiles, int chunks, int per_split, int last) {
   using C = Wgrad<NW>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align128(smem_raw);
@@ -834,10 +542,24 @@ conv3d_bf16_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
         const int x0 = tile / (tz * ty) * kTileX;
         unsigned char* stage = smem + s * C::kStage;
         bar_expect(&full[s], bytes);
-        tma_load(stage, &xmap, &full[s], (z0 - 1) * 8, y0 - 1,
-                 x0 - 1 + dxb, b * groups + g0);
-        tma_load(stage + C::kSlabBytes, &gmap, &full[s], z0 * 8, y0, x0,
-                 b * ggroups + ct * 8);
+        if (kLast && (last & 1)) {
+          for (int j = 0; j < NW / 8; ++j) {
+            tma_load_5d(stage + j * C::kSlabVox * kVox, &xmap, &full[s],
+                        8 * (g0 + j), z0 - 1, y0 - 1, x0 - 1 + dxb, b);
+          }
+        } else {
+          tma_load(stage, &xmap, &full[s], (z0 - 1) * 8, y0 - 1,
+                   x0 - 1 + dxb, b * groups + g0);
+        }
+        if (kLast && (last & 2)) {
+          for (int j = 0; j < gbox; ++j) {
+            tma_load_5d(stage + C::kSlabBytes + j * C::kGVox * kVox, &gmap,
+                        &full[s], 8 * (ct * 8 + j), z0, y0, x0, b);
+          }
+        } else {
+          tma_load(stage + C::kSlabBytes, &gmap, &full[s], z0 * 8, y0, x0,
+                   b * ggroups + ct * 8);
+        }
       }
     }
     return;
@@ -924,6 +646,30 @@ conv3d_bf16_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+template <int NW>
+__global__ void __launch_bounds__(Wgrad<NW>::kThreads, 1)
+conv3d_bf16_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap gmap,
+                         float* __restrict__ partial,   // [S, Co, Cp, 27]
+                         int groups, int ggroups, int gbox, int Co, int R,
+                         int tz, int ty, int tiles, int chunks,
+                         int per_split) {
+  wgrad_block<NW, false>(xmap, gmap, partial, groups, ggroups, gbox, Co, R,
+                         tz, ty, tiles, chunks, per_split, 0);
+}
+
+template <int NW>
+__global__ void __launch_bounds__(Wgrad<NW>::kThreads, 1)
+conv3d_bf16_wgrad_last_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap gmap,
+                              float* __restrict__ partial,
+                              int groups, int ggroups, int gbox, int Co,
+                              int R, int tz, int ty, int tiles, int chunks,
+                              int per_split, int last) {
+  wgrad_block<NW, true>(xmap, gmap, partial, groups, ggroups, gbox, Co, R,
+                        tz, ty, tiles, chunks, per_split, last);
+}
+
 // dW[co, ci, tap] = bf16(the sum of the splits' partials at (co, ci, tap),
 // in split order), in torch's [Co, Ci, 3, 3, 3] order
 __global__ void __launch_bounds__(pvcnn::kThreads)
@@ -944,35 +690,11 @@ conv3d_bf16_wgrad_sum_kernel(const float* __restrict__ partial,
 
 // ---- host side ------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the libcuda that the CUDA runtime
-// has loaded (the library links no libcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
 // a staged operand [B * G][R][R][R * 8] as a 4-d tensor map (z and the
 // group's 8 channels merged innermost, y, x, cloud * G + group) with box
 // (bz * 8, by, bx, bg); outside the grid TMA fills zeros
 int staged_map(CUtensorMap* map, const void* base, int64_t groups, int R,
                int bz, int by, int bx, int bg) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) {
-    return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  }
   const int64_t r = R;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(r * 8),
                               static_cast<cuuint64_t>(r),
@@ -985,22 +707,7 @@ int staged_map(CUtensorMap* map, const void* base, int64_t groups, int R,
                              static_cast<cuuint32_t>(by),
                              static_cast<cuuint32_t>(bx),
                              static_cast<cuuint32_t>(bg)};
-  const cuuint32_t steps[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, bool* done) {
-  if (*done) return 0;
-  const int err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-  *done = err == 0;
-  return err;
+  return bf16_map(map, base, 4, dims, strides, box);
 }
 
 template <int N>
@@ -1020,30 +727,111 @@ int launch_fwd(const CUtensorMap& map, const u16* w, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NW>
-int launch_wgrad(const void* xt, const void* gt, float* partial, int B,
-                 int Cp, int Cop, int Co, int R, int splits, int per_split,
+// a channel-last grid [B, R, R, R, C] read in place as a 5-d tensor map
+// (channels, z, y, x, cloud) with box (8, bz, by, bx, 1): each box is one
+// 8-channel group of a staged_map box, its bytes where that box puts them
+// (C % 8 == 0 and a 16-byte aligned base; zeros outside the grid and past
+// C)
+int last_map(CUtensorMap* map, const void* base, int B, int C, int R,
+             int bz, int by, int bx) {
+  const int64_t r = R, c = C;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(r),
+                              static_cast<cuuint64_t>(r),
+                              static_cast<cuuint64_t>(r),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(c * 2),
+                                 static_cast<cuuint64_t>(r * c * 2),
+                                 static_cast<cuuint64_t>(r * r * c * 2),
+                                 static_cast<cuuint64_t>(r * r * r * c * 2)};
+  const cuuint32_t box[5] = {8, static_cast<cuuint32_t>(bz),
+                             static_cast<cuuint32_t>(by),
+                             static_cast<cuuint32_t>(bx), 1};
+  return bf16_map(map, base, 5, dims, strides, box);
+}
+
+// K4's core on x and the gradient g: each staged ([B, Cp / 8, R^3, 8]), or
+// with kLast a channel-last grid where `last` says so (bit 0: x, bit 1: g)
+template <int NW, bool kLast>
+int launch_wgrad(const void* x, const void* g, int last, float* partial,
+                 int B, int Ci, int Co, int R, int splits, int per_split,
                  cudaStream_t stream) {
   using C = Wgrad<NW>;
   static bool ready = false;
-  int err = allow_smem(conv3d_bf16_wgrad_kernel<NW>, C::kSmem, &ready);
+  int err;
+  if constexpr (kLast) {
+    err = allow_smem(conv3d_bf16_wgrad_last_kernel<NW>, C::kSmem, &ready);
+  } else {
+    err = allow_smem(conv3d_bf16_wgrad_kernel<NW>, C::kSmem, &ready);
+  }
   if (err != 0) return err;
-  const int gbox = Cop / 8 < 8 ? Cop / 8 : 8;
+  const int cp = (Ci + 15) / 16 * 16, cop = (Co + 15) / 16 * 16;
+  const int gbox = cop / 8 < 8 ? cop / 8 : 8;
   CUtensorMap xmap, gmap;
-  err = staged_map(&xmap, xt, static_cast<int64_t>(B) * Cp / 8, R, kSlabZ,
-                   kSlabY, C::kSlabX, NW / 8);
+  err = kLast && (last & 1)
+            ? last_map(&xmap, x, B, Ci, R, kSlabZ, kSlabY, C::kSlabX)
+            : staged_map(&xmap, x, static_cast<int64_t>(B) * cp / 8, R,
+                         kSlabZ, kSlabY, C::kSlabX, NW / 8);
   if (err != 0) return err;
-  err = staged_map(&gmap, gt, static_cast<int64_t>(B) * Cop / 8, R, kTileZ,
-                   kTileY, kTileX, gbox);
+  err = kLast && (last & 2)
+            ? last_map(&gmap, g, B, Co, R, kTileZ, kTileY, kTileX)
+            : staged_map(&gmap, g, static_cast<int64_t>(B) * cop / 8, R,
+                         kTileZ, kTileY, kTileX, gbox);
   if (err != 0) return err;
   const int tz = (R + kTileZ - 1) / kTileZ, ty = (R + kTileY - 1) / kTileY;
   const int tiles = tz * ty * ((R + kTileX - 1) / kTileX);
-  const int cols = C::kAllTaps ? Cp / 16 : 3 * Cp / NW;
+  const int cols = C::kAllTaps ? cp / 16 : 3 * cp / NW;
   const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(cols),
                   static_cast<unsigned>((Co + 63) / 64));
-  conv3d_bf16_wgrad_kernel<NW><<<grid, C::kThreads, C::kSmem, stream>>>(
-      xmap, gmap, partial, Cp / 8, Cop / 8, gbox, Co, R, tz, ty, tiles,
-      B * tiles, per_split);
+  if constexpr (kLast) {
+    conv3d_bf16_wgrad_last_kernel<NW><<<grid, C::kThreads, C::kSmem,
+                                        stream>>>(
+        xmap, gmap, partial, cp / 8, cop / 8, gbox, Co, R, tz, ty, tiles,
+        B * tiles, per_split, last);
+  } else {
+    conv3d_bf16_wgrad_kernel<NW><<<grid, C::kThreads, C::kSmem, stream>>>(
+        xmap, gmap, partial, cp / 8, cop / 8, gbox, Co, R, tz, ty, tiles,
+        B * tiles, per_split);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's core (kLast: K11's route), then the splits' sum: dw [Co, Ci * 27]
+template <bool kLast>
+int wgrad(const void* x, const void* g, int last, void* partial, void* dw,
+          int B, int Ci, int Co, int R, int cols, int splits, int per_split,
+          void* stream) {
+  if (Co == 0 || Ci == 0) return 0;
+  const int cp = (Ci + 15) / 16 * 16;
+  if (B < 1 || R < 1 || splits < 1 || per_split < 1 || cols <= 0 ||
+      cp % cols != 0 || (kLast && (last & 1) && Ci % 8 != 0) ||
+      (kLast && (last & 2) && Co % 8 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* pf = static_cast<float*>(partial);
+  int err;
+  switch (cols) {
+    case 16:
+      err = launch_wgrad<16, kLast>(x, g, last, pf, B, Ci, Co, R, splits,
+                                    per_split, st);
+      break;
+    case 32:
+      err = launch_wgrad<32, kLast>(x, g, last, pf, B, Ci, Co, R, splits,
+                                    per_split, st);
+      break;
+    case 64:
+      err = launch_wgrad<64, kLast>(x, g, last, pf, B, Ci, Co, R, splits,
+                                    per_split, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  const int64_t n = static_cast<int64_t>(Co) * Ci * kTaps;
+  conv3d_bf16_wgrad_sum_kernel<<<pvcnn::blocks_for(n), pvcnn::kThreads, 0,
+                                 st>>>(pf, static_cast<u16*>(dw), Co, Ci, cp,
+                                       splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1151,34 +939,21 @@ PVCNN_EXPORT int pvcnn_conv3d_bf16_wgrad(const void* xt, const void* gt,
                                          int Ci, int Co, int R, int cols,
                                          int splits, int per_split,
                                          void* stream) {
-  if (Co == 0 || Ci == 0) return 0;
-  const int cp = (Ci + 15) / 16 * 16, cop = (Co + 15) / 16 * 16;
-  if (B < 1 || R < 1 || splits < 1 || per_split < 1 || cp % cols != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto st = static_cast<cudaStream_t>(stream);
-  auto* pf = static_cast<float*>(partial);
-  int err;
-  switch (cols) {
-    case 16:
-      err = launch_wgrad<16>(xt, gt, pf, B, cp, cop, Co, R, splits,
-                             per_split, st);
-      break;
-    case 32:
-      err = launch_wgrad<32>(xt, gt, pf, B, cp, cop, Co, R, splits,
-                             per_split, st);
-      break;
-    case 64:
-      err = launch_wgrad<64>(xt, gt, pf, B, cp, cop, Co, R, splits,
-                             per_split, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != 0) return err;
-  const int64_t n = static_cast<int64_t>(Co) * Ci * kTaps;
-  conv3d_bf16_wgrad_sum_kernel<<<pvcnn::blocks_for(n), pvcnn::kThreads, 0,
-                                 st>>>(pf, static_cast<u16*>(dw), Co, Ci, cp,
-                                       splits);
-  return static_cast<int>(cudaGetLastError());
+  return wgrad<false>(xt, gt, 0, partial, dw, B, Ci, Co, R, cols, splits,
+                      per_split, stream);
+}
+
+// K11 in bf16: K4's core and plan on x [B, R, R, R, Ci] and its gradient
+// g [B, R, R, R, Co], each read in place where `last` says so (bit 0: x,
+// bit 1: g; C % 8 == 0 and 16-byte aligned), else given staged by
+// pvcnn_conv3d_bf16_stage_last; dw, partial and the plan as
+// pvcnn_conv3d_bf16_wgrad's
+PVCNN_EXPORT int pvcnn_conv3d_bf16_wgrad_last(const void* x, const void* g,
+                                              int last, void* partial,
+                                              void* dw, int B, int Ci,
+                                              int Co, int R, int cols,
+                                              int splits, int per_split,
+                                              void* stream) {
+  return wgrad<true>(x, g, last, partial, dw, B, Ci, Co, R, cols, splits,
+                     per_split, stream);
 }

@@ -45,26 +45,60 @@
 // run next to each other (the column tile is the fastest grid index), so A
 // is read from device memory about once.
 //
-// bf16 mode (pvcnn_dense_rows_fwd_bf16 and pvcnn_dense_rows_wgrad_bf16,
-// counted as dense_rows_fwd_bf16, dense_rows_dgrad_bf16 and
-// dense_rows_wgrad_bf16): the same three calls on bf16 x, g and weight, as
-// the TPU kernels run them on bf16 rows (jax.lax.dot with an f32
-// accumulator), on dense_gemm.cuh's bf16 core (mma.sync m16n8k16, bf16
-// operands, f32 accumulators; the same grid, ring and fixed orders).
+// bf16 mode (counted as dense_rows_fwd_bf16, dense_rows_dgrad_bf16 and
+// dense_rows_wgrad_bf16): the same three calls on bf16 x and g, as the TPU
+// kernels run them on bf16 rows (jax.lax.dot with an f32 accumulator).
 // Rounding points, as in the JAX package (pvcnn_tpu/ops/pallas/
-// dense_rows.py): the prologue a(x) in f32 from the bf16 x, rounded to
-// bf16 before the product (_fwd_kernel's .astype(x.dtype)), applied to the
-// staged slice in shared memory; the forward adds the f32 bias to the f32
+// dense_rows.py): the weight rounded to bf16 (w.astype(x.dtype)); the
+// prologue a(x) in f32 from the bf16 x, rounded to bf16 before the product
+// (_fwd_kernel's .astype(x.dtype)), only on in-range entries (a(0) may not
+// be 0); f32 products and sums; the forward adds the f32 bias to the f32
 // accumulator, takes the statistics from it (before any rounding) and
 // rounds y to bf16 once; the dgrad (W^T, no bias, no statistics) rounds its
 // output to bf16; K10 keeps dW and d(bias) in f32 (d(bias) the f32 sum of
-// the bf16 cotangent) and folds its chunks in order. The wrapper casts the
-// weight to a bf16 [Co, Ci] copy (the JAX op's w.astype(x.dtype)), which
-// the forward reads K-major and the dgrad MN-major, in place. Bound:
-// 2 * rows * Ci * Co FLOPs against 989 TFLOP/s of bf16 tensor cores, or
-// the operands' bytes (2 an element) against 3.35 TB/s: at Ci or Co of
-// 128 or less, bytes.
+// the bf16 cotangent) and folds its chunks in order.
+//
+// K9 in bf16 (pvcnn_dense_rows_fwd_wgmma, pvcnn_dense_rows_dgrad_wgmma;
+// namespace w9): wgmma fed by TMA. The forward first rounds the f32 weight
+// into a bf16 copy [ceil(Ci / 8)][Co][8] (dense_rows_bf16_weights_kernel):
+// 16-byte rows of 8 input channels of one output channel, so that 8 of
+// them are one core matrix of wgmma's unswizzled layout, K-major for the
+// forward's B and MN-major for the dgrad's (W^T); the wrapper keeps the
+// copy for the dgrad (JAX casts the same weight both times). A persistent
+// block (dense_rows_wgmma_kernel<BN, kA, TB>: 2 consumer warpgroups of 64
+// rows and a producer warp) walks its column tile's row tiles of 128 rows
+// in a fixed order (blockIdx.x, + gridDim.x, ...), reducing over k in
+// slices of 64 (4 k16 steps, wgmma m64nNk16, N = BN = 64 or 128) through
+// a ring of slots on mbarriers. The
+// producer's TMA loads fill each slot with A's slice (8 boxes of 8
+// channels x 128 rows: core matrices stacked along the rows; rows and
+// channels past the end zero-filled) and, unless the block's whole column
+// slice of the weight fits shared memory and was loaded once at its start
+// (`resident`), the weight's slice; the ring runs on across tiles, so a
+// tile's epilogue overlaps the next tile's loads. Without the prologue
+// wgmma reads A from shared memory; with it each warp takes its 16 rows of
+// a k16 step by ldmatrix, activates the in-range entries in f32, rounds
+// them and multiplies from registers. Rows whose stride is not a multiple
+// of 16 bytes or that start off a 16-byte boundary (x at Ci = 9, g at Co =
+// 196), which TMA cannot describe, are read by the consumers themselves
+// into the fragment, zeros past the rows and channels: no padded copy.
+// Epilogue: y + bias in f32 into a per-warp shared tile; the statistics of
+// the in-range rows from those f32 values (a lane two columns over the
+// warp's 16 rows: rows r and r + 8, then a pairwise tree over r, the
+// order shuffles over a column's 8 lanes would give, which cost a forward
+// 17-42% over none; then the warp's tiles and the 8 warps in order); y
+// rounded once and stored as whole 16-byte pieces, a row's 128 bytes by 8
+// lanes. Each block writes one statistics slot; the last block
+// of a column tile (an integer ticket) adds the slots in block order: no
+// float atomics, bitwise reproducible, no second launch. Bound: the bytes
+// of x, y (or g, dx) and the copy at Ci or Co of 128 or less (2 an element
+// against 3.35 TB/s), else 2 * rows * Ci * Co FLOPs against 989 TFLOP/s.
+//
+// K10 in bf16 (pvcnn_dense_rows_wgrad_bf16) runs on dense_gemm.cuh's bf16
+// core (mma.sync m16n8k16, bf16 operands, f32 accumulators; the fp32 K10's
+// grid, ring, chunks and fixed orders).
 #include "dense_gemm.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -618,6 +652,583 @@ bool staged16(const void* p, int ld) {
   return ld > 0 && ld % 8 == 0 && pvcnn::gemm::aligned16(p);
 }
 
+// ---- K9 in bf16: wgmma fed by TMA --------------------------------------------
+
+namespace w9 {
+
+using namespace pvcnn::wg;
+using u16 = unsigned short;
+
+constexpr int kBM = 128;                 // rows a tile: 2 warpgroups x 64
+constexpr int kBK = 64;                  // k a slice: 4 k16 steps
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;   // + a producer warp
+constexpr int kEpiCols = 64;             // columns a warp stages at a time
+constexpr int kEpiStride = kEpiCols + 8;    // its rows, floats
+constexpr int kABytes = kBM * kBK * 2;   // an A slice: 128 rows of 128 bytes
+// the 16-byte pieces that hold a row's 64 k of a slice, wherever it starts
+constexpr int kDirectPieces = kBK * 2 / 16 + 1;
+
+// How a slice of A (x, or the dgrad's cotangent) reaches the products:
+// kSS by TMA into the ring (128-byte rows in the 128-byte swizzle) and
+// read by wgmma from shared memory; kPro by TMA, then ldmatrix, the
+// prologue in f32 and wgmma from registers; kDirect (rows whose stride TMA
+// cannot describe) copied slice by slice by the consumers' cp.async, as
+// the 9 16-byte pieces that hold each row's 64 k, into one of two
+// shared-memory buffers (the next slice's in flight while this one is
+// multiplied), from which each warp gathers its fragments (the prologue
+// applied where pscale is given).
+enum AMode { kSS = 0, kPro = 1, kDirect = 2 };
+
+struct Params {
+  const u16* x;            // A [M][ldx] (kDirect)
+  int ldx;
+  const u16* w16;          // the weight's copy [Kp / 8][Cop][8]
+  int cop;
+  const float* bias;       // [N] or null
+  const float* pscale;     // [K] or null
+  const float* pshift;
+  float slope;
+  u16* y;                  // [M][N]
+  float* stats;            // [2][N] or null
+  float* slots;            // [col tiles][gridDim.x][2][BN]
+  unsigned* ticket;        // [col tiles], zeroed by the weights kernel
+  int M, N, K, ksteps, slices, stages, resident, direct_bytes;
+};
+
+// the byte offsets of a block's shared memory (after 1024-byte alignment:
+// the swizzled A slices), shared by the kernel and its launcher
+struct Layout {
+  int stage, res, direct, epi, red, bars, total;   // the ring starts at 0
+  __host__ __device__ Layout(int bn, bool a_tma, int stages, int slices,
+                             bool resident, int direct_bytes) {
+    const int b = kBK * bn * 2;
+    stage = (a_tma ? kABytes : 0) + (resident ? 0 : b);
+    res = stages * stage;
+    direct = res + (resident ? slices * b : 0);
+    epi = direct + direct_bytes;
+    red = epi + 8 * 16 * kEpiStride * 4;
+    bars = red + 8 * 2 * bn * 4;
+    total = bars + 8 * (2 * stages + 1) + 16 + 1024;   // + a flag, alignment
+  }
+};
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  return static_cast<uint32_t>(g16::to_bf16(lo)) |
+         static_cast<uint32_t>(g16::to_bf16(hi)) << 16;
+}
+
+// a(v) of the pair of bf16 values in r at channels k, k + 1 (rounded to
+// bf16 once), zero where the row or a channel is out of range
+__device__ __forceinline__ uint32_t act_pair(uint32_t r, bool row_ok, int k,
+                                             const Params& p) {
+  float v[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float f = g16::to_float(static_cast<u16>(r >> (16 * e)));
+    v[e] = row_ok && k + e < p.K
+               ? activate(f, __ldg(p.pscale + k + e), __ldg(p.pshift + k + e),
+                          p.slope)
+               : 0.f;
+  }
+  return pack(v[0], v[1]);
+}
+
+// K9 in bf16: a persistent block of 2 consumer warpgroups (64 rows each)
+// and a producer warp walks the row tiles blockIdx.x, + gridDim.x, ... of
+// column tile blockIdx.y (BN = 64 or 128 columns, one wgmma m64nBNk16 a k16
+// step), k in slices of 64 (4 k16 steps) through a ring of p.stages slots
+// on mbarriers; the weight's slices come once a block (p.resident) or with
+// A's in each slot. TB: B K-major (0, the forward) or MN-major (1, the
+// dgrad). ptxas counts the producer warp as a third warpgroup: 2 blocks an
+// SM leave a thread 80-96 registers. With A in registers (16 more a
+// thread) BN = 128 takes the SM alone (at 2 blocks it spilled 130-160
+// bytes). Tiles of 256 columns (two products of 128, 1 block an SM) ran
+// 1.3-1.4x slower than 128 at 2 blocks: the epilogue does not hide its
+// latency in one block's 8 warps.
+template <int BN, int kA, int TB>
+__global__ void __launch_bounds__(kThreads, BN == 128 && kA != kSS ? 1 : 2)
+dense_rows_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                        const Params p) {
+  constexpr int kB = kBK * BN * 2;       // a B slice's bytes
+  constexpr bool kTma = kA != kDirect;
+  const Layout L(BN, kTma, p.stages, p.slices, p.resident, p.direct_bytes);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + p.stages;
+  uint64_t* wbar = empty + p.stages;
+  int* flag = reinterpret_cast<int*>(wbar + 1);
+  const bool ring = kTma || !p.resident;
+  const int tid = threadIdx.x;
+  const int ct = blockIdx.y, n0 = ct * BN;
+  const int row_tiles = (p.M + kBM - 1) / kBM;
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 2);
+    }
+    bar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {               // the producer warp: one thread
+    if (tid == kConsumers) {
+      // B's slice s into dst by bulk copies of the (padded) copy: [8 k
+      // groups][BN][8] (forward) or [BN / 8 n groups][64 k][8] (dgrad)
+      auto load_b = [&](unsigned char* dst, int s, uint64_t* bar) {
+        if (TB == 0) {
+          for (int j = 0; j < kBK / 8; ++j) {
+            bulk_load(dst + j * BN * 16,
+                      p.w16 + (static_cast<int64_t>(kBK / 8 * s + j) * p.cop +
+                               n0) * 8,
+                      BN * 16, bar);
+          }
+        } else {
+          for (int i = 0; i < BN / 8; ++i) {
+            bulk_load(dst + i * kBK * 16,
+                      p.w16 + (static_cast<int64_t>(n0 / 8 + i) * p.cop +
+                               kBK * s) * 8,
+                      kBK * 16, bar);
+          }
+        }
+      };
+      if (p.resident) {
+        bar_expect(wbar, p.slices * kB);
+        for (int s = 0; s < p.slices; ++s) {
+          load_b(smem + L.res + s * kB, s, wbar);
+        }
+      }
+      if (ring) {
+        int it = 0;
+        for (int t = blockIdx.x; t < row_tiles; t += gridDim.x) {
+          for (int s = 0; s < p.slices; ++s, ++it) {
+            const int st = it % p.stages;
+            if (it >= p.stages) {
+              bar_wait(&empty[st], (it / p.stages - 1) & 1);
+            }
+            unsigned char* slot = smem + st * L.stage;
+            bar_expect(&full[st],
+                       (kTma ? kABytes : 0) + (p.resident ? 0 : kB));
+            if (kTma) {
+              tma_load_2d(slot, &amap, &full[st], s * kBK, t * kBM);
+            }
+            if (!p.resident) load_b(slot + (kTma ? kABytes : 0), s, &full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, lt = tid & 127;
+  const int w4 = lt >> 5, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool with_stats = p.stats != nullptr;
+  // the warp's column sums over its tiles, [2][BN]
+  float* red = reinterpret_cast<float*>(smem + L.red) + warp * 2 * BN;
+  float* epi =
+      reinterpret_cast<float*>(smem + L.epi) + warp * 16 * kEpiStride;
+  // kDirect: the 16-byte pieces that hold a slice's 128 rows x 64 k (9 a
+  // row: [128][9][16] bytes; only pieces with elements in range), copied
+  // by cp.async into buffer it % 2 of two
+  auto stage_direct = [&](int at_it, int t, int s) {
+    u16* buf = reinterpret_cast<u16*>(smem + L.direct) +
+               (at_it & 1) * kBM * kDirectPieces * 8;
+    const int kend = min(p.K, kBK * (s + 1));
+#pragma unroll 4
+    for (int i = tid; i < kBM * kDirectPieces; i += kConsumers) {
+      const int r = i / kDirectPieces, j = i % kDirectPieces;
+      if (t * kBM + r >= p.M) continue;
+      const u16* row = p.x + static_cast<int64_t>(t * kBM + r) * p.ldx;
+      const uintptr_t at =
+          (reinterpret_cast<uintptr_t>(row + kBK * s) & ~uintptr_t{15}) +
+          16 * j;
+      if (at < reinterpret_cast<uintptr_t>(row + kend)) {
+        g16::copy16(buf + 8 * i, reinterpret_cast<const u16*>(at), 16);
+      }
+    }
+  };
+  if (kA == kDirect && static_cast<int>(blockIdx.x) < row_tiles) {
+    stage_direct(0, blockIdx.x, 0);
+    pvcnn::gemm::copy_commit();
+  }
+  for (int i = lane; i < 2 * BN; i += 32) red[i] = 0.f;
+  __syncwarp();
+  if (p.resident) bar_wait(wbar, 0);
+  float acc[BN / 2];
+  int it = 0;
+  for (int t = blockIdx.x; t < row_tiles; t += gridDim.x) {
+    const int m0 = t * kBM;
+    const int mw = m0 + wg * 64 + w4 * 16;    // the warp's first row
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int s = 0; s < p.slices; ++s, ++it) {
+      const int nst = min(4, p.ksteps - 4 * s);
+      if constexpr (kA == kDirect) {
+        // the next slice's pieces in flight while this one is multiplied
+        named_sync(2, kConsumers);     // the buffer they go to is read
+        if (s + 1 < p.slices) {
+          stage_direct(it + 1, t, s + 1);
+        } else if (t + static_cast<int>(gridDim.x) < row_tiles) {
+          stage_direct(it + 1, t + gridDim.x, 0);
+        }
+        pvcnn::gemm::copy_commit();
+        pvcnn::gemm::copy_wait<1>();   // this thread's pieces of slice s
+        named_sync(2, kConsumers);     // everyone's
+      }
+      const int st = it % p.stages;
+      if (ring) bar_wait(&full[st], (it / p.stages) & 1);
+      unsigned char* slot = smem + st * L.stage;
+      const uint32_t b_at =
+          smem_addr(p.resident ? smem + L.res + s * kB
+                               : slot + (kTma ? kABytes : 0));
+      // B of k16 step kk
+      auto b_desc = [&](int kk) {
+        return TB == 0 ? mat_desc(b_at + 2 * kk * BN * 16, BN * 16, 128)
+                       : mat_desc(b_at + 16 * kk * 16, 128, kBK * 16);
+      };
+      if constexpr (kA == kSS) {
+        const uint32_t a_at = smem_addr(slot) + wg * 64 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk < nst) {
+            const uint64_t a = mat_desc_sw128(a_at + 32 * kk);
+            wgmma_ss<BN, TB>(acc, a, b_desc(kk));
+          }
+        }
+        wgmma_commit();
+      } else {
+        // the warp's 16 rows x 16 k of each step in mma.sync's A fragment:
+        // lane (g, t4) holds rows g, g + 8 and k 2 t4 (+1), + 8 (+1)
+        uint32_t afr[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk < nst) {
+            const int k0 = 16 * (4 * s + kk) + 2 * t4;
+            if constexpr (kA == kPro) {
+              // matrix j = lane / 8: rows + 8 (j & 1), k + 8 (j >> 1); the
+              // 16-byte piece c of row r sits at piece c ^ (r % 8)
+              const int j = lane >> 3;
+              const int r = wg * 64 + w4 * 16 + (j & 1) * 8 + (lane & 7);
+              const int c = 2 * kk + (j >> 1);
+              ldmatrix_x4(afr[kk], smem_addr(slot) + r * 128 +
+                                       ((c ^ (r & 7)) << 4));
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                afr[kk][e] = act_pair(afr[kk][e], mw + g + 8 * (e & 1) < p.M,
+                                      k0 + 8 * (e >> 1), p);
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = mw + g + 8 * (e & 1), k = k0 + 8 * (e >> 1);
+                const u16* at = reinterpret_cast<const u16*>(
+                    smem + L.direct +
+                    ((it & 1) * kBM + row - m0) * kDirectPieces * 16 +
+                    (reinterpret_cast<uintptr_t>(
+                         p.x + static_cast<int64_t>(row) * p.ldx + kBK * s) &
+                     15) +
+                    2 * (k - kBK * s));
+                float v[2];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const bool in = row < p.M && k + h < p.K;
+                  v[h] = in ? g16::to_float(at[h]) : 0.f;
+                  if (in && p.pscale != nullptr) {   // rounded by pack
+                    v[h] = activate(v[h], __ldg(p.pscale + k + h),
+                                    __ldg(p.pshift + k + h), p.slope);
+                  }
+                }
+                afr[kk][e] = pack(v[0], v[1]);
+              }
+            }
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk < nst) {
+            wgmma_rs<BN, TB>(acc, afr[kk], b_desc(kk));
+          }
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      if (ring && lt == 0) bar_arrive(&empty[st]);
+    }
+
+    // epilogue, 64 columns at a time. Fragment: rows mw + g + 8 i, columns
+    // n0 + 8 j + 2 t4 + e in acc[4 j + 2 i + e]. y + bias in f32 into the
+    // warp's [16][72] tile; then lane l sums columns 2 l and 2 l + 1 over
+    // the in-range rows (the statistics, from the f32 values), and the
+    // lanes round and store the rows as 16-byte pieces, a row's 128 bytes
+    // by 8 lanes (whole sectors)
+    fence_acc(acc);
+    const int rows_in = min(16, p.M - mw);
+#pragma unroll
+    for (int c = 0; c < BN / kEpiCols; ++c) {
+#pragma unroll
+      for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+        const int j = c * (kEpiCols / 8) + jj;
+        const int col = n0 + 8 * j + 2 * t4;
+        float bc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          bc[e] = p.bias != nullptr && col + e < p.N ? __ldg(p.bias + col + e)
+                                                     : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          *reinterpret_cast<float2*>(epi + (g + 8 * i) * kEpiStride + 8 * jj +
+                                     2 * t4) =
+              make_float2(acc[4 * j + 2 * i] + bc[0],
+                          acc[4 * j + 2 * i + 1] + bc[1]);
+        }
+      }
+      __syncwarp();
+      if (with_stats) {
+        // column 2 lane + e: rows r and r + 8 summed from 0, then a
+        // pairwise tree over r = 0..7 (the order of a shuffle tree over a
+        // column's 8 lanes), then the warp's tiles in order
+        float s1[4][2], s2[4][2];   // the pairs' partial trees
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float a[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (r + 8 * i < rows_in) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  epi + (r + 8 * i) * kEpiStride + 2 * lane);
+              a[0] += v.x;
+              q[0] = fmaf(v.x, v.x, q[0]);
+              a[1] += v.y;
+              q[1] = fmaf(v.y, v.y, q[1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (r % 2 == 0) {
+              s1[r / 2][e] = a[e];
+              s2[r / 2][e] = q[e];
+            } else {
+              s1[r / 2][e] += a[e];
+              s2[r / 2][e] += q[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float t1 = (s1[0][e] + s1[1][e]) + (s1[2][e] + s1[3][e]);
+          const float t2 = (s2[0][e] + s2[1][e]) + (s2[2][e] + s2[3][e]);
+          red[c * kEpiCols + 2 * lane + e] += t1;
+          red[BN + c * kEpiCols + 2 * lane + e] += t2;
+        }
+      }
+      const int cbase = n0 + c * kEpiCols;
+      if (p.N % 8 == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int piece = lane + 32 * i;
+          const int row = piece >> 3, c8 = (piece & 7) * 8;
+          const int m = mw + row, n = cbase + c8;
+          if (m < p.M && n < p.N) {
+            const float4* src =
+                reinterpret_cast<const float4*>(epi + row * kEpiStride + c8);
+            const float4 lo = src[0], hi = src[1];
+            *reinterpret_cast<uint4*>(p.y + static_cast<int64_t>(m) * p.N +
+                                      n) =
+                make_uint4(pack(lo.x, lo.y), pack(lo.z, lo.w),
+                           pack(hi.x, hi.y), pack(hi.z, hi.w));
+          }
+        }
+      } else {   // rows not in whole 16-byte pieces: a lane an element
+#pragma unroll 4
+        for (int i = lane; i < 16 * kEpiCols; i += 32) {
+          const int row = i / kEpiCols, cc = i % kEpiCols;
+          const int m = mw + row, n = cbase + cc;
+          if (m < p.M && n < p.N) {
+            p.y[static_cast<int64_t>(m) * p.N + n] =
+                g16::to_bf16(epi[row * kEpiStride + cc]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+  if (!with_stats) return;
+
+  // the block's sums (its 8 warps in order) into its slot; the last block
+  // of the column tile (an integer ticket) adds the slots in block order,
+  // in kConsumers / BN runs of blocks whose sums it adds in run order (no
+  // float atomics)
+  named_sync(1, kConsumers);
+  const float* sums = reinterpret_cast<const float*>(smem + L.red);
+  float* first = p.slots + static_cast<int64_t>(ct) * gridDim.x * 2 * BN;
+  if (tid < BN) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      a += sums[w * 2 * BN + tid];
+      b += sums[w * 2 * BN + BN + tid];
+    }
+    first[blockIdx.x * 2 * BN + tid] = a;
+    first[blockIdx.x * 2 * BN + BN + tid] = b;
+  }
+  __threadfence();
+  named_sync(1, kConsumers);
+  if (tid == 0) {
+    *flag = atomicAdd(p.ticket + ct, 1u) == gridDim.x - 1;
+  }
+  named_sync(1, kConsumers);
+  if (!*flag) return;
+  __threadfence();
+  constexpr int kRuns = kConsumers / BN;
+  const int col = tid % BN, run = tid / BN;
+  const int per = (static_cast<int>(gridDim.x) + kRuns - 1) / kRuns;
+  const int b0 = run * per, b1 = min(static_cast<int>(gridDim.x), b0 + per);
+  float a = 0.f, b = 0.f;
+#pragma unroll 16
+  for (int k = b0; k < b1; ++k) {
+    a += __ldcg(first + k * 2 * BN + col);
+    b += __ldcg(first + k * 2 * BN + BN + col);
+  }
+  float* part = reinterpret_cast<float*>(smem + L.red);
+  part[run * 2 * BN + col] = a;
+  part[run * 2 * BN + BN + col] = b;
+  named_sync(1, kConsumers);
+  if (tid < BN && n0 + tid < p.N) {
+    a = part[tid];
+    b = part[BN + tid];
+#pragma unroll
+    for (int r = 1; r < kRuns; ++r) {
+      a += part[r * 2 * BN + tid];
+      b += part[r * 2 * BN + BN + tid];
+    }
+    p.stats[n0 + tid] = a;
+    p.stats[p.N + n0 + tid] = b;
+  }
+}
+
+// the forward's weight w [Ci, Co] f32 (element (ci, co) at ci * sk + co *
+// sn) -> its bf16 copy w16 [Kp / 8][Cop][8] (8 input channels of one
+// output channel in 16 bytes, zeros past Ci and Co; Kp and Cop padded to
+// whole column tiles and slices): the forward's B K-major and the dgrad's
+// (W^T) MN-major, both in wgmma's core matrices; and the forward's
+// statistics tickets zeroed
+__global__ void __launch_bounds__(pvcnn::kThreads)
+dense_rows_bf16_weights_kernel(const float* __restrict__ w, int64_t sk,
+                               int64_t sn, u16* __restrict__ w16, int Ci,
+                               int Co, int cop, int64_t total,
+                               unsigned* __restrict__ ticket, int tickets) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i < tickets) ticket[i] = 0u;     // the forward's, before it runs
+  if (i >= total) return;              // total = Kp / 8 * Cop
+  const int n = static_cast<int>(i % cop);
+  const int k0 = static_cast<int>(i / cop) * 8;
+  union {
+    uint4 v;
+    u16 e[8];
+  } out;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    out.e[j] = k0 + j < Ci && n < Co
+                   ? g16::to_bf16(__ldg(w + (k0 + j) * sk + n * sn))
+                   : u16{0};
+  }
+  reinterpret_cast<uint4*>(w16)[i] = out.v;
+}
+
+template <int BN, int kA, int TB>
+int launch_bn(const CUtensorMap& amap, const Params& p, int smem, int grid,
+              cudaStream_t st) {
+  auto kernel = dense_rows_wgmma_kernel<BN, kA, TB>;
+  static int allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  const dim3 blocks(static_cast<unsigned>(grid),
+                    static_cast<unsigned>((p.N + BN - 1) / BN));
+  kernel<<<blocks, kThreads, smem, st>>>(amap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kA, int TB>
+int launch_mode(const CUtensorMap& amap, const Params& p, int bn, int smem,
+                int grid, cudaStream_t st) {
+  switch (bn) {
+    case 64: return launch_bn<64, kA, TB>(amap, p, smem, grid, st);
+    case 128: return launch_bn<128, kA, TB>(amap, p, smem, grid, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the padding of the weight copy's axes: whole column tiles (64, or a
+// multiple of 128) and whole slices of 64
+inline int padded(int c) { return c <= 64 ? 64 : (c + 127) / 128 * 128; }
+
+// one K9 bf16 launch: y [M, N] bf16 = a(A) B (+ bias), A [M, K] bf16 (row
+// stride lda, by TMA where a_tma), B the weight's bf16 copy [padded(Ci) /
+// 8][padded(Co)][8] (dgrad: K = Co, N = Ci, read MN-major); with stats
+// (f32 [2][N]) and work (f32 [N tiles][grid][2][bn], then N tiles
+// tickets) the statistics of the f32 y + bias, summed in a fixed order
+int run(const void* a, int lda, int a_tma, const void* w16, int Ci, int Co,
+        int dgrad, const float* bias, const float* pscale,
+        const float* pshift, float slope, void* y, float* stats,
+        float* work, int M, int N, int K, int bn, int grid, int stages,
+        int resident, int direct_bytes, int smem, cudaStream_t st) {
+  if (M == 0 || N == 0) return 0;
+  const int col_tiles = (N + bn - 1) / bn;
+  const int slices = (K + kBK - 1) / kBK;
+  const Layout L(bn, a_tma != 0, stages, slices, resident != 0,
+                 a_tma ? 0 : direct_bytes);
+  if (K < 1 || grid < 1 || stages < 1 || L.total > smem ||
+      (dgrad && pscale != nullptr) || (stats != nullptr && work == nullptr) ||
+      (a_tma && (lda % 8 != 0 || !pvcnn::gemm::aligned16(a))) ||
+      (!a_tma && direct_bytes < 2 * kBM * kDirectPieces * 16) ||
+      !pvcnn::gemm::aligned16(w16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap amap = {};
+  if (a_tma) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(M)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(lda) * 2};
+    const cuuint32_t box[2] = {kBK, kBM};
+    const int err = bf16_map(&amap, a, 2, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != 0) return err;
+  }
+  const Params p{static_cast<const u16*>(a), lda,
+                 static_cast<const u16*>(w16), padded(Co), bias, pscale,
+                 pshift, slope, static_cast<u16*>(y), stats, work,
+                 work == nullptr
+                     ? nullptr
+                     : reinterpret_cast<unsigned*>(
+                           work + static_cast<int64_t>(col_tiles) * grid *
+                                      2 * bn),
+                 M, N, K, (K + 15) / 16, slices, stages, resident,
+                 a_tma ? 0 : direct_bytes};
+  const int mode = !a_tma ? kDirect : pscale != nullptr ? kPro : kSS;
+  if (dgrad) {
+    return mode == kSS ? launch_mode<kSS, 1>(amap, p, bn, smem, grid, st)
+                       : launch_mode<kDirect, 1>(amap, p, bn, smem, grid, st);
+  }
+  switch (mode) {
+    case kSS: return launch_mode<kSS, 0>(amap, p, bn, smem, grid, st);
+    case kPro: return launch_mode<kPro, 0>(amap, p, bn, smem, grid, st);
+    default: return launch_mode<kDirect, 0>(amap, p, bn, smem, grid, st);
+  }
+}
+
+}  // namespace w9
+
 }  // namespace
 
 // K9: y [rows, N] = a(x) w (+ bias), x [rows, K] contiguous, w read as
@@ -695,42 +1306,6 @@ PVCNN_EXPORT int pvcnn_dense_rows_wgrad(const void* x, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9 in bf16: y [rows, N] bf16 (row stride ldy) = a(x) w (+ bias), x bf16
-// [rows, K] (row stride ldx >= K, zeros past K), w bf16 read as w[k, n] =
-// w[n * ldw + k] (w_kmajor: the forward, w the [Co, Ci] weight) or w[k *
-// ldw + n] (the dgrad: the same weight as W^T, no bias); bias f32 [N] or
-// null; pscale / pshift f32 [K]; partial f32 [ceil(rows / 128)][2][N] or
-// null, the statistics of the f32 y + bias. ldx and ldw multiples of 8,
-// x and w 16-byte aligned; bn (64 or 128) is ops/dense_rows.py:_plan's
-// column tile.
-PVCNN_EXPORT int pvcnn_dense_rows_fwd_bf16(
-    const void* x, int ldx, const void* w, int ldw, int w_kmajor,
-    const void* bias, const void* pscale, const void* pshift, float slope,
-    void* y, int ldy, void* partial, int rows, int K, int N,
-    int has_prologue, int bn, void* stream) {
-  if (rows == 0 || N == 0) return 0;
-  if (!staged16(x, ldx) || !staged16(w, ldw) || ldx < K || ldy < N ||
-      (w_kmajor && ldw < K) || (!w_kmajor && ldw < N)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Args16 a{static_cast<const g16::u16*>(x),
-                 static_cast<const g16::u16*>(w),
-                 ldx, ldw,
-                 static_cast<const float*>(bias),
-                 static_cast<const float*>(pscale),
-                 static_cast<const float*>(pshift),
-                 slope, y, ldy,
-                 static_cast<float*>(partial), nullptr,
-                 rows, N, K, K > 0 ? K : 1};
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (!w_kmajor) {
-    if (has_prologue) return static_cast<int>(cudaErrorInvalidValue);
-    return launch16<kNone, true, false, false>(a, bn, 1, st);
-  }
-  return has_prologue ? launch16<kByK, true, true, false>(a, bn, 1, st)
-                      : launch16<kNone, true, true, false>(a, bn, 1, st);
-}
-
 // K10 in bf16: dw f32 [Ci, Co] = a(x)^T g and db f32 [Co] = sum_r g, x
 // bf16 [rows, Ci] (row stride ldx) and g bf16 [rows, Co] (row stride ldg),
 // both multiples of 8 and 16-byte aligned; the rows in chunks of `chunk`
@@ -772,4 +1347,59 @@ PVCNN_EXPORT int pvcnn_dense_rows_wgrad_bf16(
                            st>>>(pf, dbp, static_cast<float*>(dw),
                                  static_cast<float*>(db), total, Co, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9 in bf16, the forward: w16 [padded(Ci) / 8][padded(Co)][8] bf16 (w9::
+// padded; zeros in the padding) = the f32 weight w [Ci, Co] (element (ci,
+// co) at ci * sk + co * sn) rounded to bf16 (the dgrad reads the same
+// copy); then y [rows, Co] bf16 = a(x) w16 + bias, x bf16 [rows, Ci] with
+// row stride ldx (by TMA where x_tma: ldx % 8 == 0, 16-byte aligned; else
+// staged slice by slice in direct_bytes of shared memory), bias f32 [Co],
+// pscale / pshift f32 [Ci] or null; with stats (f32 [2][Co], followed by
+// the blocks' slots [ceil(Co / bn)][grid][2][bn] and a ticket a column
+// tile) the BatchNorm sums of the f32 y. bn, grid, stages, resident,
+// direct_bytes and smem are ops/dense_rows.py:_wgmma_plan's.
+PVCNN_EXPORT int pvcnn_dense_rows_fwd_wgmma(
+    const void* x, int ldx, int x_tma, const void* w, int64_t sk, int64_t sn,
+    void* w16, const void* bias, const void* pscale, const void* pshift,
+    float slope, void* y, void* stats, int rows, int Ci, int Co, int bn,
+    int grid, int stages, int resident, int direct_bytes, int smem,
+    void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int cop = w9::padded(Co);
+  const int64_t total = static_cast<int64_t>(w9::padded(Ci) / 8) * cop;
+  float* work = stats == nullptr ? nullptr : static_cast<float*>(stats) +
+                                                 2 * Co;
+  // the tickets follow the slots
+  const int col_tiles = (Co + bn - 1) / bn;
+  unsigned* ticket =
+      work == nullptr || rows == 0
+          ? nullptr
+          : reinterpret_cast<unsigned*>(work + static_cast<int64_t>(
+                                                   col_tiles) * grid * 2 * bn);
+  w9::dense_rows_bf16_weights_kernel<<<pvcnn::blocks_for(total),
+                                       pvcnn::kThreads, 0, st>>>(
+      static_cast<const float*>(w), sk, sn, static_cast<w9::u16*>(w16), Ci,
+      Co, cop, total, ticket, ticket == nullptr ? 0 : col_tiles);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return w9::run(x, ldx, x_tma, w16, Ci, Co, 0,
+                 static_cast<const float*>(bias),
+                 static_cast<const float*>(pscale),
+                 static_cast<const float*>(pshift), slope, y,
+                 static_cast<float*>(stats), work, rows, Co, Ci, bn, grid,
+                 stages, resident, direct_bytes, smem, st);
+}
+
+// K9 in bf16, the dgrad: dx [rows, Ci] bf16 = g w16^T, g bf16 [rows, Co]
+// with row stride ldg (by TMA where g_tma), w16 the forward's copy of the
+// weight (pvcnn_dense_rows_fwd_wgmma); no bias, prologue or statistics
+PVCNN_EXPORT int pvcnn_dense_rows_dgrad_wgmma(
+    const void* g, int ldg, int g_tma, const void* w16, void* dx, int rows,
+    int Ci, int Co, int bn, int grid, int stages, int resident,
+    int direct_bytes, int smem, void* stream) {
+  return w9::run(g, ldg, g_tma, w16, Ci, Co, 1, nullptr, nullptr, nullptr,
+                 0.f, dx, nullptr, nullptr, rows, Ci, Co, bn, grid, stages,
+                 resident, direct_bytes, smem,
+                 static_cast<cudaStream_t>(stream));
 }

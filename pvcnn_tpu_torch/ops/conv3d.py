@@ -60,9 +60,10 @@ On bf16 x and weight (the NDHWC branch with bf16 activations) the convs
 are cuDNN's bf16 convs on the card (f32 sums, the output rounded to bf16
 once; on the CPU the f32 conv of the widened operands, rounded), and the
 weight gradient is K11's bf16 mode (counted as conv3d_ndhwc_wgrad_bf16):
-x and dY copied into K4's bf16 staged layout by a channel-last staging
-pass (csrc/conv3d_bf16.cu), then K4's bf16 core, dW summed in f32 in a
-fixed order and rounded to bf16 once, as the JAX package's
+K4's bf16 core (csrc/conv3d_bf16.cu) reading x and dY in place by 5-d
+tensor maps (an operand whose channels are not whole 16-byte pieces, x at
+Ci = 9, copied into K4's staged layout by a channel-last staging pass
+first), dW summed in f32 in a fixed order and rounded to bf16 once, as the JAX package's
 dw.astype(kernel.dtype) with a bf16 kernel (pvcnn_tpu/nn/conv3d.py:65-75);
 plain: the 27 products on the widened operands, rounded once. The JAX
 package runs its Pallas kernel only where conv3d_wgrad_plan plans (on a
@@ -379,6 +380,7 @@ def _ndhwc_layout(ci, plan) -> str:
             else "last_rows")
 
 
+@functools.lru_cache(maxsize=None)
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -787,31 +789,47 @@ def _stage_last_bf16(x):
     x = x.contiguous()
     xt = torch.empty((b, _round16(c) // 8, bins, 8), dtype=torch.bfloat16,
                      device=x.device)
-    with torch.cuda.device(x.device):
+    context, stream = kernels.launch_on(x.device)
+    with context:
         kernels.call("pvcnn_conv3d_bf16_stage_last", x.data_ptr(),
-                     xt.data_ptr(), b, c, bins,
-                     torch.cuda.current_stream().cuda_stream)
+                     xt.data_ptr(), b, c, bins, stream)
     return xt
 
 
-def _ndhwc_wgrad_cuda_bf16(x, g, r):
-    """K11's bf16 mode: x and dY staged channel-last into K4's bf16 layout,
-    then K4's bf16 core and its split plan -> dW [Co, Ci, 3, 3, 3] bf16."""
+def _in_place(t):
+    """Whether K11's bf16 mode reads the channel-last grid t in place (its
+    5-d tensor maps: rows of C channels in whole 16-byte pieces, a 16-byte
+    aligned base, contiguous), else from a staged copy."""
+    return (t.shape[-1] % 8 == 0 and t.is_contiguous()
+            and t.data_ptr() % 16 == 0)
+
+
+def _ndhwc_wgrad_cuda_bf16(x, g, r, staged=False):
+    """K11's bf16 mode: K4's bf16 core and split plan on x and dY -> dW [Co,
+    Ci, 3, 3, 3] bf16, each grid read in place where it can be
+    (`_in_place`), else copied into K4's staged layout by the channel-last
+    staging pass (x at Ci = 9). staged=True stages both and runs K4's own
+    launcher (the route before the in-place maps, kept for the tests)."""
     b, ci, co = x.shape[0], x.shape[-1], g.shape[-1]
     dw = torch.empty((co, ci, 3, 3, 3), dtype=torch.bfloat16,
                      device=x.device)
     if b == 0 or r == 0:                 # no voxels: nothing to launch
         return dw.zero_()
-    xt, gt = _stage_last_bf16(x), _stage_last_bf16(g)
+    last = 0 if staged else int(_in_place(x)) | 2 * int(_in_place(g))
+    xs = x if last & 1 else _stage_last_bf16(x)
+    gs = g if last & 2 else _stage_last_bf16(g)
     plan = _wgrad_bf16_plan(b, ci, co, r, _sm_count(x.device.index))
     # each split's f32 partial, added in split order: reproducible bit for
     # bit
     partial = torch.empty((plan.splits, co, _round16(ci), 27),
                           dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    args = (xs.data_ptr(), gs.data_ptr()) + ((last,) if not staged else ())
+    context, stream = kernels.launch_on(x.device)
+    with context:
         kernels.launch(
-            "conv3d_ndhwc_wgrad_bf16", "pvcnn_conv3d_bf16_wgrad",
-            xt.data_ptr(), gt.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            b, ci, co, r, plan.cols, plan.splits, plan.per_split,
-            torch.cuda.current_stream().cuda_stream)
+            "conv3d_ndhwc_wgrad_bf16",
+            "pvcnn_conv3d_bf16_wgrad" if staged
+            else "pvcnn_conv3d_bf16_wgrad_last", *args, partial.data_ptr(),
+            dw.data_ptr(), b, ci, co, r, plan.cols, plan.splits,
+            plan.per_split, stream)
     return dw

@@ -27,11 +27,14 @@ Only the gradients autograd asks for are computed: a layer whose input is
 the input cloud runs no dgrad.
 
 bf16 activations (a bfloat16 x; weight, bias, pscale and pshift float32,
-as the JAX op takes them): the kernels' bf16 mode on the card (csrc/
-dense_gemm.cuh's bf16 core on the tensor cores, counted as
-dense_rows_fwd_bf16, dense_rows_dgrad_bf16 and dense_rows_wgrad_bf16), the
-plain versions on the operands widened to f32 on the CPU. The rounding
-points are the JAX package's (pvcnn_tpu/ops/pallas/dense_rows.py):
+as the JAX op takes them): the kernels' bf16 mode on the card (K9 on
+wgmma fed by TMA, counted as dense_rows_fwd_bf16 and dense_rows_dgrad_bf16;
+K10 on csrc/dense_gemm.cuh's bf16 core, dense_rows_wgrad_bf16), the plain
+versions on the operands widened to f32 on the CPU. The forward's launch
+rounds the weight into a bf16 copy laid out for the kernel, which the op
+keeps for the dgrad (the wrappers' `staged` dict): one cast a step. The
+rounding points are the JAX package's (pvcnn_tpu/ops/pallas/
+dense_rows.py):
 
   forward  the weight cast to bf16 (w.astype(x.dtype), :276); a(x) in f32
            from the bf16 x, rounded to bf16 (_fwd_kernel); f32 products
@@ -64,10 +67,16 @@ __all__ = ["dense_rows_act", "dense_rows_plan"]
 # the blocks per SM that its __launch_bounds__ promise, by column tile
 _BM, _BK, _STAGES, _PAD = 128, 16, 4, 4
 _MIN_BLOCKS = {128: 2, 64: 3}
-# the bf16 core's (csrc/dense_gemm.cuh: gemm16): 256 threads whatever the
-# column tile, slices of 32, a slot holding a tile in either layout (K-major
-# [W][32 + 8] or MN-major [32][W + 8] elements)
+# the bf16 core's (csrc/dense_gemm.cuh: gemm16, K10 in bf16): 256 threads
+# whatever the column tile, slices of 32, a slot holding a tile in either
+# layout (K-major [W][32 + 8] or MN-major [32][W + 8] elements)
 _BK16, _THREADS16, _PAD16 = 32, 256, 8
+# K9 in bf16 (csrc/dense_rows.cu: w9): tiles of 128 rows, slices of 64 k,
+# a warp's epilogue tile 16 x (64 + 8) f32
+_W9_BM, _W9_BK, _W9_EPI_STRIDE = 128, 64, 72
+# its rows read without TMA: a slice's 128 rows of 64 k as the 9 16-byte
+# pieces that hold each, wherever it starts, in two buffers
+_W9_DIRECT_PIECES = 9
 # an H100 SM's shared memory, and what the runtime keeps of it per block
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233472, 1024
 # K10's split: the chunk count whose last wave of resident blocks is
@@ -118,19 +127,26 @@ class _DenseRowsAct(torch.autograd.Function):
     def forward(ctx, x, weight, bias, pscale, pshift, slope, has_prologue,
                 want_stats):
         x2 = x.reshape(-1, x.shape[-1])
-        fwd = _forward_plain if x.device.type == "cpu" else _forward_cuda
-        y2, s1, s2 = fwd(x2, weight, bias, pscale, pshift, slope,
-                         has_prologue, want_stats)
+        # the bf16 kernel's copy of the weight, kept for the dgrad
+        staged = {}
+        if x.device.type == "cpu":
+            y2, s1, s2 = _forward_plain(x2, weight, bias, pscale, pshift,
+                                        slope, has_prologue, want_stats)
+        else:
+            y2, s1, s2 = _forward_cuda(x2, weight, bias, pscale, pshift,
+                                       slope, has_prologue, want_stats,
+                                       staged)
         y = y2.reshape(x.shape[:-1] + (weight.shape[1],))
         ctx.slope, ctx.has_prologue = slope, has_prologue
         ctx.want_stats = want_stats
         ctx.save_for_backward(x, weight, pscale, pshift,
-                              y if want_stats else None)
+                              y if want_stats else None, staged.get("w16"))
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
-        x, weight, pscale, pshift, y = ctx.saved_tensors
+        x, weight, pscale, pshift, y, *w16 = ctx.saved_tensors
+        w16 = w16[0] if w16 else None
         slope, pro = ctx.slope, ctx.has_prologue
         need_x, need_w, need_b, need_s, need_t = ctx.needs_input_grad[:5]
         cpu = x.device.type == "cpu"
@@ -145,7 +161,8 @@ class _DenseRowsAct(torch.autograd.Function):
         dx = dw = dbias = dscale = dshift = None
         if need_x or (pro and (need_s or need_t)):
             # d loss / d a(x)
-            dxt = (_dgrad_plain if cpu else _dgrad_cuda)(g2, weight)
+            dxt = (_dgrad_plain(g2, weight) if cpu else
+                   _dgrad_cuda(g2, weight, {"w16": w16}))
             if pro:
                 xf, dxw = wide(x2), wide(dxt)
                 t = xf * pscale + pshift
@@ -167,7 +184,8 @@ class _DenseRowsAct(torch.autograd.Function):
 
 # ---- plain versions (CPU tensors; chip_smoke.py's comparison on the card) --
 # A bf16 operand is widened to f32 and the result rounded where the bf16
-# kernels round (the module docstring).
+# kernels round (the module docstring). They take the kernel wrappers'
+# arguments; `staged` (the bf16 kernels' weight copy) is not read.
 
 def _act_plain(x2, pscale, pshift, slope):
     t = x2 * pscale + pshift
@@ -192,7 +210,7 @@ def _weight_of(weight, x2):
 
 
 def _forward_plain(x2, weight, bias, pscale, pshift, slope, has_prologue,
-                   want_stats):
+                   want_stats, staged=None):
     a = _activated(x2, pscale, pshift, slope, has_prologue)
     y = a @ _weight_of(weight, x2) + bias
     if want_stats:
@@ -201,7 +219,7 @@ def _forward_plain(x2, weight, bias, pscale, pshift, slope, has_prologue,
     return y.to(x2.dtype), zeros, zeros.clone()
 
 
-def _dgrad_plain(g2, weight):
+def _dgrad_plain(g2, weight, staged=None):
     return (wide(g2) @ _weight_of(weight, g2).t()).to(g2.dtype)
 
 
@@ -319,10 +337,12 @@ def _launch_fwd(kernel, x2, b, bias, pro, slope, y, partial, has_prologue,
 
 
 def _forward_cuda(x2, weight, bias, pscale, pshift, slope, has_prologue,
-                  want_stats):
+                  want_stats, staged=None):
+    """staged: a dict that receives a bf16 x's weight copy as "w16" (the
+    dgrad's B)."""
     if x2.dtype == torch.bfloat16:
         return _forward_cuda_bf16(x2, weight, bias, pscale, pshift, slope,
-                                  has_prologue, want_stats)
+                                  has_prologue, want_stats, staged)
     _check([x2, weight, bias] + ([pscale, pshift] if has_prologue else []),
            "dense_rows")
     rows, ci = x2.shape
@@ -349,9 +369,11 @@ def _forward_cuda(x2, weight, bias, pscale, pshift, slope, has_prologue,
     return y, s1, s2
 
 
-def _dgrad_cuda(g2, weight):
+def _dgrad_cuda(g2, weight, staged=None):
+    """staged: a dict that may hold a bf16 g's weight copy as "w16" (the
+    forward's), made here if not."""
     if g2.dtype == torch.bfloat16:
-        return _dgrad_cuda_bf16(g2, weight)
+        return _dgrad_cuda_bf16(g2, weight, staged)
     _check([g2, weight], "dense_rows dgrad")
     rows, co = g2.shape
     ci = weight.shape[0]
@@ -396,84 +418,185 @@ def _wgrad_cuda(x2, g2, pscale, pshift, slope, has_prologue):
     return dw, db
 
 
-# ---- the bf16 mode (csrc/dense_gemm.cuh's bf16 core) ------------------------
+# ---- the bf16 mode ------------------------------------------------------------
 
-def _padded16(t2):
-    """A bf16 [R, C] operand as the bf16 core reads it: rows of a multiple
-    of 8 elements on a 16-byte aligned base; a zero-padded copy where t2 is
-    not so already (Ci = 9, Co = 196, a view)."""
-    c = t2.shape[1]
-    if c % 8 == 0 and t2.is_contiguous() and t2.data_ptr() % 16 == 0:
-        return t2
-    out = t2.new_zeros((t2.shape[0], -(-c // 8) * 8))
-    out[:, :c] = t2
-    return out
+class WgmmaPlan(NamedTuple):
+    """One launch of K9 in bf16 (csrc/dense_rows.cu: dense_rows_wgmma_kernel):
+    persistent blocks of 2 consumer warpgroups and a producer warp."""
+
+    bn: int             # output columns a tile: 64 or 128
+    per_sm: int         # blocks an SM (its __launch_bounds__)
+    col_tiles: int      # column tiles (grid.y)
+    row_tiles: int      # tiles of 128 rows
+    grid: int           # blocks a column tile (grid.x), each walking the
+    #                     row tiles blockIdx.x, + grid, ... in order
+    slices: int         # slices of 64 of the reduction
+    stages: int         # ring slots
+    resident: bool      # the block's column slice of the weight loaded once
+    direct_bytes: int   # shared memory for a tile's rows read without TMA
+    smem_bytes: int     # dynamic shared memory a block
+    work_floats: int    # statistics slots [col tiles][grid][2][bn] + tickets
+
+
+def _wgmma_smem(bn, a_tma, stages, slices, resident, direct_bytes):
+    """csrc/dense_rows.cu's w9::Layout: the ring (A's slice of 128 x 64 bf16
+    by TMA, and the weight's of 64 x bn unless resident), the resident
+    weight, a tile's rows read without TMA, 8 warps' 16 x 72 f32 epilogue
+    tiles, their [8][2][bn] f32 sums, the mbarriers, a flag and the
+    1024-byte alignment."""
+    b = _W9_BK * bn * 2
+    stage = (_W9_BM * _W9_BK * 2 if a_tma else 0) + (0 if resident else b)
+    return (stages * stage + (slices * b if resident else 0) + direct_bytes
+            + 8 * 16 * _W9_EPI_STRIDE * 4 + 8 * 2 * bn * 4
+            + 8 * (2 * stages + 1) + 16 + 1024)
+
+
+def _padded(c):
+    """csrc/dense_rows.cu's w9::padded: an axis of the weight's bf16 copy
+    in whole column tiles (64, or a multiple of 128) and slices (64)."""
+    return 64 if c <= 64 else -(-c // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(m, n, k, a_tma, prologue, sms) -> WgmmaPlan:
+    """K9's bf16 launch for an [m, n] output reduced over k on a card of
+    `sms` SMs, A by TMA (a_tma) or staged slice by slice by the consumers
+    (each row's 64 k in the 16-byte pieces that hold them), with or
+    without the prologue. The column tile is 64 where n <= 64, else 128,
+    with the blocks an SM of the kernel's __launch_bounds__ (2, or 1 at 128
+    where A goes through registers: without TMA or with the prologue). The weight's column slice stays resident
+    where it fits beside the deepest ring (4 slots, 2 at least; one unused
+    slot where A comes without TMA), else it streams through the ring with
+    A's slices; the persistent blocks fill the SMs' slots (per_sm each)
+    across the column tiles, none without a row tile."""
+    bn = 64 if n <= 64 else 128
+    per_sm = 1 if bn == 128 and (prologue or not a_tma) else 2
+    budget = _SMEM_PER_SM // per_sm - _SMEM_PER_BLOCK_RESERVED
+    slices = max(1, math.ceil(k / _W9_BK))
+    direct = 0 if a_tma else 2 * _W9_BM * _W9_DIRECT_PIECES * 16
+    fits = [(stages, resident)
+            for resident, depths in ((True, (4, 3, 2) if a_tma else (1,)),
+                                     (False, (4, 3, 2)))
+            for stages in depths
+            if _wgmma_smem(bn, a_tma, stages, slices, resident,
+                           direct) <= budget]
+    stages, resident = fits[0]
+    col_tiles = math.ceil(n / bn)
+    row_tiles = math.ceil(m / _W9_BM)
+    grid = max(1, min(row_tiles, per_sm * sms // col_tiles))
+    return WgmmaPlan(bn, per_sm, col_tiles, row_tiles, grid, slices, stages,
+                     resident, direct,
+                     _wgmma_smem(bn, a_tma, stages, slices, resident,
+                                 direct),
+                     col_tiles * (grid * 2 * bn + 1))
+
+
+def _tma_rows(t2):
+    """Whether K9's bf16 mode reads the rows of t2 by TMA: a row stride of
+    a multiple of 16 bytes and a 16-byte aligned base (else its consumers
+    stage them, slice by slice)."""
+    return t2.stride(0) % 8 == 0 and t2.data_ptr() % 16 == 0
+
+
+def _rows_of(t2):
+    """t2 as the kernel reads it: rows of contiguous elements (a copy only
+    where the elements of a row are not)."""
+    return t2 if t2.stride(1) == 1 or t2.shape[1] <= 1 else t2.contiguous()
 
 
 def _weight16(weight):
-    """weight [Ci, Co] (float32, any layout) -> its bf16 copy [Co, Cp]
-    (Cp = Ci rounded up to 8, zeros past Ci): the forward's B read K-major,
-    the dgrad's (W^T) MN-major."""
+    """weight [Ci, Co] (float32, any layout) -> the bf16 copy the forward's
+    launch makes: [Kp / 8, Cop, 8] (Kp, Cop: Ci, Co padded by `_padded`),
+    element (g, co, j) = weight[8 g + j, co] rounded to bf16, zeros past
+    Ci and Co (the forward's B read K-major, the dgrad's W^T MN-major)."""
     ci, co = weight.shape
-    w16 = torch.zeros((co, -(-ci // 8) * 8), dtype=torch.bfloat16,
-                      device=weight.device)
-    w16[:, :ci] = weight.t()
-    return w16
+    w = torch.zeros((_padded(ci), _padded(co)), dtype=torch.bfloat16,
+                    device=weight.device)
+    w[:ci, :co] = weight
+    return w.reshape(-1, 8, w.shape[1]).transpose(1, 2).contiguous()
 
 
 def _forward_cuda_bf16(x2, weight, bias, pscale, pshift, slope, has_prologue,
-                       want_stats):
+                       want_stats, staged):
     rows, ci = x2.shape
     co = weight.shape[1]
     if weight.shape != (ci, co) or bias.shape != (co,):
         raise ValueError(f"dense_rows_bf16 kernel takes weight [{ci}, Co] "
                          f"and bias [Co], got {tuple(weight.shape)} and "
                          f"{tuple(bias.shape)}")
-    w16 = _weight16(weight)
-    _check([x2, w16, bias] + ([pscale, pshift] if has_prologue else []),
-           "dense_rows", bf16=2)
+    _check([x2, weight, bias] + ([pscale, pshift] if has_prologue else []),
+           "dense_rows", bf16=1)
     pro = _prologue(pscale, pshift, ci, has_prologue)
-    xp, bias = _padded16(x2), bias.contiguous()
-    plan = _plan(rows, co, ci, False, _sm_count(x2.device.index), True)
-    y = torch.empty((rows, co), dtype=torch.bfloat16, device=x2.device)
-    # one statistics slot per row tile, summed in a fixed order
-    partial = (torch.empty((math.ceil(rows / _BM), 2, co),
-                           dtype=torch.float32, device=x2.device)
-               if want_stats else None)
-    with torch.cuda.device(x2.device):
+    x2, bias = _rows_of(x2), bias.contiguous()
+    dev = x2.device
+    tma = _tma_rows(x2)
+    plan = _wgmma_plan(rows, co, ci, tma, has_prologue,
+                       _sm_count(dev.index))
+    w16 = torch.empty((_padded(ci) // 8, _padded(co), 8),
+                      dtype=torch.bfloat16, device=dev)
+    y = torch.empty((rows, co), dtype=torch.bfloat16, device=dev)
+    # the statistics, then each block's slot and the column tiles' tickets
+    # (the last block of a column tile adds the slots in order)
+    stats = want_stats and rows > 0
+    work = (torch.empty(2 * co + plan.work_floats, dtype=torch.float32,
+                        device=dev) if stats else
+            torch.zeros(2 * co, dtype=torch.float32, device=dev))
+    context, stream = kernels.launch_on(dev)
+    with context:
         kernels.launch(
-            "dense_rows_fwd_bf16", "pvcnn_dense_rows_fwd_bf16",
-            xp.data_ptr(), xp.shape[1], w16.data_ptr(), w16.shape[1], 1,
-            bias.data_ptr(), *map(_ptr, pro), slope, y.data_ptr(), co,
-            _ptr(partial), rows, ci, co, int(has_prologue), plan.bn,
-            torch.cuda.current_stream().cuda_stream)
-    if want_stats and rows:
-        s1, s2 = partial.sum(dim=0)
-    else:
-        s1 = torch.zeros(co, dtype=torch.float32, device=x2.device)
-        s2 = torch.zeros_like(s1)
-    return y, s1, s2
+            "dense_rows_fwd_bf16", "pvcnn_dense_rows_fwd_wgmma",
+            x2.data_ptr(), x2.stride(0), int(tma), weight.data_ptr(),
+            weight.stride(0), weight.stride(1), w16.data_ptr(),
+            bias.data_ptr(), *map(_ptr, pro), slope, y.data_ptr(),
+            work.data_ptr() if stats else None, rows, ci, co, plan.bn,
+            plan.grid, plan.stages, int(plan.resident), plan.direct_bytes,
+            plan.smem_bytes, stream)
+    if staged is not None:
+        staged["w16"] = w16
+    return y, work[:co], work[co:2 * co]
 
 
-def _dgrad_cuda_bf16(g2, weight):
+def _dgrad_cuda_bf16(g2, weight, staged):
     rows, co = g2.shape
     ci = weight.shape[0]
     if weight.shape != (ci, co):
         raise ValueError(f"dgrad of weight {tuple(weight.shape)} does not "
                          f"match g {tuple(g2.shape)}")
-    w16 = _weight16(weight)
-    _check([g2, w16], "dense_rows dgrad", bf16=2)
-    gp = _padded16(g2)
-    plan = _plan(rows, ci, co, False, _sm_count(g2.device.index), True)
-    dxt = torch.empty((rows, ci), dtype=torch.bfloat16, device=g2.device)
-    # B(k, n) = W^T[co, ci]: the bf16 copy [Co, Cp] read MN-major
-    with torch.cuda.device(g2.device):
+    _check([g2, weight], "dense_rows dgrad", bf16=1)
+    w16 = (staged or {}).get("w16")
+    if w16 is None:
+        w16 = _weight16(weight)
+    want = (_padded(ci) // 8, _padded(co), 8)
+    if w16.shape != want or w16.dtype != torch.bfloat16:
+        raise ValueError(f"dense_rows_dgrad_bf16 takes the weight's bf16 "
+                         f"copy {list(want)}, got {tuple(w16.shape)} "
+                         f"{w16.dtype}")
+    g2 = _rows_of(g2)
+    dev = g2.device
+    tma = _tma_rows(g2)
+    plan = _wgmma_plan(rows, ci, co, tma, False, _sm_count(dev.index))
+    dxt = torch.empty((rows, ci), dtype=torch.bfloat16, device=dev)
+    # B(k, n) = W^T[co, ci]: the forward's copy read MN-major
+    context, stream = kernels.launch_on(dev)
+    with context:
         kernels.launch(
-            "dense_rows_dgrad_bf16", "pvcnn_dense_rows_fwd_bf16",
-            gp.data_ptr(), gp.shape[1], w16.data_ptr(), w16.shape[1], 0,
-            None, None, None, 0.0, dxt.data_ptr(), ci, None, rows, co, ci, 0,
-            plan.bn, torch.cuda.current_stream().cuda_stream)
+            "dense_rows_dgrad_bf16", "pvcnn_dense_rows_dgrad_wgmma",
+            g2.data_ptr(), g2.stride(0), int(tma), w16.data_ptr(),
+            dxt.data_ptr(), rows, ci, co, plan.bn, plan.grid, plan.stages,
+            int(plan.resident), plan.direct_bytes, plan.smem_bytes, stream)
     return dxt
+
+
+def _padded16(t2):
+    """A bf16 [R, C] operand as K10's bf16 core reads it: rows of a
+    multiple of 8 elements on a 16-byte aligned base; a zero-padded copy
+    where t2 is not so already (Ci = 9, Co = 196, a view)."""
+    c = t2.shape[1]
+    if c % 8 == 0 and t2.is_contiguous() and t2.data_ptr() % 16 == 0:
+        return t2
+    out = t2.new_zeros((t2.shape[0], -(-c // 8) * 8))
+    out[:, :c] = t2
+    return out
 
 
 def _wgrad_cuda_bf16(x2, g2, pscale, pshift, slope, has_prologue):
@@ -495,11 +618,12 @@ def _wgrad_cuda_bf16(x2, g2, pscale, pshift, slope, has_prologue):
     # reproducible bit for bit
     partial = (torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
                            device=x2.device) if plan.splits > 1 else None)
-    with torch.cuda.device(x2.device):
+    context, stream = kernels.launch_on(x2.device)
+    with context:
         kernels.launch(
             "dense_rows_wgrad_bf16", "pvcnn_dense_rows_wgrad_bf16",
             xp.data_ptr(), xp.shape[1], gp.data_ptr(), gp.shape[1],
             *map(_ptr, pro), slope, _ptr(partial), dw.data_ptr(),
             db.data_ptr(), rows, ci, co, plan.bn, plan.chunk,
-            int(has_prologue), torch.cuda.current_stream().cuda_stream)
+            int(has_prologue), stream)
     return dw, db

@@ -35,7 +35,6 @@ many of a brick's points K5 stages in shared memory.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import NamedTuple
 
@@ -160,21 +159,6 @@ def _devoxelize_plain(grid, norm_coords, resolution, channels_first):
     return out
 
 
-def _launch_on(device: torch.device):
-    """(a context that makes `device` current, the raw handle of its
-    current stream) for a launch there: no context where `device` is
-    current already. Measured on an H100 host, entering torch.cuda.device
-    took ~7 us a call and torch.cuda.current_stream() ~10 us, against
-    ~9 us for the launch itself; the raw handle and a check of the current
-    device take ~1 us."""
-    index = (torch.cuda.current_device() if device.index is None
-             else device.index)
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        return contextlib.nullcontext(), stream
-    return torch.cuda.device(index), stream
-
-
 def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
     r = int(resolution)
     if grid.device.type != "cuda" or norm_coords.device != grid.device:
@@ -200,7 +184,7 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
     grid = grid.contiguous()
     norm_coords = norm_coords.detach().contiguous()
     out = torch.empty((b, n, c), dtype=grid.dtype, device=grid.device)
-    context, stream = _launch_on(grid.device)
+    context, stream = kernels.launch_on(grid.device)
     with context:
         if bf16:
             # channel-major: a block a brick (the plan's chunk of channels)
@@ -268,7 +252,7 @@ def _sort_points(norm_coords, r):
                          device=norm_coords.device)
     bounds = torch.empty((b, r ** 3 + 1), dtype=torch.int32,
                          device=norm_coords.device)
-    context, stream = _launch_on(norm_coords.device)
+    context, stream = kernels.launch_on(norm_coords.device)
     with context:
         kernels.call("pvcnn_devoxelize_bwd_sort", norm_coords.data_ptr(),
                      points.data_ptr(), bounds.data_ptr(), b, n, r, stream)
@@ -301,7 +285,7 @@ def _launch_k5_sorted(g, points, bounds, r, channels_first):
     bins = r ** 3
     out = torch.empty((b, c, bins) if channels_first else (b, bins, c),
                       dtype=g.dtype, device=g.device)
-    context, stream = _launch_on(g.device)
+    context, stream = kernels.launch_on(g.device)
     with context:
         if g.dtype == torch.bfloat16:
             plan = _brick_plan(n, c, r)

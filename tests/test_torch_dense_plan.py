@@ -6,7 +6,9 @@ what csrc/dense_gemm.cuh and csrc/dense_rows.cu take.
 The cases are chip_smoke.py's CALLS3_ON (the S3DIS PVCNN 1x opt-in step,
 131,072 rows) and CALLS_PVCNNE_ON (the FrustumPVCNNE 1x opt-in step,
 32,768 and 16,384 rows, Ci down to 3) on a card of 132 SMs, and a few
-edges: one row, rows that fill no tile, Ci = 130 and Co = 70."""
+edges: one row, rows that fill no tile, Ci = 130 and Co = 70. K9's bf16
+mode (`_wgmma_plan`, `_tma_rows`, `_weight16`) is held at those cases,
+at PointNet++ MSG's fused layers (CALLS_MSG_ON) and at the edges."""
 
 import math
 
@@ -114,3 +116,117 @@ def test_dense_layout(layout):
         for n in range(t.shape[1]):
             at = n * ld + k if kmajor else k * ld + n
             assert flat[at] == w[k, n]
+
+
+def _wgmma_cases():
+    """(kind, M, N, K, prologue) of every K9 forward and dgrad call of the
+    opt-in steps and MSG's fused layers, then the edges (ragged rows, Ci =
+    9, 130 and 512)."""
+    cases = {(kind, m, n, k) for kind, m, n, k in _cases() if kind != "wgrad"}
+    for (k, c), _ in chip_smoke.CALLS_MSG_ON.items():
+        if k == "dense_rows_fwd":
+            cases.add(("fwd", c[0], c[2], c[1]))
+        elif k == "dense_rows_dgrad":
+            cases.add(("dgrad", c[0], c[2], c[1]))
+    for rows in (1, 127, 129, 131073):
+        for ci, co in ((9, 64), (130, 70), (512, 256)):
+            cases.update({("fwd", rows, co, ci), ("dgrad", rows, ci, co)})
+    # the forward with and without the prologue; the dgrad has none
+    return sorted((kind, m, n, k, pro) for kind, m, n, k in cases
+                  for pro in ((False, True) if kind == "fwd" else (False,)))
+
+
+@pytest.mark.parametrize("kind,m,n,k,prologue", _wgmma_cases())
+def test_wgmma_plan(kind, m, n, k, prologue):
+    """K9's bf16 launch, A by TMA exactly where a contiguous operand's rows
+    are whole 16-byte pieces: the column tile 64 where N <= 64, else 128,
+    2 blocks an SM, 1 at 128 with A in registers (staged by the consumers,
+    or with the prologue), whose shared memory (w9::Layout, restated:
+    with a slice's 128 rows in 16-byte pieces where TMA cannot read them)
+    fits 227 KB at that count; the weight's column slice resident where it
+    fits, else streamed through a ring of 2 to 4 slots; persistent blocks,
+    at most the SMs' slots across the column tiles and none without a row
+    tile, whose walks (block b: tiles b, b + grid, ...) cover every row
+    tile once, each in increasing order; statistics slots and a ticket per
+    column tile."""
+    tma = dense_rows._tma_rows(torch.empty((max(m, 1), k),
+                                           dtype=torch.bfloat16))
+    assert tma == (k % 8 == 0)
+    plan = dense_rows._wgmma_plan(m, n, k, tma, prologue, SMS)
+    bn = 64 if n <= 64 else 128
+    assert (plan.bn, plan.per_sm) == (
+        bn, 1 if bn == 128 and (prologue or not tma) else 2)
+    assert plan.slices == math.ceil(k / 64)
+    direct = 0 if tma else 2 * 128 * 9 * 16
+    assert plan.direct_bytes == direct
+    smem = lambda stages, resident: dense_rows._wgmma_smem(
+        bn, tma, stages, plan.slices, resident, direct)
+    assert plan.smem_bytes == smem(plan.stages, plan.resident)
+    assert plan.smem_bytes <= 232448
+    budget = 233472 // plan.per_sm - 1024
+    assert plan.smem_bytes <= budget
+    if plan.resident:
+        assert plan.stages == (4 if tma else 1) or (
+            tma and plan.stages >= 2 and smem(plan.stages + 1, True) > budget)
+    else:
+        assert 2 <= plan.stages <= 4
+        # it would not fit resident at 2 slots (1 without a ring of A)
+        assert smem(2 if tma else 1, True) > budget
+    assert plan.col_tiles == math.ceil(n / bn)
+    assert plan.row_tiles == math.ceil(m / 128)
+    assert 1 <= plan.grid <= max(1, plan.row_tiles)
+    assert plan.grid * plan.col_tiles <= max(plan.per_sm * SMS,
+                                             plan.col_tiles)
+    walks = [list(range(b, plan.row_tiles, plan.grid))
+             for b in range(plan.grid)]
+    assert all(w == sorted(w) for w in walks)
+    assert sorted(t for w in walks for t in w) == list(range(plan.row_tiles))
+    assert plan.work_floats == plan.col_tiles * (plan.grid * 2 * bn + 1)
+    # the weight's copy holds whole column tiles and slices
+    assert dense_rows._padded(n) % bn == 0
+    assert dense_rows._padded(k) % 64 == 0
+
+
+@pytest.mark.parametrize("ci,offset,tma", [(9, 0, False), (64, 0, True),
+                                           (64, 1, False), (196, 0, False),
+                                           (512, 0, True), (130, 0, False),
+                                           (8, 8, True), (8, 4, False)])
+def test_wgmma_tma_rows(ci, offset, tma):
+    """TMA reads A's rows exactly where their stride is a multiple of 16
+    bytes and the base 16-byte aligned: not at Ci = 9, 130 or 196 (MSG's
+    dgrad), nor for a view off a 16-byte boundary; the consumers read those
+    in place (no padded copy)."""
+    base = torch.zeros(100 * ci + 16, dtype=torch.bfloat16)
+    start = (-base.data_ptr() // 2) % 8 + offset      # aligned, then offset
+    t2 = base[start:start + 10 * ci].view(10, ci)
+    assert dense_rows._tma_rows(t2) == tma
+    assert dense_rows._rows_of(t2) is t2
+
+
+@pytest.mark.parametrize("ci,co", [(9, 64), (64, 64), (130, 70), (1, 3),
+                                   (323, 196)])
+@pytest.mark.parametrize("layout", ["rows", "columns"])
+def test_wgmma_weight_copy(ci, co, layout):
+    """The bf16 copy of the weight that the forward's launch writes and the
+    dgrad reads: [Kp / 8, Cop, 8] (Ci and Co padded to whole column tiles
+    and slices: 64, or a multiple of 128), element (g, co, j) the
+    weight at (8 g + j, co) rounded to bf16 (round to nearest even), zeros
+    past Ci and Co, from either layout of the f32 weight."""
+    gen = torch.Generator().manual_seed(ci * co)
+    w = torch.randn(ci, co, generator=gen)
+    if layout == "columns":
+        w = w.t().contiguous().t()            # the SharedMLP's view
+    w16 = dense_rows._weight16(w)
+    kp, cop = dense_rows._padded(ci), dense_rows._padded(co)
+    assert w16.shape == (kp // 8, cop, 8) and w16.dtype == torch.bfloat16
+    flat = w16.permute(0, 2, 1).reshape(kp, cop)
+    assert torch.equal(flat[:ci, :co], w.to(torch.bfloat16))
+    assert not flat[ci:].any() and not flat[:, co:].any()
+
+
+@pytest.mark.parametrize("c,padded", [(1, 64), (9, 64), (64, 64), (65, 128),
+                                      (128, 128), (129, 256), (196, 256),
+                                      (323, 384), (515, 640), (1024, 1024),
+                                      (1536, 1536)])
+def test_wgmma_weight_padding(c, padded):
+    assert dense_rows._padded(c) == padded

@@ -1708,9 +1708,9 @@ def test_dense_rows_bf16_opt_in_shapes(dev, ci, co):
 
 @pytest.mark.parametrize("x_offset,w_offset", [(1, 0), (0, 1), (3, 5)])
 def test_dense_rows_bf16_unaligned(dev, x_offset, w_offset):
-    """Rows and a weight that start off a 16-byte boundary: the wrappers
-    copy them into aligned, padded operands, and the results are those of
-    the aligned tensors."""
+    """Rows and a weight that start off a 16-byte boundary: K9 reads such
+    rows itself (the weight through its bf16 copy), K10 from aligned,
+    padded copies, and the results are those of the aligned tensors."""
     torch.manual_seed(3)
     got = _dense_bf16_check(dev, 1000, 64, 128, True, x_offset, w_offset)
     torch.manual_seed(3)
@@ -1746,6 +1746,121 @@ def test_dense_rows_bf16_wgrad_fold(dev, monkeypatch, ci, co, chunk):
                                    atol=1e-4 * want_db.abs().max().item())
         again = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, pro)
         assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def _k9_bf16_run(x, w, bias, scale, shift, g, has_prologue):
+    """K9 in bf16: the forward with statistics, then the dgrad reading the
+    forward's copy of the weight; -> (y, s1, s2, dx, the copy)."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    staged = {}
+    y, s1, s2 = dense_rows._forward_cuda(x, w, bias, scale, shift, 0.1,
+                                         has_prologue, True, staged)
+    dx = dense_rows._dgrad_cuda(g, w, staged)
+    return y, s1, s2, dx, staged["w16"]
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("rows", [1, 127, 129, 131073])
+@pytest.mark.parametrize("ci,co", [(9, 64), (130, 70), (512, 256)])
+def test_k9_bf16_wgmma(dev, ci, co, rows, has_prologue):
+    """K9 in bf16 on wgmma at ragged row counts (one row, a tile short, a
+    tile and a row, 131,072 + 1), Ci = 9 and 130 (rows read by the
+    consumers) and 512 (by TMA), with and without the prologue: y and dx
+    within two bf16 roundings of the plain versions, the statistics
+    within 1e-4 of the plain sums; the forward's weight copy equal to
+    `_weight16` and read by the dgrad; one launch a call; twice bitwise
+    equal, and on another stream."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(rows + ci)
+    x = torch.randn(rows, ci, device=dev, generator=gen).to(bf)
+    w = (torch.randn(co, ci, device=dev, generator=gen) / ci ** 0.5).t()
+    bias = torch.randn(co, device=dev, generator=gen)
+    scale = torch.rand(ci, device=dev, generator=gen) + 0.5
+    shift = torch.randn(ci, device=dev, generator=gen)
+    g = torch.randn(rows, co, device=dev, generator=gen).to(bf)
+    args = (x, w, bias, scale, shift, g, has_prologue)
+    counts = kernels.launch_counts()
+    got = _k9_bf16_run(*args)
+    after = kernels.launch_counts()
+    for name in ("dense_rows_fwd_bf16", "dense_rows_dgrad_bf16"):
+        assert after[name] == counts[name] + 1
+    y, s1, s2, dx, w16 = got
+    assert torch.equal(w16, dense_rows._weight16(w))
+    want, w1, w2 = dense_rows._forward_plain(x, w, bias, scale, shift, 0.1,
+                                             has_prologue, True)
+    _bf16_close(y, want)
+    mag = want.float().abs().sum(0)
+    assert ((s1 - w1).abs() <= 1e-4 * mag + 1e-6).all()
+    assert ((s2 - w2).abs() <= 1e-4 * w2 + 2e-4 * mag + 1e-6).all()
+    _bf16_close(dx, dense_rows._dgrad_plain(g, w))
+    assert all(torch.equal(a, b) for a, b in zip(got, _k9_bf16_run(*args)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = _k9_bf16_run(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("ci,co", [(64, 64), (64, 128), (128, 1024)])
+def test_k9_bf16_wgmma_view(dev, ci, co, has_prologue):
+    """Rows and a cotangent that start off a 16-byte boundary (views into
+    a larger tensor), which K9's consumers stage slice by slice, give the
+    outputs of their aligned copies (read by TMA): y, dx and the weight's
+    copy bit for bit (each output the same f32 sum in the same order); the
+    statistics within 1e-5 of their scale where the two plans' blocks
+    differ (their slots are added in another grouping), else bit for
+    bit."""
+    bf = torch.bfloat16
+    rows = 4099
+    x = torch.randn(rows * ci + 1, device=dev).to(bf)[1:].view(rows, ci)
+    g = torch.randn(rows * co + 3, device=dev).to(bf)[3:].view(rows, co)
+    w = torch.randn(ci, co, device=dev) / ci ** 0.5
+    bias = torch.randn(co, device=dev)
+    scale, shift = torch.rand(ci, device=dev) + 0.5, torch.randn(ci,
+                                                                 device=dev)
+    got = _k9_bf16_run(x, w, bias, scale, shift, g, has_prologue)
+    want = _k9_bf16_run(x.clone(), w, bias, scale, shift, g.clone(),
+                        has_prologue)
+    for i in (0, 3, 4):
+        assert torch.equal(got[i], want[i])
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    plans = [dense_rows._wgmma_plan(rows, co, ci, tma, has_prologue, 132)
+             for tma in (False, True)]
+    mag = want[0].float().abs().sum(0)          # sum |y| a column
+    for a, b, scale in zip(got[1:3], want[1:3], (mag, want[2])):
+        if plans[0][:5] == plans[1][:5]:        # the same blocks
+            assert torch.equal(a, b)
+        else:
+            assert ((a - b).abs() <= 1e-5 * scale + 1e-6).all()
+
+
+@pytest.mark.parametrize("r", [4, 8, 12, 16, 32])
+@pytest.mark.parametrize("ci", [9, 16, 24, 64])
+def test_k11_bf16_in_place(dev, monkeypatch, r, ci):
+    """K11 in bf16 reading the channel-last grids in place (x staged only
+    at Ci = 9) bitwise equal to the staged route (both grids staged, K4's
+    own launcher), B = 1, Co = 64 and 40; one launch a call."""
+    staged = []
+    stage = conv3d._stage_last_bf16
+    monkeypatch.setattr(conv3d, "_stage_last_bf16",
+                        lambda t: staged.append(t.shape[-1]) or stage(t))
+    for co in (64, 40):
+        x, g = _ndhwc_bf16_inputs(dev, 1, r, ci, co)
+        before = kernels.KERNELS["conv3d_ndhwc_wgrad_bf16"].launches
+        dw = conv3d._ndhwc_wgrad_cuda(x, g, 3)
+        assert kernels.KERNELS["conv3d_ndhwc_wgrad_bf16"].launches == \
+            before + 1
+        assert staged == ([ci] if ci % 8 else [])
+        assert torch.equal(dw, conv3d._ndhwc_wgrad_cuda_bf16(x, g, r,
+                                                             staged=True))
+        staged.clear()
 
 
 def test_dense_rows_bf16_grads_on_card(dev):
