@@ -1,5 +1,6 @@
 """What the per-case scripts (k1_k6_cases.py, k2_k5_cases.py, k4_cases.py,
-k7_k11_cases.py, k9_k10_cases.py, k9_k11_bf16_cases.py) share: the card's name and power limit,
+k7_k11_cases.py, k9_k10_cases.py, k9_k11_bf16_cases.py,
+k10_k1_bf16_cases.py) share: the card's name and power limit,
 ptxas's log, the SASS instruction mix of chosen kernels and digests of
 their SASS, host-clock and profiler timings of one call, and output
 digests that compare two trees bit for bit.

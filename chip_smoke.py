@@ -22,8 +22,10 @@ S3DIS PVCNN2 and PVCNN and ShapeNet PointNet++ SSG / MSG 1x with bf16
 activations, and S3DIS PVCNN 1x with bf16 activations on its switched
 branches (the opt-in path and the unfused rows branch). With
 --bf16-spread RUNS it runs only the device and build phases and then
-measures each bf16 path's step-1 gradients on the kernel path against
-RUNS runs of the plain path (bf16_spread), and prints no result line.
+measures each bf16 path's step-1 gradients and loss on the kernel path
+against RUNS runs of the plain path (bf16_spread), and prints no result
+line. The plain path (plain_on_card) runs with PyTorch's deterministic
+algorithms, so two of its runs agree bit for bit.
 Phases, each printing its own lines and its seconds, and raising on
 failure:
 
@@ -270,7 +272,8 @@ failure:
                 the one that recorded it); the bf16
                 training step of PVCNN 1x at 32 x 2048 and 0.25x at 64 x
                 2048 (the JAX headline's batch) on the kernel and plain
-                paths: step 1 twice bitwise equal; the eval logits, step-1
+                paths: step 1 twice bitwise equal on each path; the
+                eval logits, step-1
                 loss and gradients of the kernel path against the plain
                 path (BF16_APART; the gradients within sqrt(2) x the plain
                 path's distance from fp32 + 1e-3 and within the path's
@@ -372,6 +375,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from unittest import mock
 
@@ -863,11 +867,21 @@ def switches(on=frozenset(SWITCHES)):
                 os.environ[name] = value
 
 
+# the warnings of ops that have no deterministic CUDA implementation,
+# logged once each (plain_on_card)
+_NONDETERMINISTIC = set()
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Route CUDA tensors to the plain PyTorch versions, forward and
     backward (the comparison path of this script; the package itself never
-    does this)."""
+    does this), with PyTorch's deterministic algorithms on: the plain
+    versions' scatter_add_ and the backward of their gathers then sum in
+    a fixed order (sorted indices) instead of by float atomics, so two
+    plain runs agree bit for bit; an op without a deterministic CUDA
+    implementation runs as before and its warning is logged once. The
+    kernels and the CPU are untouched."""
     from pvcnn_tpu_torch.ops import (conv3d, dense_rows, devoxelize,
                                      interpolate, neighbors, sampling,
                                      voxelize)
@@ -892,10 +906,31 @@ def plain_on_card():
                (dense_rows, "_dgrad_cuda", dense_rows._dgrad_plain),
                (dense_rows, "_wgrad_cuda", dense_rows._wgrad_plain),
                (conv3d, "_ndhwc_wgrad_cuda", conv3d._ndhwc_wgrad_plain))
+    import torch.utils.deterministic as det
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
     with contextlib.ExitStack() as stack:
         for module, name, plain in patches:
             stack.enter_context(mock.patch.object(module, name, plain))
-        yield
+        caught = stack.enter_context(warnings.catch_warnings(record=True))
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False     # no fills: what ran before
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+            det.fill_uninitialized_memory = was[2]
+            for w in caught:
+                text = str(w.message).splitlines()[0]
+                if "determinis" not in text:
+                    warnings.warn_explicit(w.message, w.category,
+                                           w.filename, w.lineno)
+                elif text not in _NONDETERMINISTIC:
+                    _NONDETERMINISTIC.add(text)
+                    log("plain", f"deterministic mode: {text[:160]}")
 
 
 def phase_device() -> str:
@@ -1058,6 +1093,25 @@ def _k1_split(kernel, values, idx, bins, cf, mean):
         kernel, values, perm, bounds, bins, cf, mean)
     longest = int((bounds[:, 1:] - bounds[:, :-1]).max())
     return (run_glue, run_alone), longest
+
+
+def _k1_share(kernel, case, timed, ids, bins, rec) -> None:
+    """Log a timed K1 case's share of its bound, its time over the library
+    call's, its sort's share of it and the sort's plan (blocks a cloud)."""
+    from pvcnn_tpu_torch.ops import voxelize
+
+    if not timed:
+        return
+    ms, bound, lib_ms = timed
+    plan = voxelize._sort_plan(*ids.shape, bins, torch.cuda.
+                               get_device_properties(ids.device)
+                               .multi_processor_count)
+    lib = f", {ms / lib_ms:.2f}x the library call" if lib_ms else ""
+    cut = (f"runs past {plan.long_run} rows cut" if plan.long_run and
+           kernel == "scatter_sum_bf16" else "no run cut")
+    log("kernels", f"{kernel} {case}: {bound / ms:.1%} of its bound{lib}; "
+        f"the sort {rec.last_split[0] / ms:.1%} of it ({plan.parts} "
+        f"block(s) a cloud), {cut}")
 
 
 def _grid5(norm, r):
@@ -2078,7 +2132,7 @@ PROFILE_GROUPS = (
     ("K11 conv3d NDHWC wgrad", ("conv3d_ndhwc_wgrad_kernel",
                                 "conv3d_ndhwc_wgrad_sum_kernel")),
     ("K9 dense forward + dgrad", ("dense_rows_fwd_kernel",)),
-    ("K10 bf16 dense wgrad", ("false, false, true>",)),
+    ("K10 bf16 dense wgrad", ("dense_rows_wgrad_wgmma_kernel",)),
     ("K9 bf16 dense forward + dgrad", ("dense_rows_wgmma_kernel",
                                        "dense_rows_bf16_weights_kernel")),
     ("K10 dense wgrad + fold", ("dense_rows_wgrad_kernel",
@@ -2090,7 +2144,7 @@ PROFILE_GROUPS = (
                                  "trilinear_devoxelize_planes_kernel",
                                  "trilinear_devoxelize_bricks_kernel")),
     ("K1 avg_voxelize + scatter_sum", ("avg_voxelize_bins_kernel",)),
-    ("K1 sort (glue)", ("avg_voxelize_sort_kernel",)),
+    ("K1 sort (glue)", ("avg_voxelize_sort",)),
     ("K6 fps", ("fps_kernel",)),
     ("K7 ball_query", ("ball_query_kernel", "ball_query_merge_kernel")),
     ("K8 three_nn", ("three_nn_kernel",)),
@@ -3904,9 +3958,10 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
                                    cf, True)
         log("kernels", f"avg_voxelize_bf16 {case}: longest run {longest} "
             "rows")
-        add("avg_voxelize_bf16", case, err, run_k, run_p, b * n * c,
+        _k1_share("avg_voxelize_bf16", case, add(
+            "avg_voxelize_bf16", case, err, run_k, run_p, b * n * c,
             2 * b * n * c + 4 * b * n + 2 * b * r ** 3 * c,
-            run_lib if lib_ok else None, split=split)
+            run_lib if lib_ok else None, split=split), flat, r ** 3, rec)
 
     for c, r, n in cases("trilinear_devoxelize_bf16"):
         case = (c, r, n)
@@ -4081,8 +4136,8 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
 
 
 def _check_bf16_sass() -> None:
-    """K3's, K4's, K11's and K9's bf16 kernels multiply on wgmma: HGMMA in
-    their SASS (cuobjdump -sass of the built library)."""
+    """K3's, K4's, K11's, K9's and K10's bf16 kernels multiply on wgmma:
+    HGMMA in their SASS (cuobjdump -sass of the built library)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from pvcnn_tpu_torch import kernels
@@ -4099,7 +4154,8 @@ def _check_bf16_sass() -> None:
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
     for key in ("conv3d_bf16_fwd_kernel", "conv3d_bf16_wgrad_kernel",
-                "conv3d_bf16_wgrad_last_kernel", "dense_rows_wgmma_kernel"):
+                "conv3d_bf16_wgrad_last_kernel", "dense_rows_wgmma_kernel",
+                "dense_rows_wgrad_wgmma_kernel"):
         found = {n: c for n, c in counts.items() if key in n}
         log("kernels", f"{key}: HGMMA instructions per instantiation "
             f"{sorted(found.values())}")
@@ -4373,6 +4429,14 @@ def phase_bf16_train(label: str, base, model16, batches, per_step: dict,
         "runs are bitwise equal")
     with plain_on_card():
         loss_p, grads_p = grads_of(make16(), *batches[0], SEED)
+        loss_p2, grads_p2 = grads_of(make16(), *batches[0], SEED)
+    same = ("bitwise equal" if torch.equal(grads_p, grads_p2) else
+            f"apart by {_rel(grads_p2, grads_p):.3e}")
+    log("bf16", f"{label}: step-1 loss of two bf16 plain-path runs "
+        f"{loss_p!r} / {loss_p2!r}, gradients {same}")
+    if loss_p != loss_p2:
+        raise AssertionError(f"{label} bf16: two plain-path runs of step 1 "
+                             "differ in their loss")
     loss_f, grads_f = grads_of(make32(), *batches[0], SEED)
     log("bf16", f"{label} step 1: loss bf16 kernel {loss_k:.7f}, bf16 plain "
         f"{loss_p:.7f}, fp32 {loss_f:.7f}")
@@ -4526,9 +4590,10 @@ def _scatter_sum_bf16_case(rec: Record, idx, bins, c) -> None:
     split, longest = _k1_split("scatter_sum_bf16", values, idx, bins, False,
                                False)
     log("kernels", f"scatter_sum_bf16 {case}: longest run {longest} rows")
-    rec.add("scatter_sum_bf16", case, err, run_k, run_p, b * k * c,
-            2 * b * k * c + 4 * b * k + 2 * b * bins * c,
-            run_lib if lib_ok else None, split=split)
+    _k1_share("scatter_sum_bf16", case, rec.add(
+        "scatter_sum_bf16", case, err, run_k, run_p, b * k * c,
+        2 * b * k * c + 4 * b * k + 2 * b * bins * c,
+        run_lib if lib_ok else None, split=split), idx, bins, rec)
 
 
 def _take_rows_indices(pts, calls: dict, sms) -> dict:
@@ -4776,13 +4841,13 @@ def _time_dense_bf16(rec: Record, rows: int | None = None) -> None:
                                want_db.abs().max().item()))
             lib_ok = _library_agrees("dense_rows_wgrad_bf16", case,
                                      run_lib()[0], want_dw, scale_w)
-            plan = dense_rows._plan(ci, co, n_rows, True, sms, True)
+            plan = dense_rows._wgrad_plan(
+                n_rows, ci, co, dense_rows._copy_route(x),
+                dense_rows._copy_route(g), sms)
             timed = add("dense_rows_wgrad_bf16", case, err, run_k, run_p,
                         flops, 2 * (n_rows * ci + n_rows * co)
                         + 4 * (ci * co + co), run_lib if lib_ok else None)
-            share("dense_rows_wgrad_bf16", case, timed,
-                  f"{plan.splits} chunk(s) of {plan.chunk} rows, column "
-                  f"tile {plan.bn}")
+            share("dense_rows_wgrad_bf16", case, timed, plan)
 
         if ("dense_rows_dgrad_bf16", key(co, ci)) in rec.calls:
             case = key(co, ci)
@@ -5096,12 +5161,14 @@ def _bf16_paths():
 
 def bf16_spread(runs: int) -> None:
     """`chip_smoke.py --bf16-spread RUNS`: for each bf16 path of phases
-    29-31, its step-1 gradients on the kernel path (bitwise stable) against
-    RUNS runs of the plain path (whose float atomics move it from run to
-    run): the rel-L2 distance _grads_apart holds, the plain path's own
-    distance from the fp32 step, and for PVCNN2 the same over the leaves
-    that no max-pool gate moves (BF16_UNGATED). The measurement behind
-    BF16_GRADS_APART's ceilings."""
+    29-31, its step-1 gradients and loss on the kernel path (bitwise
+    stable) against RUNS runs of the plain path (deterministic algorithms
+    on, plain_on_card): the rel-L2 distance _grads_apart holds, the plain
+    path's own distance from the fp32 step, for PVCNN2 the same over the
+    leaves that no max-pool gate moves (BF16_UNGATED), the step-1 loss's
+    relative distance that BF16_APART holds, and whether the plain runs'
+    losses and gradients are bitwise equal. The measurement behind
+    BF16_GRADS_APART's ceilings and BF16_APART's step-1 loss bound."""
     from pvcnn_tpu_torch.utils.weights import init_random_
 
     dev = torch.device(DEVICE)
@@ -5110,11 +5177,13 @@ def bf16_spread(runs: int) -> None:
         base = init_random_(make(None), SEED)
         base16 = _bf16_twin(make, base)
         with switches(on):
-            _, kern = grads_of(_trainer(base16, wd), x, y, SEED)
+            loss_k, kern = grads_of(_trainer(base16, wd), x, y, SEED)
             _, fp32 = grads_of(_trainer(base, wd), x, y, SEED)
+            seen = []
             for run in range(runs):
                 with plain_on_card():
-                    _, plain = grads_of(_trainer(base16, wd), x, y, SEED)
+                    loss_p, plain = grads_of(_trainer(base16, wd), x, y,
+                                             SEED)
                 extra = ""
                 if label in BF16_UNGATED:
                     mask = _leaves_mask(base16, BF16_UNGATED[label])
@@ -5122,7 +5191,15 @@ def bf16_spread(runs: int) -> None:
                              f"{_rel(kern[mask], plain[mask]):.4e} apart")
                 log("spread", f"{label} run {run + 1}: kernel vs plain "
                     f"{_rel(kern, plain):.4e}, plain vs fp32 "
-                    f"{_rel(plain, fp32):.4e}{extra}")
+                    f"{_rel(plain, fp32):.4e}{extra}; step-1 loss kernel "
+                    f"{loss_k!r}, plain {loss_p!r}, apart "
+                    f"{abs(loss_k - loss_p) / abs(loss_p):.4e} (<= "
+                    f"{BF16_APART['step-1 loss']:g})")
+                seen.append((loss_p, plain))
+            same = all(lp == seen[0][0] and torch.equal(g, seen[0][1])
+                       for lp, g in seen)
+            log("spread", f"{label}: {runs} plain runs' step-1 losses and "
+                f"gradients {'bitwise equal' if same else 'differ'}")
         del base, base16
 
 

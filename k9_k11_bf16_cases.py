@@ -96,7 +96,7 @@ K9, DGRAD, K11 = ("dense_rows_fwd_bf16", "dense_rows_dgrad_bf16",
 # staging pass, the rest
 OWN = {K9: ("dense_rows",), DGRAD: ("dense_rows",),
        K11: ("conv3d_bf16_wgrad",)}
-SASS_KEYS = ("conv3d_bf16_", "dense_rows_bf16_kernel")
+SASS_KEYS = ("conv3d_bf16_", "dense_rows_wgrad_wgmma_kernel")
 
 
 def _takes_staged(fn) -> bool:

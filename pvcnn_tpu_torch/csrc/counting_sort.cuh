@@ -135,4 +135,53 @@ __device__ void counting_sort(int n, int nbins, bool shared, int* s_counts,
   }
 }
 
+// The placement pass alone, over points [begin, end) of a block's chunk
+// (K1's sort split over several blocks a cloud, csrc/voxelize.cu): the
+// warp-turn placement above, each bin u's next slot in cursor[u] (shared
+// or global memory), so a chunk's points land in point order after those
+// of the chunks before it. (counting_sort keeps its own copy of the loop:
+// K5's sort kernel keeps its code.)
+template <int kSub, class Load, class Emit>
+__device__ void place_in_order(int begin, int end, int* cursor, Load load,
+                               Emit emit) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  using Item = decltype(load(0));
+  constexpr int kRound = kSortThreads * kSub;
+  for (int i0 = begin; i0 < end; i0 += kRound) {
+    const int first = i0 + warp * 32 * kSub;
+    Item item[kSub];
+    unsigned peers[kSub];
+    int slot[kSub];
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int i = first + 32 * s + lane;
+      item[s].key = -1;
+      if (i < end) item[s] = load(i);
+      peers[s] = __match_any_sync(kFull, item[s].key);
+      slot[s] = 0;
+    }
+    for (int w = 0; w < kSortWarps && i0 + w * 32 * kSub < end; ++w) {
+      if (warp == w) {
+#pragma unroll
+        for (int s = 0; s < kSub; ++s) {
+          const int u = item[s].key;
+          if (u >= 0 && lane == __ffs(peers[s]) - 1) {
+            slot[s] = atomicAdd(cursor + u, __popc(peers[s]));
+          }
+          __syncwarp();
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const int leader = __ffs(peers[s]) - 1;
+      const int at = __shfl_sync(kFull, slot[s], leader) +
+                     __popc(peers[s] & ((1u << lane) - 1u));
+      if (item[s].key >= 0) emit(item[s], first + 32 * s + lane, at);
+    }
+  }
+}
+
 }  // namespace pvcnn

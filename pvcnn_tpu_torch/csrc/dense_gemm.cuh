@@ -26,12 +26,7 @@
 // writes 128 contiguous bytes of a row, float4 where N % 4 == 0) and sums
 // the columns' statistics by warp shuffles and then across warps in shared
 // memory, in a fixed order.
-//
-// The bf16 core (namespace gemm16, below) is the same GEMM on bf16
-// operands on the tensor cores: mma.sync m16n8k16 with f32 accumulators.
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -203,183 +198,4 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
 }
 
 }  // namespace gemm
-}  // namespace pvcnn
-
-namespace pvcnn {
-namespace gemm16 {
-
-// The bf16 GEMM core of K9 and K10 (csrc/dense_rows.cu): C = A B on bf16
-// operands, products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulators), the reduction over k in [kbeg, kend).
-//
-// Operands are read in place in either layout, each with its contiguous
-// axis padded to a multiple of 8 elements (ld % 8 == 0, a 16-byte aligned
-// base; the wrapper pads a copy where it is not, zeros past the data):
-//   A(m, k) = p[m * ld + k] (K-major) or p[k * ld + m] (MN-major)
-//   B(k, n) = p[n * ld + k] (K-major) or p[k * ld + n] (MN-major)
-// Each slice of kBK = 32 k is staged by 16-byte cp.async copies through a
-// ring of kStages slots as it lies in memory: a K-major tile as [rows][kBK
-// + 8], an MN-major one as [kBK][cols + 8] (the 8 elements of padding put
-// the 8 rows of an ldmatrix on 8 distinct 16-byte bank groups). Copies past
-// an operand's rows, or past the slice's k, zero-fill. Fragments come from
-// shared memory by ldmatrix.x4, with .trans for an MN-major tile, so one
-// multiply serves every layout.
-//
-// Tile: kBM = 128 rows by BN = 128 columns (64 where N <= 64), 8 warps of
-// 2 (m) x 4 (n), a warp 64 rows x BN / 4 columns: 4 m16 tiles by BN / 32
-// n8 tiles, BN / 2 f32 accumulators a thread. mma.sync's accumulator
-// layout: lane (g = lane / 4, t = lane % 4) of a 16 x 8 tile holds rows g
-// and g + 8, columns 2t and 2t + 1.
-
-constexpr int kBM = 128;                   // output rows per block
-constexpr int kBK = 32;                    // reduction slice
-constexpr int kStages = 4;
-constexpr int kPad = 8;                    // elements of row padding
-constexpr int kThreads = 256;
-
-using u16 = unsigned short;
-
-// the slot elements of a tile W wide (rows of a K-major tile, columns of
-// an MN-major one), room for either layout
-template <int W>
-struct Slot {
-  static constexpr int kK = W * (kBK + kPad);      // K-major [W][kBK + 8]
-  static constexpr int kMN = kBK * (W + kPad);     // MN-major [kBK][W + 8]
-  static constexpr int kElems = kK > kMN ? kK : kMN;
-};
-
-template <int BN>
-struct Tile {
-  static constexpr int kWN = BN / 4;               // columns a warp
-  static constexpr int kNT = kWN / 8;              // n8 tiles a warp
-  static constexpr int kStageElems = Slot<kBM>::kElems + Slot<BN>::kElems;
-  static constexpr int kSmemBytes = 2 * kStages * kStageElems;
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// `bytes` (0 or 16) from src to shared dst, zeros for the rest
-__device__ __forceinline__ void copy16(u16* dst, const u16* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-// One operand's slice into its slot: element (c, k) of the operand, c in
-// [c0, c0 + W) along the tile's rows or columns, k in [k0, k0 + kBK).
-// kKMajor: p[c * ld + k] -> dst[c][k], copied where c < C and k < kend
-// (ld, a multiple of 8, holds kend: the elements past it are zeros).
-// MN-major: p[k * ld + c] -> dst[k][c], copied where k < kend and c < ld
-// (past C: the padding's zeros or columns no store reads).
-template <bool kKMajor, int W>
-__device__ __forceinline__ void stage(u16* dst, const u16* p, int ld, int c0,
-                                      int C, int k0, int kend, int tid) {
-  if constexpr (kKMajor) {
-    constexpr int kChunks = W * kBK / 8;
-#pragma unroll
-    for (int i = tid; i < kChunks; i += kThreads) {
-      const int c = i / (kBK / 8), kc = (i % (kBK / 8)) * 8;
-      const bool ok = c0 + c < C && k0 + kc < kend;
-      copy16(dst + c * (kBK + kPad) + kc,
-             ok ? p + static_cast<int64_t>(c0 + c) * ld + k0 + kc : p,
-             ok ? 16 : 0);
-    }
-  } else {
-    constexpr int kChunks = kBK * W / 8;
-#pragma unroll
-    for (int i = tid; i < kChunks; i += kThreads) {
-      const int k = i / (W / 8), cc = (i % (W / 8)) * 8;
-      const bool ok = k0 + k < kend && c0 + cc < ld;
-      copy16(dst + k * (W + kPad) + cc,
-             ok ? p + static_cast<int64_t>(k0 + k) * ld + c0 + cc : p,
-             ok ? 16 : 0);
-    }
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const u16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const u16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b on one 16 x 8 x 16 tile
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[i][j] += the warp's 64 x kWN block of the slice: As (kAK: K-major
-// [kBM][kBK + 8], else MN-major [kBK][kBM + 8]), Bs likewise ([BN][kBK +
-// 8] or [kBK][BN + 8]); the warp's rows wm * 64 + 16 i, its columns wn *
-// kWN + 8 j.
-template <int BN, bool kAK, bool kBKM>
-__device__ __forceinline__ void multiply(const u16* As, const u16* Bs, int wm,
-                                         int wn, int lane,
-                                         float (&acc)[4][Tile<BN>::kNT][4]) {
-  constexpr int kNT = Tile<BN>::kNT;
-  const int lr = lane & 7, lj = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t a[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = wm * 64 + 16 * i;
-      if constexpr (kAK) {
-        // matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-        ldmatrix_x4(a[i], As + (m + lr + (lj & 1) * 8) * (kBK + kPad) + kk +
-                              (lj >> 1) * 8);
-      } else {
-        ldmatrix_x4_trans(a[i], As + (kk + (lj >> 1) * 8 + lr) *
-                                         (kBM + kPad) + m + (lj & 1) * 8);
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < kNT / 2; ++p) {
-      const int n = wn * Tile<BN>::kWN + 16 * p;
-      // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
-      // (n 8-15, k 8-15): b0, b1 of n8 tile 2p, then of 2p + 1
-      uint32_t b[4];
-      if constexpr (kBKM) {
-        ldmatrix_x4(b, Bs + (n + (lj >> 1) * 8 + lr) * (kBK + kPad) + kk +
-                           (lj & 1) * 8);
-      } else {
-        ldmatrix_x4_trans(b, Bs + (kk + (lj & 1) * 8 + lr) * (BN + kPad) +
-                                 n + (lj >> 1) * 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mma(acc[i][2 * p], a[i], b[0], b[1]);
-        mma(acc[i][2 * p + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float to_float(u16 v) {
-  return __uint_as_float(static_cast<unsigned>(v) << 16);
-}
-
-__device__ __forceinline__ u16 to_bf16(float f) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-}
-
-}  // namespace gemm16
 }  // namespace pvcnn

@@ -56,7 +56,7 @@
 // accumulator, takes the statistics from it (before any rounding) and
 // rounds y to bf16 once; the dgrad (W^T, no bias, no statistics) rounds its
 // output to bf16; K10 keeps dW and d(bias) in f32 (d(bias) the f32 sum of
-// the bf16 cotangent) and folds its chunks in order.
+// the bf16 cotangent) and adds its partial sums in a fixed order.
 //
 // K9 in bf16 (pvcnn_dense_rows_fwd_wgmma, pvcnn_dense_rows_dgrad_wgmma;
 // namespace w9): wgmma fed by TMA. The forward first rounds the f32 weight
@@ -94,9 +94,39 @@
 // of x, y (or g, dx) and the copy at Ci or Co of 128 or less (2 an element
 // against 3.35 TB/s), else 2 * rows * Ci * Co FLOPs against 989 TFLOP/s.
 //
-// K10 in bf16 (pvcnn_dense_rows_wgrad_bf16) runs on dense_gemm.cuh's bf16
-// core (mma.sync m16n8k16, bf16 operands, f32 accumulators; the fp32 K10's
-// grid, ring, chunks and fixed orders).
+// K10 in bf16 (pvcnn_dense_rows_wgrad_bf16; namespace w10): wgmma with the
+// reduction over the rows, dW [Ci, Co] as M = Ci (A = a(x)^T) by N = Co (B
+// = g). Bound by bytes (x and g once against 3.35 TB/s; the products take
+// a third of that at (128, 1024)), so the design reads each operand once
+// and keeps bytes in flight. A block holds 128 x BN f32 of dW (two consumer
+// warpgroups of 64 x BN, BN = 64, 128 or 256 columns; where Ci <= 64 one
+// 64-channel tile whose rows the warpgroups split), so at (128, 1024) g,
+// 2,048 bytes a row, is read once and x, 256 bytes, once per column tile
+// (the column tiles of a row range run side by side and share it in L2).
+// A producer warpgroup keeps a ring of slices in flight: 64-channel x
+// sr-row boxes of x and g in the 128-byte swizzle (rows and channels past
+// the end zero-filled) by TMA. g is wgmma's B, MN-major from shared
+// memory; without the prologue x is its A from shared memory too,
+// transposed, and with it x is loaded by ldmatrix.trans into registers,
+// activated in f32 and rounded to bf16 there (the gradient-in-registers
+// form of K4 in bf16, csrc/conv3d_bf16.cu). Rows TMA cannot describe (a
+// stride or base off 16 bytes: x at Ci = 9, MSG's Ci of 6, 150, 196, 323
+// and 515, g at Co = 196, views) take another route: x's slice, where its
+// rows are contiguous and fit, as one bulk copy of their bytes, from which
+// the consumers gather A's fragments; else the producer's threads copy by
+// cp.async of 8 or 4 bytes straight into the swizzled slice where the
+// rows allow, the slice's barrier completing when the copies land; else
+// (odd channel counts) as raw 16-byte pieces that the consumers gather
+// (x) or that the producer lays out a few slices behind (g). No padded
+// copy. d(bias) is the f32 sum of the staged g
+// columns, taken by the consumers while the products run. The producer
+// hands registers to the consumers (setmaxnreg). Blocks are persistent,
+// one wave: each walks a fixed run of slices of its tile and each
+// warpgroup writes one f32 partial slot (no atomics); then every block
+// takes a ticket and waits for all (launched cooperatively, so all are
+// resident) and adds its share of the slots, each entry's in slot order:
+// bitwise reproducible, no fold launch. (The last block of a tile alone
+// would read up to 17 MB of slots at (128, 1024).)
 #include "dense_gemm.cuh"
 #include "wgmma.cuh"
 
@@ -402,256 +432,6 @@ int launch_wgrad(const Args& a, int a_mode, int b_mode, int bn, int splits,
 }
 
 
-// ---- the bf16 mode ----------------------------------------------------------
-
-namespace g16 = pvcnn::gemm16;
-
-struct Args16 {
-  const g16::u16* a;     // A(m, k): a[m * lda + k] (kAK) or a[k * lda + m]
-  const g16::u16* b;     // B(k, n): b[n * ldb + k] (kBKM) or b[k * ldb + n]
-  int lda, ldb;
-  const float* bias;     // [N] or null
-  const float* pscale;   // [Ci] (with the prologue)
-  const float* pshift;
-  float slope;
-  void* out;             // bf16 [M][ldo] (K9), f32 [splits][M][N] (K10)
-  int ldo;
-  float* stats;          // [row tiles][2][N] or null
-  float* dbias;          // [splits][N] or null (K10)
-  int M, N, K, chunk;
-};
-
-// C = A B (+ bias) over k in one chunk, on the bf16 core; grid (row tiles
-// x column tiles, chunks), the column tile fastest. kAK / kBKM: A / B
-// K-major. K9 (!kWgrad) stores bf16 and its statistics; K10 stores f32 and
-// sums d(bias) from the staged B (= g, MN-major).
-template <int BN, int kPro, bool kAK, bool kBKM, bool kWgrad>
-__device__ __forceinline__ void gemm16(const Args16& p, g16::u16* smem) {
-  using T = g16::Tile<BN>;
-  constexpr int kNT = T::kNT;
-  constexpr int kThreads = g16::kThreads;
-  constexpr int kBK = g16::kBK;
-  constexpr int kStages = g16::kStages;
-  constexpr int kSlotA = g16::Slot<g16::kBM>::kElems;
-  constexpr int kBM = g16::kBM;
-  constexpr int kPad = g16::kPad;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int col_tiles = (p.N + BN - 1) / BN;
-  const int tile_m = blockIdx.x / col_tiles;
-  const int m0 = tile_m * kBM;
-  const int n0 = (blockIdx.x % col_tiles) * BN;
-  const int kbeg = blockIdx.y * p.chunk;
-  const int kend = min(p.K, kbeg + p.chunk);
-  const int slices = (kend - kbeg + kBK - 1) / kBK;
-  const bool with_db = kWgrad && tile_m == 0;
-
-  auto load = [&](int slice) {
-    g16::u16* As = smem + (slice % kStages) * T::kStageElems;
-    const int k0 = kbeg + slice * kBK;
-    g16::stage<kAK, kBM>(As, p.a, p.lda, m0, p.M, k0, kend, tid);
-    g16::stage<kBKM, BN>(As + kSlotA, p.b, p.ldb, n0, p.N, k0, kend, tid);
-  };
-
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-    }
-  }
-  // K10's d(bias): column tid % BN over its part of each slice's rows
-  constexpr int kParts = kThreads / BN;
-  const int db_col = tid % BN, db_part = tid / BN;
-  float db = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < slices) load(s);
-    pvcnn::gemm::copy_commit();
-  }
-  for (int sl = 0; sl < slices; ++sl) {
-    pvcnn::gemm::copy_wait<kStages - 2>();
-    __syncthreads();
-    g16::u16* As = smem + (sl % kStages) * T::kStageElems;
-    const g16::u16* Bs = As + kSlotA;
-    if (kPro != kNone) {
-      // a(x) of the in-range entries, rounded to bf16 (past the rows or
-      // the channels the slot keeps its zeros: a(0) may not be 0)
-      const int k0 = kbeg + sl * kBK;
-      for (int e = tid; e < kBK * kBM; e += kThreads) {
-        const int k = kAK ? e % kBK : e / kBM;
-        const int m = kAK ? e / kBK : e % kBM;
-        if (m0 + m < p.M && k0 + k < kend) {
-          const int ch = kPro == kByK ? k0 + k : m0 + m;
-          g16::u16* v = As + (kAK ? m * (kBK + kPad) + k
-                                  : k * (kBM + kPad) + m);
-          *v = g16::to_bf16(activate(g16::to_float(*v), __ldg(p.pscale + ch),
-                                     __ldg(p.pshift + ch), p.slope));
-        }
-      }
-      __syncthreads();
-    }
-    if (with_db) {
-#pragma unroll
-      for (int k = 0; k < kBK / kParts; ++k) {
-        db += g16::to_float(Bs[(db_part * (kBK / kParts) + k) * (BN + kPad) +
-                               db_col]);
-      }
-    }
-    if (sl + kStages - 1 < slices) load(sl + kStages - 1);
-    pvcnn::gemm::copy_commit();
-    g16::multiply<BN, kAK, kBKM>(As, Bs, wm, wn, lane, acc);
-  }
-
-  // the tile (+ bias) from registers: lane (g, t) holds rows g and g + 8
-  // of each m16 tile, columns 2t, 2t + 1 of each n8 tile
-  const int g = lane >> 2, t = lane & 3;
-  float bj[kNT][2];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int n = n0 + wn * T::kWN + 8 * j + 2 * t + q;
-      bj[j][q] = (!kWgrad && p.bias != nullptr && n < p.N)
-                     ? __ldg(p.bias + n) : 0.f;
-    }
-  }
-  float s1[kNT][2], s2[kNT][2];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
-  }
-  const bool pairs = p.ldo % 2 == 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 64 + 16 * i + g + 8 * h;
-      if (m >= p.M) continue;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = n0 + wn * T::kWN + 8 * j + 2 * t;
-        const float v0 = acc[i][j][2 * h] + bj[j][0];
-        const float v1 = acc[i][j][2 * h + 1] + bj[j][1];
-        if constexpr (kWgrad) {
-          float* row = static_cast<float*>(p.out) +
-                       (static_cast<int64_t>(blockIdx.y) * p.M + m) * p.N;
-          if (n < p.N) row[n] = v0;
-          if (n + 1 < p.N) row[n + 1] = v1;
-        } else {
-          s1[j][0] += v0;
-          s2[j][0] = fmaf(v0, v0, s2[j][0]);
-          s1[j][1] += v1;
-          s2[j][1] = fmaf(v1, v1, s2[j][1]);
-          g16::u16* row = static_cast<g16::u16*>(p.out) +
-                          static_cast<int64_t>(m) * p.ldo;
-          if (pairs && n + 1 < p.N) {
-            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(row + n) = v;
-          } else {
-            if (n < p.N) row[n] = g16::to_bf16(v0);
-            if (n + 1 < p.N) row[n + 1] = g16::to_bf16(v1);
-          }
-        }
-      }
-    }
-  }
-  if (kWgrad ? !with_db : p.stats == nullptr) return;
-
-  // the statistics (K9) or d(bias) (K10) of the tile's columns, in a fixed
-  // order: a thread's rows, the lanes of a column (g = 0..7), the two warps
-  // of a column, or the parts of K10's rows
-  auto* red = reinterpret_cast<float*>(smem);   // [2][2][BN] or [kParts][BN]
-  pvcnn::gemm::copy_wait<0>();
-  __syncthreads();
-  if (kWgrad) {
-    red[db_part * BN + db_col] = db;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          s1[j][q] += __shfl_xor_sync(0xffffffffu, s1[j][q], off);
-          s2[j][q] += __shfl_xor_sync(0xffffffffu, s2[j][q], off);
-        }
-      }
-    }
-    if (g == 0) {
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int c = wn * T::kWN + 8 * j + 2 * t + q;
-          red[(wm * 2) * BN + c] = s1[j][q];
-          red[(wm * 2 + 1) * BN + c] = s2[j][q];
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < BN && n0 + tid < p.N) {
-    if (kWgrad) {
-      float sum = red[tid];
-      for (int q = 1; q < kParts; ++q) sum += red[q * BN + tid];
-      p.dbias[static_cast<int64_t>(blockIdx.y) * p.N + n0 + tid] = sum;
-    } else {
-      float* o = p.stats + static_cast<int64_t>(tile_m) * 2 * p.N + n0 + tid;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) o[q * p.N] = red[q * BN + tid] +
-                                               red[(2 + q) * BN + tid];
-    }
-  }
-}
-
-template <int BN, int kPro, bool kAK, bool kBKM, bool kWgrad>
-__global__ void __launch_bounds__(g16::kThreads, BN == 128 ? 2 : 3)
-dense_rows_bf16_kernel(const Args16 p) {
-  extern __shared__ __align__(16) g16::u16 smem16[];
-  gemm16<BN, kPro, kAK, kBKM, kWgrad>(p, smem16);
-}
-
-template <int BN, int kPro, bool kAK, bool kBKM, bool kWgrad>
-int launch_tile16(const Args16& a, int splits, cudaStream_t st) {
-  auto kernel = dense_rows_bf16_kernel<BN, kPro, kAK, kBKM, kWgrad>;
-  constexpr int smem = g16::Tile<BN>::kSmemBytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t tiles = static_cast<int64_t>((a.M + g16::kBM - 1) /
-                                             g16::kBM) *
-                        ((a.N + BN - 1) / BN);
-  if (tiles > 0x7fffffff || splits > 65535) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(splits)),
-           g16::kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kPro, bool kAK, bool kBKM, bool kWgrad>
-int launch16(const Args16& a, int bn, int splits, cudaStream_t st) {
-  switch (bn) {
-    case 64: return launch_tile16<64, kPro, kAK, kBKM, kWgrad>(a, splits, st);
-    case 128:
-      return launch_tile16<128, kPro, kAK, kBKM, kWgrad>(a, splits, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// a bf16 operand the core reads: ld a multiple of 8 elements, 16-byte
-// aligned
-bool staged16(const void* p, int ld) {
-  return ld > 0 && ld % 8 == 0 && pvcnn::gemm::aligned16(p);
-}
-
 // ---- K9 in bf16: wgmma fed by TMA --------------------------------------------
 
 namespace w9 {
@@ -714,8 +494,8 @@ struct Layout {
 };
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  return static_cast<uint32_t>(g16::to_bf16(lo)) |
-         static_cast<uint32_t>(g16::to_bf16(hi)) << 16;
+  return static_cast<uint32_t>(to_bf16(lo)) |
+         static_cast<uint32_t>(to_bf16(hi)) << 16;
 }
 
 // a(v) of the pair of bf16 values in r at channels k, k + 1 (rounded to
@@ -725,7 +505,7 @@ __device__ __forceinline__ uint32_t act_pair(uint32_t r, bool row_ok, int k,
   float v[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const float f = g16::to_float(static_cast<u16>(r >> (16 * e)));
+    const float f = to_float(static_cast<u16>(r >> (16 * e)));
     v[e] = row_ok && k + e < p.K
                ? activate(f, __ldg(p.pscale + k + e), __ldg(p.pshift + k + e),
                           p.slope)
@@ -846,7 +626,7 @@ dense_rows_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
           (reinterpret_cast<uintptr_t>(row + kBK * s) & ~uintptr_t{15}) +
           16 * j;
       if (at < reinterpret_cast<uintptr_t>(row + kend)) {
-        g16::copy16(buf + 8 * i, reinterpret_cast<const u16*>(at), 16);
+        copy16(buf + 8 * i, reinterpret_cast<const u16*>(at), 16);
       }
     }
   };
@@ -878,7 +658,7 @@ dense_rows_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
         pvcnn::gemm::copy_wait<1>();   // this thread's pieces of slice s
         named_sync(2, kConsumers);     // everyone's
       }
-      const int st = it % p.stages;
+      const int st = ring ? it % p.stages : 0;
       if (ring) bar_wait(&full[st], (it / p.stages) & 1);
       unsigned char* slot = smem + st * L.stage;
       const uint32_t b_at =
@@ -936,7 +716,7 @@ dense_rows_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                   const bool in = row < p.M && k + h < p.K;
-                  v[h] = in ? g16::to_float(at[h]) : 0.f;
+                  v[h] = in ? to_float(at[h]) : 0.f;
                   if (in && p.pscale != nullptr) {   // rounded by pack
                     v[h] = activate(v[h], __ldg(p.pscale + k + h),
                                     __ldg(p.pshift + k + h), p.slope);
@@ -1051,7 +831,7 @@ dense_rows_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
           const int m = mw + row, n = cbase + cc;
           if (m < p.M && n < p.N) {
             p.y[static_cast<int64_t>(m) * p.N + n] =
-                g16::to_bf16(epi[row * kEpiStride + cc]);
+                to_bf16(epi[row * kEpiStride + cc]);
           }
         }
       }
@@ -1136,7 +916,7 @@ dense_rows_bf16_weights_kernel(const float* __restrict__ w, int64_t sk,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     out.e[j] = k0 + j < Ci && n < Co
-                   ? g16::to_bf16(__ldg(w + (k0 + j) * sk + n * sn))
+                   ? to_bf16(__ldg(w + (k0 + j) * sk + n * sn))
                    : u16{0};
   }
   reinterpret_cast<uint4*>(w16)[i] = out.v;
@@ -1229,6 +1009,682 @@ int run(const void* a, int lda, int a_tma, const void* w16, int Ci, int Co,
 
 }  // namespace w9
 
+// ---- K10 in bf16: wgmma, x and g read once --------------------------------
+
+namespace w10 {
+
+using namespace pvcnn::wg;
+using u16 = unsigned short;
+
+constexpr int kConsumers = 256;             // 2 warpgroups
+constexpr int kProducers = 128;             // a warpgroup
+constexpr int kThreads = kConsumers + kProducers;
+// registers a thread (setmaxnreg): 128 x 56 + 256 x 224 <= 65,536
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kChunk = 64;                  // channels in a 128-byte row
+
+struct Params {
+  const u16* x;            // [rows][ldx]
+  const u16* g;            // [rows][ldg]
+  int ldx, ldg;
+  const float* pscale;     // [Ci] or null
+  const float* pshift;
+  float slope;
+  float* dw;               // [Ci][Co]
+  float* db;               // [Co]
+  float* slots;            // [m64 tiles][ntiles][kps][64][BN], then
+  float* db_slots;         //   [ntiles][parts][BN]
+  unsigned* counter;       // zeroed before the launch
+  int rows, ci, co;
+  // each operand's copy route: 16 by TMA; 8 or 4 by cp.async of that
+  // many bytes into its tile; 2 raw (x: rows gathered by the consumers;
+  // g: laid out by the producer); 1 (x alone, its rows contiguous: ldx ==
+  // Ci) a slice's rows as one bulk copy, gathered by the consumers
+  int pair, sr, stages, a_mode, b_mode, dslots;
+  int mtiles, ntiles, parts, slices;
+};
+
+// the 16-byte pieces a raw row of w channels takes, wherever it starts
+__host__ __device__ inline int raw_pieces(int w) { return w / 8 + 1; }
+
+// the byte offsets of a block's shared memory (after 1024-byte alignment),
+// shared by the kernel and its launcher: the ring of slices (A's part:
+// its 64-channel chunks, each sr rows of 128 bytes in the 128-byte
+// swizzle, or its raw rows; then B's chunks), for g read raw a ring of
+// `dslots` raw buffers, the d(bias) partials ([groups][BN] f32), the
+// mbarriers
+struct Layout {
+  int na, nb, a_part, b_tile, stage, b_raw, db, bars, total;
+  __host__ __device__ Layout(int bn, int pair, int sr, int stages,
+                             int dslots, int a_mode, int b_mode, int ci) {
+    na = pair ? 2 : 1;
+    nb = bn / kChunk;
+    a_part = a_mode == 2   ? (sr * raw_pieces(na * kChunk) * 16 + 1023) /
+                                 1024 * 1024
+             : a_mode == 1 ? (sr * ci * 2 + 1023) / 1024 * 1024
+                           : na * sr * 128;
+    b_tile = nb * sr * 128;
+    stage = a_part + b_tile;
+    b_raw = stages * stage;
+    db = b_raw + (b_mode == 2 ? dslots * sr * raw_pieces(bn) * 16 : 0);
+    bars = db + 8 * kConsumers * 4;
+    total = bars + 8 * 2 * stages + 16 + 1024;   // + alignment
+  }
+};
+
+// a(v) of the bf16 pair in r, rows row and row + 1 of channel c (rounded
+// to bf16 once), zero where a row or the channel is out of range
+__device__ __forceinline__ uint32_t act_rows(uint32_t r, int row, int rows,
+                                             bool c_ok, float s, float h,
+                                             float slope) {
+  float v[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    v[e] = c_ok && row + e < rows
+               ? activate(to_float(static_cast<u16>(r >> (16 * e))), s, h,
+                          slope)
+               : 0.f;
+  }
+  return w9::pack(v[0], v[1]);
+}
+
+// K10 in bf16: dW = a(x)^T g over the rows, a product of M = Ci (A =
+// a(x)^T, in registers) by N = Co (B = g, MN-major in shared memory) with
+// the rows as its reduction. A block of 2 consumer warpgroups and a
+// producer warpgroup walks its units (blockIdx.x, + gridDim.x, ...); unit
+// u is tile u % tiles (column tile fastest, then the Ci tile) over the
+// slices of its part u / tiles, each slice sr rows. With `pair` (Ci > 64)
+// the two consumer warpgroups own two 64-channel tiles of Ci over all of a
+// slice's rows, else one tile over half a slice's rows each. The producer
+// fills a ring of slices: its first thread by TMA, and all of it, for rows
+// TMA cannot read, by cp.async into a ring of raw buffers dslots - 1
+// slices ahead, then laid out as TMA would (its registers handed to the
+// consumers by setmaxnreg). Each consumer warpgroup writes its f32 partial
+// of a unit into its own slot, and the blocks of a Ci tile's first row sum
+// d(bias) from the staged g; then every block waits for the others (one
+// wave, launched cooperatively) and adds a share of the slots in slot
+// order. kRegsA: A through registers (the prologue, or x's raw rows);
+// else wgmma reads A from shared memory too, transposed (MN-major).
+template <int BN, bool kRegsA>
+__global__ void __launch_bounds__(kThreads, 1)
+dense_rows_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap gmap,
+                              const Params p) {
+  // k16 steps a warpgroup takes of a slice at most (8: 128 rows; BN =
+  // 256 runs slices of 64 rows)
+  constexpr int kSteps = BN == 256 ? 4 : 8;
+  const Layout L(BN, p.pair, p.sr, p.stages, p.dslots, p.a_mode, p.b_mode,
+                 p.ci);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + p.stages;
+  // the producer's threads copy rows (TMA cannot read) and arrive
+  const bool copies = (p.a_mode != 16 && p.a_mode != 1) || p.b_mode != 16;
+  const int tid = threadIdx.x;
+  const int tiles = p.mtiles * p.ntiles;
+  const int units = tiles * p.parts;
+  const int tile_rows = p.sr * 128;         // bytes of a 64-channel chunk
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      // the first producer thread's arrival (with the TMA bytes), and,
+      // where they copy rows, every producer thread's once its copies of
+      // the slice landed (or g's raw rows are laid out)
+      bar_init(&full[i], 1 + (copies ? kProducers : 0));
+      bar_init(&empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // unit u's slices [first(part), first(part + 1))
+  auto first = [&](int part) {
+    return static_cast<int>(static_cast<int64_t>(part) * p.slices / p.parts);
+  };
+
+  if (tid >= kConsumers) {                  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    // the 64-channel chunks of x and g in range at a unit's tile
+    auto chunks = [&](int c0, int c, int most) {
+      return max(0, min(most, (c - c0 + kChunk - 1) / kChunk));
+    };
+    // slice s's rows [s * sr, + sr) of channels [c0, c0 + w) as the 16-byte
+    // pieces that hold them, by cp.async into `raw` (a row's rp pieces)
+    auto raw_fill = [&](unsigned char* raw, const u16* ptr, int ld, int c,
+                        int c0, int w, int s) {
+      const int rp = raw_pieces(w), cend = min(c, c0 + w);
+      if (cend <= c0) return;
+      const int dr = kProducers / rp, dj = kProducers % rp;
+      for (int r = pt / rp, j = pt % rp; r < p.sr;) {
+        const int row_at = s * p.sr + r;
+        if (row_at < p.rows) {
+          const u16* row = ptr + static_cast<int64_t>(row_at) * ld;
+          const uintptr_t at =
+              (reinterpret_cast<uintptr_t>(row + c0) & ~uintptr_t{15}) +
+              16 * j;
+          if (at < reinterpret_cast<uintptr_t>(row + cend)) {
+            copy16(raw + 16 * (r * rp + j), reinterpret_cast<const void*>(at),
+                   16);
+          }
+        }
+        r += dr;                            // the next piece of this thread
+        j += dj;
+        if (j >= rp) {
+          j -= rp;
+          ++r;
+        }
+      }
+    };
+    // the same rows laid out as a TMA box would at `tile` (zeros past the
+    // rows and channels), by cp.async of `bytes` (8 or 4) a copy: rows of
+    // whole 8- or 4-byte pieces, channel groups that never straddle c
+    auto pieces = [&](unsigned char* tile, const u16* ptr, int ld, int c,
+                      int c0, int w, int s, int bytes) {
+      const int per = w / 8, n = 16 / bytes, e = bytes / 2;
+      for (int i = pt; i < p.sr * per; i += kProducers) {
+        const int r = i / per, pc = i % per;
+        const int row_at = s * p.sr + r, ch = c0 + 8 * pc;
+        unsigned char* dst = tile + (pc >> 3) * tile_rows + r * 128 +
+                             (((pc & 7) ^ (r & 7)) << 4);
+        if (row_at >= p.rows || ch >= c) {
+          copy16(dst, ptr, 0);              // zeros
+          continue;
+        }
+        const u16* src = ptr + static_cast<int64_t>(row_at) * ld + ch;
+        for (int q = 0; q < n; ++q) {
+          const bool in = ch + q * e < c;
+          copy_small(dst + q * bytes, in ? src + q * e : ptr, bytes,
+                     in ? bytes : 0);
+        }
+      }
+    };
+    // raw buffer `raw` of slice s laid out at `tile` (zeros past the rows
+    // and channels)
+    auto repack = [&](const unsigned char* raw, const u16* ptr, int ld,
+                      int c, int c0, int w, int s, unsigned char* tile) {
+      const int rp = raw_pieces(w), per = w / 8;
+      for (int i = pt; i < p.sr * per; i += kProducers) {
+        const int r = i / per, pc = i % per;
+        const int row_at = s * p.sr + r, ch = c0 + 8 * pc;
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (row_at < p.rows && ch < c) {
+          const u16* row = ptr + static_cast<int64_t>(row_at) * ld;
+          const uintptr_t lo =
+              reinterpret_cast<uintptr_t>(row + c0) & ~uintptr_t{15};
+          const u16* src = reinterpret_cast<const u16*>(
+              raw + r * rp * 16 + (reinterpret_cast<uintptr_t>(row + ch) - lo));
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (ch + q < c) v[q >> 1] |= static_cast<uint32_t>(src[q])
+                                         << (16 * (q & 1));
+          }
+        }
+        *reinterpret_cast<uint4*>(tile + (pc >> 3) * tile_rows + r * 128 +
+                                  (((pc & 7) ^ (r & 7)) << 4)) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
+    };
+    // g's raw rows are laid out dslots - 1 slices behind their copies:
+    // (unit, slice) of the walk's slice k, its raw buffer k % dslots
+    int ru = blockIdx.x, rs = ru < units ? first(ru / tiles) : 0;
+    auto finish = [&](int k) {              // lay out slice k, then arrive
+      const int st = k % p.stages;
+      named_sync(3, kProducers);            // every thread's pieces landed
+      repack(smem + L.b_raw + (k % p.dslots) * p.sr * raw_pieces(BN) * 16,
+             p.g, p.ldg, p.co, ru % tiles % p.ntiles * BN, BN, rs,
+             smem + st * L.stage + L.a_part);
+      // the products read the tile through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(3, kProducers);            // the raw buffer is free again
+      bar_arrive(&full[st]);
+      if (++rs == first(ru / tiles + 1)) {
+        ru += gridDim.x;
+        rs = ru < units ? first(ru / tiles) : 0;
+      }
+    };
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int tile = u % tiles, part = u / tiles;
+      const int a_c0 = tile / p.ntiles * L.na * kChunk;
+      const int b_c0 = tile % p.ntiles * BN;
+      const int na = p.a_mode == 16 ? chunks(a_c0, p.ci, L.na) : 0;
+      const int nb = p.b_mode == 16 ? chunks(b_c0, p.co, L.nb) : 0;
+      for (int s = first(part); s < first(part + 1); ++s, ++it) {
+        const int st = it % p.stages;
+        if (it >= p.stages) bar_wait(&empty[st], (it / p.stages - 1) & 1);
+        unsigned char* slot = smem + st * L.stage;
+        if (pt == 0) {
+          // x's slice as one bulk copy: its rows' bytes, in whole 16-byte
+          // pieces (past the last row: rows no product reads)
+          const int bulk =
+              p.a_mode == 1
+                  ? (min(p.sr, p.rows - s * p.sr) * p.ci * 2 + 15) / 16 * 16
+                  : 0;
+          bar_expect(&full[st], (na + nb) * tile_rows + bulk);
+          if (bulk > 0) {
+            bulk_load(slot, p.x + static_cast<int64_t>(s) * p.sr * p.ci,
+                      bulk, &full[st]);
+          }
+          for (int q = 0; q < na; ++q) {
+            tma_load_2d(slot + q * tile_rows, &xmap, &full[st],
+                        a_c0 + q * kChunk, s * p.sr);
+          }
+          for (int q = 0; q < nb; ++q) {
+            tma_load_2d(slot + L.a_part + q * tile_rows, &gmap, &full[st],
+                        b_c0 + q * kChunk, s * p.sr);
+          }
+        }
+        if (!copies) continue;
+        if (p.a_mode == 2) {
+          raw_fill(slot, p.x, p.ldx, p.ci, a_c0, L.na * kChunk, s);
+        } else if (p.a_mode != 16 && p.a_mode != 1) {
+          pieces(slot, p.x, p.ldx, p.ci, a_c0, L.na * kChunk, s, p.a_mode);
+        }
+        if (p.b_mode == 2) {
+          raw_fill(smem + L.b_raw +
+                       (it % p.dslots) * p.sr * raw_pieces(BN) * 16,
+                   p.g, p.ldg, p.co, b_c0, BN, s);
+        } else if (p.b_mode != 16) {
+          pieces(slot + L.a_part, p.g, p.ldg, p.co, b_c0, BN, s, p.b_mode);
+        }
+        if (p.b_mode == 2) {
+          pvcnn::gemm::copy_commit();
+          if (it >= p.dslots - 1) {         // slice it - dslots + 1's landed
+            if (p.dslots == 4) {
+              pvcnn::gemm::copy_wait<3>();
+            } else if (p.dslots == 3) {
+              pvcnn::gemm::copy_wait<2>();
+            } else {
+              pvcnn::gemm::copy_wait<1>();
+            }
+            finish(it - p.dslots + 1);
+          }
+        } else {
+          // this thread's arrival, once its copies of the slice landed
+          copies_arrive(&full[st]);
+        }
+      }
+    }
+    if (p.b_mode == 2) {                    // the last slices' layouts
+      pvcnn::gemm::copy_wait<0>();
+      for (int k = max(0, it - p.dslots + 1); k < it; ++k) finish(k);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  const int wg = tid >> 7, lt = tid & 127;
+  const int w4 = lt >> 5, lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
+  // the warpgroup's rows of a slice and its k16 steps
+  const int wrow = p.pair ? 0 : wg * (p.sr / 2);
+  const int nst = (p.pair ? p.sr : p.sr / 2) / 16;
+  // d(bias): a thread sums the 8 columns of one 16-byte piece of a g row
+  // (piece tid % (BN / 8)) over its group's rows of each slice (group
+  // tid / (BN / 8) of kDbGroups, sr / kDbGroups rows each)
+  constexpr int kPieces = BN / 8, kDbGroups = kConsumers / kPieces;
+  const int db_piece = tid % kPieces, db_group = tid / kPieces;
+  const int db_rows = p.sr / kDbGroups;
+  float* db_red = reinterpret_cast<float*>(smem + L.db);
+  const int kps = p.pair ? p.parts : 2 * p.parts;
+  float acc[BN / 2];
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int tile = u % tiles, part = u / tiles;
+    const int mt = tile / p.ntiles, nt = tile % p.ntiles;
+    const int wc0 = mt * L.na * kChunk + (p.pair ? wg * kChunk : 0);
+    const bool active = wc0 < p.ci;
+    const bool with_db = mt == 0;
+    // the prologue's scale and shift of the lane's channels g8, g8 + 8
+    bool c_ok[2];
+    float sc[2], sh[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = wc0 + 16 * w4 + g8 + 8 * e;
+      c_ok[e] = c < p.ci;
+      sc[e] = c_ok[e] && p.pscale != nullptr ? __ldg(p.pscale + c) : 0.f;
+      sh[e] = c_ok[e] && p.pscale != nullptr ? __ldg(p.pshift + c) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    float db[8] = {};
+    const int s1 = first(part + 1);
+    for (int s = first(part); s < s1; ++s, ++it) {
+      const int st = it % p.stages;
+      bar_wait(&full[st], (it / p.stages) & 1);
+      if (p.b_mode != 16) {
+        // g's tile, written by the producer's copies, read by wgmma
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      unsigned char* slot = smem + st * L.stage;
+      const unsigned char* bt = slot + L.a_part;
+      // both warpgroups multiply whether or not their channels are in range
+      // (a warpgroup past Ci stores nothing): wgmma on a divergent path is
+      // serialized
+      if constexpr (!kRegsA) {
+        wgmma_fence();
+        const uint32_t a_at = smem_addr(slot) +
+                              (p.pair ? wg : 0) * tile_rows + wrow * 128;
+        const uint32_t b_at = smem_addr(bt) + wrow * 128;
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          if (kk < nst) {
+            wgmma_ss_tt<BN>(acc, mat_desc_sw128_mn(a_at + kk * 2048, tile_rows),
+                            mat_desc_sw128_mn(b_at + kk * 2048, tile_rows));
+          }
+        }
+        wgmma_commit();
+      } else {
+        // the warp's 16 channels x 16 rows of each k16 step by
+        // ldmatrix.trans: matrix j = lane / 8 holds channels + 8 (j & 1),
+        // rows + 8 (j >> 1); the 16-byte piece c of row r sits at piece
+        // c ^ (r % 8). Lane (g8, t4) gets channels g8 (+ 8), rows 2 t4
+        // (+ 1), + 8: mma.sync's A fragment, as wgmma takes A from
+        // registers
+        uint32_t afr[kSteps][4];
+        const uint32_t a_at = smem_addr(slot) + (p.pair ? wg : 0) * tile_rows;
+        const int j = lane >> 3;
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          if (kk < nst) {
+            const int r = wrow + 16 * kk + (j >> 1) * 8 + (lane & 7);
+            const int pc = 2 * w4 + (j & 1);
+            if (p.a_mode == 1) {
+              // x's rows as they lie (ldx == Ci): element (row, channel)
+              // at 2 (row Ci + channel) bytes of the slice
+              const int row = wrow + 16 * kk + 2 * t4;
+              const int ch = mt * L.na * kChunk +
+                             (p.pair ? wg * kChunk : 0) + 16 * w4 + g8;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                uint32_t v = 0;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int rl = row + 8 * (e >> 1) + h;
+                  if (s * p.sr + rl < p.rows && c_ok[e & 1]) {
+                    v |= static_cast<uint32_t>(*reinterpret_cast<const u16*>(
+                             slot + 2 * (rl * p.ci + ch + 8 * (e & 1))))
+                         << (16 * h);
+                  }
+                }
+                afr[kk][e] = v;
+              }
+            } else if (p.a_mode != 2) {
+              ldmatrix_x4_trans(afr[kk],
+                                a_at + r * 128 + ((pc ^ (r & 7)) << 4));
+            } else {
+              // x's raw rows (a stride TMA and 4-byte copies cannot take):
+              // row r's pieces from the 16-byte boundary at or before its
+              // first channel, each element where its row's offset puts it
+              const int rp = raw_pieces(L.na * kChunk);
+              const int row = wrow + 16 * kk + 2 * t4;
+              const int ch = (p.pair ? wg * kChunk : 0) + 16 * w4 + g8;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                uint32_t v = 0;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int rl = row + 8 * (e >> 1) + h;
+                  const int at = s * p.sr + rl;
+                  if (at < p.rows && c_ok[e & 1]) {
+                    const uint32_t off =
+                        (static_cast<uint32_t>(reinterpret_cast<uintptr_t>(
+                             p.x)) +
+                         2u * (static_cast<uint32_t>(at) *
+                                   static_cast<uint32_t>(p.ldx) +
+                               static_cast<uint32_t>(mt * L.na * kChunk))) &
+                        15u;
+                    v |= static_cast<uint32_t>(*reinterpret_cast<const u16*>(
+                             slot + rl * rp * 16 + off +
+                             2 * (ch + 8 * (e & 1))))
+                         << (16 * h);
+                  }
+                }
+                afr[kk][e] = v;
+              }
+            }
+            if (p.pscale != nullptr) {
+              const int row = s * p.sr + wrow + 16 * kk + 2 * t4;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                afr[kk][e] = act_rows(afr[kk][e], row + 8 * (e >> 1), p.rows,
+                                      c_ok[e & 1], sc[e & 1], sh[e & 1],
+                                      p.slope);
+              }
+            }
+          }
+        }
+        wgmma_fence();
+        const uint32_t b_at = smem_addr(bt) + wrow * 128;
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          if (kk < nst) {
+            wgmma_rs<BN, 1>(acc, afr[kk],
+                            mat_desc_sw128_mn(b_at + kk * 2048, tile_rows));
+          }
+        }
+        wgmma_commit();
+      }
+      if (with_db) {
+        // the f32 sum of the bf16 g in a fixed order (a group's rows in
+        // order, the slices, then the groups and the parts), while the
+        // products run
+        const int pc = db_piece & 7;
+        const unsigned char* chunk = bt + (db_piece >> 3) * tile_rows;
+#pragma unroll 4
+        for (int r = db_group * db_rows; r < (db_group + 1) * db_rows; ++r) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              chunk + r * 128 + ((pc ^ (r & 7)) << 4));
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            db[e] += to_float(static_cast<u16>(w[e >> 1] >> (16 * (e & 1))));
+          }
+        }
+      }
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[st]);
+    }
+
+    // the warpgroup's partial into its slot. Fragment: rows (channels)
+    // 16 w4 + g8 + 8 i, columns 8 j + 2 t4 + e in acc[4 j + 2 i + e]
+    if (active) {
+      fence_acc(acc);
+      const int m64 = p.pair ? 2 * mt + wg : 0;
+      const int kp = p.pair ? part : 2 * part + wg;
+      float* out = p.slots + (static_cast<int64_t>(m64 * p.ntiles + nt) *
+                                  kps + kp) * 64 * BN;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float* row = out + (16 * w4 + g8 + 8 * i) * BN + 2 * t4;
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          *reinterpret_cast<float2*>(row + 8 * jj) =
+              make_float2(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+        }
+      }
+    }
+    if (with_db) {
+      // [group][BN]: the groups added in order
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        db_red[db_group * BN + 8 * db_piece + e] = db[e];
+      }
+      named_sync(1, kConsumers);
+      if (tid < BN) {
+        float sum = db_red[tid];
+        for (int q = 1; q < kDbGroups; ++q) sum += db_red[q * BN + tid];
+        p.db_slots[(static_cast<int64_t>(nt) * p.parts + part) * BN + tid] =
+            sum;
+      }
+      named_sync(1, kConsumers);
+    }
+  }
+
+  // every block's slots written: wait for all (a ticket each), then add
+  // this block's share of dW and d(bias), each entry's slots in order
+  __threadfence();
+  named_sync(1, kConsumers);
+  if (tid == 0) {
+    atomicAdd(p.counter, 1u);
+    const long long start = clock64();
+    while (*reinterpret_cast<volatile unsigned*>(p.counter) < gridDim.x) {
+      __nanosleep(256);
+      if (clock64() - start > (1ll << 34)) __trap();
+    }
+    __threadfence();
+  }
+  named_sync(1, kConsumers);
+  // items: 4 columns of a row of dW (row Ci: of d(bias)), each the sum of
+  // its kps slots (parts for d(bias)) in slot order; kg threads take an
+  // item, each a fixed run of its slots in order, and the runs are added
+  // in order (kg a power of two, runs of at least 8 slots where there are
+  // enough), ep items at a time
+  const int nq = (p.co + 3) / 4;
+  const int64_t items = static_cast<int64_t>(p.ci + 1) * nq;
+  int kg = 1;
+  while (kg < 32 && kg * 16 <= kps) kg *= 2;
+  const int ep = kConsumers / kg, at = tid % ep, grp = tid / ep;
+  float4* red = reinterpret_cast<float4*>(smem);   // the ring, done with
+  const int64_t i1 = (blockIdx.x + 1) * items / gridDim.x;
+  for (int64_t i0 = blockIdx.x * items / gridDim.x; i0 < i1; i0 += ep) {
+    const int64_t item = i0 + at;
+    const int row = static_cast<int>(item / nq), o = 4 * (item % nq);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (item < i1) {
+      const bool bias = row == p.ci;
+      const int n = bias ? p.parts : kps;
+      const int64_t stride = bias ? BN : 64 * BN;
+      const float* src =
+          bias ? p.db_slots + static_cast<int64_t>(o / BN) * p.parts * BN +
+                     o % BN
+               : p.slots + (static_cast<int64_t>((row >> 6) * p.ntiles +
+                                                 o / BN) * kps * 64 +
+                            (row & 63)) * BN + o % BN;
+#pragma unroll 8
+      for (int k = grp * n / kg; k < (grp + 1) * n / kg; ++k) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            src + k * stride));
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+    }
+    red[grp * ep + at] = sum;
+    named_sync(1, kConsumers);
+    if (grp == 0 && item < i1) {
+      for (int q = 1; q < kg; ++q) {
+        const float4 v = red[q * ep + at];
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      float* out = row == p.ci ? p.db : p.dw + static_cast<int64_t>(row) *
+                                                   p.co;
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (o + j < p.co) out[o + j] = v[j];
+      }
+    }
+    named_sync(1, kConsumers);
+  }
+}
+
+template <int BN, bool kRegsA>
+int launch(const CUtensorMap& xmap, const CUtensorMap& gmap, const Params& p,
+           int smem, int grid, cudaStream_t st) {
+  auto kernel = dense_rows_wgrad_wgmma_kernel<BN, kRegsA>;
+  static int allowed = 0;
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  void* args[] = {const_cast<CUtensorMap*>(&xmap),
+                  const_cast<CUtensorMap*>(&gmap),
+                  const_cast<Params*>(&p)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads), args,
+      static_cast<size_t>(smem), st));
+}
+
+// a bf16 operand [rows][ld] as a 2-d tensor map with 64-channel x sr-row
+// boxes in the 128-byte swizzle
+int rows_map(CUtensorMap* map, const void* base, int ld, int c, int rows,
+             int sr) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunk),
+                             static_cast<cuuint32_t>(sr)};
+  return bf16_map(map, base, 2, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// whether rows of stride ld (elements) from base take copy route mode
+bool route_ok(const void* base, int ld, int mode) {
+  if (mode == 1) return pvcnn::gemm::aligned16(base);   // and ld == Ci
+  return (mode == 16 || mode == 8 || mode == 4 || mode == 2) &&
+         (2 * ld) % mode == 0 && reinterpret_cast<uintptr_t>(base) % mode == 0;
+}
+
+int run(const void* x, int ldx, int x_mode, const void* g, int ldg,
+        int g_mode, const float* pscale, const float* pshift, float slope,
+        float* dw, float* db, float* work, int rows, int Ci, int Co, int bn,
+        int pair, int sr, int stages, int dslots, int parts, int grid,
+        int smem, cudaStream_t st) {
+  if (Ci == 0 || Co == 0) return 0;
+  const Layout L(bn, pair, sr, stages, dslots, x_mode, g_mode, Ci);
+  if (rows < 1 || parts < 1 || grid < 1 ||
+      (sr != 32 && sr != 64 && sr != 128) || g_mode == 1 ||
+      (x_mode == 1 && ldx != Ci) ||
+      (bn == 256 && sr > 64) ||
+      (bn != 64 && bn != 128 && bn != 256) || (pair != 0) != (Ci > kChunk) ||
+      stages < 2 || L.total > smem ||
+      (g_mode == 2 ? dslots < 2 || dslots > 4 : dslots != 0) ||
+      dslots > stages || ldx < Ci || ldg < Co || !route_ok(x, ldx, x_mode) ||
+      !route_ok(g, ldg, g_mode)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap xmap = {}, gmap = {};
+  int err = x_mode == 16 ? rows_map(&xmap, x, ldx, Ci, rows, sr) : 0;
+  if (err != 0) return err;
+  err = g_mode == 16 ? rows_map(&gmap, g, ldg, Co, rows, sr) : 0;
+  if (err != 0) return err;
+  const int mtiles = (Ci + L.na * kChunk - 1) / (L.na * kChunk);
+  const int ntiles = (Co + bn - 1) / bn;
+  const int kps = pair ? parts : 2 * parts;
+  const int64_t slot_floats =
+      static_cast<int64_t>(pair ? 2 * mtiles : 1) * ntiles * kps * 64 * bn;
+  const int64_t db_floats = static_cast<int64_t>(ntiles) * parts * bn;
+  auto* counter = reinterpret_cast<unsigned*>(work + slot_floats + db_floats);
+  const Params p{static_cast<const u16*>(x), static_cast<const u16*>(g),
+                 ldx, ldg, pscale, pshift, slope, dw, db, work,
+                 work + slot_floats, counter, rows, Ci, Co, pair, sr, stages,
+                 x_mode, g_mode, dslots, mtiles, ntiles, parts,
+                 (rows + sr - 1) / sr};
+  err = static_cast<int>(cudaMemsetAsync(counter, 0, sizeof(unsigned), st));
+  if (err != 0) return err;
+  if (pscale != nullptr || x_mode == 2 || x_mode == 1) {
+    switch (bn) {
+      case 64: return launch<64, true>(xmap, gmap, p, smem, grid, st);
+      case 128: return launch<128, true>(xmap, gmap, p, smem, grid, st);
+      default: return launch<256, true>(xmap, gmap, p, smem, grid, st);
+    }
+  }
+  switch (bn) {
+    case 64: return launch<64, false>(xmap, gmap, p, smem, grid, st);
+    case 128: return launch<128, false>(xmap, gmap, p, smem, grid, st);
+    default: return launch<256, false>(xmap, gmap, p, smem, grid, st);
+  }
+}
+
+}  // namespace w10
+
 }  // namespace
 
 // K9: y [rows, N] = a(x) w (+ bias), x [rows, K] contiguous, w read as
@@ -1307,48 +1763,26 @@ PVCNN_EXPORT int pvcnn_dense_rows_wgrad(const void* x, const void* g,
 }
 
 // K10 in bf16: dw f32 [Ci, Co] = a(x)^T g and db f32 [Co] = sum_r g, x
-// bf16 [rows, Ci] (row stride ldx) and g bf16 [rows, Co] (row stride ldg),
-// both multiples of 8 and 16-byte aligned; the rows in chunks of `chunk`
-// (a multiple of 32): with more than one chunk, partial holds
-// [chunks][Ci][Co] and then [chunks][Co], which the fold adds in order.
+// bf16 [rows, Ci] (row stride ldx) and g bf16 [rows, Co] (ldg), each by
+// the copy route x_mode / g_mode (16: TMA, rows and base on 16 bytes; 8
+// or 4: cp.async of that many bytes, rows and base on them; 2: raw rows;
+// 1, x alone: contiguous rows, a slice as one bulk copy);
+// pscale / pshift f32 [Ci] or null; work f32:
+// the warpgroups' slots, the d(bias) slots and a counter. bn, pair, sr,
+// stages, dslots, parts, grid and smem are ops/dense_rows.py:_wgrad_plan's.
 PVCNN_EXPORT int pvcnn_dense_rows_wgrad_bf16(
-    const void* x, int ldx, const void* g, int ldg, const void* pscale,
-    const void* pshift, float slope, void* partial, void* dw, void* db,
-    int rows, int Ci, int Co, int bn, int chunk, int has_prologue,
-    void* stream) {
-  if (Ci == 0 || Co == 0) return 0;
-  if (rows < 1 || chunk < 1 || chunk % g16::kBK != 0 ||
-      !staged16(x, ldx) || !staged16(g, ldg) || ldx < Ci || ldg < Co) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int splits = (rows + chunk - 1) / chunk;
-  if (splits > 1 && partial == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t total = static_cast<int64_t>(Ci) * Co;
-  auto* pf = static_cast<float*>(partial);
-  float* out = splits > 1 ? pf : static_cast<float*>(dw);
-  float* dbp = splits > 1 ? pf + splits * total : static_cast<float*>(db);
-  const Args16 a{static_cast<const g16::u16*>(x),
-                 static_cast<const g16::u16*>(g),
-                 ldx, ldg,
-                 nullptr,
-                 static_cast<const float*>(pscale),
-                 static_cast<const float*>(pshift),
-                 slope, out, Co,
-                 nullptr, dbp,
-                 Ci, Co, rows, chunk};
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int err =
-      has_prologue ? launch16<kByM, false, false, true>(a, bn, splits, st)
-                   : launch16<kNone, false, false, true>(a, bn, splits, st);
-  if (err != 0 || splits == 1) return err;
-  dense_rows_fold_kernel<<<pvcnn::blocks_for(total + Co), pvcnn::kThreads, 0,
-                           st>>>(pf, dbp, static_cast<float*>(dw),
-                                 static_cast<float*>(db), total, Co, splits);
-  return static_cast<int>(cudaGetLastError());
+    const void* x, int ldx, int x_mode, const void* g, int ldg, int g_mode,
+    const void* pscale, const void* pshift, float slope, void* dw, void* db,
+    void* work, int rows, int Ci, int Co, int bn, int pair, int sr,
+    int stages, int dslots, int parts, int grid, int smem, void* stream) {
+  return w10::run(x, ldx, x_mode, g, ldg, g_mode,
+                  static_cast<const float*>(pscale),
+                  static_cast<const float*>(pshift), slope,
+                  static_cast<float*>(dw), static_cast<float*>(db),
+                  static_cast<float*>(work), rows, Ci, Co, bn, pair, sr,
+                  stages, dslots, parts, grid, smem,
+                  static_cast<cudaStream_t>(stream));
 }
-
 // K9 in bf16, the forward: w16 [padded(Ci) / 8][padded(Co)][8] bf16 (w9::
 // padded; zeros in the padding) = the f32 weight w [Ci, Co] (element (ci,
 // co) at ci * sk + co * sn) rounded to bf16 (the dgrad reads the same

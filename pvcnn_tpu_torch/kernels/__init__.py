@@ -40,8 +40,8 @@ _F = ctypes.c_float
 _L = ctypes.c_int64
 # exported C function -> argument types (pointers, sizes, stream last)
 _SIGNATURES = {
-    "pvcnn_avg_voxelize_sort": [_P, _P, _P, _I, _I, _I, _P],
-    "pvcnn_avg_voxelize": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize_sort": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize": [_P] * 6 + [_I] * 7 + [_P],
     "pvcnn_trilinear_devoxelize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pvcnn_conv3d_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _P],
@@ -59,8 +59,8 @@ _SIGNATURES = {
                                _I, _I, _I, _P],
     "pvcnn_conv3d_ndhwc_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P],
-    "pvcnn_avg_voxelize_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pvcnn_scatter_sum_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pvcnn_avg_voxelize_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    "pvcnn_scatter_sum_bf16": [_P] * 6 + [_I] * 6 + [_P],
     "pvcnn_trilinear_devoxelize_bf16": [_P, _P, _P, _I, _I, _I, _I, _I,
                                         _I, _P],
     "pvcnn_devoxelize_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -77,8 +77,8 @@ _SIGNATURES = {
                                    _I, _I, _P],
     "pvcnn_dense_rows_dgrad_wgmma": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _P],
-    "pvcnn_dense_rows_wgrad_bf16": [_P, _I, _P, _I, _P, _P, _F, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _P],
+    "pvcnn_dense_rows_wgrad_bf16": [_P, _I, _I, _P, _I, _I, _P, _P, _F, _P,
+                                    _P, _P] + [_I] * 11 + [_P],
 }
 
 

@@ -16,7 +16,8 @@ plain versions beside them.
   dgrad    K9 again reading W in place as W^T, no prologue, bias or
            statistics, counted as `dense_rows_dgrad`; plain: g @ W^T
   wgrad    K10 (csrc/dense_rows.cu) with d(bias) from the same pass, its
-           row chunks added by a fold kernel; plain: a(x)^T @ g and g.sum(0)
+           row chunks added in order (fp32: by a fold kernel; bf16: inside
+           the launch); plain: a(x)^T @ g and g.sum(0)
   statistics fold (dL/dy += gs1 + 2 y gs2) and prologue backward: plain
            torch on both devices (XLA in the JAX package)
 
@@ -29,7 +30,7 @@ the input cloud runs no dgrad.
 bf16 activations (a bfloat16 x; weight, bias, pscale and pshift float32,
 as the JAX op takes them): the kernels' bf16 mode on the card (K9 on
 wgmma fed by TMA, counted as dense_rows_fwd_bf16 and dense_rows_dgrad_bf16;
-K10 on csrc/dense_gemm.cuh's bf16 core, dense_rows_wgrad_bf16), the plain
+K10 on wgmma reading x and g once, dense_rows_wgrad_bf16), the plain
 versions on the operands widened to f32 on the CPU. The forward's launch
 rounds the weight into a bf16 copy laid out for the kernel, which the op
 keeps for the dgrad (the wrappers' `staged` dict): one cast a step. The
@@ -67,10 +68,6 @@ __all__ = ["dense_rows_act", "dense_rows_plan"]
 # the blocks per SM that its __launch_bounds__ promise, by column tile
 _BM, _BK, _STAGES, _PAD = 128, 16, 4, 4
 _MIN_BLOCKS = {128: 2, 64: 3}
-# the bf16 core's (csrc/dense_gemm.cuh: gemm16, K10 in bf16): 256 threads
-# whatever the column tile, slices of 32, a slot holding a tile in either
-# layout (K-major [W][32 + 8] or MN-major [32][W + 8] elements)
-_BK16, _THREADS16, _PAD16 = 32, 256, 8
 # K9 in bf16 (csrc/dense_rows.cu: w9): tiles of 128 rows, slices of 64 k,
 # a warp's epilogue tile 16 x (64 + 8) f32
 _W9_BM, _W9_BK, _W9_EPI_STRIDE = 128, 64, 72
@@ -82,6 +79,9 @@ _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233472, 1024
 # K10's split: the chunk count whose last wave of resident blocks is
 # fullest within _WGRAD_WAVES waves, none shorter than _WGRAD_MIN_SLICES
 _WGRAD_WAVES, _WGRAD_MIN_SLICES = 2, 8
+# K10 in bf16 (csrc/dense_rows.cu: w10): 2 consumer warpgroups of 64 rows
+# of dW, 64-channel chunks of 128-byte rows, at most this many ring slots
+_W10_CONSUMERS, _W10_CHUNK, _W10_MAX_STAGES = 256, 64, 6
 
 
 def dense_rows_plan(rows: int, ci: int, co: int, dtype) -> int | None:
@@ -235,7 +235,7 @@ class Plan(NamedTuple):
     """One launch of K9 or K10 (csrc/dense_gemm.cuh's tile)."""
 
     bn: int             # output columns per block: 64 or 128
-    threads: int        # 2 * bn (the bf16 core: 256)
+    threads: int        # 2 * bn
     bk: int             # reduction slice
     stages: int         # cp.async ring slots
     smem_bytes: int     # dynamic shared memory per block
@@ -246,21 +246,15 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(m, n, k, wgrad, sms, bf16=False) -> Plan:
+def _plan(m, n, k, wgrad, sms) -> Plan:
     """The launch of an [m, n] output reduced over k on a card of `sms`
-    SMs, by the fp32 core or (bf16) the bf16 one. K10 (wgrad) splits k
-    into equal chunks of whole slices: the count whose last wave of
-    resident blocks is fullest within _WGRAD_WAVES waves, the smaller on a
-    tie, no chunk under _WGRAD_MIN_SLICES slices (one chunk where even
-    that is too long)."""
+    SMs by the fp32 core. K10 (wgrad) splits k into equal chunks of whole
+    slices: the count whose last wave of resident blocks is fullest within
+    _WGRAD_WAVES waves, the smaller on a tie, no chunk under
+    _WGRAD_MIN_SLICES slices (one chunk where even that is too long)."""
     bn = 64 if n <= 64 else 128
-    if bf16:
-        bk, threads = _BK16, _THREADS16
-        slot = lambda w: max(w * (bk + _PAD16), bk * (w + _PAD16))
-        smem = 2 * _STAGES * (slot(_BM) + slot(bn))
-    else:
-        bk, threads = _BK, 2 * bn
-        smem = 4 * _STAGES * _BK * (_BM + _PAD + bn + _PAD)
+    bk, threads = _BK, 2 * bn
+    smem = 4 * _STAGES * _BK * (_BM + _PAD + bn + _PAD)
     tiles = math.ceil(m / _BM) * math.ceil(n / bn)
     slices = max(1, math.ceil(k / bk))
     if not wgrad:
@@ -587,16 +581,123 @@ def _dgrad_cuda_bf16(g2, weight, staged):
     return dxt
 
 
-def _padded16(t2):
-    """A bf16 [R, C] operand as K10's bf16 core reads it: rows of a
-    multiple of 8 elements on a 16-byte aligned base; a zero-padded copy
-    where t2 is not so already (Ci = 9, Co = 196, a view)."""
-    c = t2.shape[1]
-    if c % 8 == 0 and t2.is_contiguous() and t2.data_ptr() % 16 == 0:
-        return t2
-    out = t2.new_zeros((t2.shape[0], -(-c // 8) * 8))
-    out[:, :c] = t2
-    return out
+class WgradPlan(NamedTuple):
+    """One launch of K10 in bf16 (csrc/dense_rows.cu:
+    dense_rows_wgrad_wgmma_kernel): persistent blocks of 2 consumer
+    warpgroups and a producer warp, one an SM, launched cooperatively."""
+
+    a_route: int        # x's copy route (`_copy_route`; 1: bulk slices)
+    bn: int             # dW columns a tile: 64, 128 or 256
+    pair: bool          # Ci > 64: the warpgroups own two 64-channel tiles
+    #                     of Ci (else one, each over half a slice's rows)
+    sr: int             # rows a slice: 128, 64 or 32
+    stages: int         # ring slots
+    dslots: int         # raw buffers of g read raw (its route 2; else 0),
+    #                     filled dslots - 1 slices ahead of their layout
+    mtiles: int         # tiles along Ci (128 channels with pair, else 64)
+    ntiles: int         # tiles along Co
+    slices: int         # slices of sr rows
+    parts: int          # runs of slices a tile's rows are cut into
+    grid: int           # blocks: units (tile, part) blockIdx.x, + grid, ...
+    smem_bytes: int     # dynamic shared memory a block
+    work_floats: int    # the warpgroups' slots, d(bias) slots, a counter
+
+
+def _w10_smem(bn, pair, sr, stages, dslots, a_route, b_route, ci):
+    """csrc/dense_rows.cu's w10::Layout: the ring of slices (A's part: its
+    chunks of 64 channels, each sr rows of 128 bytes, or with route 2 its
+    raw rows' 16-byte pieces, or with route 1 the slice's rows as they
+    lie, in whole KiB; then B's chunks); g's ring of dslots raw buffers
+    with route 2; the d(bias) partials (8 f32 a consumer thread); the
+    mbarriers; the 1024-byte alignment."""
+    na, nb = (2 if pair else 1), bn // _W10_CHUNK
+    raw = lambda w: sr * (w // 8 + 1) * 16
+    kib = lambda n: -(-n // 1024) * 1024
+    a_part = (kib(raw(na * _W10_CHUNK)) if a_route == 2 else
+              kib(sr * ci * 2) if a_route == 1 else na * sr * 128)
+    return (stages * (a_part + nb * sr * 128)
+            + (dslots * raw(bn) if b_route == 2 else 0)
+            + 8 * 4 * _W10_CONSUMERS + 8 * 2 * stages + 16 + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_plan(rows, ci, co, a_route, b_route, sms, bulk=False) -> WgradPlan:
+    """K10's bf16 launch for dW [ci, co] over `rows` rows on a card of
+    `sms` SMs, x (A) and g (B) each by its copy route (`_copy_route`),
+    x's slices as bulk copies of its rows instead (route 1) where `bulk`
+    (contiguous rows TMA cannot read) and 3 ring slots of them fit at
+    slices of 128 (4 slots), 64 or 32 rows. The column tile the least of
+    64, 128 and 256 that holds co (256 beyond); for g read raw 4 raw
+    buffers (3 slices ahead), else 3, else 2; slices of 128 rows where 4
+    ring slots fit beside the rest, else 64 (128 rows and 2 raw buffers
+    last), with as many ring slots as fit (at most 6; at least 2 and the
+    raw buffers' count); the row range of
+    each tile cut into `parts` runs of whole slices, enough that the
+    blocks fill the SMs once, no run empty, and the slots (a 64 x bn f32
+    partial a warpgroup and unit) no larger than x and g themselves."""
+    bn = 64 if co <= 64 else 128 if co <= 128 else 256
+    pair = ci > _W10_CHUNK
+    budget = _SMEM_PER_SM - _SMEM_PER_BLOCK_RESERVED
+    dshapes = ([(128, 4), (128, 3), (64, 4), (64, 3), (128, 2), (64, 2)]
+               if b_route == 2 else [(128, 0), (64, 0)])
+    tries = ([(1, sr, d, max(4 if sr == 128 else 3, d))
+              for sr in (128, 64, 32)
+              for d in sorted({d for _, d in dshapes}, reverse=True)]
+             if bulk else [])
+    tries += [(a_route, sr, d, 4 if sr == 128 else max(2, d))
+              for sr, d in dshapes]
+    for route, sr, dslots, least in tries:
+        fixed = _w10_smem(bn, pair, sr, 0, dslots, route, b_route, ci)
+        stage = _w10_smem(bn, pair, sr, 1, dslots, route, b_route,
+                          ci) - fixed
+        stages = min(_W10_MAX_STAGES, (budget - fixed) // stage)
+        if stages >= least and (bn < 256 or sr <= 64):
+            a_route = route
+            break
+    mtiles = math.ceil(ci / (2 * _W10_CHUNK if pair else _W10_CHUNK))
+    ntiles = math.ceil(co / bn)
+    tiles = mtiles * ntiles
+    slices = math.ceil(rows / sr)
+    part_bytes = tiles * 2 * 64 * bn * 4
+    parts = max(1, min(slices, sms // tiles,
+                       2 * rows * (ci + co) // part_bytes))
+    kps = parts if pair else 2 * parts
+    work = ((2 * mtiles if pair else 1) * ntiles * kps * 64 * bn
+            + ntiles * parts * bn + 1)
+    return WgradPlan(a_route, bn, pair, sr, stages, dslots, mtiles, ntiles,
+                     slices, parts, min(sms, tiles * parts),
+                     _w10_smem(bn, pair, sr, stages, dslots, a_route,
+                               b_route, ci), work)
+
+
+def _copy_route(t2):
+    """How K10's bf16 launch reads the bf16 rows of t2 (its route, in
+    bytes a copy): 16, by TMA, where the row stride and the base are
+    multiples of 16 bytes; 8 or 4, by cp.async of 8 or 4 bytes straight
+    into the laid-out slice, where they are multiples of that; else 2, as
+    raw rows (whole 16-byte pieces) that are laid out in the kernel."""
+    ptr, step = t2.data_ptr(), 2 * t2.stride(0)
+    return next((b for b in (16, 8, 4) if step % b == 0 and ptr % b == 0),
+                2)
+
+
+def _bulk_rows(t2, route):
+    """Whether K10's bf16 launch may copy x's slices whole (route 1):
+    rows TMA cannot read (route below 16) that lie contiguous (stride Ci)
+    from a 16-byte aligned base."""
+    return (route < 16 and t2.stride(0) == t2.shape[1]
+            and t2.data_ptr() % 16 == 0)
+
+
+def _wgrad_walk(plan):
+    """The kernel's walk, restated: for each block, its units in order as
+    (tile, part, first slice, end slice)."""
+    tiles = plan.mtiles * plan.ntiles
+    first = lambda part: part * plan.slices // plan.parts
+    return [[(u % tiles, u // tiles, first(u // tiles),
+              first(u // tiles + 1))
+             for u in range(b, tiles * plan.parts, plan.grid)]
+            for b in range(plan.grid)]
 
 
 def _wgrad_cuda_bf16(x2, g2, pscale, pshift, slope, has_prologue):
@@ -608,22 +709,25 @@ def _wgrad_cuda_bf16(x2, g2, pscale, pshift, slope, has_prologue):
         raise ValueError(f"x {tuple(x2.shape)} and g {tuple(g2.shape)} "
                          "differ in rows")
     pro = _prologue(pscale, pshift, ci, has_prologue)
-    dw = torch.empty((ci, co), dtype=torch.float32, device=x2.device)
-    db = torch.empty(co, dtype=torch.float32, device=x2.device)
+    dev = x2.device
+    dw = torch.empty((ci, co), dtype=torch.float32, device=dev)
+    db = torch.empty(co, dtype=torch.float32, device=dev)
     if rows == 0:                        # no rows: nothing to launch
         return dw.zero_(), db.zero_()
-    xp, gp = _padded16(x2), _padded16(g2)
-    plan = _plan(ci, co, rows, True, _sm_count(x2.device.index), True)
-    # the chunks' f32 partials, added in order by the fold kernel:
+    x2, g2 = _rows_of(x2), _rows_of(g2)
+    a_route, b_route = _copy_route(x2), _copy_route(g2)
+    plan = _wgrad_plan(rows, ci, co, a_route, b_route, _sm_count(dev.index),
+                       _bulk_rows(x2, a_route))
+    # the warpgroups' f32 partials, added in order inside the launch:
     # reproducible bit for bit
-    partial = (torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
-                           device=x2.device) if plan.splits > 1 else None)
-    context, stream = kernels.launch_on(x2.device)
+    work = torch.empty(plan.work_floats, dtype=torch.float32, device=dev)
+    context, stream = kernels.launch_on(dev)
     with context:
         kernels.launch(
             "dense_rows_wgrad_bf16", "pvcnn_dense_rows_wgrad_bf16",
-            xp.data_ptr(), xp.shape[1], gp.data_ptr(), gp.shape[1],
-            *map(_ptr, pro), slope, _ptr(partial), dw.data_ptr(),
-            db.data_ptr(), rows, ci, co, plan.bn, plan.chunk,
-            int(has_prologue), stream)
+            x2.data_ptr(), x2.stride(0), plan.a_route, g2.data_ptr(),
+            g2.stride(0), b_route, *map(_ptr, pro), slope, dw.data_ptr(),
+            db.data_ptr(), work.data_ptr(), rows, ci, co, plan.bn,
+            int(plan.pair), plan.sr, plan.stages, plan.dslots, plan.parts,
+            plan.grid, plan.smem_bytes, stream)
     return dw, db

@@ -7,8 +7,9 @@ The cases are chip_smoke.py's CALLS3_ON (the S3DIS PVCNN 1x opt-in step,
 131,072 rows) and CALLS_PVCNNE_ON (the FrustumPVCNNE 1x opt-in step,
 32,768 and 16,384 rows, Ci down to 3) on a card of 132 SMs, and a few
 edges: one row, rows that fill no tile, Ci = 130 and Co = 70. K9's bf16
-mode (`_wgmma_plan`, `_tma_rows`, `_weight16`) is held at those cases,
-at PointNet++ MSG's fused layers (CALLS_MSG_ON) and at the edges."""
+mode (`_wgmma_plan`, `_tma_rows`, `_weight16`) and K10's (`_wgrad_plan`,
+`_wgrad_walk`) are held at those cases, at PointNet++ MSG's fused layers
+(CALLS_MSG_ON) and at the edges."""
 
 import math
 
@@ -230,3 +231,127 @@ def test_wgmma_weight_copy(ci, co, layout):
                                       (1536, 1536)])
 def test_wgmma_weight_padding(c, padded):
     assert dense_rows._padded(c) == padded
+
+
+def _wgrad_bf16_cases():
+    """(rows, Ci, Co) of every K10 bf16 call of the opt-in step and of
+    MSG's fused layers, then the edges: 1, 127, 129 and 131,073 rows at
+    Ci = 9, 130 and 512, Co = 196."""
+    cases = {(ROWS, c[0], c[1]) for (k, c), _ in
+             chip_smoke.CALLS3_ON_BF16.items()
+             if k == "dense_rows_wgrad_bf16"}
+    cases |= {c[:3] for (k, c), _ in chip_smoke.CALLS_MSG_ON_BF16.items()
+              if k == "dense_rows_wgrad_bf16"}
+    for rows in (1, 127, 129, 131073):
+        cases |= {(rows, 9, 64), (rows, 130, 196), (rows, 512, 256)}
+    return sorted(cases)
+
+
+@pytest.mark.parametrize("rows,ci,co", _wgrad_bf16_cases())
+def test_wgrad_bf16_plan(rows, ci, co):
+    """K10's bf16 launch: x and g by TMA exactly where their rows are whole
+    16-byte pieces, else by 8- or 4-byte copies where their rows are whole
+    pieces of that size, else as raw rows; the column tile the
+    least of 64, 128 and 256 that holds Co; two 64-channel tiles of Ci a
+    block where Ci > 64; x's contiguous rows TMA cannot read as bulk
+    slices (route 1) where 3 slots of them fit; 2 to 4 raw buffers for g's
+    rows without 4-byte pieces, no more than the ring's 2 to 6 slots;
+    slices of 128 rows where 4 ring slots fit (with both operands by
+    TMA), else 64 or 32; shared memory
+    (w10::Layout, restated) within 227 KB at one block
+    an SM; the persistent grid (one wave) walks every (tile, slice) once,
+    each block its units in order and each unit its slices in order,
+    tile fastest; no part empty; the slots no larger than x and g where
+    there is more than one part; work: the warpgroups' slots, the d(bias)
+    slots and a counter."""
+    x = torch.empty((rows, ci), dtype=torch.bfloat16)
+    routes = [dense_rows._copy_route(torch.empty((rows, c),
+                                                 dtype=torch.bfloat16))
+              for c in (ci, co)]
+    assert routes == [16 if c % 8 == 0 else 8 if c % 4 == 0 else
+                      4 if c % 2 == 0 else 2 for c in (ci, co)]
+    bulk = dense_rows._bulk_rows(x, routes[0])
+    assert bulk == (ci % 8 != 0)
+    plan = dense_rows._wgrad_plan(rows, ci, co, *routes, SMS, bulk)
+    assert plan.a_route == routes[0] or (bulk and plan.a_route == 1)
+    routes[0] = plan.a_route
+    assert plan.bn == (64 if co <= 64 else 128 if co <= 128 else 256)
+    assert plan.pair == (ci > 64)
+    assert plan.sr <= 64 or plan.bn < 256      # the kernel's A fragments
+    assert plan.smem_bytes == dense_rows._w10_smem(
+        plan.bn, plan.pair, plan.sr, plan.stages, plan.dslots, *routes, ci)
+    assert plan.smem_bytes + 1024 <= 233472 and plan.smem_bytes <= 232448
+    assert plan.dslots == (0 if routes[1] != 2 else plan.dslots)
+    assert plan.dslots == 0 or 2 <= plan.dslots <= 4
+    assert max(2, plan.dslots) <= plan.stages <= 6
+    assert plan.stages >= 3 or plan.a_route != 1
+    if routes == [16, 16]:
+        at128 = dense_rows._w10_smem(plan.bn, plan.pair, 128, 4, 0,
+                                     *routes, ci)
+        assert (plan.sr == 128) == (at128 + 1024 <= 233472)
+    if plan.stages < 6:
+        assert dense_rows._w10_smem(plan.bn, plan.pair, plan.sr,
+                                    plan.stages + 1, plan.dslots,
+                                    *routes, ci) > 232448
+    assert plan.mtiles == math.ceil(ci / (128 if plan.pair else 64))
+    assert plan.ntiles == math.ceil(co / plan.bn)
+    assert plan.slices == math.ceil(rows / plan.sr)
+    tiles = plan.mtiles * plan.ntiles
+    assert 1 <= plan.parts <= plan.slices
+    assert plan.grid == min(SMS, tiles * plan.parts)
+    if plan.parts > 1:
+        assert tiles * plan.parts <= SMS
+        assert plan.parts * tiles * 2 * 64 * plan.bn * 4 <= \
+            2 * rows * (ci + co)
+    walk = dense_rows._wgrad_walk(plan)
+    assert len(walk) == plan.grid
+    seen = []
+    for units in walk:
+        assert [u[1] * tiles + u[0] for u in units] == sorted(
+            u[1] * tiles + u[0] for u in units)
+        for tile, part, first, end in units:
+            assert first < end
+            seen += [(tile, s) for s in range(first, end)]
+    assert sorted(seen) == [(t, s) for t in range(tiles)
+                            for s in range(plan.slices)]
+    kps = plan.parts * (1 if plan.pair else 2)
+    assert plan.work_floats == (
+        (2 * plan.mtiles if plan.pair else 1) * plan.ntiles * kps * 64
+        * plan.bn + plan.ntiles * plan.parts * plan.bn + 1)
+
+
+@pytest.mark.parametrize("ci,co,want", [
+    (128, 1024, (256, True, 64, 4, 1, 4, 33, 132)),
+    (512, 256, (256, True, 64, 4, 4, 1, 33, 132)),
+    (64, 128, (128, False, 128, 4, 1, 1, 132, 132)),
+    (64, 64, (64, False, 128, 6, 1, 1, 132, 132)),
+    (9, 64, (64, False, 128, 6, 1, 1, 132, 132))])
+def test_wgrad_bf16_plan_at_the_opt_in_step(ci, co, want):
+    """K10's bf16 launch at the opt-in step's cases on 132 SMs: (128,
+    1024) reads g once in 4 column tiles of 256 on 33 parts of the rows,
+    (512, 256) x once in 4 tiles of 128 channels; the narrow layers one
+    tile of 64 channels whose rows both warpgroups share, on 132 parts.
+    (bn, pair, sr, stages, mtiles, ntiles, parts, grid)"""
+    plan = dense_rows._wgrad_plan(ROWS, ci, co, 16 if ci % 8 == 0 else 2,
+                                  16, SMS, ci % 8 != 0)
+    assert (plan.bn, plan.pair, plan.sr, plan.stages, plan.mtiles,
+            plan.ntiles, plan.parts, plan.grid) == want
+    assert plan.dslots == 0
+
+
+@pytest.mark.parametrize("c,offset,route", [
+    (9, 0, 2), (64, 0, 16), (64, 1, 2), (196, 0, 8), (150, 0, 4),
+    (6, 0, 4), (512, 0, 16), (130, 0, 4), (64, 4, 8), (64, 2, 4),
+    (323, 0, 2)])
+def test_wgrad_copy_route(c, offset, route):
+    """K10's bf16 rows go by TMA exactly where their stride is a multiple
+    of 16 bytes and the base 16-byte aligned (the opt-in step's and MSG's
+    x and g but for x at Ci = 9, 6, 150, 196, 323, 515 and g at Co = 196);
+    else by 8- or 4-byte copies where stride and base are multiples of
+    that (Ci = 196 and Co = 196: 8; Ci = 6, 130, 150: 4); else raw (odd
+    Ci); views off a boundary take the route their base allows. No
+    padded copy on any route."""
+    base = torch.zeros(100 * c + 16, dtype=torch.bfloat16)
+    start = (-base.data_ptr() // 2) % 8 + offset      # aligned, then offset
+    t = base[start:start + 100 * c].view(100, c)
+    assert dense_rows._copy_route(t) == route

@@ -110,6 +110,42 @@ def test_k1_sort_kernel(dev, b, n, bins):
     assert torch.equal(perm, again[0]) and torch.equal(bounds, again[1])
 
 
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("n,bins", [(1, 1), (1, 32768), (777, 512),
+                                    (4096, 1), (8192, 32768), (8192, 1024),
+                                    (24576, 1024), (32768, 8192),
+                                    (32768, 32768)])
+def test_k1_split_sort(dev, b, n, bins):
+    """K1's sort, one block a cloud or split over the plan's blocks (and
+    over 3 forced on every case): perm and bounds equal to
+    torch.sort(stable=True)'s and the running counts, ids out of range
+    (negative or >= bins) dropped; a long run of a quarter of the cloud;
+    two runs equal."""
+    ids = torch.randint(0, bins, (b, n), dtype=torch.int32, device=dev)
+    ids[:, : n // 4] = ids[:, n // 2: n // 2 + 1]
+    ids[:, 1::7] = -1
+    ids[:, 2::11] = bins
+    kept = (ids >= 0) & (ids < bins)
+    key = torch.where(kept, ids, torch.full_like(ids, bins))
+    want = torch.sort(key, dim=1, stable=True)[1].to(torch.int32)
+    counts = torch.stack([torch.bincount(ids[i][kept[i]].long(),
+                                         minlength=bins) for i in range(b)])
+    want_bounds = torch.cat([counts.new_zeros(b, 1), counts.cumsum(1)], 1)
+    plan = voxelize._sort_plan(b, n, bins, 132)
+    for parts in sorted({plan.parts, 1, 3}):
+        forced = plan._replace(parts=parts)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(voxelize, "_sort_plan", lambda *a: forced)
+            perm, bounds = voxelize._sort_bins(ids, bins)
+            again = voxelize._sort_bins(ids, bins)
+        assert torch.equal(bounds.long(), want_bounds), parts
+        assert torch.equal(bounds, again[1])
+        for i in range(b):        # past the kept points perm is not written
+            m = int(bounds[i, -1])
+            assert torch.equal(perm[i, :m], want[i, :m]), (parts, i)
+            assert torch.equal(perm[i, :m], again[0][i, :m]), (parts, i)
+
+
 def _devoxelize_inputs(dev, c, r, n):
     """norm_coords with collapsed corners (exact grid hits, and points on
     the last plane of one or all three axes) and a [2, C, R^3] grid."""
@@ -1611,6 +1647,47 @@ def test_k1_sum_bf16_model_shapes(dev, b, k, bins, c):
     _k1_sum_bf16(values, idx, bins)
 
 
+@pytest.mark.parametrize("case", ["one_bin", "skewed", "at_the_cut"])
+@pytest.mark.parametrize("c", [9, 64, 1024])
+def test_k1_sum_bf16_long_runs(dev, monkeypatch, c, case):
+    """K1's bf16 sum on runs longer than long_run (cut into pieces walked
+    side by side): every row in one bin (PointNet++'s FP1, which the plan
+    cuts), and, with the cut forced, a skewed mix of long and short runs
+    and runs of exactly long_run and long_run + 1 rows. Two runs bitwise
+    equal, within the fp64 bound (_k1_sum_bf16); the runs of long_run rows
+    or fewer bitwise the sums of an uncut walk."""
+    lr = voxelize._LONG_RUN
+    if case == "one_bin":
+        idx = torch.zeros((3, 384), dtype=torch.int32, device=dev)
+        bins = 1
+    elif case == "skewed":
+        bins = 512
+        idx = torch.randint(0, bins, (2, 6000), dtype=torch.int32,
+                            device=dev)
+        idx[:, :3000] = torch.randint(0, 4, (2, 3000), dtype=torch.int32,
+                                      device=dev)
+    else:
+        bins = 64
+        idx = torch.cat([torch.full((lr,), 5), torch.full((lr + 1,), 9),
+                         torch.full((lr - 1,), 17)]).to(
+            torch.int32).to(dev).repeat(2, 1)
+    plan = voxelize._sort_plan(*idx.shape, bins, 132)
+    assert plan.long_run == (lr if case == "one_bin" else 0)
+    values = torch.randn(*idx.shape, c, device=dev).to(torch.bfloat16)
+    monkeypatch.setattr(voxelize, "_sort_plan",
+                        lambda *a: plan._replace(long_run=lr))
+    got = _k1_sum_bf16(values, idx, bins)
+    assert torch.equal(got, ops.scatter_sum(values, idx, bins))
+    monkeypatch.setattr(voxelize, "_sort_plan",
+                        lambda *a: plan._replace(long_run=0))
+    uncut = ops.scatter_sum(values, idx, bins)
+    counts = torch.stack([torch.bincount(i.long(), minlength=bins)
+                          for i in idx])
+    short = counts <= lr
+    assert torch.equal(got[short], uncut[short])
+    assert (counts > lr).any()
+
+
 def test_k1_sum_bf16_unaligned_rows(dev):
     """Rows that start off an 8-byte boundary take the scalar path (C = 32
     would take 8-byte vectors) and give the same sums."""
@@ -1708,9 +1785,9 @@ def test_dense_rows_bf16_opt_in_shapes(dev, ci, co):
 
 @pytest.mark.parametrize("x_offset,w_offset", [(1, 0), (0, 1), (3, 5)])
 def test_dense_rows_bf16_unaligned(dev, x_offset, w_offset):
-    """Rows and a weight that start off a 16-byte boundary: K9 reads such
-    rows itself (the weight through its bf16 copy), K10 from aligned,
-    padded copies, and the results are those of the aligned tensors."""
+    """Rows and a weight that start off a 16-byte boundary: K9 and K10
+    read such rows themselves (the weight through its bf16 copy), and the
+    results are those of the aligned tensors."""
     torch.manual_seed(3)
     got = _dense_bf16_check(dev, 1000, 64, 128, True, x_offset, w_offset)
     torch.manual_seed(3)
@@ -1719,18 +1796,26 @@ def test_dense_rows_bf16_unaligned(dev, x_offset, w_offset):
         assert all(torch.equal(a, b) for a, b in zip(got, base))
 
 
-@pytest.mark.parametrize("chunk", [32, 96, 4096])
+@pytest.mark.parametrize("parts", [1, 3, 33])
 @pytest.mark.parametrize("ci,co", [(9, 64), (130, 70), (128, 256)])
-def test_dense_rows_bf16_wgrad_fold(dev, monkeypatch, ci, co, chunk):
-    """K10 in bf16 on forced chunks of 1, 3 and 128 slices of 32 rows
-    (4,100 rows, the last chunks ragged), folded in order, against the
-    plain version."""
+def test_dense_rows_bf16_wgrad_fold(dev, monkeypatch, ci, co, parts):
+    """K10 in bf16 on forced runs of 1, 3 and 33 parts of a tile's slices
+    (4,100 rows, the last slice ragged), the warpgroups' slots added in
+    order inside the launch, against the plain version; twice bitwise
+    equal."""
     from pvcnn_tpu_torch.ops import dense_rows
 
-    plan = dense_rows._plan
-    monkeypatch.setattr(dense_rows, "_plan", lambda *a: plan(*a)._replace(
-        chunk=chunk, splits=-(-4100 // chunk),
-        partial_bytes=4 * -(-4100 // chunk) * (ci * co + co)))
+    plan = dense_rows._wgrad_plan
+
+    def forced(*args):
+        p = plan(*args)
+        kps = parts if p.pair else 2 * parts
+        work = ((2 * p.mtiles if p.pair else 1) * p.ntiles * kps * 64 * p.bn
+                + p.ntiles * parts * p.bn + 1)
+        return p._replace(parts=parts, work_floats=work,
+                          grid=min(args[5], p.mtiles * p.ntiles * parts))
+
+    monkeypatch.setattr(dense_rows, "_wgrad_plan", forced)
     bf = torch.bfloat16
     x = torch.randn(4100, ci, device=dev).to(bf)
     g = torch.randn(4100, co, device=dev).to(bf)
@@ -1746,6 +1831,62 @@ def test_dense_rows_bf16_wgrad_fold(dev, monkeypatch, ci, co, chunk):
                                    atol=1e-4 * want_db.abs().max().item())
         again = dense_rows._wgrad_cuda(x, g, scale, shift, 0.1, pro)
         assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+@pytest.mark.parametrize("has_prologue", [False, True])
+@pytest.mark.parametrize("rows", [1, 127, 129, 131073])
+@pytest.mark.parametrize("ci,co", [(9, 64), (130, 196), (512, 256),
+                                   (6, 195)])
+def test_dense_rows_bf16_wgrad_wgmma(dev, ci, co, rows, has_prologue):
+    """K10 in bf16 on wgmma (one dense_rows_wgrad_bf16 launch a call) at
+    ragged rows, Ci of 9 (x's rows 2-byte aligned: gathered from raw
+    rows), 130 (two 64-channel tiles and a third; rows 4-byte aligned)
+    and 512, Co = 196 (g's rows 8-byte aligned), and Ci = 6 (4-byte
+    copies) with Co = 195 (g's raw rows laid out by the producer): within
+    K10's tolerance
+    of the plain version, twice bitwise equal, the same on another
+    stream, and on views that start off a 16-byte boundary (other copy
+    routes) within the tolerance and twice bitwise equal."""
+    from pvcnn_tpu_torch.ops import dense_rows
+
+    bf = torch.bfloat16
+    xb = torch.randn(rows * ci + 3, device=dev).to(bf)
+    gb = torch.randn(rows * co + 5, device=dev).to(bf)
+    x, g = xb[:rows * ci].view(rows, ci), gb[:rows * co].view(rows, co)
+    scale, shift = torch.rand(ci, device=dev) + 0.5, torch.randn(ci,
+                                                                 device=dev)
+    run = lambda x, g: _counted("dense_rows_wgrad_bf16",
+                                dense_rows._wgrad_cuda, x, g, scale, shift,
+                                0.1, has_prologue)
+    dw, db = run(x, g)
+    want_dw, want_db = dense_rows._wgrad_plain(x, g, scale, shift, 0.1,
+                                               has_prologue)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4,
+                               atol=1e-4 * want_dw.abs().max().item())
+    torch.testing.assert_close(db, want_db, rtol=1e-4,
+                               atol=1e-4 * want_db.abs().max().item())
+    again = run(x, g)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = run(x, g)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, other[0]) and torch.equal(db, other[1])
+    # views off a 16-byte boundary: other copy routes (and so possibly
+    # another plan and order), the same function
+    xo = torch.empty_like(xb)[3:].view(rows, ci)
+    go = torch.empty_like(gb)[5:].view(rows, co)
+    xo.copy_(x)
+    go.copy_(g)
+    off = run(xo, go)
+    torch.testing.assert_close(off[0], want_dw, rtol=1e-4,
+                               atol=1e-4 * want_dw.abs().max().item())
+    torch.testing.assert_close(off[1], want_db, rtol=1e-4,
+                               atol=1e-4 * want_db.abs().max().item())
+    again = run(xo, go)
+    assert torch.equal(off[0], again[0]) and torch.equal(off[1], again[1])
 
 
 def _k9_bf16_run(x, w, bias, scale, shift, g, has_prologue):
