@@ -265,11 +265,14 @@ failure:
                 staging pass alone, K4 timed as the step runs it (on the
                 forward's staged a(x) and the dgrad's staged cotangent);
                 each K2 / K5 case's share of its bound (K5's kernel alone
-                too); HGMMA in K3's and K4's SASS (cuobjdump); the six
-                brick instantiations of the channel-major bf16 K2 and K5
-                each, none of the old ones, and the fp32 and channel-last
-                K2 / K5 kernels' SASS equal to DEVOX_SASS's (where nvcc is
-                the one that recorded it); the bf16
+                too); HGMMA in K3's and K4's SASS (cuobjdump); the brick
+                instantiations of the bf16 K2 (channel-major, six) and K5
+                (twelve: six a layout), the channel-last bf16 K2's
+                lanes-over-groups kernel, the fp32 mappings' kernels
+                the recorded ones (no bf16 instantiation), and the fp32
+                K2 / K5, K5's sort and the channel-major brick kernels'
+                SASS equal to DEVOX_SASS's (where nvcc is the one that
+                recorded it); the bf16
                 training step of PVCNN 1x at 32 x 2048 and 0.25x at 64 x
                 2048 (the JAX headline's batch) on the kernel and plain
                 paths: step 1 twice bitwise equal on each path; the
@@ -323,8 +326,10 @@ failure:
                 statistics, dgrad), K10 and K11 and the channel-last bf16
                 K1 / K2 / K5 at every call shape of the bf16 opt-in step
                 (CALLS3_ON_BF16), and K9 / K10 bf16 at MSG 1x's 26 fused
-                layers (CALLS_MSG_ON_BF16), each twice bitwise equal,
-                within 2^-7 of its scale of its plain version (K9's f32
+                layers (CALLS_MSG_ON_BF16), each twice bitwise equal
+                (the channel-last K2 / K5 also bitwise the channel-major
+                modes' outputs transposed), within 2^-7 of its scale of
+                its plain version (K9's f32
                 statistics within 1e-4, K10's f32 dW and d(bias) at K10's
                 tolerance), timed beside the plain version, the PyTorch
                 call in bf16 (F.linear and the two sums; F.linear;
@@ -998,6 +1003,24 @@ def _bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms
 
 
+def _k2_bytes(norm, r: int, c: int, size: int) -> int:
+    """The bytes K2 must move on these coordinates: each grid row that a
+    point's corners read (the distinct corner bins of each cloud, C values
+    of `size` bytes each) read once, the coordinates read once and the
+    output [B, N, C] written once. A gather reads no other grid row, so
+    the bound counts only the rows this run's points touch."""
+    b, n, _ = norm.shape
+    lo = torch.floor(norm)
+    x0 = lo.long().clamp(0, r - 1)
+    x1 = (x0 + (norm - lo > 0).long()).clamp(0, r - 1)
+    ends = (x0, x1)
+    bins = torch.stack([(ends[k >> 2][..., 0] * r + ends[k >> 1 & 1][..., 1])
+                        * r + ends[k & 1][..., 2] for k in range(8)], dim=2)
+    cloud = torch.arange(b, device=norm.device).view(b, 1, 1) * r ** 3
+    rows = torch.unique(bins + cloud).numel()
+    return size * c * rows + 12 * b * n + size * b * n * c
+
+
 def _library_agrees(kernel, case, got, want, atol_scale=1.0) -> bool:
     """Does the library call compute the kernel's function? Held to 1e-4
     (rtol and atol): grid_sample maps the coordinates to [-1, 1] and back,
@@ -1176,7 +1199,7 @@ def _time_pvconv_kernels(rec: Record, coords_of, normalize: bool,
                                  run_lib().reshape(B, c, n).transpose(1, 2),
                                  want)
         rec.add("trilinear_devoxelize", case, err, run_k, run_p,
-                16 * B * n * c, 4 * (B * c * r ** 3 + 3 * B * n + B * n * c),
+                16 * B * n * c, _k2_bytes(norm, r, c, 4),
                 run_lib if lib_ok else None)
 
         # K5: the grid gradient of the same gather
@@ -3915,6 +3938,16 @@ def _bf16_compare(kernel, case, got, want, scale=None) -> float:
     return _compare(kernel, case, got, want, scale)
 
 
+def _same_layouts(kernel: str, case, last, first) -> None:
+    """A channel-last bf16 output (K2's [B, N, C], or K5's transposed to
+    [B, C, R^3]) bitwise the channel-major mode's on the same inputs."""
+    if not torch.equal(last, first):
+        raise AssertionError(f"{kernel} {case}: the channel-last output is "
+                             "not the channel-major output bit for bit")
+    log("kernels", f"{kernel} {case}: channel-last output bitwise the "
+        "channel-major output")
+
+
 def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
                        coords_of=None, cf: bool = True) -> None:
     """The bf16 modes of K1-K5 at the cases of rec.calls on clouds of the
@@ -3922,9 +3955,11 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
     gives the clouds of n points), normalized as the model's PVConvs
     normalize, K1 / K2 / K5 on channel-major grids [B, C, R^3] with cf
     (the rows branch) or channel-last [B, R^3, C] without (the NDHWC
-    branch): each twice, bitwise equal, against its plain version, timed
-    beside the plain version, the one PyTorch call in bf16 and the bound
-    (bf16 operations over 989 TFLOP/s, bytes over 3.35 TB/s)."""
+    branch): each twice, bitwise equal (channel-last K2 / K5 also to the
+    channel-major modes' outputs, transposed), against its plain version,
+    timed beside the plain version, the one PyTorch call in bf16 and the
+    bound (bf16 operations over 989 TFLOP/s, bytes over 3.35 TB/s), with
+    each K2 / K5 case's share of its bound (K5's kernel alone too)."""
     import torch.nn.functional as F
 
     from pvcnn_tpu_torch import ops
@@ -3966,16 +4001,19 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
     for c, r, n in cases("trilinear_devoxelize_bf16"):
         case = (c, r, n)
         _, norm = ops.normalize_coords(clouds(n), r, normalize=normalize)
-        grid = torch.randn(b, c, r ** 3, device=dev).to(bf)
-        g5 = grid.reshape(b, c, r, r, r)
-        if not cf:
-            grid = grid.transpose(1, 2).contiguous()
+        grid_cm = torch.randn(b, c, r ** 3, device=dev).to(bf)
+        g5 = grid_cm.reshape(b, c, r, r, r)
+        grid = grid_cm if cf else grid_cm.transpose(1, 2).contiguous()
         gs = _grid5(norm, r).to(bf)
         run_k = lambda: devoxelize._devoxelize_cuda(grid, norm, r, cf)
         run_p = lambda: devoxelize._devoxelize_plain(grid, norm, r, cf)
         run_lib = lambda: F.grid_sample(g5, gs, mode="bilinear",
                                         align_corners=True)
         got = _twice("trilinear_devoxelize_bf16", case, run_k)
+        if not cf:
+            _same_layouts("trilinear_devoxelize_bf16", case, got,
+                          devoxelize._devoxelize_cuda(grid_cm, norm, r,
+                                                      True))
         want = run_p()
         err = _bf16_compare("trilinear_devoxelize_bf16", case, got, want)
         lib_ok = _library_agrees(
@@ -3983,8 +4021,7 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
             run_lib().reshape(b, c, n).transpose(1, 2).float(), want.float(),
             want.abs().max().item())
         timed = add("trilinear_devoxelize_bf16", case, err, run_k, run_p,
-                    16 * b * n * c,
-                    2 * b * c * r ** 3 + 12 * b * n + 2 * b * n * c,
+                    16 * b * n * c, _k2_bytes(norm, r, c, 2),
                     run_lib if lib_ok else None)
         if timed:
             log("kernels", f"trilinear_devoxelize_bf16 {case} "
@@ -4006,6 +4043,9 @@ def _time_bf16_kernels(rec: Record, coords, normalize: bool = False,
         run_lib = lambda: torch.ops.aten.grid_sampler_3d_backward(
             gt5, g5, gs, 0, 0, True, [True, False])[0]
         got = _twice("devoxelize_bwd_bf16", case, run_k)
+        if not cf:
+            _same_layouts("devoxelize_bwd_bf16", case, got.transpose(1, 2),
+                          devoxelize._devoxelize_bwd_cuda(g, norm, r, True))
         want = run_p()
         mag = devoxelize._devoxelize_bwd_plain(g.abs().float(), norm, r, cf)
         err = _compare("devoxelize_bwd_bf16", case, got.float(),
@@ -4163,49 +4203,59 @@ def _check_bf16_sass() -> None:
             raise AssertionError(f"{key}: no HGMMA in its SASS")
 
 
-# The SASS digests (cases_util.sass_digests, names by _sass_name) of the
-# kernels of csrc/devoxelize.cu and csrc/devoxelize_bwd.cu whose names hold
-# one of DEVOX_KEEP, those that kept their code when
-# the channel-major bf16 K2 / K5 became brick kernels: fp32 K2 and K5, K5's
-# sort, the channel-last bf16 modes; as this nvcc built them from the
-# parent of that change (`k2_k5_cases.py --tree <parent> --sass FILE`;
-# NVIDIA H100 80GB HBM3, nvcc 12.9)
+# `k2_k5_cases.py --sass FILE` writes the SASS digests
+# (cases_util.sass_digests, names by _sass_name) of the kernels of
+# csrc/devoxelize.cu and csrc/devoxelize_bwd.cu whose names hold one of
+# DEVOX_KEEP. DEVOX_SASS records those of the kernels that kept their code
+# when the channel-last bf16 K2 / K5 were redesigned: fp32 K2 and K5, K5's
+# sort and the channel-major brick kernels of both, as this nvcc built
+# them (NVIDIA H100 80GB HBM3, nvcc 12.9). A change to one of them records
+# it anew.
 DEVOX_KEEP = ("trilinear_devoxelize_kernel",
               "trilinear_devoxelize_planes_kernel", "devoxelize_bwd_kernel<",
-              "devoxelize_bwd_sort_kernel")
+              "devoxelize_bwd_sort_kernel",
+              "trilinear_devoxelize_bricks_kernel<",
+              "devoxelize_bwd_bricks_kernel<",
+              "trilinear_devoxelize_groups_kernel")
 DEVOX_SASS = {
     "nvcc": "Build cuda_12.9.r12.9/compiler.36037853_0",
     "digests": {
-        "devoxelize_bwd_kernel<__nv_bfloat16,1,32,8,0>": "da09c92f35d7b50a",
-        "devoxelize_bwd_kernel<__nv_bfloat16,1,8,1,0>": "b52ae2859e6157d7",
-        "devoxelize_bwd_kernel<__nv_bfloat16,1,8,2,0>": "2174034916735037",
-        "devoxelize_bwd_kernel<__nv_bfloat16,1,8,4,0>": "63f452cf4bca674d",
-        "devoxelize_bwd_kernel<__nv_bfloat16,4,32,2,0>": "900b95bbe9f8162d",
-        "devoxelize_bwd_kernel<__nv_bfloat16,4,8,1,0>": "de424e6f6d341872",
-        "devoxelize_bwd_kernel<__nv_bfloat16,4,8,2,0>": "2ef72f907c081d33",
-        "devoxelize_bwd_kernel<__nv_bfloat16,4,8,4,0>": "591eb7f99eee30f1",
-        "devoxelize_bwd_kernel<float,1,32,8,0>": "f9d2915db13f4000",
-        "devoxelize_bwd_kernel<float,1,32,8,1>": "274c43f0d96965c3",
-        "devoxelize_bwd_kernel<float,1,8,1,0>": "a047fa1daf4c96e1",
-        "devoxelize_bwd_kernel<float,1,8,1,1>": "29838ffe7c365e62",
-        "devoxelize_bwd_kernel<float,1,8,2,0>": "910b65cc3d3cbccd",
-        "devoxelize_bwd_kernel<float,1,8,2,1>": "a876708399ccc164",
-        "devoxelize_bwd_kernel<float,1,8,4,0>": "b775d8356034073c",
-        "devoxelize_bwd_kernel<float,1,8,4,1>": "00a60c50dc64b556",
-        "devoxelize_bwd_kernel<float,4,32,2,0>": "4167bacd37abc92c",
-        "devoxelize_bwd_kernel<float,4,32,2,1>": "697d8d670936941d",
-        "devoxelize_bwd_kernel<float,4,8,1,0>": "1a524e657fd514c5",
-        "devoxelize_bwd_kernel<float,4,8,1,1>": "913a1d1a4c486d86",
-        "devoxelize_bwd_kernel<float,4,8,2,0>": "af4fa214c8c40c66",
-        "devoxelize_bwd_kernel<float,4,8,2,1>": "0e79e1581de125cc",
-        "devoxelize_bwd_kernel<float,4,8,4,0>": "bc5b10c4e90637d4",
-        "devoxelize_bwd_kernel<float,4,8,4,1>": "e3370742cc9b6c3f",
+        "devoxelize_bwd_bricks_kernel<16,16,1>": "283f72cb5b6416bb",
+        "devoxelize_bwd_bricks_kernel<16,8,1>": "21cdab3a522af7a7",
+        "devoxelize_bwd_bricks_kernel<32,16,1>": "d356a364f00663ed",
+        "devoxelize_bwd_bricks_kernel<32,8,1>": "eab1d238d7d680bd",
+        "devoxelize_bwd_bricks_kernel<8,16,1>": "ccf43575df1736d5",
+        "devoxelize_bwd_bricks_kernel<8,8,1>": "206f07c5295f71ea",
+        "devoxelize_bwd_kernel<1,32,8,0>": "f9d2915db13f4000",
+        "devoxelize_bwd_kernel<1,32,8,1>": "274c43f0d96965c3",
+        "devoxelize_bwd_kernel<1,8,1,0>": "a047fa1daf4c96e1",
+        "devoxelize_bwd_kernel<1,8,1,1>": "29838ffe7c365e62",
+        "devoxelize_bwd_kernel<1,8,2,0>": "910b65cc3d3cbccd",
+        "devoxelize_bwd_kernel<1,8,2,1>": "a876708399ccc164",
+        "devoxelize_bwd_kernel<1,8,4,0>": "b775d8356034073c",
+        "devoxelize_bwd_kernel<1,8,4,1>": "00a60c50dc64b556",
+        "devoxelize_bwd_kernel<4,32,2,0>": "4167bacd37abc92c",
+        "devoxelize_bwd_kernel<4,32,2,1>": "697d8d670936941d",
+        "devoxelize_bwd_kernel<4,8,1,0>": "1a524e657fd514c5",
+        "devoxelize_bwd_kernel<4,8,1,1>": "913a1d1a4c486d86",
+        "devoxelize_bwd_kernel<4,8,2,0>": "af4fa214c8c40c66",
+        "devoxelize_bwd_kernel<4,8,2,1>": "0e79e1581de125cc",
+        "devoxelize_bwd_kernel<4,8,4,0>": "bc5b10c4e90637d4",
+        "devoxelize_bwd_kernel<4,8,4,1>": "e3370742cc9b6c3f",
         "devoxelize_bwd_sort_kernel": "14e5a35813b77e73",
-        "trilinear_devoxelize_kernel<__nv_bfloat16>": "d6809f04085fa259",
-        "trilinear_devoxelize_kernel<float>": "ff02cb75c8be64e4",
-        "trilinear_devoxelize_planes_kernel<16,float>": "5574c5132d270f2f",
-        "trilinear_devoxelize_planes_kernel<32,float>": "08eab714954093d2",
+        "trilinear_devoxelize_bricks_kernel<16,16>": "64fecf4a0730152c",
+        "trilinear_devoxelize_bricks_kernel<16,8>": "bfaf98954f301606",
+        "trilinear_devoxelize_bricks_kernel<32,16>": "0787980232c446a1",
+        "trilinear_devoxelize_bricks_kernel<32,8>": "49a62ed65ec17759",
+        "trilinear_devoxelize_bricks_kernel<8,16>": "d7dc31b247f75649",
+        "trilinear_devoxelize_bricks_kernel<8,8>": "40fa27f34930d56d",
+        "trilinear_devoxelize_kernel": "ff02cb75c8be64e4",
+        "trilinear_devoxelize_planes_kernel<16>": "5574c5132d270f2f",
+        "trilinear_devoxelize_planes_kernel<32>": "08eab714954093d2",
     }}
+# the fp32 mappings, which have no bf16 instantiation
+DEVOX_FP32 = ("trilinear_devoxelize_kernel",
+              "trilinear_devoxelize_planes_kernel<", "devoxelize_bwd_kernel<")
 
 
 def _sass_name(name: str) -> str:
@@ -4216,39 +4266,41 @@ def _sass_name(name: str) -> str:
 
 
 def _check_devox_sass() -> None:
-    """The channel-major bf16 K2 / K5 are the brick kernels (each
-    instantiation built, none of the old channel-major bf16 ones left),
-    and the kernels that kept their code have DEVOX_SASS's SASS where
-    this nvcc is the one that recorded it."""
+    """The bf16 K2 / K5 are the brick kernels (K2's six channel-major
+    instantiations, K5's six a layout) and the channel-last K2's
+    lanes-over-groups kernel, the fp32 mappings' kernels are the recorded
+    ones (none in bf16), and every kernel DEVOX_SASS records has its SASS
+    there where this nvcc is the one that recorded it."""
     import cases_util
     from pvcnn_tpu_torch import kernels
 
     lib_path, _, _ = kernels.build()
-    names = list(cases_util.sass_functions(lib_path))
-    for key in ("trilinear_devoxelize_bricks_kernel<",
-                "devoxelize_bwd_bricks_kernel<"):
-        found = sorted(_sass_name(n) for n in names if key in n)
-        log("kernels", f"{key[:-1]}: {found}")
-        if len(found) != 6:                  # 8, 16, 32 channels x 2 bricks
-            raise AssertionError(f"{key[:-1]}: {len(found)} of its 6 "
-                                 "instantiations built")
-    old = [n for n in names if "__nv_bfloat16" in n and (
-        "trilinear_devoxelize_planes_kernel<" in n
-        or ("devoxelize_bwd_kernel<" in n and n.endswith("(bool)1>")))]
-    if old:
-        raise AssertionError(f"old channel-major bf16 kernels built: {old}")
+    names = [_sass_name(n) for n in cases_util.sass_functions(lib_path)]
+    for key, count in (("trilinear_devoxelize_bricks_kernel<", 6),
+                       ("devoxelize_bwd_bricks_kernel<", 12),
+                       ("trilinear_devoxelize_groups_kernel", 1)):
+        found = sorted(n for n in names if key in n)
+        log("kernels", f"{key.rstrip('<')}: {found}")
+        if len(found) != count:
+            raise AssertionError(f"{key.rstrip('<')}: {len(found)} of its "
+                                 f"{count} instantiations built")
+    fp32 = sorted(n for n in names if n.startswith(DEVOX_FP32))
+    if fp32 != sorted(n for n in DEVOX_SASS["digests"]
+                      if n.startswith(DEVOX_FP32)):
+        raise AssertionError(f"fp32 K2 / K5 kernels built: {fp32}")
     nvcc = cases_util.nvcc_version()
     if nvcc != DEVOX_SASS.get("nvcc"):
-        log("kernels", f"fp32 and channel-last K2 / K5 SASS not compared: "
-            f"nvcc {nvcc!r}, recorded {DEVOX_SASS.get('nvcc')!r}")
+        log("kernels", f"K2 / K5 SASS not compared: nvcc {nvcc!r}, "
+            f"recorded {DEVOX_SASS.get('nvcc')!r}")
         return
     got = {_sass_name(n): d for n, d in cases_util.sass_digests(
         lib_path, DEVOX_KEEP).items()}
-    differ = sorted(n for n in set(got) | set(DEVOX_SASS["digests"])
-                    if got.get(n) != DEVOX_SASS["digests"].get(n))
-    log("kernels", f"fp32 and channel-last K2 / K5: "
-        f"{len(DEVOX_SASS['digests']) - len(differ)} of "
-        f"{len(DEVOX_SASS['digests'])} kernels' SASS as recorded")
+    differ = sorted(n for n, d in DEVOX_SASS["digests"].items()
+                    if got.get(n) != d)
+    new = sorted(set(got) - set(DEVOX_SASS["digests"]))
+    log("kernels", f"K2 / K5: {len(DEVOX_SASS['digests']) - len(differ)} "
+        f"of {len(DEVOX_SASS['digests'])} recorded kernels' SASS as "
+        f"recorded; not recorded: {new}")
     if differ:
         raise AssertionError(f"SASS changed: {differ}")
 
@@ -4256,9 +4308,10 @@ def _check_devox_sass() -> None:
 def phase_bf16_kernels() -> dict:
     """Phase 29's kernels: the bf16 modes at the shapes ShapeNet PVCNN
     training with bf16 activations gives them, at 1x (B = 32) and at 0.25x
-    (B = 64); K3's and K4's SASS holds HGMMA; the channel-major bf16 K2 /
-    K5 are the brick kernels and the fp32 and channel-last K2 / K5 kept
-    their SASS. -> {path: record}"""
+    (B = 64); K3's and K4's SASS holds HGMMA; the bf16 K2 / K5 are the
+    brick and lanes-over-groups kernels and the fp32 K2 / K5, K5's sort
+    and the channel-major brick kernels have their recorded SASS. ->
+    {path: record}"""
     _check_bf16_sass()
     _check_devox_sass()
     torch.manual_seed(SEED + 100)

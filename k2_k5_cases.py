@@ -8,19 +8,25 @@ case on one NVIDIA GPU.
 
 The cases are chip_smoke.py's: the (C, R, N) of K2's and K5's bf16 modes
 in CALLS_BF16 (ShapeNet PVCNN 1x, B = 32), CALLS_BF16_QUARTER (0.25x, B =
-64), CALLS2_BF16 (S3DIS PVCNN2 1x, on its FPS levels) and CALLS3_BF16
-(S3DIS PVCNN 1x), on chip_smoke.py's clouds normalized as the PVConvs
-normalize them, each on a channel-major grid [B, C, R^3] (the rows branch)
-and on a channel-last one [B, R^3, C] (the NDHWC branch); grids and
+64), CALLS2_BF16 (S3DIS PVCNN2 1x, on its FPS levels), CALLS3_BF16 (S3DIS
+PVCNN 1x) and CALLS3_ON_BF16 (S3DIS PVCNN 1x's opt-in step, on phase 31's
+clouds), on chip_smoke.py's clouds normalized as the PVConvs normalize
+them, each on a channel-major grid [B, C, R^3] (the rows branch) and on a
+channel-last one [B, R^3, C] (the NDHWC branch); the opt-in step runs the
+channel-last modes alone, so only those are timed there (the
+channel-major outputs are computed for the comparisons). Grids and
 cotangents from a generator seeded per case. Per case it prints the ms
 per call of the op (median of CUDA events, as chip_smoke.py times it),
 K5's glue (the sort) and the kernel alone, timed apart, the device time
 per call (torch.profiler over 10 calls: glue, kernel, rest), the bound
-(bf16 operations over 989 TFLOP/s or bytes over 3.35 TB/s, the larger)
+(bf16 operations over 989 TFLOP/s or bytes over 3.35 TB/s, the larger;
+K2's bytes count only the grid rows its points' corners touch,
+chip_smoke._k2_bytes)
 and the share of it reached, by the call's ms and by the kernel's device
 time; every output twice bitwise equal, and the two layouts bitwise equal
 to each other (transposed). Then the ms per training step of each path,
-layout and kernel.
+layout and kernel: by the host clock, K5's glue and kernel alone, the
+device time, and the bound with the share of it reached by each.
 
 --tree DIR imports pvcnn_tpu_torch from DIR (another checkout, such as a
 parent commit unpacked with `git archive`) instead of this one; its
@@ -30,9 +36,11 @@ every output to FILE (JSON); --against FILE compares this tree's outputs
 with such a file bit for bit. --ptxas builds the kernels with `-Xptxas -v`
 and prints the registers, shared memory and spills of K2's and K5's
 kernels. --sass FILE writes, as JSON, the nvcc release and the digests of
-the SASS of the fp32 K2 / K5 kernels, K5's sort and the channel-last bf16
-modes (`cases_util.sass_digests` of chip_smoke.DEVOX_KEEP), which
-chip_smoke.py holds to the digests it records (DEVOX_SASS).
+the SASS of the kernels whose names hold one of chip_smoke.DEVOX_KEEP
+(`cases_util.sass_digests`, named by chip_smoke._sass_name), which
+chip_smoke.py holds to the digests it records (DEVOX_SASS): the fp32 K2 /
+K5 kernels, K5's sort, the bf16 brick kernels of K2 and K5 and the
+channel-last bf16 K2's lanes-over-groups kernel.
 """
 
 from __future__ import annotations
@@ -79,16 +87,19 @@ cases_util = _here("cases_util")
 chip_smoke = _here("chip_smoke")   # the case tables, clouds and the timer
 
 B, SEED = chip_smoke.B, chip_smoke.SEED
-PATHS = (("ShapeNet 1x", chip_smoke.CALLS_BF16, B),
-         ("ShapeNet 0.25x", chip_smoke.CALLS_BF16_QUARTER, 2 * B),
-         ("PVCNN2", chip_smoke.CALLS2_BF16, B),
-         ("S3DIS", chip_smoke.CALLS3_BF16, B))
+# (path, calls, clouds, the layouts its step runs and that are timed)
+BOTH = (True, False)
+PATHS = (("ShapeNet 1x", chip_smoke.CALLS_BF16, B, BOTH),
+         ("ShapeNet 0.25x", chip_smoke.CALLS_BF16_QUARTER, 2 * B, BOTH),
+         ("PVCNN2", chip_smoke.CALLS2_BF16, B, BOTH),
+         ("S3DIS", chip_smoke.CALLS3_BF16, B, BOTH),
+         ("S3DIS opt-in", chip_smoke.CALLS3_ON_BF16, B, (False,)))
 K2, K5 = "trilinear_devoxelize_bf16", "devoxelize_bwd_bf16"
 
 
 def _clouds(dev):
     """{path: (coords of n points -> [b, n, 3], normalize)} as
-    chip_smoke.py's phases 29 and 30 make them."""
+    chip_smoke.py's phases 29, 30 and 31 make them."""
     shapenet = {}
     rng = np.random.RandomState(SEED + 100)
     for label, b in (("ShapeNet 1x", B), ("ShapeNet 0.25x", 2 * B)):
@@ -102,11 +113,15 @@ def _clouds(dev):
     x, _ = chip_smoke.windows(np.random.RandomState(SEED + 112), B,
                               chip_smoke.N3)
     s3dis = torch.from_numpy(x[..., :3]).to(dev)
+    x, _ = chip_smoke.windows(np.random.RandomState(SEED + 131), B,
+                              chip_smoke.N3)
+    optin = torch.from_numpy(x[..., :3]).to(dev)
     return {"ShapeNet 1x": (lambda n: shapenet["ShapeNet 1x"][:, :n], False),
             "ShapeNet 0.25x": (lambda n: shapenet["ShapeNet 0.25x"][:, :n],
                                False),
             "PVCNN2": (lambda n: by_n[n], True),
-            "S3DIS": (lambda n: s3dis[:, :n], True)}
+            "S3DIS": (lambda n: s3dis[:, :n], True),
+            "S3DIS opt-in": (lambda n: optin[:, :n], True)}
 
 
 def _device(fn):
@@ -154,7 +169,7 @@ def main() -> None:
         for i, v in enumerate(values):
             acc[i] += calls * v
 
-    for path, calls, b in PATHS:
+    for path, calls, b, timed in PATHS:
         coords_of, normalize = clouds[path]
         for c, r, n in sorted({case for k, case in calls if k == K2}):
             case = (c, r, n)
@@ -164,9 +179,16 @@ def main() -> None:
                 zlib.crc32(f"{path} {case}".encode()))
             grid = torch.randn(b, c, r ** 3, device=dev, generator=gen).to(bf)
             g = torch.randn(b, n, c, device=dev, generator=gen).to(bf)
-            bound, _, _ = chip_smoke._bound_ms(
-                16 * b * n * c, 2 * b * c * r ** 3 + 12 * b * n + 2 * b * n * c,
-                peak)
+            # K5 writes the whole grid; K2 reads only the rows its points'
+            # corners touch
+            bounds_ms = {
+                K2: chip_smoke._bound_ms(
+                    16 * b * n * c, chip_smoke._k2_bytes(norm, r, c, 2),
+                    peak)[0],
+                K5: chip_smoke._bound_ms(
+                    16 * b * n * c,
+                    2 * b * c * r ** 3 + 12 * b * n + 2 * b * n * c,
+                    peak)[0]}
             points, bounds = devoxelize._sort_points(norm, r)
             outs = {}
             for cf in (True, False):
@@ -187,7 +209,13 @@ def main() -> None:
                     outs[kernel, cf] = got
                     same = digests.add(f"{path} {layout} {kernel} {case}",
                                        got)
+                    if cf not in timed:
+                        print(f"[{kernel}] {path} {layout} {case}: not "
+                              f"timed (the step runs the other layout)"
+                              f"{same}", flush=True)
+                        continue
                     ms = chip_smoke.time_ms(run)
+                    bound = bounds_ms[kernel]
                     glue, own, rest = _device(run)
                     split = ""
                     glue_ms = alone_ms = 0.0
@@ -214,11 +242,11 @@ def main() -> None:
                                          "layouts differ")
 
     for name, (ms, glue_ms, alone_ms, glue, own, bound) in per_step.items():
-        split = (f" (glue {glue_ms:.4f}, kernel alone {alone_ms:.4f})"
-                 if alone_ms else "")
+        split = (f" (glue {glue_ms:.4f}, kernel alone {alone_ms:.4f}: "
+                 f"{bound / alone_ms:.1%})" if alone_ms else "")
         print(f"[step] {name}: {ms:.4f} ms per step{split} (device: glue "
-              f"{glue:.4f}, kernel {own:.4f}), bound {bound:.4f}: "
-              f"{bound / ms:.1%} by ms", flush=True)
+              f"{glue:.4f}, kernel {own:.4f}: {bound / max(own, 1e-9):.1%}),"
+              f" bound {bound:.4f}: {bound / ms:.1%} by ms", flush=True)
     digests.finish()
 
 

@@ -1,5 +1,5 @@
-// The brick geometry and bf16 helpers that the channel-major bf16 modes of
-// K2 (devoxelize.cu) and K5 (devoxelize_bwd.cu) share.
+// The brick geometry and bf16 helpers that the bf16 modes of K2
+// (devoxelize.cu) and K5 (devoxelize_bwd.cu) share.
 //
 // A cloud's R^3 grid is cut into bricks of 512 bins, numbered x-major as
 // the bins are: 16 z x 8 y x 4 x where R % 16 == 0 (a brick's z-run of a
@@ -57,6 +57,38 @@ __device__ __forceinline__ unsigned bf16_bits(float v) {
 // two values rounded to bf16, packed low first
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// channels c .. c + 7 of a bf16 row of C, zeros past C: one 16-byte load
+// where vec (C % 8 == 0 and the row 16-byte aligned), else 2-byte loads
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, int c, int C,
+                                       bool vec) {
+  if (vec) {
+    return c < C ? __ldg(reinterpret_cast<const uint4*>(row + c))
+                 : make_uint4(0, 0, 0, 0);
+  }
+  const unsigned short* r16 = reinterpret_cast<const unsigned short*>(row);
+  unsigned v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = c + i < C ? __ldg(r16 + c + i) : 0u;
+  return make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                    v[6] | v[7] << 16);
+}
+
+// the 8 bf16 of v (low half first) as channels c .. c + 7 of a row of C,
+// none past C: one 16-byte store where vec (as load8), else 2-byte stores
+__device__ __forceinline__ void store8(__nv_bfloat16* row, int c, int C,
+                                       uint4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(row + c) = v;
+    return;
+  }
+  unsigned short* r16 = reinterpret_cast<unsigned short*>(row);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (c + i < C) r16[c + i] = i % 2 ? w[i / 2] >> 16 : w[i / 2] & 0xffffu;
+  }
 }
 
 constexpr int kDevices = 64;                    // devices the caches keep

@@ -23,7 +23,7 @@
 //
 // Channel-last grid [B, R^3, C] (the NDHWC branch): one thread per (cloud,
 // point, channel), channel fastest, so a warp's corner load is one
-// contiguous row segment. Near its bound at the S3DIS PVCNN shapes.
+// contiguous row segment. Near its bound at the S3DIS PVCNN shapes in fp32.
 //
 // Channel-major grid [B, C, R^3] (the rows branch of every default path).
 // With the channel fastest, a warp's 32 lanes would read 32 channel planes
@@ -48,9 +48,21 @@
 // trilinear_devoxelize_bf16) on a bf16 grid. Coordinates and weights stay
 // f32, the 8 terms sum in f32 in the same order, and the output is rounded
 // to bf16 once, as the JAX package's sorted gather (f32 weights and sum,
-// pvcnn_tpu/ops/devoxelize.py:219-231: out.astype(grid.dtype)). A
-// channel-last grid takes the thread-per-channel mapping above, a template
-// on the grid's type (its fp32 instantiation is the fp32 kernel's code).
+// pvcnn_tpu/ops/devoxelize.py:219-231: out.astype(grid.dtype)).
+//
+// A channel-last bf16 grid takes trilinear_devoxelize_groups_kernel. The
+// thread-per-channel mapping above took 24% of its bound there (S3DIS
+// PVCNN's opt-in step): each point's corners and weights recomputed C
+// times, 2-byte loads (64 bytes of a corner row a warp instruction) and
+// 2-byte stores. Here ceil(C / 8) consecutive lanes take a point, 8
+// channels a lane: each lane computes the point's corners and weights as
+// corners() does, reads each corner's 8 channels by one 16-byte load (a
+// point's lanes read its corner row in whole sectors; 2-byte loads where
+// C % 8 != 0 or the grid is not 16-byte aligned), sums the 8 terms as
+// blend() is compiled (below) and stores its 8 rounded channels by one
+// 16-byte store. No staging: a channel-last corner is a contiguous row,
+// so the loads are whole sectors as they come, and the sectors that
+// neighbouring points share are still in L1 or L2 when they load them.
 //
 // A channel-major bf16 grid takes trilinear_devoxelize_bricks_kernel<TC,
 // BZ>. The plane-by-plane mapping made 8 two-byte loads a channel and point
@@ -124,20 +136,11 @@ __device__ __forceinline__ void corners(const float* __restrict__ p, int R,
 }
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __uint_as_float(
-      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
-      << 16);
-}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // sum_k w[k] * g[off[k] * stride], in corner order
-template <typename T>
-__device__ __forceinline__ float blend(const T* __restrict__ g,
+__device__ __forceinline__ float blend(const float* __restrict__ g,
                                        int64_t stride, const int off[8],
                                        const float w[8]) {
   float acc = w[0] * load(g + off[0] * stride);
@@ -146,11 +149,10 @@ __device__ __forceinline__ float blend(const T* __restrict__ g,
   return acc;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(pvcnn::kThreads)
-trilinear_devoxelize_kernel(const T* __restrict__ grid,       // [B, R^3, C]
+trilinear_devoxelize_kernel(const float* __restrict__ grid,   // [B, R^3, C]
                             const float* __restrict__ coords,  // [B, N, 3]
-                            T* __restrict__ out,               // [B, N, C]
+                            float* __restrict__ out,           // [B, N, C]
                             int B, int N, int C, int R) {
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   const int64_t total = static_cast<int64_t>(B) * N * C;
@@ -165,12 +167,12 @@ trilinear_devoxelize_kernel(const T* __restrict__ grid,       // [B, R^3, C]
   store(out + t, blend(grid + b * r3 * C + c, C, off, w));
 }
 
-template <int TC, typename T>
+template <int TC>
 __global__ void __launch_bounds__(pvcnn::kThreads)
 trilinear_devoxelize_planes_kernel(
-    const T* __restrict__ grid,         // [B, C, R^3]
+    const float* __restrict__ grid,     // [B, C, R^3]
     const float* __restrict__ coords,   // [B, N, 3]
-    T* __restrict__ out,                // [B, N, C]
+    float* __restrict__ out,            // [B, N, C]
     int B, int N, int C, int R, int groups) {
   __shared__ float tiles[kWarps][32 * (TC + 1)];
   float* tile = tiles[threadIdx.x >> 5];
@@ -187,7 +189,7 @@ trilinear_devoxelize_planes_kernel(
   const int64_t r3 = static_cast<int64_t>(R) * R * R;
   int off[8];
   float w[8];
-  const T* gb = grid;
+  const float* gb = grid;
   if (lane < np) {
     corners(coords + bn * 3, R, off, w);
     gb += bn / N * r3 * C;
@@ -195,7 +197,7 @@ trilinear_devoxelize_planes_kernel(
   // the tile's store: 32 / TC rows per instruction, lane = channel in a row
   constexpr int kRows = 32 / TC;
   const int col = lane % TC, sub = lane / TC;
-  T* o = out + p0 * C + col;
+  float* o = out + p0 * C + col;
   for (int c0 = g * TC; c0 < C; c0 += groups * TC) {
     const int ct = min(TC, C - c0);
     if (lane < np) {
@@ -216,18 +218,99 @@ trilinear_devoxelize_planes_kernel(
   }
 }
 
-template <int TC, typename T>
-void launch_planes(const T* grid, const float* coords, T* out, int B, int N,
-                   int C, int R, cudaStream_t stream) {
+template <int TC>
+void launch_planes(const float* grid, const float* coords, float* out, int B,
+                   int N, int C, int R, cudaStream_t stream) {
   // split the channel tiles over more warps where the points alone give
   // too few (the coarse levels of PVCNN2)
   const int64_t point_warps = (static_cast<int64_t>(B) * N + 31) / 32;
   const int tiles = (C + TC - 1) / TC;
   int groups = 1;
   while (point_warps * groups < kMinWarps && groups * 2 <= tiles) groups *= 2;
-  trilinear_devoxelize_planes_kernel<TC, T><<<
+  trilinear_devoxelize_planes_kernel<TC><<<
       pvcnn::blocks_for(point_warps * groups * 32), pvcnn::kThreads, 0,
       stream>>>(grid, coords, out, B, N, C, R, groups);
+}
+
+// ---- the channel-last bf16 mode: lanes over 8-channel groups --------------
+
+// 8 channels' sums of the 8 corners' rows u[k] with the weights w, as
+// blend() is compiled (-fmad): w0 * v0 + w1 * v1 fuses the first product,
+// fma(w0, v0, w1 * v1), then an fma a corner; pinned with __fmaf_rn /
+// __fmul_rn, so that no contraction moves a bit. -> 8 bf16, low first.
+__device__ __forceinline__ uint4 blend8(const uint4 u[8], const float w[8]) {
+  unsigned r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float lo = 0.f, hi = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned pr = i == 0 ? u[k].x : i == 1 ? u[k].y
+                          : i == 2 ? u[k].z : u[k].w;
+      const float vl = bricks::lo_bf16(pr), vh = bricks::hi_bf16(pr);
+      if (k == 0) {
+        lo = vl;
+        hi = vh;
+      } else if (k == 1) {
+        lo = __fmaf_rn(w[0], lo, __fmul_rn(w[1], vl));
+        hi = __fmaf_rn(w[0], hi, __fmul_rn(w[1], vh));
+      } else {
+        lo = __fmaf_rn(w[k], vl, lo);
+        hi = __fmaf_rn(w[k], vh, hi);
+      }
+    }
+    r[i] = bricks::pack_bf16(lo, hi);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// `lanes` consecutive threads a point (ceil(C / 8), at most a block's),
+// each taking the point's 8-channel groups q, q + lanes, ...; a block
+// kThreads / lanes points of a cloud, blockIdx.y the clouds
+__global__ void __launch_bounds__(pvcnn::kThreads)
+trilinear_devoxelize_groups_kernel(
+    const __nv_bfloat16* __restrict__ grid,   // [B, R^3, C]
+    const float* __restrict__ coords,         // [B, N, 3]
+    __nv_bfloat16* __restrict__ out,          // [B, N, C]
+    int B, int N, int C, int R, int lanes, int vec_grid, int vec_out) {
+  const int per_block = pvcnn::kThreads / lanes;
+  const int slot = threadIdx.x / lanes;
+  const int n = blockIdx.x * per_block + slot;
+  if (slot >= per_block || n >= N) return;
+  const int groups = (C + 7) / 8;
+  const int64_t r3 = static_cast<int64_t>(R) * R * R;
+  for (int64_t b = blockIdx.y; b < B; b += gridDim.y) {
+    const int64_t bn = b * N + n;
+    int off[8];
+    float w[8];
+    corners(coords + bn * 3, R, off, w);
+    const __nv_bfloat16* gb = grid + b * r3 * C;
+    for (int q = threadIdx.x % lanes; q < groups; q += lanes) {
+      uint4 u[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        u[k] = bricks::load8(gb + static_cast<int64_t>(off[k]) * C, 8 * q, C,
+                             vec_grid);
+      }
+      bricks::store8(out + bn * C, 8 * q, C, blend8(u, w), vec_out);
+    }
+  }
+}
+
+int launch_groups(const __nv_bfloat16* grid, const float* coords,
+                  __nv_bfloat16* out, int B, int N, int C, int R,
+                  cudaStream_t stream) {
+  const int groups = (C + 7) / 8;
+  const int lanes = groups < pvcnn::kThreads ? groups : pvcnn::kThreads;
+  const int per_block = pvcnn::kThreads / lanes;
+  const int vec_grid =
+      C % 8 == 0 && reinterpret_cast<uintptr_t>(grid) % 16 == 0;
+  const int vec_out =
+      C % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 blocks((N + per_block - 1) / per_block, B < 65535 ? B : 65535);
+  trilinear_devoxelize_groups_kernel<<<blocks, pvcnn::kThreads, 0, stream>>>(
+      grid, coords, out, B, N, C, R, lanes, vec_grid, vec_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- the channel-major bf16 mode: a block a brick --------------------------
@@ -496,7 +579,8 @@ PVCNN_EXPORT int pvcnn_trilinear_devoxelize(const void* grid,
 
 // the bf16 mode: a bf16 grid, channel-major [B, C, R^3] with
 // channels_first (a block a brick, tc channels a block: 8, 16 or 32), else
-// channel-last [B, R^3, C] -> bf16 [B, N, C]
+// channel-last [B, R^3, C] (lanes over 8-channel groups; tc unused) -> bf16
+// [B, N, C]
 PVCNN_EXPORT int pvcnn_trilinear_devoxelize_bf16(const void* grid,
                                                  const void* coords,
                                                  void* out, int B, int N,
@@ -517,7 +601,5 @@ PVCNN_EXPORT int pvcnn_trilinear_devoxelize_bf16(const void* grid,
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  trilinear_devoxelize_kernel<<<pvcnn::blocks_for(total), pvcnn::kThreads,
-                                0, s>>>(gp, cp, op, B, N, C, R);
-  return static_cast<int>(cudaGetLastError());
+  return launch_groups(gp, cp, op, B, N, C, R, s);
 }

@@ -48,14 +48,12 @@
 // the f32 scatter kernel, cast to g.dtype), each weight is rounded to bf16,
 // each term w * g is rounded to bf16 (the product of two bf16 is exact in
 // f32, then rounded), the terms add in f32 in the fixed order, and the sum
-// is rounded to bf16 once. Into a channel-last grid (the NDHWC branch) it
-// runs the walk above, a template on the cotangent's type (rows of C % 4
-// == 0 stored 4 values, 8 bytes, a lane); the fp32 instantiations are the
-// fp32 kernel's code.
-//
-// Into the channel-major grid [B, C, R^3] (the rows branch of every
-// default bf16 step), devoxelize_bwd_bricks_kernel<TC, BZ>. The walk above
-// was slow there (8.8% of its bound at ShapeNet 1x):
+// is rounded to bf16 once. Into either layout it runs
+// devoxelize_bwd_bricks_kernel<TC, BZ, kChannelsFirst>: the channel-major
+// grid [B, C, R^3] (the rows branch of every default bf16 step) and the
+// channel-last one [B, R^3, C] (the NDHWC branch). The walk above was slow
+// in bf16 (8.8% of its bound into the channel-major grid at ShapeNet 1x,
+// 11% into the channel-last one at S3DIS PVCNN's opt-in step):
 // 32 bins a block, 31 waves of blocks at R = 32, every bin's 8 bounds
 // loads and shuffles whether its runs are empty or not, a g row read once
 // per corner bin that holds it, 64 bytes a warp store. Here a block of 512
@@ -80,11 +78,24 @@
 //      `staged` (a denser brick than the plan) are read where they lie;
 //   5. TC / 8 consecutive lanes take a listed bin, 8 channels a lane, and
 //      walk its 8 corner runs, k = 0..7, each in the sort's order, into a
-//      bf16 tile [TC][512] in shared memory. Lanes over channels keep a
-//      warp's lanes busy where few bins of a brick hold points (R = 32);
-//      the list skips the empty bins, whose tile entries stay zero;
-//   6. the tile goes out as 16-byte stores, two neighbouring lanes a
-//      32-byte sector of a z-run (2-byte stores where R % 8 != 0).
+//      bf16 tile in shared memory. Lanes over channels keep a warp's lanes
+//      busy where few bins of a brick hold points (R = 32); the list
+//      skips the empty bins, whose tile entries stay zero;
+//   6. the tile goes out. Channel-major: the tile is [TC][512] and goes
+//      out as 16-byte stores, two neighbouring lanes a 32-byte sector of a
+//      z-run (2-byte stores where R % 8 != 0). Channel-last: the tile is
+//      [512][TC], a lane's 8 sums one 16-byte shared store, and a thread
+//      per (bin, 8 channels) stores 16 bytes of the bin's row, so a bin's
+//      TC / 8 neighbouring threads write its chunk, 2 TC contiguous bytes,
+//      in whole sectors where TC >= 16 (2-byte stores where C % 8 != 0 or
+//      out is not 16-byte aligned). Every bin of the brick is stored, the
+//      unlisted ones as zeros. The tile has no pad: neighbouring bins'
+//      rows are neighbouring 2 TC bytes, so the 8 lanes of a 16-byte
+//      access phase touch 128 contiguous bytes in stage 6, and in stage 5
+//      wherever the listed bins are consecutive (a 16-byte pad a row would
+//      put two neighbouring bins of one phase on the same banks).
+// Both layouts run stages 1-5 alike, so the channel-last output is the
+// channel-major output transposed, bit for bit.
 // The term is one instruction for two channels: fma.rn.bf16x2 of the
 // rounded weight (twice) and the g pair with a -0 addend, RN(w * g) in
 // bf16 (no flush of subnormals: bf16 fma has no .ftz). It equals
@@ -94,13 +105,12 @@
 // a midpoint of bf16's 2^-133 grid that the exact product was not on (the
 // significand would have to be within 1 of an odd multiple of 2^16, but
 // it is at most 255 x 255); a -0 product stays -0, a NaN stays a NaN, and
-// the f32 sum never holds -0, so every output keeps the walk's bits (the
-// GPU tests hold both layouts to each other on subnormals, zeros, NaN).
-// A collapsed corner adds +0 rather than branching, which keeps those
-// bits too.
+// the f32 sum never holds -0, so every output keeps the bits of the walk
+// that rounded each f32 product (the bf16 walk this kernel replaced in
+// both layouts; the GPU tests hold the layouts to each other and to the
+// plain version on subnormals, zeros, NaN). A collapsed corner adds +0
+// rather than branching, which keeps those bits too.
 #include <cuda_bf16.h>
-
-#include <type_traits>
 
 #include "bricks.cuh"
 #include "common.cuh"
@@ -166,64 +176,14 @@ __device__ __forceinline__ bool corner_weight(float4 p, int k, float* w) {
   return true;
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float bf16_bits(unsigned u) {
-  return __uint_as_float(u << 16);
-}
-
-// a row's V values of type E: S is the stored vector (float, float4; one
-// bf16, four bf16 in 8 bytes)
-template <typename E, int V>
-struct Load;
-template <>
-struct Load<float, 1> {
-  using S = float;
-};
-template <>
-struct Load<float, 4> {
-  using S = float4;
-};
-template <>
-struct Load<__nv_bfloat16, 1> {
-  using S = unsigned short;
-  static __device__ __forceinline__ float get(const S* p) {
-    return bf16_bits(__ldg(p));
-  }
-};
-template <>
-struct Load<__nv_bfloat16, 4> {
-  using S = uint2;
-  static __device__ __forceinline__ float4 get(const S* p) {
-    const uint2 u = __ldg(p);
-    return make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16),
-                       bf16_bits(u.y & 0xffffu), bf16_bits(u.y >> 16));
-  }
-};
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
-// vector c of a channel-last output row: V f32 values stored as E (a bf16
-// vector of 4 as 8 bytes, each value rounded once)
+// vector c of a channel-last output row
 __device__ __forceinline__ void store_vec(float* row, int c, float v) {
   row[c] = v;
 }
 __device__ __forceinline__ void store_vec(float* row, int c, float4 v) {
   reinterpret_cast<float4*>(row)[c] = v;
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int c,
-                                          float v) {
-  row[c] = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int c,
-                                          float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  reinterpret_cast<uint2*>(row)[c] =
-      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                 *reinterpret_cast<const unsigned*>(&hi));
 }
 
 template <int V>
@@ -233,10 +193,6 @@ struct Vec<1> {
   using T = float;
   static __device__ __forceinline__ void fma(T& acc, float w, T g) {
     acc = fmaf(w, g, acc);
-  }
-  // the bf16 mode's term: acc += bf16(w * g), w and g bf16 values
-  static __device__ __forceinline__ void add_rounded(T& acc, float w, T g) {
-    acc = __fadd_rn(acc, round_bf16(__fmul_rn(w, g)));
   }
   static __device__ __forceinline__ float at(const T& a, int) { return a; }
 };
@@ -249,28 +205,21 @@ struct Vec<4> {
     acc.z = fmaf(w, g.z, acc.z);
     acc.w = fmaf(w, g.w, acc.w);
   }
-  static __device__ __forceinline__ void add_rounded(T& acc, float w, T g) {
-    Vec<1>::add_rounded(acc.x, w, g.x);
-    Vec<1>::add_rounded(acc.y, w, g.y);
-    Vec<1>::add_rounded(acc.z, w, g.z);
-    Vec<1>::add_rounded(acc.w, w, g.w);
-  }
   static __device__ __forceinline__ float at(const T& a, int j) {
     return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
   }
 };
 
-// G lanes per bin, M vectors of V values per lane and pass over the channels
-template <typename In, int V, int G, int M, bool kChannelsFirst>
+// G lanes per bin, M vectors of V values per lane and pass over the
+// channels (T: a vector as loaded and summed, float or float4)
+template <int V, int G, int M, bool kChannelsFirst>
 __global__ void __launch_bounds__(pvcnn::kThreads)
-devoxelize_bwd_kernel(const In* __restrict__ g,             // [B, N, C]
+devoxelize_bwd_kernel(const float* __restrict__ g,          // [B, N, C]
                       const float4* __restrict__ sorted,    // [B, N]
                       const int* __restrict__ bounds,       // [B, R^3 + 1]
-                      In* __restrict__ out,     // [B, C, R^3] or [B, R^3, C]
+                      float* __restrict__ out,  // [B, C, R^3] or [B, R^3, C]
                       int N, int C, int R) {
   using T = typename Vec<V>::T;
-  using S = typename Load<In, V>::S;
-  constexpr bool kBf16 = !std::is_same<In, float>::value;
   constexpr int kCT = G * M * V;                  // channels per pass
   constexpr int kGroups = pvcnn::kThreads / G;    // lane groups per block
   constexpr int kStride = kCT + 1;                // odd: no bank conflicts
@@ -283,7 +232,7 @@ devoxelize_bwd_kernel(const In* __restrict__ g,             // [B, N, C]
   const int* bnd = bounds + b * (R3 + 1);
   const float4* pts = sorted + b * N;
   const int nv = C / V;                           // vectors per row
-  const S* gb = reinterpret_cast<const S*>(g + b * N * C);
+  const T* gb = reinterpret_cast<const T*>(g + b * N * C);
 
   for (int c0 = 0; c0 < nv; c0 += G * M) {        // passes, in vectors
     for (int t = grp; t < kBinsPerBlock; t += kGroups) {
@@ -311,22 +260,11 @@ devoxelize_bwd_kernel(const In* __restrict__ g,             // [B, N, C]
           const float4 p = __ldg(pts + j);
           float w;
           if (!corner_weight(p, k, &w)) continue;
-          const S* row = gb + static_cast<int64_t>(__float_as_int(p.w)) * nv;
-          if constexpr (kBf16) {
-            const float wb = round_bf16(w);
+          const T* row = gb + static_cast<int64_t>(__float_as_int(p.w)) * nv;
 #pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const int c = c0 + m * G + li;
-              if (c < nv) {
-                Vec<V>::add_rounded(acc[m], wb, Load<In, V>::get(row + c));
-              }
-            }
-          } else {
-#pragma unroll
-            for (int m = 0; m < M; ++m) {
-              const int c = c0 + m * G + li;
-              if (c < nv) Vec<V>::fma(acc[m], w, __ldg(row + c));
-            }
+          for (int m = 0; m < M; ++m) {
+            const int c = c0 + m * G + li;
+            if (c < nv) Vec<V>::fma(acc[m], w, __ldg(row + c));
           }
         }
       }
@@ -339,7 +277,7 @@ devoxelize_bwd_kernel(const In* __restrict__ g,             // [B, N, C]
           }
         }
       } else if (v < R3) {
-        In* o = out + (b * R3 + v) * C;
+        float* o = out + (b * R3 + v) * C;
 #pragma unroll
         for (int m = 0; m < M; ++m) {
           const int c = c0 + m * G + li;
@@ -374,11 +312,11 @@ struct ArgsOf {
 };
 using Args = ArgsOf<float>;
 
-template <int V, int G, int M, bool kChannelsFirst, typename In>
-void launch(const ArgsOf<In>& a) {
+template <int V, int G, int M, bool kChannelsFirst>
+void launch(const Args& a) {
   const int r3 = a.R * a.R * a.R;
   const dim3 grid((r3 + kBinsPerBlock - 1) / kBinsPerBlock, a.B);
-  devoxelize_bwd_kernel<In, V, G, M, kChannelsFirst>
+  devoxelize_bwd_kernel<V, G, M, kChannelsFirst>
       <<<grid, pvcnn::kThreads, 0, a.stream>>>(a.g, a.sorted, a.bounds, a.out,
                                                a.N, a.C, a.R);
 }
@@ -386,8 +324,8 @@ void launch(const ArgsOf<In>& a) {
 // rows of up to 32 vectors take 8 lanes per bin (4 bins per warp: each run
 // lookup serves more channels per instruction where most bins are empty);
 // wider rows a whole warp, 256 channels per pass
-template <int V, bool kChannelsFirst, typename In>
-void launch_for(const ArgsOf<In>& a) {
+template <int V, bool kChannelsFirst>
+void launch_for(const Args& a) {
   const int nv = a.C / V;
   if (nv <= 8) {
     launch<V, 8, 1, kChannelsFirst>(a);
@@ -400,7 +338,7 @@ void launch_for(const ArgsOf<In>& a) {
   }
 }
 
-// ---- the channel-major bf16 mode: a block a brick --------------------------
+// ---- the bf16 mode: a block a brick -----------------------------------------
 
 constexpr unsigned kNoCorner = 0xffffu;  // a collapsed corner's staged weight
 constexpr int kMaxBrickBytes = 225 * 1024;      // dynamic, beside 1 KB static
@@ -411,9 +349,14 @@ constexpr int kMaxBrickBytes = 225 * 1024;      // dynamic, beside 1 KB static
 template <class Geo>
 constexpr int kHeadBytes =
     ((2 * Geo::kHaloBins + 2 * Geo::kRows + 1) * 4 + 15) / 16 * 16;
-// a row of the chunk's tile of sums: 512 bins and 16 bytes, so that the
-// rows of a bin's lanes (one apart) fall 8 banks apart
+// a row of the channel-major tile of sums: 512 bins and 16 bytes, so that
+// the rows of a bin's lanes (one apart) fall 8 banks apart
 constexpr int kTilePitch = 528;
+// the chunk's tile of bf16 sums: channel-major [TC][kTilePitch] (channel
+// 8 q + i at row i * kLanes + q: the lanes of a bin store into other
+// banks), or channel-last [512][TC] (a bin's TC channels in order)
+template <int TC, bool kChannelsFirst>
+constexpr int kTileElems = kChannelsFirst ? TC * kTilePitch : 512 * TC;
 
 // RN_bf16(a * b) for two bf16 pairs: fma with a -0 addend (exact a * b + -0
 // rounded once; a -0 product stays -0)
@@ -441,22 +384,6 @@ __device__ __forceinline__ void add_terms(float* acc, unsigned w2, uint4 g,
   }
 }
 
-// channels c .. c + 7 of a bf16 row of C, zeros past C: one 16-byte load
-// where vec (C % 8 == 0 and the row 16-byte aligned), else 2-byte loads
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* row, int c, int C,
-                                       bool vec) {
-  if (vec) {
-    return c < C ? __ldg(reinterpret_cast<const uint4*>(row + c))
-                 : make_uint4(0, 0, 0, 0);
-  }
-  const unsigned short* r16 = reinterpret_cast<const unsigned short*>(row);
-  unsigned v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = c + i < C ? __ldg(r16 + c + i) : 0u;
-  return make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
-                    v[6] | v[7] << 16);
-}
-
 __device__ __forceinline__ void copy16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    static_cast<unsigned>(__cvta_generic_to_shared(dst))),
@@ -466,13 +393,13 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, bool ok) {
 // TC channels a chunk, 8 a lane: a bin's TC / 8 lanes walk its runs
 // together (kLanes, consecutive threads), a block's 512 threads take the
 // brick's listed bins 512 / kLanes at a time
-template <int TC, int BZ>
+template <int TC, int BZ, bool kChannelsFirst>
 __global__ void __launch_bounds__(512, 2)
 devoxelize_bwd_bricks_kernel(
     const __nv_bfloat16* __restrict__ g,   // [B, N, C]
     const float4* __restrict__ sorted,     // [B, N]
     const int* __restrict__ bounds,        // [B, R^3 + 1]
-    __nv_bfloat16* __restrict__ out,       // [B, C, R^3]
+    __nv_bfloat16* __restrict__ out,       // [B, C, R^3] or [B, R^3, C]
     int N, int C, int R, int staged, int vec_g, int vec_out) {
   using Geo = bricks::Brick<BZ>;
   constexpr int kHY = Geo::kHY, kHZ = Geo::kHZ, kRows = Geo::kRows;
@@ -484,11 +411,11 @@ devoxelize_bwd_bricks_kernel(
   int* s_end = s_pos + Geo::kHaloBins;            // [halo] and end position
   int* s_off = s_end + Geo::kHaloBins;            // [rows] position - slot
   int* s_pre = s_off + kRows;                     // [rows + 1] row position
-  // [TC][kTilePitch] the chunk's bf16 sums, channel 8 q + i at row
-  // i * kLanes + q (the lanes of a bin store into other banks)
+  // the chunk's bf16 sums (kTileElems)
   unsigned short* s_tile =
       reinterpret_cast<unsigned short*>(smem + kHeadBytes<Geo>);
-  uint4* s_w = reinterpret_cast<uint4*>(s_tile + TC * kTilePitch);
+  uint4* s_w = reinterpret_cast<uint4*>(
+      s_tile + kTileElems<TC, kChannelsFirst>);
   uint4* s_g = s_w + staged;                      // [staged][kLanes]
   int* s_idx = reinterpret_cast<int*>(s_g + staged * kLanes);  // [staged]
   __shared__ unsigned short s_bins[Geo::kBins];  // the bins with a term
@@ -601,7 +528,8 @@ devoxelize_bwd_bricks_kernel(
       }
     }
     if (has) s_bins[atomicAdd(&s_nbins, 1)] = tid;
-    for (int i = tid; i < TC * kTilePitch / 8; i += kThreads) {
+    for (int i = tid; i < kTileElems<TC, kChannelsFirst> / 8;
+         i += kThreads) {
       reinterpret_cast<uint4*>(s_tile)[i] = make_uint4(0, 0, 0, 0);
     }
   }
@@ -620,7 +548,7 @@ devoxelize_bwd_bricks_kernel(
       if (vec_g) {
         copy16(s_g + it, row + (c < C ? c : 0), c < C);
       } else {
-        s_g[it] = load8(row, c, C, false);
+        s_g[it] = bricks::load8(row, c, C, false);
       }
     }
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
@@ -653,73 +581,112 @@ devoxelize_bwd_bricks_kernel(
           const unsigned wb = bricks::bf16_bits(w);
           const __nv_bfloat16* row =
               gb + static_cast<int64_t>(__float_as_int(p.w)) * C;
-          add_terms(acc, wb | wb << 16, load8(row, c0 + 8 * q, C, vec_g),
-                    use);
+          add_terms(acc, wb | wb << 16,
+                    bricks::load8(row, c0 + 8 * q, C, vec_g), use);
         }
       }
+      if constexpr (kChannelsFirst) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s_tile[(i * kLanes + q) * kTilePitch + bin] =
-            bricks::bf16_bits(acc[i]);
+        for (int i = 0; i < 8; ++i) {
+          s_tile[(i * kLanes + q) * kTilePitch + bin] =
+              bricks::bf16_bits(acc[i]);
+        }
+      } else {
+        *reinterpret_cast<uint4*>(s_tile + bin * TC + 8 * q) = make_uint4(
+            bricks::pack_bf16(acc[0], acc[1]),
+            bricks::pack_bf16(acc[2], acc[3]),
+            bricks::pack_bf16(acc[4], acc[5]),
+            bricks::pack_bf16(acc[6], acc[7]));
       }
     }
     __syncthreads();
 
-    // 6. the tile out: 16 bytes (8 bins of a z-run, channel c) a store
-    // where R % 8 == 0 and out is 16-byte aligned (a warp's neighbouring
-    // lanes fill whole sectors), else 2 bytes a bin
-    for (int it = tid; it < TC * Geo::kBins / 8; it += kThreads) {
-      const int row = it / (Geo::kBins / 8), bin = it % (Geo::kBins / 8) * 8;
-      const int c = c0 + 8 * (row % kLanes) + row / kLanes;
-      const int lz = bin % BZ, ly = bin / BZ % 8, lx = bin / (8 * BZ);
-      const int x = o.x + lx, y = o.y + ly, z = o.z + lz;
-      if (c >= C || max(x, max(y, z)) >= R) continue;
-      const unsigned short* src = s_tile + row * kTilePitch + bin;
-      unsigned short* dst = reinterpret_cast<unsigned short*>(out) +
-                            (b * C + c) * R3 + (x * R + y) * R + z;
-      if (vec_out) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int i = 0; i < 8 && z + i < R; ++i) dst[i] = src[i];
+    // 6. the tile out
+    if constexpr (kChannelsFirst) {
+      // 16 bytes (8 bins of a z-run, channel c) a store where R % 8 == 0
+      // and out is 16-byte aligned (a warp's neighbouring lanes fill whole
+      // sectors), else 2 bytes a bin
+      for (int it = tid; it < TC * Geo::kBins / 8; it += kThreads) {
+        const int row = it / (Geo::kBins / 8);
+        const int bin = it % (Geo::kBins / 8) * 8;
+        const int c = c0 + 8 * (row % kLanes) + row / kLanes;
+        const int lz = bin % BZ, ly = bin / BZ % 8, lx = bin / (8 * BZ);
+        const int x = o.x + lx, y = o.y + ly, z = o.z + lz;
+        if (c >= C || max(x, max(y, z)) >= R) continue;
+        const unsigned short* src = s_tile + row * kTilePitch + bin;
+        unsigned short* dst = reinterpret_cast<unsigned short*>(out) +
+                              (b * C + c) * R3 + (x * R + y) * R + z;
+        if (vec_out) {
+          *reinterpret_cast<uint4*>(dst) =
+              *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int i = 0; i < 8 && z + i < R; ++i) dst[i] = src[i];
+        }
+      }
+    } else {
+      // 16 bytes (a bin's 8 channels) a store where C % 8 == 0 and out is
+      // 16-byte aligned, else 2 bytes a channel: a bin's kLanes
+      // neighbouring threads store its chunk of its row
+      for (int it = tid; it < Geo::kBins * kLanes; it += kThreads) {
+        const int bin = it / kLanes, c = c0 + 8 * (it % kLanes);
+        const int lz = bin % BZ, ly = bin / BZ % 8, lx = bin / (8 * BZ);
+        const int x = o.x + lx, y = o.y + ly, z = o.z + lz;
+        if (c >= C || max(x, max(y, z)) >= R) continue;
+        bricks::store8(out + (b * R3 + (x * R + y) * R + z) * C, c, C,
+                       *reinterpret_cast<const uint4*>(
+                           s_tile + bin * TC + (c - c0)),
+                       vec_out);
       }
     }
     __syncthreads();                              // s_g and s_tile are read
   }
 }
 
-template <int TC, int BZ>
+template <int TC, int BZ, bool kChannelsFirst>
 int launch_bricks(const ArgsOf<__nv_bfloat16>& a, int staged) {
   using Geo = bricks::Brick<BZ>;
-  const size_t bytes = kHeadBytes<Geo> + TC * kTilePitch * 2 +
+  const size_t bytes = kHeadBytes<Geo> + kTileElems<TC, kChannelsFirst> * 2 +
                        static_cast<size_t>(staged) * (16 * (1 + TC / 8) + 4);
   if (staged < 0 || bytes > kMaxBrickBytes || a.B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err =
-      bricks::allow_shared<devoxelize_bwd_bricks_kernel<TC, BZ>>(
-          static_cast<int>(bytes));
+  const cudaError_t err = bricks::allow_shared<
+      devoxelize_bwd_bricks_kernel<TC, BZ, kChannelsFirst>>(
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_g = a.C % 8 == 0 &&
                     reinterpret_cast<uintptr_t>(a.g) % 16 == 0;
-  const int vec_out = a.R % 8 == 0 &&
+  // the stores' 16-byte pieces: 8 bins of a z-run, or 8 channels of a row
+  const int vec_out = (kChannelsFirst ? a.R : a.C) % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
   const int bricks = Geo::count(a.R);
   const dim3 grid(bricks,
                   bricks::chunk_split(static_cast<int64_t>(bricks) * a.B,
                                       (a.C + TC - 1) / TC, 3),
                   a.B);
-  devoxelize_bwd_bricks_kernel<TC, BZ><<<grid, Geo::kBins, bytes,
-                                         a.stream>>>(
-      a.g, a.sorted, a.bounds, a.out, a.N, a.C, a.R, staged, vec_g,
-      vec_out);
+  devoxelize_bwd_bricks_kernel<TC, BZ, kChannelsFirst>
+      <<<grid, Geo::kBins, bytes, a.stream>>>(
+          a.g, a.sorted, a.bounds, a.out, a.N, a.C, a.R, staged, vec_g,
+          vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TC>
-int launch_bricks_for(const ArgsOf<__nv_bfloat16>& a, int staged) {
-  return a.R % 16 == 0 ? launch_bricks<TC, 16>(a, staged)
-                       : launch_bricks<TC, 8>(a, staged);
+template <bool kChannelsFirst>
+int launch_bricks_for(const ArgsOf<__nv_bfloat16>& a, int tc, int staged) {
+  const bool z16 = a.R % 16 == 0;
+  switch (tc) {
+    case 8:
+      return z16 ? launch_bricks<8, 16, kChannelsFirst>(a, staged)
+                 : launch_bricks<8, 8, kChannelsFirst>(a, staged);
+    case 16:
+      return z16 ? launch_bricks<16, 16, kChannelsFirst>(a, staged)
+                 : launch_bricks<16, 8, kChannelsFirst>(a, staged);
+    case 32:
+      return z16 ? launch_bricks<32, 16, kChannelsFirst>(a, staged)
+                 : launch_bricks<32, 8, kChannelsFirst>(a, staged);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -765,9 +732,9 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd(const void* g, const void* sorted,
 }
 
 // the bf16 mode: a bf16 cotangent g [B, N, C] -> the bf16 grid gradient,
-// channel-major [B, C, R^3] with channels_first (a block a brick: tc
-// channels a block, 8 or 16; the first `staged` points of a brick's halo
-// staged in shared memory), else channel-last [B, R^3, C]; sorted and
+// channel-major [B, C, R^3] with channels_first, else channel-last [B, R^3,
+// C]: a block a brick, tc channels a block (8, 16 or 32), the first
+// `staged` points of a brick's halo staged in shared memory; sorted and
 // bounds from pvcnn_devoxelize_bwd_sort
 PVCNN_EXPORT int pvcnn_devoxelize_bwd_bf16(const void* g, const void* sorted,
                                            const void* bounds, void* out,
@@ -780,16 +747,6 @@ PVCNN_EXPORT int pvcnn_devoxelize_bwd_bf16(const void* g, const void* sorted,
       static_cast<const float4*>(sorted), static_cast<const int*>(bounds),
       static_cast<__nv_bfloat16*>(out), B, N, C, R,
       static_cast<cudaStream_t>(stream)};
-  if (channels_first) {
-    switch (tc) {
-      case 8: return launch_bricks_for<8>(a, staged);
-      case 16: return launch_bricks_for<16>(a, staged);
-      case 32: return launch_bricks_for<32>(a, staged);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 8 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  vec4 ? launch_for<4, false>(a) : launch_for<1, false>(a);
-  return static_cast<int>(cudaGetLastError());
+  return channels_first ? launch_bricks_for<true>(a, tc, staged)
+                        : launch_bricks_for<false>(a, tc, staged);
 }

@@ -28,9 +28,11 @@ its corner-packed Pallas scatter or its one-hot `_scatter_sum` take the
 terms, both with f32 sums; where no Pallas plan fits, its XLA
 `segment_sum`s add the bf16 terms in bf16, rounding every partial sum. The
 port sums in f32 and rounds once everywhere, as the channel-major bf16 K5
-does. On a channel-major bf16 grid both kernels take one block per (cloud,
-brick of 512 bins); `_brick_plan` picks their chunk of channels and how
-many of a brick's points K5 stages in shared memory.
+does. K5 takes one block per (cloud, brick of 512 bins) in both layouts,
+and K2 on a channel-major grid; `_brick_plan` picks their chunk of
+channels and how many of a brick's points K5 stages in shared memory. On
+a channel-last grid K2 gives each point ceil(C / 8) lanes, 8 channels a
+lane (the kernel computes that mapping).
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ def _corners(norm_coords: torch.Tensor, r: int):
 
 
 class BrickPlan(NamedTuple):
-    """The channel-major bf16 K2 / K5 launch: `tc` channels a chunk (8, 16
-    or 32), and K5's `staged` points a brick (the first of the points its
+    """The bf16 K5 launch (either layout) and the channel-major bf16 K2's:
+    `tc` channels a chunk (8, 16 or 32), and K5's `staged` points a brick (the first of the points its
     halo's runs hold, in sort order, whose weights, index and g rows it
     keeps in shared memory; a denser brick reads the rest where they
     lie)."""
@@ -82,10 +84,12 @@ class BrickPlan(NamedTuple):
 
 
 # K5's shared memory: ~6.5 KB (the halo's runs, its rows' positions) and
-# the chunk's tile of sums (2 * 528 bytes a channel), then per staged point
-# 16 bytes of weights, 4 of index and 2 * tc of g: 1,536 points take 82 KB
-# at tc = 16 (two 512-thread blocks an SM), 169 KB at tc = 32 (one); 768
-# at tc = 32 take 105 KB (two)
+# the chunk's tile of sums (2 * 528 bytes a channel into a channel-major
+# grid, 2 * 512 into a channel-last one), then per staged point 16 bytes
+# of weights, 4 of index and 2 * tc of g: 1,536 points take 82 KB at tc =
+# 16 (two 512-thread blocks an SM), 169 KB at tc = 32 (one); 768 at tc =
+# 32 take 105 KB (two). The channel-last tile is the smaller, so one plan
+# serves both layouts.
 _K5_STAGED, _K5_FEW_STAGED = 1536, 768
 _K5_DENSE = 512            # mean points a brick's halo holds from which
                            # tc = 32 stages 1,536
@@ -187,7 +191,8 @@ def _devoxelize_cuda(grid, norm_coords, resolution, channels_first):
     context, stream = kernels.launch_on(grid.device)
     with context:
         if bf16:
-            # channel-major: a block a brick (the plan's chunk of channels)
+            # channel-major: a block a brick (the plan's chunk of channels);
+            # channel-last: lanes over 8-channel groups (tc unused)
             kernels.launch(
                 "trilinear_devoxelize_bf16", "pvcnn_trilinear_devoxelize_bf16",
                 grid.data_ptr(), norm_coords.data_ptr(), out.data_ptr(), b,
@@ -279,8 +284,8 @@ def _sort_points_plain(norm_coords, r):
 def _launch_k5_sorted(g, points, bounds, r, channels_first):
     """K5 alone on a contiguous float32 or bfloat16 g [B, N, C] and
     `_sort_points`' output: the grid gradient [B, C, R^3] with
-    channels_first, else [B, R^3, C] (the kernel maps the two layouts
-    differently)."""
+    channels_first, else [B, R^3, C] (fp32: the walk maps the two layouts
+    differently; bf16: the brick kernel, one plan for both)."""
     b, n, c = g.shape
     bins = r ** 3
     out = torch.empty((b, c, bins) if channels_first else (b, bins, c),

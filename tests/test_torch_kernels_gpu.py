@@ -2187,69 +2187,113 @@ def test_k1_k2_k5_bf16_channel_last_unaligned(dev):
                                                        False))
 
 
-# ---- the channel-major bf16 K2 / K5: a block a brick -------------------------
+# ---- the bf16 K2 / K5 in either layout --------------------------------------
 
-def _k2_k5_bf16_check(norm, c, r, grid=None, g=None):
-    """The channel-major bf16 K2 and K5 (one launch a call) against their
-    plain versions (K2 within two bf16 roundings of the output's scale, K5
-    within 2^-7 of each bin's sum of |terms|), two runs bitwise equal, and
-    bitwise equal to the channel-last bf16 modes transposed (the same sums
-    in the same order). -> (K2's output, K5's)"""
+def _bits(t):
+    """bf16 bits with every NaN as one NaN."""
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return t.view(torch.int16)
+
+
+def _k5_bf16_true_corners(g, norm, r, cf):
+    """K5's bf16 sums in plain torch on the CPU, formed as
+    `_devoxelize_bwd_plain` forms them (each weight and term rounded to
+    bf16, f32 sums by `scatter_add_` corner by corner, each in point
+    order: the brick kernel's order), counting only a point's true
+    corners, as K5 does: a corner that collapsed onto lo (f = 0 on an axis
+    of its bits, weight exactly 0) adds nothing, where the plain version
+    adds 0 * g, a NaN for an infinite g. -> the grid gradient in the
+    layout"""
+    g, norm = g.cpu(), norm.cpu()
+    b, n, c = g.shape
+    idx8, w8 = devoxelize._corners(norm, r)
+    frac = norm - torch.floor(norm)
+    rows = torch.zeros(b, r ** 3, c)
+    for k in range(8):
+        true = torch.ones(b, n, dtype=torch.bool)
+        for axis, bit in ((0, 4), (1, 2), (2, 1)):
+            if k & bit:
+                true &= frac[..., axis] > 0
+        term = (w8[..., k, None].to(g.dtype) * g).float()
+        term = torch.where(true[..., None], term, torch.zeros_like(term))
+        rows.scatter_add_(1, idx8[..., k, None].expand(-1, -1, c), term)
+    rows = rows.to(g.dtype)
+    return rows.transpose(1, 2).contiguous() if cf else rows
+
+
+def _k2_k5_bf16_check(norm, c, r, grid=None, g=None, cf=True):
+    """The bf16 K2 and K5 on a channel-major grid (cf, the rows branch) or
+    a channel-last one (the NDHWC branch), one launch a call, against
+    their plain versions: K2 within two bf16 roundings of the output's
+    scale, K5 within 2^-7 of each bin's sum of |terms| and bitwise the
+    plain version on the CPU (the same terms, summed in the same order).
+    Each output is checked twice bitwise: a second run, then the other
+    layout's output transposed (the same sums in the same order). grid,
+    where given, is in the layout under test. -> (K2's output, K5's)"""
     bf = torch.bfloat16
     b, n, _ = norm.shape
     if grid is None:
         grid = torch.randn(b, c, r ** 3, device=norm.device).to(bf)
+        grid = grid if cf else grid.transpose(1, 2).contiguous()
     if g is None:
         g = torch.randn(b, n, c, device=norm.device).to(bf)
     out = _counted("trilinear_devoxelize_bf16", devoxelize._devoxelize_cuda,
-                   grid, norm, r, True)
+                   grid, norm, r, cf)
     assert out.shape == (b, n, c) and out.dtype == bf
-    _bf16_close(out, devoxelize._devoxelize_plain(grid, norm, r, True))
-    assert torch.equal(out, devoxelize._devoxelize_cuda(grid, norm, r, True))
+    _bf16_close(out, devoxelize._devoxelize_plain(grid, norm, r, cf))
+    assert torch.equal(out, devoxelize._devoxelize_cuda(grid, norm, r, cf))
     assert torch.equal(out, devoxelize._devoxelize_cuda(
-        grid.transpose(1, 2).contiguous(), norm, r, False))
+        grid.transpose(1, 2).contiguous(), norm, r, not cf))
     dgrid = _counted("devoxelize_bwd_bf16", devoxelize._devoxelize_bwd_cuda,
-                     g, norm, r, True)
-    assert dgrid.shape == (b, c, r ** 3) and dgrid.dtype == bf
-    want = devoxelize._devoxelize_bwd_plain(g, norm, r, True)
-    mag = devoxelize._devoxelize_bwd_plain(g.abs().float(), norm, r, True)
+                     g, norm, r, cf)
+    assert dgrid.shape == ((b, c, r ** 3) if cf else (b, r ** 3, c))
+    assert dgrid.dtype == bf
+    want = devoxelize._devoxelize_bwd_plain(g, norm, r, cf)
+    mag = devoxelize._devoxelize_bwd_plain(g.abs().float(), norm, r, cf)
     assert not ((dgrid.float() - want.float()).abs()
                 > 2 ** -7 * mag + 1e-30).any()
+    assert torch.equal(dgrid.cpu(), devoxelize._devoxelize_bwd_plain(
+        g.cpu(), norm.cpu(), r, cf))
     assert torch.equal(dgrid, devoxelize._devoxelize_bwd_cuda(g, norm, r,
-                                                              True))
+                                                              cf))
     assert torch.equal(dgrid.transpose(1, 2), devoxelize._devoxelize_bwd_cuda(
-        g, norm, r, False))
+        g, norm, r, not cf))
     return out, dgrid
 
 
+@pytest.mark.parametrize("cf", [True, False])
 @pytest.mark.parametrize("c,r,n", [
     (64, 32, 2048), (128, 16, 2048),          # ShapeNet PVCNN 1x
     (16, 32, 2048), (32, 16, 2048),           # 0.25x
     (32, 32, 8192), (64, 16, 1024), (128, 8, 256), (256, 8, 64),
     (128, 16, 1024),                          # S3DIS PVCNN2
-    (64, 16, 4096)])                          # S3DIS PVCNN
-def test_k2_k5_bf16_model_shapes(dev, c, r, n):
-    """The channel-major bf16 K2 and K5 at the (C, R, N) of the default
-    bf16 steps, on 2 clouds normalized as the PVConvs normalize them:
-    PVCNN2's (128, 8, 256) and (256, 8, 64) put 64-256 points in 512
-    bins."""
+    (64, 16, 4096),                           # S3DIS PVCNN (and opt-in)
+    (64, 32, 4096), (128, 16, 4096)])         # S3DIS PVCNN opt-in
+def test_k2_k5_bf16_model_shapes(dev, c, r, n, cf):
+    """The bf16 K2 and K5 in either layout at the (C, R, N) of the bf16
+    steps, the three of S3DIS PVCNN's opt-in step among them, on 2 clouds
+    normalized as the PVConvs normalize them: PVCNN2's (128, 8, 256) and
+    (256, 8, 64) put 64-256 points in 512 bins."""
     _, norm = ops.normalize_coords(_coords(dev, b=2, n=n), r,
                                    normalize=True)
-    _k2_k5_bf16_check(norm, c, r)
+    _k2_k5_bf16_check(norm, c, r, cf=cf)
 
 
-@pytest.mark.parametrize("c,r", [(5, 5), (130, 5), (1, 12), (40, 12),
-                                 (16, 4), (9, 32)])
-def test_k2_k5_bf16_ragged(dev, c, r):
-    """R = 4, 5 and 12 (short bricks, 2-byte grid loads and output stores)
-    and C off the 8-channel groups (2-byte g loads and output stores, a
-    partial chunk of channels); exact grid hits and points on the R - 1
-    planes (collapsed corners)."""
+@pytest.mark.parametrize("cf", [True, False])
+@pytest.mark.parametrize("c,r", sorted(
+    {(5, 5), (130, 5), (1, 12), (40, 12), (16, 4), (9, 32)}
+    | set(itertools.product([1, 5, 9, 72, 130], [4, 5, 12]))))
+def test_k2_k5_bf16_ragged(dev, c, r, cf):
+    """R = 4, 5 and 12 (short bricks, 2-byte grid loads and output stores
+    into a channel-major grid) and C off the 8-channel groups (2-byte g,
+    grid and output loads and stores, partial chunks and groups); exact
+    grid hits and points on the R - 1 planes (collapsed corners)."""
     norm = _k5_coords(dev, 3, 500, r, seed=c + r)
-    _k2_k5_bf16_check(norm, c, r)
+    _k2_k5_bf16_check(norm, c, r, cf=cf)
 
 
-def test_k2_k5_bf16_one_bin(dev):
+@pytest.mark.parametrize("cf", [True, False])
+def test_k2_k5_bf16_one_bin(dev, cf):
     """300 points of a cloud in one base bin (one run that outgrows the
     staged points of a plan for fewer points), the rest spread; a second
     cloud at one exact grid point."""
@@ -2258,26 +2302,31 @@ def test_k2_k5_bf16_one_bin(dev):
     norm = torch.rand(2, n, 3, generator=gen) * (r - 1)
     norm[0, :300] = 6.0 + torch.rand(300, 3, generator=gen) * 0.999
     norm[1] = 9.0
-    _k2_k5_bf16_check(norm.to(dev), 64, r)
+    _k2_k5_bf16_check(norm.to(dev), 64, r, cf=cf)
 
 
+@pytest.mark.parametrize("cf", [True, False])
 @pytest.mark.parametrize("staged", [0, 1, 7, 64])
-def test_k5_bf16_staged_points(dev, monkeypatch, staged):
+def test_k5_bf16_staged_points(dev, monkeypatch, staged, cf):
     """K5 with fewer staged points than its bricks hold (the points past
     them are read where they lie, in the same walk): bitwise equal to the
-    default plan's output."""
+    default plan's output, twice, and to the other layout's transposed
+    under the forced plan."""
     r, n, c = 16, 900, 24
     gen = torch.Generator().manual_seed(4)
     norm = torch.rand(2, n, 3, generator=gen) * (r - 1)
     norm[0, :300] = 6.0 + torch.rand(300, 3, generator=gen) * 0.999
     norm = norm.to(dev)
     g = torch.randn(2, n, c, device=dev).to(torch.bfloat16)
-    want = devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
+    want = devoxelize._devoxelize_bwd_cuda(g, norm, r, cf)
     assert devoxelize._brick_plan(n, c, r).staged > staged
     plan = devoxelize._brick_plan(n, c, r)._replace(staged=staged)
     monkeypatch.setattr(devoxelize, "_brick_plan", lambda *_: plan)
-    assert torch.equal(devoxelize._devoxelize_bwd_cuda(g, norm, r, True),
-                       want)
+    got = devoxelize._devoxelize_bwd_cuda(g, norm, r, cf)
+    assert torch.equal(got, want)
+    assert torch.equal(got, devoxelize._devoxelize_bwd_cuda(g, norm, r, cf))
+    assert torch.equal(got.transpose(1, 2), devoxelize._devoxelize_bwd_cuda(
+        g, norm, r, not cf))
 
 
 def test_k2_k5_bf16_refuse_bad_plans(dev, monkeypatch):
@@ -2296,46 +2345,52 @@ def test_k2_k5_bf16_refuse_bad_plans(dev, monkeypatch):
                 devoxelize._devoxelize_cuda(grid, norm, 8, True)
 
 
-def test_k2_k5_bf16_no_clouds(dev):
-    """B = 0: empty outputs of the right shapes."""
+@pytest.mark.parametrize("cf", [True, False])
+def test_k2_k5_bf16_no_clouds(dev, cf):
+    """B = 0: empty outputs of the layout's shapes."""
     norm = torch.rand(0, 64, 3, device=dev)
     grid = torch.randn(0, 16, 512, device=dev).to(torch.bfloat16)
+    grid = grid if cf else grid.transpose(1, 2).contiguous()
     g = torch.randn(0, 64, 16, device=dev).to(torch.bfloat16)
-    assert devoxelize._devoxelize_cuda(grid, norm, 8, True).shape == (0, 64,
-                                                                      16)
-    assert devoxelize._devoxelize_bwd_cuda(g, norm, 8, True).shape == (0, 16,
-                                                                       512)
+    assert devoxelize._devoxelize_cuda(grid, norm, 8, cf).shape == (0, 64,
+                                                                    16)
+    assert devoxelize._devoxelize_bwd_cuda(g, norm, 8, cf).shape == (
+        (0, 16, 512) if cf else (0, 512, 16))
 
 
+@pytest.mark.parametrize("cf", [True, False])
 @pytest.mark.parametrize("c", [16, 13])
-def test_k2_k5_bf16_unaligned(dev, c):
-    """A grid and a g one element off a 16-byte boundary (2-byte loads),
-    to the same bits as their aligned copies."""
+def test_k2_k5_bf16_unaligned(dev, c, cf):
+    """A grid and a g one element off a 16-byte boundary in either layout
+    (2-byte loads; C = 13 also 2-byte stores), to the same bits as their
+    aligned copies."""
     bf = torch.bfloat16
     r, n, b = 16, 600, 2
     norm = _k5_coords(dev, b, n, r, seed=c)
-    grid = torch.randn(b * c * r ** 3 + 1, device=dev).to(bf)[1:].view(
-        b, c, r ** 3)
+    flat = torch.randn(b * c * r ** 3 + 1, device=dev).to(bf)[1:]
+    grid = flat.view(b, c, r ** 3) if cf else flat.view(b, r ** 3, c)
     g = torch.randn(b * n * c + 1, device=dev).to(bf)[1:].view(b, n, c)
     assert grid.data_ptr() % 16 and g.data_ptr() % 16
-    out, dgrid = _k2_k5_bf16_check(norm, c, r, grid=grid, g=g)
+    out, dgrid = _k2_k5_bf16_check(norm, c, r, grid=grid, g=g, cf=cf)
     assert torch.equal(out, devoxelize._devoxelize_cuda(grid.clone(), norm,
-                                                        r, True))
+                                                        r, cf))
     assert torch.equal(dgrid, devoxelize._devoxelize_bwd_cuda(g.clone(), norm,
-                                                              r, True))
+                                                              r, cf))
 
 
-def test_k2_k5_bf16_on_another_stream(dev):
-    """Two runs of the channel-major bf16 K2 and K5 bitwise equal, the
-    second on another stream."""
-    r, n, c = 32, 2048, 64
+@pytest.mark.parametrize("cf,r,n", [(True, 32, 2048), (False, 32, 4096)])
+def test_k2_k5_bf16_on_another_stream(dev, cf, r, n):
+    """Two runs of the bf16 K2 and K5 bitwise equal, the second on another
+    stream (channel-last at an opt-in shape)."""
+    c = 64
     _, norm = ops.normalize_coords(_coords(dev, b=2, n=n), r, normalize=True)
     grid = torch.randn(2, c, r ** 3, device=dev).to(torch.bfloat16)
+    grid = grid if cf else grid.transpose(1, 2).contiguous()
     g = torch.randn(2, n, c, device=dev).to(torch.bfloat16)
 
     def run():
-        return (devoxelize._devoxelize_cuda(grid, norm, r, True),
-                devoxelize._devoxelize_bwd_cuda(g, norm, r, True))
+        return (devoxelize._devoxelize_cuda(grid, norm, r, cf),
+                devoxelize._devoxelize_bwd_cuda(g, norm, r, cf))
 
     first = run()
     side = torch.cuda.Stream()
@@ -2347,12 +2402,18 @@ def test_k2_k5_bf16_on_another_stream(dev):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("c", [5, 16])
-def test_k2_k5_bf16_special_values(dev, c):
+@pytest.mark.parametrize("cf", [True, False])
+@pytest.mark.parametrize("c", [5, 16, 72])
+def test_k2_k5_bf16_special_values(dev, c, cf):
     """Subnormal, tiny and huge cotangents and grids, signed zeros,
     infinities and NaN, and points a hair past a grid plane (weights near
-    2^-20): the channel-major K5 (its bf16 fma terms) and K2 give the
-    channel-last modes' bits (f32 products rounded to bf16), NaN for NaN."""
+    2^-20), NaN for NaN: K5 (its fma.rn.bf16x2 terms) gives the bits of f32
+    products rounded to bf16, summed in f32, as the plain version forms
+    them on the CPU: bitwise `_devoxelize_bwd_plain` on finite and NaN
+    cotangents, and bitwise its true-corner sums on infinite ones (the
+    plain version adds 0 * inf for a collapsed corner); each layout's K2
+    and K5 bitwise the other layout's transposed (K2's two layouts run two
+    kernels), and K5's subnormal channel keeps subnormal sums."""
     bf = torch.bfloat16
     r, n, b = 8, 400, 2
     norm = _k5_coords(dev, b, n, r, seed=6)
@@ -2368,19 +2429,26 @@ def test_k2_k5_bf16_special_values(dev, c):
         t[at] = special[torch.randint(len(special), (int(at.sum()),))]
         return t.to(bf).to(dev)
 
-    def bits(t):
-        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
-        return t.view(torch.int16)
-
     grid, g = pick(b, c, r ** 3), pick(b, n, c)
     # channel 0: bf16 subnormals only, so its products and sums are too
     g[..., 0] = (torch.randn(b, n, device=dev) * 1e-39).to(bf)
-    out = devoxelize._devoxelize_cuda(grid, norm, r, True)
-    last = devoxelize._devoxelize_cuda(grid.transpose(1, 2).contiguous(),
-                                       norm, r, False)
-    assert torch.equal(bits(out), bits(last))
-    dgrid = devoxelize._devoxelize_bwd_cuda(g, norm, r, True)
-    last = devoxelize._devoxelize_bwd_cuda(g, norm, r, False)
-    assert torch.equal(bits(dgrid), bits(last.transpose(1, 2)))
-    tiny = dgrid[:, 0].float().abs()
+    grid = grid if cf else grid.transpose(1, 2).contiguous()
+    out = devoxelize._devoxelize_cuda(grid, norm, r, cf)
+    assert torch.equal(_bits(out), _bits(devoxelize._devoxelize_cuda(
+        grid, norm, r, cf)))
+    assert torch.equal(_bits(out), _bits(devoxelize._devoxelize_cuda(
+        grid.transpose(1, 2).contiguous(), norm, r, not cf)))
+    dgrid = devoxelize._devoxelize_bwd_cuda(g, norm, r, cf)
+    assert torch.equal(_bits(dgrid), _bits(devoxelize._devoxelize_bwd_cuda(
+        g, norm, r, cf)))
+    assert torch.equal(_bits(dgrid.transpose(1, 2)), _bits(
+        devoxelize._devoxelize_bwd_cuda(g, norm, r, not cf)))
+    assert torch.equal(_bits(dgrid.cpu()),
+                       _bits(_k5_bf16_true_corners(g, norm, r, cf)))
+    finite = torch.where(g.isinf(), torch.zeros_like(g), g)
+    assert torch.equal(
+        _bits(devoxelize._devoxelize_bwd_cuda(finite, norm, r, cf).cpu()),
+        _bits(devoxelize._devoxelize_bwd_plain(finite.cpu(), norm.cpu(), r,
+                                               cf)))
+    tiny = (dgrid[:, 0] if cf else dgrid[..., 0]).float().abs()
     assert ((tiny > 0) & (tiny < 1.1754944e-38)).any()
